@@ -1,0 +1,181 @@
+"""Right-preconditioned GMRES (counterpart of dedflow_tpu/solver/krylov.py::gmres).
+
+Same algorithm as the JAX package, so float64 iterates agree to roundoff
+and the iteration count is the same: Krylov dimension = maxit (or GMRES(m)
+with `restart`), block modified Gram-Schmidt over 8-row blocks of the basis,
+Givens rotations, and the stopping test |beta[it+1]| < max(atol,
+(beta0 + 1e-16) * rtol) (krylov.c:281-290 of the reference).
+
+The JAX solve is one `lax.while_loop` with the test on the device. In eager
+PyTorch every read of the test is a host sync, so the loop here runs the
+Arnoldi steps of one 8-row basis block without looking, then reads the
+block's residual estimates once and takes the first converged iteration.
+Steps run past convergence inside a block change nothing the solution
+reads (columns and basis rows beyond it are never used). One solve makes
+1 + ceil(iters / 8) host syncs, plus one per restart cycle with `restart`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+_CGS_B = 8  # Gram-Schmidt block size (basis rows per block)
+
+
+@dataclass
+class KrylovInfo:
+    x: torch.Tensor
+    iters: int  # iterations performed
+    resnorm: torch.Tensor  # final (estimated) residual norm
+    resnorm0: torch.Tensor  # initial residual norm
+    converged: bool
+
+
+def _givens_carry(cs, sn, h, it: int):
+    """Apply the first `it` Givens rotations to the new Hessenberg column h
+    (length maxit+1). The rotation chain carry_{i+1} = -s_i carry_i +
+    c_i h_{i+1} is an affine recurrence; as in the JAX package it runs as
+    a log-depth inclusive scan (Hillis-Steele here) instead of `it`
+    sequential steps. Entries past `it` are untouched."""
+    if it == 0:
+        return h.clone()
+    pa, pb = -sn[:it], cs[:it] * h[1 : it + 1]
+    d = 1
+    while d < it:
+        # element i composed after element i - d:
+        # (A, B) -> (A_i A_{i-d}, A_i B_{i-d} + B_i)
+        pa, pb = (
+            torch.cat([pa[:d], pa[d:] * pa[:-d]]),
+            torch.cat([pb[:d], torch.addcmul(pb[d:], pa[d:], pb[:-d])]),
+        )
+        d *= 2
+    carr = torch.cat([h[:1], pa * h[0] + pb])  # carry_0 .. carry_it
+    head = cs[:it] * carr[:it] + sn[:it] * h[1 : it + 1]
+    return torch.cat([head, carr[it:], h[it + 1 :]])
+
+
+def gmres(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    *,
+    maxit: int = 120,
+    atol=1e-12,
+    rtol: float = 1e-4,
+    pc: Callable | None = None,
+    restart: int | None = None,
+) -> KrylovInfo:
+    """Solve A x = b; `pc` is the right preconditioner (approximate A^-1).
+    `atol` may be a float or a 0-d tensor."""
+    if restart is not None and restart < maxit:
+        return _gmres_restarted(
+            matvec, b, x0, maxit=maxit, atol=atol, rtol=rtol, pc=pc, m=restart
+        )
+    if pc is None:
+        pc = lambda v: v
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    shape, dtype, dev = b.shape, b.dtype, b.device
+    n = b.numel()
+    eps = torch.finfo(dtype).tiny
+
+    r0 = (b - matvec(x0)).reshape(-1)
+    beta0 = torch.linalg.vector_norm(r0)
+    tol = torch.maximum(
+        torch.as_tensor(atol, dtype=dtype, device=dev), (beta0 + 1e-16) * rtol
+    )
+
+    nrows = (maxit + 1 + _CGS_B - 1) // _CGS_B * _CGS_B
+    Q = torch.zeros((nrows, n), dtype=dtype, device=dev)
+    Q[0] = r0 / torch.clamp(beta0, min=eps)
+    H = torch.zeros((maxit, maxit), dtype=dtype, device=dev)
+    cs = torch.zeros(maxit, dtype=dtype, device=dev)
+    sn = torch.zeros(maxit, dtype=dtype, device=dev)
+    beta = torch.zeros(maxit + 1, dtype=dtype, device=dev)
+    beta[0] = beta0
+    rhist = torch.zeros(maxit, dtype=dtype, device=dev)  # |beta[it+1]| at step it
+
+    def arnoldi_step(it: int) -> None:
+        w = matvec(pc(Q[it].reshape(shape))).reshape(-1)
+        h = torch.zeros(nrows, dtype=dtype, device=dev)
+        for bi in range(it // _CGS_B + 1):
+            lo = bi * _CGS_B
+            hi = min(lo + _CGS_B, it + 1)  # rows beyond `it` are masked to 0
+            qb = Q[lo:hi]
+            hb = qb @ w
+            w = w - qb.T @ hb
+            h[lo:hi] = hb
+        h = h[: maxit + 1]
+        hnext = torch.linalg.vector_norm(w)
+        Q[it + 1] = w / torch.clamp(hnext, min=eps)
+        hcol = _givens_carry(cs, sn, h, it)
+        hk = hcol[it]
+        denom = torch.sqrt(hk * hk + hnext * hnext)
+        safe = torch.clamp(denom, min=eps)
+        pos = denom > 0
+        c_new = torch.where(pos, hk / safe, torch.ones_like(hk))
+        s_new = torch.where(pos, hnext / safe, torch.zeros_like(hk))
+        hcol[it] = denom
+        cs[it] = c_new
+        sn[it] = s_new
+        bi_ = beta[it].clone()
+        beta[it + 1] = -s_new * bi_
+        beta[it] = c_new * bi_
+        H[:, it] = hcol[:maxit]
+        rhist[it] = beta[it + 1].abs()
+
+    it = 0
+    done = bool(beta0 < tol)  # host sync
+    while it < maxit and not done:
+        start = it
+        stop = min(maxit, (it // _CGS_B + 1) * _CGS_B)
+        for j in range(start, stop):
+            arnoldi_step(j)
+        conv = (rhist[start:stop] < tol).cpu()  # one host sync per block
+        if bool(conv.any()):
+            it = start + int(torch.argmax(conv.to(torch.int8))) + 1
+            done = True
+        else:
+            it = stop
+
+    if it > 0:
+        y = torch.linalg.solve_triangular(
+            H[:it, :it], beta[:it, None], upper=True
+        )[:, 0]
+        dx = pc((Q[:it].T @ y).reshape(shape))
+        resnorm = rhist[it - 1]
+    else:
+        dx = torch.zeros_like(b)
+        resnorm = beta0
+    return KrylovInfo(
+        x=x0 + dx, iters=it, resnorm=resnorm, resnorm0=beta0, converged=done
+    )
+
+
+def _gmres_restarted(matvec, b, x0, *, maxit, atol, rtol, pc, m) -> KrylovInfo:
+    """GMRES(m): restart cycles of m-dimensional solves. Convergence uses
+    the first cycle's residual norm for the relative test."""
+    if pc is None:
+        pc = lambda v: v
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    beta0 = torch.linalg.vector_norm((b - matvec(x0)).reshape(-1))
+    tol = torch.maximum(
+        torch.as_tensor(atol, dtype=b.dtype, device=b.device), (beta0 + 1e-16) * rtol
+    )
+    num_outer = -(-maxit // m)
+    x, outer, total = x0, 0, 0
+    rnrm = beta0
+    done = bool(beta0 < tol)
+    while outer < num_outer and not done:
+        # inner cycle stops early only on the global absolute tolerance
+        sol = gmres(matvec, b, x, maxit=m, atol=tol, rtol=0.0, pc=pc)
+        x = sol.x
+        rnrm = torch.linalg.vector_norm((b - matvec(x)).reshape(-1))
+        outer += 1
+        total += sol.iters
+        done = bool(rnrm < tol)
+    return KrylovInfo(x=x, iters=total, resnorm=rnrm, resnorm0=beta0, converged=done)
