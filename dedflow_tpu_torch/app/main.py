@@ -1,13 +1,18 @@
 """Command-line driver of the port: the reference scenario on a box mesh.
 
     python -m dedflow_tpu_torch.app.main --box NX NY NZ --steps K \\
-        --device cuda|cpu --dtype f32|f64
+        --device cuda|cpu --dtype f32|f64 [--config cfg.json]
 
-Prints one JSON line per time step: step, wall seconds (after a device
-synchronize), Newton iterations, Krylov iterations per Newton iteration,
-the last field norms and whether Newton converged. Other flags of the JAX
-CLI (scenarios, restarts, HDF5 snapshots, sharding) are not ported yet
-(ROADMAP queue A17).
+`--config` loads a SolverConfig from JSON in place of the reference
+scenario's (config.load_config, as the JAX CLI's --config). It replaces
+the scenario as a whole, BCs included, so start from the reference
+scenario's own JSON: `config.save_config(reference_scenario_config(
+use_lattice="winell"), path)` runs the box on the windowed irregular tier.
+Prints one JSON line per time step: step, the assembly tier (`fastpath`),
+wall seconds (after a device synchronize), Newton iterations, Krylov
+iterations per Newton iteration, the last field norms and whether Newton
+converged. Other flags of the JAX CLI (scenarios, restarts, HDF5
+snapshots, sharding) are not ported yet (ROADMAP queue A17).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from dedflow_tpu_torch.app.scenarios import (
     reference_initial_state,
     reference_scenario_config,
 )
+from dedflow_tpu_torch.config import load_config
 from dedflow_tpu_torch.interop import state_from_numpy
 from dedflow_tpu_torch.mesh.gen import box_mesh
 from dedflow_tpu_torch.solver.newton import NSSolver
@@ -38,6 +44,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--dtype", choices=("f32", "f64"), default=None,
                    help="default: f32 on cuda, f64 on cpu")
+    p.add_argument("--config", default=None,
+                   help="SolverConfig JSON (default: the reference scenario)")
     return p
 
 
@@ -46,7 +54,8 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     dtype = parse_dtype(args.dtype, device)
     mesh = box_mesh(*args.box)
-    solver = NSSolver(mesh, reference_scenario_config(), device=device, dtype=dtype)
+    cfg = load_config(args.config) if args.config else reference_scenario_config()
+    solver = NSSolver(mesh, cfg, device=device, dtype=dtype)
     wg, dwgold, dwg = state_from_numpy(*reference_initial_state(mesh), device, dtype)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     for step in range(1, args.steps + 1):
@@ -56,6 +65,7 @@ def main(argv=None) -> int:
         sync()
         rec = {
             "step": step,
+            "fastpath": solver.fastpath,
             "wall_s": time.perf_counter() - t0,
             "newton_iters": len(stats.rnorms),
             "krylov_iters": stats.krylov_iters,

@@ -7,12 +7,14 @@ pressure from dw_alpha slot 3. The Nanson normal nv is not unit length:
 its magnitude carries the facet area Jacobian.
 
 Facet terms land on the boundary's contiguous row range [lo, lo + span).
-Each (facet, a) has one target row of the residual band and each
-(facet, a, b) one target row of the (D, span) DIA band. The scatter is a
-gather through a host-built slot plan (per target, its sources in
-ascending order, padded with an index to a zero row) followed by a sum:
-unlike `index_add_`, which sums with atomics on CUDA, it gives the same
-float32 result on every run.
+Each (facet, a) has one target row of the residual band and, on the
+lattice tier, each (facet, a, b) one target row of the (D, span) DIA band.
+On the WinELL tier (fem.win_assembly.attach_face_win_plans) each
+(facet, a, b) targets one of the boundary's unique matrix entries instead.
+Every scatter is a gather through a host-built slot plan (per target, its
+sources in ascending order, padded with an index to a zero row) followed
+by a sum: unlike `index_add_`, which sums with atomics on CUDA, it gives
+the same float32 result on every run.
 """
 
 from __future__ import annotations
@@ -33,19 +35,24 @@ class FaceContext:
     """Per-boundary facet tables, parent geometry and scatter indices."""
 
     ien: torch.Tensor  # (nf, 4) parent element connectivity
+    f2e: np.ndarray  # (nf,) parent element ids
     inv_j: torch.Tensor  # (nf, 3, 3)
     shgrad: torch.Tensor  # (nf, 4, 3)
     nv: torch.Tensor  # (nf, 3) Nanson normals
     shlb: torch.Tensor  # (nf, NQRB, 4) facet shape values SHLB[forn]
     # slot plans: row r of the band sums sources slots[r, :] (pad = a zero row)
     node_slots: torch.Tensor  # (span, Kn) into the nf*4 (f, a) residual rows
-    band_slots: torch.Tensor  # (D*span, Km) into the nf*16 (f, a, b) updates
+    band_slots: torch.Tensor | None  # (D*span, Km) into the nf*16 (f, a, b) updates
     num_facet: int
     dia_row_lo: int  # the boundary's contiguous row range [lo, lo + span)
     dia_row_span: int
+    # WinELL tier: per unique matrix entry of the boundary (win_uniq), its
+    # (f, a, b) sources (fem.win_assembly.attach_face_win_plans)
+    win_slots: torch.Tensor | None = None  # (nu, Kw)
+    win_uniq: torch.Tensor | None = None  # (nu,) entry ids, ascending
 
 
-def _slot_plan(targets: np.ndarray, num_slots: int) -> np.ndarray:
+def slot_plan(targets: np.ndarray, num_slots: int) -> np.ndarray:
     """(num_slots, K) source indices per target, ascending; pad entries
     point at len(targets), the zero row the caller appends."""
     m = targets.size
@@ -60,10 +67,12 @@ def _slot_plan(targets: np.ndarray, num_slots: int) -> np.ndarray:
 
 
 def build_face_context(
-    mesh: Mesh, boundary: int, offsets: tuple, device, dtype
+    mesh: Mesh, boundary: int, offsets: tuple | None, device, dtype
 ) -> FaceContext:
     """Facet context of one boundary (face.py::build_face_context); the
-    parent geometry is computed for the facets' elements only."""
+    parent geometry is computed for the facets' elements only. With
+    `offsets` None (no DIA stencil: the WinELL tier) no band plan is
+    built."""
     b = mesh.boundaries[boundary]
     f2e = np.asarray(b.f2e, dtype=np.int64)
     ien_np = np.asarray(mesh.ien, dtype=np.int64)[f2e]  # (nf, 4)
@@ -78,22 +87,26 @@ def build_face_context(
         span = int(ien_np.max()) - lo + 1
     else:
         lo, span = 0, 1
-    uniq = np.asarray(offsets, dtype=np.int64)
-    diff = ien_np[:, None, :] - ien_np[:, :, None]  # [f, a, b] = col - row
-    plane = np.searchsorted(uniq, diff)
-    if nf and not np.array_equal(uniq[np.minimum(plane, len(uniq) - 1)], diff):
-        raise ValueError("facet couplings outside the DIA offsets")
-    rows = np.broadcast_to(ien_np[:, :, None], diff.shape) - lo
-    band_target = (plane * span + rows).reshape(-1)
     as_long = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
+    band_slots = None
+    if offsets is not None:
+        uniq = np.asarray(offsets, dtype=np.int64)
+        diff = ien_np[:, None, :] - ien_np[:, :, None]  # [f, a, b] = col - row
+        plane = np.searchsorted(uniq, diff)
+        if nf and not np.array_equal(uniq[np.minimum(plane, len(uniq) - 1)], diff):
+            raise ValueError("facet couplings outside the DIA offsets")
+        rows = np.broadcast_to(ien_np[:, :, None], diff.shape) - lo
+        band_target = (plane * span + rows).reshape(-1)
+        band_slots = as_long(slot_plan(band_target, len(uniq) * span))
     return FaceContext(
         ien=as_long(ien_np),
+        f2e=f2e,
         inv_j=geom.inv_j,
         shgrad=geom.shgrad,
         nv=nv,
         shlb=shlb,
-        node_slots=as_long(_slot_plan(ien_np.reshape(-1) - lo, span)),
-        band_slots=as_long(_slot_plan(band_target, len(uniq) * span)),
+        node_slots=as_long(slot_plan(ien_np.reshape(-1) - lo, span)),
+        band_slots=band_slots,
         num_facet=nf,
         dia_row_lo=lo,
         dia_row_span=span,
@@ -195,7 +208,7 @@ def face_lhs_packed(
     return torch.stack(comps, dim=-1).reshape(fctx.num_facet * 16, 18)
 
 
-def _gather_sum(slots: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def gather_sum(slots: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Per target row, the sum of its slot-plan sources (fixed order)."""
     zero = torch.zeros((1, rows.shape[1]), dtype=rows.dtype, device=rows.device)
     return torch.cat([rows, zero])[slots].sum(dim=1)
@@ -203,7 +216,7 @@ def _gather_sum(slots: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 def face_residual_scatter(fctx: FaceContext, f_t: torch.Tensor, fe: torch.Tensor) -> None:
     """f_t (6, N) += the (nf, 4, 6) facet residuals, in place."""
-    band = _gather_sum(fctx.node_slots, fe.reshape(-1, fe.shape[-1]))  # (span, 6)
+    band = gather_sum(fctx.node_slots, fe.reshape(-1, fe.shape[-1]))  # (span, 6)
     lo = fctx.dia_row_lo
     f_t[:, lo : lo + fctx.dia_row_span] += band.T
 
@@ -211,5 +224,5 @@ def face_residual_scatter(fctx: FaceContext, f_t: torch.Tensor, fe: torch.Tensor
 def face_dia_band(fctx: FaceContext, upd: torch.Tensor, num_planes: int) -> torch.Tensor:
     """(nf*16, 18) packed facet updates -> dense (D, 18, span) band over
     the boundary's rows [dia_row_lo, dia_row_lo + span)."""
-    rows = _gather_sum(fctx.band_slots, upd)  # (D*span, 18)
+    rows = gather_sum(fctx.band_slots, upd)  # (D*span, 18)
     return rows.reshape(num_planes, fctx.dia_row_span, upd.shape[1]).permute(0, 2, 1)

@@ -76,7 +76,7 @@ class LatticeContext:
     plane_entries: tuple
 
 
-def _lattice_tables(nx: int, ny: int, nz: int):
+def lattice_tables(nx: int, ny: int, nz: int):
     tets = _KUHN_TETS
     nt = len(tets)
     sy, sz = nx + 1, (nx + 1) * (ny + 1)
@@ -101,7 +101,7 @@ def build_lattice_context(mesh: Mesh, device, dtype) -> LatticeContext:
     if mesh.lattice is None:
         raise ValueError("mesh has no lattice metadata")
     nx, ny, nz = mesh.lattice
-    sy, sz, deltas, offs, plane_tab = _lattice_tables(nx, ny, nz)
+    sy, sz, deltas, offs, plane_tab = lattice_tables(nx, ny, nz)
     n = mesh.num_node
     if n != (nx + 1) * (ny + 1) * (nz + 1):
         raise ValueError("node count does not match the lattice")
@@ -137,6 +137,45 @@ def build_lattice_context(mesh: Mesh, device, dtype) -> LatticeContext:
         plane_tab=plane_tab,
         plane_entries=plane_entries,
     )
+
+
+def detect_delta_classes(ien: np.ndarray, max_classes: int = 8):
+    """Group tets by their vertex-offset signature relative to the
+    element's minimum node id, preserving file vertex order (host copy of
+    dedflow_tpu/fem/lattice.py::detect_delta_classes). Returns (keys (T, 4),
+    cls_id (ne,), base (ne,)), or None when the mesh has more than
+    `max_classes` translation classes or a class stamps two elements on
+    the same base node."""
+    ien = np.asarray(ien, dtype=np.int64)
+    base = ien.min(axis=1)
+    rel = ien - base[:, None]
+    keys, cls_id = np.unique(rel, axis=0, return_inverse=True)
+    if keys.shape[0] > max_classes:
+        return None
+    for t in range(keys.shape[0]):
+        bt = base[cls_id.reshape(-1) == t]
+        if bt.size != np.unique(bt).size:
+            return None
+    return keys, cls_id.reshape(-1).astype(np.int64), base
+
+
+def classes_tier_applies(mesh: Mesh, mesh_offsets: tuple, dmax_limit: int = 16384) -> bool:
+    """Whether the JAX package would run `mesh` on its translation-class
+    tier: build_class_context returns a context (lattice.py:337-348) and
+    its stencil offsets equal the mesh's sparsity offsets (the solver's
+    agreement check, newton.py:597). Used only to route the tier; the
+    classes tier itself is not ported (ROADMAP A10)."""
+    ien = np.asarray(mesh.ien, dtype=np.int64)
+    if mesh.extra_cells or ien.size == 0:
+        return False
+    det = detect_delta_classes(ien)
+    if det is None:
+        return False
+    keys = det[0]
+    if not 0 < int(keys.max()) <= dmax_limit:
+        return False
+    offs = tuple(sorted({int(kb - ka) for k in keys for ka in k for kb in k}))
+    return offs == tuple(mesh_offsets)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,199 @@
+"""Irregular-mesh (Delaunay-class) assembly on the WinELL tier
+(counterpart of dedflow_tpu/fem/win_assembly.py).
+
+The tier for meshes with no translation structure. The mesh is
+RCM-reordered with its elements sorted by their minimum node
+(mesh.reorder), so each element's nodes, and each target's contributions,
+lie close together in memory.
+
+  residual F:  gather the alpha states of each element's 4 nodes into the
+               (67, ne) input rows -> K6 `res_rows_call` -> (24, ne) rows
+               a*6+c -> K8 `stream_reduce`: 4 contributions per element
+               into the (6, N) nodes, read where K6 left them.
+  jacobian J:  gather the nodal velocities into the (27, ne) rows -> K6
+               `lhs_rows_call` -> (288, ne) rows ab*18+c -> K9
+               `ring_reduce`: 16 contributions per element into the 16
+               velocity/pressure rows of the WinELL entries (sparse.winell),
+               in WinELL component order; the phi/T identity rows are the
+               static nodal multiplicity.
+  SpMV:        K7 `WinELLMatrixT.matvec_t` (sparse.win_kernels).
+
+Weak-BC facet terms ride the port's deterministic slot plans: the facet
+residual through the node plan of fem.face, the facet Jacobian through
+the compact per-boundary entry plan `attach_face_win_plans` builds.
+
+The JAX module's TPU memory workarounds are not carried over: at 1.18M
+tets the (288, ne) float32 element output is 1.36 GB, which an 80 GB card
+holds whole, so there is no element-kernel chunking
+(win_assembly.py:74-78, 485-498), no fallback from the ring plan to the
+pull path for lack of SMEM (:242-250) and no edge-replicated pad columns
+(:524-528). Every `win_jac_scatter` option ("ring", "pull", "stream",
+"segment") runs the same reduce and gives the same result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from dedflow_tpu_torch.config import Physics, TimeScheme
+from dedflow_tpu_torch.fem.element import tet_geometry
+from dedflow_tpu_torch.fem.element_kernels import lhs_rows_call, res_rows_call
+from dedflow_tpu_torch.fem.element_rows import lhs_geom_rows, res_geom_rows
+from dedflow_tpu_torch.fem.face import (
+    face_lhs_packed,
+    face_residual_elements,
+    face_residual_scatter,
+    gather_sum,
+    slot_plan,
+)
+from dedflow_tpu_torch.sparse.topology import Sparsity
+from dedflow_tpu_torch.sparse.win_ring import ring_reduce
+from dedflow_tpu_torch.sparse.win_stream import ReducePlan, build_reduce_plan, stream_reduce
+from dedflow_tpu_torch.sparse.winell import WIN2COMP, WinELLMatrixT, WinPlan, build_winell_plan
+
+JAC_SCATTERS = ("ring", "pull", "stream", "segment")
+JAC_COMPS = tuple(int(c) for c in WIN2COMP[:16])  # WinELL row r <- fsbsr comp
+
+
+@dataclass
+class WinAssemblyContext:
+    """Device tables and plans of the windowed irregular tier."""
+
+    res_geom: torch.Tensor  # (19, ne) element_rows.res_geom_rows
+    lhs_geom: torch.Tensor  # (15, ne) element_rows.lhs_geom_rows
+    ien_t: torch.Tensor  # (4, ne) int64
+    # residual reduce: contribution (e, a) -> node ien[e, a], source a*6*ne + e
+    res_plan: ReducePlan
+    # jacobian reduce: contribution (e, ab) -> its entry, source ab*18*ne + e
+    jac_plan: ReducePlan
+    mult_win: torch.Tensor  # (2, S) static phi-phi / T-T rows (frozen mode)
+    win_plan: WinPlan
+    num_node: int
+    num_elem: int
+
+
+def build_win_context(
+    mesh, sparsity: Sparsity, device="cpu", dtype=torch.float64, jac_scatter: str = "ring"
+) -> WinAssemblyContext:
+    """`mesh` is expected RCM-reordered with elements sorted by min node
+    (mesh.reorder.reorder_mesh); `sparsity` = build_sparsity(mesh.ien, N)."""
+    if jac_scatter not in JAC_SCATTERS:
+        raise ValueError(f"win_jac_scatter must be one of {JAC_SCATTERS}, got {jac_scatter!r}")
+    ien = np.asarray(mesh.ien, dtype=np.int64)
+    ne, n = ien.shape[0], mesh.num_node
+    xg = torch.as_tensor(mesh.xg, dtype=dtype, device=device)
+    ien_t = torch.as_tensor(np.ascontiguousarray(ien.T), device=device)
+    geom = tet_geometry(xg[ien_t.T])
+    win_plan = build_winell_plan(sparsity.row_ptr, sparsity.col_ind, n, device)
+
+    e = np.arange(ne, dtype=np.int64)
+    res_plan = build_reduce_plan(
+        ien.T.reshape(-1), (np.arange(4)[:, None] * 6 * ne + e).reshape(-1), n, device
+    )
+    elem_nnz = np.asarray(sparsity.elem_nnz, dtype=np.int64).reshape(ne, 16)
+    jac_plan = build_reduce_plan(
+        win_plan.entry_of_nnz[elem_nnz].reshape(-1),
+        (e[:, None] + np.arange(16)[None, :] * 18 * ne).reshape(-1),
+        win_plan.S, device,
+    )
+    # static phi/T identity diagonals: nodal tet multiplicity at the
+    # diagonal entries (assemble.cu:757-758)
+    mult = np.bincount(ien.ravel(), minlength=n)
+    mw = np.zeros((2, win_plan.S))
+    mw[:, win_plan.diag_entry] = mult[None, :]
+    return WinAssemblyContext(
+        res_geom=res_geom_rows(geom.shgrad, geom.det_j, geom.metric).contiguous(),
+        lhs_geom=lhs_geom_rows(geom.shgrad, geom.det_j, geom.metric).contiguous(),
+        ien_t=ien_t,
+        res_plan=res_plan,
+        jac_plan=jac_plan,
+        mult_win=torch.as_tensor(mw, dtype=dtype, device=device),
+        win_plan=win_plan,
+        num_node=n,
+        num_elem=ne,
+    )
+
+
+def attach_face_win_plans(face_ctxs: tuple, sparsity: Sparsity, win_plan: WinPlan) -> tuple:
+    """The facet contexts with their WinELL entry plans: each facet
+    contribution (f, a, b) goes to the parent element's entry of the pair
+    (a, b); per unique entry of the boundary (`win_uniq`) a slot plan
+    lists its sources, so the facet Jacobian costs O(boundary), not
+    O(matrix)."""
+    elem_nnz = np.asarray(sparsity.elem_nnz, dtype=np.int64).reshape(-1, 16)
+    out = []
+    for fctx in face_ctxs:
+        tgt = win_plan.entry_of_nnz[elem_nnz[fctx.f2e].reshape(-1)]
+        uniq, inv = np.unique(tgt, return_inverse=True)
+        dev = fctx.ien.device
+        out.append(dataclasses.replace(
+            fctx,
+            win_slots=torch.as_tensor(slot_plan(inv.reshape(-1), uniq.size), device=dev),
+            win_uniq=torch.as_tensor(uniq, dtype=torch.long, device=dev),
+        ))
+    return tuple(out)
+
+
+def residual_inputs(ctx: WinAssemblyContext, w_alpha, dw_alpha) -> torch.Tensor:
+    """(67, ne) K6 residual input rows: geometry, then the element nodes'
+    u, du (rows i*4+a), p (dw_alpha slot 3), phi, T, dphi, dT and a zero
+    heat source."""
+    ne = ctx.num_elem
+    gw = w_alpha.T[:, ctx.ien_t]  # (6, 4, ne)
+    gd = dw_alpha.T[:, ctx.ien_t]
+    zeros = torch.zeros((4, ne), dtype=w_alpha.dtype, device=w_alpha.device)
+    return torch.cat([
+        ctx.res_geom, gw[:3].reshape(12, ne), gd[:3].reshape(12, ne),
+        gd[3], gw[4], gw[5], gd[4], gd[5], zeros,
+    ])
+
+
+def jacobian_inputs(ctx: WinAssemblyContext, w_alpha) -> torch.Tensor:
+    """(27, ne) K6 Jacobian input rows: shape gradients, the element
+    nodes' velocity (rows i*4+a), det, gg, tr."""
+    u = w_alpha.T[:3][:, ctx.ien_t].reshape(12, ctx.num_elem)
+    return torch.cat([ctx.lhs_geom[:12], u, ctx.lhs_geom[12:]])
+
+
+def residual_win(
+    ctx: WinAssemblyContext, w_alpha, dw_alpha, phys: Physics, scheme: TimeScheme,
+    face_ctxs=(),
+) -> torch.Tensor:
+    """(6, N) residual: volume terms (K6 + K8) plus the weak-BC facet
+    terms (assemble.cu:1068-1126) of `face_ctxs`. States are (N, 6)."""
+    out24 = res_rows_call(residual_inputs(ctx, w_alpha, dw_alpha), phys, scheme)
+    f = stream_reduce(ctx.res_plan, out24, comps=range(6), cstride=ctx.num_elem)
+    for fctx in face_ctxs:
+        face_residual_scatter(fctx, f, face_residual_elements(fctx, w_alpha, dw_alpha, phys))
+    return f
+
+
+def jacobian_win(
+    ctx: WinAssemblyContext, w_alpha, phys: Physics, scheme: TimeScheme,
+    dw_alpha=None, face_ctxs=(), scalar_implicit: bool = False,
+) -> WinELLMatrixT:
+    """WinELL field-split Jacobian (frozen-scalar mode): the element
+    Jacobian (K6) reduced into the entries (K9), the static phi/T identity
+    rows, and the weak-BC facet blocks (assemble.cu:1127-1193) through the
+    plans of attach_face_win_plans."""
+    if scalar_implicit:
+        raise NotImplementedError(
+            "dedflow_tpu_torch does not port scalar_implicit on the WinELL tier "
+            "(melt-pool tangents, 33-row K6) yet (ROADMAP queue A12)"
+        )
+    out288 = lhs_rows_call(jacobian_inputs(ctx, w_alpha), phys, scheme)
+    ent = ring_reduce(ctx.jac_plan, out288, comps=JAC_COMPS, cstride=ctx.num_elem)
+    vals = torch.cat([ent, ctx.mult_win.to(ent.dtype)])
+    for fctx in face_ctxs:
+        if fctx.win_uniq is None:
+            raise ValueError(
+                "face context lacks a WinELL plan: call attach_face_win_plans at setup"
+            )
+        upd = face_lhs_packed(fctx, w_alpha, dw_alpha, phys, scheme)  # (nf*16, 18)
+        compact = gather_sum(fctx.win_slots, upd)  # (nu, 18) fsbsr comps
+        vals[:16, fctx.win_uniq] += compact[:, list(JAC_COMPS)].T  # unique entries
+    return WinELLMatrixT(vals=vals, plan=ctx.win_plan)

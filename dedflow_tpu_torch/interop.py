@@ -10,6 +10,7 @@ import torch
 
 from dedflow_tpu_torch import config
 from dedflow_tpu_torch.sparse.fsbsr import FSDIAMatrixT
+from dedflow_tpu_torch.sparse.winell import NUM_ROWS, WinELLMatrixT, WinPlan
 from dedflow_tpu_torch.utils.dtypes import default_dtype, resolve_device
 
 
@@ -41,4 +42,23 @@ def dia_from_numpy(data, scal, offsets, num_node, device="cpu", dtype=None) -> F
         data=t(data[:, :, :num_node]),
         scal=t(np.asarray(scal)[: 2 * nd, :num_node]),
         offsets=tuple(int(o) for o in offsets),
+    )
+
+
+def winell_from_numpy(vals, entry_of_nnz, plan: WinPlan, dtype=None) -> WinELLMatrixT:
+    """The port's WinELLMatrixT from the JAX package's WinELLMatrix:
+    `vals` (>= 18, >= S) in WinELL component order (np.asarray of its
+    `vals`; the TPU's index rows 18/19 and padding are dropped) and its
+    plan's `entry_of_nnz`, which places CSR nonzero k at entry
+    entry_of_nnz[k] of the TPU layout. `plan` is the port's plan of the
+    same sparsity (CSR order), on the device the matrix should live on."""
+    vals = np.asarray(vals)[:NUM_ROWS]
+    eon = np.asarray(entry_of_nnz, dtype=np.int64)
+    if eon.size != plan.S:
+        raise ValueError(f"entry_of_nnz has {eon.size} nonzeros, the plan {plan.S}")
+    dev = plan.row_ptr_t.device
+    dtype = dtype or default_dtype(dev)
+    ours = vals[:, eon[plan.entry_of_nnz]]
+    return WinELLMatrixT(
+        vals=torch.tensor(np.ascontiguousarray(ours), dtype=dtype, device=dev), plan=plan
     )

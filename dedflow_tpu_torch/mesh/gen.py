@@ -1,4 +1,5 @@
-"""Built-in mesh generators (NumPy copy of dedflow_tpu/mesh/gen.py: box_mesh only).
+"""Built-in mesh generators (NumPy copy of dedflow_tpu/mesh/gen.py: box_mesh and
+delaunay_mesh).
 
 The reference ships no mesh generator (it loads a pre-converted `box.h5`,
 main.c:360); these generators produce meshes with the same table structure
@@ -100,3 +101,19 @@ def box_mesh(
         boundaries.append(Boundary(nodes=nodes, ien=tris, f2e=f2e, forn=forn))
     mesh = Mesh(xg=xg, ien=ien, boundaries=boundaries, lattice=(nx, ny, nz))
     return mesh
+
+
+def delaunay_mesh(num_points: int, seed: int = 0) -> Mesh:
+    """Genuinely irregular tet mesh: Delaunay triangulation of uniform
+    random points in the unit cube (~6.7 tets/point), no boundary tables
+    (copy of dedflow_tpu/mesh/gen.py::delaunay_mesh, the same
+    RandomState(seed) points). Near-degenerate slivers are dropped."""
+    from scipy.spatial import Delaunay
+
+    rng = np.random.RandomState(seed)
+    pts = rng.rand(num_points, 3)
+    ien = np.asarray(Delaunay(pts).simplices, dtype=np.int64)
+    p = pts[ien]
+    det = np.abs(np.linalg.det(p[:, 1:] - p[:, :1]))
+    ien = ien[det > 1e-12]
+    return Mesh(xg=pts, ien=ien.astype(INDEX_DTYPE), boundaries=[])

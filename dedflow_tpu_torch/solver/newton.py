@@ -8,12 +8,16 @@ dedflow_tpu/solver/newton.py).
   update:    wgold[vel,phi,T] += dt((1-g) dwgold + g dwg);
              dwgold = dwg                               (main.c:561-565)
 
-Only the structured-lattice tier of a generated box mesh is ported, with
+Two assembly tiers are ported, chosen by the JAX package's ladder
+(newton.py:560-672): the structured lattice of a generated box mesh
+(fem.lattice) and the windowed irregular tier (fem.win_assembly), with
 the field-split preconditioner and the linear solve in the state dtype.
-Every other tier or option raises NotImplementedError naming the ROADMAP
-item that brings it; nothing silently takes another path. The adaptive
-Newton loop reads the four field norms to the host once per Newton
-iteration, the reference's own sync granularity (main.c:262-265).
+A mesh the JAX package would put on its translation-class or general
+gather tier, and every other unported option, raises NotImplementedError
+naming the ROADMAP item that brings it; nothing silently takes another
+path. The adaptive Newton loop reads the four field norms to the host
+once per Newton iteration, the reference's own sync granularity
+(main.c:262-265).
 """
 
 from __future__ import annotations
@@ -31,27 +35,49 @@ from dedflow_tpu_torch.fem.lattice import (
     assemble_jacobian_t,
     assemble_residual_t,
     build_lattice_context,
+    classes_tier_applies,
     field_norms_t,
+    lattice_tables,
+)
+from dedflow_tpu_torch.fem.win_assembly import (
+    WinAssemblyContext,
+    attach_face_win_plans,
+    build_win_context,
+    jacobian_win,
+    residual_win,
 )
 from dedflow_tpu_torch.mesh.mesh import Mesh
 from dedflow_tpu_torch.solver.krylov import gmres
 from dedflow_tpu_torch.solver.pc import NSFieldSplitPCT
+from dedflow_tpu_torch.sparse.topology import build_sparsity
+from dedflow_tpu_torch.sparse.win_stream import stream_window_counts
 from dedflow_tpu_torch.utils.dtypes import default_dtype, disable_tf32, resolve_device
 
 # ---------------------------------------------------------------------------
-# stepping functions (contexts passed explicitly)
+# stepping functions (contexts passed explicitly: a LatticeContext or a
+# WinAssemblyContext)
 
 
-def residual(lctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze):
+def residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze):
     """(6, N) residual at the alpha states."""
     wa, dwa = alpha_states(wgold, dwgold, dwg, scheme)
-    return assemble_residual_t(lctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze)
+    if isinstance(ctx, WinAssemblyContext):
+        f = residual_win(ctx, wa, dwa, phys, scheme, face_ctxs)
+        if freeze:
+            f[4:] = 0.0  # main.c:64
+        return f.masked_fill(mask_t, 0.0)
+    return assemble_residual_t(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze)
 
 
-def assemble_system(lctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme):
+def assemble_system(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme):
     """The Jacobian and its field-split preconditioner at the current state."""
     wa, dwa = alpha_states(wgold, dwgold, dwg, scheme)
-    jmat = assemble_jacobian_t(lctx, face_ctxs, mask_t, wa, dwa, phys, scheme)
+    if isinstance(ctx, WinAssemblyContext):
+        jmat = jacobian_win(
+            ctx, wa, phys, scheme, dw_alpha=dwa, face_ctxs=face_ctxs
+        ).zero_rows_t(mask_t)
+    else:
+        jmat = assemble_jacobian_t(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme)
     return jmat, NSFieldSplitPCT.from_diag_rows(jmat.diag_rows())
 
 
@@ -67,25 +93,25 @@ def _solve_linear(jmat, pc, f, kcfg):
 
 
 def solve_update(
-    lctx, face_ctxs, mask_t, jmat, pc, wgold, dwgold, dwg, f, phys, scheme, kcfg, freeze
+    ctx, face_ctxs, mask_t, jmat, pc, wgold, dwgold, dwg, f, phys, scheme, kcfg, freeze
 ):
     """GMRES(J) dx = F; dwg -= dx; reassemble F (main.c:211-265)."""
     dx, iters, lin_rel = _solve_linear(jmat, pc, f, kcfg)
     dwg = dwg - dx.T
-    f = residual(lctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze)
+    f = residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze)
     return dwg, f, field_norms_t(f), iters, lin_rel
 
 
 def newton_iter(
-    lctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg, freeze
+    ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg, freeze
 ):
     """One Newton iteration: assemble J, solve, update dwg, reassemble F.
     Returns (dwg, f, field_norms, krylov_iters, linear_rel_residual)."""
     jmat, pc = assemble_system(
-        lctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme
+        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme
     )
     return solve_update(
-        lctx, face_ctxs, mask_t, jmat, pc, wgold, dwgold, dwg, f, phys, scheme,
+        ctx, face_ctxs, mask_t, jmat, pc, wgold, dwgold, dwg, f, phys, scheme,
         kcfg, freeze,
     )
 
@@ -110,15 +136,15 @@ def update(wgold, dwgold, dwg, scheme):
 
 
 def step_fixed(
-    lctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, kcfg, freeze,
+    ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, kcfg, freeze,
     num_newton,
 ):
     """One time step with a fixed Newton iteration count."""
     dwg = predict(dwg, scheme)
-    f = residual(lctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze)
+    f = residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze)
     for _ in range(num_newton):
         dwg, f, _, _, _ = newton_iter(
-            lctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg,
+            ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg,
             freeze,
         )
     new_wgold, new_dwgold = update(wgold, dwgold, dwg, scheme)
@@ -126,20 +152,20 @@ def step_fixed(
 
 
 def newton_adaptive(
-    lctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, kcfg, freeze,
+    ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, kcfg, freeze,
     max_iter, newton_rtol, newton_atol,
 ):
     """The adaptive Newton loop (main.c:157-279): stop after the iteration
     whose four field norms all pass (rn < rtol*rnorm0) | (rn < atol).
     Returns (dwg, rnorm0, rnorms, kits, lrels, converged), the norms as
     host tensors."""
-    f = residual(lctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze)
+    f = residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze)
     rnorm0 = (field_norms_t(f) + 1e-16).cpu()  # main.c:152-155
     rnorms, kits, lrels = [], [], []
     conv = False
     for _ in range(max_iter):
         dwg, f, rn, kit, lrel = newton_iter(
-            lctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg,
+            ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg,
             freeze,
         )
         rn = rn.cpu()  # one host sync per Newton iteration
@@ -166,17 +192,19 @@ class NewtonStats:
 
 
 def _refuse_unported(mesh: Mesh, cfg: SolverConfig) -> None:
-    """NotImplementedError for every tier and option the port lacks."""
+    """NotImplementedError for every option the port lacks (the tier is
+    chosen, or refused, by _choose_tier)."""
     checks = [
         (cfg.assembly_chunk is not None, "assembly_chunk (streaming assembly)", "A13"),
-        (cfg.use_lattice in ("off", "gather", "winell"),
-         f"use_lattice={cfg.use_lattice!r}", "A10/A13/A14"),
-        (mesh.lattice is None or mesh.lattice_tets is not None,
-         "a mesh without box-generator lattice metadata (classes tier)", "A10"),
+        (cfg.use_lattice in ("off", "gather"),
+         f"use_lattice={cfg.use_lattice!r} (classes or general gather tier)", "A10/A13"),
         (mesh.extra_cells != [], "prism/hex stencil cells", "A13"),
         (cfg.lattice_backend is not None, f"lattice_backend={cfg.lattice_backend!r}", "A9"),
-        (cfg.implicit_scalars, "implicit_scalars (melt-pool tangents, K6)", "A12"),
+        (cfg.implicit_scalars, "implicit_scalars (melt-pool tangents, 33-row K6)", "A12"),
         (cfg.physics.laser is not None, "a laser heat source", "A12"),
+        (cfg.krylov.pc == "mg",
+         "krylov.pc='mg' (geometric MG on the lattice; AMG, solver/amg.py, on the "
+         "WinELL tier)", "A11/A14"),
         (cfg.krylov.pc != "fieldsplit", f"krylov.pc={cfg.krylov.pc!r}", "A11"),
         (cfg.krylov.precision != "state", f"krylov.precision={cfg.krylov.precision!r}", "A11"),
         (cfg.krylov.solver != "gmres", f"krylov.solver={cfg.krylov.solver!r}", "A11"),
@@ -189,10 +217,66 @@ def _refuse_unported(mesh: Mesh, cfg: SolverConfig) -> None:
             )
 
 
+def _winell_gate(mesh: Mesh) -> bool:
+    """The JAX package's "auto" gate onto the WinELL tier (newton.py:628-652):
+    the mean window count of its four residual stream plans under 8
+    (sparse.win_stream.stream_window_counts, the same planning arithmetic;
+    a plan that would need 1024 or more windows fails to build there) and
+    a median element node span under 0.4 of N (a locality-preserving
+    order)."""
+    ien = np.asarray(mesh.ien, dtype=np.int64)
+    n, ne = mesh.num_node, ien.shape[0]
+    span_ratio = float(np.median(ien.max(axis=1) - ien.min(axis=1))) / max(n, 1)
+    if span_ratio >= 0.4:
+        return False
+    src = np.arange(ne, dtype=np.int64)
+    nwin = np.concatenate([stream_window_counts(ien[:, a], src, n, ne) for a in range(4)])
+    return int(nwin.max()) < 1024 and float(nwin.mean()) < 8.0
+
+
+def _choose_tier(mesh: Mesh, cfg: SolverConfig) -> str:
+    """The assembly tier the JAX package's ladder picks (newton.py:560-672):
+    "lattice" or "winell"; the classes and general gather tiers raise
+    NotImplementedError (ROADMAP A10, A13)."""
+    mode = cfg.use_lattice
+    if mode not in ("auto", "on", "winell"):
+        raise ValueError(f"unknown use_lattice={mode!r}")
+    ien = np.asarray(mesh.ien, dtype=np.int64)
+    mesh_offs = tuple(
+        int(o) for o in np.unique(ien[:, None, :] - ien[:, :, None])
+    ) if ien.size else ()
+    if mode != "winell":
+        if mesh.lattice is not None:
+            if mesh.lattice_tets is not None:
+                raise NotImplementedError(
+                    "dedflow_tpu_torch does not port recovered lattices with another "
+                    "tet split (classes tier) yet (ROADMAP queue A10)"
+                )
+            if lattice_tables(*mesh.lattice)[3] == mesh_offs:
+                return "lattice"
+        elif classes_tier_applies(mesh, mesh_offs):
+            raise NotImplementedError(
+                "dedflow_tpu_torch does not port a mesh without box-generator lattice "
+                "metadata on the translation-class tier (classes tier) yet "
+                "(ROADMAP queue A10)"
+            )
+        if mode == "on":
+            raise ValueError(
+                "use_lattice='on' but the mesh sparsity does not match the lattice/class stencil"
+            )
+    if mesh.num_tet > 0 and (mode == "winell" or _winell_gate(mesh)):
+        return "winell"
+    raise NotImplementedError(
+        "dedflow_tpu_torch does not port the general gather tier (a mesh without a "
+        "locality-preserving order, e.g. not RCM-reordered) yet (ROADMAP queue A13)"
+    )
+
+
 class NSSolver:
-    """Owns the lattice, facet and mask contexts for one mesh + config on
+    """Owns the assembly, facet and mask contexts for one mesh + config on
     one device. `device` is explicit ("cpu" or "cuda"); the dtype defaults
-    to float64 on the CPU and float32 on CUDA."""
+    to float64 on the CPU and float32 on CUDA. `fastpath` names the tier:
+    "lattice" or "winell"."""
 
     def __init__(self, mesh: Mesh, cfg: SolverConfig, device="cpu", dtype=None):
         _refuse_unported(mesh, cfg)
@@ -202,22 +286,24 @@ class NSSolver:
             disable_tf32()
         self.mesh = mesh
         self.cfg = cfg
-        self.lctx = build_lattice_context(mesh, self.device, self.dtype)
-        # the lattice stencil must be the mesh's own sparsity stencil
-        ien = np.asarray(mesh.ien, dtype=np.int64)
-        mesh_offs = tuple(
-            int(o) for o in np.unique(ien[:, None, :] - ien[:, :, None])
-        ) if ien.size else ()
-        if mesh_offs != self.lctx.offsets:
-            raise NotImplementedError(
-                "mesh sparsity does not match the lattice stencil (classes "
-                "tier, ROADMAP queue A10)"
+        self.fastpath = _choose_tier(mesh, cfg)
+        weak = [bc.boundary for bc in cfg.bcs if bc.weak]
+        self.lctx = self.wctx = None
+        if self.fastpath == "lattice":
+            self.lctx = build_lattice_context(mesh, self.device, self.dtype)
+            self.face_ctxs = tuple(
+                build_face_context(mesh, b, self.lctx.offsets, self.device, self.dtype)
+                for b in weak
             )
-        self.face_ctxs = tuple(
-            build_face_context(mesh, bc.boundary, self.lctx.offsets, self.device, self.dtype)
-            for bc in cfg.bcs
-            if bc.weak
-        )
+        else:
+            sparsity = build_sparsity(mesh.ien, mesh.num_node)
+            self.wctx = build_win_context(
+                mesh, sparsity, self.device, self.dtype, cfg.win_jac_scatter
+            )
+            self.face_ctxs = attach_face_win_plans(
+                tuple(build_face_context(mesh, b, None, self.device, self.dtype) for b in weak),
+                sparsity, self.wctx.win_plan,
+            )
         strong = [
             dbc.StrongBC(bc.boundary, tuple(bc.strong_components))
             for bc in cfg.bcs
@@ -228,9 +314,14 @@ class NSSolver:
             mask_np[0, 3] = True  # remove the constant-pressure null mode
         self.mask_t = torch.as_tensor(mask_np.T.copy(), device=self.device)
 
+    @property
+    def solve_ctx(self):
+        """The assembly context the stepping functions take."""
+        return self.lctx if self.lctx is not None else self.wctx
+
     def _common(self):
         cfg = self.cfg
-        return (self.lctx, self.face_ctxs, self.mask_t), dict(
+        return (self.solve_ctx, self.face_ctxs, self.mask_t), dict(
             phys=cfg.physics, scheme=cfg.time, kcfg=cfg.krylov,
             freeze=cfg.freeze_phi_temperature,
         )

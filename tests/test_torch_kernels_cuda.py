@@ -6,24 +6,37 @@ file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_kernels_cuda.py
 
 (`--noconftest` because tests/conftest.py configures JAX.) Inputs are
-made with numpy from a seed on an odd-sized box, float32 on the card.
-Relative error = max|kernel - plain| / max|plain|; the tolerances are
-float32 roundoff (different sum orders, hardware rsqrtf), as in
-chip_smoke.py, which runs the same comparisons at box 55.
+made with numpy from a seed on an odd-sized box (lattice kernels K1-K3)
+and on an RCM-ordered Delaunay mesh (irregular-tier kernels K6-K9),
+float32 on the card. Relative error = max|kernel - plain| / max|plain|;
+the tolerances are float32 roundoff (different sum orders, hardware
+rsqrtf), as in chip_smoke.py, which runs the same comparisons at full
+size. Every kernel is also run twice: the two results are bit-identical
+(no atomics).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from dedflow_tpu_torch.app.scenarios import reference_initial_state, reference_scenario_config
+from dedflow_tpu_torch.fem import element_kernels as ek
+from dedflow_tpu_torch.fem import element_rows as er
 from dedflow_tpu_torch.fem import lattice as lat
+from dedflow_tpu_torch.fem import win_assembly as wa_
 from dedflow_tpu_torch.fem.element_rows import alpha_states
 from dedflow_tpu_torch.interop import state_from_numpy
-from dedflow_tpu_torch.mesh.gen import box_mesh
-from dedflow_tpu_torch.solver.newton import NSSolver
+from dedflow_tpu_torch.mesh.gen import box_mesh, delaunay_mesh
+from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
+from dedflow_tpu_torch.solver.newton import NSSolver, assemble_system
 from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec, dia_matvec_plain
 from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
+from dedflow_tpu_torch.sparse.win_kernels import winell_matvec, winell_matvec_plain
+from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_plain
+from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_plain
+from dedflow_tpu_torch.sparse.winell import COMP2WIN
 
 pytestmark = pytest.mark.cuda
 
@@ -122,5 +135,127 @@ def test_step_on_card_matches_cpu_f64(card):
     got = solver.step_fixed(*state, num_newton=2)
     ref = cpu.step_fixed(*(t.cpu().double() for t in state), num_newton=2)
     for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert rel(g, r) < 1e-4
+
+
+def _twice(kernel, counter):
+    """Run a kernel twice; check the launch count and that the two
+    results are bit-identical and finite. Returns the result."""
+    before = counter.launches
+    got, again = kernel(), kernel()
+    assert counter.launches == before + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.fixture(scope="module")
+def irregular():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    mesh = delaunay_mesh(3000, seed=3)
+    mesh = reorder_mesh(mesh, rcm_order(mesh.ien, mesh.num_node))
+    cfg = reference_scenario_config(bcs=(), pin_pressure=True)
+    solver = NSSolver(mesh, cfg, device="cuda")
+    assert solver.fastpath == "winell"
+    wg, dwgold, dwg = reference_initial_state(mesh)
+    dwg = dwg + 0.1 * np.random.default_rng(7).standard_normal(dwg.shape)
+    state = state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32)
+    wa, dwa = alpha_states(*state, solver.cfg.time)
+    return solver, state, wa, dwa
+
+
+# The 16 velocity/pressure components of a nodal block by sub-block, in
+# the element Jacobian's packed order (rows ab*18+c). The pressure rows are
+# orders of magnitude smaller than the velocity block, so each block is
+# compared against its own scale.
+VP_BLOCKS = {"uu": range(0, 9), "up": range(9, 12), "pu": range(12, 15), "pp": range(15, 16)}
+
+
+def assert_blocks(got, ref, tol):
+    """(..., 18, M) element Jacobians: each vel/p block within `tol` of
+    its own scale, the phi/T identities exact."""
+    for block, comps in VP_BLOCKS.items():
+        assert rel(got[..., comps, :], ref[..., comps, :]) < tol, block
+    assert torch.equal(got[..., 16:, :], ref[..., 16:, :])
+
+
+def test_k6_kernels_match_plain(irregular):
+    solver, _, wa, dwa = irregular
+    phys, scheme, ctx = solver.cfg.physics, solver.cfg.time, solver.wctx
+    inp67 = wa_.residual_inputs(ctx, wa, dwa)
+    got = _twice(lambda: ek.res_rows_call(inp67, phys, scheme), ek.res_rows_call)
+    assert rel(got, er.res_rows(inp67, **ek.res_args(phys, scheme))) < 2e-5
+    inp27 = wa_.jacobian_inputs(ctx, wa)
+    got = _twice(lambda: ek.lhs_rows_call(inp27, phys, scheme), ek.lhs_rows_call)
+    ref = er.lhs_rows(inp27, **ek.lhs_args(phys, scheme))
+    ne = ctx.num_elem
+    assert_blocks(got.reshape(16, 18, ne), ref.reshape(16, 18, ne), 2e-5)
+    slabs = torch.stack([inp27, inp27.flip(-1)]).contiguous()  # slab-major form
+    got3 = ek.lhs_rows_call(slabs, phys, scheme)
+    ref3 = er.lhs_rows(slabs, **ek.lhs_args(phys, scheme))
+    assert_blocks(got3.reshape(2, 16, 18, ne), ref3.reshape(2, 16, 18, ne), 2e-5)
+
+
+def test_k8_k9_reduces_match_plain(irregular):
+    solver, _, wa, dwa = irregular
+    phys, scheme, ctx = solver.cfg.physics, solver.cfg.time, solver.wctx
+    ne = ctx.num_elem
+    out24 = ek.res_rows_call(wa_.residual_inputs(ctx, wa, dwa), phys, scheme)
+    got = _twice(lambda: stream_reduce(ctx.res_plan, out24, range(6), ne), stream_reduce)
+    ref = stream_reduce_plain(ctx.res_plan, out24, range(6), ne)
+    for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):  # u, p, phi/T equations
+        assert rel(got[rows], ref[rows]) < 1e-5
+    out288 = ek.lhs_rows_call(wa_.jacobian_inputs(ctx, wa), phys, scheme)
+    comps = wa_.JAC_COMPS  # output row r is WinELL row r
+    got = _twice(lambda: ring_reduce(ctx.jac_plan, out288, comps, ne), ring_reduce)
+    ref = ring_reduce_plain(ctx.jac_plan, out288, comps, ne)
+    for block, fs in VP_BLOCKS.items():
+        rows = [int(COMP2WIN[c]) for c in fs]
+        assert rel(got[rows], ref[rows]) < 1e-5, block
+
+
+def test_k7_spmv_matches_plain(irregular):
+    solver, state, _, _ = irregular
+    jm, _ = assemble_system(
+        solver.wctx, solver.face_ctxs, solver.mask_t, *state, solver.cfg.physics, solver.cfg.time
+    )
+    x = torch.as_tensor(
+        np.random.default_rng(8).standard_normal((6, solver.mesh.num_node)),
+        dtype=torch.float32, device="cuda",
+    )
+    got = _twice(lambda: winell_matvec(jm, x), winell_matvec)
+    ref = winell_matvec_plain(jm, x)
+    for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):  # u, p, phi/T equations
+        assert rel(got[rows], ref[rows]) < 1e-5
+
+
+def test_irregular_kernels_refuse_what_they_cannot_take(irregular):
+    solver, _, wa, dwa = irregular
+    inp = wa_.residual_inputs(solver.wctx, wa, dwa).double()
+    with pytest.raises(ValueError, match="float32"):
+        ek.res_rows_call(inp, solver.cfg.physics, solver.cfg.time)
+    with pytest.raises(ValueError, match="at most 8"):
+        stream_reduce(solver.wctx.res_plan, inp.float(), range(9), solver.wctx.num_elem)
+
+
+def test_irregular_step_on_card_matches_cpu_f64():
+    """The converted box (lattice dropped, RCM, WinELL tier, reference BCs
+    with the Nitsche wall): one step_fixed(num_newton=2) on the card in
+    float32 against the CPU in float64 (chip_smoke.py phase 7)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    mesh = dataclasses.replace(box_mesh(*BOX), lattice=None)
+    mesh = reorder_mesh(mesh, rcm_order(mesh.ien, mesh.num_node))
+    cfg = reference_scenario_config(use_lattice="winell")
+    wg, dwgold, dwg = reference_initial_state(mesh)
+    dwg = dwg + 0.1 * np.random.default_rng(9).standard_normal(dwg.shape)
+    outs = []
+    for device in ("cuda", "cpu"):
+        solver = NSSolver(mesh, cfg, device=device)
+        assert solver.fastpath == "winell"
+        outs.append(solver.step_fixed(*state_from_numpy(wg, dwgold, dwg, device), num_newton=2))
+    for g, r in zip(*outs):
         assert torch.isfinite(g).all()
         assert rel(g, r) < 1e-4

@@ -2,7 +2,9 @@
 
 - The port and chip_smoke.py import nothing of JAX or of the JAX package.
 - A CUDA request without a card raises; a kernel that cannot be built
-  raises; unported tiers and options raise NotImplementedError.
+  raises; a CUDA tensor given to a kernel wrapper goes to the kernel (or
+  raises), never to the plain version; unported tiers and options raise
+  NotImplementedError naming their ROADMAP item.
 - chip_smoke.py fails and prints no result without a card, and alone in a
   directory.
 - The port's copy of config.py keeps the JAX package's field names and
@@ -24,8 +26,12 @@ from dedflow_tpu import config as jcfg
 from dedflow_tpu_torch import config as tcfg
 from dedflow_tpu_torch import interop
 from dedflow_tpu_torch.app.scenarios import reference_scenario_config
-from dedflow_tpu_torch.mesh.gen import box_mesh
+from dedflow_tpu_torch.fem import element_kernels as ek
+from dedflow_tpu_torch.mesh.gen import box_mesh, delaunay_mesh
+from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
 from dedflow_tpu_torch.solver.newton import NSSolver
+from dedflow_tpu_torch.sparse import win_kernels, win_ring, win_stream
+from dedflow_tpu_torch.sparse.winell import WinELLMatrixT, build_winell_plan
 from dedflow_tpu_torch.utils import dtypes, nvcc
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -93,7 +99,7 @@ def test_default_dtypes():
         dict(assembly_chunk=64),
         dict(lattice_backend="xla"),
         dict(use_lattice="gather"),
-        dict(use_lattice="winell"),
+        dict(use_lattice="off"),
         dict(physics=tcfg.Physics(laser=tcfg.Laser())),
         dict(newton=tcfg.NewtonConfig(lag_jacobian=True)),
     ],
@@ -110,6 +116,95 @@ def test_mesh_without_lattice_raises():
     mesh.lattice = None
     with pytest.raises(NotImplementedError, match="classes tier"):
         NSSolver(mesh, reference_scenario_config())
+
+
+def _no_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(nvcc, "_loaded", {})
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path / "build")
+
+
+def _k6_res():
+    return ek.res_rows_call(torch.zeros((67, 8)), *_phys_scheme())
+
+
+def _k6_lhs():
+    return ek.lhs_rows_call(torch.zeros((27, 8)), *_phys_scheme())
+
+
+def _k7():
+    plan = build_winell_plan([0, 1, 2], [0, 1], 2)
+    return win_kernels.winell_matvec(WinELLMatrixT(torch.zeros((18, 2)), plan), torch.zeros((6, 2)))
+
+
+def _k8():
+    plan = win_stream.build_reduce_plan([0, 1, 1], [0, 1, 2], 2)
+    return win_stream.stream_reduce(plan, torch.zeros((6, 3)))
+
+
+def _k9():
+    plan = win_stream.build_reduce_plan([0, 1, 1], [0, 1, 2], 2)
+    return win_ring.ring_reduce(plan, torch.zeros((16, 3)))
+
+
+def _phys_scheme():
+    cfg = reference_scenario_config()
+    return cfg.physics, cfg.time
+
+
+@pytest.mark.parametrize(
+    "call,plain",
+    [
+        (_k6_res, (ek, "res_rows")),
+        (_k6_lhs, (ek, "lhs_rows")),
+        (_k7, (win_kernels, "winell_matvec_plain")),
+        (_k8, (win_stream, "seg_reduce_plain")),
+        (_k9, (win_ring, "seg_reduce_plain")),
+    ],
+    ids=["K6-res", "K6-lhs", "K7", "K8", "K9"],
+)
+def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
+    monkeypatch, tmp_path, call, plain
+):
+    """Every tensor reads as a CUDA tensor and nvcc is missing: each new
+    wrapper must try to build its kernel (and raise), never run its plain
+    version."""
+    assert call() is not None  # a real CPU tensor takes the plain version
+    _no_nvcc(monkeypatch, tmp_path)
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(*plain, boom)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        call()
+
+
+def _rcm_delaunay():
+    mesh = delaunay_mesh(300, seed=1)
+    return reorder_mesh(mesh, rcm_order(mesh.ien, mesh.num_node))
+
+
+@pytest.mark.parametrize(
+    "overrides,item",
+    [
+        (dict(krylov=tcfg.KrylovConfig(pc="mg")), "A14"),
+        (dict(implicit_scalars=True), "A12"),
+    ],
+    ids=["pc-mg", "implicit-scalars"],
+)
+def test_unported_options_on_the_winell_tier_raise(overrides, item):
+    cfg = dataclasses.replace(reference_scenario_config(), bcs=(), pin_pressure=True)
+    assert NSSolver(_rcm_delaunay(), cfg).fastpath == "winell"
+    with pytest.raises(NotImplementedError, match=item):
+        NSSolver(_rcm_delaunay(), dataclasses.replace(cfg, **overrides))
+
+
+def test_k6_scalar_implicit_raises_a12():
+    with pytest.raises(NotImplementedError, match="A12"):
+        ek.lhs_rows_call(torch.zeros((33, 8)), *_phys_scheme(), scalar_implicit=True)
 
 
 def test_step_with_source_raises():
