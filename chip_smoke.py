@@ -26,10 +26,22 @@ Phases, one line each; the script exits non-zero at the first failure:
   8 main    NSSolver(that Delaunay mesh, reference_scenario_config(bcs=(),
             pin_pressure=True), device="cuda").step twice on the "winell"
             fastpath, with the launch counts of K6-K9
-Then, on lines of their own: the kernels JSON object, the card's name and
-power limit, and last {"ok": true, "device": {...}}. Without CUDA, or
-without the dedflow_tpu_torch package beside it, it fails and prints no
-result. It imports nothing of JAX.
+  coupled FEM-DEM step (DEM grid contact sweep K11 + the lattice tier):
+  9 dem     K11 against its plain twin, float32, at bench.py's DEM cases
+            (uniform_100k, settled_bed_100k: radius 0.006, 69**3 cells, K
+            from the occupancy) and at the coupled scenario's grid, with
+            pair slots/s and grid_run ms per substep over 10 substeps
+ 10 slice   CoupledSolver on box_mesh(12, 12, 12) with 200 particles, one
+            step(num_newton=2): card float32 against CPU float64
+ 11 main    CoupledSolver(box_mesh(55, 55, 55), coupled_scenario_setup(mesh,
+            num_particles=100_000), device="cuda").step twice, with the
+            drag / fluid / DEM split and the launch counts of K1-K3 and K11
+Then, on lines of their own: the kernels JSON object (each kernel with its
+time, its plain version's, its bound and, where one PyTorch call computes
+the same function, that call's time), the card's name and power limit, and
+last {"ok": true, "device": {...}}. Without CUDA, or without the
+dedflow_tpu_torch package beside it, it fails and prints no result. It
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -45,6 +57,9 @@ FULL_BOX = (55, 55, 55)
 SLICE_BOX = (12, 12, 12)
 DELAUNAY_POINTS = 56**3  # 175,616 points, about 1.18M tets (bench.py:117,126)
 SEED = 0
+COUPLED_PARTICLES = 100_000  # COUPLED_TPU.json, the JAX package's coupled record
+SLICE_PARTICLES, SLICE_RADIUS = 200, 0.02
+DEM_RADIUS, DEM_SUBSTEPS = 0.006, 10  # bench.py:512-513
 
 # Tolerances, relative = max|kernel - plain| / max|plain|, float32 on the card.
 # The kernels and their plain versions sum in different orders and the
@@ -57,6 +72,10 @@ TOL_K6 = 2e-5  # the element bodies of K1/K2 on element columns
 TOL_K7 = 1e-5  # about 16 entries x 4 products per output row
 TOL_K8 = 1e-5  # 4 to 40 contributions per node, one add each
 TOL_K9 = 1e-5  # about 6.6 contributions per entry
+# K11 takes its plain twin's pair order and IEEE float32 ops without
+# contraction; what may differ is float32 roundoff of sums of at most
+# 27 * K pair terms, relative to the largest force.
+TOL_K11 = 1e-5
 # The 16 velocity/pressure components of a nodal block, by sub-block, in
 # the element Jacobian's packed order (K6 rows ab*18+c). Their scales
 # differ by orders of magnitude (the pressure rows are far smaller than the
@@ -69,6 +88,21 @@ VP_BLOCKS = {"uu": range(0, 9), "up": range(9, 12), "pu": range(12, 15), "pp": r
 # second update corrects most of the first one's error, so the new states
 # agree to about 1e-5 of their size or better (2.6e-6 measured on an H100).
 TOL_SLICE = 1e-4
+# Coupled slice, particles: positions are O(1) and move by under 1e-3 in a
+# step, so float32 keeps them to ~1e-7 of their size; velocities (~0.1)
+# come from contact forces k_n * delta whose delta carries the float32
+# error of the distances (~4e-9 of 0.05), i.e. ~1e-6 of their size after
+# 10 substeps, plus the fluid's TOL_SLICE in the drag. 1e-4 relative
+# covers both with margin. Only while no pair crosses delta = 0 in the
+# step: a contact that switches on in one precision and not the other adds
+# the jump gamma_n * v_n, so the slice's cloud is chosen for its widest
+# margin and checked (phase_coupled_slice).
+TOL_PARTICLES = 1e-4
+
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense rates):
+# HBM3 bytes/s and FP32 (non-tensor) FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 # The TPU kernels the three CUDA kernels replace (file:line of the kernel).
 KERNELS = (
@@ -78,6 +112,10 @@ KERNELS = (
      "dedflow_tpu/fem/lattice.py:835"),
     ("K3 dia spmv", "dedflow_tpu_torch/csrc/dia_spmv.cu",
      "dedflow_tpu/sparse/dia_kernels.py:56"),
+)
+DEM_KERNELS = (
+    ("K11 dem contact sweep", "dedflow_tpu_torch/csrc/dem_contact.cu",
+     "dedflow_tpu/dem/grid.py:221"),
 )
 IRREGULAR_KERNELS = (
     ("K6 element rows (residual)", "dedflow_tpu_torch/csrc/element_rows.cu",
@@ -144,6 +182,128 @@ def check(name: str, err_rel: float, tol: float) -> None:
         raise PhaseError(f"{name}: relative error {err_rel:.3e} above {tol:.1e}")
 
 
+# Operation counting for the bounds: the plain version of a kernel runs
+# under a dispatch mode that adds up the arithmetic it asks for, by aten op:
+# an elementwise op counts its output elements, a reduction or an
+# accumulating scatter its inputs, a matrix product 2*m*n*k. Copies,
+# gathers, padding and allocation count nothing.
+ELEMENTWISE_OPS = {
+    "add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "rsqrt", "reciprocal",
+    "pow", "exp", "log", "maximum", "minimum", "clamp", "clamp_min", "clamp_max",
+    "gt", "lt", "ge", "le", "eq", "ne", "where", "sign", "addcmul", "addcdiv",
+    "logical_and", "logical_or", "logical_not", "bitwise_and", "bitwise_or",
+    "bitwise_not", "masked_fill", "lerp",
+}
+REDUCING_OPS = {"sum": 0, "mean": 0, "amax": 0, "amin": 0, "prod": 0,
+                "index_add": 3, "scatter_add": 3}  # op -> counted arg
+PRODUCT_OPS = {"mm", "bmm", "addmm", "baddbmm", "mv", "addmv", "dot"}
+
+
+def op_count(fn) -> tuple[int, list]:
+    """(operations the call asks for, names of the aten ops not counted)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n, self.skipped = 0, set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            if name in ELEMENTWISE_OPS:
+                self.n += out.numel()
+            elif name in REDUCING_OPS:
+                arg = args[REDUCING_OPS[name]]
+                self.n += arg.numel() if hasattr(arg, "numel") else 0
+            elif name in PRODUCT_OPS:
+                a, b = [t for t in args if hasattr(t, "shape")][-2:]
+                self.n += 2 * a.numel() * (b.shape[-1] if b.dim() > 1 else 1)
+            else:
+                self.skipped.add(name)
+            return out
+
+    with Count() as c:
+        fn()
+    return c.n, sorted(c.skipped)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(nbytes_: float, ops: float) -> tuple[float, str]:
+    """(least ms the card could take, what sets it): the bytes over the HBM
+    rate against the operations over the FP32 rate."""
+    t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def finish(label: str, rec: dict, kernel, plain, reps: int, plain_reps: int,
+           nbytes_: float, counted: tuple, library=None) -> dict:
+    """Time a checked kernel against its plain version (and the library
+    call, where one exists), add its bound from the bytes and the
+    (operations, ops not counted) of op_count; print one line."""
+    import torch
+
+    rec["ms"], rec["plain_ms"] = alternate_ms(kernel, plain, reps, plain_reps)
+    ops, skipped = counted
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes_, ops)
+    rec["library_ms"] = None
+    if library is not None:
+        call, check_against = library
+        got = call()
+        torch.cuda.synchronize()
+        _, lib_rel = rel_err(got.reshape(check_against.shape), check_against)
+        rec["library_ms"] = cuda_ms(call, max(reps // 2, 3))
+        say(f"  {label}: library call vs kernel rel={lib_rel:.3e}")
+    say(f"  {label}: ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+        f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}: {nbytes_ / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} Gop) library_ms={rec['library_ms']}"
+        + (f" [ops not counted: {','.join(skipped)}]" if skipped else ""))
+    return rec
+
+
+def block_csr(n: int, pieces):
+    """The 6N x 6N matrix, component-major (row b*N + node), of `pieces`:
+    (row nodes, col nodes, {packed component: values}) triples, as one
+    torch.sparse CSR tensor (the library yardstick of the SpMVs)."""
+    import torch
+
+    from dedflow_tpu_torch.sparse.fsbsr import COMP_SLOTS
+
+    rows, cols, vals = [], [], []
+    for r, c, by_comp in pieces:
+        for comp, bi, bj in COMP_SLOTS:
+            rows.append(bi * n + r)
+            cols.append(bj * n + c)
+            vals.append(by_comp[comp])
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    coo = torch.sparse_coo_tensor(idx, torch.cat(vals), (6 * n, 6 * n))
+    return coo.coalesce().to_sparse_csr()
+
+
+def index_add_call(plan, x, comps, cstride):
+    """One torch.index_add over the plan's contributions (gathered once
+    beforehand): the library yardstick of the segmented reduces."""
+    import torch
+
+    tgt = torch.repeat_interleave(torch.diff(plan.ptr.long()))
+    src = plan.src.long()
+    flat = x.reshape(-1)
+    vals = torch.stack([flat[src + c * cstride] for c in comps])
+    zeros = torch.zeros((len(comps), plan.num_tgt), dtype=x.dtype, device=x.device)
+    return lambda: torch.index_add(zeros, 1, tgt, vals)
+
+
+def reduce_bytes(plan, comps, out_rows: int) -> int:
+    """Bytes a segmented reduce must move: the plan, one float per
+    contribution and row, the output."""
+    k = plan.src.numel()
+    return nbytes(plan.ptr, plan.src) + 4 * k * len(comps) + 4 * out_rows * plan.num_tgt
+
+
 def perturbed_state(mesh, device, dtype):
     """Reference initial state with a seeded perturbation of dwg (so every
     input row of the element bodies is non-zero), advanced by one predict."""
@@ -169,7 +329,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     libs = nvcc.load([
         "lattice_residual", "lattice_jacobian", "dia_spmv",
-        "element_rows", "winell_spmv", "seg_reduce",
+        "element_rows", "winell_spmv", "seg_reduce", "dem_contact",
     ])
     say(f"phase 2 build: {time.perf_counter() - t0:.2f} s wall for "
         f"{len(libs)} libraries (nvcc {nvcc.nvcc_path()})")
@@ -206,7 +366,8 @@ def compare(label: str, kernel, plain, tol: float, parts=None) -> float:
 
 def phase_kernels(solver) -> tuple[list, dict]:
     """Each kernel against its plain version at the solver's size. Returns
-    per kernel [max_abs_err, ms, plain_ms] and the system timings.
+    per kernel a record (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms) and the system timings.
 
     The finished Jacobian and its products are dominated by the unit
     diagonal of the Dirichlet rows (entries of 1 against element entries
@@ -265,13 +426,27 @@ def phase_kernels(solver) -> tuple[list, dict]:
         lambda: dia_matvec_plain(raw_data, no_scal, x, lctx.offsets), TOL_K3,
     ))
     del raw_data, no_scal
-    results = [[err1], [err2], [err3]]
-
-    for r, (name, _, _), (kern, plain, reps) in zip(
-        results, KERNELS, ((k1, p1, 20), (k2, p2, 10), (k3, p3, 100))
-    ):
-        r += alternate_ms(kern, plain, reps, max(reps // 4, 3))
-        say(f"  {name}: ms={r[1]:.4f} plain_ms={r[2]:.4f}")
+    out6 = torch.empty((6, n), dtype=torch.float32)
+    r1 = finish(KERNELS[0][0], {"max_abs_err": err1}, k1, p1, 20, 5,
+                nbytes(lctx.res_geom, wa_t, dwa_t, out6), op_count(p1))
+    r2 = finish(KERNELS[1][0], {"max_abs_err": err2}, k2, p2, 10, 3,
+                nbytes(lctx.lhs_geom, wa_t, keep16, add16, band, jm.data),
+                op_count(p2))
+    # the library yardstick: torch.sparse CSR of the same assembled matrix
+    offs = lctx.offsets
+    pieces = []
+    for k, o in enumerate(offs):
+        r = torch.arange(max(0, -o), min(n, n - o), device=solver.device)
+        by_comp = {c: jm.data[k, c, r] for c in range(16)}
+        by_comp.update({16: jm.scal[2 * k, r], 17: jm.scal[2 * k + 1, r]})
+        pieces.append((r, r + o, by_comp))
+    csr = block_csr(n, pieces)
+    xflat = x.reshape(-1)
+    r3 = finish(KERNELS[2][0], {"max_abs_err": err3}, k3, p3, 100, 25,
+                nbytes(jm.data, jm.scal, x, out6), op_count(p3),
+                library=(lambda: csr @ xflat, k3()))
+    del csr, pieces
+    results = [r1, r2, r3]
     f_ms = cuda_ms(
         lambda: lat.assemble_residual_t(lctx, fctxs, mask_t, wa, dwa, phys, scheme), 10
     )
@@ -286,7 +461,7 @@ def phase_kernels(solver) -> tuple[list, dict]:
     t0 = time.perf_counter()
     sol = gmres120()
     torch.cuda.synchronize()
-    times = {"F_ms": f_ms, "J_ms": j_ms, "SpMV_ms": results[2][1],
+    times = {"F_ms": f_ms, "J_ms": j_ms, "SpMV_ms": results[2]["ms"],
              "GMRES120_s": time.perf_counter() - t0, "GMRES120_iters": sol.iters}
     return results, times
 
@@ -359,7 +534,7 @@ def irregular_solver():
 
 def phase_irregular_kernels(solver) -> tuple[list, dict]:
     """K6 (residual, jacobian), K7, K8 and K9 against their plain versions
-    at the solver's size; per kernel [max_abs_err, ms, plain_ms] and the
+    at the solver's size; per kernel a record as phase_kernels' and the
     system timings. Rows whose scales differ by orders of magnitude are
     checked separately: the element Jacobian and its entry sums per
     velocity/pressure block (the phi/T identities are exact), the products
@@ -417,13 +592,30 @@ def phase_irregular_kernels(solver) -> tuple[list, dict]:
     p7 = lambda: winell_matvec_plain(jm, x)
     e7 = compare("K7 A x", k7, p7, TOL_K7, parts=by_eq)
 
-    results = [[e6r], [e6j], [e7], [e8], [e9]]
-    for r, (name, _, _), (kern, plain, reps) in zip(
-        results, IRREGULAR_KERNELS,
-        ((k6r, p6r, 20), (k6j, p6j, 10), (k7, p7, 100), (k8, p8, 50), (k9, p9, 20)),
-    ):
-        r += alternate_ms(kern, plain, reps, max(reps // 10, 3))
-        say(f"  {name}: ms={r[1]:.4f} plain_ms={r[2]:.4f}")
+    names = [name for name, _, _ in IRREGULAR_KERNELS]
+    plan = jm.plan
+    csr = block_csr(ctx.num_node, [(
+        plan.grow_t.long(), plan.col_t.long(),
+        {c: jm.vals[int(COMP2WIN[c])] for c in range(18)},
+    )])
+    xflat = x.reshape(-1)
+    out6 = torch.empty((6, ctx.num_node), dtype=torch.float32)
+    results = [
+        finish(names[0], {"max_abs_err": e6r}, k6r, p6r, 20, 3,
+               nbytes(inp67, out24), op_count(p6r)),
+        finish(names[1], {"max_abs_err": e6j}, k6j, p6j, 10, 3,
+               nbytes(inp27, out288), op_count(p6j)),
+        finish(names[2], {"max_abs_err": e7}, k7, p7, 100, 10,
+               nbytes(jm.vals, plan.col_t, plan.row_ptr_t, x, out6), op_count(p7),
+               library=(lambda: csr @ xflat, k7())),
+        finish(names[3], {"max_abs_err": e8}, k8, p8, 50, 5,
+               reduce_bytes(ctx.res_plan, range(6), 6), op_count(p8),
+               library=(index_add_call(ctx.res_plan, out24, range(6), ne), k8())),
+        finish(names[4], {"max_abs_err": e9}, k9, p9, 20, 3,
+               reduce_bytes(ctx.jac_plan, comps, len(comps)), op_count(p9),
+               library=(index_add_call(ctx.jac_plan, out288, comps, ne), k9())),
+    ]
+    del csr
     common = (ctx, solver.face_ctxs, solver.mask_t, wg, dwgold, dwg, phys, scheme)
     f_ms = cuda_ms(lambda: residual(*common, solver.cfg.freeze_phi_temperature), 10)
     j_ms = cuda_ms(lambda: assemble_system(*common), 5)
@@ -434,7 +626,7 @@ def phase_irregular_kernels(solver) -> tuple[list, dict]:
     t0 = time.perf_counter()
     sol = gmres120()
     torch.cuda.synchronize()
-    times = {"F_ms": f_ms, "J_ms": j_ms, "SpMV_ms": results[2][1],
+    times = {"F_ms": f_ms, "J_ms": j_ms, "SpMV_ms": results[2]["ms"],
              "GMRES120_s": time.perf_counter() - t0, "GMRES120_iters": sol.iters}
     return results, times
 
@@ -519,6 +711,238 @@ def drive_main(solver, counters, label: str) -> dict:
     return {"launches": launches, "step_s": steps, "peak_bytes": peak}
 
 
+def dem_case(x):
+    """(DEMConfig, GridState) of bench.py's DEM case for positions x in the
+    unit box: radius DEM_RADIUS, cell 2.5 r, capacity from the occupancy
+    (max + 1, at least 2), dt 1e-5, walls on the box (bench.py:515-532)."""
+    import dataclasses
+
+    import numpy as np
+
+    from dedflow_tpu_torch.dem.cells import cell_stats, make_grid
+    from dedflow_tpu_torch.dem.grid import to_grid
+    from dedflow_tpu_torch.dem.integrate import DEMConfig
+    from dedflow_tpu_torch.dem.particles import particle_state
+
+    probe = make_grid([0, 0, 0], (1, 1, 1), cell_size=2.5 * DEM_RADIUS, capacity=2)
+    k = max(2, cell_stats(probe, x)["max_per_cell"] + 1)
+    grid = dataclasses.replace(probe, capacity=k)
+    cfg = DEMConfig(grid=grid, dt=1e-5, walls_lo=(0, 0, 0), walls_hi=(1, 1, 1))
+    st = particle_state(np.asarray(x, dtype=np.float64), radius=DEM_RADIUS, mass=1.0,
+                        device="cuda")
+    return cfg, to_grid(grid, st, x.shape[0])
+
+
+def live_pairs(grid, gs) -> tuple[int, int]:
+    """(live slots, live pair slots): the (centre, neighbour) slot pairs of
+    the 27-offset sweep with both slots occupied, itself included, at the
+    flat neighbour index the sweep reads (in range, row wraps as they are)."""
+    import torch
+
+    from dedflow_tpu_torch.dem.grid import _offsets
+
+    occ = gs.mask.sum(0).double()  # particles per cell
+    nc = occ.numel()
+    pairs = 0.0
+    for o in _offsets(grid):
+        lo, hi = max(0, -o), min(nc, nc - o)
+        pairs += float((occ[lo:hi] * occ[lo + o : hi + o]).sum())
+    return int(occ.sum()), int(pairs)
+
+
+def k11_record(label: str, grid, gs, prm) -> dict:
+    """K11 against its plain twin on one grid state: checked, timed, with
+    its bound from this state's occupancy (the sweep skips empty slots and
+    pairs, so the work it needs is the live pairs', and the bytes are the
+    mask and outputs of every slot plus the other eight fields of the live
+    slots); the dense bound (every slot and pair) is printed beside it."""
+    import torch
+
+    from dedflow_tpu_torch.dem.grid import grid_pair_forces, grid_pair_forces_cuda
+
+    kernel = lambda: torch.stack(grid_pair_forces_cuda(grid, gs, prm))
+    plain = lambda: torch.stack(grid_pair_forces(grid, gs, prm))
+    err = compare(label, kernel, plain, TOL_K11)
+    k, nc = gs.mask.shape
+    slots = k * nc
+    live, pairs = live_pairs(grid, gs)
+    dense_pairs = 27 * k * k * nc
+    dense_ops, skipped = op_count(plain)
+    live_ops = dense_ops * pairs / dense_pairs
+    live_bytes = 4 * slots + 32 * live + 12 * slots
+    dense_ms, dense_by = bound(48 * slots, dense_ops)
+    rec = finish(label, {"max_abs_err": err}, kernel, plain, 20, 3, live_bytes,
+                 (live_ops, skipped))
+    say(f"  {label}: K={k} NC={nc} live slots {live} live pair slots {pairs} of "
+        f"{dense_pairs} ({dense_ops / dense_pairs:.1f} op each); dense bound "
+        f"{dense_ms:.4f} ms ({dense_by}: {48 * slots / 1e6:.1f} MB, {dense_ops / 1e9:.2f} Gop); "
+        f"pair slots/s {dense_pairs / (rec['ms'] * 1e-3):.3e}, live pairs/s "
+        f"{pairs / (rec['ms'] * 1e-3):.3e}")
+    return rec
+
+
+def phase_dem(coupled_gs) -> dict:
+    """Phase 9: K11 at bench.py's DEM cases (with grid_run ms per substep)
+    and at the coupled scenario's grid, whose record is returned."""
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.dem.grid import grid_run
+
+    rng = np.random.RandomState(0)  # bench.py:576-592, the same draws
+    p0 = 100_000
+    x_uni = rng.uniform(0.02, 0.98, size=(p0, 3)).astype(np.float32)
+    s = DEM_RADIUS * (4.0 * np.pi / (3.0 * 0.45)) ** (1.0 / 3.0)
+    npx = int(1.0 / s)
+    ii = np.arange(p0)
+    gx = (ii % npx + 0.5) * s
+    gy = ((ii // npx) % npx + 0.5) * s
+    gz = (ii // (npx * npx) + 0.5) * s
+    jit = (rng.uniform(-0.08, 0.08, size=(p0, 3)) * s).astype(np.float32)
+    x_bed = np.stack([gx, gy, gz], axis=1).astype(np.float32) + jit
+    for name, x in (("uniform_100k", x_uni), ("settled_bed_100k", x_bed)):
+        cfg, gs = dem_case(x)
+        dropped = p0 - int(gs.mask.sum())
+        say(f"  {name}: grid {cfg.grid.dims}, dropped {dropped}")
+        k11_record(f"K11 {name}", cfg.grid, gs, cfg.contact)
+        run = lambda: grid_run(cfg, gs, 1.0, DEM_SUBSTEPS)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        say(f"  {name}: grid_run {(time.perf_counter() - t0) / DEM_SUBSTEPS * 1e3:.3f} "
+            f"ms per substep over {DEM_SUBSTEPS} substeps")
+    grid, gs, prm = coupled_gs
+    say(f"  coupled grid: {grid.dims}, K={grid.capacity}")
+    return k11_record(DEM_KERNELS[0][0], grid, gs, prm)
+
+
+def pair_gaps(x, r):
+    """Surface gaps |x_i - x_j| - (r_i + r_j) of every pair (float64)."""
+    import numpy as np
+
+    d = np.sqrt(((x[:, None, :] - x[None, :, :]) ** 2).sum(-1))
+    g = d - (r[:, None] + r[None, :])
+    return g[np.triu_indices(len(x), 1)]
+
+
+def phase_coupled_slice() -> None:
+    """Phase 10: CoupledSolver on box 12, one step(num_newton=2), card f32
+    (K1-K3, K11) against CPU f64 (plain versions). The cloud (SLICE_PARTICLES
+    of radius SLICE_RADIUS) is the seed among 0..15 whose closest pair to
+    contact (|gap|) is farthest from it; after the step the run checks
+    that no pair's gap changed sign and that the gap margin exceeds four
+    times the largest displacement, so no contact switched on or off in
+    either precision."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.app.coupled import CoupledSolver
+    from dedflow_tpu_torch.app.scenarios import coupled_scenario_setup, reference_scenario_config
+    from dedflow_tpu_torch.dem.cells import cell_stats
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+
+    mesh = box_mesh(*SLICE_BOX)
+    setup = lambda seed, dev: coupled_scenario_setup(
+        mesh, num_particles=SLICE_PARTICLES, radius=SLICE_RADIUS, seed=seed, device=dev
+    )
+    margin = lambda seed: float(np.abs(pair_gaps(
+        setup(seed, "cpu")[1].x.numpy(), np.full(SLICE_PARTICLES, SLICE_RADIUS)
+    )).min())
+    seed = max(range(16), key=margin)
+    ccfg, pst = setup(seed, "cpu")
+    x0 = pst.x.numpy()
+    # capacity from the occupancy (the scenario's 8 would only pad the sweep)
+    k = cell_stats(ccfg.dem.grid, x0)["max_per_cell"] + 1
+    ccfg = dataclasses.replace(ccfg, dem=dataclasses.replace(
+        ccfg.dem, grid=dataclasses.replace(ccfg.dem.grid, capacity=k)))
+    outs = []
+    for device in ("cuda", "cpu"):
+        pst = setup(seed, device)[1]
+        solver = CoupledSolver(mesh, reference_scenario_config(), ccfg, device=device)
+        state = perturbed_state(mesh, device, solver.dtype)
+        *fluid, pst1, _ = solver.step(*state, pst, num_newton=2)
+        outs.append(([t.cpu() for t in fluid], pst1.x.cpu(), pst1.v.cpu()))
+    (gfl, gx, gv), (rfl, rx, rv) = outs
+    r = np.full(SLICE_PARTICLES, SLICE_RADIUS)
+    g0, g1 = pair_gaps(x0, r), pair_gaps(rx.numpy(), r)
+    moved = float(np.abs(rx.numpy() - x0).max())
+    m0 = float(np.abs(g0).min())
+    say(f"  seed {seed}, K={k}: {int((g0 < 0).sum())} touching pairs, min |gap| {m0:.3e}, "
+        f"largest displacement {moved:.3e}")
+    if np.any((g0 < 0) != (g1 < 0)) or m0 <= 4 * moved:
+        raise PhaseError("coupled slice: a contact may switch within the step")
+    worst = 0.0
+    for name, g, ref in zip(("wgold", "dwgold", "dwg"), gfl, rfl):
+        if not bool(torch.isfinite(g).all()):
+            raise PhaseError(f"coupled slice: non-finite {name} on the card")
+        _, rel = rel_err(g, ref)
+        say(f"  {name}: card f32 vs cpu f64 rel={rel:.3e}")
+        worst = max(worst, rel)
+    check("coupled slice fluid", worst, TOL_SLICE)
+    for name, g, ref in (("x", gx, rx), ("v", gv, rv)):
+        _, rel = rel_err(g, ref)
+        say(f"  particles {name}: card f32 vs cpu f64 rel={rel:.3e} (tol {TOL_PARTICLES:.0e})")
+        check(f"coupled slice particles {name}", rel, TOL_PARTICLES)
+
+
+def phase_coupled_main(solver, pstate0) -> dict:
+    """Phase 11: the coupled main path, CoupledSolver.step twice (adaptive)
+    from the reference initial state, every launch counter set to 0 just
+    before and read just after; then step 1 repeated (bit-identical fluid
+    and particle states, equal Krylov counts)."""
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_initial_state
+    from dedflow_tpu_torch.dem.grid import grid_pair_forces_cuda
+    from dedflow_tpu_torch.dem.integrate import kinetic_energy
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec
+
+    counters = (lat.residual_volume, lat.jacobian_volume, dia_matvec, grid_pair_forces_cuda)
+    state0 = state_from_numpy(*reference_initial_state(solver.fluid.mesh), "cuda", solver.dtype)
+    state, pst, first = state0, pstate0, None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    walls = []
+    for step in (1, 2):
+        parts = {}
+        t0 = time.perf_counter()
+        *state, pst, stats = solver.step(*state, pst, timings=parts)
+        wall = time.perf_counter() - t0
+        first = first or (state, pst, stats.krylov_iters)
+        norms = [float(v) for v in stats.rnorms[-1]]
+        ke = float(kinetic_energy(pst))
+        walls.append(wall)
+        say(f"  step {step}: wall_s={wall:.4f} drag_s={parts['drag_s']:.4f} "
+            f"fluid_s={parts['fluid_s']:.4f} dem_s={parts['dem_s']:.4f} "
+            f"newton={len(stats.rnorms)} krylov={stats.krylov_iters} "
+            f"converged={stats.converged} field_norms={norms} particle_ke={ke:.6e}")
+        if not all(map(math.isfinite, norms + [ke])):
+            raise PhaseError(f"coupled main: non-finite norms or energy at step {step}")
+        if not all(bool(torch.isfinite(t).all()) for t in (*state, pst.x, pst.v)):
+            raise PhaseError(f"coupled main: non-finite state at step {step}")
+    launches = [c.launches for c in counters]
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  launches K1/K2/K3/K11 = {launches}; peak memory {peak / 2**30:.3f} GiB")
+    if min(launches) <= 0:
+        raise PhaseError(f"coupled main: a kernel of the path was not launched: {launches}")
+    *again, pst_again, stats = solver.step(*state0, pstate0)
+    same = all(torch.equal(a, b) for a, b in zip(again, first[0]))
+    same_p = torch.equal(pst_again.x, first[1].x) and torch.equal(pst_again.v, first[1].v)
+    say(f"  step 1 repeated: bit-identical fluid {same}, particles {same_p}, "
+        f"krylov {stats.krylov_iters}")
+    if not (same and same_p) or stats.krylov_iters != first[2]:
+        raise PhaseError("coupled main: a repeated step differs from the first run")
+    return {"launches": launches, "step_s": walls, "peak_bytes": peak}
+
+
 def run() -> int:
     try:
         import torch
@@ -529,7 +953,12 @@ def run() -> int:
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     try:
-        from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+        from dedflow_tpu_torch.app.coupled import CoupledSolver
+        from dedflow_tpu_torch.app.scenarios import (
+            coupled_scenario_setup,
+            reference_scenario_config,
+        )
+        from dedflow_tpu_torch.dem.grid import to_grid
         from dedflow_tpu_torch.mesh.gen import box_mesh
         from dedflow_tpu_torch.solver.newton import NSSolver
     except ImportError as e:
@@ -568,16 +997,34 @@ def run() -> int:
         phase = "8 irregular main"
         say(f"phase 8 irregular main path at {solver.mesh.num_tet} Delaunay tets")
         ir_main = phase_irregular_main(solver)
+        del solver
+        phase = "9 dem"
+        mesh = box_mesh(*FULL_BOX)
+        ccfg, pstate0 = coupled_scenario_setup(mesh, num_particles=COUPLED_PARTICLES,
+                                               device="cuda")
+        grid = ccfg.dem.grid
+        say(f"phase 9 dem kernel: bench.py's cases, then the coupled grid "
+            f"({COUPLED_PARTICLES} particles, radius {float(pstate0.radius[0]):.4e})")
+        dem_result = phase_dem((grid, to_grid(grid, pstate0, COUPLED_PARTICLES),
+                                ccfg.dem.contact))
+        phase = "10 coupled slice"
+        say(f"phase 10 coupled slice at box {SLICE_BOX}, {SLICE_PARTICLES} particles")
+        phase_coupled_slice()
+        phase = "11 coupled main"
+        t0 = time.perf_counter()
+        csolver = CoupledSolver(mesh, reference_scenario_config(), ccfg, device="cuda")
+        say(f"phase 11 coupled main path at box {FULL_BOX}, {COUPLED_PARTICLES} particles, "
+            f"{ccfg.substeps} DEM substeps (setup {time.perf_counter() - t0:.1f} s)")
+        co_main = phase_coupled_main(csolver, pstate0)
     except Exception as e:  # report the failed phase, then fail
         traceback.print_exc()
         print(f"FAIL phase {phase}: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": n, "max_abs_err": r[0], "ms": r[1], "plain_ms": r[2]}
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n, **r}
         for (name, src, rep), r, n in zip(
-            KERNELS + IRREGULAR_KERNELS, results + ir_results,
-            main["launches"] + ir_main["launches"],
+            KERNELS + IRREGULAR_KERNELS + DEM_KERNELS, results + ir_results + [dem_result],
+            main["launches"] + ir_main["launches"] + co_main["launches"][3:],
         )
     ]
     say(json.dumps({"kernels": kernels}))

@@ -390,11 +390,18 @@ def assemble_residual_t(
     phys: Physics,
     scheme: TimeScheme,
     freeze_phi_temperature: bool = True,
+    nodal_force: torch.Tensor | None = None,  # (N, 3)
 ) -> torch.Tensor:
-    """Global residual F as (6, N) (AssembleSystem, main.c:31-75)."""
+    """Global residual F as (6, N) (AssembleSystem, main.c:31-75).
+    `nodal_force` (N, 3), an already-integrated nodal momentum load (the
+    DEM drag reaction), is subtracted from the momentum rows after the
+    volume terms and before the facet terms, freeze and mask, where the
+    JAX package places it (fem/lattice.py:543-544 there)."""
     f = residual_volume(
         lctx, w_alpha.T.contiguous(), dw_alpha.T.contiguous(), phys, scheme
     ).to(w_alpha.dtype)
+    if nodal_force is not None:
+        f[:3] -= nodal_force.T
     for fctx in face_ctxs:
         face_residual_scatter(fctx, f, face_residual_elements(fctx, w_alpha, dw_alpha, phys))
     if freeze_phi_temperature:

@@ -1,7 +1,8 @@
 """Carry configuration, state and matrices from the JAX package's plain
 forms into the port's objects. Imports no jax: every input is a dict or a
 NumPy array, which is what the JAX package exposes (`config._to_dict`,
-`reference_initial_state`, `np.asarray` of an FSDIAMatrixT's arrays)."""
+`dataclasses.asdict` of its DEM configs, `reference_initial_state`,
+`np.asarray` of an FSDIAMatrixT's or a ParticleState's arrays)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,12 @@ import numpy as np
 import torch
 
 from dedflow_tpu_torch import config
+from dedflow_tpu_torch.app.coupled import CoupledConfig
+from dedflow_tpu_torch.dem.cells import CellGrid
+from dedflow_tpu_torch.dem.contact import ContactParams
+from dedflow_tpu_torch.dem.grid import GridState
+from dedflow_tpu_torch.dem.integrate import DEMConfig
+from dedflow_tpu_torch.dem.particles import ParticleState, particle_state
 from dedflow_tpu_torch.sparse.fsbsr import FSDIAMatrixT
 from dedflow_tpu_torch.sparse.winell import NUM_ROWS, WinELLMatrixT, WinPlan
 from dedflow_tpu_torch.utils.dtypes import default_dtype, resolve_device
@@ -61,4 +68,49 @@ def winell_from_numpy(vals, entry_of_nnz, plan: WinPlan, dtype=None) -> WinELLMa
     ours = vals[:, eon[plan.entry_of_nnz]]
     return WinELLMatrixT(
         vals=torch.tensor(np.ascontiguousarray(ours), dtype=dtype, device=dev), plan=plan
+    )
+
+
+def particles_from_numpy(x, v, mass, radius, device="cpu", dtype=None) -> ParticleState:
+    """A ParticleState from the JAX package's (P, 3) / (P,) arrays."""
+    return particle_state(x, v, mass=mass, radius=radius, device=device, dtype=dtype)
+
+
+def _tuple(v):
+    return None if v is None else tuple(v)
+
+
+def dem_config_from_dict(d: dict) -> DEMConfig:
+    """The port's DEMConfig from `dataclasses.asdict(jax_dem_cfg)` (its
+    CellGrid and ContactParams included)."""
+    g = d["grid"]
+    grid = CellGrid(
+        origin=tuple(float(o) for o in g["origin"]), cell_size=float(g["cell_size"]),
+        dims=tuple(int(n) for n in g["dims"]), capacity=int(g["capacity"]),
+    )
+    return DEMConfig(
+        grid=grid, contact=ContactParams(**d["contact"]), gravity=tuple(d["gravity"]),
+        dt=d["dt"], walls_lo=_tuple(d["walls_lo"]), walls_hi=_tuple(d["walls_hi"]),
+        linear_drag=d["linear_drag"],
+    )
+
+
+def coupled_config_from_dict(d: dict) -> CoupledConfig:
+    """The port's CoupledConfig from `dataclasses.asdict(jax_coupled_cfg)`."""
+    return CoupledConfig(
+        dem=dem_config_from_dict(d["dem"]), drag_mu=d["drag_mu"], substeps=d["substeps"],
+        use_grid=d["use_grid"],
+    )
+
+
+def grid_state_from_numpy(pos, vel, radius, mask, pid, device="cpu", dtype=None) -> GridState:
+    """A GridState from the JAX package's (K, NC) arrays; pos and vel are
+    three arrays each (or a (3, K, NC) array)."""
+    dev = resolve_device(device)
+    dtype = dtype or default_dtype(dev)
+    t = lambda a: torch.tensor(np.ascontiguousarray(np.asarray(a)), dtype=dtype, device=dev)
+    return GridState(
+        pos=tuple(t(a) for a in pos), vel=tuple(t(a) for a in vel), radius=t(radius),
+        mask=t(mask),
+        pid=torch.tensor(np.ascontiguousarray(np.asarray(pid)), dtype=torch.int32, device=dev),
     )

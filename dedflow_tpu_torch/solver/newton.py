@@ -58,15 +58,22 @@ from dedflow_tpu_torch.utils.dtypes import default_dtype, disable_tf32, resolve_
 # WinAssemblyContext)
 
 
-def residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze):
-    """(6, N) residual at the alpha states."""
+def residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze,
+             nodal_force=None):
+    """(6, N) residual at the alpha states; `nodal_force` (N, 3) is a nodal
+    momentum load subtracted from the momentum rows before freeze and
+    mask (the JAX package's placement on both tiers)."""
     wa, dwa = alpha_states(wgold, dwgold, dwg, scheme)
     if isinstance(ctx, WinAssemblyContext):
         f = residual_win(ctx, wa, dwa, phys, scheme, face_ctxs)
+        if nodal_force is not None:
+            f[:3] -= nodal_force.T
         if freeze:
             f[4:] = 0.0  # main.c:64
         return f.masked_fill(mask_t, 0.0)
-    return assemble_residual_t(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze)
+    return assemble_residual_t(
+        ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze, nodal_force
+    )
 
 
 def assemble_system(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme):
@@ -93,17 +100,21 @@ def _solve_linear(jmat, pc, f, kcfg):
 
 
 def solve_update(
-    ctx, face_ctxs, mask_t, jmat, pc, wgold, dwgold, dwg, f, phys, scheme, kcfg, freeze
+    ctx, face_ctxs, mask_t, jmat, pc, wgold, dwgold, dwg, f, phys, scheme, kcfg, freeze,
+    nodal_force=None,
 ):
     """GMRES(J) dx = F; dwg -= dx; reassemble F (main.c:211-265)."""
     dx, iters, lin_rel = _solve_linear(jmat, pc, f, kcfg)
     dwg = dwg - dx.T
-    f = residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze)
+    f = residual(
+        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze, nodal_force
+    )
     return dwg, f, field_norms_t(f), iters, lin_rel
 
 
 def newton_iter(
-    ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg, freeze
+    ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg, freeze,
+    nodal_force=None,
 ):
     """One Newton iteration: assemble J, solve, update dwg, reassemble F.
     Returns (dwg, f, field_norms, krylov_iters, linear_rel_residual)."""
@@ -112,7 +123,7 @@ def newton_iter(
     )
     return solve_update(
         ctx, face_ctxs, mask_t, jmat, pc, wgold, dwgold, dwg, f, phys, scheme,
-        kcfg, freeze,
+        kcfg, freeze, nodal_force,
     )
 
 
@@ -137,15 +148,17 @@ def update(wgold, dwgold, dwg, scheme):
 
 def step_fixed(
     ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, kcfg, freeze,
-    num_newton,
+    num_newton, nodal_force=None,
 ):
     """One time step with a fixed Newton iteration count."""
     dwg = predict(dwg, scheme)
-    f = residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze)
+    f = residual(
+        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze, nodal_force
+    )
     for _ in range(num_newton):
         dwg, f, _, _, _ = newton_iter(
             ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg,
-            freeze,
+            freeze, nodal_force,
         )
     new_wgold, new_dwgold = update(wgold, dwgold, dwg, scheme)
     return new_wgold, new_dwgold, dwg
@@ -153,20 +166,22 @@ def step_fixed(
 
 def newton_adaptive(
     ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, kcfg, freeze,
-    max_iter, newton_rtol, newton_atol,
+    max_iter, newton_rtol, newton_atol, nodal_force=None,
 ):
     """The adaptive Newton loop (main.c:157-279): stop after the iteration
     whose four field norms all pass (rn < rtol*rnorm0) | (rn < atol).
     Returns (dwg, rnorm0, rnorms, kits, lrels, converged), the norms as
     host tensors."""
-    f = residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze)
+    f = residual(
+        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze, nodal_force
+    )
     rnorm0 = (field_norms_t(f) + 1e-16).cpu()  # main.c:152-155
     rnorms, kits, lrels = [], [], []
     conv = False
     for _ in range(max_iter):
         dwg, f, rn, kit, lrel = newton_iter(
             ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg,
-            freeze,
+            freeze, nodal_force,
         )
         rn = rn.cpu()  # one host sync per Newton iteration
         rnorms.append(rn)
@@ -274,11 +289,12 @@ def _choose_tier(mesh: Mesh, cfg: SolverConfig) -> str:
 
 class NSSolver:
     """Owns the assembly, facet and mask contexts for one mesh + config on
-    one device. `device` is explicit ("cpu" or "cuda"); the dtype defaults
-    to float64 on the CPU and float32 on CUDA. `fastpath` names the tier:
-    "lattice" or "winell"."""
+    one device. `device` is "cuda" unless the caller asks for "cpu" (as
+    the JAX NSSolver runs on the accelerator); without a card a CUDA
+    request raises. The dtype defaults to float64 on the CPU and float32
+    on CUDA. `fastpath` names the tier: "lattice" or "winell"."""
 
-    def __init__(self, mesh: Mesh, cfg: SolverConfig, device="cpu", dtype=None):
+    def __init__(self, mesh: Mesh, cfg: SolverConfig, device="cuda", dtype=None):
         _refuse_unported(mesh, cfg)
         self.device = resolve_device(device)
         self.dtype = dtype or default_dtype(self.device)
@@ -326,20 +342,20 @@ class NSSolver:
             freeze=cfg.freeze_phi_temperature,
         )
 
-    def _check_inputs(self, source, nodal_force) -> None:
+    def _check_inputs(self, source) -> None:
         if source is not None:
             raise NotImplementedError("heat sources (ROADMAP queue A12)")
-        if nodal_force is not None:
-            raise NotImplementedError("nodal forces / DEM coupling (ROADMAP queue A15)")
 
     def newton_solve(self, wgold, dwgold, dwg, source=None, nodal_force=None):
-        """Adaptive Newton loop (reference semantics, main.c:157-279)."""
-        self._check_inputs(source, nodal_force)
+        """Adaptive Newton loop (reference semantics, main.c:157-279);
+        `nodal_force` (N, 3) is a nodal momentum load (the DEM drag
+        reaction of app.coupled)."""
+        self._check_inputs(source)
         ctx, kw = self._common()
         newton = self.cfg.newton
         dwg, rnorm0, rns, kits, lrels, conv = newton_adaptive(
             *ctx, wgold, dwgold, dwg, kw["phys"], kw["scheme"], kw["kcfg"],
-            kw["freeze"], newton.max_iter, newton.rtol, newton.atol,
+            kw["freeze"], newton.max_iter, newton.rtol, newton.atol, nodal_force,
         )
         return dwg, NewtonStats(
             rnorm0=rnorm0.numpy(),
@@ -358,6 +374,8 @@ class NSSolver:
 
     def step_fixed(self, wgold, dwgold, dwg, num_newton: int = 4, source=None, nodal_force=None):
         """One step with a fixed Newton iteration count."""
-        self._check_inputs(source, nodal_force)
+        self._check_inputs(source)
         ctx, kw = self._common()
-        return step_fixed(*ctx, wgold, dwgold, dwg, **kw, num_newton=num_newton)
+        return step_fixed(
+            *ctx, wgold, dwgold, dwg, **kw, num_newton=num_newton, nodal_force=nodal_force
+        )

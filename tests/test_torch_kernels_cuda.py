@@ -6,8 +6,9 @@ file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_kernels_cuda.py
 
 (`--noconftest` because tests/conftest.py configures JAX.) Inputs are
-made with numpy from a seed on an odd-sized box (lattice kernels K1-K3)
-and on an RCM-ordered Delaunay mesh (irregular-tier kernels K6-K9),
+made with numpy from a seed on an odd-sized box (lattice kernels K1-K3),
+on an RCM-ordered Delaunay mesh (irregular-tier kernels K6-K9) and on a
+particle cloud bucketed onto a cell grid (the DEM contact sweep K11),
 float32 on the card. Relative error = max|kernel - plain| / max|plain|;
 the tolerances are float32 roundoff (different sum orders, hardware
 rsqrtf), as in chip_smoke.py, which runs the same comparisons at full
@@ -22,6 +23,10 @@ import pytest
 import torch
 
 from dedflow_tpu_torch.app.scenarios import reference_initial_state, reference_scenario_config
+from dedflow_tpu_torch.dem import grid as dem_grid
+from dedflow_tpu_torch.dem.cells import make_grid
+from dedflow_tpu_torch.dem.contact import ContactParams
+from dedflow_tpu_torch.dem.particles import particle_state
 from dedflow_tpu_torch.fem import element_kernels as ek
 from dedflow_tpu_torch.fem import element_rows as er
 from dedflow_tpu_torch.fem import lattice as lat
@@ -259,3 +264,47 @@ def test_irregular_step_on_card_matches_cpu_f64():
     for g, r in zip(*outs):
         assert torch.isfinite(g).all()
         assert rel(g, r) < 1e-4
+
+
+def _dem_grid_state(cap):
+    """400 particles bucketed onto a grid of capacity `cap` on the card,
+    float32 (the cloud of the JAX K-sweep test, tests/test_dem.py:331-362)."""
+    rng = np.random.default_rng(cap)
+    x = rng.uniform(0.05, 0.55, size=(400, 3))
+    v = rng.normal(scale=0.05, size=(400, 3))
+    grid = make_grid([0, 0, 0], [0.6, 0.6, 0.6], cell_size=0.08, capacity=cap)
+    return grid, dem_grid.to_grid(grid, particle_state(x, v, radius=0.03, device="cuda"), 400)
+
+
+@pytest.mark.parametrize("cap", [2, 3, 8, 11])
+def test_k11_contact_sweep_matches_plain(cap):
+    """K11 against its plain twin with and without the tangential term.
+    The kernel takes the plain version's pair order and IEEE float32 ops
+    (no contraction), so the bar is float32 roundoff of the sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    grid, gs = _dem_grid_state(cap)
+    for prm in (ContactParams(k_n=2e3, gamma_n=3.0),
+                ContactParams(k_n=2e3, gamma_n=3.0, mu=0.3, gamma_t=2.0)):
+        before = dem_grid.grid_pair_forces_cuda.launches
+        got = [dem_grid.grid_pair_forces_cuda(grid, gs, prm) for _ in range(2)]
+        assert dem_grid.grid_pair_forces_cuda.launches == before + 2
+        ref = dem_grid.grid_pair_forces(grid, gs, prm)
+        for c in range(3):
+            assert torch.isfinite(got[0][c]).all()
+            assert torch.equal(got[0][c], got[1][c])
+            assert float(ref[c].abs().max()) > 0
+            assert rel(got[0][c], ref[c]) < 1e-5
+
+
+def test_k11_refuses_float64():
+    """A CUDA float64 grid state raises; it never takes the plain twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    grid, gs = _dem_grid_state(2)
+    gs64 = dem_grid.GridState(
+        pos=tuple(a.double() for a in gs.pos), vel=tuple(a.double() for a in gs.vel),
+        radius=gs.radius.double(), mask=gs.mask.double(), pid=gs.pid,
+    )
+    with pytest.raises(ValueError, match="float32"):
+        dem_grid.grid_pair_forces_cuda(grid, gs64, ContactParams())

@@ -26,6 +26,7 @@ from dedflow_tpu import config as jcfg
 from dedflow_tpu_torch import config as tcfg
 from dedflow_tpu_torch import interop
 from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+from dedflow_tpu_torch.dem import grid as dem_grid
 from dedflow_tpu_torch.fem import element_kernels as ek
 from dedflow_tpu_torch.mesh.gen import box_mesh, delaunay_mesh
 from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
@@ -57,19 +58,57 @@ def test_fresh_interpreter_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import dedflow_tpu_torch, dedflow_tpu_torch.solver.newton, "
-        "dedflow_tpu_torch.app.main, dedflow_tpu_torch.interop, chip_smoke\n"
+        "dedflow_tpu_torch.app.main, dedflow_tpu_torch.app.coupled, "
+        "dedflow_tpu_torch.dem.grid, dedflow_tpu_torch.interop, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dedflow_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
-def test_cuda_request_without_card_raises(monkeypatch):
+def _coupled_config():
+    from dedflow_tpu_torch.app.coupled import CoupledConfig
+    from dedflow_tpu_torch.dem.cells import make_grid
+    from dedflow_tpu_torch.dem.integrate import DEMConfig
+
+    return CoupledConfig(dem=DEMConfig(grid=make_grid([0, 0, 0], [1, 1, 1], 0.25)))
+
+
+def _coupled_solver(**kw):
+    from dedflow_tpu_torch.app.coupled import CoupledSolver
+
+    return CoupledSolver(box_mesh(2, 2, 2), reference_scenario_config(), _coupled_config(), **kw)
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: dtypes.resolve_device("cuda"),
+        lambda: NSSolver(box_mesh(2, 2, 2), reference_scenario_config(), device="cuda"),
+        lambda: NSSolver(box_mesh(2, 2, 2), reference_scenario_config()),
+        lambda: _coupled_solver(),
+        lambda: _coupled_solver(device="cuda"),
+    ],
+    ids=["resolve_device", "NSSolver-cuda", "NSSolver-default", "CoupledSolver-default",
+         "CoupledSolver-cuda"],
+)
+def test_cuda_request_without_card_raises(monkeypatch, make):
+    """The entry points target the card unless asked for the CPU, and a
+    CUDA request without a card raises (never falls back)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="never falls back"):
-        dtypes.resolve_device("cuda")
-    with pytest.raises(RuntimeError):
-        NSSolver(box_mesh(2, 2, 2), reference_scenario_config(), device="cuda")
+        make()
+
+
+def test_multi_device_options_raise_a16():
+    from dedflow_tpu_torch.dem.grid import dem_run_grid
+    from dedflow_tpu_torch.dem.particles import particle_state
+
+    with pytest.raises(NotImplementedError, match="A16"):
+        _coupled_solver(device="cpu", device_mesh=object())
+    pst = particle_state([[0.5, 0.5, 0.5]], device="cpu")
+    with pytest.raises(NotImplementedError, match="A16"):
+        dem_run_grid(_coupled_config().dem, pst, 1, shard=(object(), "dd"))
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -108,14 +147,14 @@ def test_default_dtypes():
 def test_unported_options_raise(overrides):
     cfg = dataclasses.replace(reference_scenario_config(), **overrides)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NSSolver(box_mesh(2, 2, 2), cfg)
+        NSSolver(box_mesh(2, 2, 2), cfg, device="cpu")
 
 
 def test_mesh_without_lattice_raises():
     mesh = box_mesh(2, 2, 2)
     mesh.lattice = None
     with pytest.raises(NotImplementedError, match="classes tier"):
-        NSSolver(mesh, reference_scenario_config())
+        NSSolver(mesh, reference_scenario_config(), device="cpu")
 
 
 def _no_nvcc(monkeypatch, tmp_path):
@@ -148,6 +187,18 @@ def _k9():
     return win_ring.ring_reduce(plan, torch.zeros((16, 3)))
 
 
+def _k11():
+    from dedflow_tpu_torch.dem.cells import make_grid
+    from dedflow_tpu_torch.dem.contact import ContactParams
+    from dedflow_tpu_torch.dem.grid import GridState
+
+    grid = make_grid([0, 0, 0], [1, 1, 1], 0.5, capacity=2)
+    z = lambda: torch.zeros((2, grid.num_cell), dtype=torch.float32)
+    gs = GridState(pos=(z(), z(), z()), vel=(z(), z(), z()), radius=z(), mask=z(),
+                   pid=torch.zeros((2, grid.num_cell), dtype=torch.int32))
+    return dem_grid.grid_pair_forces_cuda(grid, gs, ContactParams())
+
+
 def _phys_scheme():
     cfg = reference_scenario_config()
     return cfg.physics, cfg.time
@@ -161,8 +212,9 @@ def _phys_scheme():
         (_k7, (win_kernels, "winell_matvec_plain")),
         (_k8, (win_stream, "seg_reduce_plain")),
         (_k9, (win_ring, "seg_reduce_plain")),
+        (_k11, (dem_grid, "grid_pair_forces")),
     ],
-    ids=["K6-res", "K6-lhs", "K7", "K8", "K9"],
+    ids=["K6-res", "K6-lhs", "K7", "K8", "K9", "K11"],
 )
 def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     monkeypatch, tmp_path, call, plain
@@ -197,9 +249,9 @@ def _rcm_delaunay():
 )
 def test_unported_options_on_the_winell_tier_raise(overrides, item):
     cfg = dataclasses.replace(reference_scenario_config(), bcs=(), pin_pressure=True)
-    assert NSSolver(_rcm_delaunay(), cfg).fastpath == "winell"
+    assert NSSolver(_rcm_delaunay(), cfg, device="cpu").fastpath == "winell"
     with pytest.raises(NotImplementedError, match=item):
-        NSSolver(_rcm_delaunay(), dataclasses.replace(cfg, **overrides))
+        NSSolver(_rcm_delaunay(), dataclasses.replace(cfg, **overrides), device="cpu")
 
 
 def test_k6_scalar_implicit_raises_a12():
@@ -208,7 +260,7 @@ def test_k6_scalar_implicit_raises_a12():
 
 
 def test_step_with_source_raises():
-    solver = NSSolver(box_mesh(2, 2, 2), reference_scenario_config())
+    solver = NSSolver(box_mesh(2, 2, 2), reference_scenario_config(), device="cpu")
     state = [torch.zeros((27, 6), dtype=torch.float64) for _ in range(3)]
     with pytest.raises(NotImplementedError):
         solver.step(*state, source=torch.zeros(27, dtype=torch.float64))

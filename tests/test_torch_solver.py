@@ -46,7 +46,7 @@ def solvers():
     mesh = box_mesh(*BOX)
     cfg = reference_scenario_config()
     js = NSSolver(mesh, cfg)
-    ts = TNSSolver(t_box_mesh(*BOX), interop.config_from_dict(jcfg._to_dict(cfg)))
+    ts = TNSSolver(t_box_mesh(*BOX), interop.config_from_dict(jcfg._to_dict(cfg)), device="cpu")
     wg, dwgold, dwg = reference_initial_state(mesh)
     dwg = dwg + 0.1 * np.random.default_rng(2).standard_normal(dwg.shape)
     return js, ts, (wg, dwgold, dwg)

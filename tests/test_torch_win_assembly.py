@@ -144,7 +144,7 @@ def converted():
     tm = dataclasses.replace(tgen.box_mesh(5, 5, 5), lattice=None)
     tm = treo.reorder_mesh(tm, treo.rcm_order(tm.ien, tm.num_node))
     js = jnt.NSSolver(jm, dataclasses.replace(cfg, use_lattice="gather"))
-    ts = tnt.NSSolver(tm, _tcfg(dataclasses.replace(cfg, use_lattice="winell")))
+    ts = tnt.NSSolver(tm, _tcfg(dataclasses.replace(cfg, use_lattice="winell")), device="cpu")
     assert js.fastpath == "gather" and ts.fastpath == "winell" and ts.face_ctxs
     wg, dwgold, dwg = reference_initial_state(jm)
     dwg = dwg + 0.1 * np.random.default_rng(3).standard_normal(dwg.shape)
@@ -209,9 +209,9 @@ def test_tier_routing_follows_the_jax_ladder(make, expect):
     cfg = _tcfg(dataclasses.replace(reference_scenario_config(), bcs=bcs))
     if expect.startswith("A"):
         with pytest.raises(NotImplementedError, match=expect):
-            tnt.NSSolver(mesh, cfg)
+            tnt.NSSolver(mesh, cfg, device="cpu")
     else:
-        assert tnt.NSSolver(mesh, cfg).fastpath == expect
+        assert tnt.NSSolver(mesh, cfg, device="cpu").fastpath == expect
 
 
 def test_cli_config_reaches_the_winell_tier(tmp_path, capsys):
