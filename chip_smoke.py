@@ -5,7 +5,7 @@
 
 Phases, one line each; the script exits non-zero at the first failure:
   1 card    nvidia-smi name and power limit, torch / CUDA versions
-  2 build   nvcc builds the six kernel libraries from csrc/ in parallel
+  2 build   nvcc builds the nine kernel libraries from csrc/ in parallel
             (seconds, ptxas lines)
   lattice tier (box meshes):
   3 kernels at box_mesh(55, 55, 55) (998,250 tets), float32 on the card,
@@ -19,13 +19,15 @@ Phases, one line each; the script exits non-zero at the first failure:
   windowed irregular (WinELL) tier:
   6 kernels at delaunay_mesh(56**3) + RCM (about 1.18M tets), float32:
             K6 (residual and Jacobian rows), K7, K8 and K9 against their
-            plain versions, times, then F, J, SpMV and GMRES(120)
+            plain versions, times, then F, J, SpMV and GMRES(120); the
+            element input rows K10 gathers equal the index gather's
+            bit for bit
   7 slice   the converted box 12 (lattice metadata dropped, RCM,
             use_lattice="winell", reference BCs with the Nitsche wall): one
             step_fixed(num_newton=2), card float32 against CPU float64
   8 main    NSSolver(that Delaunay mesh, reference_scenario_config(bcs=(),
             pin_pressure=True), device="cuda").step twice on the "winell"
-            fastpath, with the launch counts of K6-K9
+            fastpath, with the launch counts of K6-K10
   coupled FEM-DEM step (DEM grid contact sweep K11 + the lattice tier):
   9 dem     K11 against its plain twin, float32, at bench.py's DEM cases
             (uniform_100k, settled_bed_100k: radius 0.006, 69**3 cells, K
@@ -36,6 +38,22 @@ Phases, one line each; the script exits non-zero at the first failure:
  11 main    CoupledSolver(box_mesh(55, 55, 55), coupled_scenario_setup(mesh,
             num_particles=100_000), device="cuda").step twice, with the
             drag / fluid / DEM split and the launch counts of K1-K3 and K11
+  general gather tier (K4, K5) and the windowed state gather (K10):
+ 12 kernels K4 and K5 at phase 6's Delaunay mesh in its generated (unordered)
+            node order, on the solver of phase 14, each also equal to K6
+            on the same inputs; K10 at phase 6's RCM mesh with the
+            residual's 48-row and the Jacobian's 12-row map (bit for bit);
+            times, bounds, the gather tier's F, J, SpMV, K8, K9 and
+            GMRES(120)
+ 13 slice   box 12 on use_lattice="gather" with the reference BCs and the
+            Nitsche wall: one step_fixed(num_newton=2), card float32 against
+            CPU float64
+ 14 main    NSSolver(the unordered Delaunay mesh, reference_scenario_config(
+            bcs=(), pin_pressure=True, scatter_method="tiered",
+            elements_kernel="pallas"), device="cuda") on fastpath "gather"
+            (the "auto" ladder's floor) .step twice, with the launch counts of
+            K4, K5, K7, K8 and K9, and the device's busy share over one
+            Newton iteration (torch.profiler)
 Then, on lines of their own: the kernels JSON object (each kernel with its
 time, its plain version's, its bound and, where one PyTorch call computes
 the same function, that call's time), the card's name and power limit, and
@@ -76,6 +94,9 @@ TOL_K9 = 1e-5  # about 6.6 contributions per entry
 # contraction; what may differ is float32 roundoff of sums of at most
 # 27 * K pair terms, relative to the largest force.
 TOL_K11 = 1e-5
+TOL_K4 = 2e-5  # K6's residual body on gathered states
+TOL_K5 = 2e-5  # K6's Jacobian body, per vel/p block
+# K10 copies: it must equal its plain version bit for bit.
 # The 16 velocity/pressure components of a nodal block, by sub-block, in
 # the element Jacobian's packed order (K6 rows ab*18+c). Their scales
 # differ by orders of magnitude (the pressure rows are far smaller than the
@@ -117,6 +138,18 @@ DEM_KERNELS = (
     ("K11 dem contact sweep", "dedflow_tpu_torch/csrc/dem_contact.cu",
      "dedflow_tpu/dem/grid.py:221"),
 )
+GATHER_KERNELS = (
+    ("K4 gathered element residual", "dedflow_tpu_torch/csrc/gather_elements.cu",
+     "dedflow_tpu/fem/pallas_kernels.py:434"),
+    ("K5 gathered element jacobian", "dedflow_tpu_torch/csrc/gather_elements.cu",
+     "dedflow_tpu/fem/pallas_kernels.py:507"),
+    ("K10 win gather (residual rows)", "dedflow_tpu_torch/csrc/win_gather.cu",
+     "dedflow_tpu/sparse/win_gather.py:179"),
+    ("K10 win gather (jacobian rows)", "dedflow_tpu_torch/csrc/win_gather.cu",
+     "dedflow_tpu/sparse/win_gather.py:179"),
+)
+GATHER_CONFIG = dict(bcs=(), pin_pressure=True, scatter_method="tiered",
+                     elements_kernel="pallas")  # bench.py:133-151's Delaunay settings
 IRREGULAR_KERNELS = (
     ("K6 element rows (residual)", "dedflow_tpu_torch/csrc/element_rows.cu",
      "dedflow_tpu/fem/pallas_kernels.py:565"),
@@ -330,6 +363,7 @@ def phase_build() -> None:
     libs = nvcc.load([
         "lattice_residual", "lattice_jacobian", "dia_spmv",
         "element_rows", "winell_spmv", "seg_reduce", "dem_contact",
+        "gather_elements", "win_gather",
     ])
     say(f"phase 2 build: {time.perf_counter() - t0:.2f} s wall for "
         f"{len(libs)} libraries (nvcc {nvcc.nvcc_path()})")
@@ -498,18 +532,31 @@ def phase_main(solver) -> dict:
 
 
 def phase_irregular_main(solver) -> dict:
+    """drive_main on the WinELL tier. K10 gathers the input rows of every
+    K6 launch, with the residual's row map before K6res and the Jacobian's
+    before K6lhs: its launches split by map as K6's do, which is checked."""
     from dedflow_tpu_torch.fem import element_kernels as ek
+    from dedflow_tpu_torch.sparse.win_gather import win_gather
     from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
     from dedflow_tpu_torch.sparse.win_ring import ring_reduce
     from dedflow_tpu_torch.sparse.win_stream import stream_reduce
 
-    counters = (ek.res_rows_call, ek.lhs_rows_call, winell_matvec, stream_reduce, ring_reduce)
-    return drive_main(solver, counters, "K6res/K6lhs/K7/K8/K9")
+    counters = (ek.res_rows_call, ek.lhs_rows_call, winell_matvec, stream_reduce, ring_reduce,
+                win_gather)
+    out = drive_main(solver, counters, "K6res/K6lhs/K7/K8/K9/K10")
+    *launches, n10 = out["launches"]
+    n6r, n6j = launches[:2]
+    if n10 != n6r + n6j:
+        raise PhaseError(f"main: {n10} K10 launches, not one per K6 launch ({n6r} + {n6j})")
+    out["launches"] = launches
+    out["k10_launches"] = {"residual": n6r, "jacobian": n6j}
+    return out
 
 
 def irregular_solver():
     """NSSolver on the RCM-ordered Delaunay mesh, with the host set-up
-    seconds of each part."""
+    seconds of each part; also the mesh in its generated node order (the
+    same triangulation), for the gather tier."""
     import torch
 
     from dedflow_tpu_torch.app.scenarios import reference_scenario_config
@@ -518,9 +565,9 @@ def irregular_solver():
     from dedflow_tpu_torch.solver.newton import NSSolver
 
     t0 = time.perf_counter()
-    mesh = delaunay_mesh(DELAUNAY_POINTS, seed=SEED)
+    raw = delaunay_mesh(DELAUNAY_POINTS, seed=SEED)
     t1 = time.perf_counter()
-    mesh = reorder_mesh(mesh, rcm_order(mesh.ien, mesh.num_node))
+    mesh = reorder_mesh(raw, rcm_order(raw.ien, raw.num_node))
     t2 = time.perf_counter()
     cfg = reference_scenario_config(bcs=(), pin_pressure=True)
     solver = NSSolver(mesh, cfg, device="cuda")
@@ -529,7 +576,7 @@ def irregular_solver():
     setup = {"delaunay_s": t1 - t0, "rcm_s": t2 - t1, "solver_s": t3 - t2}
     if solver.fastpath != "winell":
         raise PhaseError(f"irregular: fastpath {solver.fastpath!r}, expected 'winell'")
-    return solver, setup
+    return solver, setup, raw
 
 
 def phase_irregular_kernels(solver) -> tuple[list, dict]:
@@ -556,8 +603,13 @@ def phase_irregular_kernels(solver) -> tuple[list, dict]:
     ctx, ne = solver.wctx, solver.wctx.num_elem
     wg, dwgold, dwg = perturbed_state(solver.mesh, solver.device, solver.dtype)
     wa, dwa = alpha_states(wg, dwgold, dwg, scheme)
-    inp67 = wa_.residual_inputs(ctx, wa, dwa)
+    inp67 = wa_.residual_inputs(ctx, wa, dwa)  # through K10
     inp27 = wa_.jacobian_inputs(ctx, wa)
+    same = (torch.equal(inp67, ek.res_gather_inputs(ctx.res_geom, ctx.ien_t, wa.T, dwa.T))
+            and torch.equal(inp27, ek.lhs_gather_inputs(ctx.lhs_geom, ctx.ien_t, wa.T)))
+    say(f"  element input rows through K10 equal the index gather's: {same}")
+    if not same:
+        raise PhaseError("K10: the WinELL element input rows differ from the index gather")
     rargs, largs = ek.res_args(phys, scheme), ek.lhs_args(phys, scheme)
     by_eq = {" [u rows]": lambda t: t[:3], " [p row]": lambda t: t[3:4],
              " [phi,T rows]": lambda t: t[4:]}
@@ -943,6 +995,223 @@ def phase_coupled_main(solver, pstate0) -> dict:
     return {"launches": launches, "step_s": walls, "peak_bytes": peak}
 
 
+def registers(lib, kernel: str) -> int | None:
+    """The register count ptxas printed for the entry whose mangled name
+    contains `kernel`."""
+    entry = None
+    for ln in lib.ptxas:
+        if "Function properties for" in ln:
+            entry = ln
+        elif "registers" in ln and entry is not None and kernel in entry:
+            return int(ln.split("Used ")[1].split(" registers")[0])
+    return None
+
+
+def busy_share(fn) -> str:
+    """The device's busy share over one call of `fn` (torch.profiler: the
+    union of the device events' intervals over the host wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise PhaseError("busy share: the profiler recorded no device events")
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    return (f"{busy / 1e3:.2f} ms of device time in {wall * 1e3:.2f} ms of wall "
+            f"(busy {busy / 1e6 / wall:.1%}, {len(spans)} device events)")
+
+
+def gather_solver(raw):
+    """NSSolver on the Delaunay mesh in its generated node order: the
+    "auto" ladder falls to the general gather tier."""
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+    from dedflow_tpu_torch.solver.newton import NSSolver
+
+    t0 = time.perf_counter()
+    solver = NSSolver(raw, reference_scenario_config(**GATHER_CONFIG), device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if solver.fastpath != "gather":
+        raise PhaseError(f"gather: fastpath {solver.fastpath!r}, expected 'gather'")
+    return solver, setup_s
+
+
+def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict]:
+    """Phase 12: K4 and K5 on the gather tier's context, K10 on phase 6's
+    RCM mesh `rcm` and its WinELL connectivity `rcm_ien_t`, each against
+    its plain version. Returns the four kernel records and the gather
+    tier's system timings."""
+    import torch
+
+    from dedflow_tpu_torch.fem import element_kernels as ek
+    from dedflow_tpu_torch.fem import win_assembly as wa_
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.solver.krylov import gmres
+    from dedflow_tpu_torch.solver.newton import assemble_system, residual
+    from dedflow_tpu_torch.sparse import win_gather as wg
+    from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce
+    from dedflow_tpu_torch.utils import nvcc
+
+    phys, scheme = gsolver.cfg.physics, gsolver.cfg.time
+    ctx, ne = gsolver.gctx, gsolver.gctx.num_elem
+    wg_, dwgold, dwg = perturbed_state(gsolver.mesh, gsolver.device, gsolver.dtype)
+    wa, dwa = alpha_states(wg_, dwgold, dwg, scheme)
+    w_t, dw_t = wa.T.contiguous(), dwa.T.contiguous()
+    lhs_blocks = {f" [{b}]": (lambda t, c=list(cs): t.reshape(16, 18, ne)[:, c])
+                  for b, cs in VP_BLOCKS.items()}
+    lhs_blocks[" [phi,T identities]"] = lambda t: t.reshape(16, 18, ne)[:, 16:]
+
+    k4 = lambda: ek.ns_residual_gather(ctx.res_geom, ctx.ien_t, w_t, dw_t, phys, scheme)
+    p4 = lambda: ek.ns_residual_gather_plain(ctx.res_geom, ctx.ien_t, w_t, dw_t, phys, scheme)
+    e4 = compare("K4 gathered residual", k4, p4, TOL_K4)
+    k5 = lambda: ek.ns_lhs_gather(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme)
+    p5 = lambda: ek.ns_lhs_gather_plain(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme)
+    e5 = compare("K5 gathered jacobian", k5, p5, TOL_K5, parts=lhs_blocks)
+    # K4/K5 equal K6 on the same inputs: one element body (element_body.cuh)
+    same4 = torch.equal(k4(), ek.res_rows_call(ek.res_gather_inputs(
+        ctx.res_geom, ctx.ien_t, w_t, dw_t), phys, scheme))
+    same5 = torch.equal(k5(), ek.lhs_rows_call(ek.lhs_gather_inputs(
+        ctx.lhs_geom, ctx.ien_t, w_t), phys, scheme))
+    say(f"  K4 == K6 residual rows on the same inputs: {same4}; K5 == K6 jacobian rows: {same5}")
+    if not (same4 and same5):
+        raise PhaseError("K4/K5: not equal to K6 on the same inputs (one element body)")
+
+    # K10 on the RCM mesh, with the WinELL tier's two row maps
+    n_rcm, ne_rcm = rcm.num_node, rcm_ien_t.shape[1]
+    iwa, idwa = alpha_states(*perturbed_state(rcm, "cuda", torch.float32), scheme)
+    x14 = torch.zeros((14, n_rcm), dtype=torch.float32, device="cuda")
+    x14[:6], x14[8:14] = iwa.T, idwa.T
+    x3 = iwa.T[:3].contiguous()
+    k10 = {}
+    for tag, rowmap, rows, x in (("residual", wg.RES_ROWMAP, 48, x14),
+                                 ("jacobian", wg.JAC_ROWMAP, 12, x3)):
+        kern = lambda rm=rowmap, r=rows, x=x: wg.win_gather(rcm_ien_t, x, rm, r)
+        plain = lambda rm=rowmap, r=rows, x=x: wg.win_gather_plain(rcm_ien_t, x, rm, r)
+        err = compare(f"K10 win gather ({tag} rows)", kern, plain, 0.0)
+        codes = wg.row_sources(rowmap, rows, x.shape[0])
+        cidx = torch.tensor([c & 255 for c in codes], device="cuda")[:, None]
+        eidx = rcm_ien_t.long()[torch.tensor([c >> 8 for c in codes], device="cuda")]
+        k10[tag] = (err, kern, plain, rows, x, (lambda x=x, c=cidx, e=eidx: x[c, e], kern()))
+
+    names = [name for name, _, _ in GATHER_KERNELS]
+    libs = nvcc.load(["gather_elements", "win_gather"])
+    regs = {names[0]: registers(libs["gather_elements"], "res_gather_kernel"),
+            names[1]: registers(libs["gather_elements"], "lhs_gather_kernel"),
+            names[2]: registers(libs["win_gather"], "win_gather_kernel")}
+    regs[names[3]] = regs[names[2]]
+    out24 = torch.empty((24, ne), dtype=torch.float32)
+    out288 = torch.empty((288, ne), dtype=torch.float32)
+    results = [
+        finish(names[0], {"max_abs_err": e4}, k4, p4, 20, 3,
+               nbytes(ctx.res_geom, ctx.ien_t, w_t, dw_t, out24), op_count(p4)),
+        finish(names[1], {"max_abs_err": e5}, k5, p5, 10, 3,
+               nbytes(ctx.lhs_geom, ctx.ien_t, w_t[:3], out288), op_count(p5)),
+    ]
+    for i, tag in ((2, "residual"), (3, "jacobian")):
+        err, kern, plain, rows, x, library = k10[tag]
+        out = torch.empty((rows, ne_rcm), dtype=torch.float32)
+        results.append(finish(names[i], {"max_abs_err": err}, kern, plain, 50, 5,
+                              nbytes(rcm_ien_t, x, out), op_count(plain), library=library))
+    for name, rec in zip(names, results):
+        say(f"  {name}: ptxas registers {regs[name]}")
+
+    # the gather tier's system: F, J (+ PC), the reduces and the SpMV on its
+    # plans and matrix, GMRES(120)
+    common = (ctx, gsolver.face_ctxs, gsolver.mask_t, wg_, dwgold, dwg, phys, scheme)
+    f_ms = cuda_ms(lambda: residual(*common, gsolver.cfg.freeze_phi_temperature), 10)
+    j_ms = cuda_ms(lambda: assemble_system(*common), 5)
+    (rng,) = ctx.ranges
+    rows24, rows288 = k4(), k5()
+    k8_ms = cuda_ms(lambda: stream_reduce(rng.res_plan, rows24, range(6), ne), 50)
+    k9_ms = cuda_ms(lambda: ring_reduce(rng.jac_plan, rows288, wa_.JAC_COMPS, ne), 20)
+    jm, pc = assemble_system(*common)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((6, ctx.num_node), generator=gen, device="cuda", dtype=gsolver.dtype)
+    spmv_ms = cuda_ms(lambda: winell_matvec(jm, x), 100)
+    f = residual(*common, gsolver.cfg.freeze_phi_temperature)
+    gmres120 = lambda: gmres(jm.matvec_t, f, maxit=120, atol=0.0, rtol=0.0, pc=pc)
+    gmres120()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = gmres120()
+    torch.cuda.synchronize()
+    times = {"F_ms": f_ms, "J_ms": j_ms, "K8_ms": k8_ms, "K9_ms": k9_ms, "SpMV_ms": spmv_ms,
+             "GMRES120_s": time.perf_counter() - t0, "GMRES120_iters": sol.iters,
+             "matrix_entries": ctx.win_plan.S}
+    return results, times
+
+
+def phase_gather_slice() -> None:
+    """Phase 13: box 12 on the gather tier, reference BCs with the Nitsche
+    wall: card float32 (K4/K5/K7-K9) against CPU float64 (plain versions),
+    one step_fixed(num_newton=2), TOL_SLICE."""
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.solver.newton import NSSolver
+
+    mesh = box_mesh(*SLICE_BOX)
+    cfg = reference_scenario_config(use_lattice="gather")
+    outs = []
+    for device in ("cuda", "cpu"):
+        solver = NSSolver(mesh, cfg, device=device)
+        if solver.fastpath != "gather" or not solver.face_ctxs:
+            raise PhaseError("gather slice: not on the gather tier with facets")
+        state = perturbed_state(mesh, device, solver.dtype)
+        outs.append([t.cpu() for t in solver.step_fixed(*state, num_newton=2)])
+    worst = 0.0
+    for name, g, r in zip(("wgold", "dwgold", "dwg"), *outs):
+        if not bool(torch.isfinite(g).all()):
+            raise PhaseError(f"gather slice: non-finite {name} on the card")
+        _, rel = rel_err(g, r)
+        say(f"  {name}: card f32 vs cpu f64 rel={rel:.3e}")
+        worst = max(worst, rel)
+    check("gather slice", worst, TOL_SLICE)
+
+
+def phase_gather_main(gsolver) -> dict:
+    """Phase 14: the gather tier's main path (drive_main), then the busy
+    share of the device over one Newton iteration."""
+    from dedflow_tpu_torch.app.scenarios import reference_initial_state
+    from dedflow_tpu_torch.fem import element_kernels as ek
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.solver.newton import newton_iter, predict, residual
+    from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce
+
+    counters = (ek.ns_residual_gather, ek.ns_lhs_gather, winell_matvec, stream_reduce, ring_reduce)
+    out = drive_main(gsolver, counters, "K4/K5/K7/K8/K9")
+    cfg = gsolver.cfg
+    wg, dwgold, dwg = state_from_numpy(*reference_initial_state(gsolver.mesh), "cuda", gsolver.dtype)
+    dwg = predict(dwg, cfg.time)
+    ctx = (gsolver.gctx, gsolver.face_ctxs, gsolver.mask_t)
+    f = residual(*ctx, wg, dwgold, dwg, cfg.physics, cfg.time, cfg.freeze_phi_temperature)
+    it = lambda: newton_iter(*ctx, wg, dwgold, dwg, f, cfg.physics, cfg.time, cfg.krylov,
+                             cfg.freeze_phi_temperature)
+    it()  # warm
+    say(f"  one Newton iteration under torch.profiler: {busy_share(it)}")
+    return out
+
+
 def run() -> int:
     try:
         import torch
@@ -985,7 +1254,7 @@ def run() -> int:
         main = phase_main(solver)
         del solver
         phase = "6 irregular kernels"
-        solver, setup = irregular_solver()
+        solver, setup, raw = irregular_solver()
         say(f"phase 6 irregular kernels at {solver.mesh.num_tet} Delaunay tets, "
             f"{solver.mesh.num_node} nodes, {solver.wctx.win_plan.S} matrix entries, "
             f"fastpath {solver.fastpath} (host setup s: {json.dumps(setup)})")
@@ -997,6 +1266,7 @@ def run() -> int:
         phase = "8 irregular main"
         say(f"phase 8 irregular main path at {solver.mesh.num_tet} Delaunay tets")
         ir_main = phase_irregular_main(solver)
+        rcm, rcm_ien_t = solver.mesh, solver.wctx.ien_t  # phase 12 runs K10 on them
         del solver
         phase = "9 dem"
         mesh = box_mesh(*FULL_BOX)
@@ -1016,6 +1286,22 @@ def run() -> int:
         say(f"phase 11 coupled main path at box {FULL_BOX}, {COUPLED_PARTICLES} particles, "
             f"{ccfg.substeps} DEM substeps (setup {time.perf_counter() - t0:.1f} s)")
         co_main = phase_coupled_main(csolver, pstate0)
+        del csolver, pstate0
+        phase = "12 gather kernels"
+        gsolver, gsetup = gather_solver(raw)
+        say(f"phase 12 gather kernels: K4/K5 at {raw.num_tet} Delaunay tets in generated "
+            f"order, {gsolver.gctx.win_plan.S} matrix entries, fastpath {gsolver.fastpath} "
+            f"(host setup s: delaunay_s {setup['delaunay_s']:.2f} shared with phase 6, "
+            f"solver_s {gsetup:.2f}); K10 at phase 6's RCM mesh")
+        ga_results, ga_times = phase_gather_kernels(gsolver, rcm, rcm_ien_t)
+        say(f"  gather system: {json.dumps(ga_times)}")
+        del rcm_ien_t
+        phase = "13 gather slice"
+        say(f"phase 13 gather slice at box {SLICE_BOX}")
+        phase_gather_slice()
+        phase = "14 gather main"
+        say(f"phase 14 gather main path at {raw.num_tet} Delaunay tets, generated node order")
+        ga_main = phase_gather_main(gsolver)
     except Exception as e:  # report the failed phase, then fail
         traceback.print_exc()
         print(f"FAIL phase {phase}: {type(e).__name__}: {e}", file=sys.stderr)
@@ -1023,10 +1309,14 @@ def run() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n, **r}
         for (name, src, rep), r, n in zip(
-            KERNELS + IRREGULAR_KERNELS + DEM_KERNELS, results + ir_results + [dem_result],
-            main["launches"] + ir_main["launches"] + co_main["launches"][3:],
+            KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS,
+            results + ir_results + [dem_result] + ga_results,
+            main["launches"] + ir_main["launches"] + co_main["launches"][3:]
+            + ga_main["launches"][:2]
+            + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]],
         )
     ]
+    kernels.sort(key=lambda k: int(k["name"].split()[0][1:]))
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

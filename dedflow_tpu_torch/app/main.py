@@ -2,7 +2,7 @@
 FEM-DEM powder-settling scenario, on a box mesh.
 
     python -m dedflow_tpu_torch.app.main --box NX NY NZ --steps K \\
-        --device cuda|cpu --dtype f32|f64 [--config cfg.json]
+        --device cuda|cpu --dtype f32|f64 [--config cfg.json] [--chunk E]
     python -m dedflow_tpu_torch.app.main --scenario coupled --box 55 55 55 \\
         --particles 100000 [--particle-radius R] [--dem-substeps 10] [--no-dem-grid]
 
@@ -10,7 +10,10 @@ FEM-DEM powder-settling scenario, on a box mesh.
 scenario's (config.load_config, as the JAX CLI's --config). It replaces
 the scenario as a whole, BCs included, so start from the reference
 scenario's own JSON: `config.save_config(reference_scenario_config(
-use_lattice="winell"), path)` runs the box on the windowed irregular tier.
+use_lattice="winell"), path)` runs the box on the windowed irregular tier,
+`use_lattice="gather"` on the general gather tier. `--chunk E` sets the
+assembly chunk (E elements per range, as the JAX CLI's --chunk), which
+puts the run on the general gather tier.
 `--scenario coupled` releases `--particles` particles in the upper half of
 the box (app.scenarios.coupled_scenario_setup, the JAX CLI's defaults) and
 steps app.coupled.CoupledSolver: drag exchange, the fluid step with the
@@ -27,6 +30,7 @@ queues A12, A16, A17).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
@@ -57,6 +61,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="default: f32 on cuda, f64 on cpu")
     p.add_argument("--config", default=None,
                    help="SolverConfig JSON (default: the reference scenario)")
+    p.add_argument("--chunk", type=int, default=None,
+                   help="assembly chunk size (elements per range; the gather tier)")
     p.add_argument("--scenario", choices=("reference", "coupled"), default="reference",
                    help="reference channel flow / coupled FEM-DEM powder settling")
     p.add_argument("--particles", type=int, default=1000,
@@ -77,6 +83,8 @@ def main(argv=None) -> int:
     dtype = parse_dtype(args.dtype, device)
     mesh = box_mesh(*args.box)
     cfg = load_config(args.config) if args.config else reference_scenario_config()
+    if args.chunk is not None:
+        cfg = dataclasses.replace(cfg, assembly_chunk=args.chunk)
     coupled = args.scenario == "coupled"
     if coupled:
         ccfg, pstate = coupled_scenario_setup(

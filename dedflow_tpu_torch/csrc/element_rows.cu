@@ -11,32 +11,24 @@
 // contiguous axis; S = 1 for the plain (rows, M) form.
 //
 // Design (simple and right first): one thread per (column m, slab s). It
-// reads the column's input rows (coalesced across the warp), evaluates the
-// body at the 4 quadrature points and writes every output row of that column.
-// The Jacobian is built pair by pair from ~50 per-element scalars, never
-// holding the 256/288 outputs. What bounds it on an H100: FP32 issue and
-// registers (~60 live scalars, rsqrt/sqrt per quadrature point). The
-// Jacobian's 1152 output bytes per element (1.36 GB at 1.18M tets) are
-// written once, at well under the card's bandwidth: the pair-by-pair
-// arithmetic, not the write, sets its time, as in K2's element pass.
+// reads the column's input rows (coalesced across the warp) into registers
+// and runs the element body of element_body.cuh (shared with K4/K5,
+// gather_elements.cu) at the 4 quadrature points, writing every output row
+// of that column. The Jacobian is built pair by pair from ~50 per-element
+// scalars, never holding the 256/288 outputs. What bounds it on an H100:
+// FP32 instruction throughput and registers (~60 live scalars, rsqrt/sqrt
+// per quadrature point). The Jacobian's 1152 output bytes per element
+// (1.36 GB at 1.18M tets) are written once, at well under the card's
+// bandwidth: the pair-by-pair arithmetic, not the write, sets its time, as
+// in K2's element pass.
 //
-// The guards of the JAX bodies are kept: tr > 0 ? tr : 1 (pallas_kernels.py:128
-// and the residual's own) keeps every tau finite on dead or sliver columns,
-// whose zero geometry then gives exact zeros. The bodies are the ones K1
-// (lattice_residual.cu) and K2 (lattice_jacobian.cu) evaluate on the lattice;
-// they are not shared with them yet (ROADMAP notes the duplication).
+// K1 (lattice_residual.cu) and K2 (lattice_jacobian.cu) evaluate the same
+// bodies on the lattice; they do not share the header yet (ROADMAP notes
+// the duplication).
 
-#include "lattice_common.cuh"
+#include "element_body.cuh"
 
 namespace dedflow {
-
-struct RowsResParams {
-  double rho, mu, cp, kappa, fb0, fb1, fb2, dt;
-};
-
-struct RowsLhsParams {
-  double rho, mu, f1, f2, dt;
-};
 
 __global__ void __launch_bounds__(128)
 res_rows_kernel(const float* __restrict__ inp,  // (S, 67, m)
@@ -46,134 +38,32 @@ res_rows_kernel(const float* __restrict__ inp,  // (S, 67, m)
   if (c >= m) return;
   const size_t M = static_cast<size_t>(m);
   const float* in = inp + static_cast<size_t>(blockIdx.y) * 67 * M + c;
-
-  const float rho = static_cast<float>(prm.rho);
-  const float mu = static_cast<float>(prm.mu);
-  const float rhocp = static_cast<float>(prm.rho * prm.cp);
-  const float fb[3] = {static_cast<float>(prm.fb0), static_cast<float>(prm.fb1),
-                       static_cast<float>(prm.fb2)};
-  const double nu = prm.mu / prm.rho;
-  const double alpha_th = prm.kappa / (prm.rho * prm.cp);
-  const float t0 = static_cast<float>(4.0 / (prm.dt * prm.dt));
-  const float visc3 = static_cast<float>(3.0 * nu * nu);
-  const float alpha3 = static_cast<float>(3.0 * alpha_th * alpha_th);
-
-  float sh[3][4], u[3][4], du[3][4], p[4], phi[4], tem[4], dphi[4], dtem[4], src[4];
+  ResInputs x;
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      sh[i][a] = in[(i * 4 + a) * M];
-      u[i][a] = in[(19 + i * 4 + a) * M];
-      du[i][a] = in[(31 + i * 4 + a) * M];
+      x.sh[i][a] = in[(i * 4 + a) * M];
+      x.u[i][a] = in[(19 + i * 4 + a) * M];
+      x.du[i][a] = in[(31 + i * 4 + a) * M];
     }
-  const float det = in[12 * M];
-  const float m00 = in[13 * M], m01 = in[14 * M], m02 = in[15 * M];
-  const float m11 = in[16 * M], m12 = in[17 * M], m22 = in[18 * M];
+  x.det = in[12 * M];
+  x.m00 = in[13 * M];
+  x.m01 = in[14 * M];
+  x.m02 = in[15 * M];
+  x.m11 = in[16 * M];
+  x.m12 = in[17 * M];
+  x.m22 = in[18 * M];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    p[a] = in[(43 + a) * M];
-    phi[a] = in[(47 + a) * M];
-    tem[a] = in[(51 + a) * M];
-    dphi[a] = in[(55 + a) * M];
-    dtem[a] = in[(59 + a) * M];
-    src[a] = in[(63 + a) * M];
+    x.p[a] = in[(43 + a) * M];
+    x.phi[a] = in[(47 + a) * M];
+    x.tem[a] = in[(51 + a) * M];
+    x.dphi[a] = in[(55 + a) * M];
+    x.dtem[a] = in[(59 + a) * M];
+    x.src[a] = in[(63 + a) * M];
   }
-
-  const float gg = m00 * m00 + m11 * m11 + m22 * m22 +
-                   2.f * (m01 * m01 + m02 * m02 + m12 * m12);
-  float tr = m00 + m11 + m22;
-  tr = tr > 0.f ? tr : 1.f;  // dead or sliver columns: exact zeros, never NaN
-
-  auto dot4 = [](const float* x, const float* y) {
-    return x[0] * y[0] + x[1] * y[1] + x[2] * y[2] + x[3] * y[3];
-  };
-  float grad_u[3][3], grad_p[3], grad_phi[3], grad_t[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) grad_u[i][j] = dot4(u[i], sh[j]);
-    grad_p[i] = dot4(p, sh[i]);
-    grad_phi[i] = dot4(phi, sh[i]);
-    grad_t[i] = dot4(tem, sh[i]);
-  }
-  const float divu = grad_u[0][0] + grad_u[1][1] + grad_u[2][2];
-
-  float fm[3][4] = {}, fc[4] = {}, fphi[4] = {}, ft[4] = {};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float wq = static_cast<float>(kGw);
-    float sl[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) sl[a] = static_cast<float>(shl(q, a));
-    float uq[3], duq[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      uq[i] = dot4(sl, u[i]);
-      duq[i] = dot4(sl, du[i]);
-    }
-    const float pq = dot4(sl, p);
-    const float dphiq = dot4(sl, dphi);
-    const float dtemq = dot4(sl, dtem);
-    const float srcq = dot4(sl, src);
-
-    const float t1 = m00 * uq[0] * uq[0] + m11 * uq[1] * uq[1] + m22 * uq[2] * uq[2] +
-                     2.f * (m01 * uq[0] * uq[1] + m02 * uq[0] * uq[2] + m12 * uq[1] * uq[2]);
-    const float tau_m = rsqrtf(t0 + t1 + visc3 * gg) / rho;
-    const float tau_c = sqrtf(t1 + visc3 * gg) / tr;
-    const float tau_phi = rsqrtf(t0 + t1);
-    const float tau_t = rsqrtf(t0 + t1 + alpha3 * gg) / rhocp;
-
-    float r_l[3], tmp0[3], ucor[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float conv = uq[0] * grad_u[i][0] + uq[1] * grad_u[i][1] + uq[2] * grad_u[i][2];
-      r_l[i] = rho * (duq[i] - fb[i] + conv) + grad_p[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) ucor[i] = uq[i] - tau_m * r_l[i];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      tmp0[i] = rho * (duq[i] - fb[i] + ucor[0] * grad_u[i][0] + ucor[1] * grad_u[i][1] +
-                       ucor[2] * grad_u[i][2]);
-    const float diag = -pq + rho * tau_c * divu;
-    float t1ij[3][3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        t1ij[i][j] = mu * (grad_u[i][j] + grad_u[j][i]) + rho * tau_m * r_l[i] * uq[j] -
-                     rho * tau_m * tau_m * r_l[i] * r_l[j] + (i == j ? diag : 0.f);
-
-    const float adv_phi = dphiq + (uq[0] * grad_phi[0] + uq[1] * grad_phi[1] + uq[2] * grad_phi[2]);
-    const float adv_t = rhocp * (dtemq + uq[0] * grad_t[0] + uq[1] * grad_t[1] + uq[2] * grad_t[2]);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        float acc = sl[a] * tmp0[i];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) acc += sh[j][a] * t1ij[i][j];
-        fm[i][a] += wq * acc;
-      }
-      fc[a] += wq * (sl[a] * divu + tau_m * (sh[0][a] * r_l[0] + sh[1][a] * r_l[1] + sh[2][a] * r_l[2]));
-      const float shconv = uq[0] * sh[0][a] + uq[1] * sh[1][a] + uq[2] * sh[2][a];
-      fphi[a] += wq * adv_phi * (sl[a] + tau_phi * shconv);
-      ft[a] += wq * (adv_t - srcq) * (sl[a] + rhocp * tau_t * shconv);
-    }
-  }
-  const float kdiff = static_cast<float>(kGwSum * prm.kappa);
-  float* o = out + static_cast<size_t>(blockIdx.y) * 24 * M + c;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    ft[a] += kdiff * (sh[0][a] * grad_t[0] + sh[1][a] * grad_t[1] + sh[2][a] * grad_t[2]);
-    o[(a * 6 + 0) * M] = fm[0][a] * det;
-    o[(a * 6 + 1) * M] = fm[1][a] * det;
-    o[(a * 6 + 2) * M] = fm[2][a] * det;
-    o[(a * 6 + 3) * M] = fc[a] * det;
-    o[(a * 6 + 4) * M] = fphi[a] * det;
-    o[(a * 6 + 5) * M] = ft[a] * det;
-  }
+  res_body(x, prm, out + static_cast<size_t>(blockIdx.y) * 24 * M + c, M);
 }
 
 __global__ void __launch_bounds__(128)
@@ -184,99 +74,18 @@ lhs_rows_kernel(const float* __restrict__ inp,  // (S, 27, m)
   if (c >= m) return;
   const size_t M = static_cast<size_t>(m);
   const float* in = inp + static_cast<size_t>(blockIdx.y) * 27 * M + c;
-
-  const float rho = static_cast<float>(prm.rho);
-  const float t0 = static_cast<float>(4.0 / (prm.dt * prm.dt));
-  const float visc2 = static_cast<float>(3.0 * (prm.mu / prm.rho) * (prm.mu / prm.rho));
-  const float f2rho = static_cast<float>(prm.f2 * prm.rho);
-  const float f1rho = static_cast<float>(prm.f1 * prm.rho);
-  const float f2 = static_cast<float>(prm.f2);
-  const float f2mu = static_cast<float>(prm.f2 * prm.mu * kGwSum);
-  const float gw = static_cast<float>(kGw);
-
-  float sh[3][4], u[3][4];
+  LhsInputs x;
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      sh[i][a] = in[(i * 4 + a) * M];
-      u[i][a] = in[(12 + i * 4 + a) * M];
+      x.sh[i][a] = in[(i * 4 + a) * M];
+      x.u[i][a] = in[(12 + i * 4 + a) * M];
     }
-  const float det = in[24 * M];
-  const float gg = in[25 * M];
-  const float tr = in[26 * M];
-  const float tr_safe = tr > 0.f ? tr : 1.f;  // pallas_kernels.py:128
-
-  float shconv[4][4], tau0[4];
-  float gs_conv[4] = {}, gs_shl[4] = {}, tau0_sum = 0.f, c_grad2 = 0.f;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    float uq[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      float s = static_cast<float>(shl(q, 0)) * u[i][0];
-#pragma unroll
-      for (int a = 1; a < 4; ++a) s += static_cast<float>(shl(q, a)) * u[i][a];
-      uq[i] = s;
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) shconv[q][a] = uq[0] * sh[0][a] + uq[1] * sh[1][a] + uq[2] * sh[2][a];
-    // vertices 1..3 only, as in the reference body (pallas_kernels._lhs_rows)
-    const float adv2 = shconv[q][1] * shconv[q][1] + shconv[q][2] * shconv[q][2] +
-                       shconv[q][3] * shconv[q][3];
-    tau0[q] = rsqrtf(t0 + adv2 + visc2 * gg) / rho;
-    const float tau1 = sqrtf(adv2 + visc2 * gg) / tr_safe;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      gs_conv[a] += gw * tau0[q] * shconv[q][a];
-      gs_shl[a] += gw * tau0[q] * static_cast<float>(shl(q, a));
-    }
-    tau0_sum += gw * tau0[q];
-    c_grad2 += (f2rho * gw) * tau1;
-  }
-
-  const float c1 = static_cast<float>(prm.f1 * prm.rho * prm.rho * kGw);
-  const float c2 = static_cast<float>(prm.f2 * prm.rho * kGw);
-  const float c3 = static_cast<float>(prm.f2 * prm.rho * prm.rho * kGw);
-  const float ident = det > 0.f ? 1.f : 0.f;
-  float* o = out + static_cast<size_t>(blockIdx.y) * 288 * M + c;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      float tmp = f1rho * static_cast<float>(mass(a, b));
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float sa = static_cast<float>(shl(q, a));
-        const float sb = static_cast<float>(shl(q, b));
-        tmp += c1 * tau0[q] * shconv[q][a] * sb + c2 * sa * shconv[q][b] +
-               c3 * tau0[q] * shconv[q][a] * shconv[q][b];
-      }
-      const float e_k = sh[0][a] * sh[0][b] + sh[1][a] * sh[1][b] + sh[2][a] * sh[2][b];
-      tmp += f2mu * e_k;
-      float* op = o + static_cast<size_t>((a * 4 + b) * 18) * M;
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          float v = f2mu * sh[j][a] * sh[i][b] + c_grad2 * sh[i][a] * sh[j][b];
-          if (i == j) v += tmp;
-          op[(i * 3 + j) * M] = v * det;
-        }
-      const float gwshl_a = static_cast<float>(gwshl(a));
-      const float gwshl_b = static_cast<float>(gwshl(b));
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        op[(9 + i) * M] = (-sh[i][a] * gwshl_b + rho * gs_conv[a] * sh[i][b]) * det;
-        op[(12 + i) * M] = (f1rho * sh[i][a] * gs_shl[b] + f2 * gwshl_a * sh[i][b] +
-                            f2rho * sh[i][a] * gs_conv[b]) * det;
-      }
-      op[15 * M] = tau0_sum * e_k * det;
-      // state-independent phi-phi / T-T identities
-      op[16 * M] = a == b ? ident : 0.f;
-      op[17 * M] = a == b ? ident : 0.f;
-    }
-  }
+  x.det = in[24 * M];
+  x.gg = in[25 * M];
+  x.tr = in[26 * M];
+  lhs_body(x, prm, out + static_cast<size_t>(blockIdx.y) * 288 * M + c, M);
 }
 
 }  // namespace dedflow

@@ -1,0 +1,136 @@
+// K4 and K5: the element residual and the packed element Jacobian of the
+// general gather tier, each fused with the gather of its element's nodal
+// states.
+//
+// Replaces the TPU kernels of dedflow_tpu/fem/pallas_kernels.py:
+// - K4 ns_residual_pallas (pallas_call at :434, kernel _res_kernel): the
+//   alpha states of each element's 4 nodes gathered into packed (67, ne)
+//   rows, then the residual body -> (24, ne) rows a*6+c;
+// - K5 ns_lhs_packed_pallas (pallas_call at :507, kernel _lhs_kernel): the
+//   nodal velocities gathered into packed (27, ne) rows, then the Jacobian
+//   body -> (288, ne) rows ab*18+c.
+// The plain torch versions are dedflow_tpu_torch/fem/element_kernels.py::
+// ns_residual_gather_plain / ns_lhs_gather_plain (an index gather, then
+// element_rows.res_rows / lhs_rows).
+//
+// Design (simple and right first): one thread per element. It reads its 4
+// node ids and its geometry rows (coalesced across the warp along the element
+// axis), gathers w, dw and the source straight from the component-major
+// (6, N) states into registers, runs the element body of element_body.cuh
+// (the body K6 runs) and writes its 24 or 288 output rows, coalesced along
+// the element axis. The TPU path's packed (67, ne) / (27, ne) intermediate
+// is never written to memory. Geometry and connectivity may be row-strided
+// views (ld = row stride in elements), so an element range of a larger
+// context runs without a copy.
+// What bounds it on an H100: the Jacobian as K6's, FP32 instruction
+// throughput and registers; its 1152 output bytes per element are written
+// once. The residual reads 44 gathered state values per element: a node's
+// components lie N apart, so each is its own 32-byte sector, served from L2
+// (the (6, N) states of 175,616 nodes are 4.2 MB each) when the node order
+// is not local.
+
+#include "element_body.cuh"
+
+namespace dedflow {
+
+__global__ void __launch_bounds__(128)
+res_gather_kernel(const float* __restrict__ geom, long long geom_ld,  // (19, ld)
+                  const int* __restrict__ ien, long long ien_ld,     // (4, ld)
+                  const float* __restrict__ w,                       // (6, n)
+                  const float* __restrict__ dw,                      // (6, n)
+                  const float* __restrict__ src,                     // (n,) or null
+                  int n, int m, RowsResParams prm,
+                  float* __restrict__ out) {                         // (24, m)
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= m) return;
+  const size_t G = static_cast<size_t>(geom_ld);
+  const size_t N = static_cast<size_t>(n);
+  const float* g = geom + e;
+  ResInputs x;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) x.sh[i][a] = g[(i * 4 + a) * G];
+  x.det = g[12 * G];
+  x.m00 = g[13 * G];
+  x.m01 = g[14 * G];
+  x.m02 = g[15 * G];
+  x.m11 = g[16 * G];
+  x.m12 = g[17 * G];
+  x.m22 = g[18 * G];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const size_t nd = static_cast<size_t>(ien[a * ien_ld + e]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      x.u[i][a] = w[i * N + nd];
+      x.du[i][a] = dw[i * N + nd];
+    }
+    x.p[a] = dw[3 * N + nd];  // the pressure travels in the rate state
+    x.phi[a] = w[4 * N + nd];
+    x.tem[a] = w[5 * N + nd];
+    x.dphi[a] = dw[4 * N + nd];
+    x.dtem[a] = dw[5 * N + nd];
+    x.src[a] = src != nullptr ? src[nd] : 0.f;
+  }
+  res_body(x, prm, out + e, static_cast<size_t>(m));
+}
+
+__global__ void __launch_bounds__(128)
+lhs_gather_kernel(const float* __restrict__ geom, long long geom_ld,  // (15, ld)
+                  const int* __restrict__ ien, long long ien_ld,     // (4, ld)
+                  const float* __restrict__ w,                       // (>= 3, n)
+                  int n, int m, RowsLhsParams prm,
+                  float* __restrict__ out) {                         // (288, m)
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= m) return;
+  const size_t G = static_cast<size_t>(geom_ld);
+  const size_t N = static_cast<size_t>(n);
+  const float* g = geom + e;
+  LhsInputs x;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const size_t nd = static_cast<size_t>(ien[a * ien_ld + e]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      x.sh[i][a] = g[(i * 4 + a) * G];
+      x.u[i][a] = w[i * N + nd];
+    }
+  }
+  x.det = g[12 * G];
+  x.gg = g[13 * G];
+  x.tr = g[14 * G];
+  lhs_body(x, prm, out + e, static_cast<size_t>(m));
+}
+
+}  // namespace dedflow
+
+// K4: (24, m) element residual rows of elements [0, m) of the strided views.
+extern "C" int dedflow_res_gather(const void* geom, long long geom_ld, const void* ien,
+                                  long long ien_ld, const void* w, const void* dw,
+                                  const void* src, int n, int m, double rho, double mu,
+                                  double cp, double kappa, double fb0, double fb1, double fb2,
+                                  double dt, void* out, void* stream) {
+  using namespace dedflow;
+  if (m <= 0 || n <= 0 || geom_ld < m || ien_ld < m) return static_cast<int>(cudaErrorInvalidValue);
+  const RowsResParams prm{rho, mu, cp, kappa, fb0, fb1, fb2, dt};
+  res_gather_kernel<<<(m + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(geom), geom_ld, static_cast<const int*>(ien), ien_ld,
+      static_cast<const float*>(w), static_cast<const float*>(dw),
+      static_cast<const float*>(src), n, m, prm, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5: (288, m) packed element Jacobian rows of elements [0, m).
+extern "C" int dedflow_lhs_gather(const void* geom, long long geom_ld, const void* ien,
+                                  long long ien_ld, const void* w, int n, int m, double rho,
+                                  double mu, double f1, double f2, double dt, void* out,
+                                  void* stream) {
+  using namespace dedflow;
+  if (m <= 0 || n <= 0 || geom_ld < m || ien_ld < m) return static_cast<int>(cudaErrorInvalidValue);
+  const RowsLhsParams prm{rho, mu, f1, f2, dt};
+  lhs_gather_kernel<<<(m + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(geom), geom_ld, static_cast<const int*>(ien), ien_ld,
+      static_cast<const float*>(w), n, m, prm, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

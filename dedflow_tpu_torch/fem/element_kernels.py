@@ -1,5 +1,7 @@
-"""K6: the element-row kernels (counterpart of the row entry points of
-dedflow_tpu/fem/pallas_kernels.py: `res_rows_call` and `lhs_rows_call`).
+"""K6, K4 and K5: the element kernels (counterparts of
+dedflow_tpu/fem/pallas_kernels.py's row entry points `res_rows_call` /
+`lhs_rows_call` and of its gather entry points `ns_residual_pallas` /
+`ns_lhs_packed_pallas`).
 
 `res_rows_call` maps (67, M) packed residual inputs to (24, M) element
 residual rows a*6+c; `lhs_rows_call` maps (27, M) packed Jacobian inputs
@@ -10,6 +12,18 @@ dedflow_tpu/fem/pallas_kernels.py::_pallas_rows_call running `_res_kernel`
 / `_lhs_kernel`; on a CPU tensor they run the plain bodies
 `element_rows.res_rows` / `element_rows.lhs_rows`. Nothing falls back: a
 CUDA tensor the kernel cannot take raises.
+
+K4 `ns_residual_gather` and K5 `ns_lhs_gather` are the general gather
+tier's element passes: they take the static geometry rows (19, ne) /
+(15, ne), the connectivity ien_t (4, ne) and the component-major (6, N)
+alpha states, and return the same (24, ne) / (288, ne) rows as K6. On a
+CUDA tensor they launch csrc/gather_elements.cu, which gathers each
+element's nodal states into registers and runs K6's element body
+(csrc/element_body.cuh), so the packed (67, ne) / (27, ne) inputs of the
+TPU entry points are never written; on a CPU tensor they run their plain twins,
+an index gather (`res_gather_inputs`, `lhs_gather_inputs`) followed by
+`res_rows` / `lhs_rows`. Geometry and connectivity may be column slices
+of a larger context (a row-strided view): the kernels read them in place.
 
 The 33-row implicit-scalar Jacobian (melt-pool tangents) and the
 `comp_major` output order are not ported (ROADMAP queue A12).
@@ -101,3 +115,120 @@ def lhs_rows_call(
 
 
 lhs_rows_call.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5: element passes fused with the nodal-state gather
+
+
+def res_gather_inputs(res_geom, ien_t, w_t, dw_t, source=None) -> torch.Tensor:
+    """(67, ne) K6 residual input rows: geometry, then the element nodes'
+    u, du (rows i*4+a), p (dw slot 3), phi, T, dphi, dT and the heat
+    source (zeros without one). States are (6, N); ien_t (4, ne)."""
+    ne = ien_t.shape[1]
+    idx = ien_t.long()
+    gw, gd = w_t[:, idx], dw_t[:, idx]  # (6, 4, ne)
+    src = (torch.zeros((4, ne), dtype=w_t.dtype, device=w_t.device)
+           if source is None else source[idx])
+    return torch.cat([
+        res_geom, gw[:3].reshape(12, ne), gd[:3].reshape(12, ne),
+        gd[3], gw[4], gw[5], gd[4], gd[5], src,
+    ])
+
+
+def lhs_gather_inputs(lhs_geom, ien_t, w_t) -> torch.Tensor:
+    """(27, ne) K6 Jacobian input rows: shape gradients, the element
+    nodes' velocity (rows i*4+a), det, gg, tr."""
+    u = w_t[:3][:, ien_t.long()].reshape(12, ien_t.shape[1])
+    return torch.cat([lhs_geom[:12], u, lhs_geom[12:]])
+
+
+def ns_residual_gather_plain(res_geom, ien_t, w_t, dw_t, phys, scheme, source=None):
+    """K4's plain twin: (24, ne) rows a*6+c."""
+    return res_rows(res_gather_inputs(res_geom, ien_t, w_t, dw_t, source), **res_args(phys, scheme))
+
+
+def ns_lhs_gather_plain(lhs_geom, ien_t, w_t, phys, scheme):
+    """K5's plain twin: (288, ne) rows ab*18+c."""
+    return lhs_rows(lhs_gather_inputs(lhs_geom, ien_t, w_t), **lhs_args(phys, scheme))
+
+
+def _check_gather(what: str, geom, rows: int, ien_t, states) -> tuple[int, int]:
+    """(N, ne) of float32 CUDA inputs the gather kernels take: geometry
+    (rows, ne) and ien_t (4, ne) int32 with unit element stride (a column
+    slice is fine), contiguous (C, N) states on the same card."""
+    ne = ien_t.shape[-1]
+    if geom.dim() != 2 or geom.shape != (rows, ne) or ien_t.dim() != 2 or ien_t.shape[0] != 4 or ne == 0:
+        raise ValueError(f"{what} kernel: geometry ({rows}, ne) and ien_t (4, ne), "
+                         f"got {tuple(geom.shape)} and {tuple(ien_t.shape)}")
+    if geom.dtype != torch.float32 or ien_t.dtype != torch.int32:
+        raise ValueError(f"{what} kernel: float32 geometry and int32 ien_t, got {geom.dtype}, {ien_t.dtype}")
+    if geom.stride(1) != 1 or ien_t.stride(1) != 1:
+        raise ValueError(f"{what} kernel: geometry and ien_t need a unit element stride")
+    n = states[0].shape[1]
+    for s in states:
+        if s is None:
+            continue
+        if s.dtype != torch.float32 or not s.is_contiguous() or s.shape[-1] != n:
+            raise ValueError(f"{what} kernel: states must be contiguous float32 (C, N)")
+    if any(t is not None and t.device != geom.device for t in (ien_t, *states)):
+        raise ValueError(f"{what} kernel: inputs on different devices")
+    return n, ne
+
+
+def ns_residual_gather(res_geom, ien_t, w_t, dw_t, phys: Physics, scheme: TimeScheme, source=None):
+    """K4: (24, ne) element residual rows a*6+c of the gathered (6, N)
+    alpha states (`source` (N,) or None). The CUDA kernel on CUDA tensors,
+    the plain twin on CPU tensors."""
+    if not w_t.is_cuda:
+        return ns_residual_gather_plain(res_geom, ien_t, w_t, dw_t, phys, scheme, source)
+    if w_t.shape[0] != 6 or dw_t.shape != w_t.shape or (source is not None and source.shape != w_t.shape[1:]):
+        raise ValueError("res_gather kernel: states (6, N) and a source (N,) or None")
+    n, ne = _check_gather("res_gather", res_geom, 19, ien_t, (w_t, dw_t, source))
+    a = res_args(phys, scheme)
+    fn = nvcc.function(
+        "gather_elements", "dedflow_res_gather",
+        [nvcc.P, nvcc.LL, nvcc.P, nvcc.LL, nvcc.P, nvcc.P, nvcc.P, nvcc.I, nvcc.I]
+        + [nvcc.D] * 8 + [nvcc.P, nvcc.P],
+    )
+    out = torch.empty((24, ne), dtype=torch.float32, device=w_t.device)
+    nvcc.check(
+        fn(res_geom.data_ptr(), res_geom.stride(0), ien_t.data_ptr(), ien_t.stride(0),
+           w_t.data_ptr(), dw_t.data_ptr(), None if source is None else source.data_ptr(),
+           n, ne, a["rho"], a["mu"], a["cp"], a["kappa"], *a["fb"], a["dt"],
+           out.data_ptr(), torch.cuda.current_stream(w_t.device).cuda_stream),
+        "res_gather",
+    )
+    ns_residual_gather.launches += 1
+    return out
+
+
+ns_residual_gather.launches = 0
+
+
+def ns_lhs_gather(lhs_geom, ien_t, w_t, phys: Physics, scheme: TimeScheme):
+    """K5: (288, ne) packed element Jacobian rows ab*18+c (frozen-scalar
+    mode) of the gathered (6, N) state w (its velocity rows). The CUDA
+    kernel on CUDA tensors, the plain twin on CPU tensors."""
+    if not w_t.is_cuda:
+        return ns_lhs_gather_plain(lhs_geom, ien_t, w_t, phys, scheme)
+    if w_t.shape[0] < 3:
+        raise ValueError("lhs_gather kernel: the state needs its 3 velocity rows")
+    n, ne = _check_gather("lhs_gather", lhs_geom, 15, ien_t, (w_t,))
+    a = lhs_args(phys, scheme)
+    fn = nvcc.function(
+        "gather_elements", "dedflow_lhs_gather",
+        [nvcc.P, nvcc.LL, nvcc.P, nvcc.LL, nvcc.P, nvcc.I, nvcc.I] + [nvcc.D] * 5 + [nvcc.P, nvcc.P],
+    )
+    out = torch.empty((288, ne), dtype=torch.float32, device=w_t.device)
+    nvcc.check(
+        fn(lhs_geom.data_ptr(), lhs_geom.stride(0), ien_t.data_ptr(), ien_t.stride(0),
+           w_t.data_ptr(), n, ne, a["rho"], a["mu"], a["f1"], a["f2"], a["dt"],
+           out.data_ptr(), torch.cuda.current_stream(w_t.device).cuda_stream),
+        "lhs_gather",
+    )
+    ns_lhs_gather.launches += 1
+    return out
+
+
+ns_lhs_gather.launches = 0

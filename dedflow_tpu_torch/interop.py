@@ -2,7 +2,9 @@
 forms into the port's objects. Imports no jax: every input is a dict or a
 NumPy array, which is what the JAX package exposes (`config._to_dict`,
 `dataclasses.asdict` of its DEM configs, `reference_initial_state`,
-`np.asarray` of an FSDIAMatrixT's or a ParticleState's arrays)."""
+`np.asarray` of an FSDIAMatrixT's, an FSBSRMatrix's or a ParticleState's
+arrays). Tensors land on the card unless `device` says otherwise, as the
+JAX package's land on its default backend."""
 
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from dedflow_tpu_torch.dem.grid import GridState
 from dedflow_tpu_torch.dem.integrate import DEMConfig
 from dedflow_tpu_torch.dem.particles import ParticleState, particle_state
 from dedflow_tpu_torch.sparse.fsbsr import FSDIAMatrixT
-from dedflow_tpu_torch.sparse.winell import NUM_ROWS, WinELLMatrixT, WinPlan
+from dedflow_tpu_torch.sparse.topology import Sparsity
+from dedflow_tpu_torch.sparse.winell import NUM_ROWS, WIN2COMP, WinELLMatrixT, WinPlan
 from dedflow_tpu_torch.utils.dtypes import default_dtype, resolve_device
 
 
@@ -27,7 +30,7 @@ def config_from_dict(d: dict) -> config.SolverConfig:
     return config.from_dict(d)
 
 
-def state_from_numpy(wg, dwgold, dwg, device="cpu", dtype=None):
+def state_from_numpy(wg, dwgold, dwg, device="cuda", dtype=None):
     """(N, 6) states (reference_initial_state) -> three tensors."""
     dev = resolve_device(device)
     dtype = dtype or default_dtype(dev)
@@ -36,7 +39,7 @@ def state_from_numpy(wg, dwgold, dwg, device="cpu", dtype=None):
     )
 
 
-def dia_from_numpy(data, scal, offsets, num_node, device="cpu", dtype=None) -> FSDIAMatrixT:
+def dia_from_numpy(data, scal, offsets, num_node, device="cuda", dtype=None) -> FSDIAMatrixT:
     """An FSDIAMatrixT from the JAX package's arrays: data (D, 16, W) and
     scal (>= 2D, W) with W >= num_node. The TPU's lane and row padding is
     dropped."""
@@ -71,7 +74,27 @@ def winell_from_numpy(vals, entry_of_nnz, plan: WinPlan, dtype=None) -> WinELLMa
     )
 
 
-def particles_from_numpy(x, v, mass, radius, device="cpu", dtype=None) -> ParticleState:
+def fsbsr_from_numpy(data, sparsity: Sparsity, plan: WinPlan, dtype=None) -> WinELLMatrixT:
+    """The port's CSR-entry matrix from the JAX package's FSBSRMatrix data
+    (N, PR, 18) in ELL row layout (sparse/fsbsr.py:64-189): CSR nonzero k
+    is ELL slot `nnz_to_ell[k]` of `sparsity.ell_tables()`, its 18
+    components go to the WinELL rows COMP2WIN. `plan` is the port's plan of
+    the same sparsity, on the device the matrix should live on."""
+    data = np.asarray(data)
+    n, pr = sparsity.num_node, sparsity.max_row
+    if data.shape != (n, pr, 18):
+        raise ValueError(f"FSBSR data must be ({n}, {pr}, 18), got {data.shape}")
+    _, nnz_to_ell, _ = sparsity.ell_tables()
+    packed = data.reshape(n * pr, 18)[nnz_to_ell].T  # (18, nnz) fsbsr comps
+    dev = plan.row_ptr_t.device
+    return WinELLMatrixT(
+        vals=torch.tensor(np.ascontiguousarray(packed[WIN2COMP]),
+                          dtype=dtype or default_dtype(dev), device=dev),
+        plan=plan,
+    )
+
+
+def particles_from_numpy(x, v, mass, radius, device="cuda", dtype=None) -> ParticleState:
     """A ParticleState from the JAX package's (P, 3) / (P,) arrays."""
     return particle_state(x, v, mass=mass, radius=radius, device=device, dtype=dtype)
 
@@ -103,7 +126,7 @@ def coupled_config_from_dict(d: dict) -> CoupledConfig:
     )
 
 
-def grid_state_from_numpy(pos, vel, radius, mask, pid, device="cpu", dtype=None) -> GridState:
+def grid_state_from_numpy(pos, vel, radius, mask, pid, device="cuda", dtype=None) -> GridState:
     """A GridState from the JAX package's (K, NC) arrays; pos and vel are
     three arrays each (or a (3, K, NC) array)."""
     dev = resolve_device(device)

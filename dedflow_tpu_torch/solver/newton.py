@@ -8,14 +8,15 @@ dedflow_tpu/solver/newton.py).
   update:    wgold[vel,phi,T] += dt((1-g) dwgold + g dwg);
              dwgold = dwg                               (main.c:561-565)
 
-Two assembly tiers are ported, chosen by the JAX package's ladder
+Three assembly tiers are ported, chosen by the JAX package's ladder
 (newton.py:560-672): the structured lattice of a generated box mesh
-(fem.lattice) and the windowed irregular tier (fem.win_assembly), with
-the field-split preconditioner and the linear solve in the state dtype.
-A mesh the JAX package would put on its translation-class or general
-gather tier, and every other unported option, raises NotImplementedError
-naming the ROADMAP item that brings it; nothing silently takes another
-path. The adaptive Newton loop reads the four field norms to the host
+(fem.lattice), the windowed irregular tier (fem.win_assembly) and the
+general gather tier (fem.assembly + fem.ns: any mesh, any node order,
+and every `assembly_chunk` run), with the field-split preconditioner and
+the linear solve in the state dtype. A mesh the JAX package would put on
+its translation-class tier, and every other unported option, raises
+NotImplementedError naming the ROADMAP item that brings it; nothing
+silently takes another path. The adaptive Newton loop reads the four field norms to the host
 once per Newton iteration, the reference's own sync granularity
 (main.c:262-265).
 """
@@ -29,6 +30,8 @@ import torch
 
 from dedflow_tpu_torch.config import SolverConfig
 from dedflow_tpu_torch.fem import dirichlet as dbc
+from dedflow_tpu_torch.fem import ns
+from dedflow_tpu_torch.fem.assembly import FEMContext, build_context
 from dedflow_tpu_torch.fem.element_rows import alpha_states
 from dedflow_tpu_torch.fem.face import build_face_context
 from dedflow_tpu_torch.fem.lattice import (
@@ -54,16 +57,20 @@ from dedflow_tpu_torch.sparse.win_stream import stream_window_counts
 from dedflow_tpu_torch.utils.dtypes import default_dtype, disable_tf32, resolve_device
 
 # ---------------------------------------------------------------------------
-# stepping functions (contexts passed explicitly: a LatticeContext or a
-# WinAssemblyContext)
+# stepping functions (contexts passed explicitly: a LatticeContext, a
+# WinAssemblyContext or a FEMContext)
 
 
 def residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze,
              nodal_force=None):
     """(6, N) residual at the alpha states; `nodal_force` (N, 3) is a nodal
     momentum load subtracted from the momentum rows before freeze and
-    mask (the JAX package's placement on both tiers)."""
+    mask (the JAX package's placement on every tier)."""
     wa, dwa = alpha_states(wgold, dwgold, dwg, scheme)
+    if isinstance(ctx, FEMContext):
+        return ns.assemble_residual(
+            ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze, nodal_force=nodal_force
+        )
     if isinstance(ctx, WinAssemblyContext):
         f = residual_win(ctx, wa, dwa, phys, scheme, face_ctxs)
         if nodal_force is not None:
@@ -79,7 +86,9 @@ def residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze,
 def assemble_system(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme):
     """The Jacobian and its field-split preconditioner at the current state."""
     wa, dwa = alpha_states(wgold, dwgold, dwg, scheme)
-    if isinstance(ctx, WinAssemblyContext):
+    if isinstance(ctx, FEMContext):
+        jmat = ns.assemble_jacobian(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme)
+    elif isinstance(ctx, WinAssemblyContext):
         jmat = jacobian_win(
             ctx, wa, phys, scheme, dw_alpha=dwa, face_ctxs=face_ctxs
         ).zero_rows_t(mask_t)
@@ -210,9 +219,7 @@ def _refuse_unported(mesh: Mesh, cfg: SolverConfig) -> None:
     """NotImplementedError for every option the port lacks (the tier is
     chosen, or refused, by _choose_tier)."""
     checks = [
-        (cfg.assembly_chunk is not None, "assembly_chunk (streaming assembly)", "A13"),
-        (cfg.use_lattice in ("off", "gather"),
-         f"use_lattice={cfg.use_lattice!r} (classes or general gather tier)", "A10/A13"),
+        (cfg.use_lattice == "off", "use_lattice='off' (the classes tier)", "A10"),
         (mesh.extra_cells != [], "prism/hex stencil cells", "A13"),
         (cfg.lattice_backend is not None, f"lattice_backend={cfg.lattice_backend!r}", "A9"),
         (cfg.implicit_scalars, "implicit_scalars (melt-pool tangents, 33-row K6)", "A12"),
@@ -251,11 +258,15 @@ def _winell_gate(mesh: Mesh) -> bool:
 
 def _choose_tier(mesh: Mesh, cfg: SolverConfig) -> str:
     """The assembly tier the JAX package's ladder picks (newton.py:560-672):
-    "lattice" or "winell"; the classes and general gather tiers raise
-    NotImplementedError (ROADMAP A10, A13)."""
+    "lattice", "winell" or "gather" (forced by use_lattice="gather" or an
+    assembly chunk, and the floor "auto" falls to when the WinELL gate
+    rejects the node order); the classes tier raises NotImplementedError
+    (ROADMAP A10)."""
     mode = cfg.use_lattice
-    if mode not in ("auto", "on", "winell"):
+    if mode not in ("auto", "on", "winell", "gather"):
         raise ValueError(f"unknown use_lattice={mode!r}")
+    if mode == "gather" or cfg.assembly_chunk is not None:
+        return "gather"
     ien = np.asarray(mesh.ien, dtype=np.int64)
     mesh_offs = tuple(
         int(o) for o in np.unique(ien[:, None, :] - ien[:, :, None])
@@ -281,10 +292,7 @@ def _choose_tier(mesh: Mesh, cfg: SolverConfig) -> str:
             )
     if mesh.num_tet > 0 and (mode == "winell" or _winell_gate(mesh)):
         return "winell"
-    raise NotImplementedError(
-        "dedflow_tpu_torch does not port the general gather tier (a mesh without a "
-        "locality-preserving order, e.g. not RCM-reordered) yet (ROADMAP queue A13)"
-    )
+    return "gather"
 
 
 class NSSolver:
@@ -292,7 +300,7 @@ class NSSolver:
     one device. `device` is "cuda" unless the caller asks for "cpu" (as
     the JAX NSSolver runs on the accelerator); without a card a CUDA
     request raises. The dtype defaults to float64 on the CPU and float32
-    on CUDA. `fastpath` names the tier: "lattice" or "winell"."""
+    on CUDA. `fastpath` names the tier: "lattice", "winell" or "gather"."""
 
     def __init__(self, mesh: Mesh, cfg: SolverConfig, device="cuda", dtype=None):
         _refuse_unported(mesh, cfg)
@@ -304,7 +312,7 @@ class NSSolver:
         self.cfg = cfg
         self.fastpath = _choose_tier(mesh, cfg)
         weak = [bc.boundary for bc in cfg.bcs if bc.weak]
-        self.lctx = self.wctx = None
+        self.lctx = self.wctx = self.gctx = None
         if self.fastpath == "lattice":
             self.lctx = build_lattice_context(mesh, self.device, self.dtype)
             self.face_ctxs = tuple(
@@ -313,12 +321,18 @@ class NSSolver:
             )
         else:
             sparsity = build_sparsity(mesh.ien, mesh.num_node)
-            self.wctx = build_win_context(
-                mesh, sparsity, self.device, self.dtype, cfg.win_jac_scatter
-            )
+            if self.fastpath == "winell":
+                self.wctx = build_win_context(
+                    mesh, sparsity, self.device, self.dtype, cfg.win_jac_scatter
+                )
+            else:
+                self.gctx = build_context(
+                    mesh, sparsity, self.device, self.dtype, cfg.assembly_chunk,
+                    cfg.scatter_method, cfg.elements_kernel,
+                )
             self.face_ctxs = attach_face_win_plans(
                 tuple(build_face_context(mesh, b, None, self.device, self.dtype) for b in weak),
-                sparsity, self.wctx.win_plan,
+                sparsity, self.solve_ctx.win_plan,
             )
         strong = [
             dbc.StrongBC(bc.boundary, tuple(bc.strong_components))
@@ -333,7 +347,7 @@ class NSSolver:
     @property
     def solve_ctx(self):
         """The assembly context the stepping functions take."""
-        return self.lctx if self.lctx is not None else self.wctx
+        return next(c for c in (self.lctx, self.wctx, self.gctx) if c is not None)
 
     def _common(self):
         cfg = self.cfg

@@ -12,6 +12,21 @@ Plane k couples row n to column n + offsets[k]. The TPU layout's 128-lane
 width padding and 8-row scal padding are tiling artefacts and are not
 carried over: the width is exactly N and scal has exactly 2*D rows.
 
+The JAX package's other field-split matrix, FSBSRMatrix (fsbsr.py:64-189,
+the general gather tier's), pads every row to the widest (N, PR, 18) ELL
+layout so that its SpMV is one row gather plus dense sums: its own
+docstring (fsbsr.py:11-22) says the layout exists to avoid TPU scatter and
+gather, and on a Delaunay mesh it stores about 2.7x the nonzeros. Its
+counterpart here is the CSR-entry matrix sparse.winell.WinELLMatrixT:
+ELL slot (r, p) of a valid row is CSR entry row_ptr[r] + p
+(topology.Sparsity.ell_tables), `data[r, p, c]` is `vals[COMP2WIN[c], k]`,
+`matvec` is `matvec_t` on (6, N) vectors (kernel K7), `diag_vel_blocks` /
+`diag_p` are rows of `diag_rows()`, `zero_rows` is `zero_rows_t` and
+`to_block_dense` is the same dense expansion; `interop.fsbsr_from_numpy`
+carries the JAX data over. The component-restricted products `matvec_up`
+/ `matvec_pu` / `matvec_pp` serve the SIMPLE preconditioner and wait for
+it (ROADMAP queue A11).
+
 Component order:
     0..8   uu[i*3+j]   d y_u[i] / d x_u[j]
     9..11  up[i]       d y_u[i] / d x_p

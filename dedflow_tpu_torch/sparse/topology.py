@@ -31,6 +31,31 @@ class Sparsity:
     def nnz(self) -> int:
         return int(self.col_ind.shape[0])
 
+    @property
+    def max_row(self) -> int:
+        """Max nonzeros in any row (the ELL width)."""
+        return int(np.diff(self.row_ptr).max())
+
+    def ell_tables(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The JAX package's ELL-padded row layout (topology.py:46-70):
+        (ell_col (N, PR), nnz_to_ell (nnz,), ell_valid (N, PR)). Slot
+        (r, p) holds the p-th nonzero of row r; padding slots point at the
+        row itself and are flagged invalid; `nnz_to_ell` relabels CSR
+        position k to r*PR + p. The port stores matrices in CSR order
+        (sparse.winell); these tables translate the JAX FSBSRMatrix's data
+        (interop.fsbsr_from_numpy)."""
+        n, pr = self.num_node, self.max_row
+        lens = np.diff(self.row_ptr)
+        ell_col = np.repeat(np.arange(n, dtype=np.int64), pr).reshape(n, pr)
+        slots = np.arange(pr)[None, :]
+        valid = slots < lens[:, None]
+        pos = self.row_ptr[:-1, None] + slots
+        ell_col[valid] = self.col_ind[pos[valid]]
+        nnz_to_ell = np.repeat(np.arange(n, dtype=np.int64) * pr, lens) + (
+            np.arange(self.nnz) - np.repeat(self.row_ptr[:-1], lens)
+        )
+        return ell_col.astype(INDEX_DTYPE), nnz_to_ell.astype(np.int64), valid
+
 
 def build_sparsity(ien: np.ndarray, num_node: int, extra_ien: list | None = None) -> Sparsity:
     """Nodal sparsity of the tet mesh and the element scatter map.
@@ -62,3 +87,13 @@ def build_sparsity(ien: np.ndarray, num_node: int, extra_ien: list | None = None
         elem_nnz=elem_nnz,
         diag_idx=diag_idx,
     )
+
+
+def scatter_permutation(elem_targets: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Sorted-scatter plan (topology.py:155-164): the stable permutation
+    making the flat element->target map non-decreasing. Returns (perm,
+    sorted_targets), both int32; within a target the contributions keep
+    their flat (element-major) order."""
+    flat = np.asarray(elem_targets, dtype=np.int64).ravel()
+    perm = np.argsort(flat, kind="stable").astype(INDEX_DTYPE)
+    return perm, flat[perm].astype(INDEX_DTYPE)

@@ -10,7 +10,6 @@ Nothing falls back: a CUDA tensor the kernel cannot take raises.
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -40,7 +39,7 @@ def _kernel(mat, x_t: torch.Tensor) -> torch.Tensor:
         raise ValueError("winell_matvec kernel: the plan lives on another device")
     fn = nvcc.function(
         "winell_spmv", "dedflow_winell_spmv",
-        [nvcc.P] * 5 + [nvcc.I, ctypes.c_longlong, nvcc.P],
+        [nvcc.P] * 5 + [nvcc.I, nvcc.LL, nvcc.P],
     )
     y = torch.empty((6, n), dtype=torch.float32, device=x_t.device)
     nvcc.check(

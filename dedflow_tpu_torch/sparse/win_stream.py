@@ -2,8 +2,9 @@
 (counterpart of dedflow_tpu/sparse/win_stream.py).
 
 The host plan (`build_reduce_plan`, NumPy) sorts the contributions by
-(target, source) and keeps, per target, the range of its contributions:
-`ptr` (num_tgt + 1,) and `src` (K,). A source index addresses a flat
+(target, source), or takes them presorted by target
+(`reduce_plan_from_sorted`), and keeps, per target, the range of its
+contributions: `ptr` (num_tgt + 1,) and `src` (K,). A source index addresses a flat
 tensor; output row r reads source component comps[r] at
 src[k] + comps[r] * cstride. For a plain (C, M) source that is
 comps = 0..C-1 and cstride = M; for the element residual rows (24, ne)
@@ -24,13 +25,13 @@ the solver's "auto" tier gate reads (solver/newton.py).
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from dedflow_tpu_torch.utils import nvcc
+from dedflow_tpu_torch.utils.dtypes import resolve_device
 
 
 @dataclass
@@ -40,28 +41,43 @@ class ReducePlan:
     num_tgt: int
     src_max: int  # largest source offset (-1 without contributions)
     ptr: torch.Tensor  # (num_tgt + 1,) int32
-    src: torch.Tensor  # (K,) int32, sorted by (target, source)
+    src: torch.Tensor  # (K,) int32, grouped by target, in summation order
 
 
-def build_reduce_plan(tgt, src, num_tgt: int, device="cpu") -> ReducePlan:
-    """Plan y[., tgt[k]] += x[., src[k]] over contributions k."""
+def build_reduce_plan(tgt, src, num_tgt: int, device="cuda") -> ReducePlan:
+    """Plan y[., tgt[k]] += x[., src[k]] over contributions k, each
+    target's contributions in source order. On the card unless `device`
+    says otherwise."""
+    tgt = np.asarray(tgt, dtype=np.int64).reshape(-1)
+    src = np.asarray(src, dtype=np.int64).reshape(-1)
+    if tgt.shape != src.shape:
+        raise ValueError("tgt and src must have the same length")
+    order = np.lexsort((src, tgt))
+    return reduce_plan_from_sorted(tgt[order], src[order], num_tgt, device)
+
+
+def reduce_plan_from_sorted(tgt, src, num_tgt: int, device="cuda") -> ReducePlan:
+    """The plan of contributions already sorted by target (non-decreasing
+    `tgt`); each target keeps its contributions in the given order."""
+    dev = resolve_device(device)
     tgt = np.asarray(tgt, dtype=np.int64).reshape(-1)
     src = np.asarray(src, dtype=np.int64).reshape(-1)
     if tgt.shape != src.shape:
         raise ValueError("tgt and src must have the same length")
     if tgt.size and (tgt.min() < 0 or tgt.max() >= num_tgt):
         raise ValueError("reduce plan: a target lies outside [0, num_tgt)")
+    if np.any(np.diff(tgt) < 0):
+        raise ValueError("reduce plan: targets must be sorted")
     if src.size and (src.min() < 0 or src.max() >= 2**31):
         raise ValueError("reduce plan: source offsets must lie in [0, 2**31)")
-    order = np.lexsort((src, tgt))
     ptr = np.zeros(num_tgt + 1, dtype=np.int64)
     np.cumsum(np.bincount(tgt, minlength=num_tgt), out=ptr[1:])
-    as_t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+    as_t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
     return ReducePlan(
         num_tgt=int(num_tgt),
         src_max=int(src.max()) if src.size else -1,
         ptr=as_t(ptr, torch.int32),
-        src=as_t(src[order], torch.int32),
+        src=as_t(src, torch.int32),
     )
 
 
@@ -101,7 +117,7 @@ def seg_reduce_kernel(
         raise ValueError(f"{what} kernel: a source offset lies outside x")
     fn = nvcc.function(
         "seg_reduce", symbol,
-        [nvcc.P, ctypes.c_longlong, nvcc.P, nvcc.P, nvcc.P, nvcc.I, nvcc.P, nvcc.I, nvcc.P],
+        [nvcc.P, nvcc.LL, nvcc.P, nvcc.P, nvcc.P, nvcc.I, nvcc.P, nvcc.I, nvcc.P],
     )
     out = torch.empty((len(comps), plan.num_tgt), dtype=torch.float32, device=x.device)
     nvcc.check(

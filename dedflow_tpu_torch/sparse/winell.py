@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from dedflow_tpu_torch.sparse.fsbsr import COMP_SLOTS, DIAG_COMPS, PHIPHI, PP, TT, PU, UP, UU
+from dedflow_tpu_torch.utils.dtypes import resolve_device
 
 NUM_ROWS = 18
 COMP2WIN = np.zeros(18, dtype=np.int64)  # fsbsr comp -> winell row
@@ -64,9 +65,11 @@ class WinPlan:
     diag_t: torch.Tensor  # (N,) int64
 
 
-def build_winell_plan(row_ptr, col_ind, num_node: int, device="cpu") -> WinPlan:
+def build_winell_plan(row_ptr, col_ind, num_node: int, device="cuda") -> WinPlan:
     """The entry layout of a CSR pattern (sparse.topology.build_sparsity):
-    one entry per nonzero, in CSR order."""
+    one entry per nonzero, in CSR order; on the card unless `device` says
+    otherwise."""
+    dev = resolve_device(device)
     row_ptr = np.asarray(row_ptr, dtype=np.int64)
     col = np.asarray(col_ind, dtype=np.int64)
     n = int(num_node)
@@ -77,7 +80,7 @@ def build_winell_plan(row_ptr, col_ind, num_node: int, device="cpu") -> WinPlan:
     is_diag = np.nonzero(col == grow)[0]
     if is_diag.size != n:
         raise ValueError("every row needs a diagonal entry")
-    as_t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+    as_t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
     return WinPlan(
         num_node=n, S=s, row_ptr=row_ptr, col=col, grow=grow,
         entry_of_nnz=np.arange(s, dtype=np.int64), diag_entry=is_diag,

@@ -127,6 +127,7 @@ def check(status: int, what: str) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 D = ctypes.c_double
 
 

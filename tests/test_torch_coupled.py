@@ -256,7 +256,7 @@ def test_coupled_step_matches_jax(coupled, use_grid, num_newton):
         num_newton=num_newton,
     )
     *tfluid, tp, tstats = ts.step(
-        *interop.state_from_numpy(*state),
+        *interop.state_from_numpy(*state, device="cpu"),
         interop.particles_from_numpy(x, None, 0.01, 0.02, device="cpu"), num_newton=num_newton,
     )
     for name, g, r in zip(("wgold", "dwgold", "dwg"), tfluid, jfluid):

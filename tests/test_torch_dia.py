@@ -27,6 +27,16 @@ from dedflow_tpu_torch import interop
 from dedflow_tpu_torch.solver.pc import NSFieldSplitPCT as TPC
 from dedflow_tpu_torch.sparse import dia_kernels as tdk
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the tier-1 run shares the CPU's cores among its
+    workers, and torch's own thread pool would oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 BOX = (6, 4, 4)
 N = 7 * 5 * 5
 W = 256  # TPU lane-padded width
@@ -65,7 +75,7 @@ def _jax(data, scal, offsets, dtype=jnp.float64, backend="xla"):
 
 def test_dia_from_numpy_drops_padding(mat):
     offsets, data, scal, _, _ = mat
-    m = interop.dia_from_numpy(data, scal, offsets, N)
+    m = interop.dia_from_numpy(data, scal, offsets, N, device="cpu")
     assert m.data.shape == (len(offsets), 16, N) and m.scal.shape == (2 * len(offsets), N)
     assert m.data.dtype == torch.float64 and torch.isfinite(m.data).all()
     assert rel(m.to_block_dense(), _jax(data, scal, offsets).to_block_dense()) < 1e-15
@@ -74,7 +84,7 @@ def test_dia_from_numpy_drops_padding(mat):
 def test_matvec_f64_matches_jax_xla(mat):
     offsets, data, scal, x, _ = mat
     ref = _jax(data, scal, offsets).matvec_t(jnp.asarray(x))
-    m = interop.dia_from_numpy(data, scal, offsets, N)
+    m = interop.dia_from_numpy(data, scal, offsets, N, device="cpu")
     got = tdk.dia_matvec_plain(m.data, m.scal, torch.as_tensor(x), offsets)
     assert rel(got.numpy(), ref) < 1e-13
     assert rel(m.matvec_t(torch.as_tensor(x)).numpy(), ref) < 1e-13
@@ -88,7 +98,7 @@ def test_matvec_f32_matches_pallas_interpret(mat):
         jnp.asarray(np.nan_to_num(scal[: 2 * nd]), jnp.float32),
         jnp.asarray(x, jnp.float32), offsets, interpret=True,
     )
-    m = interop.dia_from_numpy(data, scal, offsets, N, dtype=torch.float32)
+    m = interop.dia_from_numpy(data, scal, offsets, N, device="cpu", dtype=torch.float32)
     got = tdk.dia_matvec(m.data, m.scal, torch.as_tensor(x, dtype=torch.float32), offsets)
     assert got.dtype == torch.float32
     assert rel(got.numpy(), ref) < 1e-6
@@ -97,7 +107,7 @@ def test_matvec_f32_matches_pallas_interpret(mat):
 def test_diag_rows_zero_rows_and_pc_match_jax(mat):
     offsets, data, scal, x, mask_t = mat
     jm = _jax(data, scal, offsets)
-    tm = interop.dia_from_numpy(data, scal, offsets, N)
+    tm = interop.dia_from_numpy(data, scal, offsets, N, device="cpu")
     assert rel(tm.diag_rows().numpy(), jm.diag_rows()) < 1e-15
     jz = jm.zero_rows_t(jnp.asarray(mask_t))
     tz = tm.zero_rows_t(torch.as_tensor(mask_t))

@@ -22,6 +22,16 @@ from dedflow_tpu_torch.fem import element as tel
 from dedflow_tpu_torch.fem import element_rows as er
 
 NE, NDEAD = 48, 8
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the tier-1 run shares the CPU's cores among its
+    workers, and torch's own thread pool would oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 PHYS = Physics()
 SCHEME = TimeScheme()
 

@@ -7,9 +7,9 @@ file imports no JAX, so it also runs on a machine without it:
 
 (`--noconftest` because tests/conftest.py configures JAX.) Inputs are
 made with numpy from a seed on an odd-sized box (lattice kernels K1-K3),
-on an RCM-ordered Delaunay mesh (irregular-tier kernels K6-K9) and on a
-particle cloud bucketed onto a cell grid (the DEM contact sweep K11),
-float32 on the card. Relative error = max|kernel - plain| / max|plain|;
+on an RCM-ordered Delaunay mesh (irregular-tier kernels K6-K10), on an
+unordered one (the gather tier's K4/K5) and on a particle cloud bucketed
+onto a cell grid (the DEM contact sweep K11), float32 on the card. Relative error = max|kernel - plain| / max|plain|;
 the tolerances are float32 roundoff (different sum orders, hardware
 rsqrtf), as in chip_smoke.py, which runs the same comparisons at full
 size. Every kernel is also run twice: the two results are bit-identical
@@ -38,12 +38,23 @@ from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
 from dedflow_tpu_torch.solver.newton import NSSolver, assemble_system
 from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec, dia_matvec_plain
 from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
+from dedflow_tpu_torch.sparse.win_gather import JAC_ROWMAP, RES_ROWMAP, win_gather, win_gather_plain
 from dedflow_tpu_torch.sparse.win_kernels import winell_matvec, winell_matvec_plain
 from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_plain
 from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_plain
 from dedflow_tpu_torch.sparse.winell import COMP2WIN
 
 pytestmark = pytest.mark.cuda
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the tier-1 run shares the CPU's cores among its
+    workers, and torch's own thread pool would oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 BOX = (7, 5, 6)
 
@@ -308,3 +319,88 @@ def test_k11_refuses_float64():
     )
     with pytest.raises(ValueError, match="float32"):
         dem_grid.grid_pair_forces_cuda(grid, gs64, ContactParams())
+
+
+@pytest.fixture(scope="module")
+def gather():
+    """The general gather tier on an unordered Delaunay mesh, float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    mesh = delaunay_mesh(3000, seed=4)
+    cfg = reference_scenario_config(bcs=(), pin_pressure=True)
+    solver = NSSolver(mesh, cfg, device="cuda")
+    assert solver.fastpath == "gather"
+    wg, dwgold, dwg = reference_initial_state(mesh)
+    dwg = dwg + 0.1 * np.random.default_rng(10).standard_normal(dwg.shape)
+    state = state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32)
+    wa, dwa = alpha_states(*state, solver.cfg.time)
+    return solver, wa.T.contiguous(), dwa.T.contiguous()
+
+
+def test_k4_k5_kernels_match_plain(gather):
+    """K4/K5 against their plain twins (index gather + K6's bodies), whole
+    mesh and on a column slice (an assembly chunk read in place), K4 with
+    and without a heat source."""
+    solver, w_t, dw_t = gather
+    phys, scheme, ctx = solver.cfg.physics, solver.cfg.time, solver.gctx
+    src = torch.as_tensor(np.random.default_rng(11).standard_normal(ctx.num_node),
+                          dtype=torch.float32, device="cuda")
+    for lo, hi in ((0, ctx.num_elem), (1000, 3000)):
+        geom, ien = ctx.res_geom[:, lo:hi], ctx.ien_t[:, lo:hi]
+        for s in (None, src):
+            got = _twice(lambda: ek.ns_residual_gather(geom, ien, w_t, dw_t, phys, scheme, s),
+                         ek.ns_residual_gather)
+            assert rel(got, ek.ns_residual_gather_plain(geom, ien, w_t, dw_t, phys, scheme, s)) < 2e-5
+        lgeom = ctx.lhs_geom[:, lo:hi]
+        got = _twice(lambda: ek.ns_lhs_gather(lgeom, ien, w_t, phys, scheme), ek.ns_lhs_gather)
+        ref = ek.ns_lhs_gather_plain(lgeom, ien, w_t, phys, scheme)
+        assert_blocks(got.reshape(16, 18, hi - lo), ref.reshape(16, 18, hi - lo), 2e-5)
+
+
+def test_k10_gather_equals_plain_bit_for_bit(irregular):
+    """K10 with the residual's 48-row and the Jacobian's 12-row maps, and
+    the WinELL tier's element inputs through it: equal to the index gather
+    exactly."""
+    solver, _, wa, dwa = irregular
+    ctx = solver.wctx
+    x = torch.as_tensor(np.random.default_rng(12).standard_normal((14, ctx.num_node)),
+                        dtype=torch.float32, device="cuda")
+    for rowmap, rows, table in ((RES_ROWMAP, 48, x), (JAC_ROWMAP, 12, x[:3].contiguous())):
+        got = _twice(lambda: win_gather(ctx.ien_t, table, rowmap, rows), win_gather)
+        assert torch.equal(got, win_gather_plain(ctx.ien_t, table, rowmap, rows))
+    got = _twice(lambda: wa_.residual_inputs(ctx, wa, dwa), win_gather)
+    assert torch.equal(got, ek.res_gather_inputs(ctx.res_geom, ctx.ien_t, wa.T, dwa.T))
+    got = _twice(lambda: wa_.jacobian_inputs(ctx, wa), win_gather)
+    assert torch.equal(got, ek.lhs_gather_inputs(ctx.lhs_geom, ctx.ien_t, wa.T))
+
+
+def test_gather_kernels_refuse_what_they_cannot_take(gather):
+    solver, w_t, dw_t = gather
+    ctx, phys, scheme = solver.gctx, solver.cfg.physics, solver.cfg.time
+    with pytest.raises(ValueError, match="float32"):
+        ek.ns_residual_gather(ctx.res_geom.double(), ctx.ien_t, w_t, dw_t, phys, scheme)
+    with pytest.raises(ValueError, match="int32"):
+        ek.ns_lhs_gather(ctx.lhs_geom, ctx.ien_t.long(), w_t, phys, scheme)
+    with pytest.raises(ValueError, match="C <= 16"):
+        win_gather(ctx.ien_t, torch.zeros((17, ctx.num_node), device="cuda"), JAC_ROWMAP, 12)
+
+
+@pytest.mark.parametrize("chunk", [None, 500])
+def test_gather_step_on_card_matches_cpu_f64(chunk):
+    """The gather tier on the box with the reference BCs and the Nitsche
+    wall, whole-mesh and chunked: one step_fixed(num_newton=2) on the card
+    in float32 against the CPU in float64 (chip_smoke.py phase 13)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    mesh = box_mesh(*BOX)
+    cfg = reference_scenario_config(use_lattice="gather", assembly_chunk=chunk)
+    wg, dwgold, dwg = reference_initial_state(mesh)
+    dwg = dwg + 0.1 * np.random.default_rng(13).standard_normal(dwg.shape)
+    outs = []
+    for device in ("cuda", "cpu"):
+        solver = NSSolver(mesh, cfg, device=device)
+        assert solver.fastpath == "gather" and solver.face_ctxs
+        outs.append(solver.step_fixed(*state_from_numpy(wg, dwgold, dwg, device), num_newton=2))
+    for g, r in zip(*outs):
+        assert torch.isfinite(g).all()
+        assert rel(g, r) < 1e-4

@@ -36,6 +36,16 @@ from dedflow_tpu_torch.mesh.gen import box_mesh as t_box_mesh
 from dedflow_tpu_torch.solver.newton import NSSolver as TNSSolver
 from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the tier-1 run shares the CPU's cores among its
+    workers, and torch's own thread pool would oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 BOX = (6, 4, 4)
 
 

@@ -1,10 +1,12 @@
 """dedflow_tpu_torch policy: import boundary, no fallback, copies kept in sync.
 
 - The port and chip_smoke.py import nothing of JAX or of the JAX package.
-- A CUDA request without a card raises; a kernel that cannot be built
-  raises; a CUDA tensor given to a kernel wrapper goes to the kernel (or
-  raises), never to the plain version; unported tiers and options raise
-  NotImplementedError naming their ROADMAP item.
+- A CUDA request without a card raises, and every public constructor
+  and converter targets the card unless asked for the CPU; a kernel that
+  cannot be built raises; a CUDA tensor given to a kernel wrapper goes to
+  the kernel (or raises), never to the plain version, and a CPU tensor
+  counts no launch; unported tiers and options raise NotImplementedError
+  naming their ROADMAP item.
 - chip_smoke.py fails and prints no result without a card, and alone in a
   directory.
 - The port's copy of config.py keeps the JAX package's field names and
@@ -31,9 +33,19 @@ from dedflow_tpu_torch.fem import element_kernels as ek
 from dedflow_tpu_torch.mesh.gen import box_mesh, delaunay_mesh
 from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
 from dedflow_tpu_torch.solver.newton import NSSolver
-from dedflow_tpu_torch.sparse import win_kernels, win_ring, win_stream
+from dedflow_tpu_torch.sparse import win_gather, win_kernels, win_ring, win_stream
 from dedflow_tpu_torch.sparse.winell import WinELLMatrixT, build_winell_plan
 from dedflow_tpu_torch.utils import dtypes, nvcc
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the tier-1 run shares the CPU's cores among its
+    workers, and torch's own thread pool would oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "dedflow_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -88,9 +100,10 @@ def _coupled_solver(**kw):
         lambda: NSSolver(box_mesh(2, 2, 2), reference_scenario_config()),
         lambda: _coupled_solver(),
         lambda: _coupled_solver(device="cuda"),
+        lambda: NSSolver(box_mesh(2, 2, 2), reference_scenario_config(use_lattice="gather")),
     ],
     ids=["resolve_device", "NSSolver-cuda", "NSSolver-default", "CoupledSolver-default",
-         "CoupledSolver-cuda"],
+         "CoupledSolver-cuda", "NSSolver-gather-default"],
 )
 def test_cuda_request_without_card_raises(monkeypatch, make):
     """The entry points target the card unless asked for the CPU, and a
@@ -98,6 +111,49 @@ def test_cuda_request_without_card_raises(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="never falls back"):
         make()
+
+
+def _small_mesh_and_sparsity():
+    from dedflow_tpu_torch.sparse.topology import build_sparsity
+
+    mesh = box_mesh(1, 1, 1)
+    return mesh, build_sparsity(mesh.ien, mesh.num_node)
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: interop.state_from_numpy(*([[[0.0] * 6]] * 3)),
+        lambda: interop.dia_from_numpy([[[0.0]] * 16], [[0.0], [0.0]], (0,), 1),
+        lambda: interop.particles_from_numpy([[0.5, 0.5, 0.5]], None, 1.0, 0.1),
+        lambda: interop.grid_state_from_numpy(*([[[0.0]]] * 2), [[0.0]], [[0.0]], [[0]]),
+        lambda: win_stream.build_reduce_plan([0], [0], 1),
+        lambda: build_winell_plan([0, 1], [0], 1),
+        lambda: _build_win_context(*_small_mesh_and_sparsity()),
+        lambda: _build_context(*_small_mesh_and_sparsity()),
+    ],
+    ids=["state_from_numpy", "dia_from_numpy", "particles_from_numpy", "grid_state_from_numpy",
+         "build_reduce_plan", "build_winell_plan", "build_win_context", "build_context"],
+)
+def test_constructors_default_to_the_card(monkeypatch, make):
+    """The public constructors and converters put their tensors on the card
+    unless the caller asks for the CPU (the JAX package's land on the
+    default backend); without a card the default raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="never falls back"):
+        make()
+
+
+def _build_win_context(mesh, sparsity):
+    from dedflow_tpu_torch.fem.win_assembly import build_win_context
+
+    return build_win_context(mesh, sparsity)
+
+
+def _build_context(mesh, sparsity):
+    from dedflow_tpu_torch.fem.assembly import build_context
+
+    return build_context(mesh, sparsity)
 
 
 def test_multi_device_options_raise_a16():
@@ -135,9 +191,9 @@ def test_default_dtypes():
         dict(krylov=tcfg.KrylovConfig(pc="mg")),
         dict(krylov=tcfg.KrylovConfig(precision="ir")),
         dict(implicit_scalars=True),
-        dict(assembly_chunk=64),
+        dict(assembly_chunk=64, krylov=tcfg.KrylovConfig(pc="simple")),
         dict(lattice_backend="xla"),
-        dict(use_lattice="gather"),
+        dict(use_lattice="gather", implicit_scalars=True),
         dict(use_lattice="off"),
         dict(physics=tcfg.Physics(laser=tcfg.Laser())),
         dict(newton=tcfg.NewtonConfig(lag_jacobian=True)),
@@ -145,6 +201,9 @@ def test_default_dtypes():
     ids=lambda o: next(iter(o)),
 )
 def test_unported_options_raise(overrides):
+    """Options still unported raise, on the gather tier too (an assembly
+    chunk or use_lattice="gather" with the SIMPLE preconditioner or the
+    implicit scalars)."""
     cfg = dataclasses.replace(reference_scenario_config(), **overrides)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NSSolver(box_mesh(2, 2, 2), cfg, device="cpu")
@@ -173,17 +232,17 @@ def _k6_lhs():
 
 
 def _k7():
-    plan = build_winell_plan([0, 1, 2], [0, 1], 2)
+    plan = build_winell_plan([0, 1, 2], [0, 1], 2, device="cpu")
     return win_kernels.winell_matvec(WinELLMatrixT(torch.zeros((18, 2)), plan), torch.zeros((6, 2)))
 
 
 def _k8():
-    plan = win_stream.build_reduce_plan([0, 1, 1], [0, 1, 2], 2)
+    plan = win_stream.build_reduce_plan([0, 1, 1], [0, 1, 2], 2, device="cpu")
     return win_stream.stream_reduce(plan, torch.zeros((6, 3)))
 
 
 def _k9():
-    plan = win_stream.build_reduce_plan([0, 1, 1], [0, 1, 2], 2)
+    plan = win_stream.build_reduce_plan([0, 1, 1], [0, 1, 2], 2, device="cpu")
     return win_ring.ring_reduce(plan, torch.zeros((16, 3)))
 
 
@@ -204,6 +263,22 @@ def _phys_scheme():
     return cfg.physics, cfg.time
 
 
+def _k4():
+    ien = torch.zeros((4, 8), dtype=torch.int32)
+    w = torch.zeros((6, 3))
+    return ek.ns_residual_gather(torch.zeros((19, 8)), ien, w, w, *_phys_scheme())
+
+
+def _k5():
+    ien = torch.zeros((4, 8), dtype=torch.int32)
+    return ek.ns_lhs_gather(torch.zeros((15, 8)), ien, torch.zeros((6, 3)), *_phys_scheme())
+
+
+def _k10():
+    ien = torch.zeros((4, 8), dtype=torch.int32)
+    return win_gather.win_gather(ien, torch.zeros((3, 5)), win_gather.JAC_ROWMAP, 12)
+
+
 @pytest.mark.parametrize(
     "call,plain",
     [
@@ -213,8 +288,11 @@ def _phys_scheme():
         (_k8, (win_stream, "seg_reduce_plain")),
         (_k9, (win_ring, "seg_reduce_plain")),
         (_k11, (dem_grid, "grid_pair_forces")),
+        (_k4, (ek, "ns_residual_gather_plain")),
+        (_k5, (ek, "ns_lhs_gather_plain")),
+        (_k10, (win_gather, "win_gather_plain")),
     ],
-    ids=["K6-res", "K6-lhs", "K7", "K8", "K9", "K11"],
+    ids=["K6-res", "K6-lhs", "K7", "K8", "K9", "K11", "K4", "K5", "K10"],
 )
 def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     monkeypatch, tmp_path, call, plain
@@ -232,6 +310,20 @@ def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         call()
+
+
+@pytest.mark.parametrize(
+    "call,counter",
+    [(_k4, (ek, "ns_residual_gather")), (_k5, (ek, "ns_lhs_gather")),
+     (_k10, (win_gather, "win_gather"))],
+    ids=["K4", "K5", "K10"],
+)
+def test_cpu_tensors_count_no_launch(call, counter):
+    """On CPU tensors the wrappers run their plain twins and count nothing."""
+    fn = getattr(*counter)
+    before = fn.launches
+    assert call() is not None
+    assert fn.launches == before
 
 
 def _rcm_delaunay():

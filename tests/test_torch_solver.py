@@ -33,6 +33,16 @@ from dedflow_tpu_torch.solver.krylov import gmres as tgmres
 from dedflow_tpu_torch.solver.newton import NSSolver as TNSSolver
 from dedflow_tpu_torch.solver.pc import NSFieldSplitPCT as TPC
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the tier-1 run shares the CPU's cores among its
+    workers, and torch's own thread pool would oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 BOX = (6, 4, 4)
 
 
@@ -56,7 +66,7 @@ def solvers():
 def system(solvers):
     """The port's J and F at the perturbed state (float64)."""
     _, ts, state = solvers
-    wa, dwa = alpha_states(*interop.state_from_numpy(*state), ts.cfg.time)
+    wa, dwa = alpha_states(*interop.state_from_numpy(*state, device="cpu"), ts.cfg.time)
     args = (ts.lctx, ts.face_ctxs, ts.mask_t, wa, dwa, ts.cfg.physics, ts.cfg.time)
     return tlat.assemble_jacobian_t(*args), tlat.assemble_residual_t(*args)
 
@@ -88,7 +98,7 @@ def test_gmres_matches_jax(system, restart, rtol):
 def test_step_fixed_matches_jax(solvers):
     js, ts, state = solvers
     ref = js.step_fixed(*(jnp.asarray(a) for a in state), num_newton=2)
-    got = ts.step_fixed(*interop.state_from_numpy(*state), num_newton=2)
+    got = ts.step_fixed(*interop.state_from_numpy(*state, device="cpu"), num_newton=2)
     for name, g, r in zip(("wgold", "dwgold", "dwg"), got, ref):
         assert rel(g.numpy(), r) < 1e-9, name
 
@@ -96,7 +106,7 @@ def test_step_fixed_matches_jax(solvers):
 def test_step_matches_jax(solvers):
     js, ts, state = solvers
     *ref, rstats = js.step(*(jnp.asarray(a) for a in state))
-    *got, tstats = ts.step(*interop.state_from_numpy(*state))
+    *got, tstats = ts.step(*interop.state_from_numpy(*state, device="cpu"))
     for name, g, r in zip(("wgold", "dwgold", "dwg"), got, ref):
         assert rel(g.numpy(), r) < 1e-9, name
     assert len(tstats.rnorms) == len(rstats.rnorms)

@@ -49,6 +49,16 @@ from dedflow_tpu_torch.sparse.win_stream import (
     stream_window_counts,
 )
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the tier-1 run shares the CPU's cores among its
+    workers, and torch's own thread pool would oversubscribe them."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 NP = {torch.float64: np.float64, torch.float32: np.float32}
 
@@ -64,7 +74,7 @@ def mesh():
     m = reorder_mesh(m, rcm_order(np.asarray(m.ien), m.num_node))
     sp = build_sparsity(np.asarray(m.ien), m.num_node, native=False)
     jplan = we.build_winell_plan(sp.row_ptr, sp.col_ind, m.num_node)
-    tplan = twe.build_winell_plan(sp.row_ptr, sp.col_ind, m.num_node)
+    tplan = twe.build_winell_plan(sp.row_ptr, sp.col_ind, m.num_node, device="cpu")
     return m, sp, jplan, tplan
 
 
@@ -134,7 +144,7 @@ def test_plain_stream_reduce_matches_jax(mesh, c, dtype):
     tgt, src, num_tgt, src_size = _residual_lists(mesh)
     x = np.random.default_rng(c).standard_normal((c, src_size)).astype(NP[dtype])
     ref = np.asarray(ws.stream_reduce_xla(ws.build_stream_plan(tgt, src, num_tgt, src_size), jnp.asarray(x)))
-    plan = build_reduce_plan(tgt, src, num_tgt)
+    plan = build_reduce_plan(tgt, src, num_tgt, device="cpu")
     got = stream_reduce_plain(plan, torch.as_tensor(x))
     assert got.shape == (c, num_tgt) and got.dtype == dtype
     assert rel(got.numpy(), ref) < TOL[dtype]
@@ -147,7 +157,7 @@ def test_plain_ring_reduce_matches_jax(mesh, c, dtype):
     tgt, src, num_tgt, src_size = _jacobian_lists(mesh)
     x = np.random.default_rng(c).standard_normal((c, src_size)).astype(NP[dtype])
     ref = np.asarray(wr.ring_reduce_xla(wr.build_ring_plan(tgt, src, num_tgt, src_size), jnp.asarray(x)))
-    plan = build_reduce_plan(tgt, src, num_tgt)
+    plan = build_reduce_plan(tgt, src, num_tgt, device="cpu")
     got = ring_reduce_plain(plan, torch.as_tensor(x))
     assert got.shape == (c, num_tgt)
     assert rel(got.numpy(), ref) < TOL[dtype]
@@ -163,9 +173,11 @@ def test_reduce_reads_a_strided_source_in_place(mesh):
     out288 = np.random.default_rng(8).standard_normal((288, ne))
     comps = tuple(int(c) for c in twe.WIN2COMP[:16])
     src = (e[:, None] + ab[None, :] * 18 * ne).reshape(-1)
-    got = ring_reduce(build_reduce_plan(tgt, src, num_tgt), torch.as_tensor(out288), comps, ne)
+    got = ring_reduce(build_reduce_plan(tgt, src, num_tgt, device="cpu"), torch.as_tensor(out288), comps, ne)
     x = out288.reshape(16, 18, ne)[:, list(comps)].transpose(1, 2, 0).reshape(16, 16 * ne)
-    ref = ring_reduce_plain(build_reduce_plan(tgt, np.arange(16 * ne), num_tgt), torch.as_tensor(x))
+    ref = ring_reduce_plain(
+        build_reduce_plan(tgt, np.arange(16 * ne), num_tgt, device="cpu"), torch.as_tensor(x)
+    )
     assert rel(got.numpy(), ref.numpy()) < 1e-14
 
 
