@@ -18,10 +18,10 @@ Phases, one line each; the script exits non-zero at the first failure:
             device="cuda").step twice, with the kernel launch counts
   windowed irregular (WinELL) tier:
   6 kernels at delaunay_mesh(56**3) + RCM (about 1.18M tets), float32:
-            K6 (residual and Jacobian rows), K7, K8 and K9 against their
-            plain versions, times, then F, J, SpMV and GMRES(120); the
-            element input rows K10 gathers equal the index gather's
-            bit for bit
+            K6 (residual and Jacobian rows, the Jacobian also in its 33-row
+            implicit mode), K7, K8 and K9 against their plain versions,
+            times, then F, J, SpMV and GMRES(120); the element input rows
+            K10 gathers equal the index gather's bit for bit
   7 slice   the converted box 12 (lattice metadata dropped, RCM,
             use_lattice="winell", reference BCs with the Nitsche wall): one
             step_fixed(num_newton=2), card float32 against CPU float64
@@ -39,9 +39,10 @@ Phases, one line each; the script exits non-zero at the first failure:
             num_particles=100_000), device="cuda").step twice, with the
             drag / fluid / DEM split and the launch counts of K1-K3 and K11
   general gather tier (K4, K5) and the windowed state gather (K10):
- 12 kernels K4 and K5 at phase 6's Delaunay mesh in its generated (unordered)
-            node order, on the solver of phase 14, each also equal to K6
-            on the same inputs; K10 at phase 6's RCM mesh with the
+ 12 kernels K4 and K5 (also in its implicit mode) at phase 6's Delaunay mesh
+            in its generated (unordered) node order, on the solver of phase
+            14, each also equal to K6 on the same inputs; K10 at phase 6's
+            RCM mesh with the
             residual's 48-row and the Jacobian's 12-row map (bit for bit);
             times, bounds, the gather tier's F, J, SpMV, K8, K9 and
             GMRES(120)
@@ -54,6 +55,25 @@ Phases, one line each; the script exits non-zero at the first failure:
             (the "auto" ladder's floor) .step twice, with the launch counts of
             K4, K5, K7, K8 and K9, and the device's busy share over one
             Newton iteration (torch.profiler)
+  moving-laser melt pool (BASELINE config #3: implicit phi/T tangents and a
+  heat source):
+ 15 kernels at box_mesh(44, 44, 44) (511,104 tets), melt_pool_scenario_config():
+            K1 with the laser source, K2 in its implicit mode (data per
+            vel/p block, scal per component) and K6 in its 33-row mode on the
+            lattice's slab-major (6, 33, N) inputs, each against its plain
+            version, with times and bounds; then F, J + PC, SpMV and
+            GMRES(120) of the melt system
+ 16 slice   box 12 on the lattice, on the converted box with RCM
+            (use_lattice="winell") and on use_lattice="gather": one
+            step_fixed(num_newton=2, source=the laser) each, card float32
+            against CPU float64, with each tier's launch counts
+ 17 main    NSSolver(box_mesh(44, 44, 44), melt_pool_scenario_config(),
+            device="cuda"): two adaptive steps with the laser source, then
+            three step_fixed(2) (tools/melt_bench.py's run), with s/step,
+            Newton and Krylov counts, t_max, peak memory and the launch
+            counts of K1-K3; the hottest node within 3 laser radii of the
+            beam's mid-run centre; step 1 repeated bit-identical; the
+            device's busy share over one step_fixed(2) (torch.profiler)
 Then, on lines of their own: the kernels JSON object (each kernel with its
 time, its plain version's, its bound and, where one PyTorch call computes
 the same function, that call's time), the card's name and power limit, and
@@ -72,6 +92,8 @@ import time
 import traceback
 
 FULL_BOX = (55, 55, 55)
+MELT_BOX = (44, 44, 44)  # BASELINE config #3, MELT_TPU.json: 511,104 tets, 91,125 nodes
+MELT_STEPS, MELT_FIXED_NEWTON = (2, 3), 2  # adaptive, then step_fixed(2) (tools/melt_bench.py)
 SLICE_BOX = (12, 12, 12)
 DELAUNAY_POINTS = 56**3  # 175,616 points, about 1.18M tets (bench.py:117,126)
 SEED = 0
@@ -95,7 +117,7 @@ TOL_K9 = 1e-5  # about 6.6 contributions per entry
 # 27 * K pair terms, relative to the largest force.
 TOL_K11 = 1e-5
 TOL_K4 = 2e-5  # K6's residual body on gathered states
-TOL_K5 = 2e-5  # K6's Jacobian body, per vel/p block
+TOL_K5 = 2e-5  # K6's Jacobian body, per vel/p block and per phi/T tangent
 # K10 copies: it must equal its plain version bit for bit.
 # The 16 velocity/pressure components of a nodal block, by sub-block, in
 # the element Jacobian's packed order (K6 rows ab*18+c). Their scales
@@ -104,6 +126,10 @@ TOL_K5 = 2e-5  # K6's Jacobian body, per vel/p block
 # block by block, each against its own scale, as the products and
 # residuals are equation by equation.
 VP_BLOCKS = {"uu": range(0, 9), "up": range(9, 12), "pu": range(12, 15), "pp": range(15, 16)}
+# Components 16, 17: the frozen phi/T identities (exact), or the implicit
+# phi/T tangents, each on its own scale.
+IDENTITY_BLOCKS = {"phi,T identities": [16, 17]}
+SCALAR_BLOCKS = {"phi tangent": [16], "T tangent": [17]}
 # Slice phase: a float32 GMRES stopped at rtol 1e-4 against a float64 one.
 # Each Newton update is accurate to about 1e-4 of its own size and the
 # second update corrects most of the first one's error, so the new states
@@ -150,6 +176,20 @@ GATHER_KERNELS = (
 )
 GATHER_CONFIG = dict(bcs=(), pin_pressure=True, scatter_method="tiered",
                      elements_kernel="pallas")  # bench.py:133-151's Delaunay settings
+# The melt pool's kernel modes. The JAX package runs the lattice's implicit
+# Jacobian through the 33-row K6 (pallas_kernels.py:544, slab-major) and an
+# XLA reduce; here K2 computes that matrix. It computes the gather tier's in
+# XLA (ns.py:184-235); here K5 does.
+MELT_KERNELS = (
+    ("K1 lattice residual (heat source)", "dedflow_tpu_torch/csrc/lattice_residual.cu",
+     "dedflow_tpu/fem/lattice.py:779"),
+    ("K2 lattice jacobian (implicit phi/T)", "dedflow_tpu_torch/csrc/lattice_jacobian.cu",
+     "dedflow_tpu/fem/pallas_kernels.py:544"),
+    ("K6 element rows (jacobian, 33-row implicit)", "dedflow_tpu_torch/csrc/element_rows.cu",
+     "dedflow_tpu/fem/pallas_kernels.py:544"),
+    ("K5 gathered element jacobian (implicit phi/T)", "dedflow_tpu_torch/csrc/gather_elements.cu",
+     "dedflow_tpu/fem/pallas_kernels.py:507"),
+)
 IRREGULAR_KERNELS = (
     ("K6 element rows (residual)", "dedflow_tpu_torch/csrc/element_rows.cu",
      "dedflow_tpu/fem/pallas_kernels.py:565"),
@@ -335,6 +375,15 @@ def reduce_bytes(plan, comps, out_rows: int) -> int:
     contribution and row, the output."""
     k = plan.src.numel()
     return nbytes(plan.ptr, plan.src) + 4 * k * len(comps) + 4 * out_rows * plan.num_tgt
+
+
+def jacobian_blocks(m: int, implicit: bool, slabs: int = 0) -> dict:
+    """{name: view} of (288, m) (or (slabs, 288, m)) element Jacobian rows
+    ab*18+c by vel/p block, then the phi/T identities or tangents."""
+    shape = (slabs, 16, 18, m) if slabs else (16, 18, m)
+    blocks = dict(VP_BLOCKS, **(SCALAR_BLOCKS if implicit else IDENTITY_BLOCKS))
+    return {f" [{b}]": (lambda t, c=list(cs): t.reshape(shape)[..., c, :])
+            for b, cs in blocks.items()}
 
 
 def perturbed_state(mesh, device, dtype):
@@ -615,9 +664,7 @@ def phase_irregular_kernels(solver) -> tuple[list, dict]:
              " [phi,T rows]": lambda t: t[4:]}
     # the element Jacobian (rows ab*18+c) and its entry sums (WinELL rows)
     # per vel/p block, each against its own scale
-    lhs_blocks = {f" [{b}]": (lambda t, c=list(cs): t.reshape(16, 18, ne)[:, c])
-                  for b, cs in VP_BLOCKS.items()}
-    lhs_blocks[" [phi,T identities]"] = lambda t: t.reshape(16, 18, ne)[:, 16:]
+    lhs_blocks = jacobian_blocks(ne, implicit=False)
     entry_blocks = {f" [{b}]": (lambda t, r=[int(COMP2WIN[c]) for c in cs]: t[r])
                     for b, cs in VP_BLOCKS.items()}
 
@@ -627,6 +674,12 @@ def phase_irregular_kernels(solver) -> tuple[list, dict]:
     k6j = lambda: ek.lhs_rows_call(inp27, phys, scheme)
     p6j = lambda: er.lhs_rows(inp27, **largs)
     e6j = compare("K6 lhs rows", k6j, p6j, TOL_K6, parts=lhs_blocks)
+    # the 33-row implicit mode on the same elements (timed in phase 15)
+    inp33 = wa_.jacobian_inputs(ctx, wa, scalar_implicit=True)
+    compare("K6 lhs rows, 33-row implicit", lambda: ek.lhs_rows_call(inp33, phys, scheme, True),
+            lambda: er.lhs_rows(inp33, scalar_implicit=True, **largs), TOL_K6,
+            parts=jacobian_blocks(ne, implicit=True))
+    del inp33
     out24, out288 = k6r(), k6j()
 
     k8 = lambda: stream_reduce(ctx.res_plan, out24, range(6), ne)
@@ -1051,11 +1104,12 @@ def gather_solver(raw):
     return solver, setup_s
 
 
-def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict]:
-    """Phase 12: K4 and K5 on the gather tier's context, K10 on phase 6's
-    RCM mesh `rcm` and its WinELL connectivity `rcm_ien_t`, each against
-    its plain version. Returns the four kernel records and the gather
-    tier's system timings."""
+def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict, dict]:
+    """Phase 12: K4 and K5 on the gather tier's context (K5 also in its
+    implicit mode, the metric rows read in place from the residual
+    geometry), K10 on phase 6's RCM mesh `rcm` and its WinELL connectivity
+    `rcm_ien_t`, each against its plain version. Returns the four kernel
+    records, the gather tier's system timings and K5's implicit record."""
     import torch
 
     from dedflow_tpu_torch.fem import element_kernels as ek
@@ -1074,9 +1128,7 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict]:
     wg_, dwgold, dwg = perturbed_state(gsolver.mesh, gsolver.device, gsolver.dtype)
     wa, dwa = alpha_states(wg_, dwgold, dwg, scheme)
     w_t, dw_t = wa.T.contiguous(), dwa.T.contiguous()
-    lhs_blocks = {f" [{b}]": (lambda t, c=list(cs): t.reshape(16, 18, ne)[:, c])
-                  for b, cs in VP_BLOCKS.items()}
-    lhs_blocks[" [phi,T identities]"] = lambda t: t.reshape(16, 18, ne)[:, 16:]
+    lhs_blocks = jacobian_blocks(ne, implicit=False)
 
     k4 = lambda: ek.ns_residual_gather(ctx.res_geom, ctx.ien_t, w_t, dw_t, phys, scheme)
     p4 = lambda: ek.ns_residual_gather_plain(ctx.res_geom, ctx.ien_t, w_t, dw_t, phys, scheme)
@@ -1084,13 +1136,21 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict]:
     k5 = lambda: ek.ns_lhs_gather(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme)
     p5 = lambda: ek.ns_lhs_gather_plain(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme)
     e5 = compare("K5 gathered jacobian", k5, p5, TOL_K5, parts=lhs_blocks)
+    met = ctx.res_geom[13:19]  # the metric rows, a strided view
+    k5i = lambda: ek.ns_lhs_gather(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme, met)
+    p5i = lambda: ek.ns_lhs_gather_plain(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme, met)
+    e5i = compare("K5 gathered jacobian, implicit", k5i, p5i, TOL_K5,
+                  parts=jacobian_blocks(ne, implicit=True))
     # K4/K5 equal K6 on the same inputs: one element body (element_body.cuh)
     same4 = torch.equal(k4(), ek.res_rows_call(ek.res_gather_inputs(
         ctx.res_geom, ctx.ien_t, w_t, dw_t), phys, scheme))
     same5 = torch.equal(k5(), ek.lhs_rows_call(ek.lhs_gather_inputs(
         ctx.lhs_geom, ctx.ien_t, w_t), phys, scheme))
-    say(f"  K4 == K6 residual rows on the same inputs: {same4}; K5 == K6 jacobian rows: {same5}")
-    if not (same4 and same5):
+    same5i = torch.equal(k5i(), ek.lhs_rows_call(ek.lhs_gather_inputs(
+        ctx.lhs_geom, ctx.ien_t, w_t, met), phys, scheme, scalar_implicit=True))
+    say(f"  K4 == K6 residual rows on the same inputs: {same4}; K5 == K6 jacobian rows: {same5}; "
+        f"implicit: {same5i}")
+    if not (same4 and same5 and same5i):
         raise PhaseError("K4/K5: not equal to K6 on the same inputs (one element body)")
 
     # K10 on the RCM mesh, with the WinELL tier's two row maps
@@ -1113,7 +1173,7 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict]:
     names = [name for name, _, _ in GATHER_KERNELS]
     libs = nvcc.load(["gather_elements", "win_gather"])
     regs = {names[0]: registers(libs["gather_elements"], "res_gather_kernel"),
-            names[1]: registers(libs["gather_elements"], "lhs_gather_kernel"),
+            names[1]: registers(libs["gather_elements"], "lhs_gather_kernelILb0E"),
             names[2]: registers(libs["win_gather"], "win_gather_kernel")}
     regs[names[3]] = regs[names[2]]
     out24 = torch.empty((24, ne), dtype=torch.float32)
@@ -1129,7 +1189,10 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict]:
         out = torch.empty((rows, ne_rcm), dtype=torch.float32)
         results.append(finish(names[i], {"max_abs_err": err}, kern, plain, 50, 5,
                               nbytes(rcm_ien_t, x, out), op_count(plain), library=library))
-    for name, rec in zip(names, results):
+    implicit5 = finish(MELT_KERNELS[3][0], {"max_abs_err": e5i}, k5i, p5i, 10, 3,
+                       nbytes(ctx.lhs_geom, met, ctx.ien_t, w_t[:3], out288), op_count(p5i))
+    regs[MELT_KERNELS[3][0]] = registers(libs["gather_elements"], "lhs_gather_kernelILb1E")
+    for name in [*names, MELT_KERNELS[3][0]]:
         say(f"  {name}: ptxas registers {regs[name]}")
 
     # the gather tier's system: F, J (+ PC), the reduces and the SpMV on its
@@ -1155,7 +1218,7 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict]:
     times = {"F_ms": f_ms, "J_ms": j_ms, "K8_ms": k8_ms, "K9_ms": k9_ms, "SpMV_ms": spmv_ms,
              "GMRES120_s": time.perf_counter() - t0, "GMRES120_iters": sol.iters,
              "matrix_entries": ctx.win_plan.S}
-    return results, times
+    return results, times, implicit5
 
 
 def phase_gather_slice() -> None:
@@ -1210,6 +1273,286 @@ def phase_gather_main(gsolver) -> dict:
     it()  # warm
     say(f"  one Newton iteration under torch.profiler: {busy_share(it)}")
     return out
+
+
+def melt_source(mesh, cfg, step: int, device, dtype):
+    """The laser source at the generalized-alpha level of `step` (1-based),
+    t = (step - 1 + alpha_f) dt, as the CLI evaluates it."""
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import laser_source
+
+    t_alpha = (step - 1 + cfg.time.alpha_f) * cfg.time.dt
+    return torch.as_tensor(laser_source(cfg.physics.laser, mesh.xg, t_alpha), dtype=dtype,
+                           device=device)
+
+
+def perturbed_melt_state(mesh, cfg, device, dtype):
+    """The melt-pool initial state with a seeded perturbation of dwg (a
+    velocity for the tangents to convect with), advanced by one predict."""
+    import numpy as np
+
+    from dedflow_tpu_torch.app.scenarios import melt_pool_initial_state
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.solver.newton import predict
+
+    wg, dwgold, dwg = melt_pool_initial_state(mesh)
+    dwg = dwg + 0.1 * np.random.default_rng(SEED).standard_normal(dwg.shape)
+    wg, dwgold, dwg = state_from_numpy(wg, dwgold, dwg, device, dtype)
+    return wg, dwgold, predict(dwg, cfg.time)
+
+
+def melt_solver():
+    """NSSolver on BASELINE config #3's box with the melt-pool scenario."""
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import melt_pool_scenario_config
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.solver.newton import NSSolver
+
+    t0 = time.perf_counter()
+    solver = NSSolver(box_mesh(*MELT_BOX), melt_pool_scenario_config(), device="cuda")
+    torch.cuda.synchronize()
+    if solver.fastpath != "lattice" or not solver.lctx.scalar_implicit:
+        raise PhaseError(f"melt: fastpath {solver.fastpath!r}, expected the implicit lattice")
+    return solver, time.perf_counter() - t0
+
+
+def phase_melt_kernels(solver) -> tuple[list, dict]:
+    """Phase 15: K1 with the laser source, K2 in its implicit mode (masked
+    with the facet band, and unmasked) and K6 in its 33-row mode on the
+    lattice's slab-major inputs, each against its plain version at the
+    melt box; the three records and the melt system's timings."""
+    import torch
+
+    from dedflow_tpu_torch.fem import element_kernels as ek
+    from dedflow_tpu_torch.fem import element_rows as er
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.solver.krylov import gmres
+    from dedflow_tpu_torch.solver.newton import assemble_system, residual
+    from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec
+    from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
+    from dedflow_tpu_torch.utils import nvcc
+
+    cfg, mesh = solver.cfg, solver.mesh
+    phys, scheme, lctx, mask_t = cfg.physics, cfg.time, solver.lctx, solver.mask_t
+    wg, dwgold, dwg = perturbed_melt_state(mesh, cfg, solver.device, solver.dtype)
+    wa, dwa = alpha_states(wg, dwgold, dwg, scheme)
+    wa_t, dwa_t = wa.T.contiguous(), dwa.T.contiguous()
+    src = melt_source(mesh, cfg, 1, solver.device, solver.dtype)
+    n, nd = lctx.num_node, len(lctx.offsets)
+
+    k1 = lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme, src)
+    p1 = lambda: lat.residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme, src)
+    e1 = compare("K1 F volume, heat source", k1, p1, TOL_K1,
+                 parts={"": lambda t: t, " [T row]": lambda t: t[5]})
+
+    # K2 implicit: data (D, 16, N) and scal (2D, N) packed as one tensor
+    pack = lambda d, sc: torch.cat([d.reshape(nd * 16, n), sc])
+    parts = {f" data [{b}]": (lambda t, c=list(cs): t[: nd * 16].reshape(nd, 16, n)[:, c])
+             for b, cs in VP_BLOCKS.items()}
+    parts[" scal [phi-phi]"] = lambda t: t[nd * 16 :: 2]
+    parts[" scal [T-T]"] = lambda t: t[nd * 16 + 1 :: 2]
+    keep, add = keep_pc_rows(mask_t, solver.dtype), diag_add_rows(mask_t, solver.dtype)
+    band, lo = lat._masked_face_band(solver.face_ctxs, wa, dwa, phys, scheme, nd, keep)
+    k2 = lambda: pack(*lat.jacobian_volume(lctx, wa_t, phys, scheme, keep, add, band, lo))
+    p2 = lambda: pack(*lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, keep, add, band, lo))
+    e2 = compare("K2 implicit (masked)", k2, p2, TOL_K2, parts=parts)
+    ones, zeros = torch.ones_like(keep), torch.zeros_like(add)
+    e2 = max(e2, compare(
+        "K2 implicit (unmasked)",
+        lambda: pack(*lat.jacobian_volume(lctx, wa_t, phys, scheme, ones, zeros)),
+        lambda: pack(*lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, ones, zeros)),
+        TOL_K2, parts=parts,
+    ))
+
+    inp = lat._lhs_inputs(lctx, wa_t)  # (6, 33, N), the metric rows last
+    if inp.shape != (6, 33, n):
+        raise PhaseError(f"melt: lattice Jacobian inputs {tuple(inp.shape)}, expected (6, 33, N)")
+    largs = ek.lhs_args(phys, scheme)
+    k6 = lambda: ek.lhs_rows_call(inp, phys, scheme, scalar_implicit=True)
+    p6 = lambda: er.lhs_rows(inp, scalar_implicit=True, **largs)
+    e6 = compare("K6 33-row on the lattice inputs", k6, p6, TOL_K6,
+                 parts=jacobian_blocks(n, implicit=True, slabs=6))
+
+    data, scal = lat.jacobian_volume(lctx, wa_t, phys, scheme, keep, add, band, lo)
+    out6 = torch.empty((6, n), dtype=torch.float32)
+    out288 = torch.empty((6, 288, n), dtype=torch.float32)
+    metric = lctx.res_geom[:, 13:19]  # what K2 reads of the residual geometry
+    results = [
+        finish(MELT_KERNELS[0][0], {"max_abs_err": e1}, k1, p1, 20, 5,
+               nbytes(lctx.res_geom, wa_t, dwa_t, src, out6), op_count(p1)),
+        finish(MELT_KERNELS[1][0], {"max_abs_err": e2}, k2, p2, 10, 3,
+               nbytes(lctx.lhs_geom, metric, wa_t[:3], keep, add, band, data, scal), op_count(p2)),
+        finish(MELT_KERNELS[2][0], {"max_abs_err": e6}, k6, p6, 10, 3,
+               nbytes(inp, out288), op_count(p6)),
+    ]
+    libs = nvcc.load(["lattice_residual", "lattice_jacobian", "element_rows"])
+    say(f"  ptxas registers: K1 element pass {registers(libs['lattice_residual'], 'residual_element')}, "
+        f"K2 element pass frozen {registers(libs['lattice_jacobian'], 'jacobian_element_kernelILb0E')} "
+        f"implicit {registers(libs['lattice_jacobian'], 'jacobian_element_kernelILb1E')}, "
+        f"K2 plane pass 16 {registers(libs['lattice_jacobian'], 'jacobian_plane_kernelILi16E')} "
+        f"18 {registers(libs['lattice_jacobian'], 'jacobian_plane_kernelILi18E')}, "
+        f"K6 33-row {registers(libs['element_rows'], 'lhs_rows_kernelILb1E')}")
+    del inp, out288
+
+    common = (lctx, solver.face_ctxs, mask_t, wg, dwgold, dwg, phys, scheme)
+    f_ms = cuda_ms(lambda: residual(*common, cfg.freeze_phi_temperature, source=src), 10)
+    j_ms = cuda_ms(lambda: assemble_system(*common, scalar_implicit=True), 5)
+    jm, pc = assemble_system(*common, scalar_implicit=True)
+    gen = torch.Generator(device=solver.device).manual_seed(SEED)
+    x = torch.randn((6, n), generator=gen, device=solver.device, dtype=solver.dtype)
+    spmv_ms = cuda_ms(lambda: dia_matvec(jm.data, jm.scal, x, lctx.offsets), 100)
+    f = residual(*common, cfg.freeze_phi_temperature, source=src)
+    gmres120 = lambda: gmres(jm.matvec_t, f, maxit=120, atol=0.0, rtol=0.0, pc=pc)
+    gmres120()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = gmres120()
+    torch.cuda.synchronize()
+    times = {"F_ms": f_ms, "J_PC_ms": j_ms, "SpMV_ms": spmv_ms,
+             "GMRES120_s": time.perf_counter() - t0, "GMRES120_iters": sol.iters}
+    return results, times
+
+
+def phase_melt_slice() -> dict:
+    """Phase 16: the melt pool at box 12 on the three tiers, one
+    step_fixed(num_newton=2) with the laser source: card float32 against
+    CPU float64, TOL_SLICE. Each card step runs with its tier's launch
+    counters set to 0 just before and read just after; returns
+    {tier: launches}."""
+    import dataclasses
+
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import melt_pool_scenario_config
+    from dedflow_tpu_torch.fem import element_kernels as ek
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
+    from dedflow_tpu_torch.solver.newton import NSSolver
+    from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec
+    from dedflow_tpu_torch.sparse.win_gather import win_gather
+    from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce
+
+    box = box_mesh(*SLICE_BOX)
+    converted = dataclasses.replace(box, lattice=None)
+    converted = reorder_mesh(converted, rcm_order(converted.ien, converted.num_node))
+    tiers = {
+        "lattice": (box, "auto", (lat.residual_volume, lat.jacobian_volume, dia_matvec),
+                    "K1/K2/K3"),
+        "winell": (converted, "winell", (win_gather, ek.res_rows_call, ek.lhs_rows_call,
+                                         winell_matvec, stream_reduce, ring_reduce),
+                   "K10/K6res/K6lhs/K7/K8/K9"),
+        "gather": (box, "gather", (ek.ns_residual_gather, ek.ns_lhs_gather, winell_matvec,
+                                   stream_reduce, ring_reduce), "K4/K5/K7/K8/K9"),
+    }
+    launches = {}
+    for tier, (mesh, mode, counters, label) in tiers.items():
+        cfg = melt_pool_scenario_config(use_lattice=mode)
+        outs = []
+        for device in ("cuda", "cpu"):
+            solver = NSSolver(mesh, cfg, device=device)
+            if solver.fastpath != tier or not solver.face_ctxs:
+                raise PhaseError(f"melt slice: fastpath {solver.fastpath!r}, expected {tier!r}")
+            state = perturbed_melt_state(mesh, cfg, solver.device, solver.dtype)
+            src = melt_source(mesh, cfg, 1, solver.device, solver.dtype)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                for c in counters:
+                    c.launches = 0
+            outs.append([t.cpu() for t in solver.step_fixed(*state, num_newton=2, source=src)])
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches[tier] = [c.launches for c in counters]
+        worst = 0.0
+        for name, g, r in zip(("wgold", "dwgold", "dwg"), *outs):
+            if not bool(torch.isfinite(g).all()):
+                raise PhaseError(f"melt slice {tier}: non-finite {name} on the card")
+            _, rel = rel_err(g, r)
+            worst = max(worst, rel)
+        _, rel_t = rel_err(outs[0][0][:, 5], outs[1][0][:, 5])
+        say(f"  {tier}: card f32 vs cpu f64 rel={worst:.3e} (T {rel_t:.3e}); launches {label} = "
+            f"{launches[tier]}")
+        check(f"melt slice {tier}", max(worst, rel_t), TOL_SLICE)
+        if min(launches[tier]) <= 0:
+            raise PhaseError(f"melt slice {tier}: a kernel of the path was not launched")
+    return launches
+
+
+def phase_melt_main(solver) -> dict:
+    """Phase 17: the melt-pool main path: solver.step twice (adaptive) and
+    step_fixed(2) three times, each with the laser source at its
+    generalized-alpha level, from the scenario's initial state, the launch
+    counters set to 0 just before and read just after; then the checks of
+    tests/test_melt_pool.py (heat deposited, the hottest node within 3
+    laser radii of the beam's mid-run centre) and step 1 repeated
+    (bit-identical states and Krylov counts)."""
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import melt_pool_initial_state
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec
+
+    mesh, cfg = solver.mesh, solver.cfg
+    counters = (lat.residual_volume, lat.jacobian_volume, dia_matvec)
+    state0 = state_from_numpy(*melt_pool_initial_state(mesh), solver.device, solver.dtype)
+    nsteps = sum(MELT_STEPS)
+    srcs = [melt_source(mesh, cfg, k, solver.device, solver.dtype) for k in range(1, nsteps + 1)]
+    state, first = state0, None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    walls, newton, krylov = [], [], []
+    for step in range(1, nsteps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step <= MELT_STEPS[0]:
+            *state, stats = solver.step(*state, source=srcs[step - 1])
+            newton.append(len(stats.rnorms))
+            krylov.append(stats.krylov_iters)
+        else:
+            state = solver.step_fixed(*state, num_newton=MELT_FIXED_NEWTON, source=srcs[step - 1])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        first = first or (state, krylov[0])
+        t_max = float(state[0][:, 5].max())
+        say(f"  step {step} ({'adaptive' if step <= MELT_STEPS[0] else 'step_fixed(2)'}): "
+            f"wall_s={walls[-1]:.4f} t_max={t_max:.6f}"
+            + (f" newton={newton[-1]} krylov={krylov[-1]} converged={stats.converged} "
+               f"field_norms={[float(v) for v in stats.rnorms[-1]]}" if step <= MELT_STEPS[0] else "")
+            + f" launches K1/K2/K3 so far={[c.launches for c in counters]}")
+        if not all(bool(torch.isfinite(t).all()) for t in state):
+            raise PhaseError(f"melt main: non-finite state at step {step}")
+    launches = [c.launches for c in counters]
+    peak = torch.cuda.max_memory_allocated()
+    temp = state[0][:, 5].cpu().numpy()
+    laser, dt = cfg.physics.laser, cfg.time.dt
+    hot = mesh.xg[int(np.argmax(temp))]
+    c0 = np.asarray(laser.start) + np.asarray(laser.velocity) * nsteps * dt / 2
+    dist = float(np.linalg.norm(hot - c0))
+    say(f"  launches K1/K2/K3 = {launches}; peak memory {peak / 2**30:.3f} GiB; t_max "
+        f"{temp.max():.6f} at {hot.tolist()}, {dist:.4f} from the beam's mid-run centre "
+        f"(3 radii = {3 * laser.radius:.3f})")
+    if min(launches) <= 0:
+        raise PhaseError(f"melt main: a kernel of the path was not launched: {launches}")
+    if not temp.max() > 0 or not dist < 3 * laser.radius:
+        raise PhaseError("melt main: no heat deposited, or the hottest node is off the beam")
+    *again, stats = solver.step(*state0, source=srcs[0])
+    same = all(torch.equal(a, b) for a, b in zip(again, first[0]))
+    say(f"  step 1 repeated: bit-identical states {same}, krylov {stats.krylov_iters}")
+    if not same or stats.krylov_iters != first[1]:
+        raise PhaseError("melt main: a repeated step differs from the first run")
+    fixed = lambda: solver.step_fixed(*state0, num_newton=MELT_FIXED_NEWTON, source=srcs[0])
+    say(f"  one step_fixed({MELT_FIXED_NEWTON}) under torch.profiler: {busy_share(fixed)}")
+    return {"launches": launches, "step_s": walls, "newton": newton, "krylov": krylov,
+            "t_max": float(temp.max()), "peak_bytes": peak}
 
 
 def run() -> int:
@@ -1293,7 +1636,7 @@ def run() -> int:
             f"order, {gsolver.gctx.win_plan.S} matrix entries, fastpath {gsolver.fastpath} "
             f"(host setup s: delaunay_s {setup['delaunay_s']:.2f} shared with phase 6, "
             f"solver_s {gsetup:.2f}); K10 at phase 6's RCM mesh")
-        ga_results, ga_times = phase_gather_kernels(gsolver, rcm, rcm_ien_t)
+        ga_results, ga_times, k5_implicit = phase_gather_kernels(gsolver, rcm, rcm_ien_t)
         say(f"  gather system: {json.dumps(ga_times)}")
         del rcm_ien_t
         phase = "13 gather slice"
@@ -1302,18 +1645,40 @@ def run() -> int:
         phase = "14 gather main"
         say(f"phase 14 gather main path at {raw.num_tet} Delaunay tets, generated node order")
         ga_main = phase_gather_main(gsolver)
+        del gsolver
+        phase = "15 melt kernels"
+        msolver, msetup = melt_solver()
+        say(f"phase 15 melt kernels at box {MELT_BOX}: {msolver.mesh.num_tet} tets, "
+            f"{msolver.mesh.num_node} nodes, melt_pool_scenario_config(), fastpath "
+            f"{msolver.fastpath} (setup {msetup:.1f} s)")
+        melt_results, melt_times = phase_melt_kernels(msolver)
+        say(f"  melt system: {json.dumps(melt_times)}")
+        phase = "16 melt slice"
+        say(f"phase 16 melt slice at box {SLICE_BOX} on the lattice, WinELL and gather tiers")
+        slice_launches = phase_melt_slice()
+        phase = "17 melt main"
+        say(f"phase 17 melt main path at box {MELT_BOX}: {MELT_STEPS[0]} adaptive steps, then "
+            f"{MELT_STEPS[1]} step_fixed({MELT_FIXED_NEWTON}), with the laser source")
+        melt_main = phase_melt_main(msolver)
+        say(f"  melt main: {json.dumps({k: v for k, v in melt_main.items() if k != 'launches'})}")
     except Exception as e:  # report the failed phase, then fail
         traceback.print_exc()
         print(f"FAIL phase {phase}: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    # the melt modes' launches: K1/K2 from the melt main path (phase 17),
+    # K6's 33-row mode and K5's implicit mode from the melt slice's WinELL
+    # and gather steps (phase 16), where the scenario runs them
+    melt_launches = (melt_main["launches"][:2] + [slice_launches["winell"][2]]
+                     + [slice_launches["gather"][1]])
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n, **r}
         for (name, src, rep), r, n in zip(
-            KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS,
-            results + ir_results + [dem_result] + ga_results,
+            KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS,
+            results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit],
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
-            + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]],
+            + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
+            + melt_launches,
         )
     ]
     kernels.sort(key=lambda k: int(k["name"].split()[0][1:]))

@@ -1,8 +1,10 @@
-"""Command-line driver of the port: the reference scenario, or the coupled
-FEM-DEM powder-settling scenario, on a box mesh.
+"""Command-line driver of the port: the reference, lid-driven cavity,
+moving-laser melt-pool or coupled FEM-DEM powder-settling scenario on a box
+mesh.
 
     python -m dedflow_tpu_torch.app.main --box NX NY NZ --steps K \\
-        --device cuda|cpu --dtype f32|f64 [--config cfg.json] [--chunk E]
+        --device cuda|cpu --dtype f32|f64 [--config cfg.json] [--chunk E] \\
+        [--scenario reference|cavity|melt-pool] [--fixed-newton K]
     python -m dedflow_tpu_torch.app.main --scenario coupled --box 55 55 55 \\
         --particles 100000 [--particle-radius R] [--dem-substeps 10] [--no-dem-grid]
 
@@ -14,17 +16,24 @@ use_lattice="winell"), path)` runs the box on the windowed irregular tier,
 `use_lattice="gather"` on the general gather tier. `--chunk E` sets the
 assembly chunk (E elements per range, as the JAX CLI's --chunk), which
 puts the run on the general gather tier.
+`--scenario cavity` is the lid-driven cavity (BASELINE config #2),
+`--scenario melt-pool` the moving-laser melt pool (BASELINE config #3: the
+phi/T equations active with their implicit tangents; each step evaluates
+the laser source at the generalized-alpha time level (step - 1 + alpha_f)
+dt, as the JAX CLI does, app/main.py:331-351). `--fixed-newton K` steps
+with K Newton iterations each (`step_fixed`, the JAX CLI's production
+loop) instead of the adaptive loop.
 `--scenario coupled` releases `--particles` particles in the upper half of
 the box (app.scenarios.coupled_scenario_setup, the JAX CLI's defaults) and
 steps app.coupled.CoupledSolver: drag exchange, the fluid step with the
 drag reaction as a nodal load, then the DEM substeps (the grid-resident
 path with kernel K11 unless --no-dem-grid).
 Prints one JSON line per time step: step, the scenario, the assembly tier (`fastpath`),
-wall seconds (after a device synchronize), Newton iterations, Krylov
+wall seconds (after a device synchronize), the largest temperature
+(`t_max`) and, from the adaptive loop, Newton iterations, Krylov
 iterations per Newton iteration, the last field norms and whether Newton
-converged. Other flags of the JAX CLI (the melt-pool and cavity
-scenarios, restarts, HDF5 snapshots, sharding) are not ported yet (ROADMAP
-queues A12, A16, A17).
+converged. Other flags of the JAX CLI (restarts, HDF5 snapshots, sharding)
+are not ported yet (ROADMAP queues A16, A17).
 """
 
 from __future__ import annotations
@@ -41,6 +50,11 @@ import torch
 from dedflow_tpu_torch.app.coupled import CoupledSolver
 from dedflow_tpu_torch.app.scenarios import (
     coupled_scenario_setup,
+    laser_source,
+    lid_driven_cavity_config,
+    lid_driven_cavity_initial_state,
+    melt_pool_initial_state,
+    melt_pool_scenario_config,
     reference_initial_state,
     reference_scenario_config,
 )
@@ -63,8 +77,12 @@ def _parser() -> argparse.ArgumentParser:
                    help="SolverConfig JSON (default: the reference scenario)")
     p.add_argument("--chunk", type=int, default=None,
                    help="assembly chunk size (elements per range; the gather tier)")
-    p.add_argument("--scenario", choices=("reference", "coupled"), default="reference",
-                   help="reference channel flow / coupled FEM-DEM powder settling")
+    p.add_argument("--scenario", choices=("reference", "cavity", "melt-pool", "coupled"),
+                   default="reference",
+                   help="reference channel flow / lid-driven cavity / moving-laser melt "
+                   "pool / coupled FEM-DEM powder settling")
+    p.add_argument("--fixed-newton", type=int, default=None, metavar="K",
+                   help="K Newton iterations a step (step_fixed) instead of the adaptive loop")
     p.add_argument("--particles", type=int, default=1000,
                    help="particle count for --scenario coupled")
     p.add_argument("--particle-radius", type=float, default=None,
@@ -82,7 +100,11 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     dtype = parse_dtype(args.dtype, device)
     mesh = box_mesh(*args.box)
-    cfg = load_config(args.config) if args.config else reference_scenario_config()
+    scenario_config, initial_state = {
+        "cavity": (lid_driven_cavity_config, lid_driven_cavity_initial_state),
+        "melt-pool": (melt_pool_scenario_config, melt_pool_initial_state),
+    }.get(args.scenario, (reference_scenario_config, reference_initial_state))
+    cfg = load_config(args.config) if args.config else scenario_config()
     if args.chunk is not None:
         cfg = dataclasses.replace(cfg, assembly_chunk=args.chunk)
     coupled = args.scenario == "coupled"
@@ -96,29 +118,45 @@ def main(argv=None) -> int:
         solver = csolver.fluid
     else:
         solver = NSSolver(mesh, cfg, device=device, dtype=dtype)
-    wg, dwgold, dwg = state_from_numpy(*reference_initial_state(mesh), device, dtype)
+    wg, dwgold, dwg = state_from_numpy(*initial_state(mesh), device, dtype)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    dt, laser = cfg.time.dt, cfg.physics.laser
     for step in range(1, args.steps + 1):
+        src = None
+        if laser is not None:
+            # the moving source at the generalized-alpha level
+            t_alpha = (step - 1 + cfg.time.alpha_f) * dt
+            src = torch.as_tensor(laser_source(laser, mesh.xg, t_alpha), dtype=dtype, device=device)
         sync()
         t0 = time.perf_counter()
+        stats = None
         if coupled:
             wg, dwgold, dwg, pstate, stats = csolver.step(wg, dwgold, dwg, pstate)
+        elif args.fixed_newton:
+            wg, dwgold, dwg = solver.step_fixed(
+                wg, dwgold, dwg, num_newton=args.fixed_newton, source=src
+            )
         else:
-            wg, dwgold, dwg, stats = solver.step(wg, dwgold, dwg)
+            wg, dwgold, dwg, stats = solver.step(wg, dwgold, dwg, source=src)
         sync()
         rec = {
             "step": step,
             "scenario": args.scenario,
             "fastpath": solver.fastpath,
             "wall_s": time.perf_counter() - t0,
-            "newton_iters": len(stats.rnorms),
-            "krylov_iters": stats.krylov_iters,
-            "field_norms": [float(v) for v in stats.rnorms[-1]],
-            "converged": stats.converged,
+            "t_max": float(wg[:, 5].max()),
         }
+        if stats is not None:
+            rec.update(
+                newton_iters=len(stats.rnorms),
+                krylov_iters=stats.krylov_iters,
+                field_norms=[float(v) for v in stats.rnorms[-1]],
+                converged=stats.converged,
+            )
         print(json.dumps(rec), flush=True)
-        if not all(map(math.isfinite, rec["field_norms"])):
-            print(f"non-finite residual at step {step}", file=sys.stderr)
+        finite = rec.get("field_norms", []) + [rec["t_max"]]
+        if not all(map(math.isfinite, finite)):
+            print(f"non-finite residual or temperature at step {step}", file=sys.stderr)
             return 2
     return 0
 

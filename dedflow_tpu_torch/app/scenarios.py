@@ -1,5 +1,5 @@
-"""The reference scenario and the coupled FEM-DEM powder-settling set-up
-(copies of those parts of dedflow_tpu/app/scenarios.py).
+"""The reference, lid-driven cavity, moving-laser melt-pool and coupled
+FEM-DEM powder-settling scenarios (copies of dedflow_tpu/app/scenarios.py).
 
 Initial condition MyFieldInit (main.c:286-321): u=(1,0,0), p=0, phi=x,
 T=-x; BC layout of main.c:454-477 on a generated box mesh:
@@ -17,7 +17,7 @@ import dataclasses
 
 import numpy as np
 
-from dedflow_tpu_torch.config import BCSpec, SolverConfig
+from dedflow_tpu_torch.config import BCSpec, Laser, Physics, SolverConfig, TimeScheme
 from dedflow_tpu_torch.mesh.mesh import Mesh
 
 
@@ -48,6 +48,80 @@ def reference_scenario_config(**overrides) -> SolverConfig:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+# ---------------------------------------------------------------------------
+# Lid-driven cavity (BASELINE config #2; scenarios.py:77-114): transient
+# stabilized NS in a closed box, the z+ lid moving with u = (1, 0, 0), every
+# other wall no-slip.
+
+
+def lid_driven_cavity_bcs() -> tuple[BCSpec, ...]:
+    """Box side order [x-, x+, y-, y+, z-, z+]: every velocity component
+    fixed on every side; the lid value comes from the initial state (the
+    Dirichlet rows keep what they hold)."""
+    return tuple(BCSpec(boundary=b, strong_components=(0, 1, 2)) for b in range(6))
+
+
+def lid_driven_cavity_config(**overrides) -> SolverConfig:
+    cfg = SolverConfig(
+        physics=Physics(rho=1.0, mu=1.0e-2),  # Re = 100 cavity
+        time=TimeScheme(dt=5e-2),
+        bcs=lid_driven_cavity_bcs(),
+        pin_pressure=True,  # enclosed flow: constant-pressure null mode
+    )
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def lid_driven_cavity_initial_state(mesh: Mesh):
+    """u = (1, 0, 0) on the lid interior, zero elsewhere; the lid's rim
+    nodes (shared with the side walls) stay at zero."""
+    n = mesh.num_node
+    wg = np.zeros((n, 6))
+    lid = mesh.boundaries[5].nodes
+    rim = np.unique(np.concatenate([mesh.boundaries[b].nodes for b in range(5)]))
+    wg[np.setdiff1d(lid, rim), 0] = 1.0
+    return wg, np.zeros((n, 6)), np.zeros((n, 6))
+
+
+# ---------------------------------------------------------------------------
+# Moving-laser melt pool (BASELINE config #3; scenarios.py:124-157): the
+# phi/T equations active with their consistent tangents
+# (SolverConfig.implicit_scalars) and a moving volumetric heat source.
+
+
+def laser_source(laser: Laser, xg: np.ndarray, t: float) -> np.ndarray:
+    """(N,) nodal volumetric heat source q(x, t); integrates to power."""
+    c = np.asarray(laser.start) + np.asarray(laser.velocity) * t
+    r2 = ((np.asarray(xg) - c) ** 2).sum(axis=1)
+    q0 = laser.power * (2.0 / np.pi) ** 1.5 / laser.radius**3
+    return q0 * np.exp(-2.0 * r2 / laser.radius**2)
+
+
+def melt_pool_scenario_config(**overrides) -> SolverConfig:
+    """Single-track DED: the laser scans +x across the top (z+) face of the
+    box, the thermal-fluid system fully active, slow time stepping."""
+    laser = Laser(power=50.0, radius=0.15, velocity=(0.5, 0.0, 0.0), start=(0.1, 0.5, 1.0))
+    cfg = SolverConfig(
+        physics=Physics(laser=laser),
+        time=TimeScheme(dt=2e-2),
+        bcs=box_channel_bcs(),
+        freeze_phi_temperature=False,
+        implicit_scalars=True,
+    )
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def melt_pool_initial_state(mesh: Mesh):
+    """u = 0, p = 0, phi = z - 0.5 (the melt interface), T = 0."""
+    n = mesh.num_node
+    wg = np.zeros((n, 6))
+    wg[:, 4] = mesh.xg[:, 2] - 0.5
+    return wg, np.zeros((n, 6)), np.zeros((n, 6))
 
 
 # ---------------------------------------------------------------------------

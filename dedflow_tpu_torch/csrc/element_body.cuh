@@ -1,14 +1,16 @@
 // The element residual and element Jacobian of one tet, evaluated by one
 // thread from inputs in registers. Shared by K6 (element_rows.cu: inputs
-// read from packed rows) and K4/K5 (gather_elements.cu: inputs gathered from
-// the nodal states), so the three kernels run one body.
+// read from packed rows), K4/K5 (gather_elements.cu: inputs gathered from
+// the nodal states) and the element passes of K1/K2 (lattice_residual.cu,
+// lattice_jacobian.cu: inputs read at the lattice's vertex offsets), so the
+// five kernels run one body.
 //
 // These are the bodies of dedflow_tpu/fem/pallas_kernels.py::_res_rows
 // (67 input rows -> 24 output rows a*6+c) and ::_lhs_rows (27 -> 288 rows
-// ab*18+c, frozen-scalar mode), the plain torch versions of which are
-// dedflow_tpu_torch/fem/element_rows.py::res_rows and ::lhs_rows. Outputs go
-// to o[row * M] for the element column the caller points `o` at, so a warp's
-// stores are coalesced along the element axis.
+// ab*18+c; with scalar_implicit 33 -> 288), the plain torch versions of
+// which are dedflow_tpu_torch/fem/element_rows.py::res_rows and ::lhs_rows.
+// Outputs go to o[row * M] for the element column the caller points `o` at,
+// so a warp's stores are coalesced along the element axis.
 //
 // The guards of the JAX bodies are kept: tr > 0 ? tr : 1 (pallas_kernels.py:128
 // and the residual's own) keeps every tau finite on dead or sliver columns,
@@ -24,7 +26,7 @@ struct RowsResParams {
 };
 
 struct RowsLhsParams {
-  double rho, mu, f1, f2, dt;
+  double rho, mu, f1, f2, dt, cp, kappa;
 };
 
 // Residual inputs: shape gradients sh[i][a], det, the 6 unique metric
@@ -38,10 +40,12 @@ struct ResInputs {
 };
 
 // Jacobian inputs: shape gradients, the element nodes' velocity, det,
-// gg = |G|^2 and tr(G).
+// gg = |G|^2 and tr(G); the 6 unique metric entries only in the implicit
+// mode (the phi/T tangents' taus use the residual's form t1 = u.G.u).
 struct LhsInputs {
   float sh[3][4], u[3][4];
   float det, gg, tr;
+  float m00, m01, m02, m11, m12, m22;
 };
 
 __device__ __forceinline__ float dot4(const float* x, const float* y) {
@@ -156,8 +160,16 @@ __device__ __forceinline__ void res_body(const ResInputs& x, const RowsResParams
   }
 }
 
+// kImplicit: components 16/17 are the consistent phi/T transport tangents
+// (pallas_kernels._lhs_rows with scalar_implicit, weakform.scalar_lhs_blocks)
+// from the per-point taus tau_phi[q] and tau_t[q]; each (a, b) entry is
+// summed over q inside the output loop, so no (16,) accumulator stays live.
+// Otherwise they are the state-independent identities, and kComp = 16 drops
+// them (the lattice restores them from the node multiplicity).
+template <bool kImplicit, int kComp = 18>
 __device__ __forceinline__ void lhs_body(const LhsInputs& x, const RowsLhsParams& prm,
                                          float* __restrict__ o, size_t M) {
+  static_assert(kComp == 18 || (kComp == 16 && !kImplicit), "16 components: frozen mode only");
   const float rho = static_cast<float>(prm.rho);
   const float t0 = static_cast<float>(4.0 / (prm.dt * prm.dt));
   const float visc2 = static_cast<float>(3.0 * (prm.mu / prm.rho) * (prm.mu / prm.rho));
@@ -171,6 +183,7 @@ __device__ __forceinline__ void lhs_body(const LhsInputs& x, const RowsLhsParams
   const float tr_safe = x.tr > 0.f ? x.tr : 1.f;  // pallas_kernels.py:128
 
   float shconv[4][4], tau0[4];
+  float tau_phi[4], tau_t[4];  // implicit mode only
   float gs_conv[4] = {}, gs_shl[4] = {}, tau0_sum = 0.f, c_grad2 = 0.f;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -197,6 +210,15 @@ __device__ __forceinline__ void lhs_body(const LhsInputs& x, const RowsLhsParams
     }
     tau0_sum += gw * tau0[q];
     c_grad2 += (f2rho * gw) * tau1;
+    if constexpr (kImplicit) {
+      const double alpha_th = prm.kappa / (prm.rho * prm.cp);
+      const float alpha3 = static_cast<float>(3.0 * alpha_th * alpha_th);
+      const float t1 = x.m00 * uq[0] * uq[0] + x.m11 * uq[1] * uq[1] + x.m22 * uq[2] * uq[2] +
+                       2.f * (x.m01 * uq[0] * uq[1] + x.m02 * uq[0] * uq[2] +
+                              x.m12 * uq[1] * uq[2]);
+      tau_phi[q] = rsqrtf(t0 + t1);
+      tau_t[q] = rsqrtf(t0 + t1 + alpha3 * gg) / static_cast<float>(prm.rho * prm.cp);
+    }
   }
 
   const float c1 = static_cast<float>(prm.f1 * prm.rho * prm.rho * kGw);
@@ -208,16 +230,24 @@ __device__ __forceinline__ void lhs_body(const LhsInputs& x, const RowsLhsParams
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       float tmp = f1rho * static_cast<float>(mass(a, b));
+      float jphi = 0.f, jt = 0.f;  // implicit mode only
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const float sa = static_cast<float>(shl(q, a));
         const float sb = static_cast<float>(shl(q, b));
         tmp += c1 * tau0[q] * shconv[q][a] * sb + c2 * sa * shconv[q][b] +
                c3 * tau0[q] * shconv[q][a] * shconv[q][b];
+        if constexpr (kImplicit) {
+          const float rhocp = static_cast<float>(prm.rho * prm.cp);
+          // trial: d(rate)/d(dwg_b) = f1 N_b + f2 u.grad N_b, SUPG-tested
+          const float trial = static_cast<float>(prm.f1) * sb + f2 * shconv[q][b];
+          jphi += gw * (sa + tau_phi[q] * shconv[q][a]) * trial;
+          jt += gw * (sa + rhocp * tau_t[q] * shconv[q][a]) * trial;
+        }
       }
       const float e_k = x.sh[0][a] * x.sh[0][b] + x.sh[1][a] * x.sh[1][b] + x.sh[2][a] * x.sh[2][b];
       tmp += f2mu * e_k;
-      float* op = o + static_cast<size_t>((a * 4 + b) * 18) * M;
+      float* op = o + static_cast<size_t>((a * 4 + b) * kComp) * M;
 #pragma unroll
       for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -235,9 +265,16 @@ __device__ __forceinline__ void lhs_body(const LhsInputs& x, const RowsLhsParams
                             f2rho * x.sh[i][a] * gs_conv[b]) * det;
       }
       op[15 * M] = tau0_sum * e_k * det;
-      // state-independent phi-phi / T-T identities
-      op[16 * M] = a == b ? ident : 0.f;
-      op[17 * M] = a == b ? ident : 0.f;
+      if constexpr (kImplicit) {
+        const float rhocp = static_cast<float>(prm.rho * prm.cp);
+        const float f2kappa = static_cast<float>(prm.f2 * prm.kappa * kGwSum);
+        op[16 * M] = jphi * det;
+        op[17 * M] = (rhocp * jt + f2kappa * e_k) * det;
+      } else if constexpr (kComp == 18) {
+        // state-independent phi-phi / T-T identities
+        op[16 * M] = a == b ? ident : 0.f;
+        op[17 * M] = a == b ? ident : 0.f;
+      }
     }
   }
 }

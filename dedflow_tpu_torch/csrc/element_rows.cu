@@ -22,9 +22,9 @@
 // bandwidth: the pair-by-pair arithmetic, not the write, sets its time, as
 // in K2's element pass.
 //
-// K1 (lattice_residual.cu) and K2 (lattice_jacobian.cu) evaluate the same
-// bodies on the lattice; they do not share the header yet (ROADMAP notes
-// the duplication).
+// The implicit mode adds 6 input rows and, per (a, b) entry, two sums over
+// the quadrature points (element_body.cuh): about 15% more arithmetic for
+// the same 1152 output bytes per element.
 
 #include "element_body.cuh"
 
@@ -66,14 +66,16 @@ res_rows_kernel(const float* __restrict__ inp,  // (S, 67, m)
   res_body(x, prm, out + static_cast<size_t>(blockIdx.y) * 24 * M + c, M);
 }
 
+template <bool kImplicit>
 __global__ void __launch_bounds__(128)
-lhs_rows_kernel(const float* __restrict__ inp,  // (S, 27, m)
+lhs_rows_kernel(const float* __restrict__ inp,  // (S, 27|33, m)
                 float* __restrict__ out,        // (S, 288, m)
                 int m, RowsLhsParams prm) {
+  constexpr int kRows = kImplicit ? 33 : 27;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= m) return;
   const size_t M = static_cast<size_t>(m);
-  const float* in = inp + static_cast<size_t>(blockIdx.y) * 27 * M + c;
+  const float* in = inp + static_cast<size_t>(blockIdx.y) * kRows * M + c;
   LhsInputs x;
 #pragma unroll
   for (int i = 0; i < 3; ++i)
@@ -85,7 +87,15 @@ lhs_rows_kernel(const float* __restrict__ inp,  // (S, 27, m)
   x.det = in[24 * M];
   x.gg = in[25 * M];
   x.tr = in[26 * M];
-  lhs_body(x, prm, out + static_cast<size_t>(blockIdx.y) * 288 * M + c, M);
+  if constexpr (kImplicit) {
+    x.m00 = in[27 * M];
+    x.m01 = in[28 * M];
+    x.m02 = in[29 * M];
+    x.m11 = in[30 * M];
+    x.m12 = in[31 * M];
+    x.m22 = in[32 * M];
+  }
+  lhs_body<kImplicit>(x, prm, out + static_cast<size_t>(blockIdx.y) * 288 * M + c, M);
 }
 
 }  // namespace dedflow
@@ -102,13 +112,20 @@ extern "C" int dedflow_res_rows(const void* inp, void* out, int m, int slabs, do
   return static_cast<int>(cudaGetLastError());
 }
 
+// implicit != 0: 33 input rows, the implicit phi/T tangents in 16/17.
 extern "C" int dedflow_lhs_rows(const void* inp, void* out, int m, int slabs, double rho,
-                                double mu, double f1, double f2, double dt, void* stream) {
+                                double mu, double f1, double f2, double dt, double cp,
+                                double kappa, int implicit, void* stream) {
   using namespace dedflow;
   if (m <= 0 || slabs <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const RowsLhsParams prm{rho, mu, f1, f2, dt};
+  const RowsLhsParams prm{rho, mu, f1, f2, dt, cp, kappa};
   const dim3 grid((m + 127) / 128, slabs);
-  lhs_rows_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(inp), static_cast<float*>(out), m, prm);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* in = static_cast<const float*>(inp);
+  float* o = static_cast<float*>(out);
+  if (implicit)
+    lhs_rows_kernel<true><<<grid, 128, 0, s>>>(in, o, m, prm);
+  else
+    lhs_rows_kernel<false><<<grid, 128, 0, s>>>(in, o, m, prm);
   return static_cast<int>(cudaGetLastError());
 }

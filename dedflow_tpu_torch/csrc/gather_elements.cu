@@ -8,7 +8,10 @@
 //   rows, then the residual body -> (24, ne) rows a*6+c;
 // - K5 ns_lhs_packed_pallas (pallas_call at :507, kernel _lhs_kernel): the
 //   nodal velocities gathered into packed (27, ne) rows, then the Jacobian
-//   body -> (288, ne) rows ab*18+c.
+//   body -> (288, ne) rows ab*18+c. Given the 6 metric rows (a view of the
+//   residual geometry's rows 13-18), K5 runs the body's implicit mode: the
+//   phi/T transport tangents in components 16/17, which the JAX package
+//   computes in XLA on this tier (dedflow_tpu/fem/ns.py:184-235).
 // The plain torch versions are dedflow_tpu_torch/fem/element_kernels.py::
 // ns_residual_gather_plain / ns_lhs_gather_plain (an index gather, then
 // element_rows.res_rows / lhs_rows).
@@ -76,8 +79,10 @@ res_gather_kernel(const float* __restrict__ geom, long long geom_ld,  // (19, ld
   res_body(x, prm, out + e, static_cast<size_t>(m));
 }
 
+template <bool kImplicit>
 __global__ void __launch_bounds__(128)
 lhs_gather_kernel(const float* __restrict__ geom, long long geom_ld,  // (15, ld)
+                  const float* __restrict__ mgeom, long long mgeom_ld,  // (6, ld), implicit
                   const int* __restrict__ ien, long long ien_ld,     // (4, ld)
                   const float* __restrict__ w,                       // (>= 3, n)
                   int n, int m, RowsLhsParams prm,
@@ -100,7 +105,17 @@ lhs_gather_kernel(const float* __restrict__ geom, long long geom_ld,  // (15, ld
   x.det = g[12 * G];
   x.gg = g[13 * G];
   x.tr = g[14 * G];
-  lhs_body(x, prm, out + e, static_cast<size_t>(m));
+  if constexpr (kImplicit) {
+    const float* mg = mgeom + e;
+    const size_t MG = static_cast<size_t>(mgeom_ld);
+    x.m00 = mg[0];
+    x.m01 = mg[MG];
+    x.m02 = mg[2 * MG];
+    x.m11 = mg[3 * MG];
+    x.m12 = mg[4 * MG];
+    x.m22 = mg[5 * MG];
+  }
+  lhs_body<kImplicit>(x, prm, out + e, static_cast<size_t>(m));
 }
 
 }  // namespace dedflow
@@ -121,16 +136,29 @@ extern "C" int dedflow_res_gather(const void* geom, long long geom_ld, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: (288, m) packed element Jacobian rows of elements [0, m).
-extern "C" int dedflow_lhs_gather(const void* geom, long long geom_ld, const void* ien,
-                                  long long ien_ld, const void* w, int n, int m, double rho,
-                                  double mu, double f1, double f2, double dt, void* out,
+// K5: (288, m) packed element Jacobian rows of elements [0, m); with the
+// metric rows `mgeom` (not null) the implicit phi/T tangents in 16/17.
+extern "C" int dedflow_lhs_gather(const void* geom, long long geom_ld, const void* mgeom,
+                                  long long mgeom_ld, const void* ien, long long ien_ld,
+                                  const void* w, int n, int m, double rho, double mu, double f1,
+                                  double f2, double dt, double cp, double kappa, void* out,
                                   void* stream) {
   using namespace dedflow;
-  if (m <= 0 || n <= 0 || geom_ld < m || ien_ld < m) return static_cast<int>(cudaErrorInvalidValue);
-  const RowsLhsParams prm{rho, mu, f1, f2, dt};
-  lhs_gather_kernel<<<(m + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(geom), geom_ld, static_cast<const int*>(ien), ien_ld,
-      static_cast<const float*>(w), n, m, prm, static_cast<float*>(out));
+  if (m <= 0 || n <= 0 || geom_ld < m || ien_ld < m || (mgeom != nullptr && mgeom_ld < m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowsLhsParams prm{rho, mu, f1, f2, dt, cp, kappa};
+  const dim3 grid((m + 127) / 128);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(geom);
+  const float* mg = static_cast<const float*>(mgeom);
+  const int* ie = static_cast<const int*>(ien);
+  const float* wp = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
+  if (mg != nullptr)
+    lhs_gather_kernel<true><<<grid, 128, 0, s>>>(g, geom_ld, mg, mgeom_ld, ie, ien_ld, wp, n, m,
+                                                  prm, o);
+  else
+    lhs_gather_kernel<false><<<grid, 128, 0, s>>>(g, geom_ld, mg, 0, ie, ien_ld, wp, n, m, prm,
+                                                   o);
   return static_cast<int>(cudaGetLastError());
 }

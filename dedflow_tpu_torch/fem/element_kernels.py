@@ -5,8 +5,11 @@ dedflow_tpu/fem/pallas_kernels.py's row entry points `res_rows_call` /
 
 `res_rows_call` maps (67, M) packed residual inputs to (24, M) element
 residual rows a*6+c; `lhs_rows_call` maps (27, M) packed Jacobian inputs
-to (288, M) rows ab*18+c, as in the JAX package. Both also take the
-slab-major (S, R, M) form. On a CUDA tensor they launch the hand-written
+to (288, M) rows ab*18+c, as in the JAX package, and with
+`scalar_implicit` (melt-pool runs) (33, M) inputs, the last 6 rows the
+metric entries, to the same rows with the consistent phi/T transport
+tangents in components 16/17. Both also take the slab-major (S, R, M)
+form. On a CUDA tensor they launch the hand-written
 kernel csrc/element_rows.cu, which replaces the TPU kernel
 dedflow_tpu/fem/pallas_kernels.py::_pallas_rows_call running `_res_kernel`
 / `_lhs_kernel`; on a CPU tensor they run the plain bodies
@@ -24,9 +27,12 @@ TPU entry points are never written; on a CPU tensor they run their plain twins,
 an index gather (`res_gather_inputs`, `lhs_gather_inputs`) followed by
 `res_rows` / `lhs_rows`. Geometry and connectivity may be column slices
 of a larger context (a row-strided view): the kernels read them in place.
+Given the 6 metric rows (`metric`, a view of the residual geometry's rows
+13-18), K5 emits the implicit phi/T tangents; the JAX package computes
+those on this tier in XLA (fem/ns.py:184-235), the port in K5.
 
-The 33-row implicit-scalar Jacobian (melt-pool tangents) and the
-`comp_major` output order are not ported (ROADMAP queue A12).
+The `comp_major` output order is not ported: it is a TPU relayout, and
+the reduces read rows ab*18+c in place.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ def res_args(phys: Physics, scheme: TimeScheme) -> dict:
 def lhs_args(phys: Physics, scheme: TimeScheme) -> dict:
     return dict(
         rho=float(phys.rho), mu=float(phys.mu), f1=float(scheme.fact_dw),
-        f2=float(scheme.fact_w), dt=float(scheme.dt),
+        f2=float(scheme.fact_w), dt=float(scheme.dt), cp=float(phys.cp),
+        kappa=float(phys.kappa),
     )
 
 
@@ -90,24 +97,22 @@ res_rows_call.launches = 0
 def lhs_rows_call(
     inp: torch.Tensor, phys: Physics, scheme: TimeScheme, scalar_implicit: bool = False,
 ) -> torch.Tensor:
-    """K6 (Jacobian): (27, M) -> (288, M) element Jacobian rows ab*18+c
-    (frozen-scalar mode)."""
-    if scalar_implicit:
-        raise NotImplementedError(
-            "dedflow_tpu_torch does not port scalar_implicit element Jacobians "
-            "(33 input rows, melt-pool tangents) yet (ROADMAP queue A12)"
-        )
+    """K6 (Jacobian): (27, M) -> (288, M) element Jacobian rows ab*18+c,
+    the frozen-scalar mode; with `scalar_implicit` (33, M) -> (288, M), the
+    implicit phi/T tangents in components 16/17."""
     a = lhs_args(phys, scheme)
     if not inp.is_cuda:
-        return lhs_rows(inp, **a)
-    slabs, m = _check_input("lhs_rows", inp, 27)
+        return lhs_rows(inp, scalar_implicit=scalar_implicit, **a)
+    slabs, m = _check_input("lhs_rows", inp, 33 if scalar_implicit else 27)
     fn = nvcc.function(
-        "element_rows", "dedflow_lhs_rows", [nvcc.P, nvcc.P, nvcc.I, nvcc.I] + [nvcc.D] * 5 + [nvcc.P]
+        "element_rows", "dedflow_lhs_rows",
+        [nvcc.P, nvcc.P, nvcc.I, nvcc.I] + [nvcc.D] * 7 + [nvcc.I, nvcc.P],
     )
     out = torch.empty((*inp.shape[:-2], 288, m), dtype=torch.float32, device=inp.device)
     nvcc.check(
         fn(inp.data_ptr(), out.data_ptr(), m, slabs, a["rho"], a["mu"], a["f1"],
-           a["f2"], a["dt"], torch.cuda.current_stream(inp.device).cuda_stream),
+           a["f2"], a["dt"], a["cp"], a["kappa"], int(scalar_implicit),
+           torch.cuda.current_stream(inp.device).cuda_stream),
         "lhs_rows",
     )
     lhs_rows_call.launches += 1
@@ -136,11 +141,12 @@ def res_gather_inputs(res_geom, ien_t, w_t, dw_t, source=None) -> torch.Tensor:
     ])
 
 
-def lhs_gather_inputs(lhs_geom, ien_t, w_t) -> torch.Tensor:
+def lhs_gather_inputs(lhs_geom, ien_t, w_t, metric=None) -> torch.Tensor:
     """(27, ne) K6 Jacobian input rows: shape gradients, the element
-    nodes' velocity (rows i*4+a), det, gg, tr."""
+    nodes' velocity (rows i*4+a), det, gg, tr; (33, ne) with the 6 metric
+    rows `metric` appended (the implicit mode's input)."""
     u = w_t[:3][:, ien_t.long()].reshape(12, ien_t.shape[1])
-    return torch.cat([lhs_geom[:12], u, lhs_geom[12:]])
+    return torch.cat([lhs_geom[:12], u, lhs_geom[12:], *([] if metric is None else [metric])])
 
 
 def ns_residual_gather_plain(res_geom, ien_t, w_t, dw_t, phys, scheme, source=None):
@@ -148,9 +154,10 @@ def ns_residual_gather_plain(res_geom, ien_t, w_t, dw_t, phys, scheme, source=No
     return res_rows(res_gather_inputs(res_geom, ien_t, w_t, dw_t, source), **res_args(phys, scheme))
 
 
-def ns_lhs_gather_plain(lhs_geom, ien_t, w_t, phys, scheme):
-    """K5's plain twin: (288, ne) rows ab*18+c."""
-    return lhs_rows(lhs_gather_inputs(lhs_geom, ien_t, w_t), **lhs_args(phys, scheme))
+def ns_lhs_gather_plain(lhs_geom, ien_t, w_t, phys, scheme, metric=None):
+    """K5's plain twin: (288, ne) rows ab*18+c; implicit with `metric`."""
+    return lhs_rows(lhs_gather_inputs(lhs_geom, ien_t, w_t, metric),
+                    scalar_implicit=metric is not None, **lhs_args(phys, scheme))
 
 
 def _check_gather(what: str, geom, rows: int, ien_t, states) -> tuple[int, int]:
@@ -206,25 +213,32 @@ def ns_residual_gather(res_geom, ien_t, w_t, dw_t, phys: Physics, scheme: TimeSc
 ns_residual_gather.launches = 0
 
 
-def ns_lhs_gather(lhs_geom, ien_t, w_t, phys: Physics, scheme: TimeScheme):
-    """K5: (288, ne) packed element Jacobian rows ab*18+c (frozen-scalar
-    mode) of the gathered (6, N) state w (its velocity rows). The CUDA
-    kernel on CUDA tensors, the plain twin on CPU tensors."""
+def ns_lhs_gather(lhs_geom, ien_t, w_t, phys: Physics, scheme: TimeScheme, metric=None):
+    """K5: (288, ne) packed element Jacobian rows ab*18+c of the gathered
+    (6, N) state w (its velocity rows): the frozen-scalar mode, or with the
+    (6, ne) metric rows `metric` (a view of the residual geometry's rows
+    13-18) the implicit phi/T tangents. The CUDA kernel on CUDA tensors,
+    the plain twin on CPU tensors."""
     if not w_t.is_cuda:
-        return ns_lhs_gather_plain(lhs_geom, ien_t, w_t, phys, scheme)
+        return ns_lhs_gather_plain(lhs_geom, ien_t, w_t, phys, scheme, metric)
     if w_t.shape[0] < 3:
         raise ValueError("lhs_gather kernel: the state needs its 3 velocity rows")
     n, ne = _check_gather("lhs_gather", lhs_geom, 15, ien_t, (w_t,))
+    if metric is not None:
+        _check_gather("lhs_gather", metric, 6, ien_t, (w_t,))
     a = lhs_args(phys, scheme)
     fn = nvcc.function(
         "gather_elements", "dedflow_lhs_gather",
-        [nvcc.P, nvcc.LL, nvcc.P, nvcc.LL, nvcc.P, nvcc.I, nvcc.I] + [nvcc.D] * 5 + [nvcc.P, nvcc.P],
+        [nvcc.P, nvcc.LL, nvcc.P, nvcc.LL, nvcc.P, nvcc.LL, nvcc.P, nvcc.I, nvcc.I]
+        + [nvcc.D] * 7 + [nvcc.P, nvcc.P],
     )
     out = torch.empty((288, ne), dtype=torch.float32, device=w_t.device)
     nvcc.check(
-        fn(lhs_geom.data_ptr(), lhs_geom.stride(0), ien_t.data_ptr(), ien_t.stride(0),
-           w_t.data_ptr(), n, ne, a["rho"], a["mu"], a["f1"], a["f2"], a["dt"],
-           out.data_ptr(), torch.cuda.current_stream(w_t.device).cuda_stream),
+        fn(lhs_geom.data_ptr(), lhs_geom.stride(0),
+           None if metric is None else metric.data_ptr(), 0 if metric is None else metric.stride(0),
+           ien_t.data_ptr(), ien_t.stride(0), w_t.data_ptr(), n, ne, a["rho"], a["mu"], a["f1"],
+           a["f2"], a["dt"], a["cp"], a["kappa"], out.data_ptr(),
+           torch.cuda.current_stream(w_t.device).cuda_stream),
         "lhs_gather",
     )
     ns_lhs_gather.launches += 1

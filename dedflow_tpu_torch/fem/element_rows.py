@@ -156,15 +156,20 @@ def res_rows(inp: torch.Tensor, *, rho, mu, cp, kappa, fb, dt) -> torch.Tensor:
     return out.reshape(*out.shape[:-3], 24, out.shape[-1])
 
 
-def lhs_rows(inp: torch.Tensor, *, rho, mu, f1, f2, dt, ncomp=18) -> torch.Tensor:
-    """(..., 27, E) -> (..., 16*ncomp, E) element Jacobian, rows ab*ncomp+c
-    (pallas_kernels._lhs_rows, frozen-scalar mode). Input rows: [0:12) sh
-    (i*4+a), [12:24) nodal velocity (i*4+a), 24 det, 25 gg, 26 tr.
-    ncomp=16 drops the state-independent phi-phi/T-T identity
-    components 16/17 (the lattice restores them from the node
-    multiplicity)."""
-    if ncomp not in (16, 18):
-        raise ValueError(f"ncomp must be 16 or 18, got {ncomp}")
+def lhs_rows(inp: torch.Tensor, *, rho, mu, f1, f2, dt, ncomp=18, cp=1.0, kappa=1.0,
+             scalar_implicit=False) -> torch.Tensor:
+    """(..., 27|33, E) -> (..., 16*ncomp, E) element Jacobian, rows
+    ab*ncomp+c (pallas_kernels._lhs_rows). Input rows: [0:12) sh (i*4+a),
+    [12:24) nodal velocity (i*4+a), 24 det, 25 gg, 26 tr, and with
+    `scalar_implicit` [27:33) the 6 packed metric entries.
+    Frozen-scalar mode: components 16/17 are the state-independent
+    phi-phi/T-T identities, and ncomp=16 drops them (the lattice restores
+    them from the node multiplicity). `scalar_implicit` (ncomp 18) puts
+    the consistent phi/T transport tangents there instead
+    (weakform.scalar_lhs_blocks), their taus from the residual's metric
+    form t1 = u.G.u."""
+    if ncomp not in (16, 18) or (scalar_implicit and ncomp != 18):
+        raise ValueError(f"ncomp must be 16 or 18 (18 with scalar_implicit), got {ncomp}")
     r = lambda lo, hi: inp[..., lo:hi, :]
     sh = [r(4 * i, 4 * i + 4) for i in range(3)]
     u = [r(12 + 4 * i, 16 + 4 * i) for i in range(3)]
@@ -175,6 +180,12 @@ def lhs_rows(inp: torch.Tensor, *, rho, mu, f1, f2, dt, ncomp=18) -> torch.Tenso
     knu = mu / rho
     visc2 = 3.0 * knu * knu
     tr_safe = torch.where(tr > 0.0, tr, torch.ones_like(tr))
+
+    if scalar_implicit:
+        m6 = [r(27 + k, 28 + k) for k in range(6)]
+        alpha_th = kappa / (rho * cp)
+        jphi = torch.zeros(pair_shape, dtype=inp.dtype, device=inp.device)
+        jt = torch.zeros(pair_shape, dtype=inp.dtype, device=inp.device)
 
     mass16 = _pair_const(lambda a, b: _MASS[a, b], inp)
     tmp = (f1 * rho * mass16).expand(pair_shape)
@@ -207,6 +218,18 @@ def lhs_rows(inp: torch.Tensor, *, rho, mu, f1, f2, dt, ncomp=18) -> torch.Tenso
         gs_shl = gs_shl + gwq * tau0 * shl_b
         tau0_sum = tau0_sum + gwq * tau0
         c_grad2 = c_grad2 + (f2 * rho * gwq) * tau1
+        if scalar_implicit:
+            t0c = 4.0 / (dt * dt)
+            t1 = (
+                m6[0] * uq[0] * uq[0] + m6[3] * uq[1] * uq[1] + m6[5] * uq[2] * uq[2]
+                + 2.0 * (m6[1] * uq[0] * uq[1] + m6[2] * uq[0] * uq[2]
+                         + m6[4] * uq[1] * uq[2])
+            )
+            tau_phi = torch.rsqrt(t0c + t1)
+            tau_t = torch.rsqrt(t0c + t1 + 3.0 * alpha_th * alpha_th * gg) / (rho * cp)
+            trial16 = f1 * shl16_b + f2 * conv_b
+            jphi = jphi + gwq * (shl16_a + tau_phi * conv_a) * trial16
+            jt = jt + (rho * cp * gwq) * (shl16_a + (rho * cp) * tau_t * conv_a) * trial16
 
     sh_a = [_rep_a(sh[i]) for i in range(3)]
     sh_b = [_rep_b(sh[i]) for i in range(3)]
@@ -233,7 +256,10 @@ def lhs_rows(inp: torch.Tensor, *, rho, mu, f1, f2, dt, ncomp=18) -> torch.Tenso
             + (f2 * rho) * sh_a[i] * gsconv_b
         ) * det
     comps[15] = tau0_sum * e_k * det
-    if ncomp == 18:
+    if scalar_implicit:
+        comps[16] = jphi * det
+        comps[17] = (jt + (f2 * kappa * _GWSUM) * e_k) * det
+    elif ncomp == 18:
         eye16 = _pair_const(lambda a, b: 1.0 if a == b else 0.0, inp)
         ident = (eye16 * (det > 0.0).to(inp.dtype)).expand(pair_shape)
         comps[16] = ident

@@ -12,7 +12,8 @@ component-major DIA storage (sparse.fsbsr.FSDIAMatrixT).
 
 Two kernels carry the path, each behind a wrapper with a launch counter:
 
-- K1 `residual_volume`: the volume residual (6, N). On CUDA the kernel
+- K1 `residual_volume`: the volume residual (6, N), with an optional nodal
+  heat source (melt-pool runs). On CUDA the kernel
   csrc/lattice_residual.cu, which replaces fem/lattice.py::_res_t8_kernel of
   the JAX package; on the CPU `residual_volume_plain`, the unfused pipeline
   (shifted-slice inputs -> element_rows.res_rows -> 24 shifted adds).
@@ -24,8 +25,14 @@ Two kernels carry the path, each behind a wrapper with a launch counter:
   shifted adds -> the mask epilogue).
 
 A CUDA tensor always goes to the kernel (or raises); only a CPU tensor takes
-the plain version. The phi-phi / T-T components are state independent and
-come from the node multiplicity `mult`, outside the kernels.
+the plain version. In the frozen-scalar mode the phi-phi / T-T components
+are state independent and come from the node multiplicity `mult`, outside
+the kernels. With `scalar_implicit` (melt-pool runs, the context's flag as
+in the JAX LatticeContext) they are the consistent phi/T transport tangents
+(element_rows.lhs_rows with 33 input rows: the 6 metric entries come from
+`res_geom`), and K2 returns them too, as the (2D, N) scal rows, masked like
+the rest. The JAX package builds that matrix with the 33-row K6 kernel and
+a 96-slice XLA reduce (lattice.py:676-730); here K2 computes it.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ import torch.nn.functional as F
 
 from dedflow_tpu_torch.config import Physics, TimeScheme
 from dedflow_tpu_torch.fem.element import tet_geometry
+from dedflow_tpu_torch.fem.element_kernels import lhs_args as _lhs_args
+from dedflow_tpu_torch.fem.element_kernels import res_args as _res_args
 from dedflow_tpu_torch.fem.element_rows import (  # noqa: F401 (field_norms_t re-exported)
     field_norms_t,
     lhs_geom_rows,
@@ -72,8 +81,10 @@ class LatticeContext:
     offsets: tuple  # sorted DIA column offsets
     plane_tab: tuple  # (6, 4, 4) -> plane
     # K2's plane pass: the 96 (t, a, b) entries sorted by plane, as
-    # (element row t*256 + (a*4+b)*16, shift delta[t][a], plane)
+    # (slab t, pair a*4+b, shift delta[t][a], plane)
     plane_entries: tuple
+    # implicit phi/T transport tangents in the Jacobian (melt-pool runs)
+    scalar_implicit: bool = False
 
 
 def lattice_tables(nx: int, ny: int, nz: int):
@@ -96,7 +107,7 @@ def lattice_tables(nx: int, ny: int, nz: int):
     return sy, sz, deltas, tuple(offs), plane_tab
 
 
-def build_lattice_context(mesh: Mesh, device, dtype) -> LatticeContext:
+def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = False) -> LatticeContext:
     """Build from a box mesh carrying `mesh.lattice = (nx, ny, nz)`."""
     if mesh.lattice is None:
         raise ValueError("mesh has no lattice metadata")
@@ -123,9 +134,7 @@ def build_lattice_context(mesh: Mesh, device, dtype) -> LatticeContext:
         (plane_tab[t][a][b], t, a, b)
         for t in range(len(deltas)) for a in range(4) for b in range(4)
     )
-    plane_entries = tuple(
-        (t * 256 + (a * 4 + b) * 16, deltas[t][a], p) for p, t, a, b in entries
-    )
+    plane_entries = tuple((t, a * 4 + b, deltas[t][a], p) for p, t, a, b in entries)
     return LatticeContext(
         res_geom=torch.stack(rr).contiguous(),
         lhs_geom=torch.stack(lr).contiguous(),
@@ -136,6 +145,7 @@ def build_lattice_context(mesh: Mesh, device, dtype) -> LatticeContext:
         offsets=offs,
         plane_tab=plane_tab,
         plane_entries=plane_entries,
+        scalar_implicit=scalar_implicit,
     )
 
 
@@ -182,27 +192,14 @@ def classes_tier_applies(mesh: Mesh, mesh_offsets: tuple, dmax_limit: int = 1638
 # plain versions: shifted-slice input build / output reduction
 
 
-def _res_args(phys: Physics, scheme: TimeScheme) -> dict:
-    return dict(
-        rho=float(phys.rho), mu=float(phys.mu), cp=float(phys.cp),
-        kappa=float(phys.kappa), fb=tuple(float(v) for v in phys.body_force),
-        dt=float(scheme.dt),
-    )
-
-
-def _lhs_args(phys: Physics, scheme: TimeScheme) -> dict:
-    return dict(
-        rho=float(phys.rho), mu=float(phys.mu), f1=float(scheme.fact_dw),
-        f2=float(scheme.fact_w), dt=float(scheme.dt),
-    )
-
-
-def _residual_inputs(lctx: LatticeContext, wa_t, dwa_t) -> torch.Tensor:
+def _residual_inputs(lctx: LatticeContext, wa_t, dwa_t, source=None) -> torch.Tensor:
     """(6, 67, N) slab-major rows for element_rows.res_rows: column c reads
-    node c + delta[t][a]; nodes past N read zero."""
+    node c + delta[t][a]; nodes past N read zero. `source` (N,) is the
+    nodal heat source (zero rows without one)."""
     n = lctx.num_node
     wpad = F.pad(wa_t, (0, lctx.dmax))
     dwpad = F.pad(dwa_t, (0, lctx.dmax))
+    spad = None if source is None else F.pad(source[None], (0, lctx.dmax))
     zeros = torch.zeros((4, n), dtype=wa_t.dtype, device=wa_t.device)
     parts = []
     for t, d in enumerate(lctx.deltas):
@@ -215,13 +212,14 @@ def _residual_inputs(lctx: LatticeContext, wa_t, dwa_t) -> torch.Tensor:
         rows += [sh(5, a, wpad) for a in range(4)]  # T
         rows += [sh(4, a, dwpad) for a in range(4)]  # dphi
         rows += [sh(5, a, dwpad) for a in range(4)]  # dT
-        rows.append(zeros)  # heat source (not on this path)
+        rows += [zeros] if spad is None else [sh(0, a, spad) for a in range(4)]  # source
         parts.append(torch.cat(rows, dim=0))
     return torch.stack(parts)
 
 
 def _lhs_inputs(lctx: LatticeContext, wa_t) -> torch.Tensor:
-    """(6, 27, N) slab-major rows for element_rows.lhs_rows."""
+    """(6, 27, N) slab-major rows for element_rows.lhs_rows; (6, 33, N)
+    with the context's scalar_implicit, the metric rows of res_geom last."""
     n = lctx.num_node
     upad = F.pad(wa_t[:3], (0, lctx.dmax))
     parts = []
@@ -230,6 +228,8 @@ def _lhs_inputs(lctx: LatticeContext, wa_t) -> torch.Tensor:
         rows = [geom[:12]]
         rows += [upad[i : i + 1, d[a] : d[a] + n] for i in range(3) for a in range(4)]
         rows.append(geom[12:15])
+        if lctx.scalar_implicit:
+            rows.append(lctx.res_geom[t, 13:19])
         parts.append(torch.cat(rows, dim=0))
     return torch.stack(parts)
 
@@ -263,24 +263,30 @@ def _reduce_lhs_planes(lctx: LatticeContext, out, ncomp: int) -> list:
     return planes
 
 
-def residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme) -> torch.Tensor:
-    """K1's plain version: (6, N) volume residual."""
-    out = res_rows(_residual_inputs(lctx, wa_t, dwa_t), **_res_args(phys, scheme))
+def residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme, source=None) -> torch.Tensor:
+    """K1's plain version: (6, N) volume residual; `source` (N,) or None."""
+    out = res_rows(_residual_inputs(lctx, wa_t, dwa_t, source), **_res_args(phys, scheme))
     return _reduce_residual(lctx, out)
 
 
-def jacobian_volume_plain(
-    lctx, wa_t, phys, scheme, keep16, add16, band=None, band_lo=0
-) -> torch.Tensor:
-    """K2's plain version: finished (D, 16, N) data = raw planes * keep16,
-    + add16 on the zero-offset plane, + the pre-masked facet band
-    (D, 16, span) over rows [band_lo, band_lo + span)."""
-    out = lhs_rows(_lhs_inputs(lctx, wa_t), ncomp=16, **_lhs_args(phys, scheme))
-    data = torch.stack(_reduce_lhs_planes(lctx, out, 16)) * keep16[None]
-    data[lctx.offsets.index(0)] += add16
+def jacobian_volume_plain(lctx, wa_t, phys, scheme, keep, add, band=None, band_lo=0):
+    """K2's plain version: finished (D, 16, N) data = raw planes * keep,
+    + add on the zero-offset plane, + the pre-masked facet band (D, 16,
+    span) over rows [band_lo, band_lo + span). Frozen mode: keep/add are
+    (16, N) and the data is returned. scalar_implicit: keep/add are (18, N)
+    and (data, scal) is returned, scal (2D, N) the masked phi-phi / T-T
+    rows of every plane (row 2p, 2p+1)."""
+    nc = 18 if lctx.scalar_implicit else 16
+    out = lhs_rows(_lhs_inputs(lctx, wa_t), ncomp=nc, scalar_implicit=lctx.scalar_implicit,
+                   **_lhs_args(phys, scheme))
+    planes = torch.stack(_reduce_lhs_planes(lctx, out, nc)) * keep[None]
+    planes[lctx.offsets.index(0)] += add
+    data = planes[:, :16]
     if band is not None:
         data[:, :, band_lo : band_lo + band.shape[2]] += band
-    return data
+    if not lctx.scalar_implicit:
+        return data
+    return data.contiguous(), planes[:, 16:].reshape(-1, planes.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -300,23 +306,26 @@ def _flat_deltas(lctx):
     return nvcc.int_array(v for d in lctx.deltas for v in d)
 
 
-def residual_volume(lctx: LatticeContext, wa_t, dwa_t, phys, scheme) -> torch.Tensor:
-    """K1: (6, N) volume residual from the alpha states (6, N)."""
+def residual_volume(lctx: LatticeContext, wa_t, dwa_t, phys, scheme, source=None) -> torch.Tensor:
+    """K1: (6, N) volume residual from the alpha states (6, N) and the
+    nodal heat source `source` (N,) or None."""
     if not wa_t.is_cuda:
-        return residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme)
+        return residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme, source)
     n = lctx.num_node
-    _check_f32_cuda("lattice_residual", wa_t=wa_t, dwa_t=dwa_t, res_geom=lctx.res_geom)
-    if wa_t.shape != (6, n) or dwa_t.shape != (6, n):
-        raise ValueError("lattice_residual kernel: states must be (6, N)")
+    _check_f32_cuda("lattice_residual", wa_t=wa_t, dwa_t=dwa_t, res_geom=lctx.res_geom,
+                    **({} if source is None else {"source": source}))
+    if wa_t.shape != (6, n) or dwa_t.shape != (6, n) or (source is not None and source.shape != (n,)):
+        raise ValueError("lattice_residual kernel: states must be (6, N), a source (N,)")
     fn = nvcc.function(
         "lattice_residual", "dedflow_lattice_residual",
-        [nvcc.P] * 5 + [nvcc.I, nvcc.P] + [nvcc.D] * 8 + [nvcc.P],
+        [nvcc.P] * 6 + [nvcc.I, nvcc.P] + [nvcc.D] * 8 + [nvcc.P],
     )
     elem = torch.empty((6, 24, n), dtype=torch.float32, device=wa_t.device)
     out = torch.empty((6, n), dtype=torch.float32, device=wa_t.device)
     a = _res_args(phys, scheme)
     nvcc.check(
         fn(lctx.res_geom.data_ptr(), wa_t.data_ptr(), dwa_t.data_ptr(),
+           None if source is None else source.data_ptr(),
            elem.data_ptr(), out.data_ptr(), n, _flat_deltas(lctx),
            a["rho"], a["mu"], a["cp"], a["kappa"], *a["fb"], a["dt"],
            torch.cuda.current_stream(wa_t.device).cuda_stream),
@@ -329,22 +338,21 @@ def residual_volume(lctx: LatticeContext, wa_t, dwa_t, phys, scheme) -> torch.Te
 residual_volume.launches = 0
 
 
-def jacobian_volume(
-    lctx: LatticeContext, wa_t, phys, scheme, keep16, add16, band=None, band_lo=0
-) -> torch.Tensor:
-    """K2: finished (D, 16, N) velocity/pressure DIA data (see
+def jacobian_volume(lctx: LatticeContext, wa_t, phys, scheme, keep, add, band=None, band_lo=0):
+    """K2: the finished (D, 16, N) velocity/pressure DIA data, and with the
+    context's scalar_implicit also the (2D, N) scal rows (see
     jacobian_volume_plain for the contract)."""
     if not wa_t.is_cuda:
-        return jacobian_volume_plain(
-            lctx, wa_t, phys, scheme, keep16, add16, band, band_lo
-        )
+        return jacobian_volume_plain(lctx, wa_t, phys, scheme, keep, add, band, band_lo)
     n, nd = lctx.num_node, len(lctx.offsets)
+    implicit = lctx.scalar_implicit
+    nc = 18 if implicit else 16
     _check_f32_cuda(
-        "lattice_jacobian", wa_t=wa_t, keep16=keep16, add16=add16,
-        lhs_geom=lctx.lhs_geom, **({} if band is None else {"band": band}),
+        "lattice_jacobian", wa_t=wa_t, keep=keep, add=add, lhs_geom=lctx.lhs_geom,
+        res_geom=lctx.res_geom, **({} if band is None else {"band": band}),
     )
-    if wa_t.shape != (6, n) or keep16.shape != (16, n) or add16.shape != (16, n):
-        raise ValueError("lattice_jacobian kernel: shape mismatch")
+    if wa_t.shape != (6, n) or keep.shape != (nc, n) or add.shape != (nc, n):
+        raise ValueError(f"lattice_jacobian kernel: states (6, N), keep and add ({nc}, N)")
     if len(lctx.plane_entries) != 96:
         raise ValueError("lattice_jacobian kernel: needs the 6-tet Kuhn lattice")
     span = 0
@@ -354,24 +362,26 @@ def jacobian_volume(
             raise ValueError("lattice_jacobian kernel: band outside the matrix")
     fn = nvcc.function(
         "lattice_jacobian", "dedflow_lattice_jacobian",
-        [nvcc.P] * 6 + [nvcc.I, nvcc.I, nvcc.P, nvcc.I, nvcc.P, nvcc.P, nvcc.I]
-        + [nvcc.D] * 5 + [nvcc.P],
+        [nvcc.P] * 7 + [nvcc.I, nvcc.I, nvcc.P, nvcc.P, nvcc.I, nvcc.P, nvcc.P, nvcc.I]
+        + [nvcc.D] * 7 + [nvcc.P],
     )
-    elem = torch.empty((6, 256, n), dtype=torch.float32, device=wa_t.device)
-    out = torch.empty((nd, 16, n), dtype=torch.float32, device=wa_t.device)
+    dev = wa_t.device
+    elem = torch.empty((6, 16 * nc, n), dtype=torch.float32, device=dev)
+    out = torch.empty((nd, 16, n), dtype=torch.float32, device=dev)
+    scal = torch.empty((2 * nd, n), dtype=torch.float32, device=dev) if implicit else None
     a = _lhs_args(phys, scheme)
     nvcc.check(
-        fn(lctx.lhs_geom.data_ptr(), wa_t.data_ptr(), elem.data_ptr(),
-           keep16.data_ptr(), add16.data_ptr(),
+        fn(lctx.lhs_geom.data_ptr(), lctx.res_geom.data_ptr() if implicit else None,
+           wa_t.data_ptr(), elem.data_ptr(), keep.data_ptr(), add.data_ptr(),
            None if band is None else band.data_ptr(), int(band_lo), span,
-           out.data_ptr(), n, _flat_deltas(lctx),
+           out.data_ptr(), None if scal is None else scal.data_ptr(), n, _flat_deltas(lctx),
            nvcc.int_array(v for e in lctx.plane_entries for v in e),
-           lctx.offsets.index(0), a["rho"], a["mu"], a["f1"], a["f2"], a["dt"],
-           torch.cuda.current_stream(wa_t.device).cuda_stream),
+           lctx.offsets.index(0), a["rho"], a["mu"], a["f1"], a["f2"], a["dt"], a["cp"],
+           a["kappa"], torch.cuda.current_stream(dev).cuda_stream),
         "lattice_jacobian",
     )
     jacobian_volume.launches += 1
-    return out
+    return (out, scal) if implicit else out
 
 
 jacobian_volume.launches = 0
@@ -391,14 +401,17 @@ def assemble_residual_t(
     scheme: TimeScheme,
     freeze_phi_temperature: bool = True,
     nodal_force: torch.Tensor | None = None,  # (N, 3)
+    source: torch.Tensor | None = None,  # (N,)
 ) -> torch.Tensor:
     """Global residual F as (6, N) (AssembleSystem, main.c:31-75).
     `nodal_force` (N, 3), an already-integrated nodal momentum load (the
     DEM drag reaction), is subtracted from the momentum rows after the
     volume terms and before the facet terms, freeze and mask, where the
-    JAX package places it (fem/lattice.py:543-544 there)."""
+    JAX package places it (fem/lattice.py:543-544 there). `source` (N,) is
+    the nodal volumetric heat source of the T equation (melt-pool runs)."""
     f = residual_volume(
-        lctx, w_alpha.T.contiguous(), dw_alpha.T.contiguous(), phys, scheme
+        lctx, w_alpha.T.contiguous(), dw_alpha.T.contiguous(), phys, scheme,
+        None if source is None else source.contiguous(),
     ).to(w_alpha.dtype)
     if nodal_force is not None:
         f[:3] -= nodal_force.T
@@ -442,8 +455,10 @@ def assemble_jacobian_t(
     phys: Physics,
     scheme: TimeScheme,
 ) -> FSDIAMatrixT:
-    """Global field-split Jacobian in component-major DIA storage
-    (frozen-scalar mode), Dirichlet rows zeroed with a unit diagonal."""
+    """Global field-split Jacobian in component-major DIA storage,
+    Dirichlet rows zeroed with a unit diagonal. The phi/T rows are the
+    frozen-scalar identities, or with the context's scalar_implicit the
+    consistent transport tangents, which K2 reduces into every plane."""
     dtype = w_alpha.dtype
     nd = len(lctx.offsets)
     d0 = lctx.offsets.index(0)
@@ -452,6 +467,11 @@ def assemble_jacobian_t(
     band, lo = _masked_face_band(
         face_ctxs, w_alpha, dw_alpha, phys, scheme, nd, keep_pc
     )
+    if lctx.scalar_implicit:
+        data, scal = jacobian_volume(
+            lctx, w_alpha.T.contiguous(), phys, scheme, keep_pc, add18, band, lo
+        )
+        return FSDIAMatrixT(data=data.to(dtype), scal=scal.to(dtype), offsets=lctx.offsets)
     data = jacobian_volume(
         lctx, w_alpha.T.contiguous(), phys, scheme,
         keep_pc[:16].contiguous(), add18[:16].contiguous(), band, lo,

@@ -9,7 +9,11 @@ dedflow_tpu/fem/ns.py::assemble_residual / assemble_jacobian).
   jacobian J:  K5 `ns_lhs_gather` -> (288, m) rows ab*18+c -> K9
                `ring_reduce` over the matrix plan into the CSR entries of
                a WinELLMatrixT (K7 is its SpMV); the static phi/T
-               identities, the facet blocks and the mask.
+               identities, the facet blocks and the mask. With
+               scalar_implicit (melt-pool runs) K5 reads the 6 metric rows
+               of the residual geometry and emits the phi/T transport
+               tangents, which a second 2-row K9 pass reduces; the JAX
+               package computes this Jacobian in XLA (ns.py:184-235).
 
 On the CPU the element pass is the weak form (fem.weakform) under
 elements_kernel="xla" and the K4/K5 plain twins under "pallas"; on CUDA
@@ -30,8 +34,7 @@ from dedflow_tpu_torch.fem import weakform
 from dedflow_tpu_torch.fem.assembly import FEMContext, elem_geom
 from dedflow_tpu_torch.fem.element_kernels import ns_lhs_gather, ns_residual_gather
 from dedflow_tpu_torch.fem.face import face_residual_elements, face_residual_scatter
-from dedflow_tpu_torch.fem.win_assembly import JAC_COMPS, add_face_entries
-from dedflow_tpu_torch.sparse.win_ring import ring_reduce
+from dedflow_tpu_torch.fem.win_assembly import add_face_entries, reduce_entries
 from dedflow_tpu_torch.sparse.win_stream import stream_reduce
 from dedflow_tpu_torch.sparse.winell import WinELLMatrixT
 
@@ -76,9 +79,11 @@ def residual_volume(ctx: FEMContext, w_alpha, dw_alpha, phys: Physics, scheme: T
     return f
 
 
-def jacobian_entries(ctx: FEMContext, w_alpha, phys: Physics, scheme: TimeScheme) -> torch.Tensor:
+def jacobian_entries(ctx: FEMContext, w_alpha, phys: Physics, scheme: TimeScheme,
+                     scalar_implicit: bool = False) -> torch.Tensor:
     """(16, S) velocity/pressure entry values in WinELL row order: the
-    element Jacobian of each range reduced into its entries."""
+    element Jacobian of each range reduced into its entries; (18, S) with
+    `scalar_implicit`, the phi-phi / T-T tangent rows last."""
     ent = None
     w_t = w_alpha.T.contiguous()
     for rng in ctx.ranges:
@@ -86,12 +91,14 @@ def jacobian_entries(ctx: FEMContext, w_alpha, phys: Physics, scheme: TimeScheme
         ien_t = ctx.ien_t[:, rng.lo : rng.hi]
         if _xla_body(ctx, w_alpha):
             ef = weakform.gather_fields(ien_t.T, w_alpha, w_alpha)  # the LHS reads u only
-            upd = weakform.ns_lhs_packed(elem_geom(ctx, rng.lo, rng.hi), ef, phys, scheme)
+            upd = weakform.ns_lhs_packed(elem_geom(ctx, rng.lo, rng.hi), ef, phys, scheme,
+                                         scalar_implicit)
             rows = upd.reshape(m, 288).T.contiguous()
         else:
-            rows = ns_lhs_gather(ctx.lhs_geom[:, rng.lo : rng.hi], ien_t, w_t, phys, scheme)
-        ent = _range_sum(ent, rng.jac_tgt, ring_reduce(rng.jac_plan, rows, JAC_COMPS, m),
-                         ctx.win_plan.S)
+            metric = ctx.res_geom[13:19, rng.lo : rng.hi] if scalar_implicit else None
+            rows = ns_lhs_gather(ctx.lhs_geom[:, rng.lo : rng.hi], ien_t, w_t, phys, scheme, metric)
+        part = reduce_entries(rng.jac_plan, rows, m, scalar_implicit)
+        ent = _range_sum(ent, rng.jac_tgt, part, ctx.win_plan.S)
     return ent
 
 
@@ -115,14 +122,10 @@ def assemble_jacobian(
     ctx: FEMContext, face_ctxs, mask_t, w_alpha, dw_alpha, phys: Physics, scheme: TimeScheme,
     scalar_implicit: bool = False,
 ) -> WinELLMatrixT:
-    """Global field-split Jacobian on the CSR entries (frozen-scalar
-    mode), masked (dirichlet.c:47-61)."""
-    if scalar_implicit:
-        raise NotImplementedError(
-            "dedflow_tpu_torch does not port scalar_implicit on the gather tier "
-            "(implicit phi/T tangents, melt-pool runs) yet (ROADMAP queue A12)"
-        )
-    ent = jacobian_entries(ctx, w_alpha, phys, scheme)
-    vals = torch.cat([ent, ctx.mult_win.to(ent.dtype)])
+    """Global field-split Jacobian on the CSR entries, masked
+    (dirichlet.c:47-61); the phi/T rows are the frozen identities or, with
+    `scalar_implicit`, the consistent transport tangents."""
+    ent = jacobian_entries(ctx, w_alpha, phys, scheme, scalar_implicit)
+    vals = ent if scalar_implicit else torch.cat([ent, ctx.mult_win.to(ent.dtype)])
     add_face_entries(vals, face_ctxs, w_alpha, dw_alpha, phys, scheme)
     return WinELLMatrixT(vals=vals, plan=ctx.win_plan).zero_rows_t(mask_t)

@@ -19,9 +19,9 @@ The reference's quirks are kept exactly as the JAX module keeps them
   derivative of the advection velocity), and dRM/dP takes the sign of
   the shared-memory kernel the reference runs (assemble.cu:647-648);
 - the phi/phi and T/T blocks are the frozen identities (assemble.cu:757-758),
-  gated off on degenerate (det_j == 0) padding elements.
-The implicit phi/T tangents (`scalar_lhs_blocks`, melt-pool runs) wait
-for ROADMAP queue A12.
+  gated off on degenerate (det_j == 0) padding elements, unless the
+  implicit phi/T tangents (`scalar_lhs_blocks`, melt-pool runs) replace
+  them.
 """
 
 from __future__ import annotations
@@ -149,12 +149,27 @@ def ns_residual_elements(
     return f * det_j[:, None, None]
 
 
-def scalar_lhs_blocks(geom, ef, phys, scheme):
-    """The consistent phi/T transport tangents (weakform.py:205-244)."""
-    raise NotImplementedError(
-        "dedflow_tpu_torch does not port scalar_lhs_blocks (implicit phi/T "
-        "tangents, melt-pool runs) yet (ROADMAP queue A12)"
-    )
+def scalar_lhs_blocks(geom: ElemGeom, ef: ElementFields, phys: Physics, scheme: TimeScheme):
+    """Consistent (Picard) phi/T Jacobian blocks, each (ne, 4, 4)
+    (weakform.py:205-244): d(adv)/d(dwg_b) = f1 N_b + f2 u.grad(N_b),
+    SUPG-tested with the residual's own taus (stab_tau: tau depends only on
+    u, which these columns hold fixed), plus f2 times the T diffusion."""
+    shl, gw = _tables(ef.u)
+    rho, cp, kappa = phys.rho, phys.cp, phys.kappa
+    f1, f2 = scheme.fact_dw, scheme.fact_w
+    ein = torch.einsum
+    u_q = ein("qa,eai->eqi", shl, ef.u)
+    shconv = ein("eqi,eai->eqa", u_q, geom.shgrad)
+    _, _, tau_phi, tau_t = stab_tau(geom.metric, u_q, phys, scheme.dt)
+    e_k = ein("eai,ebi->eab", geom.shgrad, geom.shgrad)
+    dj = geom.det_j[:, None, None]
+    trial = f1 * shl[None] + f2 * shconv  # (ne, q, b)
+    test_phi = shl[None] + tau_phi[..., None] * shconv
+    j_phi = ein("q,eqa,eqb->eab", gw, test_phi, trial) * dj
+    test_t = shl[None] + rho * cp * tau_t[..., None] * shconv
+    j_t = (rho * cp * ein("q,eqa,eqb->eab", gw, test_t, trial)
+           + f2 * kappa * gw.sum() * e_k) * dj
+    return j_phi, j_t
 
 
 def _lhs_taus(geom: ElemGeom, shconv, phys: Physics, dt: float):
@@ -190,9 +205,9 @@ def ns_lhs_packed(
     scalar_implicit: bool = False,
 ) -> torch.Tensor:
     """(ne*16, 18) packed element Jacobians, rows e*16 + a*4 + b, the 18
-    structurally nonzero components of each 6x6 block (fsbsr order)."""
-    if scalar_implicit:
-        scalar_lhs_blocks(geom, ef, phys, scheme)
+    structurally nonzero components of each 6x6 block (fsbsr order);
+    `scalar_implicit` puts the consistent transport tangents
+    (scalar_lhs_blocks) in place of the frozen phi/T identities."""
     shl, gw = _tables(ef.u)
     rho, mu = phys.rho, phys.mu
     f1, f2 = scheme.fact_dw, scheme.fact_w
@@ -230,8 +245,10 @@ def ns_lhs_packed(
               + f2 * rho * ein("ea,eb->eab", g(i), gs_conv))
         comps[12 + i] = pu * dj  # dRC/dU (assemble.cu:653-657)
     comps[15] = tau0_sum[:, None, None] * e_k * dj
-    comps[16] = eye_ab
-    comps[17] = eye_ab
+    if scalar_implicit:
+        comps[16], comps[17] = scalar_lhs_blocks(geom, ef, phys, scheme)
+    else:
+        comps[16] = comps[17] = eye_ab
     return torch.stack([c.reshape(ne * 16) for c in comps], dim=-1)
 
 
@@ -241,8 +258,6 @@ def ns_lhs_elements(
 ) -> torch.Tensor:
     """(ne, 4, 4, 6, 6) approximate element Jacobians
     (AssembleWeakFormLHSKernel, assemble.cu:495-759)."""
-    if scalar_implicit:
-        scalar_lhs_blocks(geom, ef, phys, scheme)
     shl, gw = _tables(ef.u)
     rho, mu = phys.rho, phys.mu
     f1, f2 = scheme.fact_dw, scheme.fact_w
@@ -273,6 +288,9 @@ def ns_lhs_elements(
     j[..., 3, :3] = j_pu
     j[..., 3, 3] = j_pp
     j = j * det_j[:, None, None, None, None]
+    if scalar_implicit:
+        j[..., 4, 4], j[..., 5, 5] = scalar_lhs_blocks(geom, ef, phys, scheme)
+        return j
     eye_ab = torch.eye(4, dtype=dtype, device=dev)[None] * (det_j > 0.0).to(dtype)[:, None, None]
     j[..., 4, 4] += eye_ab
     j[..., 5, 5] += eye_ab

@@ -13,7 +13,10 @@ Three assembly tiers are ported, chosen by the JAX package's ladder
 (fem.lattice), the windowed irregular tier (fem.win_assembly) and the
 general gather tier (fem.assembly + fem.ns: any mesh, any node order,
 and every `assembly_chunk` run), with the field-split preconditioner and
-the linear solve in the state dtype. A mesh the JAX package would put on
+the linear solve in the state dtype. Every tier takes a nodal heat source
+(`source`, the moving laser of the melt-pool scenario) and the implicit
+phi/T tangents (`implicit_scalars`), where the JAX package places them
+(newton.py:57-222, 797-839). A mesh the JAX package would put on
 its translation-class tier, and every other unported option, raises
 NotImplementedError naming the ROADMAP item that brings it; nothing
 silently takes another path. The adaptive Newton loop reads the four field norms to the host
@@ -62,37 +65,46 @@ from dedflow_tpu_torch.utils.dtypes import default_dtype, disable_tf32, resolve_
 
 
 def residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze,
-             nodal_force=None):
+             nodal_force=None, source=None):
     """(6, N) residual at the alpha states; `nodal_force` (N, 3) is a nodal
     momentum load subtracted from the momentum rows before freeze and
-    mask (the JAX package's placement on every tier)."""
+    mask (the JAX package's placement on every tier), `source` (N,) the
+    nodal heat source of the T equation."""
     wa, dwa = alpha_states(wgold, dwgold, dwg, scheme)
     if isinstance(ctx, FEMContext):
         return ns.assemble_residual(
-            ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze, nodal_force=nodal_force
+            ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze, source=source,
+            nodal_force=nodal_force,
         )
     if isinstance(ctx, WinAssemblyContext):
-        f = residual_win(ctx, wa, dwa, phys, scheme, face_ctxs)
+        f = residual_win(ctx, wa, dwa, phys, scheme, face_ctxs, source)
         if nodal_force is not None:
             f[:3] -= nodal_force.T
         if freeze:
             f[4:] = 0.0  # main.c:64
         return f.masked_fill(mask_t, 0.0)
     return assemble_residual_t(
-        ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze, nodal_force
+        ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze, nodal_force, source
     )
 
 
-def assemble_system(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme):
-    """The Jacobian and its field-split preconditioner at the current state."""
+def assemble_system(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme,
+                    scalar_implicit=False):
+    """The Jacobian and its field-split preconditioner at the current state;
+    `scalar_implicit` assembles the consistent phi/T tangents (a lattice
+    context carries the flag it was built with, which must agree)."""
     wa, dwa = alpha_states(wgold, dwgold, dwg, scheme)
     if isinstance(ctx, FEMContext):
-        jmat = ns.assemble_jacobian(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme)
+        jmat = ns.assemble_jacobian(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme,
+                                    scalar_implicit)
     elif isinstance(ctx, WinAssemblyContext):
         jmat = jacobian_win(
-            ctx, wa, phys, scheme, dw_alpha=dwa, face_ctxs=face_ctxs
+            ctx, wa, phys, scheme, dw_alpha=dwa, face_ctxs=face_ctxs,
+            scalar_implicit=scalar_implicit,
         ).zero_rows_t(mask_t)
     else:
+        if ctx.scalar_implicit != scalar_implicit:
+            raise ValueError("scalar_implicit differs from the lattice context's")
         jmat = assemble_jacobian_t(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme)
     return jmat, NSFieldSplitPCT.from_diag_rows(jmat.diag_rows())
 
@@ -110,29 +122,29 @@ def _solve_linear(jmat, pc, f, kcfg):
 
 def solve_update(
     ctx, face_ctxs, mask_t, jmat, pc, wgold, dwgold, dwg, f, phys, scheme, kcfg, freeze,
-    nodal_force=None,
+    nodal_force=None, source=None,
 ):
     """GMRES(J) dx = F; dwg -= dx; reassemble F (main.c:211-265)."""
     dx, iters, lin_rel = _solve_linear(jmat, pc, f, kcfg)
     dwg = dwg - dx.T
     f = residual(
-        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze, nodal_force
+        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze, nodal_force, source
     )
     return dwg, f, field_norms_t(f), iters, lin_rel
 
 
 def newton_iter(
     ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg, freeze,
-    nodal_force=None,
+    nodal_force=None, source=None, scalar_implicit=False,
 ):
     """One Newton iteration: assemble J, solve, update dwg, reassemble F.
     Returns (dwg, f, field_norms, krylov_iters, linear_rel_residual)."""
     jmat, pc = assemble_system(
-        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme
+        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, scalar_implicit
     )
     return solve_update(
         ctx, face_ctxs, mask_t, jmat, pc, wgold, dwgold, dwg, f, phys, scheme,
-        kcfg, freeze, nodal_force,
+        kcfg, freeze, nodal_force, source,
     )
 
 
@@ -157,17 +169,17 @@ def update(wgold, dwgold, dwg, scheme):
 
 def step_fixed(
     ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, kcfg, freeze,
-    num_newton, nodal_force=None,
+    num_newton, nodal_force=None, source=None, scalar_implicit=False,
 ):
     """One time step with a fixed Newton iteration count."""
     dwg = predict(dwg, scheme)
     f = residual(
-        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze, nodal_force
+        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze, nodal_force, source
     )
     for _ in range(num_newton):
         dwg, f, _, _, _ = newton_iter(
             ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg,
-            freeze, nodal_force,
+            freeze, nodal_force, source, scalar_implicit,
         )
     new_wgold, new_dwgold = update(wgold, dwgold, dwg, scheme)
     return new_wgold, new_dwgold, dwg
@@ -175,14 +187,14 @@ def step_fixed(
 
 def newton_adaptive(
     ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, kcfg, freeze,
-    max_iter, newton_rtol, newton_atol, nodal_force=None,
+    max_iter, newton_rtol, newton_atol, nodal_force=None, source=None, scalar_implicit=False,
 ):
     """The adaptive Newton loop (main.c:157-279): stop after the iteration
     whose four field norms all pass (rn < rtol*rnorm0) | (rn < atol).
     Returns (dwg, rnorm0, rnorms, kits, lrels, converged), the norms as
     host tensors."""
     f = residual(
-        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze, nodal_force
+        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze, nodal_force, source
     )
     rnorm0 = (field_norms_t(f) + 1e-16).cpu()  # main.c:152-155
     rnorms, kits, lrels = [], [], []
@@ -190,7 +202,7 @@ def newton_adaptive(
     for _ in range(max_iter):
         dwg, f, rn, kit, lrel = newton_iter(
             ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg,
-            freeze, nodal_force,
+            freeze, nodal_force, source, scalar_implicit,
         )
         rn = rn.cpu()  # one host sync per Newton iteration
         rnorms.append(rn)
@@ -222,8 +234,6 @@ def _refuse_unported(mesh: Mesh, cfg: SolverConfig) -> None:
         (cfg.use_lattice == "off", "use_lattice='off' (the classes tier)", "A10"),
         (mesh.extra_cells != [], "prism/hex stencil cells", "A13"),
         (cfg.lattice_backend is not None, f"lattice_backend={cfg.lattice_backend!r}", "A9"),
-        (cfg.implicit_scalars, "implicit_scalars (melt-pool tangents, 33-row K6)", "A12"),
-        (cfg.physics.laser is not None, "a laser heat source", "A12"),
         (cfg.krylov.pc == "mg",
          "krylov.pc='mg' (geometric MG on the lattice; AMG, solver/amg.py, on the "
          "WinELL tier)", "A11/A14"),
@@ -314,7 +324,9 @@ class NSSolver:
         weak = [bc.boundary for bc in cfg.bcs if bc.weak]
         self.lctx = self.wctx = self.gctx = None
         if self.fastpath == "lattice":
-            self.lctx = build_lattice_context(mesh, self.device, self.dtype)
+            self.lctx = build_lattice_context(
+                mesh, self.device, self.dtype, scalar_implicit=cfg.implicit_scalars
+            )
             self.face_ctxs = tuple(
                 build_face_context(mesh, b, self.lctx.offsets, self.device, self.dtype)
                 for b in weak
@@ -356,20 +368,17 @@ class NSSolver:
             freeze=cfg.freeze_phi_temperature,
         )
 
-    def _check_inputs(self, source) -> None:
-        if source is not None:
-            raise NotImplementedError("heat sources (ROADMAP queue A12)")
-
     def newton_solve(self, wgold, dwgold, dwg, source=None, nodal_force=None):
         """Adaptive Newton loop (reference semantics, main.c:157-279);
-        `nodal_force` (N, 3) is a nodal momentum load (the DEM drag
-        reaction of app.coupled)."""
-        self._check_inputs(source)
+        `source` (N,) is the nodal heat source (the melt-pool laser at the
+        generalized-alpha time level), `nodal_force` (N, 3) a nodal
+        momentum load (the DEM drag reaction of app.coupled)."""
         ctx, kw = self._common()
         newton = self.cfg.newton
         dwg, rnorm0, rns, kits, lrels, conv = newton_adaptive(
             *ctx, wgold, dwgold, dwg, kw["phys"], kw["scheme"], kw["kcfg"],
-            kw["freeze"], newton.max_iter, newton.rtol, newton.atol, nodal_force,
+            kw["freeze"], newton.max_iter, newton.rtol, newton.atol, nodal_force, source,
+            self.cfg.implicit_scalars,
         )
         return dwg, NewtonStats(
             rnorm0=rnorm0.numpy(),
@@ -388,8 +397,8 @@ class NSSolver:
 
     def step_fixed(self, wgold, dwgold, dwg, num_newton: int = 4, source=None, nodal_force=None):
         """One step with a fixed Newton iteration count."""
-        self._check_inputs(source)
         ctx, kw = self._common()
         return step_fixed(
-            *ctx, wgold, dwgold, dwg, **kw, num_newton=num_newton, nodal_force=nodal_force
+            *ctx, wgold, dwgold, dwg, **kw, num_newton=num_newton, nodal_force=nodal_force,
+            source=source, scalar_implicit=self.cfg.implicit_scalars,
         )

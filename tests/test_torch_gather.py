@@ -195,8 +195,9 @@ def test_weakform_port_matches_jax_f64(delaunay):
     assert rel(got.numpy(), jwf.ns_lhs_packed(jctx, jef, cfg.physics, cfg.time)) < 1e-12
     got = twf.ns_lhs_elements(g, ef, tc.physics, tc.time)
     assert rel(got.numpy(), jwf.ns_lhs_elements(jctx, jef, cfg.physics, cfg.time)) < 1e-12
-    with pytest.raises(NotImplementedError, match="A12"):
-        twf.ns_lhs_packed(g, ef, tc.physics, tc.time, scalar_implicit=True)
+    # the implicit phi/T tangents (melt-pool runs) in components 16/17
+    got = twf.ns_lhs_packed(g, ef, tc.physics, tc.time, scalar_implicit=True)
+    assert rel(got.numpy(), jwf.ns_lhs_packed(jctx, jef, cfg.physics, cfg.time, True)) < 1e-12
 
 
 def test_k4_k5_plain_twins_f64_match_jax_weakform(delaunay):
@@ -280,12 +281,18 @@ def test_assembly_matches_jax_f64(box, box_contexts, method, chunk):
 
 
 def test_unknown_scatter_method_raises(delaunay):
-    tm, tsp = delaunay[1], delaunay[3]
+    jm, tm, jsp, tsp, cfg, wa, dwa, _ = delaunay
     with pytest.raises(ValueError, match="scatter_method"):
         tasm.build_context(tm, tsp, device="cpu", scatter_method="atomic")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tns.assemble_jacobian(tasm.build_context(tm, tsp, device="cpu"), (), None, None, None,
-                              None, None, scalar_implicit=True)
+    # the implicit Jacobian (melt-pool runs) is ported: it equals JAX's
+    mask = np.zeros((jm.num_node, 6), bool)
+    ref = jns.assemble_jacobian(jbuild_context(jm, jsp), (), jnp.asarray(mask), jnp.asarray(wa),
+                                jnp.asarray(dwa), cfg.physics, cfg.time, scalar_implicit=True)
+    tc = _tcfg(cfg)
+    got = tns.assemble_jacobian(tasm.build_context(tm, tsp, device="cpu"), (),
+                                torch.as_tensor(mask.T.copy()), torch.as_tensor(wa),
+                                torch.as_tensor(dwa), tc.physics, tc.time, scalar_implicit=True)
+    assert rel(got.to_block_dense(), ref.to_block_dense()) < 1e-12
 
 
 def test_fsbsr_converter_and_fieldsplit_pc_match_jax(delaunay):

@@ -6,10 +6,13 @@ file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_kernels_cuda.py
 
 (`--noconftest` because tests/conftest.py configures JAX.) Inputs are
-made with numpy from a seed on an odd-sized box (lattice kernels K1-K3),
-on an RCM-ordered Delaunay mesh (irregular-tier kernels K6-K10), on an
-unordered one (the gather tier's K4/K5) and on a particle cloud bucketed
-onto a cell grid (the DEM contact sweep K11), float32 on the card. Relative error = max|kernel - plain| / max|plain|;
+made with numpy from a seed on an odd-sized box (lattice kernels K1-K3,
+with the reference and the melt-pool scenario: K1 with a heat source, K2
+with the implicit phi/T tangents), on an RCM-ordered Delaunay mesh
+(irregular-tier kernels K6-K10, K6 also in its 33-row mode), on an
+unordered one (the gather tier's K4/K5, K5 also implicit) and on a particle
+cloud bucketed onto a cell grid (the DEM contact sweep K11), float32 on the
+card. Relative error = max|kernel - plain| / max|plain|;
 the tolerances are float32 roundoff (different sum orders, hardware
 rsqrtf), as in chip_smoke.py, which runs the same comparisons at full
 size. Every kernel is also run twice: the two results are bit-identical
@@ -22,7 +25,13 @@ import numpy as np
 import pytest
 import torch
 
-from dedflow_tpu_torch.app.scenarios import reference_initial_state, reference_scenario_config
+from dedflow_tpu_torch.app.scenarios import (
+    laser_source,
+    melt_pool_initial_state,
+    melt_pool_scenario_config,
+    reference_initial_state,
+    reference_scenario_config,
+)
 from dedflow_tpu_torch.dem import grid as dem_grid
 from dedflow_tpu_torch.dem.cells import make_grid
 from dedflow_tpu_torch.dem.contact import ContactParams
@@ -189,12 +198,80 @@ def irregular():
 VP_BLOCKS = {"uu": range(0, 9), "up": range(9, 12), "pu": range(12, 15), "pp": range(15, 16)}
 
 
-def assert_blocks(got, ref, tol):
+def assert_blocks(got, ref, tol, implicit=False):
     """(..., 18, M) element Jacobians: each vel/p block within `tol` of
-    its own scale, the phi/T identities exact."""
+    its own scale; the phi/T identities exact, or (implicit) each phi/T
+    tangent within `tol` of its own scale."""
     for block, comps in VP_BLOCKS.items():
         assert rel(got[..., comps, :], ref[..., comps, :]) < tol, block
-    assert torch.equal(got[..., 16:, :], ref[..., 16:, :])
+    if implicit:
+        for c in (16, 17):
+            assert rel(got[..., c, :], ref[..., c, :]) < tol, c
+    else:
+        assert torch.equal(got[..., 16:, :], ref[..., 16:, :])
+
+
+@pytest.fixture(scope="module")
+def melt():
+    """The melt-pool scenario on the lattice (implicit tangents), a
+    perturbed state and the laser source, float32 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    mesh = box_mesh(*BOX)
+    solver = NSSolver(mesh, melt_pool_scenario_config(), device="cuda")
+    wg, dwgold, dwg = melt_pool_initial_state(mesh)
+    rng = np.random.default_rng(14)
+    wg = wg + 0.1 * rng.standard_normal(wg.shape)
+    dwg = dwg + 0.1 * rng.standard_normal(dwg.shape)
+    state = state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32)
+    wa, dwa = alpha_states(*state, solver.cfg.time)
+    src = laser_source(solver.cfg.physics.laser, mesh.xg, 0.01)
+    return solver, state, wa, dwa, torch.as_tensor(src, dtype=torch.float32, device="cuda")
+
+
+def test_k1_with_source_matches_plain(melt):
+    solver, _, wa, dwa, src = melt
+    args = (solver.lctx, wa.T.contiguous(), dwa.T.contiguous(), solver.cfg.physics,
+            solver.cfg.time, src)
+    got = _twice(lambda: lat.residual_volume(*args), lat.residual_volume)
+    ref = lat.residual_volume_plain(*args)
+    assert rel(got, ref) < 2e-5 and rel(got[5], ref[5]) < 2e-5
+
+
+def test_k2_implicit_matches_plain(melt):
+    """K2's implicit mode, masked with the facet band and unmasked: the
+    vel/p data and the phi-phi / T-T scal rows, each on its own scale."""
+    solver, _, wa, dwa, _ = melt
+    phys, scheme, lctx = solver.cfg.physics, solver.cfg.time, solver.lctx
+    assert lctx.scalar_implicit
+    keep = keep_pc_rows(solver.mask_t, torch.float32)
+    add = diag_add_rows(solver.mask_t, torch.float32)
+    band, lo = lat._masked_face_band(solver.face_ctxs, wa, dwa, phys, scheme, len(lctx.offsets), keep)
+    wa_t = wa.T.contiguous()
+    for k, a, b in ((keep, add, band), (torch.ones_like(keep), torch.zeros_like(add), None)):
+        before = lat.jacobian_volume.launches
+        data, scal = lat.jacobian_volume(lctx, wa_t, phys, scheme, k, a, b, lo)
+        again = lat.jacobian_volume(lctx, wa_t, phys, scheme, k, a, b, lo)
+        assert lat.jacobian_volume.launches == before + 2
+        assert torch.equal(data, again[0]) and torch.equal(scal, again[1])
+        rdata, rscal = lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, k, a, b, lo)
+        for block, comps in VP_BLOCKS.items():
+            assert rel(data[:, list(comps)], rdata[:, list(comps)]) < 2e-5, block
+        assert rel(scal[0::2], rscal[0::2]) < 2e-5 and rel(scal[1::2], rscal[1::2]) < 2e-5
+
+
+def test_melt_step_on_card_matches_cpu_f64(melt):
+    """One melt-pool step_fixed(num_newton=2) with the laser source on the
+    lattice tier: float32 kernels on the card against the float64 plain
+    versions on the CPU (chip_smoke.py phase 16)."""
+    solver, state, _, _, src = melt
+    cpu = NSSolver(box_mesh(*BOX), melt_pool_scenario_config(), device="cpu")
+    got = solver.step_fixed(*state, num_newton=2, source=src)
+    ref = cpu.step_fixed(*(t.cpu().double() for t in state), num_newton=2,
+                         source=src.cpu().double())
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert rel(g, r) < 1e-4
 
 
 def test_k6_kernels_match_plain(irregular):
@@ -212,6 +289,25 @@ def test_k6_kernels_match_plain(irregular):
     got3 = ek.lhs_rows_call(slabs, phys, scheme)
     ref3 = er.lhs_rows(slabs, **ek.lhs_args(phys, scheme))
     assert_blocks(got3.reshape(2, 16, 18, ne), ref3.reshape(2, 16, 18, ne), 2e-5)
+
+
+def test_k6_implicit_mode_matches_plain(irregular):
+    """K6's 33-row mode (the metric rows appended): 2-D and slab-major."""
+    solver, _, wa, _ = irregular
+    phys, scheme, ctx = solver.cfg.physics, solver.cfg.time, solver.wctx
+    ne = ctx.num_elem
+    inp33 = wa_.jacobian_inputs(ctx, wa, scalar_implicit=True)
+    assert inp33.shape == (33, ne)
+    got = _twice(lambda: ek.lhs_rows_call(inp33, phys, scheme, scalar_implicit=True),
+                 ek.lhs_rows_call)
+    ref = er.lhs_rows(inp33, scalar_implicit=True, **ek.lhs_args(phys, scheme))
+    assert_blocks(got.reshape(16, 18, ne), ref.reshape(16, 18, ne), 2e-5, implicit=True)
+    slabs = torch.stack([inp33, inp33.flip(-1)]).contiguous()
+    got3 = ek.lhs_rows_call(slabs, phys, scheme, scalar_implicit=True)
+    ref3 = er.lhs_rows(slabs, scalar_implicit=True, **ek.lhs_args(phys, scheme))
+    assert_blocks(got3.reshape(2, 16, 18, ne), ref3.reshape(2, 16, 18, ne), 2e-5, implicit=True)
+    with pytest.raises(ValueError, match="33"):
+        ek.lhs_rows_call(wa_.jacobian_inputs(ctx, wa), phys, scheme, scalar_implicit=True)
 
 
 def test_k8_k9_reduces_match_plain(irregular):
@@ -355,6 +451,13 @@ def test_k4_k5_kernels_match_plain(gather):
         got = _twice(lambda: ek.ns_lhs_gather(lgeom, ien, w_t, phys, scheme), ek.ns_lhs_gather)
         ref = ek.ns_lhs_gather_plain(lgeom, ien, w_t, phys, scheme)
         assert_blocks(got.reshape(16, 18, hi - lo), ref.reshape(16, 18, hi - lo), 2e-5)
+        # the implicit mode: the metric rows read as a strided view in place
+        met = ctx.res_geom[13:19, lo:hi]
+        got = _twice(lambda: ek.ns_lhs_gather(lgeom, ien, w_t, phys, scheme, met),
+                     ek.ns_lhs_gather)
+        ref = ek.ns_lhs_gather_plain(lgeom, ien, w_t, phys, scheme, met)
+        assert_blocks(got.reshape(16, 18, hi - lo), ref.reshape(16, 18, hi - lo), 2e-5,
+                      implicit=True)
 
 
 def test_k10_gather_equals_plain_bit_for_bit(irregular):
@@ -383,6 +486,31 @@ def test_gather_kernels_refuse_what_they_cannot_take(gather):
         ek.ns_lhs_gather(ctx.lhs_geom, ctx.ien_t.long(), w_t, phys, scheme)
     with pytest.raises(ValueError, match="C <= 16"):
         win_gather(ctx.ien_t, torch.zeros((17, ctx.num_node), device="cuda"), JAC_ROWMAP, 12)
+
+
+@pytest.mark.parametrize("tier", ["winell", "gather"])
+def test_melt_step_on_irregular_tiers_matches_cpu_f64(tier):
+    """The melt pool on the converted box (lattice dropped, RCM) on the
+    WinELL and gather tiers: one step_fixed(num_newton=2) with the laser
+    source, card float32 against CPU float64 (chip_smoke.py phase 16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    mesh = dataclasses.replace(box_mesh(*BOX), lattice=None)
+    mesh = reorder_mesh(mesh, rcm_order(mesh.ien, mesh.num_node))
+    cfg = melt_pool_scenario_config(use_lattice=tier)
+    wg, dwgold, dwg = melt_pool_initial_state(mesh)
+    dwg = dwg + 0.1 * np.random.default_rng(15).standard_normal(dwg.shape)
+    src = laser_source(cfg.physics.laser, mesh.xg, 0.01)
+    outs = []
+    for device in ("cuda", "cpu"):
+        solver = NSSolver(mesh, cfg, device=device)
+        assert solver.fastpath == tier
+        s = torch.as_tensor(src, dtype=solver.dtype, device=device)
+        outs.append(solver.step_fixed(*state_from_numpy(wg, dwgold, dwg, device), num_newton=2,
+                                      source=s))
+    for g, r in zip(*outs):
+        assert torch.isfinite(g).all()
+        assert rel(g, r) < 1e-4
 
 
 @pytest.mark.parametrize("chunk", [None, 500])

@@ -30,6 +30,7 @@ from dedflow_tpu_torch import interop
 from dedflow_tpu_torch.app.scenarios import reference_scenario_config
 from dedflow_tpu_torch.dem import grid as dem_grid
 from dedflow_tpu_torch.fem import element_kernels as ek
+from dedflow_tpu_torch.fem import lattice as lat
 from dedflow_tpu_torch.mesh.gen import box_mesh, delaunay_mesh
 from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
 from dedflow_tpu_torch.solver.newton import NSSolver
@@ -190,20 +191,17 @@ def test_default_dtypes():
         dict(krylov=tcfg.KrylovConfig(pc="simple")),
         dict(krylov=tcfg.KrylovConfig(pc="mg")),
         dict(krylov=tcfg.KrylovConfig(precision="ir")),
-        dict(implicit_scalars=True),
         dict(assembly_chunk=64, krylov=tcfg.KrylovConfig(pc="simple")),
         dict(lattice_backend="xla"),
-        dict(use_lattice="gather", implicit_scalars=True),
         dict(use_lattice="off"),
-        dict(physics=tcfg.Physics(laser=tcfg.Laser())),
         dict(newton=tcfg.NewtonConfig(lag_jacobian=True)),
     ],
-    ids=lambda o: next(iter(o)),
+    ids=["krylov0", "krylov1", "krylov2", "assembly_chunk", "lattice_backend", "use_lattice1",
+         "newton"],
 )
 def test_unported_options_raise(overrides):
     """Options still unported raise, on the gather tier too (an assembly
-    chunk or use_lattice="gather" with the SIMPLE preconditioner or the
-    implicit scalars)."""
+    chunk with the SIMPLE preconditioner)."""
     cfg = dataclasses.replace(reference_scenario_config(), **overrides)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NSSolver(box_mesh(2, 2, 2), cfg, device="cpu")
@@ -229,6 +227,26 @@ def _k6_res():
 
 def _k6_lhs():
     return ek.lhs_rows_call(torch.zeros((27, 8)), *_phys_scheme())
+
+
+def _k6_lhs_implicit():
+    return ek.lhs_rows_call(torch.zeros((33, 8)), *_phys_scheme(), scalar_implicit=True)
+
+
+def _lattice_box(implicit: bool):
+    return lat.build_lattice_context(box_mesh(1, 1, 1), "cpu", torch.float32,
+                                     scalar_implicit=implicit)
+
+
+def _k1_source():
+    lctx, z = _lattice_box(False), torch.zeros((6, 8))
+    return lat.residual_volume(lctx, z, z, *_phys_scheme(), source=torch.zeros(8))
+
+
+def _k2_implicit():
+    lctx = _lattice_box(True)
+    return lat.jacobian_volume(lctx, torch.zeros((6, 8)), *_phys_scheme(), torch.ones((18, 8)),
+                               torch.zeros((18, 8)))[1]
 
 
 def _k7():
@@ -274,6 +292,12 @@ def _k5():
     return ek.ns_lhs_gather(torch.zeros((15, 8)), ien, torch.zeros((6, 3)), *_phys_scheme())
 
 
+def _k5_implicit():
+    ien = torch.zeros((4, 8), dtype=torch.int32)
+    return ek.ns_lhs_gather(torch.zeros((15, 8)), ien, torch.zeros((6, 3)), *_phys_scheme(),
+                            metric=torch.zeros((6, 8)))
+
+
 def _k10():
     ien = torch.zeros((4, 8), dtype=torch.int32)
     return win_gather.win_gather(ien, torch.zeros((3, 5)), win_gather.JAC_ROWMAP, 12)
@@ -291,8 +315,13 @@ def _k10():
         (_k4, (ek, "ns_residual_gather_plain")),
         (_k5, (ek, "ns_lhs_gather_plain")),
         (_k10, (win_gather, "win_gather_plain")),
+        (_k1_source, (lat, "residual_volume_plain")),
+        (_k2_implicit, (lat, "jacobian_volume_plain")),
+        (_k6_lhs_implicit, (ek, "lhs_rows")),
+        (_k5_implicit, (ek, "ns_lhs_gather_plain")),
     ],
-    ids=["K6-res", "K6-lhs", "K7", "K8", "K9", "K11", "K4", "K5", "K10"],
+    ids=["K6-res", "K6-lhs", "K7", "K8", "K9", "K11", "K4", "K5", "K10", "K1-source",
+         "K2-implicit", "K6-lhs-implicit", "K5-implicit"],
 )
 def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     monkeypatch, tmp_path, call, plain
@@ -333,29 +362,14 @@ def _rcm_delaunay():
 
 @pytest.mark.parametrize(
     "overrides,item",
-    [
-        (dict(krylov=tcfg.KrylovConfig(pc="mg")), "A14"),
-        (dict(implicit_scalars=True), "A12"),
-    ],
-    ids=["pc-mg", "implicit-scalars"],
+    [(dict(krylov=tcfg.KrylovConfig(pc="mg")), "A14")],
+    ids=["pc-mg"],
 )
 def test_unported_options_on_the_winell_tier_raise(overrides, item):
     cfg = dataclasses.replace(reference_scenario_config(), bcs=(), pin_pressure=True)
     assert NSSolver(_rcm_delaunay(), cfg, device="cpu").fastpath == "winell"
     with pytest.raises(NotImplementedError, match=item):
         NSSolver(_rcm_delaunay(), dataclasses.replace(cfg, **overrides), device="cpu")
-
-
-def test_k6_scalar_implicit_raises_a12():
-    with pytest.raises(NotImplementedError, match="A12"):
-        ek.lhs_rows_call(torch.zeros((33, 8)), *_phys_scheme(), scalar_implicit=True)
-
-
-def test_step_with_source_raises():
-    solver = NSSolver(box_mesh(2, 2, 2), reference_scenario_config(), device="cpu")
-    state = [torch.zeros((27, 6), dtype=torch.float64) for _ in range(3)]
-    with pytest.raises(NotImplementedError):
-        solver.step(*state, source=torch.zeros(27, dtype=torch.float64))
 
 
 def _fields(cls):

@@ -134,16 +134,6 @@ def test_every_jac_scatter_option_gives_the_same_matrix(delaunay, jac_scatter):
     assert torch.equal(other.vals, ring.vals)
 
 
-def test_scalar_implicit_raises_a12(delaunay):
-    jm, tm, jsp, tsp, cfg, wa, dwa = delaunay
-    tc = _tcfg(cfg)
-    with pytest.raises(NotImplementedError, match="A12"):
-        twin.jacobian_win(
-            twin.build_win_context(tm, tsp, device="cpu"), torch.as_tensor(wa), tc.physics, tc.time,
-            scalar_implicit=True,
-        )
-
-
 @pytest.fixture(scope="module")
 def converted():
     """box_mesh(5, 5, 5) without its lattice metadata, RCM-reordered, the
