@@ -5,13 +5,13 @@
 
 Phases, one line each; the script exits non-zero at the first failure:
   1 card    nvidia-smi name and power limit, torch / CUDA versions
-  2 build   nvcc builds the nine kernel libraries from csrc/ in parallel
-            (seconds, ptxas lines)
+  2 build   nvcc builds the eleven kernel libraries from csrc/ (the
+            solver's nine, the probes' two) in parallel (seconds, ptxas lines)
   lattice tier (box meshes):
   3 kernels at box_mesh(55, 55, 55) (998,250 tets), float32 on the card,
             K1-K3 each against its plain torch version on the same inputs,
-            with times (CUDA events, after warm-up); then F, J, SpMV and
-            GMRES(120) times of the assembled system
+            with times (CUDA events, after warm-up), K2 also unmasked (K2');
+            then F, J, SpMV and GMRES(120) times of the assembled system
   4 slice   one step_fixed(num_newton=2) at box_mesh(12, 12, 12): the card
             (float32, kernels) against the CPU (float64, plain versions)
   5 main    NSSolver(box_mesh(55, 55, 55), reference_scenario_config(),
@@ -74,6 +74,19 @@ Phases, one line each; the script exits non-zero at the first failure:
             counts of K1-K3; the hottest node within 3 laser radii of the
             beam's mid-run centre; step 1 repeated bit-identical; the
             device's busy share over one step_fixed(2) (torch.profiler)
+  probes of the irregular tier's primitives (dedflow_tpu_torch.tools, no
+  main path):
+ 18 probes  K12 (tools/gmicro.py's eleven variants: copy, the lane gather by
+            warp shuffles and by shared memory, the window gather for nwin
+            1, 2, 4 and the one-hot row, the segment reduce for hb 16, 8, 4,
+            1) on the (8, 2**23) stream, and K13 (the element gather, global
+            and staged) at W = 4096, 65,536 elements: each kernel against its
+            plain version (copies and gathers bit for bit, the reduce and its
+            accumulators within TOL_K12_REDUCE; the window gathers and the
+            reduce also on ids over their full range) and its library call;
+            then the probes' own path, their entry points' runs
+            (gmicro.run, gather_probe.run), with the launch counts of the
+            five probe wrappers
 Then, on lines of their own: the kernels JSON object (each kernel with its
 time, its plain version's, its bound and, where one PyTorch call computes
 the same function, that call's time), the card's name and power limit, and
@@ -86,7 +99,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 import traceback
@@ -146,10 +158,15 @@ TOL_SLICE = 1e-4
 # margin and checked (phase_coupled_slice).
 TOL_PARTICLES = 1e-4
 
-# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense rates):
-# HBM3 bytes/s and FP32 (non-tensor) FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# K12's segment reduce adds each block's 512 sources x 8 rows into its
+# (8 hb, 128) bins by shared-memory atomics, in an order that changes from
+# run to run; the plain version adds in source order. What may differ is
+# float32 roundoff of sums of at most 512 terms a bin (4096 a collapsed
+# column), relative to the largest sum. Its copies and gathers only move
+# values: bit for bit.
+TOL_K12_REDUCE = 1e-5
+PROBE_N = 1 << 23  # tools/gmicro.py's lanes a row
+PROBE_W = 4096  # tools/gather_probe.py's window
 
 # The TPU kernels the three CUDA kernels replace (file:line of the kernel).
 KERNELS = (
@@ -212,41 +229,20 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def rel_err(got, ref) -> tuple[float, float]:
     err = float((got.double() - ref.double()).abs().max())
     scale = float(ref.double().abs().max())
     return err, err / max(scale, 1e-300)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def alternate_ms(kernel, plain, reps_k: int, reps_p: int) -> tuple[float, float]:
     """Kernel and plain timed in turns (plain, kernel, kernel, plain)."""
-    p1 = cuda_ms(plain, reps_p)
-    k1 = cuda_ms(kernel, reps_k)
-    k2 = cuda_ms(kernel, reps_k)
-    p2 = cuda_ms(plain, reps_p)
+    from dedflow_tpu_torch.tools.timing import time_ms
+
+    p1 = time_ms(plain, reps_p)
+    k1 = time_ms(kernel, reps_k)
+    k2 = time_ms(kernel, reps_k)
+    p2 = time_ms(plain, reps_p)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -301,24 +297,14 @@ def op_count(fn) -> tuple[int, list]:
     return c.n, sorted(c.skipped)
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def bound(nbytes_: float, ops: float) -> tuple[float, str]:
-    """(least ms the card could take, what sets it): the bytes over the HBM
-    rate against the operations over the FP32 rate."""
-    t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def finish(label: str, rec: dict, kernel, plain, reps: int, plain_reps: int,
            nbytes_: float, counted: tuple, library=None) -> dict:
     """Time a checked kernel against its plain version (and the library
     call, where one exists), add its bound from the bytes and the
     (operations, ops not counted) of op_count; print one line."""
     import torch
+
+    from dedflow_tpu_torch.tools.timing import bound, time_ms
 
     rec["ms"], rec["plain_ms"] = alternate_ms(kernel, plain, reps, plain_reps)
     ops, skipped = counted
@@ -329,7 +315,7 @@ def finish(label: str, rec: dict, kernel, plain, reps: int, plain_reps: int,
         got = call()
         torch.cuda.synchronize()
         _, lib_rel = rel_err(got.reshape(check_against.shape), check_against)
-        rec["library_ms"] = cuda_ms(call, max(reps // 2, 3))
+        rec["library_ms"] = time_ms(call, max(reps // 2, 3))
         say(f"  {label}: library call vs kernel rel={lib_rel:.3e}")
     say(f"  {label}: ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
         f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}: {nbytes_ / 1e6:.1f} MB, "
@@ -373,6 +359,8 @@ def index_add_call(plan, x, comps, cstride):
 def reduce_bytes(plan, comps, out_rows: int) -> int:
     """Bytes a segmented reduce must move: the plan, one float per
     contribution and row, the output."""
+    from dedflow_tpu_torch.tools.timing import nbytes
+
     k = plan.src.numel()
     return nbytes(plan.ptr, plan.src) + 4 * k * len(comps) + 4 * out_rows * plan.num_tgt
 
@@ -412,7 +400,7 @@ def phase_build() -> None:
     libs = nvcc.load([
         "lattice_residual", "lattice_jacobian", "dia_spmv",
         "element_rows", "winell_spmv", "seg_reduce", "dem_contact",
-        "gather_elements", "win_gather",
+        "gather_elements", "win_gather", "gmicro", "gather_probe",
     ])
     say(f"phase 2 build: {time.perf_counter() - t0:.2f} s wall for "
         f"{len(libs)} libraries (nvcc {nvcc.nvcc_path()})")
@@ -465,6 +453,7 @@ def phase_kernels(solver) -> tuple[list, dict]:
     from dedflow_tpu_torch.solver.pc import NSFieldSplitPCT
     from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec, dia_matvec_plain
     from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
+    from dedflow_tpu_torch.tools.timing import nbytes, time_ms
 
     phys, scheme = solver.cfg.physics, solver.cfg.time
     lctx, fctxs, mask_t = solver.lctx, solver.face_ctxs, solver.mask_t
@@ -488,9 +477,10 @@ def phase_kernels(solver) -> tuple[list, dict]:
     ones16 = torch.ones_like(keep16)
     zeros16 = torch.zeros_like(add16)
     raw = lambda f: (lambda: f(lctx, wa_t, phys, scheme, ones16, zeros16))
-    err2 = max(err2, compare(
+    err2u = compare(
         "K2 data (unmasked)", raw(lat.jacobian_volume), raw(lat.jacobian_volume_plain), TOL_K2
-    ))
+    )
+    err2 = max(err2, err2u)
     jm = lat.assemble_jacobian_t(lctx, fctxs, mask_t, wa, dwa, phys, scheme)
     scal_p = torch.zeros_like(jm.scal)
     scal_p[2 * d0 : 2 * d0 + 2] = lctx.mult * keep_pc[16:18] + add18[16:18]
@@ -515,6 +505,11 @@ def phase_kernels(solver) -> tuple[list, dict]:
     r2 = finish(KERNELS[1][0], {"max_abs_err": err2}, k2, p2, 10, 3,
                 nbytes(lctx.lhs_geom, wa_t, keep16, add16, band, jm.data),
                 op_count(p2))
+    # K2', the unmasked mode (the same kernel and launch count as K2)
+    finish("K2' lattice jacobian (unmasked)", {"max_abs_err": err2u},
+           raw(lat.jacobian_volume), raw(lat.jacobian_volume_plain), 10, 3,
+           nbytes(lctx.lhs_geom, wa_t, ones16, zeros16, jm.data),
+           op_count(raw(lat.jacobian_volume_plain)))
     # the library yardstick: torch.sparse CSR of the same assembled matrix
     offs = lctx.offsets
     pieces = []
@@ -530,10 +525,10 @@ def phase_kernels(solver) -> tuple[list, dict]:
                 library=(lambda: csr @ xflat, k3()))
     del csr, pieces
     results = [r1, r2, r3]
-    f_ms = cuda_ms(
+    f_ms = time_ms(
         lambda: lat.assemble_residual_t(lctx, fctxs, mask_t, wa, dwa, phys, scheme), 10
     )
-    j_ms = cuda_ms(
+    j_ms = time_ms(
         lambda: lat.assemble_jacobian_t(lctx, fctxs, mask_t, wa, dwa, phys, scheme), 5
     )
     pc = NSFieldSplitPCT.from_diag_rows(jm.diag_rows())
@@ -647,6 +642,7 @@ def phase_irregular_kernels(solver) -> tuple[list, dict]:
     from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_plain
     from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_plain
     from dedflow_tpu_torch.sparse.winell import COMP2WIN
+    from dedflow_tpu_torch.tools.timing import nbytes, time_ms
 
     phys, scheme = solver.cfg.physics, solver.cfg.time
     ctx, ne = solver.wctx, solver.wctx.num_elem
@@ -722,8 +718,8 @@ def phase_irregular_kernels(solver) -> tuple[list, dict]:
     ]
     del csr
     common = (ctx, solver.face_ctxs, solver.mask_t, wg, dwgold, dwg, phys, scheme)
-    f_ms = cuda_ms(lambda: residual(*common, solver.cfg.freeze_phi_temperature), 10)
-    j_ms = cuda_ms(lambda: assemble_system(*common), 5)
+    f_ms = time_ms(lambda: residual(*common, solver.cfg.freeze_phi_temperature), 10)
+    j_ms = time_ms(lambda: assemble_system(*common), 5)
     f = residual(*common, solver.cfg.freeze_phi_temperature)
     gmres120 = lambda: gmres(jm.matvec_t, f, maxit=120, atol=0.0, rtol=0.0, pc=pc)
     gmres120()
@@ -864,6 +860,7 @@ def k11_record(label: str, grid, gs, prm) -> dict:
     import torch
 
     from dedflow_tpu_torch.dem.grid import grid_pair_forces, grid_pair_forces_cuda
+    from dedflow_tpu_torch.tools.timing import bound
 
     kernel = lambda: torch.stack(grid_pair_forces_cuda(grid, gs, prm))
     plain = lambda: torch.stack(grid_pair_forces(grid, gs, prm))
@@ -1121,6 +1118,7 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict, dict]:
     from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
     from dedflow_tpu_torch.sparse.win_ring import ring_reduce
     from dedflow_tpu_torch.sparse.win_stream import stream_reduce
+    from dedflow_tpu_torch.tools.timing import nbytes, time_ms
     from dedflow_tpu_torch.utils import nvcc
 
     phys, scheme = gsolver.cfg.physics, gsolver.cfg.time
@@ -1198,16 +1196,16 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict, dict]:
     # the gather tier's system: F, J (+ PC), the reduces and the SpMV on its
     # plans and matrix, GMRES(120)
     common = (ctx, gsolver.face_ctxs, gsolver.mask_t, wg_, dwgold, dwg, phys, scheme)
-    f_ms = cuda_ms(lambda: residual(*common, gsolver.cfg.freeze_phi_temperature), 10)
-    j_ms = cuda_ms(lambda: assemble_system(*common), 5)
+    f_ms = time_ms(lambda: residual(*common, gsolver.cfg.freeze_phi_temperature), 10)
+    j_ms = time_ms(lambda: assemble_system(*common), 5)
     (rng,) = ctx.ranges
     rows24, rows288 = k4(), k5()
-    k8_ms = cuda_ms(lambda: stream_reduce(rng.res_plan, rows24, range(6), ne), 50)
-    k9_ms = cuda_ms(lambda: ring_reduce(rng.jac_plan, rows288, wa_.JAC_COMPS, ne), 20)
+    k8_ms = time_ms(lambda: stream_reduce(rng.res_plan, rows24, range(6), ne), 50)
+    k9_ms = time_ms(lambda: ring_reduce(rng.jac_plan, rows288, wa_.JAC_COMPS, ne), 20)
     jm, pc = assemble_system(*common)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn((6, ctx.num_node), generator=gen, device="cuda", dtype=gsolver.dtype)
-    spmv_ms = cuda_ms(lambda: winell_matvec(jm, x), 100)
+    spmv_ms = time_ms(lambda: winell_matvec(jm, x), 100)
     f = residual(*common, gsolver.cfg.freeze_phi_temperature)
     gmres120 = lambda: gmres(jm.matvec_t, f, maxit=120, atol=0.0, rtol=0.0, pc=pc)
     gmres120()
@@ -1333,6 +1331,7 @@ def phase_melt_kernels(solver) -> tuple[list, dict]:
     from dedflow_tpu_torch.solver.newton import assemble_system, residual
     from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec
     from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
+    from dedflow_tpu_torch.tools.timing import nbytes, time_ms
     from dedflow_tpu_torch.utils import nvcc
 
     cfg, mesh = solver.cfg, solver.mesh
@@ -1398,12 +1397,12 @@ def phase_melt_kernels(solver) -> tuple[list, dict]:
     del inp, out288
 
     common = (lctx, solver.face_ctxs, mask_t, wg, dwgold, dwg, phys, scheme)
-    f_ms = cuda_ms(lambda: residual(*common, cfg.freeze_phi_temperature, source=src), 10)
-    j_ms = cuda_ms(lambda: assemble_system(*common, scalar_implicit=True), 5)
+    f_ms = time_ms(lambda: residual(*common, cfg.freeze_phi_temperature, source=src), 10)
+    j_ms = time_ms(lambda: assemble_system(*common, scalar_implicit=True), 5)
     jm, pc = assemble_system(*common, scalar_implicit=True)
     gen = torch.Generator(device=solver.device).manual_seed(SEED)
     x = torch.randn((6, n), generator=gen, device=solver.device, dtype=solver.dtype)
-    spmv_ms = cuda_ms(lambda: dia_matvec(jm.data, jm.scal, x, lctx.offsets), 100)
+    spmv_ms = time_ms(lambda: dia_matvec(jm.data, jm.scal, x, lctx.offsets), 100)
     f = residual(*common, cfg.freeze_phi_temperature, source=src)
     gmres120 = lambda: gmres(jm.matvec_t, f, maxit=120, atol=0.0, rtol=0.0, pc=pc)
     gmres120()
@@ -1555,6 +1554,106 @@ def phase_melt_main(solver) -> dict:
             "t_max": float(temp.max()), "peak_bytes": peak}
 
 
+def probe_check(label: str, kernel, plain, exact: bool) -> float:
+    """Run a probe kernel twice and its plain version once; the copies and
+    gathers must equal it bit for bit (both runs), the reduce's outputs be
+    within TOL_K12_REDUCE of it. Returns the max abs error."""
+    import torch
+
+    got, again, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise PhaseError(f"{label}: non-finite kernel output")
+    worst = 0.0
+    for out in (got, again):
+        err, rel = rel_err(out, ref)
+        worst = max(worst, err)
+        if exact and not torch.equal(out, ref):
+            raise PhaseError(f"{label}: differs from its plain version (max abs {err:.3e})")
+        if not exact:
+            check(label, rel, TOL_K12_REDUCE)
+    say(f"  {label}: max_abs_err={worst:.3e} ("
+        + ("bit for bit)" if exact else f"rel {rel:.3e}, tol {TOL_K12_REDUCE:.0e})"))
+    return worst
+
+
+def phase_probes() -> list:
+    """K12 on tools/gmicro.py's (8, 2**23) stream and K13 at
+    tools/gather_probe.py's W = 4096 and 65,536 elements. First each
+    kernel is held against its plain version and its library call against
+    the kernel, on the tools' ids; the window gathers and the segment
+    reduce (with its accumulators) also on ids over their full range,
+    [0, 512 * 5). Then the probes' own path: the entry points' runs
+    (gmicro.run, gather_probe.run) at those sizes, with the count of every
+    probe wrapper set to 0 just before and read just after; each kernel
+    must have been launched there, and the runs' records account for every
+    launch. Returns (name, source, replaced kernel, record) per kernel and
+    idiom, with the runs' times."""
+    import torch
+
+    from dedflow_tpu_torch.tools import gather_probe as tgp
+    from dedflow_tpu_torch.tools import gmicro as tgm
+
+    def held(label, p) -> float:
+        err = probe_check(label, p.kernel, p.plain, p.exact)
+        ref = p.library[1]()
+        _, rel = rel_err(p.library[0]().reshape(ref.shape), ref)
+        if not (rel == 0.0 if p.exact else rel <= TOL_K12_REDUCE):
+            raise PhaseError(f"{label}: library call differs from the kernel (rel {rel:.3e})")
+        return err
+
+    dev = torch.device("cuda")
+    x, idx = tgm.inputs(PROBE_N, dev, SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    full = torch.randint(0, 512 * 5, (8, PROBE_N), generator=gen, device=dev, dtype=torch.int32)
+    for nw in tgm.NWINS:
+        probe_check(f"K12 window gather nwin={nw}, full-range ids",
+                    lambda nw=nw: tgm.window_gather(x, full, nw),
+                    lambda nw=nw: tgm.window_gather_plain(x, full, nw), True)
+    for hb in tgm.HBS:
+        for i, part in enumerate(("o", "acc")):
+            probe_check(f"K12 segment reduce hb={hb} {part}, full-range ids",
+                        lambda hb=hb, i=i: tgm.segment_reduce(x, full, hb, acc=True)[i],
+                        lambda hb=hb, i=i: tgm.segment_reduce_plain(x, full, hb, acc=True)[i],
+                        False)
+        probe_check(f"K12 segment reduce hb={hb} acc, the tool's ids",
+                    lambda hb=hb: tgm.segment_reduce(x, idx, hb, acc=True)[1],
+                    lambda hb=hb: tgm.segment_reduce_plain(x, idx, hb, acc=True)[1], False)
+    del full
+    errs = {p.name: held(f"K12 {p.name} [{p.what}]", p) for p in tgm.probes(x, idx)}
+    del x, idx
+    idx, win = tgp.inputs(PROBE_W, dev, SEED)
+    errs |= {p.name: held(f"K13 {p.what}", p) for p in tgp.probes(idx, win)}
+    del idx, win
+    counters = (tgm.copy2, tgm.lane_gather, tgm.window_gather, tgm.segment_reduce,
+                tgp.element_gather)
+    for c in counters:
+        c.launches = 0
+    k12 = tgm.run(PROBE_N, dev)
+    k13 = tgp.run(PROBE_W, dev)
+    counts = {c.__name__: c.launches for c in counters}
+    say(f"  launches on the probes' runs: {counts}")
+    for name, n in counts.items():
+        recorded = sum(r["launches"] for r in k12 + k13 if r["counter"] == name)
+        if n <= 0 or n != recorded:
+            raise PhaseError(f"probes: {name} launched {n} times on the runs, {recorded} "
+                             f"in their records")
+    keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    out = []
+    for r in k12 + k13:
+        if r["launches"] <= 0:
+            raise PhaseError(f"probes: {r['name']} was not launched on its run")
+        rec = {k: r[k] for k in keys} | {"max_abs_err": max(r["max_abs_err"], errs[r["name"]])}
+        if r["counter"] == "element_gather":
+            line = 60 if r["name"] == "global" else 76
+            out.append((f"K13 {r['what']}", "dedflow_tpu_torch/csrc/gather_probe.cu",
+                        f"tools/gather_probe.py:{line}", rec))
+        else:
+            out.append((f"K12 {r['name']} [{r['what']}]", "dedflow_tpu_torch/csrc/gmicro.cu",
+                        "tools/gmicro.py:47", rec))
+    return out
+
+
 def run() -> int:
     try:
         import torch
@@ -1573,6 +1672,7 @@ def run() -> int:
         from dedflow_tpu_torch.dem.grid import to_grid
         from dedflow_tpu_torch.mesh.gen import box_mesh
         from dedflow_tpu_torch.solver.newton import NSSolver
+        from dedflow_tpu_torch.tools.timing import card_line
     except ImportError as e:
         print(f"FAIL: dedflow_tpu_torch not importable ({e})", file=sys.stderr)
         return 1
@@ -1661,6 +1761,12 @@ def run() -> int:
             f"{MELT_STEPS[1]} step_fixed({MELT_FIXED_NEWTON}), with the laser source")
         melt_main = phase_melt_main(msolver)
         say(f"  melt main: {json.dumps({k: v for k, v in melt_main.items() if k != 'launches'})}")
+        del msolver
+        phase = "18 probes"
+        say(f"phase 18 probes: K12 on an (8, {PROBE_N}) float32 stream, K13 at W = {PROBE_W}")
+        t0 = time.perf_counter()
+        probes = phase_probes()
+        say(f"  probes: {time.perf_counter() - t0:.1f} s")
     except Exception as e:  # report the failed phase, then fail
         traceback.print_exc()
         print(f"FAIL phase {phase}: {type(e).__name__}: {e}", file=sys.stderr)
@@ -1681,6 +1787,9 @@ def run() -> int:
             + melt_launches,
         )
     ]
+    # the probes' launches: those of their entry points' runs (phase 18)
+    kernels += [{"name": name, "route": "cuda", "source": src, "replaces": rep, **r}
+                for name, src, rep, r in probes]
     kernels.sort(key=lambda k: int(k["name"].split()[0][1:]))
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -9,17 +9,29 @@ Two checkouts (say a parent commit unpacked beside the working tree) are
 compared on one card by running this once per checkout, in turns: parent,
 change, change, parent. Each run builds that checkout's kernels, imports
 only that checkout's package, and prints one JSON line: the root, the card
-(`nvidia-smi` name and power limit) and, per kernel, the CUDA-event times
-of `reps` blocks of launches after warm-up.
+(`nvidia-smi` name and power limit) and, per kernel, the median CUDA-event
+time of `reps` blocks of launches after warm-up. The clock and the card
+line are this script's own checkout's (tools/timing.py, loaded by path, so
+that any ROOT can be timed by the same clock).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
-import subprocess
 import sys
 from pathlib import Path
+
+
+def _timing():
+    """tools/timing.py of the checkout this script is in."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "timing.py"
+    spec = importlib.util.spec_from_file_location("_kernel_ab_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # the dataclass looks its module up
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main(argv=None) -> int:
@@ -62,24 +74,11 @@ def main(argv=None) -> int:
         "K1": (lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme), 20),
         "K2": (lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, band, lo), 10),
     }
+    timing = _timing()
     out = {"root": str(root)}
     for name, (fn, n) in kernels.items():
-        for _ in range(2):
-            fn()
-        times = []
-        for _ in range(args.reps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(n):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / n)
-        out[f"{name}_ms"] = times
-    out["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
+        out[f"{name}_ms"] = timing.time_ms(fn, n, samples=args.reps)
+    out["card"] = timing.card_line()
     print(json.dumps(out), flush=True)
     return 0
 

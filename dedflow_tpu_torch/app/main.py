@@ -2,12 +2,14 @@
 moving-laser melt-pool or coupled FEM-DEM powder-settling scenario on a box
 mesh.
 
-    python -m dedflow_tpu_torch.app.main --box NX NY NZ --steps K \\
+    python -m dedflow_tpu_torch.app.main --box NX NY NZ [--steps K] \\
         --device cuda|cpu --dtype f32|f64 [--config cfg.json] [--chunk E] \\
         [--scenario reference|cavity|melt-pool] [--fixed-newton K]
     python -m dedflow_tpu_torch.app.main --scenario coupled --box 55 55 55 \\
         --particles 100000 [--particle-radius R] [--dem-substeps 10] [--no-dem-grid]
 
+`--steps K` runs K time steps; without it the run takes the config's
+`num_steps` (4000 for the built-in scenarios), as the JAX CLI does.
 `--config` loads a SolverConfig from JSON in place of the reference
 scenario's (config.load_config, as the JAX CLI's --config). It replaces
 the scenario as a whole, BCs included, so start from the reference
@@ -69,7 +71,8 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--box", type=int, nargs=3, default=(10, 10, 10),
                    metavar=("NX", "NY", "NZ"), help="box cells per axis")
-    p.add_argument("--steps", type=int, default=2, help="time steps to run")
+    p.add_argument("--steps", type=int, default=None,
+                   help="time steps to run (default: the config's num_steps)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--dtype", choices=("f32", "f64"), default=None,
                    help="default: f32 on cuda, f64 on cpu")
@@ -105,6 +108,8 @@ def main(argv=None) -> int:
         "melt-pool": (melt_pool_scenario_config, melt_pool_initial_state),
     }.get(args.scenario, (reference_scenario_config, reference_initial_state))
     cfg = load_config(args.config) if args.config else scenario_config()
+    if args.steps is not None:
+        cfg = dataclasses.replace(cfg, num_steps=args.steps)
     if args.chunk is not None:
         cfg = dataclasses.replace(cfg, assembly_chunk=args.chunk)
     coupled = args.scenario == "coupled"
@@ -121,7 +126,7 @@ def main(argv=None) -> int:
     wg, dwgold, dwg = state_from_numpy(*initial_state(mesh), device, dtype)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     dt, laser = cfg.time.dt, cfg.physics.laser
-    for step in range(1, args.steps + 1):
+    for step in range(1, cfg.num_steps + 1):
         src = None
         if laser is not None:
             # the moving source at the generalized-alpha level

@@ -10,9 +10,10 @@ made with numpy from a seed on an odd-sized box (lattice kernels K1-K3,
 with the reference and the melt-pool scenario: K1 with a heat source, K2
 with the implicit phi/T tangents), on an RCM-ordered Delaunay mesh
 (irregular-tier kernels K6-K10, K6 also in its 33-row mode), on an
-unordered one (the gather tier's K4/K5, K5 also implicit) and on a particle
-cloud bucketed onto a cell grid (the DEM contact sweep K11), float32 on the
-card. Relative error = max|kernel - plain| / max|plain|;
+unordered one (the gather tier's K4/K5, K5 also implicit), on a particle
+cloud bucketed onto a cell grid (the DEM contact sweep K11) and on seeded
+streams and windows (the probes K12 and K13, dedflow_tpu_torch.tools),
+float32 on the card. Relative error = max|kernel - plain| / max|plain|;
 the tolerances are float32 roundoff (different sum orders, hardware
 rsqrtf), as in chip_smoke.py, which runs the same comparisons at full
 size. Every kernel is also run twice: the two results are bit-identical
@@ -52,6 +53,8 @@ from dedflow_tpu_torch.sparse.win_kernels import winell_matvec, winell_matvec_pl
 from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_plain
 from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_plain
 from dedflow_tpu_torch.sparse.winell import COMP2WIN
+from dedflow_tpu_torch.tools import gather_probe as tgp
+from dedflow_tpu_torch.tools import gmicro as tgm
 
 pytestmark = pytest.mark.cuda
 
@@ -532,3 +535,84 @@ def test_gather_step_on_card_matches_cpu_f64(chunk):
     for g, r in zip(*outs):
         assert torch.isfinite(g).all()
         assert rel(g, r) < 1e-4
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("ids", [128, 2560], ids=["tool-ids", "full-range-ids"])
+def test_k12_probes_match_plain(ids):
+    """Every K12 kernel on an (8, 8192) stream, on the tool's ids (< 128)
+    and on ids up to 512 * 5 (every window gather's zero branch, every bin
+    row of the reduce): copies and gathers bit for bit, the segment reduce
+    and its accumulators to float32 roundoff (shared-memory atomics add in
+    another order)."""
+    dev = _card()
+    x, _ = tgm.inputs(8192, dev, seed=12)
+    idx = torch.randint(0, ids, x.shape, generator=torch.Generator(device=dev).manual_seed(ids),
+                        device=dev, dtype=torch.int32)
+    before = (tgm.lane_gather.launches, tgm.segment_reduce.launches)
+    for probe in tgm.probes(x, idx):
+        got, ref = probe.kernel(), probe.plain()
+        if probe.exact:
+            assert torch.equal(got, ref), probe.name
+        else:
+            assert rel(got, ref) < 1e-5, probe.name
+    for nw in tgm.NWINS:
+        assert torch.equal(tgm.window_gather(x, idx, nw), tgm.window_gather_plain(x, idx, nw))
+    for hb in tgm.HBS:
+        o, acc = tgm.segment_reduce(x, idx, hb, acc=True)
+        po, pacc = tgm.segment_reduce_plain(x, idx, hb, acc=True)
+        assert rel(acc, pacc) < 1e-5 and rel(o, po) < 1e-5
+    assert tgm.lane_gather.launches == before[0] + 2
+    assert tgm.segment_reduce.launches == before[1] + 2 * len(tgm.HBS)
+
+
+@pytest.mark.parametrize("w", [512, 4096, 9000], ids=["1-pass", "2-pass", "4-pass"])
+def test_k13_element_gather_equals_plain_bit_for_bit(w):
+    """Both idioms, with the staged window in 1, 2 and 4 column passes, and
+    a few ids outside the window (zeros)."""
+    dev = _card()
+    idx, win = tgp.inputs(w, dev, seed=w, nb=3)
+    idx[0, :5] = torch.tensor([-1, w, w + 7, 0, w - 1], dtype=torch.int32)
+    ref = tgp.element_gather_plain(idx, win)
+    for idiom in ("global", "staged"):
+        assert torch.equal(tgp.element_gather(idx, win, idiom), ref), idiom
+
+
+@pytest.mark.parametrize("tool", ["gmicro", "gather_probe"])
+def test_probe_runs_count_their_launches(capsys, tool):
+    """The entry points' runs on the card: every line launched its kernel,
+    the records account for every launch of the wrappers, and each has a
+    time, a paced time, a plain and a library time."""
+    _card()
+    mod, size = {"gmicro": (tgm, 8192), "gather_probe": (tgp, 512)}[tool]
+    counters = [tgm.copy2, tgm.lane_gather, tgm.window_gather, tgm.segment_reduce,
+                tgp.element_gather]
+    before = {c.__name__: c.launches for c in counters}
+    recs = mod.run(size, torch.device("cuda"))
+    for c in counters:
+        assert c.launches - before[c.__name__] == sum(
+            r["launches"] for r in recs if r["counter"] == c.__name__), c.__name__
+    for r in recs:
+        assert r["launches"] > 0, r["name"]
+        assert r["max_abs_err"] == 0.0 or r["counter"] == "segment_reduce", r["name"]
+        assert min(r["ms"], r["paced_ms"], r["plain_ms"], r["library_ms"]) > 0, r["name"]
+    capsys.readouterr()
+
+
+def test_probe_kernels_refuse_what_they_cannot_take():
+    dev = _card()
+    x, idx = tgm.inputs(1024, dev)
+    with pytest.raises(ValueError):
+        tgm.copy2(x[:, :1000].contiguous())  # n not a multiple of 512
+    with pytest.raises(ValueError):
+        tgm.segment_reduce(x, idx, 3)
+    with pytest.raises(ValueError):
+        tgm.lane_gather(x, idx[:1].contiguous(), "shuffle")
+    with pytest.raises(ValueError):
+        tgp.element_gather(idx[:4, :64].contiguous(), torch.zeros((20000, 16), device=dev),
+                           "staged")

@@ -36,6 +36,8 @@ from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
 from dedflow_tpu_torch.solver.newton import NSSolver
 from dedflow_tpu_torch.sparse import win_gather, win_kernels, win_ring, win_stream
 from dedflow_tpu_torch.sparse.winell import WinELLMatrixT, build_winell_plan
+from dedflow_tpu_torch.tools import gather_probe as tgp
+from dedflow_tpu_torch.tools import gmicro as tgm
 from dedflow_tpu_torch.utils import dtypes, nvcc
 
 @pytest.fixture(scope="module", autouse=True)
@@ -72,7 +74,8 @@ def test_fresh_interpreter_import_leaves_jax_out():
         "import sys\n"
         "import dedflow_tpu_torch, dedflow_tpu_torch.solver.newton, "
         "dedflow_tpu_torch.app.main, dedflow_tpu_torch.app.coupled, "
-        "dedflow_tpu_torch.dem.grid, dedflow_tpu_torch.interop, chip_smoke\n"
+        "dedflow_tpu_torch.dem.grid, dedflow_tpu_torch.interop, "
+        "dedflow_tpu_torch.tools.gmicro, dedflow_tpu_torch.tools.gather_probe, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dedflow_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -303,6 +306,31 @@ def _k10():
     return win_gather.win_gather(ien, torch.zeros((3, 5)), win_gather.JAC_ROWMAP, 12)
 
 
+def _stream():
+    return torch.zeros((8, 512)), torch.zeros((8, 512), dtype=torch.int32)
+
+
+def _k12_copy():
+    return tgm.copy2(_stream()[0])
+
+
+def _k12_lane(idiom):
+    return lambda: tgm.lane_gather(*_stream(), idiom)
+
+
+def _k12_window():
+    return tgm.window_gather(*_stream(), 2)
+
+
+def _k12_reduce():
+    return tgm.segment_reduce(*_stream(), 16, acc=True)
+
+
+def _k13(idiom):
+    return lambda: tgp.element_gather(torch.zeros((4, 8), dtype=torch.int32),
+                                      torch.zeros((16, 16)), idiom)
+
+
 @pytest.mark.parametrize(
     "call,plain",
     [
@@ -319,9 +347,17 @@ def _k10():
         (_k2_implicit, (lat, "jacobian_volume_plain")),
         (_k6_lhs_implicit, (ek, "lhs_rows")),
         (_k5_implicit, (ek, "ns_lhs_gather_plain")),
+        (_k12_copy, (tgm, "copy2_plain")),
+        (_k12_lane("smem"), (tgm, "lane_gather_plain")),
+        (_k12_lane("shuffle"), (tgm, "lane_gather_plain")),
+        (_k12_window, (tgm, "window_gather_plain")),
+        (_k12_reduce, (tgm, "segment_reduce_plain")),
+        (_k13("global"), (tgp, "element_gather_plain")),
+        (_k13("staged"), (tgp, "element_gather_plain")),
     ],
     ids=["K6-res", "K6-lhs", "K7", "K8", "K9", "K11", "K4", "K5", "K10", "K1-source",
-         "K2-implicit", "K6-lhs-implicit", "K5-implicit"],
+         "K2-implicit", "K6-lhs-implicit", "K5-implicit", "K12-copy", "K12-lane-smem",
+         "K12-lane-shuffle", "K12-window", "K12-reduce", "K13-global", "K13-staged"],
 )
 def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     monkeypatch, tmp_path, call, plain
@@ -344,8 +380,10 @@ def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
 @pytest.mark.parametrize(
     "call,counter",
     [(_k4, (ek, "ns_residual_gather")), (_k5, (ek, "ns_lhs_gather")),
-     (_k10, (win_gather, "win_gather"))],
-    ids=["K4", "K5", "K10"],
+     (_k10, (win_gather, "win_gather")), (_k12_copy, (tgm, "copy2")),
+     (_k12_lane("shuffle"), (tgm, "lane_gather")), (_k12_window, (tgm, "window_gather")),
+     (_k12_reduce, (tgm, "segment_reduce")), (_k13("staged"), (tgp, "element_gather"))],
+    ids=["K4", "K5", "K10", "K12-copy", "K12-lane", "K12-window", "K12-reduce", "K13"],
 )
 def test_cpu_tensors_count_no_launch(call, counter):
     """On CPU tensors the wrappers run their plain twins and count nothing."""

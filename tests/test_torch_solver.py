@@ -7,9 +7,11 @@
   uses): `NSSolver.step_fixed(num_newton=2)` and `NSSolver.step` against the
   JAX NSSolver from the same numpy state. New states to 1e-9 relative
   (max|port - jax| / max|jax| per state), equal Newton and Krylov counts.
-- The port's CLI at that size on the CPU.
+- The port's CLI at that size on the CPU, and its step count: `--steps`
+  overrides the config's `num_steps` only when given, as in the JAX CLI.
 """
 
+import dataclasses
 import json
 
 import jax.numpy as jnp
@@ -125,3 +127,20 @@ def test_cli_prints_one_json_line_per_step(capsys):
     assert len(rec["krylov_iters"]) == rec["newton_iters"]
     assert len(rec["field_norms"]) == 4 and all(np.isfinite(rec["field_norms"]))
     assert rec["wall_s"] > 0
+
+
+def test_cli_steps_default_to_the_configs_num_steps():
+    assert tmain._parser().parse_args([]).steps is None
+
+
+@pytest.mark.parametrize("steps,expected", [(None, 3), ("1", 1)], ids=["config", "flag"])
+def test_cli_runs_num_steps_unless_steps_is_given(capsys, tmp_path, steps, expected):
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config as t_reference
+    from dedflow_tpu_torch.config import save_config
+
+    cfg = tmp_path / "cfg.json"
+    save_config(dataclasses.replace(t_reference(), num_steps=3), str(cfg))
+    argv = ["--box", "3", "3", "3", "--device", "cpu", "--dtype", "f64", "--config", str(cfg)]
+    assert tmain.main(argv + (["--steps", steps] if steps else [])) == 0
+    recs = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.strip()]
+    assert [r["step"] for r in recs] == list(range(1, expected + 1))
