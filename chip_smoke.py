@@ -44,8 +44,9 @@ Phases, one line each; the script exits non-zero at the first failure:
             14, each also equal to K6 on the same inputs; K10 at phase 6's
             RCM mesh with the
             residual's 48-row and the Jacobian's 12-row map (bit for bit);
-            times, bounds, the gather tier's F, J, SpMV, K8, K9 and
-            GMRES(120)
+            K8 and K9 on the gather tier's plans (unordered sources)
+            against their plain versions; times, bounds, the gather tier's
+            F, J, SpMV and GMRES(120)
  13 slice   box 12 on use_lattice="gather" with the reference BCs and the
             Nitsche wall: one step_fixed(num_newton=2), card float32 against
             CPU float64
@@ -190,6 +191,10 @@ GATHER_KERNELS = (
      "dedflow_tpu/sparse/win_gather.py:179"),
     ("K10 win gather (jacobian rows)", "dedflow_tpu_torch/csrc/win_gather.cu",
      "dedflow_tpu/sparse/win_gather.py:179"),
+    ("K8 stream reduce (gather plan)", "dedflow_tpu_torch/csrc/seg_reduce.cu",
+     "dedflow_tpu/sparse/win_stream.py:251"),
+    ("K9 ring reduce (gather plan)", "dedflow_tpu_torch/csrc/seg_reduce.cu",
+     "dedflow_tpu/sparse/win_ring.py:356"),
 )
 GATHER_CONFIG = dict(bcs=(), pin_pressure=True, scatter_method="tiered",
                      elements_kernel="pallas")  # bench.py:133-151's Delaunay settings
@@ -354,6 +359,19 @@ def index_add_call(plan, x, comps, cstride):
     vals = torch.stack([flat[src + c * cstride] for c in comps])
     zeros = torch.zeros((len(comps), plan.num_tgt), dtype=x.dtype, device=x.device)
     return lambda: torch.index_add(zeros, 1, tgt, vals)
+
+
+def reduce_parts() -> tuple[dict, dict]:
+    """{name: view} of the node reduce's rows by equation and of the entry
+    reduce's WinELL rows by vel/p block: each is checked against its own
+    scale."""
+    from dedflow_tpu_torch.sparse.winell import COMP2WIN
+
+    by_eq = {" [u rows]": lambda t: t[:3], " [p row]": lambda t: t[3:4],
+             " [phi,T rows]": lambda t: t[4:]}
+    entry_blocks = {f" [{b}]": (lambda t, r=[int(COMP2WIN[c]) for c in cs]: t[r])
+                    for b, cs in VP_BLOCKS.items()}
+    return by_eq, entry_blocks
 
 
 def reduce_bytes(plan, comps, out_rows: int) -> int:
@@ -656,13 +674,10 @@ def phase_irregular_kernels(solver) -> tuple[list, dict]:
     if not same:
         raise PhaseError("K10: the WinELL element input rows differ from the index gather")
     rargs, largs = ek.res_args(phys, scheme), ek.lhs_args(phys, scheme)
-    by_eq = {" [u rows]": lambda t: t[:3], " [p row]": lambda t: t[3:4],
-             " [phi,T rows]": lambda t: t[4:]}
     # the element Jacobian (rows ab*18+c) and its entry sums (WinELL rows)
     # per vel/p block, each against its own scale
     lhs_blocks = jacobian_blocks(ne, implicit=False)
-    entry_blocks = {f" [{b}]": (lambda t, r=[int(COMP2WIN[c]) for c in cs]: t[r])
-                    for b, cs in VP_BLOCKS.items()}
+    by_eq, entry_blocks = reduce_parts()
 
     k6r = lambda: ek.res_rows_call(inp67, phys, scheme)
     p6r = lambda: er.res_rows(inp67, **rargs)
@@ -1105,8 +1120,9 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict, dict]:
     """Phase 12: K4 and K5 on the gather tier's context (K5 also in its
     implicit mode, the metric rows read in place from the residual
     geometry), K10 on phase 6's RCM mesh `rcm` and its WinELL connectivity
-    `rcm_ien_t`, each against its plain version. Returns the four kernel
-    records, the gather tier's system timings and K5's implicit record."""
+    `rcm_ien_t`, K8 and K9 on the gather tier's plans, each against its
+    plain version. Returns the six kernel records (GATHER_KERNELS' order),
+    the gather tier's system timings and K5's implicit record."""
     import torch
 
     from dedflow_tpu_torch.fem import element_kernels as ek
@@ -1116,8 +1132,8 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict, dict]:
     from dedflow_tpu_torch.solver.newton import assemble_system, residual
     from dedflow_tpu_torch.sparse import win_gather as wg
     from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
-    from dedflow_tpu_torch.sparse.win_ring import ring_reduce
-    from dedflow_tpu_torch.sparse.win_stream import stream_reduce
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_plain
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_plain
     from dedflow_tpu_torch.tools.timing import nbytes, time_ms
     from dedflow_tpu_torch.utils import nvcc
 
@@ -1168,6 +1184,19 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict, dict]:
         eidx = rcm_ien_t.long()[torch.tensor([c >> 8 for c in codes], device="cuda")]
         k10[tag] = (err, kern, plain, rows, x, (lambda x=x, c=cidx, e=eidx: x[c, e], kern()))
 
+    # K8 and K9 on the gather tier's plans: the element rows of an
+    # unordered mesh, read where K4/K5 left them
+    (rng,) = ctx.ranges
+    rows24, rows288 = k4(), k5()
+    by_eq, entry_blocks = reduce_parts()
+    comps = wa_.JAC_COMPS
+    k8 = lambda: stream_reduce(rng.res_plan, rows24, range(6), ne)
+    p8 = lambda: stream_reduce_plain(rng.res_plan, rows24, range(6), ne)
+    e8 = compare("K8 residual node reduce (gather plan)", k8, p8, TOL_K8, parts=by_eq)
+    k9 = lambda: ring_reduce(rng.jac_plan, rows288, comps, ne)
+    p9 = lambda: ring_reduce_plain(rng.jac_plan, rows288, comps, ne)
+    e9 = compare("K9 jacobian entry reduce (gather plan)", k9, p9, TOL_K9, parts=entry_blocks)
+
     names = [name for name, _, _ in GATHER_KERNELS]
     libs = nvcc.load(["gather_elements", "win_gather"])
     regs = {names[0]: registers(libs["gather_elements"], "res_gather_kernel"),
@@ -1187,21 +1216,24 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict, dict]:
         out = torch.empty((rows, ne_rcm), dtype=torch.float32)
         results.append(finish(names[i], {"max_abs_err": err}, kern, plain, 50, 5,
                               nbytes(rcm_ien_t, x, out), op_count(plain), library=library))
+    results += [
+        finish(names[4], {"max_abs_err": e8}, k8, p8, 50, 5,
+               reduce_bytes(rng.res_plan, range(6), 6), op_count(p8),
+               library=(index_add_call(rng.res_plan, rows24, range(6), ne), k8())),
+        finish(names[5], {"max_abs_err": e9}, k9, p9, 20, 3,
+               reduce_bytes(rng.jac_plan, comps, len(comps)), op_count(p9),
+               library=(index_add_call(rng.jac_plan, rows288, comps, ne), k9())),
+    ]
     implicit5 = finish(MELT_KERNELS[3][0], {"max_abs_err": e5i}, k5i, p5i, 10, 3,
                        nbytes(ctx.lhs_geom, met, ctx.ien_t, w_t[:3], out288), op_count(p5i))
     regs[MELT_KERNELS[3][0]] = registers(libs["gather_elements"], "lhs_gather_kernelILb1E")
-    for name in [*names, MELT_KERNELS[3][0]]:
+    for name in regs:
         say(f"  {name}: ptxas registers {regs[name]}")
 
-    # the gather tier's system: F, J (+ PC), the reduces and the SpMV on its
-    # plans and matrix, GMRES(120)
+    # the gather tier's system: F, J (+ PC), the SpMV on its matrix, GMRES(120)
     common = (ctx, gsolver.face_ctxs, gsolver.mask_t, wg_, dwgold, dwg, phys, scheme)
     f_ms = time_ms(lambda: residual(*common, gsolver.cfg.freeze_phi_temperature), 10)
     j_ms = time_ms(lambda: assemble_system(*common), 5)
-    (rng,) = ctx.ranges
-    rows24, rows288 = k4(), k5()
-    k8_ms = time_ms(lambda: stream_reduce(rng.res_plan, rows24, range(6), ne), 50)
-    k9_ms = time_ms(lambda: ring_reduce(rng.jac_plan, rows288, wa_.JAC_COMPS, ne), 20)
     jm, pc = assemble_system(*common)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn((6, ctx.num_node), generator=gen, device="cuda", dtype=gsolver.dtype)
@@ -1213,7 +1245,7 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict, dict]:
     t0 = time.perf_counter()
     sol = gmres120()
     torch.cuda.synchronize()
-    times = {"F_ms": f_ms, "J_ms": j_ms, "K8_ms": k8_ms, "K9_ms": k9_ms, "SpMV_ms": spmv_ms,
+    times = {"F_ms": f_ms, "J_ms": j_ms, "SpMV_ms": spmv_ms,
              "GMRES120_s": time.perf_counter() - t0, "GMRES120_iters": sol.iters,
              "matrix_entries": ctx.win_plan.S}
     return results, times, implicit5
@@ -1784,6 +1816,7 @@ def run() -> int:
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
             + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
+            + ga_main["launches"][3:]
             + melt_launches,
         )
     ]

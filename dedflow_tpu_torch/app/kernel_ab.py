@@ -1,9 +1,13 @@
 """Time the lattice kernels K1 (residual, no source) and K2 (Jacobian,
 frozen-scalar mode, masked with the facet band) of the dedflow_tpu_torch
 package found under ROOT, on the card, at box_mesh(55, 55, 55) with the
-reference scenario and chip_smoke.py's perturbed state (seed 0).
+reference scenario and chip_smoke.py's perturbed state (seed 0); with
+`--reduces` also the segmented reduces K8 (6 rows) and K9 (16 rows) on the
+WinELL plans of delaunay_mesh(56**3) + RCM and on the gather tier's plans
+of the same mesh in its generated order, over seeded random element rows
+(about 50 s of host set-up on top).
 
-    python dedflow_tpu_torch/app/kernel_ab.py --root CHECKOUT [--reps 5]
+    python dedflow_tpu_torch/app/kernel_ab.py --root CHECKOUT [--reps 5] [--reduces]
 
 Two checkouts (say a parent commit unpacked beside the working tree) are
 compared on one card by running this once per checkout, in turns: parent,
@@ -12,12 +16,15 @@ only that checkout's package, and prints one JSON line: the root, the card
 (`nvidia-smi` name and power limit) and, per kernel, the median CUDA-event
 time of `reps` blocks of launches after warm-up. The clock and the card
 line are this script's own checkout's (tools/timing.py, loaded by path, so
-that any ROOT can be timed by the same clock).
+that any ROOT can be timed by the same clock). Each kernel's output also
+gets a digest (the first 16 hex digits of the SHA-256 of its bytes), so
+that two checkouts' results can be compared bit for bit.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import sys
@@ -34,10 +41,48 @@ def _timing():
     return mod
 
 
+def _reduce_kernels():
+    """{name: (call, reps)} of K8 and K9 on the WinELL and the gather plans
+    of delaunay_mesh(56**3) (chip_smoke.py's phases 6 and 12)."""
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+    from dedflow_tpu_torch.fem.win_assembly import JAC_COMPS
+    from dedflow_tpu_torch.mesh.gen import delaunay_mesh
+    from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
+    from dedflow_tpu_torch.solver.newton import NSSolver
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce
+
+    raw = delaunay_mesh(56**3, seed=0)
+    rcm = reorder_mesh(raw, rcm_order(raw.ien, raw.num_node))
+    wsolver = NSSolver(rcm, reference_scenario_config(bcs=(), pin_pressure=True), device="cuda")
+    gsolver = NSSolver(raw, reference_scenario_config(
+        bcs=(), pin_pressure=True, scatter_method="tiered", elements_kernel="pallas"),
+        device="cuda")
+    if (wsolver.fastpath, gsolver.fastpath) != ("winell", "gather"):
+        raise RuntimeError(f"tiers {wsolver.fastpath}, {gsolver.fastpath}: not winell, gather")
+    wctx, gctx = wsolver.wctx, gsolver.gctx
+    (grange,) = gctx.ranges
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for tier, ne, res_plan, jac_plan in (
+        ("winell", wctx.num_elem, wctx.res_plan, wctx.jac_plan),
+        ("gather", gctx.num_elem, grange.res_plan, grange.jac_plan),
+    ):
+        rows24 = torch.randn((24, ne), generator=gen, device="cuda")
+        rows288 = torch.randn((288, ne), generator=gen, device="cuda")
+        out[f"K8_{tier}"] = (lambda p=res_plan, x=rows24, m=ne: stream_reduce(p, x, range(6), m), 50)
+        out[f"K9_{tier}"] = (lambda p=jac_plan, x=rows288, m=ne: ring_reduce(p, x, JAC_COMPS, m), 20)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", required=True, help="checkout whose dedflow_tpu_torch is timed")
     p.add_argument("--reps", type=int, default=5, help="timed blocks per kernel")
+    p.add_argument("--reduces", action="store_true",
+                   help="also K8 and K9 on the WinELL and gather plans of delaunay_mesh(56**3)")
     args = p.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -74,10 +119,14 @@ def main(argv=None) -> int:
         "K1": (lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme), 20),
         "K2": (lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, band, lo), 10),
     }
+    if args.reduces:
+        kernels.update(_reduce_kernels())
     timing = _timing()
     out = {"root": str(root)}
     for name, (fn, n) in kernels.items():
         out[f"{name}_ms"] = timing.time_ms(fn, n, samples=args.reps)
+        got = fn().contiguous().cpu()
+        out[f"{name}_digest"] = hashlib.sha256(got.numpy().tobytes()).hexdigest()[:16]
     out["card"] = timing.card_line()
     print(json.dumps(out), flush=True)
     return 0

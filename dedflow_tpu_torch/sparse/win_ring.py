@@ -8,9 +8,10 @@ rows ab*18+c where the element kernel (K6) left them: the contribution
 (e, ab) has src = ab*18*ne + e and cstride = ne.
 
 `ring_reduce` is the K9 wrapper: on a CUDA tensor it launches the
-hand-written kernel csrc/seg_reduce.cu (C <= 16), which replaces the TPU
-kernel dedflow_tpu/sparse/win_ring.py::_ring_kernel; on a CPU tensor it
-runs `ring_reduce_plain`. The TPU's ring of partial sums, its SMEM budget
+hand-written kernels of csrc/seg_reduce.cu (C <= 16; the staging pass and
+the segment sum, as K8's), which replace the TPU kernel
+dedflow_tpu/sparse/win_ring.py::_ring_kernel; on a CPU tensor it runs
+`ring_reduce_plain`. The TPU's ring of partial sums, its SMEM budget
 and its fallback to the pull path do not exist here.
 """
 
@@ -41,7 +42,8 @@ def ring_reduce(plan: ReducePlan, x: torch.Tensor, comps=None, cstride=None) -> 
     if not x.is_cuda:
         return seg_reduce_plain(plan, x, comps, cstride)
     out = seg_reduce_kernel("ring_reduce", "dedflow_ring_reduce", 16, plan, x, comps, cstride)
-    ring_reduce.launches += 1
+    if plan.num_tgt:
+        ring_reduce.launches += 1
     return out
 
 

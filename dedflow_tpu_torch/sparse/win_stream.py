@@ -11,12 +11,19 @@ comps = 0..C-1 and cstride = M; for the element residual rows (24, ne)
 the contribution (e, a) has src = a*6*ne + e and cstride = ne, so the
 reduce reads the element kernel's output where it lies.
 
+The plan also keeps the kernel's staging order: `stage_src`, the source
+offsets sorted ascending, and `stage_pos`, the plan position of each
+(src[stage_pos[i]] == stage_src[i]), made by a stable sort on the plan's
+device.
+
 `stream_reduce` is the K8 wrapper: on a CUDA tensor it launches the
-hand-written kernel csrc/seg_reduce.cu (C <= 8), which replaces the TPU
-kernel dedflow_tpu/sparse/win_stream.py::_stream_kernel; on a CPU tensor
-it runs `stream_reduce_plain`. The Jacobian's reduce (K9,
-sparse.win_ring) is the same computation with C <= 16 and its own
-wrapper.
+hand-written kernels of csrc/seg_reduce.cu (C <= 8), which replace the
+TPU kernel dedflow_tpu/sparse/win_stream.py::_stream_kernel: a staging
+pass that reads the sources in ascending order into a (K, W) buffer at
+their plan positions (W = C rounded up to 8), then a segment sum of each
+target's contiguous rows in plan order. On a CPU tensor it runs
+`stream_reduce_plain`. The Jacobian's reduce (K9, sparse.win_ring) is the
+same computation with C <= 16 and its own wrapper.
 
 Also here: `stream_window_counts`, the per-vreg window count of the JAX
 package's stream plan (win_stream.py:84-215, the same arithmetic), which
@@ -42,6 +49,8 @@ class ReducePlan:
     src_max: int  # largest source offset (-1 without contributions)
     ptr: torch.Tensor  # (num_tgt + 1,) int32
     src: torch.Tensor  # (K,) int32, grouped by target, in summation order
+    stage_src: torch.Tensor  # (K,) int32, src sorted ascending: the staging pass's read order
+    stage_pos: torch.Tensor  # (K,) int32, the plan position of each: src[stage_pos] == stage_src
 
 
 def build_reduce_plan(tgt, src, num_tgt: int, device="cuda") -> ReducePlan:
@@ -73,11 +82,15 @@ def reduce_plan_from_sorted(tgt, src, num_tgt: int, device="cuda") -> ReducePlan
     ptr = np.zeros(num_tgt + 1, dtype=np.int64)
     np.cumsum(np.bincount(tgt, minlength=num_tgt), out=ptr[1:])
     as_t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+    src_t = as_t(src, torch.int32)
+    stage_src, stage_pos = torch.sort(src_t, stable=True)
     return ReducePlan(
         num_tgt=int(num_tgt),
         src_max=int(src.max()) if src.size else -1,
         ptr=as_t(ptr, torch.int32),
-        src=as_t(src, torch.int32),
+        src=src_t,
+        stage_src=stage_src,
+        stage_pos=stage_pos.to(torch.int32),
     )
 
 
@@ -106,7 +119,8 @@ def seg_reduce_plain(plan: ReducePlan, x: torch.Tensor, comps, cstride) -> torch
 def seg_reduce_kernel(
     what: str, symbol: str, max_rows: int, plan: ReducePlan, x: torch.Tensor, comps, cstride
 ) -> torch.Tensor:
-    """Launch csrc/seg_reduce.cu's entry `symbol` (checks and output)."""
+    """Launch csrc/seg_reduce.cu's entry `symbol`: its staging pass and its
+    segment sum (checks, the staging buffer and the output)."""
     if x.dtype != torch.float32 or not x.is_cuda or not x.is_contiguous():
         raise ValueError(f"{what} kernel: x must be a contiguous float32 CUDA tensor")
     if not 1 <= len(comps) <= max_rows:
@@ -115,18 +129,31 @@ def seg_reduce_kernel(
         raise ValueError(f"{what} kernel: the plan lives on another device")
     if min(comps) < 0 or max(comps) * cstride + plan.src_max >= x.numel():
         raise ValueError(f"{what} kernel: a source offset lies outside x")
+    out = torch.empty((len(comps), plan.num_tgt), dtype=torch.float32, device=x.device)
+    if plan.num_tgt == 0:
+        return out
     fn = nvcc.function(
         "seg_reduce", symbol,
-        [nvcc.P, nvcc.LL, nvcc.P, nvcc.P, nvcc.P, nvcc.I, nvcc.P, nvcc.I, nvcc.P],
+        [nvcc.P, nvcc.LL, nvcc.P, nvcc.P, nvcc.P, nvcc.I, nvcc.P, nvcc.I,
+         nvcc.P, nvcc.I, nvcc.P, nvcc.I, nvcc.P],
     )
-    out = torch.empty((len(comps), plan.num_tgt), dtype=torch.float32, device=x.device)
+    k = plan.stage_src.numel()
+    width = stage_width(len(comps))
+    stage = torch.empty((k, width), dtype=torch.float32, device=x.device)
     nvcc.check(
-        fn(x.data_ptr(), cstride, plan.ptr.data_ptr(), plan.src.data_ptr(),
-           nvcc.int_array(comps), len(comps), out.data_ptr(), plan.num_tgt,
+        fn(x.data_ptr(), cstride, plan.ptr.data_ptr(), plan.stage_src.data_ptr(),
+           plan.stage_pos.data_ptr(), k, nvcc.int_array(comps), len(comps),
+           stage.data_ptr(), width, out.data_ptr(), plan.num_tgt,
            torch.cuda.current_stream(x.device).cuda_stream),
         what,
     )
     return out
+
+
+def stage_width(num_rows: int) -> int:
+    """Floats a staged contribution takes: its rows rounded up to a whole
+    32-byte sector."""
+    return -(-num_rows // 8) * 8
 
 
 def stream_reduce_plain(plan: ReducePlan, x: torch.Tensor, comps=None, cstride=None) -> torch.Tensor:
@@ -144,7 +171,8 @@ def stream_reduce(plan: ReducePlan, x: torch.Tensor, comps=None, cstride=None) -
     if not x.is_cuda:
         return seg_reduce_plain(plan, x, comps, cstride)
     out = seg_reduce_kernel("stream_reduce", "dedflow_stream_reduce", 8, plan, x, comps, cstride)
-    stream_reduce.launches += 1
+    if plan.num_tgt:
+        stream_reduce.launches += 1
     return out
 
 

@@ -17,7 +17,9 @@ float32 on the card. Relative error = max|kernel - plain| / max|plain|;
 the tolerances are float32 roundoff (different sum orders, hardware
 rsqrtf), as in chip_smoke.py, which runs the same comparisons at full
 size. Every kernel is also run twice: the two results are bit-identical
-(no atomics).
+(no atomics). The segmented reduces K8/K9 also equal, bit for bit, each
+target's contributions added one by one in plan order, the order of
+their segment sum.
 """
 
 import dataclasses
@@ -51,7 +53,11 @@ from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
 from dedflow_tpu_torch.sparse.win_gather import JAC_ROWMAP, RES_ROWMAP, win_gather, win_gather_plain
 from dedflow_tpu_torch.sparse.win_kernels import winell_matvec, winell_matvec_plain
 from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_plain
-from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_plain
+from dedflow_tpu_torch.sparse.win_stream import (
+    build_reduce_plan,
+    stream_reduce,
+    stream_reduce_plain,
+)
 from dedflow_tpu_torch.sparse.winell import COMP2WIN
 from dedflow_tpu_torch.tools import gather_probe as tgp
 from dedflow_tpu_torch.tools import gmicro as tgm
@@ -313,22 +319,94 @@ def test_k6_implicit_mode_matches_plain(irregular):
         ek.lhs_rows_call(wa_.jacobian_inputs(ctx, wa), phys, scheme, scalar_implicit=True)
 
 
+def _plan_order_sum(plan, x, comps, cstride):
+    """Each target's contributions added one by one in plan order, in x's
+    dtype: the order of the kernels' additions (K8/K9 sum each target's
+    staged rows k ascending), so equal to them bit for bit."""
+    flat = x.reshape(-1)
+    vals = torch.stack([flat[plan.src.long() + c * cstride] for c in comps], 1)
+    start, counts = plan.ptr[:-1].long(), torch.diff(plan.ptr.long())
+    acc = torch.zeros((plan.num_tgt, len(comps)), dtype=x.dtype, device=x.device)
+    for j in range(int(counts.max()) if vals.shape[0] else 0):
+        live = counts > j
+        acc[live] = acc[live] + vals[start[live] + j]
+    return acc.T
+
+
+def _check_reduces(res_plan, out24, jac_plan, out288, m):
+    """K8 over the residual rows (per equation) and K9 over the Jacobian
+    rows (per vel/p block): within 1e-5 of the plain version, two runs
+    bit-identical, equal to the plan-order sum bit for bit."""
+    got = _twice(lambda: stream_reduce(res_plan, out24, range(6), m), stream_reduce)
+    ref = stream_reduce_plain(res_plan, out24, range(6), m)
+    for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):  # u, p, phi/T equations
+        assert rel(got[rows], ref[rows]) < 1e-5
+    assert torch.equal(got, _plan_order_sum(res_plan, out24, range(6), m))
+    comps = wa_.JAC_COMPS  # output row r is WinELL row r
+    got = _twice(lambda: ring_reduce(jac_plan, out288, comps, m), ring_reduce)
+    ref = ring_reduce_plain(jac_plan, out288, comps, m)
+    for block, fs in VP_BLOCKS.items():
+        rows = [int(COMP2WIN[c]) for c in fs]
+        assert rel(got[rows], ref[rows]) < 1e-5, block
+    assert torch.equal(got, _plan_order_sum(jac_plan, out288, comps, m))
+
+
 def test_k8_k9_reduces_match_plain(irregular):
+    """K8 and K9 on the WinELL plans; K9 also as the implicit mode's second
+    2-row pass (the phi-phi / T-T tangents of K6's 33-row output)."""
     solver, _, wa, dwa = irregular
     phys, scheme, ctx = solver.cfg.physics, solver.cfg.time, solver.wctx
     ne = ctx.num_elem
     out24 = ek.res_rows_call(wa_.residual_inputs(ctx, wa, dwa), phys, scheme)
-    got = _twice(lambda: stream_reduce(ctx.res_plan, out24, range(6), ne), stream_reduce)
-    ref = stream_reduce_plain(ctx.res_plan, out24, range(6), ne)
-    for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):  # u, p, phi/T equations
-        assert rel(got[rows], ref[rows]) < 1e-5
     out288 = ek.lhs_rows_call(wa_.jacobian_inputs(ctx, wa), phys, scheme)
-    comps = wa_.JAC_COMPS  # output row r is WinELL row r
-    got = _twice(lambda: ring_reduce(ctx.jac_plan, out288, comps, ne), ring_reduce)
-    ref = ring_reduce_plain(ctx.jac_plan, out288, comps, ne)
-    for block, fs in VP_BLOCKS.items():
-        rows = [int(COMP2WIN[c]) for c in fs]
-        assert rel(got[rows], ref[rows]) < 1e-5, block
+    _check_reduces(ctx.res_plan, out24, ctx.jac_plan, out288, ne)
+    inp33 = wa_.jacobian_inputs(ctx, wa, scalar_implicit=True)
+    out288 = ek.lhs_rows_call(inp33, phys, scheme, scalar_implicit=True)
+    got = _twice(lambda: ring_reduce(ctx.jac_plan, out288, (16, 17), ne), ring_reduce)
+    ref = ring_reduce_plain(ctx.jac_plan, out288, (16, 17), ne)
+    for r in range(2):  # each tangent against its own scale
+        assert rel(got[r], ref[r]) < 1e-5
+    assert torch.equal(got, _plan_order_sum(ctx.jac_plan, out288, (16, 17), ne))
+
+
+def test_k8_k9_reduces_on_the_gather_plans(gather):
+    """K8 and K9 on the gather tier's plans (unordered sources), over the
+    element rows K4 and K5 leave."""
+    solver, w_t, dw_t = gather
+    phys, scheme, ctx = solver.cfg.physics, solver.cfg.time, solver.gctx
+    (rng,) = ctx.ranges
+    out24 = ek.ns_residual_gather(ctx.res_geom, ctx.ien_t, w_t, dw_t, phys, scheme)
+    out288 = ek.ns_lhs_gather(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme)
+    _check_reduces(rng.res_plan, out24, rng.jac_plan, out288, ctx.num_elem)
+
+
+@pytest.mark.parametrize("c", [1, 2, 6, 8, 16])
+@pytest.mark.parametrize("case", ["empty_targets", "no_contributions"])
+def test_k8_k9_row_counts_and_empty_segments(c, case):
+    """1 to 16 output rows (K8 up to 8) on seeded lists whose odd targets
+    have no contribution, and on a plan without contributions: empty
+    targets give zeros; a plan without targets launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    num_tgt, num_src = 5000, 8000
+    k = 0 if case == "no_contributions" else 20000
+    rng = np.random.default_rng(c)
+    tgt, src = 2 * rng.integers(0, num_tgt // 2, k), rng.integers(0, num_src, k)
+    plan = build_reduce_plan(tgt, src, num_tgt, device="cuda")
+    x = torch.as_tensor(rng.standard_normal((c + 2) * num_src), dtype=torch.float32,
+                        device="cuda")
+    comps = tuple(range(2, c + 2))  # offset rows of a flat source
+    empty = torch.diff(plan.ptr.long()) == 0
+    for wrapper in [ring_reduce] + ([stream_reduce] if c <= 8 else []):
+        got = _twice(lambda: wrapper(plan, x, comps, num_src), wrapper)
+        assert got.shape == (c, num_tgt)
+        assert not bool(got[:, empty].any())
+        assert torch.equal(got, _plan_order_sum(plan, x, comps, num_src))
+        if k:
+            assert rel(got, ring_reduce_plain(plan, x, comps, num_src)) < 1e-5
+        before = wrapper.launches
+        none = wrapper(build_reduce_plan([], [], 0, device="cuda"), x, comps, num_src)
+        assert none.shape == (c, 0) and wrapper.launches == before
 
 
 def test_k7_spmv_matches_plain(irregular):
