@@ -6,7 +6,8 @@
 Phases, one line each; the script exits non-zero at the first failure:
   1 card    nvidia-smi name and power limit, torch / CUDA versions
   2 build   nvcc builds the eleven kernel libraries from csrc/ (the
-            solver's nine, the probes' two) in parallel (seconds, ptxas lines)
+            solver's nine, the probes' two) in parallel (seconds, ptxas lines;
+            the fused K2's and K11's registers and shared memory)
   lattice tier (box meshes):
   3 kernels at box_mesh(55, 55, 55) (998,250 tets), float32 on the card,
             K1-K3 each against its plain torch version on the same inputs,
@@ -29,7 +30,7 @@ Phases, one line each; the script exits non-zero at the first failure:
             pin_pressure=True), device="cuda").step twice on the "winell"
             fastpath, with the launch counts of K6-K10
   coupled FEM-DEM step (DEM grid contact sweep K11 + the lattice tier):
-  9 dem     K11 against its plain twin, float32, at bench.py's DEM cases
+  9 dem     K11 against its plain twin (bit for bit), float32, at bench.py's DEM cases
             (uniform_100k, settled_bed_100k: radius 0.006, 69**3 cells, K
             from the occupancy) and at the coupled scenario's grid, with
             pair slots/s and grid_run ms per substep over 10 substeps
@@ -125,10 +126,9 @@ TOL_K6 = 2e-5  # the element bodies of K1/K2 on element columns
 TOL_K7 = 1e-5  # about 16 entries x 4 products per output row
 TOL_K8 = 1e-5  # 4 to 40 contributions per node, one add each
 TOL_K9 = 1e-5  # about 6.6 contributions per entry
-# K11 takes its plain twin's pair order and IEEE float32 ops without
-# contraction; what may differ is float32 roundoff of sums of at most
-# 27 * K pair terms, relative to the largest force.
-TOL_K11 = 1e-5
+# K11 adds each centre's pair terms in its plain twin's order with IEEE
+# float32 ops and no contraction: it must equal the plain twin bit for bit.
+TOL_K11 = 0.0
 TOL_K4 = 2e-5  # K6's residual body on gathered states
 TOL_K5 = 2e-5  # K6's Jacobian body, per vel/p block and per phi/T tangent
 # K10 copies: it must equal its plain version bit for bit.
@@ -426,6 +426,18 @@ def phase_build() -> None:
         say(f"  {lib.name}: {lib.build_seconds:.2f} s")
         for ln in lib.ptxas:
             say(f"    {ln}")
+    from dedflow_tpu_torch.fem.lattice import fused_kernel_layout
+
+    # the fused K2 stages a round's slabs x 16 pairs x a component group on
+    # the tile's halo cells in dynamic shared memory (as the kernel reports it)
+    stage = {m: fused_kernel_layout(m)["stage_bytes"] for m in (False, True)}
+    jac, dem = libs["lattice_jacobian"], libs["dem_contact"]
+    say(f"  K2 fused pass: registers frozen {registers(jac, 'jacobian_fused_kernelILb0E')}, "
+        f"implicit {registers(jac, 'jacobian_fused_kernelILb1E')}; dynamic shared memory "
+        f"frozen {stage[False]} B, implicit {stage[True]} B")
+    say("  K11 sweep: registers by capacity K (0: any K) "
+        + ", ".join(f"{k}: {registers(dem, f'dem_contact_kernelILi{k}E')}" for k in range(13)
+                    if k != 1))
 
 
 def compare(label: str, kernel, plain, tol: float, parts=None) -> float:
@@ -1421,10 +1433,8 @@ def phase_melt_kernels(solver) -> tuple[list, dict]:
     ]
     libs = nvcc.load(["lattice_residual", "lattice_jacobian", "element_rows"])
     say(f"  ptxas registers: K1 element pass {registers(libs['lattice_residual'], 'residual_element')}, "
-        f"K2 element pass frozen {registers(libs['lattice_jacobian'], 'jacobian_element_kernelILb0E')} "
-        f"implicit {registers(libs['lattice_jacobian'], 'jacobian_element_kernelILb1E')}, "
-        f"K2 plane pass 16 {registers(libs['lattice_jacobian'], 'jacobian_plane_kernelILi16E')} "
-        f"18 {registers(libs['lattice_jacobian'], 'jacobian_plane_kernelILi18E')}, "
+        f"K2 fused frozen {registers(libs['lattice_jacobian'], 'jacobian_fused_kernelILb0E')} "
+        f"implicit {registers(libs['lattice_jacobian'], 'jacobian_fused_kernelILb1E')}, "
         f"K6 33-row {registers(libs['element_rows'], 'lhs_rows_kernelILb1E')}")
     del inp, out288
 

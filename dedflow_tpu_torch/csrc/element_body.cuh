@@ -166,9 +166,20 @@ __device__ __forceinline__ void res_body(const ResInputs& x, const RowsResParams
 // summed over q inside the output loop, so no (16,) accumulator stays live.
 // Otherwise they are the state-independent identities, and kComp = 16 drops
 // them (the lattice restores them from the node multiplicity).
-template <bool kImplicit, int kComp = 18>
-__device__ __forceinline__ void lhs_body(const LhsInputs& x, const RowsLhsParams& prm,
-                                         float* __restrict__ o, size_t M) {
+//
+// The layout `Out` places the outputs: component k of vertex pair
+// ab = a*4+b goes to o[Out::pair(ab, M) + Out::comp(k, M)], and only where
+// Out::wants(k), a compile-time constant once the loops are unrolled. A
+// component the layout does not take is never computed, nor is what only
+// it needs (the compiler drops the dead arithmetic), so a caller that
+// needs a subset of the components pays for that subset and the
+// per-element prologue. `o` is a restrict parameter of the body and the
+// layout only computes offsets: with the pointer held in a sink object,
+// K6's 33-row instantiation took 255 registers instead of 168 (nvcc 12.8,
+// sm_90a); this way K5's and K6's PTX is that of plain column stores.
+template <bool kImplicit, int kComp, class Out>
+__device__ __forceinline__ void lhs_body_to(const LhsInputs& x, const RowsLhsParams& prm,
+                                            float* __restrict__ o, size_t M) {
   static_assert(kComp == 18 || (kComp == 16 && !kImplicit), "16 components: frozen mode only");
   const float rho = static_cast<float>(prm.rho);
   const float t0 = static_cast<float>(4.0 / (prm.dt * prm.dt));
@@ -247,36 +258,56 @@ __device__ __forceinline__ void lhs_body(const LhsInputs& x, const RowsLhsParams
       }
       const float e_k = x.sh[0][a] * x.sh[0][b] + x.sh[1][a] * x.sh[1][b] + x.sh[2][a] * x.sh[2][b];
       tmp += f2mu * e_k;
-      float* op = o + static_cast<size_t>((a * 4 + b) * kComp) * M;
+      float* op = o + Out::pair(a * 4 + b, M);
 #pragma unroll
       for (int i = 0; i < 3; ++i)
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
+          if (!Out::wants(i * 3 + j)) continue;
           float v = f2mu * x.sh[j][a] * x.sh[i][b] + c_grad2 * x.sh[i][a] * x.sh[j][b];
           if (i == j) v += tmp;
-          op[(i * 3 + j) * M] = v * det;
+          op[Out::comp(i * 3 + j, M)] = v * det;
         }
       const float gwshl_a = static_cast<float>(gwshl(a));
       const float gwshl_b = static_cast<float>(gwshl(b));
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        op[(9 + i) * M] = (-x.sh[i][a] * gwshl_b + rho * gs_conv[a] * x.sh[i][b]) * det;
-        op[(12 + i) * M] = (f1rho * x.sh[i][a] * gs_shl[b] + f2 * gwshl_a * x.sh[i][b] +
-                            f2rho * x.sh[i][a] * gs_conv[b]) * det;
+        if (Out::wants(9 + i))
+          op[Out::comp(9 + i, M)] = (-x.sh[i][a] * gwshl_b + rho * gs_conv[a] * x.sh[i][b]) * det;
+        if (Out::wants(12 + i))
+          op[Out::comp(12 + i, M)] = (f1rho * x.sh[i][a] * gs_shl[b] + f2 * gwshl_a * x.sh[i][b] +
+                                      f2rho * x.sh[i][a] * gs_conv[b]) * det;
       }
-      op[15 * M] = tau0_sum * e_k * det;
+      if (Out::wants(15)) op[Out::comp(15, M)] = tau0_sum * e_k * det;
       if constexpr (kImplicit) {
         const float rhocp = static_cast<float>(prm.rho * prm.cp);
         const float f2kappa = static_cast<float>(prm.f2 * prm.kappa * kGwSum);
-        op[16 * M] = jphi * det;
-        op[17 * M] = (rhocp * jt + f2kappa * e_k) * det;
+        if (Out::wants(16)) op[Out::comp(16, M)] = jphi * det;
+        if (Out::wants(17)) op[Out::comp(17, M)] = (rhocp * jt + f2kappa * e_k) * det;
       } else if constexpr (kComp == 18) {
         // state-independent phi-phi / T-T identities
-        op[16 * M] = a == b ? ident : 0.f;
-        op[17 * M] = a == b ? ident : 0.f;
+        if (Out::wants(16)) op[Out::comp(16, M)] = a == b ? ident : 0.f;
+        if (Out::wants(17)) op[Out::comp(17, M)] = a == b ? ident : 0.f;
       }
     }
   }
+}
+
+// Every component, to o[((a*4+b)*kComp + k) * M]: the element column the
+// caller points `o` at, so a warp's stores are coalesced.
+template <int kComp>
+struct Columns {
+  __device__ static constexpr bool wants(int) { return true; }
+  __device__ static constexpr size_t pair(int ab, size_t M) {
+    return static_cast<size_t>(ab * kComp) * M;
+  }
+  __device__ static constexpr size_t comp(int k, size_t M) { return k * M; }
+};
+
+template <bool kImplicit, int kComp = 18>
+__device__ __forceinline__ void lhs_body(const LhsInputs& x, const RowsLhsParams& prm,
+                                         float* __restrict__ o, size_t M) {
+  lhs_body_to<kImplicit, kComp, Columns<kComp>>(x, prm, o, M);
 }
 
 }  // namespace dedflow

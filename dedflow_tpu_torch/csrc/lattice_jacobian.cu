@@ -3,10 +3,10 @@
 //
 // Replaces the TPU kernel dedflow_tpu/fem/lattice.py::_lhs_fused_body (run
 // as _lhs_fused_kernel_masked, driver _lhs_call / jacobian_fused; body
-// pallas_kernels._lhs_rows with ncomp=16). That kernel carries a DIA-plane
-// accumulator from one sequential grid step to the next; GPU blocks run in
-// no order, so nothing is carried here. Its unmasked mode (K2') is the same
-// plane pass with keep = 1, add = 0 and no band.
+// pallas_kernels._lhs_rows with ncomp=16). That kernel accumulates the
+// planes in VMEM and carries a dmax-wide strip from one sequential grid
+// step to the next. Its unmasked mode (K2') is the same kernel with
+// keep = 1, add = 0 and no band.
 //
 // The implicit mode (melt-pool runs) computes the matrix the JAX package
 // builds on this tier from the 33-row K6 kernel and a 96-slice XLA reduce
@@ -14,27 +14,48 @@
 // components 16/17, reduced into the phi-phi / T-T rows of every plane
 // (scal) beside the 16 velocity/pressure rows (data), masked the same way.
 //
-// Design (simple and right first):
-// - Element pass: one thread per (cell c, slab t) reads 15 geometry values
-//   (and, implicit, the 6 metric entries of the residual geometry) and the
-//   velocity of the 4 vertices at c + delta[t][a] (zero past N), runs the
-//   Jacobian body of element_body.cuh (the body K5 and K6 run) and writes
-//   16 vertex pairs x kComp components into an element buffer
-//   (6, 16*kComp, N): kComp = 16 frozen, 18 implicit.
-// - Plane pass: one thread per (row r, component k) walks the 96
-//   (slab, a, b) entries sorted by DIA plane (host-built table, fixed order)
-//   and sums elem[t, (a*4+b)*kComp+k, r - delta[t][a]] into each plane. It
-//   then applies the epilogue of the masked TPU kernel: times keep[k, r],
-//   plus add[k, r] on the zero-offset plane, plus the pre-masked facet band
-//   (velocity/pressure rows only: the facet terms never touch phi/T).
-//   Components 0-15 land in data (D, 16, N), 16/17 in scal rows 2p, 2p+1.
-//   A gather, not atomics: the float32 matrix, and so GMRES's iteration
-//   count, repeats from run to run.
-// What bounds it on an H100: the element pass is FP32 issue and registers
-// (256 or 288 outputs computed pair by pair from ~50 live scalars); the
-// plane pass is bytes (the 1536- or 1728-float-per-node element buffer is
-// written once and read once, about 2 GB at 1M tets). Fusing the passes is
-// later work.
+// The function: value[p, k, r] = keep[k, r] * (sum of the element entries
+// (t, a, b) of plane p, cell r - delta[t][a] >= 0) + (p == d0) * add[k, r]
+// + band[p, k, r - lo] (k < 16, r in [lo, lo + span)), stored in
+// data[p, k, r] (k < 16) and scal[2p + k - 16, r] (k = 16, 17).
+//
+// Design: one fused pass, no element buffer in device memory. GPU blocks
+// run in no order, so nothing is carried from block to block; each block
+// recomputes the cells it shares with its neighbours instead.
+// - A block owns an 8 x 8 tile of nodes in (x, y), a chunk of node layers
+//   in z and a group of components (4 of the 16 frozen ones, 6 of the 18
+//   implicit ones; the diagonal uu components, which share one q-sum,
+//   form one group with pp, and with phi-phi / T-T in the implicit mode).
+// - It slides up its chunk one cell layer L at a time. Node (x, y, z)
+//   receives from the cells (x - cx, y - cy, z - cz) of the corners
+//   (cx, cy, cz) in {0, 1}^3, so layer L feeds node layers L and L + 1,
+//   and the tile needs the 9 x 9 cells of its one-cell halo on the low
+//   side in x and y: the cells are recomputed 81/64 times, and the layer
+//   below the chunk once more. The halo cells take their flat index
+//   x + Sy*y + Sz*z as it is (x = -1 wraps to the previous row, as the
+//   plain version's r - delta does), and an index outside [0, N) gives
+//   zero, as it does there.
+// - Per cell layer, in rounds of slabs (frozen: two of three, implicit:
+//   one of six): each thread evaluates (cell, slab) elements with the
+//   Jacobian body of element_body.cuh, only the block's components
+//   (lhs_body_to with the stage layout), into shared memory (slabs x 16
+//   pairs x group x 81 floats: 62 KB frozen, 186 KB implicit). Then each
+//   thread, owning one (node, component), adds the 16 (t, a, b) entries
+//   of each of those slabs into 15 plane accumulators for node layer L
+//   and 15 for L + 1, in registers, in a fixed order (the planes indexed
+//   at compile time from the Kuhn table).
+// - When layer L is complete, the thread applies the epilogue and stores
+//   its 15 planes once. No atomics: each plane value is a fixed-order sum,
+//   so the float32 matrix, and GMRES's iteration count, repeat from run to
+//   run.
+// What bounds it on an H100: the bytes of the geometry, the velocity and
+// the 15 x 16 planes (264.5 MB at box 55 frozen: 0.079 ms at 3.35 TB/s)
+// against the element body's FP32 issue: 6N elements of ~2,900 flops
+// frozen (3.0 Gop, 0.045 ms at 67 TFLOP/s), recomputed here 1.19-1.27x
+// for the halo and with its prologue once per component group, at 12-16
+// warps an SM (128 / 168 registers). The earlier two-pass design wrote
+// and read a (6, 16 x kComp, N) element buffer besides (2.16 GB at box 55
+// frozen), which took most of its time (PERF.md §7 has the split).
 // Dead cells (zero geometry) give exact zeros: the tr > 0 guard keeps the
 // tau divisions finite.
 
@@ -42,31 +63,100 @@
 
 namespace dedflow {
 
-constexpr int kEntries = kSlabs * 16;  // (t, a, b) triples
+constexpr int kTileX = 8, kTileY = 8, kTileNodes = kTileX * kTileY;
+constexpr int kHaloX = kTileX + 1, kHalo = (kTileX + 1) * (kTileY + 1);
+constexpr int kPlanes = 15;
 
-// (t, a, b) entries sorted by plane: the row t*16*kComp + (a*4+b)*kComp of
-// the element buffer, the vertex shift delta[t][a], and the plane.
-struct PlaneTable {
-  int row[kEntries];
-  int shift[kEntries];
-  int plane[kEntries];
+// Corner o (bits x, y, z) of the unit cell that is vertex a of Kuhn tet t
+// (mesh/gen.py::_KUHN_TETS: 0137, 0327, 0267, 0647, 0457, 0517), one octal
+// digit a vertex, a = 0 lowest.
+__host__ __device__ constexpr int kuhn(int t, int a) {
+  return ((t == 0   ? 07310
+           : t == 1 ? 07230
+           : t == 2 ? 07620
+           : t == 3 ? 07460
+           : t == 4 ? 07540
+                    : 07150) >> (3 * a)) & 7;
+}
+
+// The 15 planes by corner difference (dx, dy, dz) = corner b - corner a,
+// code (dx+1)*9 + (dy+1)*3 + (dz+1): bit `code` of kPlaneCodes is set for
+// each plane the six tets touch, and a plane's index is the number of set
+// bits below it (fem/lattice.py::FUSED_PLANE_CODES, the same list).
+constexpr unsigned kPlaneCodes = 0x6c3761bu;
+constexpr int kZeroPlane = 7;  // code 13, (0, 0, 0)
+
+__device__ __forceinline__ int plane_of(int t, int a, int b) {
+  const int ca = kuhn(t, a), cb = kuhn(t, b);
+  const int code = ((cb & 1) - (ca & 1) + 1) * 9 + (((cb >> 1) & 1) - ((ca >> 1) & 1) + 1) * 3 +
+                   ((cb >> 2) - (ca >> 2) + 1);
+  return __popc(kPlaneCodes & ((1u << code) - 1u));
+}
+
+// Component groups (fem/lattice.py::FUSED_GROUPS, the same table): bit k
+// of mask(g) is set for each component k of group g, which a block stages
+// in ascending order.
+template <bool kImplicit>
+struct Groups {
+  static constexpr int kCount = kImplicit ? 3 : 4;  // groups
+  static constexpr int kSize = kImplicit ? 6 : 4;   // components a group
+  // slabs a round and rounds a cell layer: frozen, two rounds of three
+  // (62 KB of stage, two blocks an SM); implicit, one round of six (186 KB,
+  // one block of 384 threads an SM, whose 486 elements fill it better)
+  static constexpr int kRoundSlabs = kImplicit ? 6 : 3;
+  static constexpr int kRounds = kSlabs / kRoundSlabs;
+  // dynamic shared memory a block: a round's slabs x 16 pairs x kSize x kHalo
+  static constexpr int kStageBytes =
+      kRoundSlabs * 16 * kSize * kHalo * static_cast<int>(sizeof(float));
+  __host__ __device__ static constexpr unsigned mask(int g) {
+    return kImplicit ? (g == 0 ? 0x38111u : g == 1 ? 0xeeu : 0x7e00u)  // {0,4,8,15,16,17} ...
+                     : (g == 0 ? 0x8111u : g == 1 ? 0x2eu : g == 2 ? 0x6c0u : 0x7800u);
+  }
+  // the component in slot i of group g
+  __device__ static int comp(int g, int i) {
+    unsigned m = mask(g);
+    for (; i > 0; --i) m &= m - 1;
+    return __ffs(m) - 1;
+  }
 };
 
-template <bool kImplicit>
-__global__ void __launch_bounds__(128)
-jacobian_element_kernel(const float* __restrict__ geom,   // (6, 15, n)
-                        const float* __restrict__ mgeom,  // (6, 19, n) residual geometry, implicit
-                        const float* __restrict__ wa,     // (>=3, n) velocity rows
-                        float* __restrict__ elem,         // (6, 16*kComp, n)
-                        int n, Deltas dl, RowsLhsParams prm) {
-  constexpr int kComp = kImplicit ? 18 : 16;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int t = blockIdx.y;
-  if (c >= n) return;
-  const size_t N = static_cast<size_t>(n);
+// lhs_body_to's layout for the stage: the components of group kGroup of
+// one element at s[(ab * kSize + slot) * kHalo] (the element's halo cell is
+// the last, fastest index, so consecutive cells are consecutive banks).
+template <bool kImplicit, int kGroup>
+struct Stage {
+  static constexpr unsigned kMask = Groups<kImplicit>::mask(kGroup);
+  __device__ static constexpr bool wants(int k) { return (kMask >> k) & 1u; }
+  __device__ static constexpr int pair(int ab, size_t) {
+    return ab * Groups<kImplicit>::kSize * kHalo;
+  }
+  static __device__ __forceinline__ int comp(int k, size_t) {
+    return __popc(kMask & ((1u << k) - 1u)) * kHalo;
+  }
+};
 
+struct FusedArgs {
+  const float* geom;   // (6, 15, n)
+  const float* mgeom;  // (6, 19, n) residual geometry, implicit mode
+  const float* wa;     // (>=3, n) velocity rows
+  const float* keep;   // (kComp, n)
+  const float* add;    // (kComp, n)
+  const float* band;   // (D, 16, span) or null
+  float* out;          // (D, 16, n)
+  float* scal;         // (2D, n), implicit mode
+  int band_lo, band_span;
+  int n, sy, sz, ny, nz;  // nodes; row and layer strides; node rows a layer, node layers
+  int tiles_x, tiles_y, zchunk;
+  int plane[kPlanes];  // DIA plane of each of the 15 planes
+  Deltas dl;
+};
+
+template <bool kImplicit, int kGroup>
+__device__ __forceinline__ void produce_element(const FusedArgs& f, const RowsLhsParams& prm,
+                                                int t, int c, float* s) {
+  const size_t N = static_cast<size_t>(f.n);
   LhsInputs x;
-  const float* g = geom + static_cast<size_t>(t) * 15 * N + c;
+  const float* g = f.geom + static_cast<size_t>(t) * 15 * N + c;
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -75,7 +165,7 @@ jacobian_element_kernel(const float* __restrict__ geom,   // (6, 15, n)
   x.gg = g[13 * N];
   x.tr = g[14 * N];
   if constexpr (kImplicit) {
-    const float* mg = mgeom + static_cast<size_t>(t) * 19 * N + c;
+    const float* mg = f.mgeom + static_cast<size_t>(t) * 19 * N + c;
     x.m00 = mg[13 * N];
     x.m01 = mg[14 * N];
     x.m02 = mg[15 * N];
@@ -83,113 +173,224 @@ jacobian_element_kernel(const float* __restrict__ geom,   // (6, 15, n)
     x.m12 = mg[17 * N];
     x.m22 = mg[18 * N];
   }
-
   int dv[4];
-  slab_deltas(dl, t, dv);
+  slab_deltas(f.dl, t, dv);
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int v = c + dv[a];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) x.u[i][a] = v < n ? wa[i * N + v] : 0.f;
+    for (int i = 0; i < 3; ++i) x.u[i][a] = v < f.n ? f.wa[i * N + v] : 0.f;
   }
-  lhs_body<kImplicit, kComp>(x, prm, elem + static_cast<size_t>(t) * 16 * kComp * N + c, N);
+  lhs_body_to<kImplicit, kImplicit ? 18 : 16, Stage<kImplicit, kGroup>>(x, prm, s, 0);
 }
 
-// Plane pass: value[p, k, r] = keep[k, r] * sum over the plane's entries
-// + (p == d0) * add[k, r] + band[p, k, r - lo] (k < 16), stored in
-// data[p, k, r] for k < 16 and scal[2p + k - 16, r] for k = 16, 17.
-template <int kComp>
-__global__ void __launch_bounds__(256)
-jacobian_plane_kernel(const float* __restrict__ elem,  // (6, 16*kComp, n)
-                      const float* __restrict__ keep,  // (kComp, n)
-                      const float* __restrict__ add,   // (kComp, n)
-                      const float* __restrict__ band,  // (D, 16, span) or null
-                      int band_lo, int band_span,
-                      float* __restrict__ out,         // (D, 16, n)
-                      float* __restrict__ scal,        // (2D, n), kComp == 18
-                      int n, int d0, PlaneTable tab) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int k = blockIdx.y;
-  if (r >= n) return;
-  const size_t N = static_cast<size_t>(n);
-  const float kp = keep[k * N + r];
-  const float ad = add[k * N + r];
-  const bool vp = k < 16;
-  const bool in_band = vp && band != nullptr && r >= band_lo && r < band_lo + band_span;
-
-  auto finish = [&](int p, float acc) {
-    float v = acc * kp;
-    if (p == d0) v += ad;
-    if (in_band) v += band[(static_cast<size_t>(p) * 16 + k) * band_span + (r - band_lo)];
-    if (vp)
-      out[(static_cast<size_t>(p) * 16 + k) * N + r] = v;
-    else
-      scal[(static_cast<size_t>(2 * p) + (k - 16)) * N + r] = v;
-  };
-
-  int cur = tab.plane[0];
-  float acc = 0.f;
-#pragma unroll
-  for (int e = 0; e < kEntries; ++e) {
-    const int p = tab.plane[e];
-    if (p != cur) {
-      finish(cur, acc);
-      acc = 0.f;
-      cur = p;
+// Round h of cell layer L: the elements of slabs 3h..3h+2 on the 81 halo
+// cells into the stage.
+template <bool kImplicit>
+__device__ __forceinline__ void produce_round(const FusedArgs& f, const RowsLhsParams& prm,
+                                              float* stage, int g, int x0, int y0, int L,
+                                              int h) {
+  using G = Groups<kImplicit>;
+  constexpr int kThreads = kTileNodes * G::kSize;
+  for (int e = threadIdx.x; e < G::kRoundSlabs * kHalo; e += kThreads) {
+    const int ts = e / kHalo, hc = e - ts * kHalo;
+    const int cx = x0 - 1 + hc % kHaloX, cy = y0 - 1 + hc / kHaloX;
+    const int c = cx + f.sy * cy + f.sz * L;
+    float* s = stage + ts * 16 * G::kSize * kHalo + hc;
+    // cells past the row or layer end feed no node of the tile
+    if (cx < f.sy && cy < f.ny && c >= 0 && c < f.n) {
+      const int t = h * G::kRoundSlabs + ts;
+      switch (g) {
+        case 0: produce_element<kImplicit, 0>(f, prm, t, c, s); break;
+        case 1: produce_element<kImplicit, 1>(f, prm, t, c, s); break;
+        case 2: produce_element<kImplicit, 2>(f, prm, t, c, s); break;
+        default:
+          if constexpr (G::kCount > 3) produce_element<kImplicit, 3>(f, prm, t, c, s);
+          break;
+      }
+    } else {
+      for (int i = 0; i < 16 * G::kSize; ++i) s[i * kHalo] = 0.f;
     }
-    const int cell = r - tab.shift[e];
-    if (cell >= 0) acc += elem[static_cast<size_t>(tab.row[e] + k) * N + cell];
   }
-  finish(cur, acc);
+}
+
+// The 48 (t, a, b) entries of round kH for this thread's (node, slot):
+// corner a's z bit picks node layer L (cur) or L + 1 (nxt).
+template <bool kImplicit, int kH>
+__device__ __forceinline__ void consume_round(const float* stage, int slot, int lx, int ly,
+                                              float cur[kPlanes], float nxt[kPlanes]) {
+  using G = Groups<kImplicit>;
+  constexpr int kG = G::kSize;
+#pragma unroll
+  for (int ts = 0; ts < G::kRoundSlabs; ++ts) {
+    const int t = kH * G::kRoundSlabs + ts;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int ca = kuhn(t, a);
+      const float* s = stage + ((ts * 16 + a * 4) * kG + slot) * kHalo +
+                       (ly + 1 - ((ca >> 1) & 1)) * kHaloX + (lx + 1 - (ca & 1));
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float v = s[b * kG * kHalo];
+        const int p = plane_of(t, a, b);
+        if (ca >> 2)
+          nxt[p] += v;
+        else
+          cur[p] += v;
+      }
+    }
+  }
+}
+
+template <bool kImplicit>
+__global__ void __launch_bounds__(kTileNodes * Groups<kImplicit>::kSize, kImplicit ? 1 : 2)
+jacobian_fused_kernel(FusedArgs f, RowsLhsParams prm) {
+  using G = Groups<kImplicit>;
+  extern __shared__ float stage[];  // kRoundSlabs x 16 x kSize x kHalo
+  static_assert(G::kRounds <= 2 && G::kRounds * G::kRoundSlabs == kSlabs, "one or two rounds");
+  int bid = blockIdx.x;
+  const int g = bid % G::kCount;  // the groups of a tile are neighbours in launch order
+  bid /= G::kCount;
+  const int x0 = (bid % f.tiles_x) * kTileX;
+  bid /= f.tiles_x;
+  const int y0 = (bid % f.tiles_y) * kTileY;
+  const int z0 = (bid / f.tiles_y) * f.zchunk;
+  const int z1 = min(z0 + f.zchunk, f.nz);
+
+  const int slot = threadIdx.x / kTileNodes;
+  const int lx = threadIdx.x % kTileX, ly = (threadIdx.x % kTileNodes) / kTileX;
+  const int k = G::comp(g, slot);
+  const int x = x0 + lx, y = y0 + ly;
+  const bool own = x < f.sy && y < f.ny;
+  const size_t N = static_cast<size_t>(f.n);
+
+  float cur[kPlanes], nxt[kPlanes];
+#pragma unroll
+  for (int p = 0; p < kPlanes; ++p) cur[p] = nxt[p] = 0.f;
+
+  for (int L = z0 - 1; L < z1; ++L) {
+#pragma unroll 1
+    for (int h = 0; h < G::kRounds; ++h) {
+      produce_round<kImplicit>(f, prm, stage, g, x0, y0, L, h);
+      __syncthreads();
+      if (h == 0)
+        consume_round<kImplicit, 0>(stage, slot, lx, ly, cur, nxt);
+      else if constexpr (G::kRounds > 1)
+        consume_round<kImplicit, 1>(stage, slot, lx, ly, cur, nxt);
+      __syncthreads();
+    }
+    if (L >= z0 && own) {  // node layer L is complete
+      const int r = x + f.sy * y + f.sz * L;
+      const float kp = f.keep[k * N + r];
+      const float ad = f.add[k * N + r];
+      const bool in_band =
+          k < 16 && f.band != nullptr && r >= f.band_lo && r < f.band_lo + f.band_span;
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p) {
+        const int dp = f.plane[p];
+        float v = cur[p] * kp;
+        if (p == kZeroPlane) v += ad;
+        if (in_band)
+          v += f.band[(static_cast<size_t>(dp) * 16 + k) * f.band_span + (r - f.band_lo)];
+        if (k < 16)
+          f.out[(static_cast<size_t>(dp) * 16 + k) * N + r] = v;
+        else
+          f.scal[(static_cast<size_t>(2 * dp) + (k - 16)) * N + r] = v;
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) {
+      cur[p] = nxt[p];
+      nxt[p] = 0.f;
+    }
+  }
+}
+
+template <bool kImplicit>
+int launch(const FusedArgs& f, const RowsLhsParams& prm, cudaStream_t s) {
+  using G = Groups<kImplicit>;
+  const int smem = G::kStageBytes;
+  cudaError_t err = cudaFuncSetAttribute(jacobian_fused_kernel<kImplicit>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = (f.nz + f.zchunk - 1) / f.zchunk;
+  const int blocks = G::kCount * f.tiles_x * f.tiles_y * chunks;
+  jacobian_fused_kernel<kImplicit><<<blocks, kTileNodes * G::kSize, smem, s>>>(f, prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kImplicit>
+void layout(int* o) {
+  using G = Groups<kImplicit>;
+  o[0] = kTileX;
+  o[1] = kTileY;
+  o[2] = G::kRoundSlabs;
+  o[3] = G::kCount;
+  o[4] = G::kSize;
+  o[5] = G::kStageBytes;
+  o[6] = static_cast<int>(kPlaneCodes);
+  for (int g = 0; g < G::kCount; ++g) o[7 + g] = static_cast<int>(G::mask(g));
 }
 
 }  // namespace dedflow
 
-// plane_entries: kEntries x (slab, pair, shift, plane), sorted by plane;
-// every plane 0..D-1 appears at least once. mgeom (the (6, 19, n) residual
-// geometry) not null selects the implicit mode: keep/add are then (18, n)
-// and scal (2D, n) receives the phi-phi / T-T rows; otherwise keep/add are
-// (16, n) and scal is not written.
+// The tiling this build was compiled with, for the wrapper to check
+// against fem/lattice.py's FUSED_* tables (one description, read from
+// here): out[0..6] = tile x, tile y, slabs a round, groups, components a
+// group, dynamic shared memory bytes, kPlaneCodes; out[7..] the groups'
+// component masks. cap: ints in out (at least 11).
+extern "C" int dedflow_lattice_jacobian_layout(int implicit, int* out, int cap) {
+  if (out == nullptr || cap < 11) return static_cast<int>(cudaErrorInvalidValue);
+  if (implicit)
+    dedflow::layout<true>(out);
+  else
+    dedflow::layout<false>(out);
+  return 0;
+}
+
+// The lattice is (sy, ny, nz) nodes, x fastest: sy nodes a row, ny rows a
+// layer, nz layers, sz = sy * ny. deltas: (6, 4) vertex offsets, which
+// must be the Kuhn corners' (the wrapper checks). planes: the DIA plane of
+// each of the 15 planes in kPlaneCodes order. mgeom (the (6, 19, n)
+// residual geometry) not null selects the implicit mode: keep/add are then
+// (18, n) and scal (2D, n) receives the phi-phi / T-T rows; otherwise
+// keep/add are (16, n) and scal is not written. zchunk: node layers a
+// block.
 extern "C" int dedflow_lattice_jacobian(const void* geom, const void* mgeom, const void* wa,
-                                        void* elem, const void* keep, const void* add,
-                                        const void* band, int band_lo, int band_span, void* out,
-                                        void* scal, int n, const int* deltas,
-                                        const int* plane_entries, int d0, double rho, double mu,
-                                        double f1, double f2, double dt, double cp, double kappa,
+                                        const void* keep, const void* add, const void* band,
+                                        int band_lo, int band_span, void* out, void* scal, int n,
+                                        int sy, int ny, int nz, int zchunk, const int* deltas,
+                                        const int* planes, double rho, double mu, double f1,
+                                        double f2, double dt, double cp, double kappa,
                                         void* stream) {
   using namespace dedflow;
   const bool implicit = mgeom != nullptr;
-  if (n <= 0 || (implicit && scal == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  Deltas dl;
+  if (n <= 0 || sy < 1 || ny < 1 || nz < 1 || sy * ny * nz != n || zchunk < 1 ||
+      (implicit && scal == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FusedArgs f;
+  f.geom = static_cast<const float*>(geom);
+  f.mgeom = static_cast<const float*>(mgeom);
+  f.wa = static_cast<const float*>(wa);
+  f.keep = static_cast<const float*>(keep);
+  f.add = static_cast<const float*>(add);
+  f.band = static_cast<const float*>(band);
+  f.out = static_cast<float*>(out);
+  f.scal = static_cast<float*>(scal);
+  f.band_lo = band_lo;
+  f.band_span = band_span;
+  f.n = n;
+  f.sy = sy;
+  f.sz = sy * ny;
+  f.ny = ny;
+  f.nz = nz;
+  f.tiles_x = (sy + kTileX - 1) / kTileX;
+  f.tiles_y = (ny + kTileY - 1) / kTileY;
+  f.zchunk = zchunk;
+  for (int p = 0; p < kPlanes; ++p) f.plane[p] = planes[p];
   for (int t = 0; t < kSlabs; ++t)
-    for (int a = 0; a < 4; ++a) dl.d[t][a] = deltas[t * 4 + a];
-  const int comps = implicit ? 18 : 16;
-  PlaneTable tab;
-  for (int e = 0; e < kEntries; ++e) {
-    tab.row[e] = (plane_entries[4 * e] * 16 + plane_entries[4 * e + 1]) * comps;
-    tab.shift[e] = plane_entries[4 * e + 2];
-    tab.plane[e] = plane_entries[4 * e + 3];
-  }
+    for (int a = 0; a < 4; ++a) f.dl.d[t][a] = deltas[t * 4 + a];
   const RowsLhsParams prm{rho, mu, f1, f2, dt, cp, kappa};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 eg((n + 127) / 128, kSlabs);
-  const float* g = static_cast<const float*>(geom);
-  const float* mg = static_cast<const float*>(mgeom);
-  const float* w = static_cast<const float*>(wa);
-  float* el = static_cast<float*>(elem);
-  const float* kp = static_cast<const float*>(keep);
-  const float* ad = static_cast<const float*>(add);
-  const float* bd = static_cast<const float*>(band);
-  float* o = static_cast<float*>(out);
-  float* sc = static_cast<float*>(scal);
-  if (implicit) {
-    jacobian_element_kernel<true><<<eg, 128, 0, s>>>(g, mg, w, el, n, dl, prm);
-    jacobian_plane_kernel<18><<<dim3((n + 255) / 256, 18), 256, 0, s>>>(
-        el, kp, ad, bd, band_lo, band_span, o, sc, n, d0, tab);
-  } else {
-    jacobian_element_kernel<false><<<eg, 128, 0, s>>>(g, mg, w, el, n, dl, prm);
-    jacobian_plane_kernel<16><<<dim3((n + 255) / 256, 16), 256, 0, s>>>(
-        el, kp, ad, bd, band_lo, band_span, o, sc, n, d0, tab);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return implicit ? launch<true>(f, prm, s) : launch<false>(f, prm, s);
 }

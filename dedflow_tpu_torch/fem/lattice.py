@@ -20,9 +20,12 @@ Two kernels carry the path, each behind a wrapper with a launch counter:
 - K2 `jacobian_volume`: the finished (D, 16, N) velocity/pressure DIA data,
   Dirichlet-masked, unit diagonal on the zero-offset plane, facet band
   added. On CUDA csrc/lattice_jacobian.cu, which replaces
-  fem/lattice.py::_lhs_fused_body (masked mode); on the CPU
-  `jacobian_volume_plain` (inputs -> element_rows.lhs_rows(ncomp=16) -> 96
-  shifted adds -> the mask epilogue).
+  fem/lattice.py::_lhs_fused_body (masked mode): one fused pass over
+  (x, y) node tiles sliding up z chunks, a component group a block
+  (`fused_tables`, FUSED_GROUPS, checked against the built kernel's
+  `fused_kernel_layout`), with no element buffer in device memory;
+  on the CPU `jacobian_volume_plain` (inputs -> element_rows.lhs_rows(ncomp=16)
+  -> 96 shifted adds -> the mask epilogue).
 
 A CUDA tensor always goes to the kernel (or raises); only a CPU tensor takes
 the plain version. In the frozen-scalar mode the phi-phi / T-T components
@@ -37,6 +40,7 @@ a 96-slice XLA reduce (lattice.py:676-730); here K2 computes it.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -80,9 +84,8 @@ class LatticeContext:
     deltas: tuple  # (6, 4) node offsets
     offsets: tuple  # sorted DIA column offsets
     plane_tab: tuple  # (6, 4, 4) -> plane
-    # K2's plane pass: the 96 (t, a, b) entries sorted by plane, as
-    # (slab t, pair a*4+b, shift delta[t][a], plane)
-    plane_entries: tuple
+    # K2's fused pass: (sy, ny, nz, planes), see fused_tables
+    fused: tuple
     # implicit phi/T transport tangents in the Jacobian (melt-pool runs)
     scalar_implicit: bool = False
 
@@ -130,11 +133,7 @@ def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = Fal
     lc = cells[live]
     vidx = np.concatenate([lc + deltas[t][a] for t in range(len(deltas)) for a in range(4)])
     mult = np.bincount(vidx, minlength=n).astype(np.float64)
-    entries = sorted(
-        (plane_tab[t][a][b], t, a, b)
-        for t in range(len(deltas)) for a in range(4) for b in range(4)
-    )
-    plane_entries = tuple((t, a * 4 + b, deltas[t][a], p) for p, t, a, b in entries)
+    fused = fused_tables(deltas, offs, n)
     return LatticeContext(
         res_geom=torch.stack(rr).contiguous(),
         lhs_geom=torch.stack(lr).contiguous(),
@@ -144,7 +143,7 @@ def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = Fal
         deltas=deltas,
         offsets=offs,
         plane_tab=plane_tab,
-        plane_entries=plane_entries,
+        fused=fused,
         scalar_implicit=scalar_implicit,
     )
 
@@ -290,6 +289,92 @@ def jacobian_volume_plain(lctx, wa_t, phys, scheme, keep, add, band=None, band_l
 
 
 # ---------------------------------------------------------------------------
+# K2's fused decomposition (csrc/lattice_jacobian.cu holds the same tables;
+# _check_fused_layout holds them equal)
+
+# The 15 planes of the Kuhn lattice by corner difference (dx, dy, dz) =
+# corner b - corner a, as codes (dx+1)*9 + (dy+1)*3 + (dz+1), ascending:
+# the kernel's plane order.
+FUSED_PLANE_CODES = (0, 1, 3, 4, 9, 10, 12, 13, 14, 16, 17, 22, 23, 25, 26)
+# Component groups, one a block: the diagonal uu components (one shared
+# q-sum) with pp, and with phi-phi / T-T in the implicit mode.
+FUSED_GROUPS = {
+    False: ((0, 4, 8, 15), (1, 2, 3, 5), (6, 7, 9, 10), (11, 12, 13, 14)),
+    True: ((0, 4, 8, 15, 16, 17), (1, 2, 3, 5, 6, 7), (9, 10, 11, 12, 13, 14)),
+}
+FUSED_TILE = (8, 8)  # nodes of a block in x and y
+# node layers of a block, and slabs a round of the stage, by mode
+# (implicit or not): the fastest of 4-56 layers and of rounds of 3 or 6
+# slabs at box 55 frozen and box 44 implicit on an H100
+FUSED_ZCHUNK = {False: 16, True: 8}
+FUSED_ROUND_SLABS = {False: 3, True: 6}
+
+
+def _corner(o: int) -> tuple:
+    return o & 1, (o >> 1) & 1, (o >> 2) & 1
+
+
+def fused_tables(deltas, offsets, n: int) -> tuple:
+    """(sy, ny, nz, planes) of K2's fused pass for a lattice of n nodes
+    with slab vertex offsets `deltas` (6, 4) and DIA offsets `offsets`:
+    the nodes a row, rows a layer and layers (x fastest), and the DIA
+    plane of each of the 15 planes of FUSED_PLANE_CODES.
+    build_lattice_context keeps them as LatticeContext.fused. Raises unless
+    the offsets are the Kuhn lattice's the kernel's tables describe."""
+    sy = next(d[a] for t, d in enumerate(deltas) for a in range(4)
+              if int(_KUHN_TETS[t][a]) == 2)
+    sz = next(d[a] for t, d in enumerate(deltas) for a in range(4)
+              if int(_KUHN_TETS[t][a]) == 4)
+    ok = sy > 1 and sz % sy == 0 and n % sz == 0 and all(
+        d[a] == sum(c * s for c, s in zip(_corner(int(_KUHN_TETS[t][a])), (1, sy, sz)))
+        for t, d in enumerate(deltas) for a in range(4)
+    )
+    if not ok:
+        raise ValueError("lattice_jacobian kernel: the lattice is not the 6-tet Kuhn lattice")
+    planes = []
+    for code in FUSED_PLANE_CODES:
+        dx, dy, dz = code // 9 - 1, code // 3 % 3 - 1, code % 3 - 1
+        planes.append(offsets.index(dx + sy * dy + sz * dz))
+    return sy, sz // sy, n // sz, tuple(planes)
+
+
+def fused_kernel_layout(implicit: bool) -> dict:
+    """The tiling that csrc/lattice_jacobian.cu was compiled with, read from
+    the built kernel (card only): tile, slabs a round, component groups,
+    plane codes and the dynamic shared memory a block stages, in bytes."""
+    fn = nvcc.function("lattice_jacobian", "dedflow_lattice_jacobian_layout",
+                       [nvcc.I, nvcc.P, nvcc.I])
+    buf = (ctypes.c_int * 16)()
+    nvcc.check(fn(int(implicit), ctypes.addressof(buf), len(buf)), "lattice_jacobian layout")
+    tx, ty, rounds, count, size, smem, codes = buf[:7]
+    return {
+        "tile": (tx, ty),
+        "round_slabs": rounds,
+        "groups": tuple(tuple(k for k in range(18) if m >> k & 1) for m in buf[7 : 7 + count]),
+        "group_size": size,
+        "plane_codes": tuple(c for c in range(27) if codes >> c & 1),
+        "stage_bytes": smem,
+    }
+
+
+def _check_fused_layout(implicit: bool) -> None:
+    """Raise unless the built kernel's tiling is the one FUSED_* describe
+    (the tables the CPU emulation of the fused pass reads); checked once a
+    mode."""
+    if implicit in _check_fused_layout.done:
+        return
+    got = fused_kernel_layout(implicit)
+    want = {"tile": FUSED_TILE, "round_slabs": FUSED_ROUND_SLABS[implicit],
+            "groups": FUSED_GROUPS[implicit], "plane_codes": FUSED_PLANE_CODES}
+    if any(got[k] != v for k, v in want.items()):
+        raise RuntimeError(f"lattice_jacobian kernel: compiled tiling {got} is not {want}")
+    _check_fused_layout.done.add(implicit)
+
+
+_check_fused_layout.done = set()
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 
 
@@ -353,8 +438,7 @@ def jacobian_volume(lctx: LatticeContext, wa_t, phys, scheme, keep, add, band=No
     )
     if wa_t.shape != (6, n) or keep.shape != (nc, n) or add.shape != (nc, n):
         raise ValueError(f"lattice_jacobian kernel: states (6, N), keep and add ({nc}, N)")
-    if len(lctx.plane_entries) != 96:
-        raise ValueError("lattice_jacobian kernel: needs the 6-tet Kuhn lattice")
+    sy, ny, nz, planes = lctx.fused
     span = 0
     if band is not None:
         span = band.shape[2]
@@ -362,21 +446,21 @@ def jacobian_volume(lctx: LatticeContext, wa_t, phys, scheme, keep, add, band=No
             raise ValueError("lattice_jacobian kernel: band outside the matrix")
     fn = nvcc.function(
         "lattice_jacobian", "dedflow_lattice_jacobian",
-        [nvcc.P] * 7 + [nvcc.I, nvcc.I, nvcc.P, nvcc.P, nvcc.I, nvcc.P, nvcc.P, nvcc.I]
+        [nvcc.P] * 6 + [nvcc.I, nvcc.I, nvcc.P, nvcc.P] + [nvcc.I] * 5 + [nvcc.P, nvcc.P]
         + [nvcc.D] * 7 + [nvcc.P],
     )
+    _check_fused_layout(implicit)
     dev = wa_t.device
-    elem = torch.empty((6, 16 * nc, n), dtype=torch.float32, device=dev)
     out = torch.empty((nd, 16, n), dtype=torch.float32, device=dev)
     scal = torch.empty((2 * nd, n), dtype=torch.float32, device=dev) if implicit else None
     a = _lhs_args(phys, scheme)
     nvcc.check(
         fn(lctx.lhs_geom.data_ptr(), lctx.res_geom.data_ptr() if implicit else None,
-           wa_t.data_ptr(), elem.data_ptr(), keep.data_ptr(), add.data_ptr(),
+           wa_t.data_ptr(), keep.data_ptr(), add.data_ptr(),
            None if band is None else band.data_ptr(), int(band_lo), span,
-           out.data_ptr(), None if scal is None else scal.data_ptr(), n, _flat_deltas(lctx),
-           nvcc.int_array(v for e in lctx.plane_entries for v in e),
-           lctx.offsets.index(0), a["rho"], a["mu"], a["f1"], a["f2"], a["dt"], a["cp"],
+           out.data_ptr(), None if scal is None else scal.data_ptr(), n, sy, ny, nz,
+           FUSED_ZCHUNK[implicit], _flat_deltas(lctx), nvcc.int_array(planes),
+           a["rho"], a["mu"], a["f1"], a["f2"], a["dt"], a["cp"],
            a["kappa"], torch.cuda.current_stream(dev).cuda_stream),
         "lattice_jacobian",
     )

@@ -19,7 +19,8 @@ rsqrtf), as in chip_smoke.py, which runs the same comparisons at full
 size. Every kernel is also run twice: the two results are bit-identical
 (no atomics). The segmented reduces K8/K9 also equal, bit for bit, each
 target's contributions added one by one in plan order, the order of
-their segment sum.
+their segment sum, and the contact sweep K11 equals its plain twin bit
+for bit on clouds at bench.py's density.
 """
 
 import dataclasses
@@ -36,7 +37,7 @@ from dedflow_tpu_torch.app.scenarios import (
     reference_scenario_config,
 )
 from dedflow_tpu_torch.dem import grid as dem_grid
-from dedflow_tpu_torch.dem.cells import make_grid
+from dedflow_tpu_torch.dem.cells import cell_stats, make_grid
 from dedflow_tpu_torch.dem.contact import ContactParams
 from dedflow_tpu_torch.dem.particles import particle_state
 from dedflow_tpu_torch.fem import element_kernels as ek
@@ -106,6 +107,23 @@ def test_k1_kernel_matches_plain(card):
     assert rel(got, lat.residual_volume_plain(*args)) < 2e-5
 
 
+@pytest.mark.parametrize("implicit", [False, True])
+def test_k2_kernel_layout_matches_the_tables(implicit):
+    """The tiling the fused K2 was compiled with, read from the built
+    kernel, is the one fem/lattice.py's FUSED_* tables describe (the
+    tables the CPU emulation of the fused pass checks), and its stage is a
+    round's slabs x 16 pairs x a group on the tile's halo cells."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    got = lat.fused_kernel_layout(implicit)
+    assert got["tile"] == lat.FUSED_TILE
+    assert got["round_slabs"] == lat.FUSED_ROUND_SLABS[implicit]
+    assert got["groups"] == lat.FUSED_GROUPS[implicit]
+    assert got["plane_codes"] == lat.FUSED_PLANE_CODES
+    halo = (lat.FUSED_TILE[0] + 1) * (lat.FUSED_TILE[1] + 1)
+    assert got["stage_bytes"] == got["round_slabs"] * 16 * got["group_size"] * halo * 4
+
+
 def test_k2_kernel_matches_plain(card):
     solver, _, wa, dwa = card
     phys, scheme, lctx = solver.cfg.physics, solver.cfg.time, solver.lctx
@@ -121,7 +139,9 @@ def test_k2_kernel_matches_plain(card):
     ):
         before = lat.jacobian_volume.launches
         got = lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, b, lo)
-        assert lat.jacobian_volume.launches == before + 1
+        again = lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, b, lo)
+        assert lat.jacobian_volume.launches == before + 2
+        assert torch.equal(got, again)  # fixed-order plane sums, no atomics
         assert torch.isfinite(got).all()  # dead cells give 0, never NaN
         ref = lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, keep16, add16, b, lo)
         assert rel(got, ref) < 2e-5
@@ -464,11 +484,13 @@ def _dem_grid_state(cap):
     return grid, dem_grid.to_grid(grid, particle_state(x, v, radius=0.03, device="cuda"), 400)
 
 
-@pytest.mark.parametrize("cap", [2, 3, 8, 11])
+@pytest.mark.parametrize("cap", [2, 3, 8, 11, 13, 16])
 def test_k11_contact_sweep_matches_plain(cap):
     """K11 against its plain twin with and without the tangential term.
     The kernel takes the plain version's pair order and IEEE float32 ops
-    (no contraction), so the bar is float32 roundoff of the sums."""
+    (no contraction), so its forces equal the plain twin's bit for bit.
+    Capacities 2-12 take the kernel's unrolled instantiations, 13 and 16
+    its loop over any K."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hand-written kernels run only there")
     grid, gs = _dem_grid_state(cap)
@@ -483,6 +505,50 @@ def test_k11_contact_sweep_matches_plain(cap):
             assert torch.equal(got[0][c], got[1][c])
             assert float(ref[c].abs().max()) > 0
             assert rel(got[0][c], ref[c]) < 1e-5
+            assert torch.equal(got[0][c], ref[c])
+
+
+def _bench_like_grid_state(cloud):
+    """5,000 particles at the density of bench.py's DEM cases (radius 0.006,
+    cell 2.5 r, capacity from the occupancy; bench.py:512-592): a uniform
+    draw, or the settled bed's jittered lattice at a 0.45 solids fraction,
+    whose touching neighbours sit in every direction, row ends included."""
+    rng = np.random.default_rng(7)
+    r, p = 0.006, 5000
+    if cloud == "uniform":
+        side = 0.96 * (p / 100_000) ** (1 / 3)
+        x = 0.02 + rng.uniform(0.0, side, size=(p, 3))
+    else:
+        s = r * (4.0 * np.pi / (3.0 * 0.45)) ** (1.0 / 3.0)
+        npx, ii = 17, np.arange(p)
+        x = np.stack([(ii % npx + 0.5) * s, ((ii // npx) % npx + 0.5) * s,
+                      (ii // (npx * npx) + 0.5) * s], axis=1)
+        x = x + rng.uniform(-0.08, 0.08, size=(p, 3)) * s
+    v = rng.normal(scale=0.05, size=(p, 3))
+    probe = make_grid([0, 0, 0], (0.4, 0.4, 0.4), cell_size=2.5 * r, capacity=2)
+    cap = max(2, cell_stats(probe, x)["max_per_cell"] + 1)
+    grid = dataclasses.replace(probe, capacity=cap)
+    return grid, dem_grid.to_grid(grid, particle_state(x, v, radius=r, device="cuda"), p)
+
+
+@pytest.mark.parametrize("cloud", ["uniform", "settled_bed"])
+@pytest.mark.parametrize("tangential", [False, True])
+def test_k11_bit_equal_to_plain_on_bench_like_clouds(cloud, tangential):
+    """K11's warp-cooperative sweep adds each centre's pair terms in the
+    plain version's order with its IEEE float32 arithmetic: the forces
+    equal the plain twin's bit for bit, and two runs equal each other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    grid, gs = _bench_like_grid_state(cloud)
+    assert int(gs.mask.sum()) == 5000  # nothing dropped
+    prm = ContactParams(k_n=2e3, gamma_n=3.0, mu=0.3 if tangential else 0.0,
+                        gamma_t=2.0 if tangential else 0.0)
+    got = dem_grid.grid_pair_forces_cuda(grid, gs, prm)
+    again = dem_grid.grid_pair_forces_cuda(grid, gs, prm)
+    ref = dem_grid.grid_pair_forces(grid, gs, prm)
+    for c in range(3):
+        assert float(ref[c].abs().max()) > 0
+        assert torch.equal(got[c], ref[c]) and torch.equal(got[c], again[c])
 
 
 def test_k11_refuses_float64():
