@@ -20,15 +20,21 @@ Phases, one line each; the script exits non-zero at the first failure:
   windowed irregular (WinELL) tier:
   6 kernels at delaunay_mesh(56**3) + RCM (about 1.18M tets), float32:
             K6 (residual and Jacobian rows, the Jacobian also in its 33-row
-            implicit mode), K7, K8 and K9 against their plain versions,
-            times, then F, J, SpMV and GMRES(120); the element input rows
-            K10 gathers equal the index gather's bit for bit
+            implicit mode), K7, K8 and K9 against their plain versions;
+            the staged K6 (the solver's: the Jacobian straight into K9's
+            staging rows, frozen and 33-row implicit) against its plain
+            twin per block and against the column rows placed at the plan
+            positions bit for bit, and K9's segment sum alone on those rows
+            (equal to K9 over the column rows bit for bit); times, then F,
+            J, SpMV and GMRES(120); the element input rows K10 gathers
+            equal the index gather's bit for bit
   7 slice   the converted box 12 (lattice metadata dropped, RCM,
             use_lattice="winell", reference BCs with the Nitsche wall): one
             step_fixed(num_newton=2), card float32 against CPU float64
   8 main    NSSolver(that Delaunay mesh, reference_scenario_config(bcs=(),
             pin_pressure=True), device="cuda").step twice on the "winell"
-            fastpath, with the launch counts of K6-K10
+            fastpath, with the launch counts of K6-K10 (the staged K6 and
+            K9's segment sum; none of the column K6 or of K9's staging pass)
   coupled FEM-DEM step (DEM grid contact sweep K11 + the lattice tier):
   9 dem     K11 against its plain twin (bit for bit), float32, at bench.py's DEM cases
             (uniform_100k, settled_bed_100k: radius 0.006, 69**3 cells, K
@@ -46,8 +52,9 @@ Phases, one line each; the script exits non-zero at the first failure:
             RCM mesh with the
             residual's 48-row and the Jacobian's 12-row map (bit for bit);
             K8 and K9 on the gather tier's plans (unordered sources)
-            against their plain versions; times, bounds, the gather tier's
-            F, J, SpMV and GMRES(120)
+            against their plain versions; the staged K5 (frozen and
+            implicit) and K9's segment sum on the gather plan as in phase
+            6; times, bounds, the gather tier's F, J, SpMV and GMRES(120)
  13 slice   box 12 on use_lattice="gather" with the reference BCs and the
             Nitsche wall: one step_fixed(num_newton=2), card float32 against
             CPU float64
@@ -55,7 +62,8 @@ Phases, one line each; the script exits non-zero at the first failure:
             bcs=(), pin_pressure=True, scatter_method="tiered",
             elements_kernel="pallas"), device="cuda") on fastpath "gather"
             (the "auto" ladder's floor) .step twice, with the launch counts of
-            K4, K5, K7, K8 and K9, and the device's busy share over one
+            K4, the staged K5, K7, K8 and K9's segment sum (none of the column
+            K5 or of K9's staging pass), and the device's busy share over one
             Newton iteration (torch.profiler)
   moving-laser melt pool (BASELINE config #3: implicit phi/T tangents and a
   heat source):
@@ -68,7 +76,8 @@ Phases, one line each; the script exits non-zero at the first failure:
  16 slice   box 12 on the lattice, on the converted box with RCM
             (use_lattice="winell") and on use_lattice="gather": one
             step_fixed(num_newton=2, source=the laser) each, card float32
-            against CPU float64, with each tier's launch counts
+            against CPU float64, with each tier's launch counts (the WinELL
+            and gather tiers through the staged K6 / K5 and K9's segment sum)
  17 main    NSSolver(box_mesh(44, 44, 44), melt_pool_scenario_config(),
             device="cuda"): two adaptive steps with the laser source, then
             three step_fixed(2) (tools/melt_bench.py's run), with s/step,
@@ -211,6 +220,26 @@ MELT_KERNELS = (
      "dedflow_tpu/fem/pallas_kernels.py:544"),
     ("K5 gathered element jacobian (implicit phi/T)", "dedflow_tpu_torch/csrc/gather_elements.cu",
      "dedflow_tpu/fem/pallas_kernels.py:507"),
+)
+# The irregular tiers' Jacobian path: the staged K6 / K5 store each
+# element's 16 vel/p contributions (and, implicit, its phi/T tangents)
+# straight into K9's staging rows at their plan positions, and K9's segment
+# sum alone adds them up. The column entries above (K6 / K5 Jacobian rows,
+# K9 with its staging pass) stay the counterparts of the JAX kernels and run
+# on no solver path: their launches on the main paths are 0.
+STAGED_KERNELS = (
+    ("K6 element rows staged (jacobian)", "dedflow_tpu_torch/csrc/element_rows.cu",
+     "dedflow_tpu/fem/pallas_kernels.py:565"),
+    ("K6 element rows staged (jacobian, 33-row implicit)", "dedflow_tpu_torch/csrc/element_rows.cu",
+     "dedflow_tpu/fem/pallas_kernels.py:544"),
+    ("K9 segment sum (WinELL plan)", "dedflow_tpu_torch/csrc/seg_reduce.cu",
+     "dedflow_tpu/sparse/win_ring.py:356"),
+    ("K5 gathered element jacobian staged", "dedflow_tpu_torch/csrc/gather_elements.cu",
+     "dedflow_tpu/fem/pallas_kernels.py:507"),
+    ("K5 gathered element jacobian staged (implicit phi/T)",
+     "dedflow_tpu_torch/csrc/gather_elements.cu", "dedflow_tpu/fem/pallas_kernels.py:507"),
+    ("K9 segment sum (gather plan)", "dedflow_tpu_torch/csrc/seg_reduce.cu",
+     "dedflow_tpu/sparse/win_ring.py:356"),
 )
 IRREGULAR_KERNELS = (
     ("K6 element rows (residual)", "dedflow_tpu_torch/csrc/element_rows.cu",
@@ -390,6 +419,78 @@ def jacobian_blocks(m: int, implicit: bool, slabs: int = 0) -> dict:
     blocks = dict(VP_BLOCKS, **(SCALAR_BLOCKS if implicit else IDENTITY_BLOCKS))
     return {f" [{b}]": (lambda t, c=list(cs): t.reshape(shape)[..., c, :])
             for b, cs in blocks.items()}
+
+
+def staged_pack(out):
+    """The staged kernels' (K, 16) rows and, implicit, (K, 8) tangents as
+    one (K, 16 | 24) tensor."""
+    import torch
+
+    stage, tang = out
+    return stage if tang is None else torch.cat([stage, tang], 1)
+
+
+def staged_blocks(implicit: bool) -> dict:
+    """{name: view} of packed staging rows by vel/p block (columns in
+    WinELL row order), then the phi/T tangents and their zero padding."""
+    from dedflow_tpu_torch.sparse.winell import COMP2WIN
+
+    parts = {f" [{b}]": (lambda t, c=[int(COMP2WIN[k]) for k in cs]: t[:, c])
+             for b, cs in VP_BLOCKS.items()}
+    if implicit:
+        parts.update({" [phi tangent]": lambda t: t[:, 16], " [T tangent]": lambda t: t[:, 17],
+                      " [tangent padding]": lambda t: t[:, 18:]})
+    return parts
+
+
+def staged_record(label: str, plan, kern, plain, column, implicit: bool, tol: float,
+                  in_bytes: int, reps: int) -> tuple[dict, object]:
+    """A staged element kernel (outputs (K, 16) and, implicit, (K, 8))
+    against its plain twin per block and against the column kernel's rows
+    placed at the plan positions (`column`: element_kernels.stage_rows of
+    them) bit for bit; its record as finish() makes it, and its output."""
+    import torch
+
+    from dedflow_tpu_torch.tools.timing import nbytes
+
+    err = compare(label, lambda: staged_pack(kern()), lambda: staged_pack(plain()), tol,
+                  parts=staged_blocks(implicit))
+    got, ref = staged_pack(kern()), staged_pack(column())
+    same = torch.equal(got, ref)
+    say(f"  {label} == the column kernel's rows at the plan positions, bit for bit: {same}")
+    if not same:
+        raise PhaseError(f"{label}: the staged rows differ from the column kernel's")
+    del ref
+    # the function's output: 16 floats a contribution and, implicit, its 2
+    # tangents; the (K, 8) buffer's 6 zeros a row are the layout's cost
+    rec = finish(label, {"max_abs_err": err}, kern, plain, reps, 3,
+                 in_bytes + nbytes(plan.elem_pos, got[:, :18]), op_count(plain))
+    return rec, kern()
+
+
+def segment_sum_record(label: str, plan, stage, ring_out, reps: int) -> dict:
+    """K9's segment sum alone over the (K, 16) staging rows `stage`: against
+    its plain twin per vel/p block, equal bit for bit to `ring_out` (K9 with
+    its staging pass over the column rows of the same values), timed
+    against the plain twin and an index_add of the rows."""
+    import torch
+
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce_staged, ring_reduce_staged_plain
+    from dedflow_tpu_torch.tools.timing import nbytes
+
+    kern = lambda: ring_reduce_staged(plan, stage, 16)
+    plain = lambda: ring_reduce_staged_plain(plan, stage, 16)
+    err = compare(label, kern, plain, TOL_K9, parts=reduce_parts()[1])
+    same = torch.equal(kern(), ring_out)
+    say(f"  {label} == K9 with its staging pass over the column rows, bit for bit: {same}")
+    if not same:
+        raise PhaseError(f"{label}: not equal to K9 over the column rows")
+    tgt = torch.repeat_interleave(torch.diff(plan.ptr.long()))
+    zeros = torch.zeros((plan.num_tgt, 16), dtype=stage.dtype, device=stage.device)
+    out = torch.empty((16, plan.num_tgt), dtype=torch.float32)
+    return finish(label, {"max_abs_err": err}, kern, plain, reps, 3,
+                  nbytes(plan.ptr, stage, out), op_count(plain),
+                  library=(lambda: torch.index_add(zeros, 0, tgt, stage).T, kern()))
 
 
 def perturbed_state(mesh, device, dtype):
@@ -606,23 +707,30 @@ def phase_main(solver) -> dict:
 
 
 def phase_irregular_main(solver) -> dict:
-    """drive_main on the WinELL tier. K10 gathers the input rows of every
-    K6 launch, with the residual's row map before K6res and the Jacobian's
-    before K6lhs: its launches split by map as K6's do, which is checked."""
+    """drive_main on the WinELL tier: the staged K6 and K9's segment sum,
+    never the column K6 or K9's staging pass. K10 gathers the input rows
+    of every K6 launch, with the residual's row map before K6res and the
+    Jacobian's before the staged K6: its launches split by map as K6's do,
+    which is checked. Returns launches in IRREGULAR_KERNELS' order (the
+    column Jacobian and K9 with its staging pass: 0) and `staged`, those of
+    the staged K6 and K9's segment sum."""
     from dedflow_tpu_torch.fem import element_kernels as ek
     from dedflow_tpu_torch.sparse.win_gather import win_gather
     from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
-    from dedflow_tpu_torch.sparse.win_ring import ring_reduce
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_staged
     from dedflow_tpu_torch.sparse.win_stream import stream_reduce
 
-    counters = (ek.res_rows_call, ek.lhs_rows_call, winell_matvec, stream_reduce, ring_reduce,
-                win_gather)
-    out = drive_main(solver, counters, "K6res/K6lhs/K7/K8/K9/K10")
-    *launches, n10 = out["launches"]
-    n6r, n6j = launches[:2]
+    counters = (ek.res_rows_call, ek.lhs_rows_staged, winell_matvec, stream_reduce,
+                ring_reduce_staged, win_gather)
+    out = drive_main(solver, counters, "K6res/K6staged/K7/K8/K9sum/K10",
+                     absent=(ek.lhs_rows_call, ring_reduce))
+    n6r, n6j, n7, n8, n9, n10 = out["launches"]
     if n10 != n6r + n6j:
         raise PhaseError(f"main: {n10} K10 launches, not one per K6 launch ({n6r} + {n6j})")
-    out["launches"] = launches
+    if n9 != n6j:
+        raise PhaseError(f"main: {n9} K9 segment sums, not one per Jacobian ({n6j})")
+    out["launches"] = [n6r, out["absent"][0], n7, n8, out["absent"][1]]
+    out["staged"] = [n6j, n9]
     out["k10_launches"] = {"residual": n6r, "jacobian": n6j}
     return out
 
@@ -653,13 +761,14 @@ def irregular_solver():
     return solver, setup, raw
 
 
-def phase_irregular_kernels(solver) -> tuple[list, dict]:
+def phase_irregular_kernels(solver) -> tuple[list, list, dict]:
     """K6 (residual, jacobian), K7, K8 and K9 against their plain versions
-    at the solver's size; per kernel a record as phase_kernels' and the
-    system timings. Rows whose scales differ by orders of magnitude are
-    checked separately: the element Jacobian and its entry sums per
-    velocity/pressure block (the phi/T identities are exact), the products
-    and residuals per equation."""
+    at the solver's size, then the staged K6 (frozen, 33-row implicit) and
+    K9's segment sum; per kernel a record as phase_kernels' (the column
+    kernels', the staged ones') and the system timings. Rows whose scales
+    differ by orders of magnitude are checked separately: the element
+    Jacobian and its entry sums per velocity/pressure block (the phi/T
+    identities are exact), the products and residuals per equation."""
     import torch
 
     from dedflow_tpu_torch.fem import element_kernels as ek
@@ -673,6 +782,7 @@ def phase_irregular_kernels(solver) -> tuple[list, dict]:
     from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_plain
     from dedflow_tpu_torch.sparse.winell import COMP2WIN
     from dedflow_tpu_torch.tools.timing import nbytes, time_ms
+    from dedflow_tpu_torch.utils import nvcc
 
     phys, scheme = solver.cfg.physics, solver.cfg.time
     ctx, ne = solver.wctx, solver.wctx.num_elem
@@ -702,7 +812,19 @@ def phase_irregular_kernels(solver) -> tuple[list, dict]:
     compare("K6 lhs rows, 33-row implicit", lambda: ek.lhs_rows_call(inp33, phys, scheme, True),
             lambda: er.lhs_rows(inp33, scalar_implicit=True, **largs), TOL_K6,
             parts=jacobian_blocks(ne, implicit=True))
-    del inp33
+    # the staged K6, the solver's Jacobian: frozen, then 33-row implicit
+    plan, staged, outs = ctx.jac_plan, [], []
+    for implicit, inp, tag in ((False, inp27, ""), (True, inp33, ", 33-row implicit")):
+        rec, out = staged_record(
+            f"K6 staged{tag}", plan,
+            lambda inp=inp, i=implicit: ek.lhs_rows_staged(inp, phys, scheme, plan, i),
+            lambda inp=inp, i=implicit: ek.lhs_rows_staged_plain(inp, phys, scheme, plan, i),
+            lambda inp=inp, i=implicit: ek.stage_rows(plan, ek.lhs_rows_call(inp, phys, scheme, i), i),
+            implicit, TOL_K6, nbytes(inp), 10)
+        staged.append(rec)
+        outs.append(out[0])
+    stage16 = outs[0]  # the frozen mode's staging rows
+    del inp33, out, outs
     out24, out288 = k6r(), k6j()
 
     k8 = lambda: stream_reduce(ctx.res_plan, out24, range(6), ne)
@@ -712,6 +834,8 @@ def phase_irregular_kernels(solver) -> tuple[list, dict]:
     k9 = lambda: ring_reduce(ctx.jac_plan, out288, comps, ne)
     p9 = lambda: ring_reduce_plain(ctx.jac_plan, out288, comps, ne)
     e9 = compare("K9 jacobian entry reduce", k9, p9, TOL_K9, parts=entry_blocks)
+    staged.append(segment_sum_record(STAGED_KERNELS[2][0], plan, stage16, k9(), 20))
+    del stage16
 
     jm, pc = assemble_system(ctx, solver.face_ctxs, solver.mask_t, wg, dwgold, dwg, phys, scheme)
     gen = torch.Generator(device=solver.device).manual_seed(SEED)
@@ -756,7 +880,15 @@ def phase_irregular_kernels(solver) -> tuple[list, dict]:
     torch.cuda.synchronize()
     times = {"F_ms": f_ms, "J_ms": j_ms, "SpMV_ms": results[2]["ms"],
              "GMRES120_s": time.perf_counter() - t0, "GMRES120_iters": sol.iters}
-    return results, times
+    libs = nvcc.load(["element_rows", "seg_reduce"])
+    say(f"  ptxas registers: K6 staged frozen "
+        f"{registers(libs['element_rows'], 'lhs_rows_staged_kernelILb0E')}, 33-row implicit "
+        f"{registers(libs['element_rows'], 'lhs_rows_staged_kernelILb1E')} (column: "
+        f"{registers(libs['element_rows'], 'lhs_rows_kernelILb0E')}, "
+        f"{registers(libs['element_rows'], 'lhs_rows_kernelILb1E')}); K9 segment sum "
+        f"{registers(libs['seg_reduce'], 'segment_sum_kernelILi16E')} (the tangents' 8-wide "
+        f"{registers(libs['seg_reduce'], 'segment_sum_kernelILi8E')})")
+    return results, staged, times
 
 
 def phase_irregular_slice() -> None:
@@ -791,10 +923,12 @@ def phase_irregular_slice() -> None:
     check("irregular slice", worst, TOL_SLICE)
 
 
-def drive_main(solver, counters, label: str) -> dict:
+def drive_main(solver, counters, label: str, absent=()) -> dict:
     """The main path: `solver.step` twice from the reference initial state
     with every launch counter set to 0 just before and read just after,
-    then the first step repeated (bit-identical states and Krylov counts)."""
+    then the first step repeated (bit-identical states and Krylov counts).
+    Each of `counters` must have launched; none of `absent` (the entries
+    the path no longer takes) may have."""
     import torch
 
     from dedflow_tpu_torch.app.scenarios import reference_initial_state
@@ -806,7 +940,7 @@ def drive_main(solver, counters, label: str) -> dict:
     state, first = state0, None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
+    for c in (*counters, *absent):
         c.launches = 0
     steps = []
     for step in (1, 2):
@@ -828,15 +962,20 @@ def drive_main(solver, counters, label: str) -> dict:
             raise PhaseError(f"main: non-finite state at step {step}")
     launches = [c.launches for c in counters]
     peak = torch.cuda.max_memory_allocated()
-    say(f"  launches {label} = {launches}; peak memory {peak / 2**30:.3f} GiB")
+    off = {c.__name__: c.launches for c in absent}
+    say(f"  launches {label} = {launches}; peak memory {peak / 2**30:.3f} GiB"
+        + (f"; not on the path: {off}" if off else ""))
     if min(launches) <= 0:
         raise PhaseError(f"main: a kernel of the path was not launched: {launches}")
+    if any(off.values()):
+        raise PhaseError(f"main: an entry off the path was launched: {off}")
     *again, stats = solver.step(*state0)
     same = all(torch.equal(a, b) for a, b in zip(again, first[0]))
     say(f"  step 1 repeated: bit-identical states {same}, krylov {stats.krylov_iters}")
     if not same or stats.krylov_iters != first[1]:
         raise PhaseError("main: a repeated step differs from the first run")
-    return {"launches": launches, "step_s": steps, "peak_bytes": peak}
+    return {"launches": launches, "absent": list(off.values()), "step_s": steps,
+            "peak_bytes": peak}
 
 
 def dem_case(x):
@@ -1128,13 +1267,15 @@ def gather_solver(raw):
     return solver, setup_s
 
 
-def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict, dict]:
+def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, dict, dict]:
     """Phase 12: K4 and K5 on the gather tier's context (K5 also in its
     implicit mode, the metric rows read in place from the residual
     geometry), K10 on phase 6's RCM mesh `rcm` and its WinELL connectivity
     `rcm_ien_t`, K8 and K9 on the gather tier's plans, each against its
-    plain version. Returns the six kernel records (GATHER_KERNELS' order),
-    the gather tier's system timings and K5's implicit record."""
+    plain version; then the staged K5 (frozen, implicit) and K9's segment
+    sum on the gather plan. Returns the six kernel records (GATHER_KERNELS'
+    order), the three staged records, the gather tier's system timings and
+    K5's implicit record."""
     import torch
 
     from dedflow_tpu_torch.fem import element_kernels as ek
@@ -1208,6 +1349,23 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict, dict]:
     k9 = lambda: ring_reduce(rng.jac_plan, rows288, comps, ne)
     p9 = lambda: ring_reduce_plain(rng.jac_plan, rows288, comps, ne)
     e9 = compare("K9 jacobian entry reduce (gather plan)", k9, p9, TOL_K9, parts=entry_blocks)
+    # the staged K5, the solver's Jacobian, and K9's segment sum on its rows
+    plan, staged, stage16 = rng.jac_plan, [], None
+    for implicit, metric, tag in ((False, None, ""), (True, met, ", implicit")):
+        rec, out = staged_record(
+            f"K5 staged{tag}", plan,
+            lambda m_=metric: ek.ns_lhs_gather_staged(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme,
+                                                      plan, m_),
+            lambda m_=metric: ek.ns_lhs_gather_staged_plain(ctx.lhs_geom, ctx.ien_t, w_t, phys,
+                                                            scheme, plan, m_),
+            lambda m_=metric, i=implicit: ek.stage_rows(
+                plan, ek.ns_lhs_gather(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme, m_), i),
+            implicit, TOL_K5, nbytes(ctx.lhs_geom, ctx.ien_t, w_t[:3], metric), 10)
+        staged.append(rec)
+        stage16 = out[0] if stage16 is None else stage16
+        del out
+    staged.append(segment_sum_record(STAGED_KERNELS[5][0], plan, stage16, k9(), 20))
+    del stage16
 
     names = [name for name, _, _ in GATHER_KERNELS]
     libs = nvcc.load(["gather_elements", "win_gather"])
@@ -1239,6 +1397,8 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict, dict]:
     implicit5 = finish(MELT_KERNELS[3][0], {"max_abs_err": e5i}, k5i, p5i, 10, 3,
                        nbytes(ctx.lhs_geom, met, ctx.ien_t, w_t[:3], out288), op_count(p5i))
     regs[MELT_KERNELS[3][0]] = registers(libs["gather_elements"], "lhs_gather_kernelILb1E")
+    regs[STAGED_KERNELS[3][0]] = registers(libs["gather_elements"], "lhs_gather_staged_kernelILb0E")
+    regs[STAGED_KERNELS[4][0]] = registers(libs["gather_elements"], "lhs_gather_staged_kernelILb1E")
     for name in regs:
         say(f"  {name}: ptxas registers {regs[name]}")
 
@@ -1260,7 +1420,7 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, dict, dict]:
     times = {"F_ms": f_ms, "J_ms": j_ms, "SpMV_ms": spmv_ms,
              "GMRES120_s": time.perf_counter() - t0, "GMRES120_iters": sol.iters,
              "matrix_entries": ctx.win_plan.S}
-    return results, times, implicit5
+    return results, staged, times, implicit5
 
 
 def phase_gather_slice() -> None:
@@ -1293,18 +1453,28 @@ def phase_gather_slice() -> None:
 
 
 def phase_gather_main(gsolver) -> dict:
-    """Phase 14: the gather tier's main path (drive_main), then the busy
-    share of the device over one Newton iteration."""
+    """Phase 14: the gather tier's main path (drive_main: the staged K5 and
+    K9's segment sum, never the column K5 or K9's staging pass), then the
+    busy share of the device over one Newton iteration. Returns launches in
+    the order K4, K5, K7, K8, K9 (the column K5 and K9 with its staging
+    pass: 0) and `staged`, those of the staged K5 and K9's segment sum."""
     from dedflow_tpu_torch.app.scenarios import reference_initial_state
     from dedflow_tpu_torch.fem import element_kernels as ek
     from dedflow_tpu_torch.interop import state_from_numpy
     from dedflow_tpu_torch.solver.newton import newton_iter, predict, residual
     from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
-    from dedflow_tpu_torch.sparse.win_ring import ring_reduce
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_staged
     from dedflow_tpu_torch.sparse.win_stream import stream_reduce
 
-    counters = (ek.ns_residual_gather, ek.ns_lhs_gather, winell_matvec, stream_reduce, ring_reduce)
-    out = drive_main(gsolver, counters, "K4/K5/K7/K8/K9")
+    counters = (ek.ns_residual_gather, ek.ns_lhs_gather_staged, winell_matvec, stream_reduce,
+                ring_reduce_staged)
+    out = drive_main(gsolver, counters, "K4/K5staged/K7/K8/K9sum",
+                     absent=(ek.ns_lhs_gather, ring_reduce))
+    n4, n5, n7, n8, n9 = out["launches"]
+    if n9 != n5:
+        raise PhaseError(f"main: {n9} K9 segment sums, not one per Jacobian ({n5})")
+    out["launches"] = [n4, out["absent"][0], n7, n8, out["absent"][1]]
+    out["staged"] = [n5, n9]
     cfg = gsolver.cfg
     wg, dwgold, dwg = state_from_numpy(*reference_initial_state(gsolver.mesh), "cuda", gsolver.dtype)
     dwg = predict(dwg, cfg.time)
@@ -1461,8 +1631,9 @@ def phase_melt_slice() -> dict:
     """Phase 16: the melt pool at box 12 on the three tiers, one
     step_fixed(num_newton=2) with the laser source: card float32 against
     CPU float64, TOL_SLICE. Each card step runs with its tier's launch
-    counters set to 0 just before and read just after; returns
-    {tier: launches}."""
+    counters set to 0 just before and read just after (the column K6 / K5
+    Jacobian and K9's staging pass must stay at 0); returns {tier:
+    launches}."""
     import dataclasses
 
     import torch
@@ -1476,7 +1647,7 @@ def phase_melt_slice() -> dict:
     from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec
     from dedflow_tpu_torch.sparse.win_gather import win_gather
     from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
-    from dedflow_tpu_torch.sparse.win_ring import ring_reduce
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_staged
     from dedflow_tpu_torch.sparse.win_stream import stream_reduce
 
     box = box_mesh(*SLICE_BOX)
@@ -1485,12 +1656,15 @@ def phase_melt_slice() -> dict:
     tiers = {
         "lattice": (box, "auto", (lat.residual_volume, lat.jacobian_volume, dia_matvec),
                     "K1/K2/K3"),
-        "winell": (converted, "winell", (win_gather, ek.res_rows_call, ek.lhs_rows_call,
-                                         winell_matvec, stream_reduce, ring_reduce),
-                   "K10/K6res/K6lhs/K7/K8/K9"),
-        "gather": (box, "gather", (ek.ns_residual_gather, ek.ns_lhs_gather, winell_matvec,
-                                   stream_reduce, ring_reduce), "K4/K5/K7/K8/K9"),
+        "winell": (converted, "winell", (win_gather, ek.res_rows_call, ek.lhs_rows_staged,
+                                         winell_matvec, stream_reduce, ring_reduce_staged),
+                   "K10/K6res/K6staged/K7/K8/K9sum"),
+        "gather": (box, "gather", (ek.ns_residual_gather, ek.ns_lhs_gather_staged, winell_matvec,
+                                   stream_reduce, ring_reduce_staged), "K4/K5staged/K7/K8/K9sum"),
     }
+    # the irregular tiers' Jacobian entries off the path: the column K6 / K5
+    # and K9 with its staging pass
+    absent = (ek.lhs_rows_call, ek.ns_lhs_gather, ring_reduce)
     launches = {}
     for tier, (mesh, mode, counters, label) in tiers.items():
         cfg = melt_pool_scenario_config(use_lattice=mode)
@@ -1503,12 +1677,15 @@ def phase_melt_slice() -> dict:
             src = melt_source(mesh, cfg, 1, solver.device, solver.dtype)
             if device == "cuda":
                 torch.cuda.synchronize()
-                for c in counters:
+                for c in (*counters, *absent):
                     c.launches = 0
             outs.append([t.cpu() for t in solver.step_fixed(*state, num_newton=2, source=src)])
             if device == "cuda":
                 torch.cuda.synchronize()
                 launches[tier] = [c.launches for c in counters]
+                if any(c.launches for c in absent):
+                    raise PhaseError(f"melt slice {tier}: a column Jacobian entry was launched: "
+                                     f"{[c.launches for c in absent]}")
         worst = 0.0
         for name, g, r in zip(("wgold", "dwgold", "dwg"), *outs):
             if not bool(torch.isfinite(g).all()):
@@ -1743,7 +1920,7 @@ def run() -> int:
         say(f"phase 6 irregular kernels at {solver.mesh.num_tet} Delaunay tets, "
             f"{solver.mesh.num_node} nodes, {solver.wctx.win_plan.S} matrix entries, "
             f"fastpath {solver.fastpath} (host setup s: {json.dumps(setup)})")
-        ir_results, ir_times = phase_irregular_kernels(solver)
+        ir_results, ir_staged, ir_times = phase_irregular_kernels(solver)
         say(f"  system: {json.dumps(ir_times)}")
         phase = "7 irregular slice"
         say(f"phase 7 irregular slice at the converted box {SLICE_BOX}")
@@ -1778,7 +1955,7 @@ def run() -> int:
             f"order, {gsolver.gctx.win_plan.S} matrix entries, fastpath {gsolver.fastpath} "
             f"(host setup s: delaunay_s {setup['delaunay_s']:.2f} shared with phase 6, "
             f"solver_s {gsetup:.2f}); K10 at phase 6's RCM mesh")
-        ga_results, ga_times, k5_implicit = phase_gather_kernels(gsolver, rcm, rcm_ien_t)
+        ga_results, ga_staged, ga_times, k5_implicit = phase_gather_kernels(gsolver, rcm, rcm_ien_t)
         say(f"  gather system: {json.dumps(ga_times)}")
         del rcm_ien_t
         phase = "13 gather slice"
@@ -1814,20 +1991,25 @@ def run() -> int:
         print(f"FAIL phase {phase}: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     # the melt modes' launches: K1/K2 from the melt main path (phase 17),
-    # K6's 33-row mode and K5's implicit mode from the melt slice's WinELL
-    # and gather steps (phase 16), where the scenario runs them
-    melt_launches = (melt_main["launches"][:2] + [slice_launches["winell"][2]]
-                     + [slice_launches["gather"][1]])
+    # the implicit Jacobian of K6 (33-row) and K5 from the melt slice's
+    # WinELL and gather steps (phase 16), where the scenario runs them: the
+    # staged kernels there, the column entries 0
+    melt_launches = melt_main["launches"][:2] + [0, 0]
+    staged_launches = (ir_main["staged"][:1] + [slice_launches["winell"][2]] + ir_main["staged"][1:]
+                       + ga_main["staged"][:1] + [slice_launches["gather"][1]]
+                       + ga_main["staged"][1:])
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n, **r}
         for (name, src, rep), r, n in zip(
-            KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS,
-            results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit],
+            KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS
+            + STAGED_KERNELS,
+            results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit]
+            + ir_staged + ga_staged,
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
             + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
             + ga_main["launches"][3:]
-            + melt_launches,
+            + melt_launches + staged_launches,
         )
     ]
     # the probes' launches: those of their entry points' runs (phase 18)

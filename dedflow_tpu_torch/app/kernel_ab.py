@@ -13,13 +13,17 @@ in its implicit mode at box_mesh(44, 44, 44) with the melt-pool scenario
 the element Jacobian bodies that share csrc/element_body.cuh with K2: K6
 (27-row frozen and 33-row implicit) on the box-55 lattice's element
 inputs and K5 (frozen and implicit) on the gather tier of the same mesh
-(998,250 tets in generated order). A kernel whose
+(998,250 tets in generated order); with `--jpath` each irregular tier's
+Jacobian entry function as the solver calls it, frozen and implicit, on
+delaunay_mesh(56**3): `fem.win_assembly.jacobian_win` on the RCM order
+(K10, K6 and K9) and `fem.ns.jacobian_entries` on the generated order
+(K5 and K9), whatever kernels each checkout runs inside them. A kernel whose
 wrapper returns several tensors (K11's three forces, K2's data and scal)
 is timed as the wrapper call, and its digest is of the tensors flattened
 and concatenated.
 
     python dedflow_tpu_torch/app/kernel_ab.py --root CHECKOUT [--reps 5] [--reduces] [--dem]
-        [--implicit] [--elements]
+        [--implicit] [--elements] [--jpath]
 
 Two checkouts (say a parent commit unpacked beside the working tree) are
 compared on one card by running this once per checkout, in turns: parent,
@@ -53,18 +57,14 @@ def _timing():
     return mod
 
 
-def _reduce_kernels():
-    """{name: (call, reps)} of K8 and K9 on the WinELL and the gather plans
-    of delaunay_mesh(56**3) (chip_smoke.py's phases 6 and 12)."""
-    import torch
-
+def _delaunay_solvers():
+    """The WinELL solver of delaunay_mesh(56**3) + RCM and the gather
+    tier's of the same mesh in its generated order (chip_smoke.py's phases
+    6 and 12)."""
     from dedflow_tpu_torch.app.scenarios import reference_scenario_config
-    from dedflow_tpu_torch.fem.win_assembly import JAC_COMPS
     from dedflow_tpu_torch.mesh.gen import delaunay_mesh
     from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
     from dedflow_tpu_torch.solver.newton import NSSolver
-    from dedflow_tpu_torch.sparse.win_ring import ring_reduce
-    from dedflow_tpu_torch.sparse.win_stream import stream_reduce
 
     raw = delaunay_mesh(56**3, seed=0)
     rcm = reorder_mesh(raw, rcm_order(raw.ien, raw.num_node))
@@ -74,6 +74,18 @@ def _reduce_kernels():
         device="cuda")
     if (wsolver.fastpath, gsolver.fastpath) != ("winell", "gather"):
         raise RuntimeError(f"tiers {wsolver.fastpath}, {gsolver.fastpath}: not winell, gather")
+    return wsolver, gsolver
+
+
+def _reduce_kernels(wsolver, gsolver):
+    """{name: (call, reps)} of K8 and K9 on the WinELL and the gather plans
+    of delaunay_mesh(56**3) (chip_smoke.py's phases 6 and 12)."""
+    import torch
+
+    from dedflow_tpu_torch.fem.win_assembly import JAC_COMPS
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce
+
     wctx, gctx = wsolver.wctx, gsolver.gctx
     (grange,) = gctx.ranges
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -86,6 +98,37 @@ def _reduce_kernels():
         rows288 = torch.randn((288, ne), generator=gen, device="cuda")
         out[f"K8_{tier}"] = (lambda p=res_plan, x=rows24, m=ne: stream_reduce(p, x, range(6), m), 50)
         out[f"K9_{tier}"] = (lambda p=jac_plan, x=rows288, m=ne: ring_reduce(p, x, JAC_COMPS, m), 20)
+    return out
+
+
+def _jacobian_paths(wsolver, gsolver):
+    """{name: (call, reps)} of the irregular tiers' Jacobian entry
+    functions, frozen and implicit, at seeded alpha states of each mesh
+    (the reference initial state, dwg perturbed as chip_smoke.py's)."""
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_initial_state
+    from dedflow_tpu_torch.fem import ns
+    from dedflow_tpu_torch.fem import win_assembly as wa_
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.solver.newton import predict
+
+    def alpha(solver):
+        wg, dwgold, dwg = reference_initial_state(solver.mesh)
+        dwg = dwg + 0.1 * np.random.default_rng(0).standard_normal(dwg.shape)
+        wg, dwgold, dwg = state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32)
+        return alpha_states(wg, dwgold, predict(dwg, solver.cfg.time), solver.cfg.time)[0]
+
+    phys, scheme = wsolver.cfg.physics, wsolver.cfg.time
+    wctx, gctx, wa_w, wa_g = wsolver.wctx, gsolver.gctx, alpha(wsolver), alpha(gsolver)
+    out = {}
+    for tag, implicit in (("", False), ("_implicit", True)):
+        out[f"J_winell{tag}"] = (lambda i=implicit: wa_.jacobian_win(
+            wctx, wa_w, phys, scheme, scalar_implicit=i).vals, 10)
+        out[f"J_gather{tag}"] = (lambda i=implicit: ns.jacobian_entries(
+            gctx, wa_g, phys, scheme, i), 10)
     return out
 
 
@@ -202,6 +245,9 @@ def main(argv=None) -> int:
                    help="also K2's implicit mode at box 44 with the melt-pool scenario")
     p.add_argument("--elements", action="store_true",
                    help="also K6's and K5's element Jacobians (frozen, implicit) at box 55")
+    p.add_argument("--jpath", action="store_true",
+                   help="also the WinELL and gather tiers' Jacobian entry functions (frozen, "
+                        "implicit) on delaunay_mesh(56**3)")
     args = p.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -238,8 +284,12 @@ def main(argv=None) -> int:
         "K1": (lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme), 20),
         "K2": (lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, band, lo), 10),
     }
+    if args.reduces or args.jpath:
+        delaunay = _delaunay_solvers()
     if args.reduces:
-        kernels.update(_reduce_kernels())
+        kernels.update(_reduce_kernels(*delaunay))
+    if args.jpath:
+        kernels.update(_jacobian_paths(*delaunay))
     if args.dem:
         kernels.update(_dem_kernels())
     if args.implicit:

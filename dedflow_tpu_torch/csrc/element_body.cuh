@@ -10,12 +10,15 @@
 // ab*18+c; with scalar_implicit 33 -> 288), the plain torch versions of
 // which are dedflow_tpu_torch/fem/element_rows.py::res_rows and ::lhs_rows.
 // Outputs go to o[row * M] for the element column the caller points `o` at,
-// so a warp's stores are coalesced along the element axis.
+// so a warp's stores are coalesced along the element axis; the Jacobian can
+// instead go straight to K9's staging rows (the `Staged` layout below).
 //
 // The guards of the JAX bodies are kept: tr > 0 ? tr : 1 (pallas_kernels.py:128
 // and the residual's own) keeps every tau finite on dead or sliver columns,
 // whose zero geometry then gives exact zeros.
 #pragma once
+
+#include <type_traits>
 
 #include "lattice_common.cuh"
 
@@ -160,6 +163,14 @@ __device__ __forceinline__ void res_body(const ResInputs& x, const RowsResParams
   }
 }
 
+// Whether an output policy is a staged layout: false unless the policy
+// declares kStaged, so the column layouts (Columns here, K2's Stage) do not.
+template <class Out, class = void>
+struct staged_layout : std::false_type {};
+template <class Out>
+struct staged_layout<Out, std::void_t<decltype(Out::kStaged)>>
+    : std::bool_constant<Out::kStaged> {};
+
 // kImplicit: components 16/17 are the consistent phi/T transport tangents
 // (pallas_kernels._lhs_rows with scalar_implicit, weakform.scalar_lhs_blocks)
 // from the per-point taus tau_phi[q] and tau_t[q]; each (a, b) entry is
@@ -177,10 +188,17 @@ __device__ __forceinline__ void res_body(const ResInputs& x, const RowsResParams
 // layout only computes offsets: with the pointer held in a sink object,
 // K6's 33-row instantiation took 255 registers instead of 168 (nvcc 12.8,
 // sm_90a); this way K5's and K6's PTX is that of plain column stores.
+// A staged layout (staged_layout<Out>) gathers a pair's components in a row
+// in registers, at offsets Out::comp(k, M), and stores the row whole at the
+// pair's end to the slot Out::slot(pos, ab, M) it loaded at the pair's
+// start (`pos`, `o2`: the staged layout's position table and second buffer).
 template <bool kImplicit, int kComp, class Out>
 __device__ __forceinline__ void lhs_body_to(const LhsInputs& x, const RowsLhsParams& prm,
-                                            float* __restrict__ o, size_t M) {
+                                            float* __restrict__ o, size_t M,
+                                            const int* __restrict__ pos = nullptr,
+                                            float* __restrict__ o2 = nullptr) {
   static_assert(kComp == 18 || (kComp == 16 && !kImplicit), "16 components: frozen mode only");
+  constexpr bool kStagedOut = staged_layout<Out>::value;
   const float rho = static_cast<float>(prm.rho);
   const float t0 = static_cast<float>(4.0 / (prm.dt * prm.dt));
   const float visc2 = static_cast<float>(3.0 * (prm.mu / prm.rho) * (prm.mu / prm.rho));
@@ -240,6 +258,8 @@ __device__ __forceinline__ void lhs_body_to(const LhsInputs& x, const RowsLhsPar
   for (int a = 0; a < 4; ++a) {
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
+      int slot = 0;  // a staged layout's row, loaded early: its latency hides behind the pair
+      if constexpr (kStagedOut) slot = Out::slot(pos, a * 4 + b, M);
       float tmp = f1rho * static_cast<float>(mass(a, b));
       float jphi = 0.f, jt = 0.f;  // implicit mode only
 #pragma unroll
@@ -258,7 +278,12 @@ __device__ __forceinline__ void lhs_body_to(const LhsInputs& x, const RowsLhsPar
       }
       const float e_k = x.sh[0][a] * x.sh[0][b] + x.sh[1][a] * x.sh[1][b] + x.sh[2][a] * x.sh[2][b];
       tmp += f2mu * e_k;
-      float* op = o + Out::pair(a * 4 + b, M);
+      float row[kComp];  // a staged layout's row
+      float* op;
+      if constexpr (kStagedOut)
+        op = row;
+      else
+        op = o + Out::pair(a * 4 + b, M);
 #pragma unroll
       for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -289,6 +314,7 @@ __device__ __forceinline__ void lhs_body_to(const LhsInputs& x, const RowsLhsPar
         if (Out::wants(16)) op[Out::comp(16, M)] = a == b ? ident : 0.f;
         if (Out::wants(17)) op[Out::comp(17, M)] = a == b ? ident : 0.f;
       }
+      if constexpr (kStagedOut) Out::store(row, slot, o, o2);
     }
   }
 }
@@ -309,5 +335,84 @@ __device__ __forceinline__ void lhs_body(const LhsInputs& x, const RowsLhsParams
                                          float* __restrict__ o, size_t M) {
   lhs_body_to<kImplicit, kComp, Columns<kComp>>(x, prm, o, M);
 }
+
+// The column of K9's staging row that takes vel/p component k < 16: the
+// WinELL row order (sparse/winell.py COMP2WIN; fem/element_kernels.py's
+// JAC_COMPS is its inverse): uu[i][j] -> 4j + i, up[i] -> 12 + i,
+// pu[j] -> 4j + 3, pp -> 15.
+__host__ __device__ constexpr int stage_col(int k) {
+  return k < 9 ? 4 * (k % 3) + k / 3 : k < 12 ? k + 3 : k < 15 ? 4 * (k - 12) + 3 : 15;
+}
+
+constexpr int kStagedThreads = 128;  // the staged kernels' block: 4 warps
+
+// st.global.v4.f32 of v to dst where p holds, as one predicated instruction:
+// a branch around the store would split the body's basic block, and the
+// compiler fuses multiplies and adds into FMAs only within a block, so the
+// staged rows would round differently from the column kernel's.
+__device__ __forceinline__ void store4_if(bool p, float4* dst, float4 v) {
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %0, 0;\n\t"
+      "@q st.global.v4.f32 [%1], {%2, %3, %4, %5};\n\t}"
+      :: "r"(static_cast<int>(p)), "l"(dst), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+      : "memory");
+}
+
+// K9's staging rows (csrc/seg_reduce.cu's segment sum reads them): pair ab
+// of the thread's element goes whole to row slot = pos[ab * M] of the
+// (K, 16) buffer `o`, its 16 vel/p components in the WinELL row order
+// (stage_col); in the implicit mode the phi/T tangents 16/17 go to row slot
+// of the (K, 8) buffer `o2`, zero-padded to one 32-byte sector. A slot of
+// -1 (a contribution the plan leaves out) stores nothing; its address is
+// row 0's, never written through. The warp's 32 rows go through shared
+// memory, and consecutive lanes store consecutive 16-byte quads of a row:
+// 8 whole rows (16 sectors) a store instruction, as K9's staging pass does;
+// the tangent rows go 16 a store instruction, two lanes a row. What a store
+// instruction writes is whole sectors: four float4 stores a thread, each
+// half a sector of a row of its own, took 2.3x as long (1.415 against 0.605
+// ms for K6 at 1.18M tets), and one float4 of tangents a thread into a
+// (K, 4) buffer added 0.70 ms to the implicit K6, whole sectors 0.43
+// (NVIDIA H100 80GB HBM3, 700 W). Every lane of the warp must call it: the
+// kernels have no early exit.
+template <bool kImplicit>
+struct Staged {
+  static constexpr bool kStaged = true;
+  __device__ static constexpr bool wants(int) { return true; }
+  __device__ static constexpr int comp(int k, size_t) { return k < 16 ? stage_col(k) : k; }
+  __device__ static __forceinline__ int slot(const int* __restrict__ pos, int ab, size_t M) {
+    return __ldg(pos + ab * M);
+  }
+  __device__ static __forceinline__ void store(const float* row, int slot,
+                                               float* __restrict__ o, float* __restrict__ o2) {
+    __shared__ float4 tile[kStagedThreads / 32][32][5];  // 5 quads a row: conflict-free writes
+    const int lane = threadIdx.x & 31;
+    float4(*t)[5] = tile[threadIdx.x >> 5];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      t[lane][q] = make_float4(row[4 * q], row[4 * q + 1], row[4 * q + 2], row[4 * q + 3]);
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // rows 8i..8i+7, a quad a lane
+      const int r = i * 8 + (lane >> 2), q = lane & 3;
+      const int s = __shfl_sync(0xffffffffu, slot, r);
+      store4_if(s >= 0, reinterpret_cast<float4*>(o) + static_cast<size_t>(max(s, 0)) * 4 + q,
+                t[r][q]);
+    }
+    __syncwarp();  // the tile is free for the next pair
+    if constexpr (kImplicit) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // rows 16i..16i+15: lane pair r stores row r's two quads
+        const int r = i * 16 + (lane >> 1), q = lane & 1;
+        const int s = __shfl_sync(0xffffffffu, slot, r);
+        const float jphi = __shfl_sync(0xffffffffu, row[16], r);
+        const float jt = __shfl_sync(0xffffffffu, row[17], r);
+        // selects a component at a time: a choice between two float4 values
+        // compiled to branches (32 in the implicit K6), and so to other FMAs
+        store4_if(s >= 0, reinterpret_cast<float4*>(o2) + static_cast<size_t>(max(s, 0)) * 2 + q,
+                  make_float4(q == 0 ? jphi : 0.f, q == 0 ? jt : 0.f, 0.f, 0.f));
+      }
+    }
+  }
+};
 
 }  // namespace dedflow

@@ -25,12 +25,19 @@
 // is never written to memory. Geometry and connectivity may be row-strided
 // views (ld = row stride in elements), so an element range of a larger
 // context runs without a copy.
-// What bounds it on an H100: the Jacobian as K6's, FP32 instruction
-// throughput and registers; its 1152 output bytes per element are written
-// once. The residual reads 44 gathered state values per element: a node's
-// components lie N apart, so each is its own 32-byte sector, served from L2
-// (the (6, N) states of 175,616 nodes are 4.2 MB each) when the node order
-// is not local.
+// What bounds it on an H100: the Jacobian's write, as K6's
+// (element_rows.cu): the column rows take 1.12 ms for 1,181,683 unordered
+// tets, whether in one launch or in up to 24. The solver runs the staged
+// entry (lhs_gather_staged_kernel): each pair's 16 vel/p components go as
+// one 64-byte row to its plan position in K9's staging buffer (the implicit
+// tangents to a (K, 8) one), whole sectors a store instruction: 0.71 ms on
+// the unordered mesh, bit-equal to the column rows, against a byte bound of
+// 0.41; the staging buffer's rows are where K9's segment sum reads them, so
+// neither the (288, ne) rows nor K9's staging pass exist on that path
+// (NVIDIA H100 80GB HBM3, 700 W). The residual reads 44 gathered state
+// values per element: a node's components lie N apart, so each is its own
+// 32-byte sector, served from L2 (the (6, N) states of 175,616 nodes are
+// 4.2 MB each) when the node order is not local.
 
 #include "element_body.cuh"
 
@@ -79,16 +86,13 @@ res_gather_kernel(const float* __restrict__ geom, long long geom_ld,  // (19, ld
   res_body(x, prm, out + e, static_cast<size_t>(m));
 }
 
+// Element e's Jacobian inputs: its geometry and metric rows, its nodes'
+// velocities gathered from the (>= 3, n) state.
 template <bool kImplicit>
-__global__ void __launch_bounds__(128)
-lhs_gather_kernel(const float* __restrict__ geom, long long geom_ld,  // (15, ld)
-                  const float* __restrict__ mgeom, long long mgeom_ld,  // (6, ld), implicit
-                  const int* __restrict__ ien, long long ien_ld,     // (4, ld)
-                  const float* __restrict__ w,                       // (>= 3, n)
-                  int n, int m, RowsLhsParams prm,
-                  float* __restrict__ out) {                         // (288, m)
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= m) return;
+__device__ __forceinline__ LhsInputs gather_lhs_inputs(
+    const float* __restrict__ geom, long long geom_ld, const float* __restrict__ mgeom,
+    long long mgeom_ld, const int* __restrict__ ien, long long ien_ld,
+    const float* __restrict__ w, int n, int e) {
   const size_t G = static_cast<size_t>(geom_ld);
   const size_t N = static_cast<size_t>(n);
   const float* g = geom + e;
@@ -115,7 +119,43 @@ lhs_gather_kernel(const float* __restrict__ geom, long long geom_ld,  // (15, ld
     x.m12 = mg[4 * MG];
     x.m22 = mg[5 * MG];
   }
+  return x;
+}
+
+template <bool kImplicit>
+__global__ void __launch_bounds__(128)
+lhs_gather_kernel(const float* __restrict__ geom, long long geom_ld,  // (15, ld)
+                  const float* __restrict__ mgeom, long long mgeom_ld,  // (6, ld), implicit
+                  const int* __restrict__ ien, long long ien_ld,     // (4, ld)
+                  const float* __restrict__ w,                       // (>= 3, n)
+                  int n, int m, RowsLhsParams prm,
+                  float* __restrict__ out) {                         // (288, m)
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= m) return;
+  const LhsInputs x =
+      gather_lhs_inputs<kImplicit>(geom, geom_ld, mgeom, mgeom_ld, ien, ien_ld, w, n, e);
   lhs_body<kImplicit>(x, prm, out + e, static_cast<size_t>(m));
+}
+
+// The staged Jacobian: element e's 16 pairs go straight to K9's staging
+// rows pos[ab * m + e] (element_body.cuh's Staged layout). A lane past the
+// last element recomputes the last one and stores its rows again, the same
+// values to the same rows: the warp's quad store needs every lane.
+template <bool kImplicit>
+__global__ void __launch_bounds__(kStagedThreads)
+lhs_gather_staged_kernel(const float* __restrict__ geom, long long geom_ld,    // (15, ld)
+                         const float* __restrict__ mgeom, long long mgeom_ld,  // (6, ld)
+                         const int* __restrict__ ien, long long ien_ld,        // (4, ld)
+                         const float* __restrict__ w,                          // (>= 3, n)
+                         const int* __restrict__ pos,  // (16, m) plan positions, -1: none
+                         int n, int m, RowsLhsParams prm,
+                         float* __restrict__ stage,    // (K, 16)
+                         float* __restrict__ tang) {   // (K, 8), implicit mode
+  const int c = min(static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x), m - 1);
+  const LhsInputs x =
+      gather_lhs_inputs<kImplicit>(geom, geom_ld, mgeom, mgeom_ld, ien, ien_ld, w, n, c);
+  lhs_body_to<kImplicit, kImplicit ? 18 : 16, Staged<kImplicit>>(
+      x, prm, stage, static_cast<size_t>(m), pos + c, tang);
 }
 
 }  // namespace dedflow
@@ -160,5 +200,38 @@ extern "C" int dedflow_lhs_gather(const void* geom, long long geom_ld, const voi
   else
     lhs_gather_kernel<false><<<grid, 128, 0, s>>>(g, geom_ld, mg, 0, ie, ien_ld, wp, n, m, prm,
                                                    o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 staged: the (K, 16) staging rows `stage` of a plan with element
+// positions `pos` (16, m), for elements [0, m) of the strided views; with
+// the metric rows `mgeom` (not null) also the implicit tangents' (K, 8)
+// rows `tang`.
+extern "C" int dedflow_lhs_gather_staged(const void* geom, long long geom_ld, const void* mgeom,
+                                         long long mgeom_ld, const void* ien, long long ien_ld,
+                                         const void* w, const void* pos, int n, int m,
+                                         double rho, double mu, double f1, double f2, double dt,
+                                         double cp, double kappa, void* stage, void* tang,
+                                         void* stream) {
+  using namespace dedflow;
+  if (m <= 0 || n <= 0 || geom_ld < m || ien_ld < m ||
+      (mgeom != nullptr && (mgeom_ld < m || tang == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowsLhsParams prm{rho, mu, f1, f2, dt, cp, kappa};
+  const dim3 grid((m + kStagedThreads - 1) / kStagedThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(geom);
+  const float* mg = static_cast<const float*>(mgeom);
+  const int* ie = static_cast<const int*>(ien);
+  const float* wp = static_cast<const float*>(w);
+  const int* p = static_cast<const int*>(pos);
+  float* st = static_cast<float*>(stage);
+  float* tg = static_cast<float*>(tang);
+  if (mg != nullptr)
+    lhs_gather_staged_kernel<true><<<grid, kStagedThreads, 0, s>>>(
+        g, geom_ld, mg, mgeom_ld, ie, ien_ld, wp, p, n, m, prm, st, tg);
+  else
+    lhs_gather_staged_kernel<false><<<grid, kStagedThreads, 0, s>>>(
+        g, geom_ld, mg, 0, ie, ien_ld, wp, p, n, m, prm, st, tg);
   return static_cast<int>(cudaGetLastError());
 }

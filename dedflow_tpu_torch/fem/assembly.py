@@ -47,7 +47,11 @@ from dedflow_tpu_torch.fem.weakform import ElemGeom
 from dedflow_tpu_torch.fem.win_assembly import identity_rows
 from dedflow_tpu_torch.mesh.mesh import Mesh
 from dedflow_tpu_torch.sparse.topology import Sparsity, build_sparsity, scatter_permutation
-from dedflow_tpu_torch.sparse.win_stream import ReducePlan, reduce_plan_from_sorted
+from dedflow_tpu_torch.sparse.win_stream import (
+    ReducePlan,
+    reduce_plan_from_sorted,
+    with_element_positions,
+)
 from dedflow_tpu_torch.sparse.winell import WinPlan, build_winell_plan
 from dedflow_tpu_torch.utils.dtypes import default_dtype, resolve_device
 
@@ -64,7 +68,7 @@ class ElementRange:
     lo: int
     hi: int
     res_plan: ReducePlan  # (e, a) -> node; source a*6*m + (e - lo), m = hi - lo
-    jac_plan: ReducePlan  # (e, ab) -> entry; source ab*18*m + (e - lo)
+    jac_plan: ReducePlan  # (e, ab) -> entry; source ab*18*m + (e - lo); with elem_pos
     res_tgt: torch.Tensor | None = None
     jac_tgt: torch.Tensor | None = None
 
@@ -123,6 +127,7 @@ def build_context(
         hi = min(lo + width, ne_real)  # pad elements contribute exact zeros: no plan entries
         res_plan, res_tgt = _range_plan(*node_plan, 4, 6, lo, hi, width, n, chunk, device)
         jac_plan, jac_tgt = _range_plan(*mat_plan, 16, 18, lo, hi, width, win_plan.S, chunk, device)
+        jac_plan = with_element_positions(jac_plan, width, 16, 18)  # the staged K5's rows
         ranges.append(ElementRange(lo, lo + width, res_plan, jac_plan, res_tgt, jac_tgt))
     return FEMContext(
         res_geom=res_geom_rows(geom.shgrad, geom.det_j, geom.metric).contiguous(),

@@ -33,6 +33,16 @@ those on this tier in XLA (fem/ns.py:184-235), the port in K5.
 
 The `comp_major` output order is not ported: it is a TPU relayout, and
 the reduces read rows ab*18+c in place.
+
+The solver's Jacobian runs the staged entries instead, `lhs_rows_staged`
+(K6) and `ns_lhs_gather_staged` (K5): the same inputs, the same element
+body, but each element's 16 vel/p contributions go straight into K9's
+(K, 16) staging buffer at their plan positions (`ReducePlan.elem_pos`),
+in WinELL row order (`JAC_COMPS`), and in the implicit mode its phi/T
+tangents into a (K, 8) buffer (columns 0-1, zeros in 2-7); K9's segment
+sum alone (`sparse.win_ring.ring_reduce_staged`) then adds them up. The
+(288, ne) rows and K9's staging pass never exist. Their plain twins run
+the column body and place its rows with `stage_rows`.
 """
 
 from __future__ import annotations
@@ -41,7 +51,11 @@ import torch
 
 from dedflow_tpu_torch.config import Physics, TimeScheme
 from dedflow_tpu_torch.fem.element_rows import lhs_rows, res_rows
+from dedflow_tpu_torch.sparse.win_stream import ReducePlan
+from dedflow_tpu_torch.sparse.winell import WIN2COMP
 from dedflow_tpu_torch.utils import nvcc
+
+JAC_COMPS = tuple(int(c) for c in WIN2COMP[:16])  # WinELL row r <- element Jacobian comp
 
 
 def res_args(phys: Physics, scheme: TimeScheme) -> dict:
@@ -246,3 +260,137 @@ def ns_lhs_gather(lhs_geom, ien_t, w_t, phys: Physics, scheme: TimeScheme, metri
 
 
 ns_lhs_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6 staged: the element Jacobian straight into K9's staging rows
+
+
+def element_positions(plan: ReducePlan, m: int) -> torch.Tensor:
+    """(16 * m,) plan positions of the contributions (e, ab) of m elements
+    at ab*m + e, -1 where the plan has none: the plan's `elem_pos`.
+    Raises for a plan without it or built for another element count."""
+    pos = plan.elem_pos
+    if pos is None or pos.numel() != 16 * m:
+        raise ValueError(
+            f"staged element Jacobian: the plan has no element positions for {m} elements "
+            f"(elem_pos {None if pos is None else pos.numel()}, expected {16 * m}): build it "
+            "with sparse.win_stream.with_element_positions"
+        )
+    return pos
+
+
+def stage_rows(plan: ReducePlan, rows: torch.Tensor, scalar_implicit: bool = False):
+    """K9's staging rows of (288, m) element Jacobian rows ab*18+c: (K, 16),
+    row k the contribution at plan position k, its components JAC_COMPS
+    (WinELL row order); with `scalar_implicit` also (K, 8), the phi/T
+    tangents 16/17 in columns 0-1 and zeros (else None). The staged
+    kernels' placement, in torch."""
+    m = rows.shape[-1]
+    pos = element_positions(plan, m).long()
+    k = plan.src.numel()
+    blocks = rows.reshape(16, 18, m)
+    keep = pos >= 0
+    at = pos[keep]
+    stage = rows.new_empty((k, 16))
+    stage[at] = blocks[:, list(JAC_COMPS)].permute(0, 2, 1).reshape(16 * m, 16)[keep]
+    if not scalar_implicit:
+        return stage, None
+    tang = rows.new_zeros((k, 8))
+    tang[at, :2] = blocks[:, 16:18].permute(0, 2, 1).reshape(16 * m, 2)[keep]
+    return stage, tang
+
+
+def lhs_rows_staged_plain(inp, phys, scheme, plan: ReducePlan, scalar_implicit: bool = False):
+    """The staged K6's plain twin: `lhs_rows`, then `stage_rows`."""
+    rows = lhs_rows(inp, scalar_implicit=scalar_implicit, **lhs_args(phys, scheme))
+    return stage_rows(plan, rows, scalar_implicit)
+
+
+def ns_lhs_gather_staged_plain(lhs_geom, ien_t, w_t, phys, scheme, plan: ReducePlan,
+                               metric=None):
+    """The staged K5's plain twin: `ns_lhs_gather_plain`, then `stage_rows`."""
+    rows = ns_lhs_gather_plain(lhs_geom, ien_t, w_t, phys, scheme, metric)
+    return stage_rows(plan, rows, metric is not None)
+
+
+def _staged_buffers(k: int, implicit: bool, device):
+    """The staged kernels' outputs: (K, 16) and, implicit, (K, 8). Every row
+    is stored (the plan's positions are distinct and cover [0, K))."""
+    stage = torch.empty((k, 16), dtype=torch.float32, device=device)
+    tang = torch.empty((k, 8), dtype=torch.float32, device=device) if implicit else None
+    return stage, tang
+
+
+def lhs_rows_staged(inp: torch.Tensor, phys: Physics, scheme: TimeScheme, plan: ReducePlan,
+                    scalar_implicit: bool = False):
+    """K6 staged: (27, m) Jacobian inputs (33 with `scalar_implicit`) ->
+    K9's staging rows of `plan`, (K, 16) and the tangents' (K, 8) or None
+    (as `stage_rows` of `lhs_rows_call`'s rows). The CUDA kernel on a CUDA
+    tensor, the plain twin on a CPU tensor."""
+    m = inp.shape[-1]
+    pos = element_positions(plan, m)
+    if not inp.is_cuda:
+        return lhs_rows_staged_plain(inp, phys, scheme, plan, scalar_implicit)
+    if inp.dim() != 2:
+        raise ValueError(f"lhs_rows_staged kernel: input must be 2-D, got {tuple(inp.shape)}")
+    _check_input("lhs_rows_staged", inp, 33 if scalar_implicit else 27)
+    if pos.device != inp.device:
+        raise ValueError("lhs_rows_staged kernel: the plan lives on another device")
+    a = lhs_args(phys, scheme)
+    fn = nvcc.function(
+        "element_rows", "dedflow_lhs_rows_staged",
+        [nvcc.P, nvcc.P, nvcc.I] + [nvcc.D] * 7 + [nvcc.I, nvcc.P, nvcc.P, nvcc.P],
+    )
+    stage, tang = _staged_buffers(plan.src.numel(), scalar_implicit, inp.device)
+    nvcc.check(
+        fn(inp.data_ptr(), pos.data_ptr(), m, a["rho"], a["mu"], a["f1"], a["f2"], a["dt"],
+           a["cp"], a["kappa"], int(scalar_implicit), stage.data_ptr(),
+           None if tang is None else tang.data_ptr(),
+           torch.cuda.current_stream(inp.device).cuda_stream),
+        "lhs_rows_staged",
+    )
+    lhs_rows_staged.launches += 1
+    return stage, tang
+
+
+lhs_rows_staged.launches = 0
+
+
+def ns_lhs_gather_staged(lhs_geom, ien_t, w_t, phys: Physics, scheme: TimeScheme,
+                         plan: ReducePlan, metric=None):
+    """K5 staged: the gathered element Jacobian of `ns_lhs_gather` (implicit
+    with `metric`) straight into K9's staging rows of `plan`: (K, 16) and
+    the tangents' (K, 8) or None. The CUDA kernel on CUDA tensors, the
+    plain twin on CPU tensors."""
+    pos = element_positions(plan, ien_t.shape[-1])
+    if not w_t.is_cuda:
+        return ns_lhs_gather_staged_plain(lhs_geom, ien_t, w_t, phys, scheme, plan, metric)
+    if w_t.shape[0] < 3:
+        raise ValueError("lhs_gather_staged kernel: the state needs its 3 velocity rows")
+    n, ne = _check_gather("lhs_gather_staged", lhs_geom, 15, ien_t, (w_t,))
+    if metric is not None:
+        _check_gather("lhs_gather_staged", metric, 6, ien_t, (w_t,))
+    if pos.device != w_t.device:
+        raise ValueError("lhs_gather_staged kernel: the plan lives on another device")
+    a = lhs_args(phys, scheme)
+    fn = nvcc.function(
+        "gather_elements", "dedflow_lhs_gather_staged",
+        [nvcc.P, nvcc.LL, nvcc.P, nvcc.LL, nvcc.P, nvcc.LL, nvcc.P, nvcc.P, nvcc.I, nvcc.I]
+        + [nvcc.D] * 7 + [nvcc.P, nvcc.P, nvcc.P],
+    )
+    stage, tang = _staged_buffers(plan.src.numel(), metric is not None, w_t.device)
+    nvcc.check(
+        fn(lhs_geom.data_ptr(), lhs_geom.stride(0),
+           None if metric is None else metric.data_ptr(), 0 if metric is None else metric.stride(0),
+           ien_t.data_ptr(), ien_t.stride(0), w_t.data_ptr(), pos.data_ptr(), n, ne, a["rho"],
+           a["mu"], a["f1"], a["f2"], a["dt"], a["cp"], a["kappa"], stage.data_ptr(),
+           None if tang is None else tang.data_ptr(),
+           torch.cuda.current_stream(w_t.device).cuda_stream),
+        "lhs_gather_staged",
+    )
+    ns_lhs_gather_staged.launches += 1
+    return stage, tang
+
+
+ns_lhs_gather_staged.launches = 0

@@ -6,18 +6,22 @@ dedflow_tpu/fem/ns.py::assemble_residual / assemble_jacobian).
                K8 `stream_reduce` over the residual plan into (6, N);
                the nodal momentum load, the facet terms, the frozen phi/T
                rows (main.c:64) and the mask.
-  jacobian J:  K5 `ns_lhs_gather` -> (288, m) rows ab*18+c -> K9
-               `ring_reduce` over the matrix plan into the CSR entries of
-               a WinELLMatrixT (K7 is its SpMV); the static phi/T
+  jacobian J:  K5 staged, `ns_lhs_gather_staged`: each element's 16
+               contributions straight into K9's (K, 16) staging rows at
+               their positions in the matrix plan -> K9's segment sum
+               `ring_reduce_staged` into the CSR entries of a
+               WinELLMatrixT (K7 is its SpMV); the static phi/T
                identities, the facet blocks and the mask. With
                scalar_implicit (melt-pool runs) K5 reads the 6 metric rows
-               of the residual geometry and emits the phi/T transport
-               tangents, which a second 2-row K9 pass reduces; the JAX
-               package computes this Jacobian in XLA (ns.py:184-235).
+               of the residual geometry and also stores the phi/T
+               transport tangents into a (K, 8) staging buffer, which a
+               second segment sum adds up; the JAX package computes this
+               Jacobian in XLA (ns.py:184-235).
 
 On the CPU the element pass is the weak form (fem.weakform) under
-elements_kernel="xla" and the K4/K5 plain twins under "pallas"; on CUDA
-both run K4/K5. States are (N, 6) as in the JAX package; the residual is
+elements_kernel="xla" (its Jacobian rows placed in the staging rows by
+`stage_rows`) and the K4/K5 plain twins under "pallas"; on CUDA both run
+K4/K5. States are (N, 6) as in the JAX package; the residual is
 the port's component-major (6, N). With an assembly chunk the context's
 element ranges run in turn through the same kernels and the same reduce,
 each adding its sums into the nodes and entries it touches
@@ -32,7 +36,11 @@ import torch
 from dedflow_tpu_torch.config import Physics, TimeScheme
 from dedflow_tpu_torch.fem import weakform
 from dedflow_tpu_torch.fem.assembly import FEMContext, elem_geom
-from dedflow_tpu_torch.fem.element_kernels import ns_lhs_gather, ns_residual_gather
+from dedflow_tpu_torch.fem.element_kernels import (
+    ns_lhs_gather_staged,
+    ns_residual_gather,
+    stage_rows,
+)
 from dedflow_tpu_torch.fem.face import face_residual_elements, face_residual_scatter
 from dedflow_tpu_torch.fem.win_assembly import add_face_entries, reduce_entries
 from dedflow_tpu_torch.sparse.win_stream import stream_reduce
@@ -94,10 +102,12 @@ def jacobian_entries(ctx: FEMContext, w_alpha, phys: Physics, scheme: TimeScheme
             upd = weakform.ns_lhs_packed(elem_geom(ctx, rng.lo, rng.hi), ef, phys, scheme,
                                          scalar_implicit)
             rows = upd.reshape(m, 288).T.contiguous()
+            staged = stage_rows(rng.jac_plan, rows, scalar_implicit)
         else:
             metric = ctx.res_geom[13:19, rng.lo : rng.hi] if scalar_implicit else None
-            rows = ns_lhs_gather(ctx.lhs_geom[:, rng.lo : rng.hi], ien_t, w_t, phys, scheme, metric)
-        part = reduce_entries(rng.jac_plan, rows, m, scalar_implicit)
+            staged = ns_lhs_gather_staged(ctx.lhs_geom[:, rng.lo : rng.hi], ien_t, w_t, phys,
+                                          scheme, rng.jac_plan, metric)
+        part = reduce_entries(rng.jac_plan, *staged)
         ent = _range_sum(ent, rng.jac_tgt, part, ctx.win_plan.S)
     return ent
 

@@ -14,7 +14,12 @@ reduce reads the element kernel's output where it lies.
 The plan also keeps the kernel's staging order: `stage_src`, the source
 offsets sorted ascending, and `stage_pos`, the plan position of each
 (src[stage_pos[i]] == stage_src[i]), made by a stable sort on the plan's
-device.
+device. A plan over an element kernel's output rows, whose source of
+contribution (e, j) is j*rows*m + e, also keeps `elem_pos`
+(`with_element_positions`): the plan position of (e, j) at j*m + e, where
+the staged element kernels store that contribution's rows. With every
+contribution present it is `stage_pos` itself, the sorted sources being
+the element order.
 
 `stream_reduce` is the K8 wrapper: on a CUDA tensor it launches the
 hand-written kernels of csrc/seg_reduce.cu (C <= 8), which replace the
@@ -32,6 +37,7 @@ the solver's "auto" tier gate reads (solver/newton.py).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,6 +57,9 @@ class ReducePlan:
     src: torch.Tensor  # (K,) int32, grouped by target, in summation order
     stage_src: torch.Tensor  # (K,) int32, src sorted ascending: the staging pass's read order
     stage_pos: torch.Tensor  # (K,) int32, the plan position of each: src[stage_pos] == stage_src
+    # (slots * m,) int32: the plan position of element contribution (e, j)
+    # at j*m + e, -1 where the plan has none; None: not an element plan
+    elem_pos: torch.Tensor | None = None
 
 
 def build_reduce_plan(tgt, src, num_tgt: int, device="cuda") -> ReducePlan:
@@ -92,6 +101,25 @@ def reduce_plan_from_sorted(tgt, src, num_tgt: int, device="cuda") -> ReducePlan
         stage_src=stage_src,
         stage_pos=stage_pos.to(torch.int32),
     )
+
+
+def with_element_positions(plan: ReducePlan, m: int, slots: int, rows: int) -> ReducePlan:
+    """The plan with `elem_pos`, for sources j*rows*m + e (slot j < slots,
+    element e < m: row j*rows + c, column e, of (slots*rows, m) element
+    rows). Contributions the plan leaves out (an assembly chunk's pad
+    elements) get -1. Raises if a source is not of that form or repeats."""
+    s = plan.stage_src.long()
+    j, e = s // (rows * m), s % (rows * m)
+    if s.numel() and (bool((e >= m).any()) or int(j.max()) >= slots
+                      or not bool((torch.diff(s) > 0).all())):
+        raise ValueError(f"reduce plan: sources are not distinct j*{rows}*m + e with j < "
+                         f"{slots}, e < m = {m}")
+    if s.numel() == slots * m:  # every (e, j) once: the sorted sources are the element order
+        pos = plan.stage_pos
+    else:
+        pos = torch.full((slots * m,), -1, dtype=torch.int32, device=s.device)
+        pos[j * m + e] = plan.stage_pos
+    return dataclasses.replace(plan, elem_pos=pos)
 
 
 def source_layout(x: torch.Tensor, comps, cstride):

@@ -20,7 +20,12 @@ size. Every kernel is also run twice: the two results are bit-identical
 (no atomics). The segmented reduces K8/K9 also equal, bit for bit, each
 target's contributions added one by one in plan order, the order of
 their segment sum, and the contact sweep K11 equals its plain twin bit
-for bit on clouds at bench.py's density.
+for bit on clouds at bench.py's density. The staged K6 / K5 (the
+solvers' Jacobian: each element's rows straight into K9's staging rows)
+match their plain twins per block and equal the column kernels' rows
+placed at the plan positions bit for bit (also on a chunked gather
+context whose last range leaves pad elements out), and K9's segment sum
+alone over them equals K9 over the column rows bit for bit.
 """
 
 import dataclasses
@@ -53,7 +58,13 @@ from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec, dia_matvec_plain
 from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
 from dedflow_tpu_torch.sparse.win_gather import JAC_ROWMAP, RES_ROWMAP, win_gather, win_gather_plain
 from dedflow_tpu_torch.sparse.win_kernels import winell_matvec, winell_matvec_plain
-from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_plain
+from dedflow_tpu_torch.fem.assembly import build_context
+from dedflow_tpu_torch.sparse.win_ring import (
+    ring_reduce,
+    ring_reduce_plain,
+    ring_reduce_staged,
+    ring_reduce_staged_plain,
+)
 from dedflow_tpu_torch.sparse.win_stream import (
     build_reduce_plan,
     stream_reduce,
@@ -387,6 +398,74 @@ def test_k8_k9_reduces_match_plain(irregular):
     for r in range(2):  # each tangent against its own scale
         assert rel(got[r], ref[r]) < 1e-5
     assert torch.equal(got, _plan_order_sum(ctx.jac_plan, out288, (16, 17), ne))
+
+
+def _pack(staged):
+    """The staged kernels' (K, 16) rows and, implicit, (K, 8) tangents as one tensor."""
+    stage, tang = staged
+    return stage if tang is None else torch.cat([stage, tang], 1)
+
+
+def _check_staged(kernel, counter, plain, column_rows, plan, m, implicit):
+    """A staged element kernel: two runs bit-identical, each vel/p block
+    (WinELL columns) and tangent within 2e-5 of the plain twin, equal to
+    the column kernel's rows at the plan positions bit for bit; then K9's
+    segment sum alone over its rows equal to K9 over the column rows bit
+    for bit, and to its own twin within 1e-5."""
+    got = _twice(lambda: _pack(kernel()), counter)
+    ref = _pack(plain())
+    for block, fs in VP_BLOCKS.items():
+        cols = [int(COMP2WIN[c]) for c in fs]
+        assert rel(got[:, cols], ref[:, cols]) < 2e-5, block
+    if implicit:
+        for c in (16, 17):
+            assert rel(got[:, c], ref[:, c]) < 2e-5, c
+        assert not bool(got[:, 18:].any())
+    assert torch.equal(got, _pack(ek.stage_rows(plan, column_rows, implicit)))
+    stage, tang = kernel()
+    sums = _twice(lambda: ring_reduce_staged(plan, stage, 16), ring_reduce_staged)
+    assert torch.equal(sums, ring_reduce(plan, column_rows, wa_.JAC_COMPS, m))
+    assert rel(sums, ring_reduce_staged_plain(plan, stage, 16)) < 1e-5
+    if implicit:
+        tsums = ring_reduce_staged(plan, tang, 2)
+        assert torch.equal(tsums, ring_reduce(plan, column_rows, (16, 17), m))
+
+
+@pytest.mark.parametrize("implicit", [False, True], ids=["frozen", "implicit"])
+def test_k6_staged_matches_plain_and_the_column_rows(irregular, implicit):
+    solver, _, wa, _ = irregular
+    phys, scheme, ctx = solver.cfg.physics, solver.cfg.time, solver.wctx
+    inp = wa_.jacobian_inputs(ctx, wa, implicit)
+    plan = ctx.jac_plan
+    _check_staged(lambda: ek.lhs_rows_staged(inp, phys, scheme, plan, implicit),
+                  ek.lhs_rows_staged,
+                  lambda: ek.lhs_rows_staged_plain(inp, phys, scheme, plan, implicit),
+                  ek.lhs_rows_call(inp, phys, scheme, scalar_implicit=implicit), plan,
+                  ctx.num_elem, implicit)
+    with pytest.raises(ValueError, match="element positions"):
+        ek.lhs_rows_staged(inp[:, :-1].contiguous(), phys, scheme, plan, implicit)
+
+
+@pytest.mark.parametrize("chunk", [None, 1000], ids=["whole", "chunk1000"])
+@pytest.mark.parametrize("implicit", [False, True], ids=["frozen", "implicit"])
+def test_k5_staged_matches_plain_and_the_column_rows(gather, implicit, chunk):
+    """On the gather tier's context, whole and in chunks of 1000 elements
+    (the last range's pad elements have no plan entries: -1 positions)."""
+    solver, w_t, _ = gather
+    phys, scheme = solver.cfg.physics, solver.cfg.time
+    ctx = solver.gctx if chunk is None else build_context(solver.mesh, device="cuda",
+                                                          chunk=chunk)
+    assert chunk is None or bool((ctx.ranges[-1].jac_plan.elem_pos < 0).any())
+    for rng in ctx.ranges:
+        m = rng.hi - rng.lo
+        geom, ien_t = ctx.lhs_geom[:, rng.lo : rng.hi], ctx.ien_t[:, rng.lo : rng.hi]
+        met = ctx.res_geom[13:19, rng.lo : rng.hi] if implicit else None
+        _check_staged(
+            lambda: ek.ns_lhs_gather_staged(geom, ien_t, w_t, phys, scheme, rng.jac_plan, met),
+            ek.ns_lhs_gather_staged,
+            lambda: ek.ns_lhs_gather_staged_plain(geom, ien_t, w_t, phys, scheme, rng.jac_plan,
+                                                  met),
+            ek.ns_lhs_gather(geom, ien_t, w_t, phys, scheme, met), rng.jac_plan, m, implicit)
 
 
 def test_k8_k9_reduces_on_the_gather_plans(gather):

@@ -301,6 +301,39 @@ def _k5_implicit():
                             metric=torch.zeros((6, 8)))
 
 
+def _staged_plan(m):
+    """A Jacobian plan of m elements with its element positions, every
+    (e, ab) onto its own target."""
+    src = [ab * 18 * m + e for ab in range(16) for e in range(m)]
+    plan = win_stream.build_reduce_plan(list(range(16 * m)), src, 16 * m, device="cpu")
+    return win_stream.with_element_positions(plan, m, 16, 18)
+
+
+def _k6_staged():
+    return ek.lhs_rows_staged(torch.zeros((27, 8)), *_phys_scheme(), _staged_plan(8))
+
+
+def _k6_staged_implicit():
+    return ek.lhs_rows_staged(torch.zeros((33, 8)), *_phys_scheme(), _staged_plan(8),
+                              scalar_implicit=True)
+
+
+def _k5_staged():
+    ien = torch.zeros((4, 8), dtype=torch.int32)
+    return ek.ns_lhs_gather_staged(torch.zeros((15, 8)), ien, torch.zeros((6, 3)),
+                                   *_phys_scheme(), _staged_plan(8))
+
+
+def _k5_staged_implicit():
+    ien = torch.zeros((4, 8), dtype=torch.int32)
+    return ek.ns_lhs_gather_staged(torch.zeros((15, 8)), ien, torch.zeros((6, 3)),
+                                   *_phys_scheme(), _staged_plan(8), metric=torch.zeros((6, 8)))
+
+
+def _k9_segment_sum():
+    return win_ring.ring_reduce_staged(_staged_plan(2), torch.zeros((32, 16)), 16)
+
+
 def _k10():
     ien = torch.zeros((4, 8), dtype=torch.int32)
     return win_gather.win_gather(ien, torch.zeros((3, 5)), win_gather.JAC_ROWMAP, 12)
@@ -354,10 +387,17 @@ def _k13(idiom):
         (_k12_reduce, (tgm, "segment_reduce_plain")),
         (_k13("global"), (tgp, "element_gather_plain")),
         (_k13("staged"), (tgp, "element_gather_plain")),
+        (_k6_staged, (ek, "lhs_rows_staged_plain")),
+        (_k6_staged_implicit, (ek, "lhs_rows_staged_plain")),
+        (_k5_staged, (ek, "ns_lhs_gather_staged_plain")),
+        (_k5_staged_implicit, (ek, "ns_lhs_gather_staged_plain")),
+        (_k9_segment_sum, (win_ring, "ring_reduce_staged_plain")),
     ],
     ids=["K6-res", "K6-lhs", "K7", "K8", "K9", "K11", "K4", "K5", "K10", "K1-source",
          "K2-implicit", "K6-lhs-implicit", "K5-implicit", "K12-copy", "K12-lane-smem",
-         "K12-lane-shuffle", "K12-window", "K12-reduce", "K13-global", "K13-staged"],
+         "K12-lane-shuffle", "K12-window", "K12-reduce", "K13-global", "K13-staged",
+         "K6-staged", "K6-staged-implicit", "K5-staged", "K5-staged-implicit",
+         "K9-segment-sum"],
 )
 def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     monkeypatch, tmp_path, call, plain
@@ -382,8 +422,11 @@ def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     [(_k4, (ek, "ns_residual_gather")), (_k5, (ek, "ns_lhs_gather")),
      (_k10, (win_gather, "win_gather")), (_k12_copy, (tgm, "copy2")),
      (_k12_lane("shuffle"), (tgm, "lane_gather")), (_k12_window, (tgm, "window_gather")),
-     (_k12_reduce, (tgm, "segment_reduce")), (_k13("staged"), (tgp, "element_gather"))],
-    ids=["K4", "K5", "K10", "K12-copy", "K12-lane", "K12-window", "K12-reduce", "K13"],
+     (_k12_reduce, (tgm, "segment_reduce")), (_k13("staged"), (tgp, "element_gather")),
+     (_k6_staged, (ek, "lhs_rows_staged")), (_k5_staged, (ek, "ns_lhs_gather_staged")),
+     (_k9_segment_sum, (win_ring, "ring_reduce_staged"))],
+    ids=["K4", "K5", "K10", "K12-copy", "K12-lane", "K12-window", "K12-reduce", "K13",
+         "K6-staged", "K5-staged", "K9-segment-sum"],
 )
 def test_cpu_tensors_count_no_launch(call, counter):
     """On CPU tensors the wrappers run their plain twins and count nothing."""
