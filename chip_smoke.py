@@ -7,12 +7,14 @@ Phases, one line each; the script exits non-zero at the first failure:
   1 card    nvidia-smi name and power limit, torch / CUDA versions
   2 build   nvcc builds the eleven kernel libraries from csrc/ (the
             solver's nine, the probes' two) in parallel (seconds, ptxas lines;
-            the fused K2's and K11's registers and shared memory)
+            the fused K1's and K2's and K11's registers and shared memory)
   lattice tier (box meshes):
   3 kernels at box_mesh(55, 55, 55) (998,250 tets), float32 on the card,
-            K1-K3 each against its plain torch version on the same inputs,
-            with times (CUDA events, after warm-up), K2 also unmasked (K2');
-            then F, J, SpMV and GMRES(120) times of the assembled system
+            K1-K3 each against its plain torch version on the same inputs
+            (K1 and K2 one fused pass each, with their registers and shared
+            memory), with times (CUDA events, after warm-up), K2 also
+            unmasked (K2'); then F, J, SpMV and GMRES(120) times of the
+            assembled system
   4 slice   one step_fixed(num_newton=2) at box_mesh(12, 12, 12): the card
             (float32, kernels) against the CPU (float64, plain versions)
   5 main    NSSolver(box_mesh(55, 55, 55), reference_scenario_config(),
@@ -54,7 +56,12 @@ Phases, one line each; the script exits non-zero at the first failure:
             K8 and K9 on the gather tier's plans (unordered sources)
             against their plain versions; the staged K5 (frozen and
             implicit) and K9's segment sum on the gather plan as in phase
-            6; times, bounds, the gather tier's F, J, SpMV and GMRES(120)
+            6; the staged K4 (the solver's residual: each pair's 6 rows
+            straight into K8's staging rows, from node-major states)
+            against its plain twin and against the column K4's rows at the
+            plan positions bit for bit, and K8's segment sum alone on those
+            rows (equal to K8 over the column rows bit for bit); times,
+            bounds, the gather tier's F, J, SpMV and GMRES(120)
  13 slice   box 12 on use_lattice="gather" with the reference BCs and the
             Nitsche wall: one step_fixed(num_newton=2), card float32 against
             CPU float64
@@ -62,9 +69,9 @@ Phases, one line each; the script exits non-zero at the first failure:
             bcs=(), pin_pressure=True, scatter_method="tiered",
             elements_kernel="pallas"), device="cuda") on fastpath "gather"
             (the "auto" ladder's floor) .step twice, with the launch counts of
-            K4, the staged K5, K7, K8 and K9's segment sum (none of the column
-            K5 or of K9's staging pass), and the device's busy share over one
-            Newton iteration (torch.profiler)
+            the staged K4, the staged K5, K7 and K8's and K9's segment sums
+            (none of the column K4 / K5 or of K8's / K9's staging pass), and
+            the device's busy share over one Newton iteration (torch.profiler)
   moving-laser melt pool (BASELINE config #3: implicit phi/T tangents and a
   heat source):
  15 kernels at box_mesh(44, 44, 44) (511,104 tets), melt_pool_scenario_config():
@@ -77,7 +84,8 @@ Phases, one line each; the script exits non-zero at the first failure:
             (use_lattice="winell") and on use_lattice="gather": one
             step_fixed(num_newton=2, source=the laser) each, card float32
             against CPU float64, with each tier's launch counts (the WinELL
-            and gather tiers through the staged K6 / K5 and K9's segment sum)
+            and gather tiers through the staged K6 / K5 and K9's segment sum,
+            the gather tier's residual through the staged K4 and K8's)
  17 main    NSSolver(box_mesh(44, 44, 44), melt_pool_scenario_config(),
             device="cuda"): two adaptive steps with the laser source, then
             three step_fixed(2) (tools/melt_bench.py's run), with s/step,
@@ -240,6 +248,17 @@ STAGED_KERNELS = (
      "dedflow_tpu_torch/csrc/gather_elements.cu", "dedflow_tpu/fem/pallas_kernels.py:507"),
     ("K9 segment sum (gather plan)", "dedflow_tpu_torch/csrc/seg_reduce.cu",
      "dedflow_tpu/sparse/win_ring.py:356"),
+)
+# The gather tier's residual path: the staged K4 stores each
+# (element, vertex) pair's 6 components straight into K8's (K, 8) staging
+# rows at their plan positions, and K8's segment sum alone adds them up. The
+# column K4 and K8 with its staging pass (GATHER_KERNELS) run on no path of
+# that tier: their launches on its main path are 0.
+RESIDUAL_STAGED_KERNELS = (
+    ("K4 gathered element residual staged", "dedflow_tpu_torch/csrc/gather_elements.cu",
+     "dedflow_tpu/fem/pallas_kernels.py:434"),
+    ("K8 segment sum (gather residual plan)", "dedflow_tpu_torch/csrc/seg_reduce.cu",
+     "dedflow_tpu/sparse/win_stream.py:251"),
 )
 IRREGULAR_KERNELS = (
     ("K6 element rows (residual)", "dedflow_tpu_torch/csrc/element_rows.cu",
@@ -468,29 +487,38 @@ def staged_record(label: str, plan, kern, plain, column, implicit: bool, tol: fl
     return rec, kern()
 
 
-def segment_sum_record(label: str, plan, stage, ring_out, reps: int) -> dict:
-    """K9's segment sum alone over the (K, 16) staging rows `stage`: against
-    its plain twin per vel/p block, equal bit for bit to `ring_out` (K9 with
-    its staging pass over the column rows of the same values), timed
-    against the plain twin and an index_add of the rows."""
+def segment_sum_record(label: str, plan, stage, ring_out, reps: int,
+                       residual: bool = False) -> dict:
+    """The segment sum alone over the staging rows `stage`: K9's over (K, 16)
+    rows (per vel/p block, TOL_K9), or with `residual` K8's over the (K, 8)
+    residual rows (6 rows, per equation, TOL_K8). Against its plain twin,
+    equal bit for bit to `ring_out` (K9 / K8 with its staging pass over the
+    column rows of the same values), timed against the plain twin and an
+    index_add of the rows."""
     import torch
 
     from dedflow_tpu_torch.sparse.win_ring import ring_reduce_staged, ring_reduce_staged_plain
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce_staged, stream_reduce_staged_plain
     from dedflow_tpu_torch.tools.timing import nbytes
 
-    kern = lambda: ring_reduce_staged(plan, stage, 16)
-    plain = lambda: ring_reduce_staged_plain(plan, stage, 16)
-    err = compare(label, kern, plain, TOL_K9, parts=reduce_parts()[1])
+    rows, (kfn, pfn), tol, parts = (
+        (6, (stream_reduce_staged, stream_reduce_staged_plain), TOL_K8, reduce_parts()[0])
+        if residual else
+        (16, (ring_reduce_staged, ring_reduce_staged_plain), TOL_K9, reduce_parts()[1]))
+    kern = lambda: kfn(plan, stage, rows)
+    plain = lambda: pfn(plan, stage, rows)
+    err = compare(label, kern, plain, tol, parts=parts)
     same = torch.equal(kern(), ring_out)
-    say(f"  {label} == K9 with its staging pass over the column rows, bit for bit: {same}")
+    what = "K8" if residual else "K9"
+    say(f"  {label} == {what} with its staging pass over the column rows, bit for bit: {same}")
     if not same:
-        raise PhaseError(f"{label}: not equal to K9 over the column rows")
+        raise PhaseError(f"{label}: not equal to {what} over the column rows")
     tgt = torch.repeat_interleave(torch.diff(plan.ptr.long()))
-    zeros = torch.zeros((plan.num_tgt, 16), dtype=stage.dtype, device=stage.device)
-    out = torch.empty((16, plan.num_tgt), dtype=torch.float32)
+    zeros = torch.zeros((plan.num_tgt, stage.shape[1]), dtype=stage.dtype, device=stage.device)
+    out = torch.empty((rows, plan.num_tgt), dtype=torch.float32)
     return finish(label, {"max_abs_err": err}, kern, plain, reps, 3,
                   nbytes(plan.ptr, stage, out), op_count(plain),
-                  library=(lambda: torch.index_add(zeros, 0, tgt, stage).T, kern()))
+                  library=(lambda: torch.index_add(zeros, 0, tgt, stage).T[:rows], kern()))
 
 
 def perturbed_state(mesh, device, dtype):
@@ -527,12 +555,14 @@ def phase_build() -> None:
         say(f"  {lib.name}: {lib.build_seconds:.2f} s")
         for ln in lib.ptxas:
             say(f"    {ln}")
-    from dedflow_tpu_torch.fem.lattice import fused_kernel_layout
+    from dedflow_tpu_torch.fem.lattice import fused_kernel_layout, residual_kernel_layout
 
     # the fused K2 stages a round's slabs x 16 pairs x a component group on
     # the tile's halo cells in dynamic shared memory (as the kernel reports it)
     stage = {m: fused_kernel_layout(m)["stage_bytes"] for m in (False, True)}
     jac, dem = libs["lattice_jacobian"], libs["dem_contact"]
+    k1_regs = registers(libs["lattice_residual"], "residual_fused_kernel")
+    say(f"  K1 fused pass: registers {k1_regs}; tiling {residual_kernel_layout()}")
     say(f"  K2 fused pass: registers frozen {registers(jac, 'jacobian_fused_kernelILb0E')}, "
         f"implicit {registers(jac, 'jacobian_fused_kernelILb1E')}; dynamic shared memory "
         f"frozen {stage[False]} B, implicit {stage[True]} B")
@@ -578,6 +608,7 @@ def phase_kernels(solver) -> tuple[list, dict]:
     the relative error."""
     import torch
 
+    from dedflow_tpu_torch.fem import element_kernels as ek
     from dedflow_tpu_torch.fem import lattice as lat
     from dedflow_tpu_torch.fem.element_rows import alpha_states
     from dedflow_tpu_torch.solver.krylov import gmres
@@ -585,6 +616,7 @@ def phase_kernels(solver) -> tuple[list, dict]:
     from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec, dia_matvec_plain
     from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
     from dedflow_tpu_torch.tools.timing import nbytes, time_ms
+    from dedflow_tpu_torch.utils import nvcc
 
     phys, scheme = solver.cfg.physics, solver.cfg.time
     lctx, fctxs, mask_t = solver.lctx, solver.face_ctxs, solver.mask_t
@@ -596,6 +628,13 @@ def phase_kernels(solver) -> tuple[list, dict]:
     k1 = lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme)
     p1 = lambda: lat.residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme)
     err1 = compare("K1 F volume", k1, p1, TOL_K1)
+    same1 = torch.equal(k1(), lat._reduce_residual(lctx, ek.res_rows_call(
+        lat._residual_inputs(lctx, wa_t, dwa_t), phys, scheme)))
+    say(f"  K1 fused == K6's residual rows on the lattice inputs summed in the plain order "
+        f"(the two-pass kernel's result), bit for bit: {same1}; ptxas registers "
+        f"{registers(nvcc.load('lattice_residual')['lattice_residual'], 'residual_fused_kernel')}")
+    if not same1:
+        raise PhaseError("K1: the fused pass differs from the element rows summed in plain order")
 
     # K2 with the masked epilogue on the solver's own mask and facet band
     keep_pc = keep_pc_rows(mask_t, solver.dtype)
@@ -1267,14 +1306,16 @@ def gather_solver(raw):
     return solver, setup_s
 
 
-def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, dict, dict]:
+def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, list, dict, dict]:
     """Phase 12: K4 and K5 on the gather tier's context (K5 also in its
     implicit mode, the metric rows read in place from the residual
     geometry), K10 on phase 6's RCM mesh `rcm` and its WinELL connectivity
     `rcm_ien_t`, K8 and K9 on the gather tier's plans, each against its
     plain version; then the staged K5 (frozen, implicit) and K9's segment
-    sum on the gather plan. Returns the six kernel records (GATHER_KERNELS'
-    order), the three staged records, the gather tier's system timings and
+    sum on the gather plan, and the staged K4 and K8's segment sum on the
+    residual plan. Returns the six kernel records (GATHER_KERNELS' order),
+    the three staged Jacobian records, the two staged residual records
+    (RESIDUAL_STAGED_KERNELS' order), the gather tier's system timings and
     K5's implicit record."""
     import torch
 
@@ -1366,6 +1407,30 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, dict, dic
         del out
     staged.append(segment_sum_record(STAGED_KERNELS[5][0], plan, stage16, k9(), 20))
     del stage16
+    # the staged K4, the solver's residual (node-major states), and K8's
+    # segment sum on its rows
+    w, dw = wa.contiguous(), dwa.contiguous()
+    rplan = rng.res_plan
+    k4s = lambda: ek.ns_residual_gather_staged(ctx.res_geom, ctx.ien_t, w, dw, phys, scheme, rplan)
+    p4s = lambda: ek.ns_residual_gather_staged_plain(ctx.res_geom, ctx.ien_t, w, dw, phys, scheme,
+                                                     rplan)
+    label = RESIDUAL_STAGED_KERNELS[0][0]
+    e4s = compare(label, k4s, p4s, TOL_K4, parts={" [rows]": lambda t: t[:, :6],
+                                                  " [padding]": lambda t: t[:, 6:]})
+    stage8 = k4s()
+    same = torch.equal(stage8, ek.stage_residual_rows(rplan, rows24))
+    say(f"  {label} == the column K4's rows at the plan positions, bit for bit: {same}")
+    if not same:
+        raise PhaseError(f"{label}: the staged rows differ from the column kernel's")
+    k = rplan.src.numel()
+    # the function's output: 6 floats a contribution; the (K, 8) rows' 2 zeros
+    # are the layout's cost
+    res_staged = [finish(label, {"max_abs_err": e4s}, k4s, p4s, 20, 3,
+                         nbytes(ctx.res_geom, ctx.ien_t, w, dw, rplan.elem_pos) + 4 * 6 * k,
+                         op_count(p4s))]
+    res_staged.append(segment_sum_record(RESIDUAL_STAGED_KERNELS[1][0], rplan, stage8, k8(), 50,
+                                         residual=True))
+    del stage8
 
     names = [name for name, _, _ in GATHER_KERNELS]
     libs = nvcc.load(["gather_elements", "win_gather"])
@@ -1399,6 +1464,8 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, dict, dic
     regs[MELT_KERNELS[3][0]] = registers(libs["gather_elements"], "lhs_gather_kernelILb1E")
     regs[STAGED_KERNELS[3][0]] = registers(libs["gather_elements"], "lhs_gather_staged_kernelILb0E")
     regs[STAGED_KERNELS[4][0]] = registers(libs["gather_elements"], "lhs_gather_staged_kernelILb1E")
+    regs[RESIDUAL_STAGED_KERNELS[0][0]] = registers(libs["gather_elements"],
+                                                    "res_gather_staged_kernelILb1E")
     for name in regs:
         say(f"  {name}: ptxas registers {regs[name]}")
 
@@ -1420,7 +1487,7 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, dict, dic
     times = {"F_ms": f_ms, "J_ms": j_ms, "SpMV_ms": spmv_ms,
              "GMRES120_s": time.perf_counter() - t0, "GMRES120_iters": sol.iters,
              "matrix_entries": ctx.win_plan.S}
-    return results, staged, times, implicit5
+    return results, staged, res_staged, times, implicit5
 
 
 def phase_gather_slice() -> None:
@@ -1453,28 +1520,33 @@ def phase_gather_slice() -> None:
 
 
 def phase_gather_main(gsolver) -> dict:
-    """Phase 14: the gather tier's main path (drive_main: the staged K5 and
-    K9's segment sum, never the column K5 or K9's staging pass), then the
-    busy share of the device over one Newton iteration. Returns launches in
-    the order K4, K5, K7, K8, K9 (the column K5 and K9 with its staging
-    pass: 0) and `staged`, those of the staged K5 and K9's segment sum."""
+    """Phase 14: the gather tier's main path (drive_main: the staged K4 and
+    K8's segment sum, the staged K5 and K9's segment sum, never the column
+    K4 / K5 or K8's / K9's staging pass), then the busy share of the device
+    over one Newton iteration. Returns launches in the order K4, K5, K7,
+    K8, K9 (the column K4 / K5 and K8 / K9 with their staging pass: 0),
+    `staged`, those of the staged K5 and K9's segment sum, and
+    `res_staged`, those of the staged K4 and K8's segment sum."""
     from dedflow_tpu_torch.app.scenarios import reference_initial_state
     from dedflow_tpu_torch.fem import element_kernels as ek
     from dedflow_tpu_torch.interop import state_from_numpy
     from dedflow_tpu_torch.solver.newton import newton_iter, predict, residual
     from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
     from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_staged
-    from dedflow_tpu_torch.sparse.win_stream import stream_reduce
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_staged
 
-    counters = (ek.ns_residual_gather, ek.ns_lhs_gather_staged, winell_matvec, stream_reduce,
-                ring_reduce_staged)
-    out = drive_main(gsolver, counters, "K4/K5staged/K7/K8/K9sum",
-                     absent=(ek.ns_lhs_gather, ring_reduce))
+    counters = (ek.ns_residual_gather_staged, ek.ns_lhs_gather_staged, winell_matvec,
+                stream_reduce_staged, ring_reduce_staged)
+    out = drive_main(gsolver, counters, "K4staged/K5staged/K7/K8sum/K9sum",
+                     absent=(ek.ns_residual_gather, ek.ns_lhs_gather, stream_reduce, ring_reduce))
     n4, n5, n7, n8, n9 = out["launches"]
     if n9 != n5:
         raise PhaseError(f"main: {n9} K9 segment sums, not one per Jacobian ({n5})")
-    out["launches"] = [n4, out["absent"][0], n7, n8, out["absent"][1]]
+    if n8 != n4:
+        raise PhaseError(f"main: {n8} K8 segment sums, not one per residual ({n4})")
+    out["launches"] = [out["absent"][0], out["absent"][1], n7, out["absent"][2], out["absent"][3]]
     out["staged"] = [n5, n9]
+    out["res_staged"] = [n4, n8]
     cfg = gsolver.cfg
     wg, dwgold, dwg = state_from_numpy(*reference_initial_state(gsolver.mesh), "cuda", gsolver.dtype)
     dwg = predict(dwg, cfg.time)
@@ -1560,6 +1632,12 @@ def phase_melt_kernels(solver) -> tuple[list, dict]:
     p1 = lambda: lat.residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme, src)
     e1 = compare("K1 F volume, heat source", k1, p1, TOL_K1,
                  parts={"": lambda t: t, " [T row]": lambda t: t[5]})
+    same1 = torch.equal(k1(), lat._reduce_residual(lctx, ek.res_rows_call(
+        lat._residual_inputs(lctx, wa_t, dwa_t, src), phys, scheme)))
+    say(f"  K1 fused with the source == K6's residual rows summed in the plain order, bit for "
+        f"bit: {same1}")
+    if not same1:
+        raise PhaseError("K1 (source): the fused pass differs from the element rows in plain order")
 
     # K2 implicit: data (D, 16, N) and scal (2D, N) packed as one tensor
     pack = lambda d, sc: torch.cat([d.reshape(nd * 16, n), sc])
@@ -1602,7 +1680,8 @@ def phase_melt_kernels(solver) -> tuple[list, dict]:
                nbytes(inp, out288), op_count(p6)),
     ]
     libs = nvcc.load(["lattice_residual", "lattice_jacobian", "element_rows"])
-    say(f"  ptxas registers: K1 element pass {registers(libs['lattice_residual'], 'residual_element')}, "
+    k1_regs = registers(libs["lattice_residual"], "residual_fused_kernel")
+    say(f"  ptxas registers: K1 fused {k1_regs}, "
         f"K2 fused frozen {registers(libs['lattice_jacobian'], 'jacobian_fused_kernelILb0E')} "
         f"implicit {registers(libs['lattice_jacobian'], 'jacobian_fused_kernelILb1E')}, "
         f"K6 33-row {registers(libs['element_rows'], 'lhs_rows_kernelILb1E')}")
@@ -1632,8 +1711,8 @@ def phase_melt_slice() -> dict:
     step_fixed(num_newton=2) with the laser source: card float32 against
     CPU float64, TOL_SLICE. Each card step runs with its tier's launch
     counters set to 0 just before and read just after (the column K6 / K5
-    Jacobian and K9's staging pass must stay at 0); returns {tier:
-    launches}."""
+    Jacobian, K9's staging pass and the column K4 must stay at 0, and on
+    the gather tier K8's staging pass); returns {tier: launches}."""
     import dataclasses
 
     import torch
@@ -1648,7 +1727,7 @@ def phase_melt_slice() -> dict:
     from dedflow_tpu_torch.sparse.win_gather import win_gather
     from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
     from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_staged
-    from dedflow_tpu_torch.sparse.win_stream import stream_reduce
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_staged
 
     box = box_mesh(*SLICE_BOX)
     converted = dataclasses.replace(box, lattice=None)
@@ -1659,14 +1738,17 @@ def phase_melt_slice() -> dict:
         "winell": (converted, "winell", (win_gather, ek.res_rows_call, ek.lhs_rows_staged,
                                          winell_matvec, stream_reduce, ring_reduce_staged),
                    "K10/K6res/K6staged/K7/K8/K9sum"),
-        "gather": (box, "gather", (ek.ns_residual_gather, ek.ns_lhs_gather_staged, winell_matvec,
-                                   stream_reduce, ring_reduce_staged), "K4/K5staged/K7/K8/K9sum"),
+        "gather": (box, "gather", (ek.ns_residual_gather_staged, ek.ns_lhs_gather_staged,
+                                   winell_matvec, stream_reduce_staged, ring_reduce_staged),
+                   "K4staged/K5staged/K7/K8sum/K9sum"),
     }
-    # the irregular tiers' Jacobian entries off the path: the column K6 / K5
-    # and K9 with its staging pass
-    absent = (ek.lhs_rows_call, ek.ns_lhs_gather, ring_reduce)
+    # the entries off the paths: the irregular tiers' column K6 / K5 and K9
+    # with its staging pass, the column K4; on the gather tier also K8 with
+    # its staging pass (the WinELL tier's residual reduce)
+    absent = (ek.lhs_rows_call, ek.ns_lhs_gather, ring_reduce, ek.ns_residual_gather)
     launches = {}
     for tier, (mesh, mode, counters, label) in tiers.items():
+        absent_here = absent + ((stream_reduce,) if tier == "gather" else ())
         cfg = melt_pool_scenario_config(use_lattice=mode)
         outs = []
         for device in ("cuda", "cpu"):
@@ -1677,15 +1759,15 @@ def phase_melt_slice() -> dict:
             src = melt_source(mesh, cfg, 1, solver.device, solver.dtype)
             if device == "cuda":
                 torch.cuda.synchronize()
-                for c in (*counters, *absent):
+                for c in (*counters, *absent_here):
                     c.launches = 0
             outs.append([t.cpu() for t in solver.step_fixed(*state, num_newton=2, source=src)])
             if device == "cuda":
                 torch.cuda.synchronize()
                 launches[tier] = [c.launches for c in counters]
-                if any(c.launches for c in absent):
-                    raise PhaseError(f"melt slice {tier}: a column Jacobian entry was launched: "
-                                     f"{[c.launches for c in absent]}")
+                if any(c.launches for c in absent_here):
+                    raise PhaseError(f"melt slice {tier}: an entry off the path was launched: "
+                                     f"{[c.launches for c in absent_here]}")
         worst = 0.0
         for name, g, r in zip(("wgold", "dwgold", "dwg"), *outs):
             if not bool(torch.isfinite(g).all()):
@@ -1955,7 +2037,8 @@ def run() -> int:
             f"order, {gsolver.gctx.win_plan.S} matrix entries, fastpath {gsolver.fastpath} "
             f"(host setup s: delaunay_s {setup['delaunay_s']:.2f} shared with phase 6, "
             f"solver_s {gsetup:.2f}); K10 at phase 6's RCM mesh")
-        ga_results, ga_staged, ga_times, k5_implicit = phase_gather_kernels(gsolver, rcm, rcm_ien_t)
+        ga_results, ga_staged, ga_res_staged, ga_times, k5_implicit = phase_gather_kernels(
+            gsolver, rcm, rcm_ien_t)
         say(f"  gather system: {json.dumps(ga_times)}")
         del rcm_ien_t
         phase = "13 gather slice"
@@ -2002,14 +2085,14 @@ def run() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n, **r}
         for (name, src, rep), r, n in zip(
             KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS
-            + STAGED_KERNELS,
+            + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS,
             results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit]
-            + ir_staged + ga_staged,
+            + ir_staged + ga_staged + ga_res_staged,
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
             + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
             + ga_main["launches"][3:]
-            + melt_launches + staged_launches,
+            + melt_launches + staged_launches + ga_main["res_staged"],
         )
     ]
     # the probes' launches: those of their entry points' runs (phase 18)

@@ -17,13 +17,20 @@ inputs and K5 (frozen and implicit) on the gather tier of the same mesh
 Jacobian entry function as the solver calls it, frozen and implicit, on
 delaunay_mesh(56**3): `fem.win_assembly.jacobian_win` on the RCM order
 (K10, K6 and K9) and `fem.ns.jacobian_entries` on the generated order
-(K5 and K9), whatever kernels each checkout runs inside them. A kernel whose
+(K5 and K9), whatever kernels each checkout runs inside them; with
+`--rpath` the residual paths as the solvers call them: K1
+(`lattice.residual_volume`) at box 44 with the melt-pool scenario and its
+laser source (box 55 without one is the base run's "K1"), the gather
+tier's volume residual `fem.ns.residual_volume` (K4 and K8, or the staged
+K4 and K8's segment sum) on delaunay_mesh(56**3) in its generated order,
+and, as a control, the WinELL tier's `fem.win_assembly.residual_win` (K10,
+K6 and K8) on its RCM order. A kernel whose
 wrapper returns several tensors (K11's three forces, K2's data and scal)
 is timed as the wrapper call, and its digest is of the tensors flattened
 and concatenated.
 
     python dedflow_tpu_torch/app/kernel_ab.py --root CHECKOUT [--reps 5] [--reduces] [--dem]
-        [--implicit] [--elements] [--jpath]
+        [--implicit] [--elements] [--jpath] [--rpath]
 
 Two checkouts (say a parent commit unpacked beside the working tree) are
 compared on one card by running this once per checkout, in turns: parent,
@@ -101,28 +108,32 @@ def _reduce_kernels(wsolver, gsolver):
     return out
 
 
-def _jacobian_paths(wsolver, gsolver):
-    """{name: (call, reps)} of the irregular tiers' Jacobian entry
-    functions, frozen and implicit, at seeded alpha states of each mesh
-    (the reference initial state, dwg perturbed as chip_smoke.py's)."""
+def _alpha(solver):
+    """The alpha states (N, 6) of the solver's mesh at the reference initial
+    state with dwg perturbed as chip_smoke.py's (seed 0) and predicted."""
     import numpy as np
     import torch
 
     from dedflow_tpu_torch.app.scenarios import reference_initial_state
-    from dedflow_tpu_torch.fem import ns
-    from dedflow_tpu_torch.fem import win_assembly as wa_
     from dedflow_tpu_torch.fem.element_rows import alpha_states
     from dedflow_tpu_torch.interop import state_from_numpy
     from dedflow_tpu_torch.solver.newton import predict
 
-    def alpha(solver):
-        wg, dwgold, dwg = reference_initial_state(solver.mesh)
-        dwg = dwg + 0.1 * np.random.default_rng(0).standard_normal(dwg.shape)
-        wg, dwgold, dwg = state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32)
-        return alpha_states(wg, dwgold, predict(dwg, solver.cfg.time), solver.cfg.time)[0]
+    wg, dwgold, dwg = reference_initial_state(solver.mesh)
+    dwg = dwg + 0.1 * np.random.default_rng(0).standard_normal(dwg.shape)
+    wg, dwgold, dwg = state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32)
+    return alpha_states(wg, dwgold, predict(dwg, solver.cfg.time), solver.cfg.time)
+
+
+def _jacobian_paths(wsolver, gsolver):
+    """{name: (call, reps)} of the irregular tiers' Jacobian entry
+    functions, frozen and implicit, at seeded alpha states of each mesh
+    (the reference initial state, dwg perturbed as chip_smoke.py's)."""
+    from dedflow_tpu_torch.fem import ns
+    from dedflow_tpu_torch.fem import win_assembly as wa_
 
     phys, scheme = wsolver.cfg.physics, wsolver.cfg.time
-    wctx, gctx, wa_w, wa_g = wsolver.wctx, gsolver.gctx, alpha(wsolver), alpha(gsolver)
+    wctx, gctx, wa_w, wa_g = wsolver.wctx, gsolver.gctx, _alpha(wsolver)[0], _alpha(gsolver)[0]
     out = {}
     for tag, implicit in (("", False), ("_implicit", True)):
         out[f"J_winell{tag}"] = (lambda i=implicit: wa_.jacobian_win(
@@ -130,6 +141,54 @@ def _jacobian_paths(wsolver, gsolver):
         out[f"J_gather{tag}"] = (lambda i=implicit: ns.jacobian_entries(
             gctx, wa_g, phys, scheme, i), 10)
     return out
+
+
+def _residual_paths(wsolver, gsolver):
+    """{name: (call, reps)} of the irregular tiers' volume residuals as the
+    solvers call them, at seeded alpha states of each mesh (the reference
+    initial state, dwg perturbed as chip_smoke.py's): the gather tier's
+    fem.ns.residual_volume and, as a control, the WinELL tier's
+    fem.win_assembly.residual_win."""
+    from dedflow_tpu_torch.fem import ns
+    from dedflow_tpu_torch.fem import win_assembly as wa_
+
+    phys, scheme = wsolver.cfg.physics, wsolver.cfg.time
+    (wa_w, dwa_w), (wa_g, dwa_g) = _alpha(wsolver), _alpha(gsolver)
+    return {
+        "F_gather": (lambda: ns.residual_volume(gsolver.gctx, wa_g, dwa_g, phys, scheme), 20),
+        "F_winell": (lambda: wa_.residual_win(wsolver.wctx, wa_w, dwa_w, phys, scheme), 20),
+    }
+
+
+def _melt_residual():
+    """{name: (call, reps)} of K1 at box_mesh(44, 44, 44) with the
+    melt-pool scenario and its laser source at step 1's generalized-alpha
+    level (chip_smoke.py's phase 15)."""
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import (
+        laser_source,
+        melt_pool_initial_state,
+        melt_pool_scenario_config,
+    )
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.solver.newton import NSSolver, predict
+
+    mesh, cfg = box_mesh(44, 44, 44), melt_pool_scenario_config()
+    solver = NSSolver(mesh, cfg, device="cuda")
+    wg, dwgold, dwg = melt_pool_initial_state(mesh)
+    dwg = dwg + 0.1 * np.random.default_rng(0).standard_normal(dwg.shape)
+    wg, dwgold, dwg = state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32)
+    wa, dwa = alpha_states(wg, dwgold, predict(dwg, cfg.time), cfg.time)
+    src = torch.as_tensor(laser_source(cfg.physics.laser, mesh.xg, cfg.time.alpha_f * cfg.time.dt),
+                          dtype=torch.float32, device="cuda")
+    wa_t, dwa_t, lctx = wa.T.contiguous(), dwa.T.contiguous(), solver.lctx
+    call = lambda: lat.residual_volume(lctx, wa_t, dwa_t, cfg.physics, cfg.time, src)
+    return {"K1_source": (call, 20)}
 
 
 def _dem_kernels():
@@ -248,6 +307,9 @@ def main(argv=None) -> int:
     p.add_argument("--jpath", action="store_true",
                    help="also the WinELL and gather tiers' Jacobian entry functions (frozen, "
                         "implicit) on delaunay_mesh(56**3)")
+    p.add_argument("--rpath", action="store_true",
+                   help="also K1 at box 44 with the melt source and the gather and WinELL "
+                        "tiers' volume residuals on delaunay_mesh(56**3)")
     args = p.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -284,12 +346,15 @@ def main(argv=None) -> int:
         "K1": (lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme), 20),
         "K2": (lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, band, lo), 10),
     }
-    if args.reduces or args.jpath:
+    if args.reduces or args.jpath or args.rpath:
         delaunay = _delaunay_solvers()
     if args.reduces:
         kernels.update(_reduce_kernels(*delaunay))
     if args.jpath:
         kernels.update(_jacobian_paths(*delaunay))
+    if args.rpath:
+        kernels.update(_melt_residual())
+        kernels.update(_residual_paths(*delaunay))
     if args.dem:
         kernels.update(_dem_kernels())
     if args.implicit:

@@ -11,7 +11,9 @@
 // which are dedflow_tpu_torch/fem/element_rows.py::res_rows and ::lhs_rows.
 // Outputs go to o[row * M] for the element column the caller points `o` at,
 // so a warp's stores are coalesced along the element axis; the Jacobian can
-// instead go straight to K9's staging rows (the `Staged` layout below).
+// instead go straight to K9's staging rows (the `Staged` layout below), and
+// the residual's 24 values (`res_values`) to wherever the caller stores
+// them (K1's ring of cell layers, the staged K4's K8 staging rows).
 //
 // The guards of the JAX bodies are kept: tr > 0 ? tr : 1 (pallas_kernels.py:128
 // and the residual's own) keeps every tau finite on dead or sliver columns,
@@ -55,8 +57,9 @@ __device__ __forceinline__ float dot4(const float* x, const float* y) {
   return x[0] * y[0] + x[1] * y[1] + x[2] * y[2] + x[3] * y[3];
 }
 
-__device__ __forceinline__ void res_body(const ResInputs& x, const RowsResParams& prm,
-                                         float* __restrict__ o, size_t M) {
+// The residual body: r[a][c], vertex a's component c (u, v, w, p, phi, T).
+__device__ __forceinline__ void res_values(const ResInputs& x, const RowsResParams& prm,
+                                           float r[4][6]) {
   const float rho = static_cast<float>(prm.rho);
   const float mu = static_cast<float>(prm.mu);
   const float rhocp = static_cast<float>(prm.rho * prm.cp);
@@ -154,13 +157,25 @@ __device__ __forceinline__ void res_body(const ResInputs& x, const RowsResParams
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     ft[a] += kdiff * (x.sh[0][a] * grad_t[0] + x.sh[1][a] * grad_t[1] + x.sh[2][a] * grad_t[2]);
-    o[(a * 6 + 0) * M] = fm[0][a] * det;
-    o[(a * 6 + 1) * M] = fm[1][a] * det;
-    o[(a * 6 + 2) * M] = fm[2][a] * det;
-    o[(a * 6 + 3) * M] = fc[a] * det;
-    o[(a * 6 + 4) * M] = fphi[a] * det;
-    o[(a * 6 + 5) * M] = ft[a] * det;
+    r[a][0] = fm[0][a] * det;
+    r[a][1] = fm[1][a] * det;
+    r[a][2] = fm[2][a] * det;
+    r[a][3] = fc[a] * det;
+    r[a][4] = fphi[a] * det;
+    r[a][5] = ft[a] * det;
   }
+}
+
+// The residual body's 24 rows a*6+c to o[(a*6+c) * M]: the element column
+// the caller points `o` at, so a warp's stores are coalesced.
+__device__ __forceinline__ void res_body(const ResInputs& x, const RowsResParams& prm,
+                                         float* __restrict__ o, size_t M) {
+  float r[4][6];
+  res_values(x, prm, r);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) o[(a * 6 + c) * M] = r[a][c];
 }
 
 // Whether an output policy is a staged layout: false unless the policy

@@ -36,6 +36,18 @@ __host__ __device__ constexpr double gwshl(int a) {
 }
 constexpr double kGwSum = 4.0 * kGw;
 
+// Corner o (bits x, y, z) of the unit cell that is vertex a of Kuhn tet t
+// (mesh/gen.py::_KUHN_TETS: 0137, 0327, 0267, 0647, 0457, 0517), one octal
+// digit a vertex, a = 0 lowest.
+__host__ __device__ constexpr int kuhn(int t, int a) {
+  return ((t == 0   ? 07310
+           : t == 1 ? 07230
+           : t == 2 ? 07620
+           : t == 3 ? 07460
+           : t == 4 ? 07540
+                    : 07150) >> (3 * a)) & 7;
+}
+
 // Vertex offsets of the six Kuhn tets, passed by value.
 struct Deltas {
   int d[kSlabs][4];

@@ -67,18 +67,6 @@ constexpr int kTileX = 8, kTileY = 8, kTileNodes = kTileX * kTileY;
 constexpr int kHaloX = kTileX + 1, kHalo = (kTileX + 1) * (kTileY + 1);
 constexpr int kPlanes = 15;
 
-// Corner o (bits x, y, z) of the unit cell that is vertex a of Kuhn tet t
-// (mesh/gen.py::_KUHN_TETS: 0137, 0327, 0267, 0647, 0457, 0517), one octal
-// digit a vertex, a = 0 lowest.
-__host__ __device__ constexpr int kuhn(int t, int a) {
-  return ((t == 0   ? 07310
-           : t == 1 ? 07230
-           : t == 2 ? 07620
-           : t == 3 ? 07460
-           : t == 4 ? 07540
-                    : 07150) >> (3 * a)) & 7;
-}
-
 // The 15 planes by corner difference (dx, dy, dz) = corner b - corner a,
 // code (dx+1)*9 + (dy+1)*3 + (dz+1): bit `code` of kPlaneCodes is set for
 // each plane the six tets touch, and a plane's index is the number of set

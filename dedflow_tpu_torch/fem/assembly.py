@@ -67,7 +67,7 @@ class ElementRange:
 
     lo: int
     hi: int
-    res_plan: ReducePlan  # (e, a) -> node; source a*6*m + (e - lo), m = hi - lo
+    res_plan: ReducePlan  # (e, a) -> node; source a*6*m + (e - lo), m = hi - lo; with elem_pos
     jac_plan: ReducePlan  # (e, ab) -> entry; source ab*18*m + (e - lo); with elem_pos
     res_tgt: torch.Tensor | None = None
     jac_tgt: torch.Tensor | None = None
@@ -126,6 +126,7 @@ def build_context(
     for lo in range(0, ne_real, width):
         hi = min(lo + width, ne_real)  # pad elements contribute exact zeros: no plan entries
         res_plan, res_tgt = _range_plan(*node_plan, 4, 6, lo, hi, width, n, chunk, device)
+        res_plan = with_element_positions(res_plan, width, 4, 6)  # the staged K4's rows
         jac_plan, jac_tgt = _range_plan(*mat_plan, 16, 18, lo, hi, width, win_plan.S, chunk, device)
         jac_plan = with_element_positions(jac_plan, width, 16, 18)  # the staged K5's rows
         ranges.append(ElementRange(lo, lo + width, res_plan, jac_plan, res_tgt, jac_tgt))

@@ -34,6 +34,16 @@ those on this tier in XLA (fem/ns.py:184-235), the port in K5.
 The `comp_major` output order is not ported: it is a TPU relayout, and
 the reduces read rows ab*18+c in place.
 
+The gather tier's residual runs the staged K4, `ns_residual_gather_staged`:
+the same element body, but each (element, vertex) pair's 6 components go
+as one 32-byte row (two zeros after them) straight into K8's (K, 8)
+staging buffer at the pair's position in the residual plan
+(`ReducePlan.elem_pos`), and it reads the node-major (N, 6) states the
+solver holds; K8's segment sum alone (`sparse.win_stream.
+stream_reduce_staged`) then adds the rows up. The (24, ne) rows and K8's
+staging pass never exist. Its plain twin runs the column body and places
+its rows with `stage_residual_rows`.
+
 The solver's Jacobian runs the staged entries instead, `lhs_rows_staged`
 (K6) and `ns_lhs_gather_staged` (K5): the same inputs, the same element
 body, but each element's 16 vel/p contributions go straight into K9's
@@ -174,10 +184,12 @@ def ns_lhs_gather_plain(lhs_geom, ien_t, w_t, phys, scheme, metric=None):
                     scalar_implicit=metric is not None, **lhs_args(phys, scheme))
 
 
-def _check_gather(what: str, geom, rows: int, ien_t, states) -> tuple[int, int]:
+def _check_gather(what: str, geom, rows: int, ien_t, states,
+                  node_major: bool = False) -> tuple[int, int]:
     """(N, ne) of float32 CUDA inputs the gather kernels take: geometry
     (rows, ne) and ien_t (4, ne) int32 with unit element stride (a column
-    slice is fine), contiguous (C, N) states on the same card."""
+    slice is fine), contiguous (C, N) states on the same card, or with
+    `node_major` (N, C) ones (a source (N,) either way)."""
     ne = ien_t.shape[-1]
     if geom.dim() != 2 or geom.shape != (rows, ne) or ien_t.dim() != 2 or ien_t.shape[0] != 4 or ne == 0:
         raise ValueError(f"{what} kernel: geometry ({rows}, ne) and ien_t (4, ne), "
@@ -186,12 +198,15 @@ def _check_gather(what: str, geom, rows: int, ien_t, states) -> tuple[int, int]:
         raise ValueError(f"{what} kernel: float32 geometry and int32 ien_t, got {geom.dtype}, {ien_t.dtype}")
     if geom.stride(1) != 1 or ien_t.stride(1) != 1:
         raise ValueError(f"{what} kernel: geometry and ien_t need a unit element stride")
-    n = states[0].shape[1]
+    axis = 0 if node_major else -1
+    n = states[0].shape[axis]
     for s in states:
         if s is None:
             continue
-        if s.dtype != torch.float32 or not s.is_contiguous() or s.shape[-1] != n:
-            raise ValueError(f"{what} kernel: states must be contiguous float32 (C, N)")
+        rows = s.shape[axis if s.dim() > 1 else 0]
+        if s.dtype != torch.float32 or not s.is_contiguous() or rows != n:
+            raise ValueError(f"{what} kernel: states must be contiguous float32 "
+                             + ("(N, C)" if node_major else "(C, N)"))
     if any(t is not None and t.device != geom.device for t in (ien_t, *states)):
         raise ValueError(f"{what} kernel: inputs on different devices")
     return n, ne
@@ -266,15 +281,17 @@ ns_lhs_gather.launches = 0
 # K5 / K6 staged: the element Jacobian straight into K9's staging rows
 
 
-def element_positions(plan: ReducePlan, m: int) -> torch.Tensor:
-    """(16 * m,) plan positions of the contributions (e, ab) of m elements
-    at ab*m + e, -1 where the plan has none: the plan's `elem_pos`.
-    Raises for a plan without it or built for another element count."""
+def element_positions(plan: ReducePlan, m: int, slots: int = 16) -> torch.Tensor:
+    """(slots * m,) plan positions of the contributions (e, j) of m elements
+    at j*m + e, -1 where the plan has none: the plan's `elem_pos` (16 pairs
+    ab of the Jacobian, 4 vertices of the residual). Raises for a plan
+    without it or built for another element count."""
     pos = plan.elem_pos
-    if pos is None or pos.numel() != 16 * m:
+    if pos is None or pos.numel() != slots * m:
+        what = "element Jacobian" if slots == 16 else "element residual"
         raise ValueError(
-            f"staged element Jacobian: the plan has no element positions for {m} elements "
-            f"(elem_pos {None if pos is None else pos.numel()}, expected {16 * m}): build it "
+            f"staged {what}: the plan has no element positions for {m} elements "
+            f"(elem_pos {None if pos is None else pos.numel()}, expected {slots * m}): build it "
             "with sparse.win_stream.with_element_positions"
         )
     return pos
@@ -394,3 +411,65 @@ def ns_lhs_gather_staged(lhs_geom, ien_t, w_t, phys: Physics, scheme: TimeScheme
 
 
 ns_lhs_gather_staged.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4 staged: the element residual straight into K8's staging rows
+
+
+def stage_residual_rows(plan: ReducePlan, rows: torch.Tensor) -> torch.Tensor:
+    """K8's staging rows of (24, m) element residual rows a*6+c: (K, 8),
+    row k the contribution at plan position k, its 6 components in columns
+    0-5 and zeros in 6-7. The staged K4's placement, in torch."""
+    m = rows.shape[-1]
+    pos = element_positions(plan, m, 4).long()
+    keep = pos >= 0
+    stage = rows.new_zeros((plan.src.numel(), 8))
+    stage[pos[keep], :6] = rows.reshape(4, 6, m).permute(0, 2, 1).reshape(4 * m, 6)[keep]
+    return stage
+
+
+def ns_residual_gather_staged_plain(res_geom, ien_t, w, dw, phys, scheme, plan: ReducePlan,
+                                    source=None):
+    """The staged K4's plain twin: `ns_residual_gather_plain` of the
+    node-major (N, 6) states, then `stage_residual_rows`."""
+    return stage_residual_rows(
+        plan, ns_residual_gather_plain(res_geom, ien_t, w.T, dw.T, phys, scheme, source))
+
+
+def ns_residual_gather_staged(res_geom, ien_t, w, dw, phys: Physics, scheme: TimeScheme,
+                              plan: ReducePlan, source=None) -> torch.Tensor:
+    """K4 staged: the gathered element residual of the node-major (N, 6)
+    alpha states w, dw (`source` (N,) or None) straight into K8's staging
+    rows of `plan`: (K, 8), as `stage_residual_rows` of K4's rows. The CUDA
+    kernel on CUDA tensors, the plain twin on CPU tensors."""
+    pos = element_positions(plan, ien_t.shape[-1], 4)
+    if not w.is_cuda:
+        return ns_residual_gather_staged_plain(res_geom, ien_t, w, dw, phys, scheme, plan, source)
+    if w.dim() != 2 or w.shape[1] != 6 or dw.shape != w.shape or (
+            source is not None and source.shape != w.shape[:1]):
+        raise ValueError("res_gather_staged kernel: states (N, 6) and a source (N,) or None")
+    n, ne = _check_gather("res_gather_staged", res_geom, 19, ien_t, (w, dw, source),
+                          node_major=True)
+    if pos.device != w.device:
+        raise ValueError("res_gather_staged kernel: the plan lives on another device")
+    a = res_args(phys, scheme)
+    fn = nvcc.function(
+        "gather_elements", "dedflow_res_gather_staged",
+        [nvcc.P, nvcc.LL, nvcc.P, nvcc.LL, nvcc.P, nvcc.P, nvcc.P, nvcc.P, nvcc.I, nvcc.I]
+        + [nvcc.D] * 8 + [nvcc.P, nvcc.P],
+    )
+    # every row is stored: the plan's positions are distinct and cover [0, K)
+    stage = torch.empty((plan.src.numel(), 8), dtype=torch.float32, device=w.device)
+    nvcc.check(
+        fn(res_geom.data_ptr(), res_geom.stride(0), ien_t.data_ptr(), ien_t.stride(0),
+           w.data_ptr(), dw.data_ptr(), None if source is None else source.data_ptr(),
+           pos.data_ptr(), n, ne, a["rho"], a["mu"], a["cp"], a["kappa"], *a["fb"], a["dt"],
+           stage.data_ptr(), torch.cuda.current_stream(w.device).cuda_stream),
+        "res_gather_staged",
+    )
+    ns_residual_gather_staged.launches += 1
+    return stage
+
+
+ns_residual_gather_staged.launches = 0

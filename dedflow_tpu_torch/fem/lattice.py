@@ -15,8 +15,14 @@ Two kernels carry the path, each behind a wrapper with a launch counter:
 - K1 `residual_volume`: the volume residual (6, N), with an optional nodal
   heat source (melt-pool runs). On CUDA the kernel
   csrc/lattice_residual.cu, which replaces fem/lattice.py::_res_t8_kernel of
-  the JAX package; on the CPU `residual_volume_plain`, the unfused pipeline
-  (shifted-slice inputs -> element_rows.res_rows -> 24 shifted adds).
+  the JAX package: one launch of ticketed work items (an 8 x 8 node tile of
+  one cell layer), each element computed once into a ring of cell layers
+  that stays in the L2, each node's 24 contributions added in the plain
+  version's order once its neighbours' items are done (RES_FUSED_*,
+  checked against the built kernel's `residual_kernel_layout`; the
+  context's `res_sync` workspace), with no element buffer in memory; on
+  the CPU `residual_volume_plain`, the unfused pipeline (shifted-slice
+  inputs -> element_rows.res_rows -> 24 shifted adds).
 - K2 `jacobian_volume`: the finished (D, 16, N) velocity/pressure DIA data,
   Dirichlet-masked, unit diagonal on the zero-offset plane, facet band
   added. On CUDA csrc/lattice_jacobian.cu, which replaces
@@ -86,6 +92,9 @@ class LatticeContext:
     plane_tab: tuple  # (6, 4, 4) -> plane
     # K2's fused pass: (sy, ny, nz, planes), see fused_tables
     fused: tuple
+    # K1's ticket counter and item flags (res_sync_workspace), kept by the
+    # kernel from call to call: calls on one context run in order
+    res_sync: torch.Tensor
     # implicit phi/T transport tangents in the Jacobian (melt-pool runs)
     scalar_implicit: bool = False
 
@@ -144,6 +153,7 @@ def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = Fal
         offsets=offs,
         plane_tab=plane_tab,
         fused=fused,
+        res_sync=res_sync_workspace(fused, device),
         scalar_implicit=scalar_implicit,
     )
 
@@ -375,6 +385,77 @@ _check_fused_layout.done = set()
 
 
 # ---------------------------------------------------------------------------
+# K1's fused pass (csrc/lattice_residual.cu holds the same constants;
+# _check_res_layout holds them equal)
+
+RES_FUSED_TILE = 8  # nodes of a tile in x and in y
+RES_FUSED_THREADS = 128
+RES_FUSED_BLOCKS_PER_SM = 3  # the kernel's launch bounds: 12 warps an SM
+RES_FUSED_RING_MARGIN = 8  # ring layers beyond those the resident items span
+
+
+def res_ring_layers(tiles: int, num_sms: int) -> int:
+    """Cell layers of K1's ring of element values: the layers the card's
+    resident items span (RES_FUSED_BLOCKS_PER_SM blocks an SM, `tiles`
+    items a layer) and RES_FUSED_RING_MARGIN more, so that an item seldom
+    waits for the readers of the layer its slot held."""
+    return -(-RES_FUSED_BLOCKS_PER_SM * num_sms // tiles) + RES_FUSED_RING_MARGIN
+
+
+def res_fused_items(sy: int, ny: int, nz: int) -> tuple:
+    """(tiles in x, tiles, work items) of K1's fused pass on a lattice of
+    (sy, ny, nz) nodes: 8 x 8 node tiles in (x, y); item (L, T), in
+    (layer, tile) order, tiles x fastest, computes tile T's cells of cell
+    layer L < nz and sums its node layer L - 1 >= 0, so L runs to nz."""
+    tiles_x = -(-sy // RES_FUSED_TILE)
+    tiles = tiles_x * -(-ny // RES_FUSED_TILE)
+    return tiles_x, tiles, tiles * (nz + 1)
+
+
+def res_sync_workspace(fused: tuple, device) -> torch.Tensor:
+    """K1's persistent workspace for a lattice with K2's `fused` tables: a
+    64-bit ticket counter, then each item's produced and consumed flags,
+    int32 zeros; the kernel keeps it from call to call (a call takes one
+    ticket an item)."""
+    return torch.zeros(2 + 2 * res_fused_items(*fused[:3])[2], dtype=torch.int32, device=device)
+
+
+def residual_kernel_layout() -> dict:
+    """The tiling that csrc/lattice_residual.cu was compiled with, read from
+    the built kernel (card only): tile, threads a block, blocks an SM,
+    floats of a tile's cell layer in the ring, and its Kuhn corner table
+    (corner code a (t, a) pair, t-major)."""
+    fn = nvcc.function("lattice_residual", "dedflow_lattice_residual_layout", [nvcc.P, nvcc.I])
+    buf = (ctypes.c_int * 28)()
+    nvcc.check(fn(ctypes.addressof(buf), len(buf)), "lattice_residual layout")
+    return {
+        "tile": buf[0],
+        "threads": buf[1],
+        "blocks_per_sm": buf[2],
+        "slot_floats": buf[3],
+        "corners": tuple(buf[4:28]),
+    }
+
+
+def _check_res_layout() -> None:
+    """Raise unless the built K1's tiling is the one RES_FUSED_* and the
+    Kuhn table describe (the tables the CPU emulation reads); checked
+    once."""
+    if _check_res_layout.done:
+        return
+    got = residual_kernel_layout()
+    want = {"tile": RES_FUSED_TILE, "threads": RES_FUSED_THREADS,
+            "blocks_per_sm": RES_FUSED_BLOCKS_PER_SM, "slot_floats": 24 * 6 * RES_FUSED_TILE**2,
+            "corners": tuple(int(c) for tet in _KUHN_TETS for c in tet)}
+    if any(got[k] != v for k, v in want.items()):
+        raise RuntimeError(f"lattice_residual kernel: compiled tiling {got} is not {want}")
+    _check_res_layout.done = True
+
+
+_check_res_layout.done = False
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 
 
@@ -403,17 +484,25 @@ def residual_volume(lctx: LatticeContext, wa_t, dwa_t, phys, scheme, source=None
         raise ValueError("lattice_residual kernel: states must be (6, N), a source (N,)")
     fn = nvcc.function(
         "lattice_residual", "dedflow_lattice_residual",
-        [nvcc.P] * 6 + [nvcc.I, nvcc.P] + [nvcc.D] * 8 + [nvcc.P],
+        [nvcc.P] * 6 + [nvcc.I, nvcc.P] + [nvcc.I] * 4 + [nvcc.P] + [nvcc.D] * 8 + [nvcc.P],
     )
-    elem = torch.empty((6, 24, n), dtype=torch.float32, device=wa_t.device)
-    out = torch.empty((6, n), dtype=torch.float32, device=wa_t.device)
+    _check_res_layout()
+    sy, ny, nz, _ = lctx.fused
+    if lctx.res_sync.device != wa_t.device:
+        raise ValueError("lattice_residual kernel: the context lives on another device")
+    dev = wa_t.device
+    tiles = res_fused_items(sy, ny, nz)[1]
+    layers = res_ring_layers(tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    ring = torch.empty(layers * tiles * 24 * 6 * RES_FUSED_TILE**2, dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((6, n), dtype=torch.float32, device=dev)
     a = _res_args(phys, scheme)
     nvcc.check(
         fn(lctx.res_geom.data_ptr(), wa_t.data_ptr(), dwa_t.data_ptr(),
-           None if source is None else source.data_ptr(),
-           elem.data_ptr(), out.data_ptr(), n, _flat_deltas(lctx),
+           None if source is None else source.data_ptr(), out.data_ptr(), ring.data_ptr(), layers,
+           lctx.res_sync.data_ptr(), n, sy, ny, nz, _flat_deltas(lctx),
            a["rho"], a["mu"], a["cp"], a["kappa"], *a["fb"], a["dt"],
-           torch.cuda.current_stream(wa_t.device).cuda_stream),
+           torch.cuda.current_stream(dev).cuda_stream),
         "lattice_residual",
     )
     residual_volume.launches += 1

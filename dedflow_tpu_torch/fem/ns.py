@@ -2,10 +2,13 @@
 terms + frozen rows + strong Dirichlet masking (counterpart of
 dedflow_tpu/fem/ns.py::assemble_residual / assemble_jacobian).
 
-  residual F:  K4 `ns_residual_gather` -> (24, m) element rows a*6+c ->
-               K8 `stream_reduce` over the residual plan into (6, N);
-               the nodal momentum load, the facet terms, the frozen phi/T
-               rows (main.c:64) and the mask.
+  residual F:  K4 staged, `ns_residual_gather_staged`: each (element,
+               vertex) pair's 6 components straight into K8's (K, 8)
+               staging rows at their positions in the residual plan, from
+               the node-major (N, 6) states -> K8's segment sum
+               `stream_reduce_staged` into (6, N); the nodal momentum
+               load, the facet terms, the frozen phi/T rows (main.c:64)
+               and the mask.
   jacobian J:  K5 staged, `ns_lhs_gather_staged`: each element's 16
                contributions straight into K9's (K, 16) staging rows at
                their positions in the matrix plan -> K9's segment sum
@@ -19,14 +22,16 @@ dedflow_tpu/fem/ns.py::assemble_residual / assemble_jacobian).
                Jacobian in XLA (ns.py:184-235).
 
 On the CPU the element pass is the weak form (fem.weakform) under
-elements_kernel="xla" (its Jacobian rows placed in the staging rows by
-`stage_rows`) and the K4/K5 plain twins under "pallas"; on CUDA both run
-K4/K5. States are (N, 6) as in the JAX package; the residual is
-the port's component-major (6, N). With an assembly chunk the context's
-element ranges run in turn through the same kernels and the same reduce,
-each adding its sums into the nodes and entries it touches
-(ns.py:60-98's streaming paths, deterministic: the ranges' targets are
-unique).
+elements_kernel="xla" (its rows placed in the staging rows by
+`stage_residual_rows` / `stage_rows`) and the staged K4/K5 plain twins
+under "pallas"; on CUDA both run the staged K4/K5. The column K4
+(`ns_residual_gather`, the JAX ns_residual_pallas's counterpart) and K8
+with its staging pass run on no path here. States are (N, 6) as in the
+JAX package; the residual is the port's component-major (6, N). With an
+assembly chunk the context's element ranges run in turn through the same
+kernels and the same reduce, each adding its sums into the nodes and
+entries it touches (ns.py:60-98's streaming paths, deterministic: the
+ranges' targets are unique).
 """
 
 from __future__ import annotations
@@ -38,12 +43,13 @@ from dedflow_tpu_torch.fem import weakform
 from dedflow_tpu_torch.fem.assembly import FEMContext, elem_geom
 from dedflow_tpu_torch.fem.element_kernels import (
     ns_lhs_gather_staged,
-    ns_residual_gather,
+    ns_residual_gather_staged,
+    stage_residual_rows,
     stage_rows,
 )
 from dedflow_tpu_torch.fem.face import face_residual_elements, face_residual_scatter
 from dedflow_tpu_torch.fem.win_assembly import add_face_entries, reduce_entries
-from dedflow_tpu_torch.sparse.win_stream import stream_reduce
+from dedflow_tpu_torch.sparse.win_stream import stream_reduce_staged
 from dedflow_tpu_torch.sparse.winell import WinELLMatrixT
 
 
@@ -68,7 +74,7 @@ def residual_volume(ctx: FEMContext, w_alpha, dw_alpha, phys: Physics, scheme: T
     """(6, N) volume residual: the element residual of each range reduced
     into its nodes."""
     f = None
-    w_t, dw_t = w_alpha.T.contiguous(), dw_alpha.T.contiguous()
+    w, dw = w_alpha.contiguous(), dw_alpha.contiguous()
     for rng in ctx.ranges:
         m = rng.hi - rng.lo
         ien_t = ctx.ien_t[:, rng.lo : rng.hi]
@@ -78,12 +84,12 @@ def residual_volume(ctx: FEMContext, w_alpha, dw_alpha, phys: Physics, scheme: T
             fe = weakform.ns_residual_elements(
                 elem_geom(ctx, rng.lo, rng.hi), ef, phys, scheme, src_e
             )
-            rows = fe.reshape(m, 24).T.contiguous()
+            stage = stage_residual_rows(rng.res_plan, fe.reshape(m, 24).T.contiguous())
         else:
-            rows = ns_residual_gather(
-                ctx.res_geom[:, rng.lo : rng.hi], ien_t, w_t, dw_t, phys, scheme, source
+            stage = ns_residual_gather_staged(
+                ctx.res_geom[:, rng.lo : rng.hi], ien_t, w, dw, phys, scheme, rng.res_plan, source
             )
-        f = _range_sum(f, rng.res_tgt, stream_reduce(rng.res_plan, rows, range(6), m), ctx.num_node)
+        f = _range_sum(f, rng.res_tgt, stream_reduce_staged(rng.res_plan, stage, 6), ctx.num_node)
     return f
 
 

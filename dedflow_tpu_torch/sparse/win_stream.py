@@ -30,6 +30,14 @@ target's contiguous rows in plan order. On a CPU tensor it runs
 `stream_reduce_plain`. The Jacobian's reduce (K9, sparse.win_ring) is the
 same computation with C <= 16 and its own wrapper.
 
+`stream_reduce_staged` is K8's segment sum alone, the gather tier's
+residual reduce: the staged K4 (fem.element_kernels.
+ns_residual_gather_staged) writes each contribution's 6 rows straight
+into the (K, 8) staging buffer at its plan position, so the (24, ne)
+element rows and the staging pass never exist. It counts its own
+launches; its plain twin is `stream_reduce_staged_plain`. K9's
+`ring_reduce_staged` runs the same segment sum (`segment_sum_kernel`).
+
 Also here: `stream_window_counts`, the per-vreg window count of the JAX
 package's stream plan (win_stream.py:84-215, the same arithmetic), which
 the solver's "auto" tier gate reads (solver/newton.py).
@@ -205,6 +213,76 @@ def stream_reduce(plan: ReducePlan, x: torch.Tensor, comps=None, cstride=None) -
 
 
 stream_reduce.launches = 0
+
+
+STAGED_WIDTHS = (8, 16)  # staging buffers: K8's rows and the implicit tangents, K9's vel/p rows
+
+
+def segment_sum_plain(plan: ReducePlan, stage: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """The segment sum's plain twin: (num_rows, num_tgt), per output row one
+    index_add_ of the staging buffer's column in plan order (the values and
+    order of `seg_reduce_plain` over the rows they were staged from)."""
+    tgt = torch.repeat_interleave(torch.diff(plan.ptr.long()))
+    out = torch.zeros((num_rows, plan.num_tgt), dtype=stage.dtype, device=stage.device)
+    for r in range(num_rows):
+        out[r].index_add_(0, tgt, stage[:, r])
+    return out
+
+
+def check_staged(what: str, plan: ReducePlan, stage: torch.Tensor, num_rows: int,
+                 widths=STAGED_WIDTHS) -> None:
+    """Raise unless `stage` is a (K, W) staging buffer of the plan's K rows,
+    W in `widths`, and 1 <= num_rows <= W."""
+    if stage.dim() != 2 or stage.shape[1] not in widths or stage.shape[0] != plan.src.numel():
+        raise ValueError(f"{what}: the staging buffer must be (K, {' or '.join(map(str, widths))}) "
+                         f"with K = {plan.src.numel()} plan rows, got {tuple(stage.shape)}")
+    if not 1 <= num_rows <= stage.shape[1]:
+        raise ValueError(f"{what}: 1 to {stage.shape[1]} output rows, got {num_rows}")
+
+
+def segment_sum_kernel(what: str, plan: ReducePlan, stage: torch.Tensor,
+                       num_rows: int) -> torch.Tensor:
+    """Launch csrc/seg_reduce.cu's segment sum alone over a checked staging
+    buffer: (num_rows, num_tgt), target t the sum of rows [ptr[t], ptr[t+1])
+    in plan order."""
+    if stage.dtype != torch.float32 or not stage.is_contiguous():
+        raise ValueError(f"{what} kernel: the staging buffer must be contiguous float32")
+    if plan.ptr.device != stage.device:
+        raise ValueError(f"{what} kernel: the plan lives on another device")
+    out = torch.empty((num_rows, plan.num_tgt), dtype=torch.float32, device=stage.device)
+    if plan.num_tgt == 0:
+        return out
+    fn = nvcc.function("seg_reduce", "dedflow_segment_sum",
+                       [nvcc.P, nvcc.I, nvcc.P, nvcc.I, nvcc.P, nvcc.I, nvcc.P])
+    nvcc.check(
+        fn(stage.data_ptr(), stage.shape[1], plan.ptr.data_ptr(), num_rows, out.data_ptr(),
+           plan.num_tgt, torch.cuda.current_stream(stage.device).cuda_stream),
+        what,
+    )
+    return out
+
+
+def stream_reduce_staged_plain(plan: ReducePlan, stage: torch.Tensor,
+                               num_rows: int) -> torch.Tensor:
+    """K8's segment sum's plain twin (`segment_sum_plain`)."""
+    return segment_sum_plain(plan, stage, num_rows)
+
+
+def stream_reduce_staged(plan: ReducePlan, stage: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """K8's segment sum alone: (num_rows, num_tgt), target t the sum of the
+    staging rows [ptr[t], ptr[t+1]) of the (K, 8) buffer `stage` in plan
+    order, columns 0..num_rows-1. The CUDA kernel on a CUDA tensor, the
+    plain twin on a CPU tensor."""
+    check_staged("stream_reduce_staged", plan, stage, num_rows, widths=(8,))
+    if not stage.is_cuda:
+        return stream_reduce_staged_plain(plan, stage, num_rows)
+    out = segment_sum_kernel("stream_reduce_staged", plan, stage, num_rows)
+    if plan.num_tgt:
+        stream_reduce_staged.launches += 1
+    return out
+
+
+stream_reduce_staged.launches = 0
 
 
 # ---------------------------------------------------------------------------

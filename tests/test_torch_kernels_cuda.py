@@ -25,7 +25,14 @@ solvers' Jacobian: each element's rows straight into K9's staging rows)
 match their plain twins per block and equal the column kernels' rows
 placed at the plan positions bit for bit (also on a chunked gather
 context whose last range leaves pad elements out), and K9's segment sum
-alone over them equals K9 over the column rows bit for bit.
+alone over them equals K9 over the column rows bit for bit. The fused K1
+equals, bit for bit, K6's residual rows on the lattice inputs summed in
+the plain order (the element buffer it no longer writes), with and without
+the heat source; the staged K4 (the gather tier's residual: each pair's 6
+components straight into K8's staging rows, from node-major states)
+matches its plain twin, equals the column K4's rows placed at the plan
+positions bit for bit (whole and chunked), and K8's segment sum alone over
+them equals K8 over the column rows bit for bit.
 """
 
 import dataclasses
@@ -69,6 +76,8 @@ from dedflow_tpu_torch.sparse.win_stream import (
     build_reduce_plan,
     stream_reduce,
     stream_reduce_plain,
+    stream_reduce_staged,
+    stream_reduce_staged_plain,
 )
 from dedflow_tpu_torch.sparse.winell import COMP2WIN
 from dedflow_tpu_torch.tools import gather_probe as tgp
@@ -116,6 +125,43 @@ def test_k1_kernel_matches_plain(card):
     assert lat.residual_volume.launches == before + 1
     assert torch.isfinite(got).all()
     assert rel(got, lat.residual_volume_plain(*args)) < 2e-5
+
+
+def test_k1_kernel_layout_matches_the_tables():
+    """The tiling the fused K1 was compiled with, read from the built
+    kernel, is the one fem/lattice.py's RES_FUSED_* constants and the Kuhn
+    table describe (the tables the CPU emulation checks); a ring slot is a
+    tile's 64 cells x 24 pairs x 6 components."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    got = lat.residual_kernel_layout()
+    assert got["tile"] == lat.RES_FUSED_TILE and got["threads"] == lat.RES_FUSED_THREADS
+    assert got["blocks_per_sm"] == lat.RES_FUSED_BLOCKS_PER_SM
+    assert got["slot_floats"] == lat.RES_FUSED_TILE**2 * 24 * 6
+    lat._check_res_layout()
+
+
+def _k1_equals_its_element_rows(lctx, wa_t, dwa_t, phys, scheme, src=None):
+    """The fused K1, run three times (the calls' tickets and flags carry
+    over in the context's workspace; the runs bit-identical), equals K6's
+    residual rows of the lattice's (6, 67, N) inputs (the same element
+    body) added in the plain order, bit for bit: the result of the two-pass
+    kernel it replaces."""
+    got = _twice(lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme, src),
+                 lat.residual_volume)
+    assert torch.equal(got, lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme, src))
+    elem = ek.res_rows_call(lat._residual_inputs(lctx, wa_t, dwa_t, src), phys, scheme)
+    assert torch.equal(got, lat._reduce_residual(lctx, elem))
+    return got
+
+
+def test_k1_fused_equals_the_element_rows_bit_for_bit(card, melt):
+    solver, _, wa, dwa = card
+    _k1_equals_its_element_rows(solver.lctx, wa.T.contiguous(), dwa.T.contiguous(),
+                                solver.cfg.physics, solver.cfg.time)
+    solver, _, wa, dwa, src = melt
+    _k1_equals_its_element_rows(solver.lctx, wa.T.contiguous(), dwa.T.contiguous(),
+                                solver.cfg.physics, solver.cfg.time, src)
 
 
 @pytest.mark.parametrize("implicit", [False, True])
@@ -466,6 +512,43 @@ def test_k5_staged_matches_plain_and_the_column_rows(gather, implicit, chunk):
             lambda: ek.ns_lhs_gather_staged_plain(geom, ien_t, w_t, phys, scheme, rng.jac_plan,
                                                   met),
             ek.ns_lhs_gather(geom, ien_t, w_t, phys, scheme, met), rng.jac_plan, m, implicit)
+
+
+@pytest.mark.parametrize("source", [False, True], ids=["no-source", "source"])
+@pytest.mark.parametrize("chunk", [None, 1000], ids=["whole", "chunk1000"])
+def test_k4_staged_matches_plain_and_the_column_rows(gather, chunk, source):
+    """The staged K4 on the gather tier's context, whole and in chunks of
+    1000 elements (the last range's pad elements have no plan entries: -1
+    positions), from the node-major (N, 6) states: two runs bit-identical,
+    its rows within 2e-5 of the plain twin, equal to the column K4's rows
+    at the plan positions bit for bit (zeros in columns 6-7); K8's segment
+    sum alone over them equal to K8 over the column rows bit for bit and
+    within 1e-5 of its own twin."""
+    solver, w_t, dw_t = gather
+    phys, scheme = solver.cfg.physics, solver.cfg.time
+    w, dw = w_t.T.contiguous(), dw_t.T.contiguous()
+    ctx = solver.gctx if chunk is None else build_context(solver.mesh, device="cuda",
+                                                          chunk=chunk)
+    assert chunk is None or bool((ctx.ranges[-1].res_plan.elem_pos < 0).any())
+    src = (torch.as_tensor(np.random.default_rng(13).standard_normal(ctx.num_node),
+                           dtype=torch.float32, device="cuda") if source else None)
+    for rng in ctx.ranges:
+        m, plan = rng.hi - rng.lo, rng.res_plan
+        geom, ien_t = ctx.res_geom[:, rng.lo : rng.hi], ctx.ien_t[:, rng.lo : rng.hi]
+        got = _twice(lambda: ek.ns_residual_gather_staged(geom, ien_t, w, dw, phys, scheme, plan,
+                                                          src),
+                     ek.ns_residual_gather_staged)
+        ref = ek.ns_residual_gather_staged_plain(geom, ien_t, w, dw, phys, scheme, plan, src)
+        assert rel(got[:, :6], ref[:, :6]) < 2e-5 and not bool(got[:, 6:].any())
+        rows = ek.ns_residual_gather(geom, ien_t, w_t, dw_t, phys, scheme, src)
+        assert torch.equal(got, ek.stage_residual_rows(plan, rows))
+        sums = _twice(lambda: stream_reduce_staged(plan, got, 6), stream_reduce_staged)
+        assert torch.equal(sums, stream_reduce(plan, rows, range(6), m))
+        assert rel(sums, stream_reduce_staged_plain(plan, got, 6)) < 1e-5
+    with pytest.raises(ValueError, match="contiguous"):  # the transposes the path no longer takes
+        ek.ns_residual_gather_staged(ctx.res_geom[:, : ctx.ranges[0].hi - ctx.ranges[0].lo],
+                                     ctx.ien_t[:, : ctx.ranges[0].hi - ctx.ranges[0].lo],
+                                     w_t.T, dw_t.T, phys, scheme, ctx.ranges[0].res_plan)
 
 
 def test_k8_k9_reduces_on_the_gather_plans(gather):

@@ -75,7 +75,8 @@ def test_fresh_interpreter_import_leaves_jax_out():
         "import dedflow_tpu_torch, dedflow_tpu_torch.solver.newton, "
         "dedflow_tpu_torch.app.main, dedflow_tpu_torch.app.coupled, "
         "dedflow_tpu_torch.dem.grid, dedflow_tpu_torch.interop, "
-        "dedflow_tpu_torch.tools.gmicro, dedflow_tpu_torch.tools.gather_probe, chip_smoke\n"
+        "dedflow_tpu_torch.tools.gmicro, dedflow_tpu_torch.tools.gather_probe, "
+        "dedflow_tpu_torch.fem.ns, dedflow_tpu_torch.app.kernel_ab, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dedflow_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -334,6 +335,25 @@ def _k9_segment_sum():
     return win_ring.ring_reduce_staged(_staged_plan(2), torch.zeros((32, 16)), 16)
 
 
+def _res_staged_plan(m):
+    """A residual plan of m elements with its element positions, every
+    (e, a) onto its own target."""
+    src = [a * 6 * m + e for a in range(4) for e in range(m)]
+    plan = win_stream.build_reduce_plan(list(range(4 * m)), src, 4 * m, device="cpu")
+    return win_stream.with_element_positions(plan, m, 4, 6)
+
+
+def _k4_staged():
+    ien = torch.zeros((4, 8), dtype=torch.int32)
+    w = torch.zeros((3, 6))
+    return ek.ns_residual_gather_staged(torch.zeros((19, 8)), ien, w, w, *_phys_scheme(),
+                                        _res_staged_plan(8), source=torch.zeros(3))
+
+
+def _k8_segment_sum():
+    return win_stream.stream_reduce_staged(_res_staged_plan(2), torch.zeros((8, 8)), 6)
+
+
 def _k10():
     ien = torch.zeros((4, 8), dtype=torch.int32)
     return win_gather.win_gather(ien, torch.zeros((3, 5)), win_gather.JAC_ROWMAP, 12)
@@ -392,12 +412,14 @@ def _k13(idiom):
         (_k5_staged, (ek, "ns_lhs_gather_staged_plain")),
         (_k5_staged_implicit, (ek, "ns_lhs_gather_staged_plain")),
         (_k9_segment_sum, (win_ring, "ring_reduce_staged_plain")),
+        (_k4_staged, (ek, "ns_residual_gather_staged_plain")),
+        (_k8_segment_sum, (win_stream, "stream_reduce_staged_plain")),
     ],
     ids=["K6-res", "K6-lhs", "K7", "K8", "K9", "K11", "K4", "K5", "K10", "K1-source",
          "K2-implicit", "K6-lhs-implicit", "K5-implicit", "K12-copy", "K12-lane-smem",
          "K12-lane-shuffle", "K12-window", "K12-reduce", "K13-global", "K13-staged",
          "K6-staged", "K6-staged-implicit", "K5-staged", "K5-staged-implicit",
-         "K9-segment-sum"],
+         "K9-segment-sum", "K4-staged", "K8-segment-sum"],
 )
 def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     monkeypatch, tmp_path, call, plain
@@ -424,9 +446,11 @@ def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
      (_k12_lane("shuffle"), (tgm, "lane_gather")), (_k12_window, (tgm, "window_gather")),
      (_k12_reduce, (tgm, "segment_reduce")), (_k13("staged"), (tgp, "element_gather")),
      (_k6_staged, (ek, "lhs_rows_staged")), (_k5_staged, (ek, "ns_lhs_gather_staged")),
-     (_k9_segment_sum, (win_ring, "ring_reduce_staged"))],
+     (_k9_segment_sum, (win_ring, "ring_reduce_staged")),
+     (_k4_staged, (ek, "ns_residual_gather_staged")),
+     (_k8_segment_sum, (win_stream, "stream_reduce_staged"))],
     ids=["K4", "K5", "K10", "K12-copy", "K12-lane", "K12-window", "K12-reduce", "K13",
-         "K6-staged", "K5-staged", "K9-segment-sum"],
+         "K6-staged", "K5-staged", "K9-segment-sum", "K4-staged", "K8-segment-sum"],
 )
 def test_cpu_tensors_count_no_launch(call, counter):
     """On CPU tensors the wrappers run their plain twins and count nothing."""
