@@ -516,8 +516,10 @@ def segment_sum_record(label: str, plan, stage, ring_out, reps: int,
     tgt = torch.repeat_interleave(torch.diff(plan.ptr.long()))
     zeros = torch.zeros((plan.num_tgt, stage.shape[1]), dtype=stage.dtype, device=stage.device)
     out = torch.empty((rows, plan.num_tgt), dtype=torch.float32)
+    # the function sums `rows` floats a contribution: the residual rows' 2
+    # zero floats are the layout's cost, not the function's bytes
     return finish(label, {"max_abs_err": err}, kern, plain, reps, 3,
-                  nbytes(plan.ptr, stage, out), op_count(plain),
+                  nbytes(plan.ptr, stage[:, :rows], out), op_count(plain),
                   library=(lambda: torch.index_add(zeros, 0, tgt, stage).T[:rows], kern()))
 
 

@@ -157,11 +157,10 @@ __device__ __forceinline__ void store_res_rows(const float r[4][6], const int sl
 // staging rows pos[a * m + e]. A lane past the last element recomputes the
 // last one and stores its rows again, the same values to the same rows:
 // the warp's pair store needs every lane.
-template <bool kNodeMajor>
 __global__ void __launch_bounds__(kStagedThreads)
 res_gather_staged_kernel(const float* __restrict__ geom, long long geom_ld,  // (19, ld)
                          const int* __restrict__ ien, long long ien_ld,     // (4, ld)
-                         const float* __restrict__ w,     // (n, 6), or (6, n)
+                         const float* __restrict__ w,     // (n, 6)
                          const float* __restrict__ dw,    // as w
                          const float* __restrict__ src,   // (n,) or null
                          const int* __restrict__ pos,     // (4, m) plan positions, -1: none
@@ -171,7 +170,7 @@ res_gather_staged_kernel(const float* __restrict__ geom, long long geom_ld,  // 
   int slot[4];  // loaded first: their latency hides behind the body
 #pragma unroll
   for (int a = 0; a < 4; ++a) slot[a] = __ldg(pos + static_cast<size_t>(a) * m + e);
-  const ResInputs x = gather_res_inputs<kNodeMajor>(geom, geom_ld, ien, ien_ld, w, dw, src, n, e);
+  const ResInputs x = gather_res_inputs<true>(geom, geom_ld, ien, ien_ld, w, dw, src, n, e);
   float r[4][6];
   res_values(x, prm, r);
   store_res_rows(r, slot, stage);
@@ -279,13 +278,12 @@ extern "C" int dedflow_res_gather_staged(const void* geom, long long geom_ld, co
   using namespace dedflow;
   if (m <= 0 || n <= 0 || geom_ld < m || ien_ld < m) return static_cast<int>(cudaErrorInvalidValue);
   const RowsResParams prm{rho, mu, cp, kappa, fb0, fb1, fb2, dt};
-  res_gather_staged_kernel<true>
-      <<<(m + kStagedThreads - 1) / kStagedThreads, kStagedThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(geom), geom_ld, static_cast<const int*>(ien), ien_ld,
-          static_cast<const float*>(w), static_cast<const float*>(dw),
-          static_cast<const float*>(src), static_cast<const int*>(pos), n, m, prm,
-          static_cast<float*>(stage));
+  res_gather_staged_kernel<<<(m + kStagedThreads - 1) / kStagedThreads, kStagedThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(geom), geom_ld, static_cast<const int*>(ien), ien_ld,
+      static_cast<const float*>(w), static_cast<const float*>(dw),
+      static_cast<const float*>(src), static_cast<const int*>(pos), n, m, prm,
+      static_cast<float*>(stage));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -42,8 +42,14 @@
 // - Every wait is on an item with a smaller ticket, which a block that
 //   started earlier holds: the blocks waited on never wait on a later one,
 //   so the launch always completes (the decoupled look-back argument of
-//   single-pass scans). A wait is also bounded (about 0.3 s), so a fault
-//   gives wrong values, which the callers' checks catch, never a hang.
+//   single-pass scans). A wait that outlasts kResSpin polls (a quarter of
+//   a second or more; a call takes well under a millisecond) can only be a
+//   fault, such as a workspace that a call on another stream shares: the
+//   block goes on and traps at its end, so the launch fails and the
+//   caller's next synchronisation raises. A wait that cannot end never
+//   gives sums of slots that were not produced, and never hangs. (The trap
+//   waits for the block's end: a trap in the wait loop, or a wait bounded
+//   by the card's global timer, made the kernel 4-6% slower.)
 // - The counter and the flags persist in the lattice context's `res_sync`
 //   workspace from call to call: a call takes exactly `items` tickets
 //   (tiles x (nz + 1)), so ticket / items + 1 numbers the call (the epoch
@@ -55,7 +61,8 @@
 //   (x - 1 = -1 lands on the previous row's dead cell) is +0.0f here, +-0
 //   there; a sum that starts at +0.0f is never -0.0f, and x + 0.0f == x,
 //   so the float32 result equals the former two-pass kernel's bit for bit.
-//   No atomics in the arithmetic: it repeats from run to run.
+//   The atomics (the ticket, the flags) only schedule the items; the
+//   arithmetic has none, so it repeats from run to run.
 // - Cells of a tile past the row or layer end run the body on cell 0 and
 //   store zeros by a select, not a branch around the body: the body stays
 //   one basic block, so the compiler fuses its multiplies and adds as in
@@ -80,7 +87,7 @@ namespace dedflow {
 constexpr int kResTile = 8, kResCells = kResTile * kResTile;  // nodes / cells of a tile
 constexpr int kResThreads = 128, kResBlocksPerSM = 3;
 constexpr int kResSlot = 4 * kSlabs * 6 * kResCells;     // floats of a tile's cell layer
-constexpr int kResSpin = 1 << 22;                        // polls of a flag before giving up
+constexpr int kResSpin = 1 << 22;                        // polls of a flag before a fault
 static_assert(kSlabs * kResCells == 3 * kResThreads, "3 elements a thread");
 static_assert(kResCells * 6 == 3 * kResThreads, "a node and 3 components a thread");
 
@@ -99,19 +106,26 @@ struct ResArgs {
   Deltas dl;
 };
 
-// Wait until *flag holds `epoch` (bounded), then order the reads after it.
-__device__ __forceinline__ void wait_flag(const int* flag, int epoch) {
+// Wait until *flag holds `epoch`, then order the reads after it; false if
+// it did not within kResSpin polls (a fault).
+__device__ __forceinline__ bool wait_flag(const int* flag, int epoch) {
+  bool ok = false;
   for (int i = 0; i < kResSpin; ++i) {
-    if (*reinterpret_cast<const volatile int*>(flag) == epoch) break;
+    if (*reinterpret_cast<const volatile int*>(flag) == epoch) {
+      ok = true;
+      break;
+    }
     __nanosleep(64);
   }
   __threadfence();
+  return ok;
 }
 
 __global__ void __launch_bounds__(kResThreads, kResBlocksPerSM)
 residual_fused_kernel(ResArgs f, RowsResParams prm) {
-  __shared__ int s_item, s_epoch;
+  __shared__ int s_item, s_epoch, s_fault;
   if (threadIdx.x == 0) {
+    s_fault = 0;
     const unsigned long long ticket = atomicAdd(f.counter, 1ull);
     s_item = static_cast<int>(ticket % static_cast<unsigned long long>(f.items));
     s_epoch = static_cast<int>(ticket / static_cast<unsigned long long>(f.items)) + 1;
@@ -130,7 +144,7 @@ residual_fused_kernel(ResArgs f, RowsResParams prm) {
     const int j = threadIdx.x, lw = L - f.ring_layers + 1 + (j >> 2);
     const int ux = tx + (j & 1), uy = ty + ((j >> 1) & 1);
     if (lw >= 0 && ux < f.tiles_x && uy < tiles_y)
-      wait_flag(f.consumed + lw * f.tiles + uy * f.tiles_x + ux, epoch);
+      if (!wait_flag(f.consumed + lw * f.tiles + uy * f.tiles_x + ux, epoch)) s_fault = 1;
   }
   __syncthreads();
 
@@ -194,7 +208,7 @@ residual_fused_kernel(ResArgs f, RowsResParams prm) {
     const int j = threadIdx.x, lr = Lc - (j >> 2);
     const int ux = tx - (j & 1), uy = ty - ((j >> 1) & 1);
     if (lr >= 0 && ux >= 0 && uy >= 0)
-      wait_flag(f.produced + lr * f.tiles + uy * f.tiles_x + ux, epoch);
+      if (!wait_flag(f.produced + lr * f.tiles + uy * f.tiles_x + ux, epoch)) s_fault = 1;
   }
   __syncthreads();
 
@@ -235,7 +249,10 @@ residual_fused_kernel(ResArgs f, RowsResParams prm) {
     for (int j = 0; j < 3; ++j) f.out[(k0 + 2 * j) * N + r] = acc[j];
   }
   __syncthreads();  // every read of the ring is done
-  if (threadIdx.x == 0) atomicExch(f.consumed + item, epoch);
+  if (threadIdx.x == 0) {
+    atomicExch(f.consumed + item, epoch);
+    if (s_fault) __trap();  // a wait timed out: fail the launch
+  }
 }
 
 }  // namespace dedflow

@@ -32,10 +32,15 @@ the heat source; the staged K4 (the gather tier's residual: each pair's 6
 components straight into K8's staging rows, from node-major states)
 matches its plain twin, equals the column K4's rows placed at the plan
 positions bit for bit (whole and chunked), and K8's segment sum alone over
-them equals K8 over the column rows bit for bit.
+them equals K8 over the column rows bit for bit. A K1 call on a corrupted
+ticket workspace fails loudly instead of returning wrong sums.
 """
 
 import dataclasses
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -162,6 +167,41 @@ def test_k1_fused_equals_the_element_rows_bit_for_bit(card, melt):
     solver, _, wa, dwa, src = melt
     _k1_equals_its_element_rows(solver.lctx, wa.T.contiguous(), dwa.T.contiguous(),
                                 solver.cfg.physics, solver.cfg.time, src)
+
+
+def test_k1_fails_loudly_on_a_corrupt_workspace():
+    """A K1 wait that cannot end traps instead of summing ring slots that
+    were never produced. Moving the ticket counter off its call boundary
+    makes item 0 take the call's last ticket with the next epoch, so the
+    item of layer 1 waits on a flag that never comes: the launch fails
+    after the wait's bound and the next synchronisation raises. Run in a
+    fresh interpreter, since a trap ends its process's CUDA context."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    code = textwrap.dedent("""
+        import numpy as np
+        import torch
+        from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+        from dedflow_tpu_torch.fem import lattice as lat
+        from dedflow_tpu_torch.mesh.gen import box_mesh
+        from dedflow_tpu_torch.solver.newton import NSSolver
+        solver = NSSolver(box_mesh(7, 5, 6), reference_scenario_config(), device="cuda")
+        lctx, cfg = solver.lctx, solver.cfg
+        w = torch.as_tensor(np.random.default_rng(3).standard_normal((2, 6, lctx.num_node)),
+                            dtype=torch.float32, device="cuda")
+        args = (lctx, w[0], w[1], cfg.physics, cfg.time)
+        ok = torch.isfinite(lat.residual_volume(*args)).all().item()
+        print("first call finite:", ok, flush=True)
+        lctx.res_sync[0] += 1  # the ticket counter's low word
+        out = lat.residual_volume(*args)
+        torch.cuda.synchronize()
+        print("second call returned", flush=True)
+    """)
+    run = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=300)
+    assert "first call finite: True" in run.stdout, run.stderr[-2000:]
+    assert "second call returned" not in run.stdout
+    assert run.returncode != 0 and "CUDA error" in run.stderr, run.stderr[-2000:]
 
 
 @pytest.mark.parametrize("implicit", [False, True])
