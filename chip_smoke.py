@@ -106,6 +106,26 @@ Phases, one line each; the script exits non-zero at the first failure:
             then the probes' own path, their entry points' runs
             (gmicro.run, gather_probe.run), with the launch counts of the
             five probe wrappers
+  the Krylov options (ROADMAP A11: pc "simple" / "mg", precision "f64" /
+  "ir", the lagged Jacobian):
+ 19 krylov  box 55, reference scenario: one adaptive step for each pc
+            (fieldsplit, simple, mg) with Newton and Krylov counts, s/step,
+            peak memory and the launch counts of K1-K3, the preconditioner's
+            set-up ms and one apply's ms (as the host paces it and queued on
+            the card) and device operations (torch.profiler); the mg step
+            repeated bit-identical; then precision "ir" (pc mg) as one
+            step_fixed(1), with its refinement cycles, inner iterations and
+            final relative linear residual, and K3's float64 mode on that
+            mesh's J against its plain version (TOL_F64) and an f64 CSR
+            product. Phase 6's RCM mesh with pc mg (AMG): the plan's host
+            set-up s, one adaptive step repeated bit-identical, the PC's
+            set-up and apply, step_fixed(1) with "ir" on the same contexts,
+            and K7's float64 mode on its J. Phase 12's unordered mesh on the
+            gather tier with pc simple: one adaptive step and its PC. Box 12,
+            card float32 against CPU float64, step_fixed(2): pc simple and
+            mg on the lattice, AMG on the converted box (WinELL), simple on
+            the gather tier, the lagged Jacobian, and "ir", whose refined
+            solves must reach 1e-10
 Then, on lines of their own: the kernels JSON object (each kernel with its
 time, its plain version's, its bound and, where one PyTorch call computes
 the same function, that call's time), the card's name and power limit, and
@@ -351,17 +371,18 @@ def op_count(fn) -> tuple[int, list]:
 
 
 def finish(label: str, rec: dict, kernel, plain, reps: int, plain_reps: int,
-           nbytes_: float, counted: tuple, library=None) -> dict:
+           nbytes_: float, counted: tuple, library=None, ops_per_s=None) -> dict:
     """Time a checked kernel against its plain version (and the library
     call, where one exists), add its bound from the bytes and the
-    (operations, ops not counted) of op_count; print one line."""
+    (operations, ops not counted) of op_count, at the FP32 rate unless
+    `ops_per_s` gives another; print one line."""
     import torch
 
-    from dedflow_tpu_torch.tools.timing import bound, time_ms
+    from dedflow_tpu_torch.tools.timing import FP32_OPS_PER_S, bound, time_ms
 
     rec["ms"], rec["plain_ms"] = alternate_ms(kernel, plain, reps, plain_reps)
     ops, skipped = counted
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes_, ops)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes_, ops, ops_per_s or FP32_OPS_PER_S)
     rec["library_ms"] = None
     if library is not None:
         call, check_against = library
@@ -568,6 +589,11 @@ def phase_build() -> None:
     say(f"  K2 fused pass: registers frozen {registers(jac, 'jacobian_fused_kernelILb0E')}, "
         f"implicit {registers(jac, 'jacobian_fused_kernelILb1E')}; dynamic shared memory "
         f"frozen {stage[False]} B, implicit {stage[True]} B")
+    say(f"  K3 / K7 registers, float32 and float64 instances: "
+        f"{registers(libs['dia_spmv'], 'dia_spmv_kernelIfE')}, "
+        f"{registers(libs['dia_spmv'], 'dia_spmv_kernelIdE')} / "
+        f"{registers(libs['winell_spmv'], 'winell_spmv_kernelIfE')}, "
+        f"{registers(libs['winell_spmv'], 'winell_spmv_kernelIdE')}")
     say("  K11 sweep: registers by capacity K (0: any K) "
         + ", ".join(f"{k}: {registers(dem, f'dem_contact_kernelILi{k}E')}" for k in range(13)
                     if k != 1))
@@ -1957,6 +1983,412 @@ def phase_probes() -> list:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 19: the Krylov options (pc "simple" / "mg", precision "f64" / "ir",
+# the lagged Jacobian)
+
+PCS = ("fieldsplit", "simple", "mg")
+IR_PC = "mg"  # the box-55 refinement's inner preconditioner
+# K3 and K7 in float64: sums of ~60 / ~64 products a row against the plain
+# version's order, at float64 roundoff, per equation.
+TOL_F64 = 1e-12
+# The refined solves reach the BASELINE.md bar (1e-10 relative linear
+# residual) on the box-12 slice.
+IR_BAR = 1e-10
+KRYLOV_KERNELS = (
+    ("K3 dia spmv (f64)", "dedflow_tpu_torch/csrc/dia_spmv.cu",
+     "dedflow_tpu/sparse/dia_kernels.py:56"),
+    ("K7 winell spmv (f64)", "dedflow_tpu_torch/csrc/winell_spmv.cu",
+     "dedflow_tpu/sparse/win_kernels.py:55"),
+)
+
+
+def with_krylov(cfg, **kw):
+    import dataclasses
+
+    return dataclasses.replace(cfg, krylov=dataclasses.replace(cfg.krylov, **kw))
+
+
+class RefineSpy:
+    """Records every iterative refinement the solver runs (cycles, inner
+    iterations, final relative residual) while it is installed in
+    solver.newton; the solve itself is unchanged."""
+
+    def __init__(self):
+        self.runs = []
+
+    def __enter__(self):
+        from dedflow_tpu_torch.solver import newton
+
+        self.orig = newton.gmres_ir_device
+
+        def spy(*a, **k):
+            out = self.orig(*a, **k)
+            self.runs.append((out.cycles, out.inner_iters, float(out.rel_residual)))
+            return out
+
+        newton.gmres_ir_device = spy
+        return self
+
+    def __exit__(self, *exc):
+        from dedflow_tpu_torch.solver import newton
+
+        newton.gmres_ir_device = self.orig
+
+
+def cuda_events(fn) -> int:
+    """Device operations (kernels, copies, sets) one call of `fn` queues,
+    by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def pc_record(jm, pc_fn, n: int) -> dict:
+    """A preconditioner's set-up (pc_fn(jm)) and apply on a seeded (6, n)
+    vector: ms as the host paces the launches (what GMRES sees) and as the
+    card runs them queued, and its device operations a call."""
+    import torch
+
+    from dedflow_tpu_torch.tools.timing import time_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((6, n), generator=gen, device="cuda", dtype=torch.float32)
+    pc = pc_fn(jm)
+    y = pc(x)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(y).all()):
+        raise PhaseError("krylov: a preconditioner apply is not finite")
+    return {
+        "setup_ms": time_ms(lambda: pc_fn(jm), 3, queue_ahead=False),
+        "apply_ms": time_ms(lambda: pc(x), 10, queue_ahead=False),
+        "apply_device_ms": time_ms(lambda: pc(x), 10),
+        "apply_launches": cuda_events(lambda: pc(x)),
+    }
+
+
+def lattice_pc_setup(name: str, dims):
+    from dedflow_tpu_torch.solver.mg import MGSIMPLEPCT
+    from dedflow_tpu_torch.solver.pc import SIMPLEPCT, NSFieldSplitPCT
+
+    return {"fieldsplit": lambda jm: NSFieldSplitPCT.from_diag_rows(jm.diag_rows()),
+            "simple": SIMPLEPCT.from_matrix,
+            "mg": lambda jm: MGSIMPLEPCT.from_matrix(jm, dims)}[name]
+
+
+def krylov_step(solver, counters, label: str, repeat: bool = False) -> dict:
+    """One adaptive step of `solver` from the reference initial state with
+    the launch counts set to 0 just before and read just after (each must
+    be positive), its wall time, counts and peak memory; with `repeat` the
+    step again from the same state, which must be bit-identical."""
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_initial_state
+    from dedflow_tpu_torch.interop import state_from_numpy
+
+    state0 = state_from_numpy(*reference_initial_state(solver.mesh), "cuda", solver.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    *state, stats = solver.step(*state0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    rec = {"step_s": wall, "newton": len(stats.rnorms), "krylov": stats.krylov_iters,
+           "converged": stats.converged, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches}
+    say(f"  {label}: step_s={wall:.4f} newton={rec['newton']} krylov={stats.krylov_iters} "
+        f"converged={stats.converged} peak={rec['peak_gib']:.3f} GiB launches "
+        f"{[c.__name__ for c in counters]}={launches}")
+    if not all(math.isfinite(float(v)) for v in stats.rnorms[-1]) or not all(
+            bool(torch.isfinite(t).all()) for t in state):
+        raise PhaseError(f"krylov {label}: non-finite step")
+    if min(launches) <= 0:
+        raise PhaseError(f"krylov {label}: a kernel of the path was not launched: {launches}")
+    if repeat:
+        *again, astats = solver.step(*state0)
+        same = all(torch.equal(a, b) for a, b in zip(again, state))
+        say(f"  {label} repeated: bit-identical states {same}, krylov {astats.krylov_iters}")
+        if not same or astats.krylov_iters != stats.krylov_iters:
+            raise PhaseError(f"krylov {label}: a repeated step differs from the first")
+        rec["repeat_bit_identical"] = same
+    return rec
+
+
+def ir_step(solver, counters, label: str) -> dict:
+    """step_fixed(1) of `solver` (precision "ir") from the reference
+    initial state with the launch counts set to 0 just before and read just after, and
+    the refinement it ran (RefineSpy)."""
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_initial_state
+    from dedflow_tpu_torch.interop import state_from_numpy
+
+    state0 = state_from_numpy(*reference_initial_state(solver.mesh), "cuda", solver.dtype)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    with RefineSpy() as spy:
+        t0 = time.perf_counter()
+        out = solver.step_fixed(*state0, num_newton=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    ((cycles, inner, rel),) = spy.runs
+    say(f"  {label}: step_fixed(1) s={wall:.4f} cycles={cycles} inner_iters={inner} "
+        f"rel_linear_residual={rel:.3e} launches {[c.__name__ for c in counters]}={launches}")
+    if not all(bool(torch.isfinite(t).all()) for t in out):
+        raise PhaseError(f"krylov {label}: non-finite step")
+    if min(launches) <= 0:
+        raise PhaseError(f"krylov {label}: a kernel of the path was not launched: {launches}")
+    return {"step_s": wall, "cycles": cycles, "inner_iters": inner, "rel": rel,
+            "launches": launches}
+
+
+def f64_record(label: str, kern, plain, nbytes_, counted, library, counter) -> dict:
+    """A float64 kernel against its plain version per equation (TOL_F64),
+    twice bit-identical, then finish()'s timings (operations at the FP64
+    rate); the launches of the comparison are not counted."""
+    from dedflow_tpu_torch.tools.timing import FP64_OPS_PER_S
+
+    before = counter.launches
+    err = compare(label, kern, plain, TOL_F64,
+                  parts={" [u rows]": lambda t: t[:3], " [p row]": lambda t: t[3:4],
+                         " [phi,T rows]": lambda t: t[4:]})
+    rec = finish(label, {"max_abs_err": err}, kern, plain, 50, 5, nbytes_, counted,
+                 library=library, ops_per_s=FP64_OPS_PER_S)
+    counter.launches = before
+    return rec
+
+
+def krylov_slices() -> dict:
+    """Box 12, card float32 against CPU float64, one step_fixed(2) each:
+    pc simple and mg on the lattice, mg (AMG) on the converted box with
+    RCM (WinELL), simple on the gather tier, the lagged Jacobian (simple)
+    and precision "ir" (mg) on the lattice, whose every refined solve must
+    reach IR_BAR."""
+    import dataclasses
+
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
+    from dedflow_tpu_torch.solver.newton import NSSolver
+
+    box = box_mesh(*SLICE_BOX)
+    conv = dataclasses.replace(box, lattice=None)
+    conv = reorder_mesh(conv, rcm_order(conv.ien, conv.num_node))
+    ref = reference_scenario_config()
+    cases = {
+        "lattice simple": (box, with_krylov(ref, pc="simple"), "lattice"),
+        "lattice mg": (box, with_krylov(ref, pc="mg"), "lattice"),
+        "winell mg (AMG)": (conv, with_krylov(reference_scenario_config(use_lattice="winell"),
+                                              pc="mg"), "winell"),
+        "gather simple": (box, with_krylov(reference_scenario_config(use_lattice="gather"),
+                                           pc="simple"), "gather"),
+        "lattice simple, lagged J": (box, dataclasses.replace(
+            with_krylov(ref, pc="simple"),
+            newton=dataclasses.replace(ref.newton, lag_jacobian=True)), "lattice"),
+        "lattice mg, ir": (box, with_krylov(ref, pc="mg", precision="ir"), "lattice"),
+    }
+    out = {}
+    for label, (mesh, cfg, tier) in cases.items():
+        outs, refines = [], []
+        for device in ("cuda", "cpu"):
+            solver = NSSolver(mesh, cfg, device=device)
+            if solver.fastpath != tier:
+                raise PhaseError(f"krylov slice {label}: fastpath {solver.fastpath!r}")
+            state = perturbed_state(mesh, device, solver.dtype)
+            with RefineSpy() as spy:
+                outs.append([t.cpu() for t in solver.step_fixed(*state, num_newton=2)])
+            refines.append(spy.runs)
+        worst = 0.0
+        for g, r in zip(*outs):
+            if not bool(torch.isfinite(g).all()):
+                raise PhaseError(f"krylov slice {label}: non-finite state on the card")
+            worst = max(worst, rel_err(g, r)[1])
+        line = f"  slice {label}: card f32 vs cpu f64 rel={worst:.3e} (tol {TOL_SLICE:.0e})"
+        if cfg.krylov.precision == "ir":
+            rels = [r for _, _, r in refines[0]]
+            line += (f"; card refinements (cycles, inner, rel) {refines[0]}, "
+                     f"max rel {max(rels):.3e} (bar {IR_BAR:.0e})")
+            if not max(rels) <= IR_BAR:
+                raise PhaseError(f"krylov slice {label}: a refined solve ended at {max(rels):.3e}")
+        say(line)
+        check(f"krylov slice {label}", worst, TOL_SLICE)
+        out[label] = worst
+    return out
+
+
+def phase_krylov(rcm, raw) -> tuple[list, dict]:
+    """Phase 19: the Krylov options on the card. Box 55, reference scenario:
+    one adaptive step for each of PCS, with the preconditioner's set-up and
+    apply (ms, device operations), then precision "ir" (IR_PC) as one
+    step_fixed(1), and K3's float64 mode on that mesh's J. Phase 6's RCM
+    Delaunay mesh with pc mg (AMG), one step repeated bit-identical, its
+    step_fixed(1) with "ir", and K7's float64 mode on its J. Phase 12's
+    unordered Delaunay mesh on the gather tier with pc simple, one step.
+    Then the box-12 slices (krylov_slices). Returns the two float64 kernel
+    records (KRYLOV_KERNELS' order, with their main-path launches) and the
+    summary."""
+    import copy
+
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+    from dedflow_tpu_torch.fem import element_kernels as ek
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.fem import win_assembly as wa_
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.solver.amg import AMGSchurPCT
+    from dedflow_tpu_torch.solver.newton import NSSolver, assemble_system
+    from dedflow_tpu_torch.solver.pc import SIMPLEPC
+    from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec, dia_matvec_f64, dia_matvec_plain
+    from dedflow_tpu_torch.sparse.win_gather import win_gather
+    from dedflow_tpu_torch.sparse.win_kernels import (
+        winell_matvec,
+        winell_matvec_f64,
+        winell_matvec_plain,
+    )
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce_staged
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_staged
+    from dedflow_tpu_torch.sparse.winell import COMP2WIN
+    from dedflow_tpu_torch.tools.timing import nbytes
+
+    summary = {}
+    ref = reference_scenario_config()
+    lattice_counters = (lat.residual_volume, lat.jacobian_volume, dia_matvec)
+    mesh = box_mesh(*FULL_BOX)
+    for name in PCS:
+        t0 = time.perf_counter()
+        solver = NSSolver(mesh, with_krylov(ref, pc=name), device="cuda")
+        setup = time.perf_counter() - t0
+        rec = krylov_step(solver, lattice_counters, f"box 55 pc {name}", repeat=name == "mg")
+        wg, dwgold, dwg = perturbed_state(mesh, "cuda", solver.dtype)
+        wa, dwa = alpha_states(wg, dwgold, dwg, ref.time)
+        jm = lat.assemble_jacobian_t(solver.lctx, solver.face_ctxs, solver.mask_t, wa, dwa,
+                                     ref.physics, ref.time)
+        rec.update(pc_record(jm, lattice_pc_setup(name, solver.lctx.dims), solver.lctx.num_node))
+        rec["solver_setup_s"] = setup
+        say(f"  box 55 pc {name}: pc setup_ms={rec['setup_ms']:.3f} apply_ms={rec['apply_ms']:.3f} "
+            f"(queued on the card {rec['apply_device_ms']:.3f}) device ops an apply="
+            f"{rec['apply_launches']}; solver set-up {setup:.2f} s")
+        summary[f"box55 {name}"] = rec
+        del solver
+    # precision "ir" on the same mesh; K3's float64 mode on its J
+    solver = NSSolver(mesh, with_krylov(ref, pc=IR_PC, precision="ir"), device="cuda")
+    summary["box55 ir"] = ir_step(solver, (*lattice_counters, dia_matvec_f64),
+                                  f"box 55 pc {IR_PC}, precision ir")
+    k3_launches = summary["box55 ir"]["launches"][-1]
+    d64, s64 = jm.data.double(), jm.scal.double()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x64 = torch.randn((6, jm.num_rows), generator=gen, device="cuda", dtype=torch.float64)
+    offs, n = jm.offsets, jm.num_rows
+    pieces = []
+    for k, o in enumerate(offs):
+        r = torch.arange(max(0, -o), min(n, n - o), device="cuda")
+        by_comp = {c: d64[k, c, r] for c in range(16)}
+        by_comp.update({16: s64[2 * k, r], 17: s64[2 * k + 1, r]})
+        pieces.append((r, r + o, by_comp))
+    csr = block_csr(n, pieces)
+    xflat = x64.reshape(-1)
+    k3 = lambda: dia_matvec(d64, s64, x64, offs)
+    p3 = lambda: dia_matvec_plain(d64, s64, x64, offs)
+    r3 = f64_record(KRYLOV_KERNELS[0][0], k3, p3, nbytes(d64, s64, x64, x64), op_count(p3),
+                    (lambda: csr @ xflat, k3()), dia_matvec_f64)
+    del solver, jm, d64, s64, csr, pieces
+
+    # WinELL: phase 6's RCM Delaunay mesh with AMG
+    cfg_w = with_krylov(reference_scenario_config(bcs=(), pin_pressure=True), pc="mg")
+    t0 = time.perf_counter()
+    amg_s = []
+    orig = wa_.build_win_amg
+
+    def timed_amg(*a, **k):
+        t = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        amg_s.append(time.perf_counter() - t)
+        return out
+
+    wa_.build_win_amg = timed_amg
+    try:
+        wsolver = NSSolver(rcm, cfg_w, device="cuda")
+    finally:
+        wa_.build_win_amg = orig
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    if wsolver.fastpath != "winell" or wsolver.wctx.amg_idx is None:
+        raise PhaseError("krylov: the RCM Delaunay solver has no AMG plan on the winell tier")
+    idx = wsolver.wctx.amg_idx
+    say(f"  winell pc mg: solver set-up {setup:.2f} s, of it the AMG plan {amg_s[0]:.2f} s "
+        f"(levels {list(idx.ns)}, coarse entries {list(idx.ecs)})")
+    w_counters = (ek.res_rows_call, ek.lhs_rows_staged, winell_matvec, stream_reduce,
+                  ring_reduce_staged, win_gather)
+    rec = krylov_step(wsolver, w_counters, "winell pc mg (AMG)", repeat=True)
+    wg, dwgold, dwg = perturbed_state(rcm, "cuda", wsolver.dtype)
+    wm, _ = assemble_system(wsolver.wctx, wsolver.face_ctxs, wsolver.mask_t, wg, dwgold, dwg,
+                            cfg_w.physics, cfg_w.time)
+    rec.update(pc_record(
+        wm, lambda m: AMGSchurPCT.from_winell(m, idx, wsolver.wctx.amg_eon), rcm.num_node))
+    rec.update(solver_setup_s=setup, amg_plan_s=amg_s[0])
+    say(f"  winell pc mg: pc setup_ms={rec['setup_ms']:.3f} apply_ms={rec['apply_ms']:.3f} "
+        f"(queued {rec['apply_device_ms']:.3f}) device ops an apply={rec['apply_launches']}")
+    summary["winell mg"] = rec
+    wir = copy.copy(wsolver)  # the same contexts and AMG plan, precision "ir"
+    wir.cfg = with_krylov(cfg_w, precision="ir")
+    summary["winell ir"] = ir_step(wir, (winell_matvec, winell_matvec_f64), "winell pc mg, precision ir")
+    k7_launches = summary["winell ir"]["launches"][-1]
+    m64 = type(wm)(vals=wm.vals.double(), plan=wm.plan)
+    xw = torch.randn((6, rcm.num_node), generator=gen, device="cuda", dtype=torch.float64)
+    plan = wm.plan
+    csrw = block_csr(rcm.num_node, [(plan.grow_t.long(), plan.col_t.long(),
+                                     {c: m64.vals[int(COMP2WIN[c])] for c in range(18)})])
+    xwf = xw.reshape(-1)
+    k7 = lambda: winell_matvec(m64, xw)
+    p7 = lambda: winell_matvec_plain(m64, xw)
+    r7 = f64_record(KRYLOV_KERNELS[1][0], k7, p7,
+                    nbytes(m64.vals, plan.col_t, plan.row_ptr_t, xw, xw), op_count(p7),
+                    (lambda: csrw @ xwf, k7()), winell_matvec_f64)
+    del wsolver, wir, wm, m64, csrw
+
+    # the gather tier (phase 12's unordered mesh), pc simple
+    t0 = time.perf_counter()
+    gsolver = NSSolver(raw, with_krylov(reference_scenario_config(**GATHER_CONFIG), pc="simple"),
+                       device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    if gsolver.fastpath != "gather":
+        raise PhaseError(f"krylov: gather fastpath {gsolver.fastpath!r}")
+    g_counters = (ek.ns_residual_gather_staged, ek.ns_lhs_gather_staged, winell_matvec,
+                  stream_reduce_staged, ring_reduce_staged)
+    rec = krylov_step(gsolver, g_counters, "gather pc simple")
+    wg, dwgold, dwg = perturbed_state(raw, "cuda", gsolver.dtype)
+    gm, _ = assemble_system(gsolver.gctx, gsolver.face_ctxs, gsolver.mask_t, wg, dwgold, dwg,
+                            gsolver.cfg.physics, gsolver.cfg.time)
+    rec.update(pc_record(gm, SIMPLEPC.from_matrix, raw.num_node))
+    rec["solver_setup_s"] = setup
+    say(f"  gather pc simple: pc setup_ms={rec['setup_ms']:.3f} apply_ms={rec['apply_ms']:.3f} "
+        f"(queued {rec['apply_device_ms']:.3f}) device ops an apply={rec['apply_launches']}; "
+        f"solver set-up {setup:.2f} s")
+    summary["gather simple"] = rec
+    del gsolver, gm
+
+    summary["slices"] = krylov_slices()
+    return [r3 | {"launches": k3_launches}, r7 | {"launches": k7_launches}], summary
+
+
 def run() -> int:
     try:
         import torch
@@ -2071,6 +2503,14 @@ def run() -> int:
         t0 = time.perf_counter()
         probes = phase_probes()
         say(f"  probes: {time.perf_counter() - t0:.1f} s")
+        phase = "19 krylov"
+        say(f"phase 19 krylov options ({card}): box {FULL_BOX} pc {', '.join(PCS)} and "
+            f"precision ir; the RCM Delaunay mesh with pc mg (AMG); the unordered one on the "
+            f"gather tier with pc simple; box {SLICE_BOX} slices")
+        t0 = time.perf_counter()
+        krylov_results, krylov = phase_krylov(rcm, raw)
+        say(f"  krylov ({card}): {json.dumps(krylov)}")
+        say(f"  phase 19: {time.perf_counter() - t0:.1f} s")
     except Exception as e:  # report the failed phase, then fail
         traceback.print_exc()
         print(f"FAIL phase {phase}: {type(e).__name__}: {e}", file=sys.stderr)
@@ -2087,14 +2527,15 @@ def run() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n, **r}
         for (name, src, rep), r, n in zip(
             KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS
-            + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS,
+            + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS + KRYLOV_KERNELS,
             results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit]
-            + ir_staged + ga_staged + ga_res_staged,
+            + ir_staged + ga_staged + ga_res_staged + krylov_results,
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
             + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
             + ga_main["launches"][3:]
-            + melt_launches + staged_launches + ga_main["res_staged"],
+            + melt_launches + staged_launches + ga_main["res_staged"]
+            + [r["launches"] for r in krylov_results],
         )
     ]
     # the probes' launches: those of their entry points' runs (phase 18)

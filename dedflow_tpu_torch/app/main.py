@@ -2,41 +2,50 @@
 moving-laser melt-pool or coupled FEM-DEM powder-settling scenario on a box
 mesh.
 
-    python -m dedflow_tpu_torch.app.main --box NX NY NZ [--steps K] \\
+    python -m dedflow_tpu_torch.app.main [--box NX NY NZ] [--steps K] \\
         --device cuda|cpu --dtype f32|f64 [--config cfg.json] [--chunk E] \\
-        [--scenario reference|cavity|melt-pool] [--fixed-newton K]
+        [--scenario reference|cavity|melt-pool] [--fixed-newton K] \\
+        [--pc fieldsplit|simple|mg] [--precision state|f64|ir]
     python -m dedflow_tpu_torch.app.main --scenario coupled --box 55 55 55 \\
         --particles 100000 [--particle-radius R] [--dem-substeps 10] [--no-dem-grid]
 
-`--steps K` runs K time steps; without it the run takes the config's
-`num_steps` (4000 for the built-in scenarios), as the JAX CLI does.
-`--config` loads a SolverConfig from JSON in place of the reference
-scenario's (config.load_config, as the JAX CLI's --config). It replaces
-the scenario as a whole, BCs included, so start from the reference
-scenario's own JSON: `config.save_config(reference_scenario_config(
-use_lattice="winell"), path)` runs the box on the windowed irregular tier,
-`use_lattice="gather"` on the general gather tier. `--chunk E` sets the
-assembly chunk (E elements per range, as the JAX CLI's --chunk), which
-puts the run on the general gather tier.
-`--scenario cavity` is the lid-driven cavity (BASELINE config #2),
-`--scenario melt-pool` the moving-laser melt pool (BASELINE config #3: the
-phi/T equations active with their implicit tangents; each step evaluates
-the laser source at the generalized-alpha time level (step - 1 + alpha_f)
-dt, as the JAX CLI does, app/main.py:331-351). `--fixed-newton K` steps
-with K Newton iterations each (`step_fixed`, the JAX CLI's production
-loop) instead of the adaptive loop.
-`--scenario coupled` releases `--particles` particles in the upper half of
-the box (app.scenarios.coupled_scenario_setup, the JAX CLI's defaults) and
-steps app.coupled.CoupledSolver: drag exchange, the fluid step with the
-drag reaction as a nodal load, then the DEM substeps (the grid-resident
-path with kernel K11 unless --no-dem-grid).
-Prints one JSON line per time step: step, the scenario, the assembly tier (`fastpath`),
-wall seconds (after a device synchronize), the largest temperature
-(`t_max`) and, from the adaptive loop, Newton iterations, Krylov
-iterations per Newton iteration, the last field norms and whether Newton
-converged. Other flags of the JAX CLI (restarts, HDF5 snapshots, sharding)
-are not ported yet (ROADMAP queues A16, A17).
-"""
+`--box` defaults to 8 8 8, as the JAX CLI's. `--steps K` runs K time
+steps; without it the run takes the config's `num_steps` (4000 for the
+built-in scenarios), as the JAX CLI does. `--config` loads a SolverConfig
+from JSON in place of the reference scenario's (config.load_config, as the
+JAX CLI's --config). It replaces the scenario as a whole, BCs included, so
+start from the reference scenario's own JSON:
+`config.save_config(reference_scenario_config(use_lattice="winell"),
+path)` runs the box on the windowed irregular tier, `use_lattice="gather"`
+on the general gather tier. `--chunk E` sets the assembly chunk (E
+elements per range, as the JAX CLI's --chunk), which puts the run on the
+general gather tier. `--scenario cavity` is the lid-driven cavity
+(BASELINE config #2), `--scenario melt-pool` the moving-laser melt pool
+(BASELINE config #3: the phi/T equations active with their implicit
+tangents; each step evaluates the laser source at the generalized-alpha
+time level (step - 1 + alpha_f) dt, as the JAX CLI does,
+app/main.py:331-351). `--fixed-newton K` steps with K Newton iterations
+each (`step_fixed`, the JAX CLI's production loop) instead of the adaptive
+loop. `--scenario coupled` releases `--particles` particles in the upper
+half of the box (app.scenarios.coupled_scenario_setup, the JAX CLI's
+defaults) and steps app.coupled.CoupledSolver: drag exchange, the fluid
+step with the drag reaction as a nodal load, then the DEM substeps (the
+grid-resident path with kernel K11 unless --no-dem-grid). `--pc` picks the
+Krylov preconditioner and `--precision` the linear solve's precision, with
+the JAX CLI's meanings (config.KrylovConfig): fieldsplit = the reference's
+block-Jacobi split; simple = the SIMPLE pressure-Schur split (lattice and
+gather tiers; fieldsplit on WinELL); mg = SIMPLE with a multigrid Schur
+solve (geometric on the lattice, algebraic on WinELL, SIMPLE on the gather
+tier). state = solve in the state dtype; f64 = the whole Krylov solve in
+float64; ir = float32 GMRES with float64 iterative refinement to 1e-10
+relative linear residuals. `--precision ir` without `--dtype` runs a
+float32 state on either device. Prints one JSON line per time step: step,
+the scenario, the assembly tier (`fastpath`), wall seconds (after a device
+synchronize), the largest temperature (`t_max`) and, from the adaptive
+loop, Newton iterations, Krylov iterations per Newton iteration, the last
+field norms and whether Newton converged. Other flags of the JAX CLI
+(restarts, HDF5 snapshots, sharding) are not ported yet (ROADMAP queues
+A16, A17). """
 
 from __future__ import annotations
 
@@ -69,8 +78,8 @@ from dedflow_tpu_torch.utils.dtypes import parse_dtype, resolve_device
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--box", type=int, nargs=3, default=(10, 10, 10),
-                   metavar=("NX", "NY", "NZ"), help="box cells per axis")
+    p.add_argument("--box", type=int, nargs=3, default=(8, 8, 8),
+                   metavar=("NX", "NY", "NZ"), help="box cells per axis (default 8 8 8)")
     p.add_argument("--steps", type=int, default=None,
                    help="time steps to run (default: the config's num_steps)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -86,6 +95,14 @@ def _parser() -> argparse.ArgumentParser:
                    "pool / coupled FEM-DEM powder settling")
     p.add_argument("--fixed-newton", type=int, default=None, metavar="K",
                    help="K Newton iterations a step (step_fixed) instead of the adaptive loop")
+    p.add_argument("--pc", choices=("fieldsplit", "simple", "mg"), default=None,
+                   help="Krylov preconditioner (default: the config's): fieldsplit = the "
+                   "reference's block-Jacobi split; simple = SIMPLE pressure-Schur; mg = SIMPLE "
+                   "with a multigrid Schur solve (geometric on the lattice, AMG on WinELL)")
+    p.add_argument("--precision", choices=("state", "f64", "ir"), default=None,
+                   help="linear-solve precision (default: the config's): state = the state "
+                   "dtype; f64 = float64 Krylov; ir = float32 GMRES + float64 iterative "
+                   "refinement to 1e-10 relative linear residuals")
     p.add_argument("--particles", type=int, default=1000,
                    help="particle count for --scenario coupled")
     p.add_argument("--particle-radius", type=float, default=None,
@@ -101,7 +118,9 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
-    dtype = parse_dtype(args.dtype, device)
+    # ir = a float32 state with float64 refinement (the JAX CLI's rule)
+    dtype = torch.float32 if args.precision == "ir" and args.dtype is None else parse_dtype(
+        args.dtype, device)
     mesh = box_mesh(*args.box)
     scenario_config, initial_state = {
         "cavity": (lid_driven_cavity_config, lid_driven_cavity_initial_state),
@@ -112,6 +131,9 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, num_steps=args.steps)
     if args.chunk is not None:
         cfg = dataclasses.replace(cfg, assembly_chunk=args.chunk)
+    krylov = {k: v for k, v in (("pc", args.pc), ("precision", args.precision)) if v}
+    if krylov:
+        cfg = dataclasses.replace(cfg, krylov=dataclasses.replace(cfg.krylov, **krylov))
     coupled = args.scenario == "coupled"
     if coupled:
         ccfg, pstate = coupled_scenario_setup(

@@ -16,6 +16,13 @@
 //
 // Component order (sparse/fsbsr.py): 0..8 uu[i*3+j], 9..11 up[i],
 // 12..14 pu[j], 15 pp; scal rows 2k = phi-phi, 2k+1 = T-T.
+//
+// The kernel is a template on the scalar type, built for float (the
+// solver's state type on the card) and double (the f64 operator of
+// krylov.precision "f64" and the residual of "ir"). The double instance is
+// the same row-per-thread product; it moves twice the bytes and stays
+// bound by them (the card's FP64 rate is half its FP32 rate, 60 flops a
+// row against 2160 bytes).
 
 #include <cuda_runtime.h>
 
@@ -27,24 +34,25 @@ struct Offsets {
   int o[kMaxPlanesSpmv];
 };
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-dia_spmv_kernel(const float* __restrict__ data,  // (D, 16, n)
-                const float* __restrict__ scal,  // (2D, n)
-                const float* __restrict__ x,     // (6, n)
-                float* __restrict__ y,           // (6, n)
+dia_spmv_kernel(const T* __restrict__ data,  // (D, 16, n)
+                const T* __restrict__ scal,  // (2D, n)
+                const T* __restrict__ x,     // (6, n)
+                T* __restrict__ y,           // (6, n)
                 int n, int num_planes, Offsets off) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const size_t N = static_cast<size_t>(n);
-  float y0 = 0.f, y1 = 0.f, y2 = 0.f, y3 = 0.f, y4 = 0.f, y5 = 0.f;
+  T y0 = 0, y1 = 0, y2 = 0, y3 = 0, y4 = 0, y5 = 0;
 #pragma unroll
   for (int k = 0; k < kMaxPlanesSpmv; ++k) {
     if (k < num_planes) {
       const int col = r + off.o[k];
       if (col >= 0 && col < n) {
-        const float x0 = x[col], x1 = x[N + col], x2 = x[2 * N + col];
-        const float x3 = x[3 * N + col], x4 = x[4 * N + col], x5 = x[5 * N + col];
-        const float* d = data + static_cast<size_t>(k) * 16 * N + r;
+        const T x0 = x[col], x1 = x[N + col], x2 = x[2 * N + col];
+        const T x3 = x[3 * N + col], x4 = x[4 * N + col], x5 = x[5 * N + col];
+        const T* d = data + static_cast<size_t>(k) * 16 * N + r;
         y0 += d[0] * x0 + d[N] * x1 + d[2 * N] * x2 + d[9 * N] * x3;
         y1 += d[3 * N] * x0 + d[4 * N] * x1 + d[5 * N] * x2 + d[10 * N] * x3;
         y2 += d[6 * N] * x0 + d[7 * N] * x1 + d[8 * N] * x2 + d[11 * N] * x3;
@@ -62,16 +70,26 @@ dia_spmv_kernel(const float* __restrict__ data,  // (D, 16, n)
   y[5 * N + r] = y5;
 }
 
+template <typename T>
+int launch(const void* data, const void* scal, const void* x, void* y, int n, int num_planes,
+           const int* offsets, void* stream) {
+  if (num_planes < 1 || num_planes > kMaxPlanesSpmv) return static_cast<int>(cudaErrorInvalidValue);
+  Offsets off{};
+  for (int k = 0; k < num_planes; ++k) off.o[k] = offsets[k];
+  dia_spmv_kernel<T><<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const T*>(scal), static_cast<const T*>(x),
+      static_cast<T*>(y), n, num_planes, off);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace dedflow
 
 extern "C" int dedflow_dia_spmv(const void* data, const void* scal, const void* x, void* y,
                                 int n, int num_planes, const int* offsets, void* stream) {
-  using namespace dedflow;
-  if (num_planes < 1 || num_planes > kMaxPlanesSpmv) return static_cast<int>(cudaErrorInvalidValue);
-  Offsets off{};
-  for (int k = 0; k < num_planes; ++k) off.o[k] = offsets[k];
-  dia_spmv_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), static_cast<const float*>(scal),
-      static_cast<const float*>(x), static_cast<float*>(y), n, num_planes, off);
-  return static_cast<int>(cudaGetLastError());
+  return dedflow::launch<float>(data, scal, x, y, n, num_planes, offsets, stream);
+}
+
+extern "C" int dedflow_dia_spmv_f64(const void* data, const void* scal, const void* x, void* y,
+                                    int n, int num_planes, const int* offsets, void* stream) {
+  return dedflow::launch<double>(data, scal, x, y, n, num_planes, offsets, stream);
 }

@@ -18,6 +18,11 @@
 // one int, 76 bytes: about 210 MB at 1.18M tets); x (24 bytes a node) is
 // gathered through L1/L2, where it stays resident (4.2 MB at 175,616 nodes).
 //
+// The kernel is a template on the scalar type, built for float (the
+// solver's state type on the card) and double (the f64 operator of
+// krylov.precision "f64" and the residual of "ir"): the double instance
+// moves 148 bytes an entry and stays bound by them.
+//
 // WinELL component order: row 4k+i (i<3) = d y_u[i] / d x_[k], row 4k+3 =
 // d y_p / d x_[k] (k<3 velocity, k=3 pressure), rows 16/17 phi-phi / T-T.
 
@@ -27,12 +32,13 @@ namespace dedflow {
 
 constexpr int kLanesPerRow = 16;
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-winell_spmv_kernel(const float* __restrict__ vals,    // (18, S)
+winell_spmv_kernel(const T* __restrict__ vals,        // (18, S)
                    const int* __restrict__ row_ptr,   // (n + 1,)
                    const int* __restrict__ col,       // (S,)
-                   const float* __restrict__ x,       // (6, n)
-                   float* __restrict__ y,             // (6, n)
+                   const T* __restrict__ x,           // (6, n)
+                   T* __restrict__ y,                 // (6, n)
                    int n, long long num_entries) {
   const long long gid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & (kLanesPerRow - 1);
@@ -40,14 +46,14 @@ winell_spmv_kernel(const float* __restrict__ vals,    // (18, S)
   const bool active = row < n;
   const size_t N = static_cast<size_t>(n);
   const size_t S = static_cast<size_t>(num_entries);
-  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  T acc[6] = {0, 0, 0, 0, 0, 0};
   if (active) {
     const int end = row_ptr[row + 1];
     for (int s = row_ptr[row] + lane; s < end; s += kLanesPerRow) {
       const int c = col[s];
-      const float x0 = x[c], x1 = x[N + c], x2 = x[2 * N + c];
-      const float x3 = x[3 * N + c], x4 = x[4 * N + c], x5 = x[5 * N + c];
-      const float* v = vals + s;
+      const T x0 = x[c], x1 = x[N + c], x2 = x[2 * N + c];
+      const T x3 = x[3 * N + c], x4 = x[4 * N + c], x5 = x[5 * N + c];
+      const T* v = vals + s;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         acc[i] += v[i * S] * x0 + v[(4 + i) * S] * x1 + v[(8 + i) * S] * x2 +
@@ -68,18 +74,28 @@ winell_spmv_kernel(const float* __restrict__ vals,    // (18, S)
   }
 }
 
+template <typename T>
+int launch(const void* vals, const void* row_ptr, const void* col, const void* x, void* y, int n,
+           long long num_entries, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads = static_cast<long long>(n) * kLanesPerRow;
+  const unsigned blocks = static_cast<unsigned>((threads + 255) / 256);
+  winell_spmv_kernel<T><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(vals), static_cast<const int*>(row_ptr), static_cast<const int*>(col),
+      static_cast<const T*>(x), static_cast<T*>(y), n, num_entries);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace dedflow
 
 extern "C" int dedflow_winell_spmv(const void* vals, const void* row_ptr, const void* col,
                                    const void* x, void* y, int n, long long num_entries,
                                    void* stream) {
-  using namespace dedflow;
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long threads = static_cast<long long>(n) * kLanesPerRow;
-  const unsigned blocks = static_cast<unsigned>((threads + 255) / 256);
-  winell_spmv_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vals), static_cast<const int*>(row_ptr),
-      static_cast<const int*>(col), static_cast<const float*>(x), static_cast<float*>(y), n,
-      num_entries);
-  return static_cast<int>(cudaGetLastError());
+  return dedflow::launch<float>(vals, row_ptr, col, x, y, n, num_entries, stream);
+}
+
+extern "C" int dedflow_winell_spmv_f64(const void* vals, const void* row_ptr, const void* col,
+                                       const void* x, void* y, int n, long long num_entries,
+                                       void* stream) {
+  return dedflow::launch<double>(vals, row_ptr, col, x, y, n, num_entries, stream);
 }

@@ -97,6 +97,9 @@ class LatticeContext:
     res_sync: torch.Tensor
     # implicit phi/T transport tangents in the Jacobian (melt-pool runs)
     scalar_implicit: bool = False
+    # node-grid shape (gx, gy, gz) = (nx+1, ny+1, nz+1), read by the
+    # geometric multigrid preconditioner (solver.mg)
+    dims: tuple | None = None
 
 
 def lattice_tables(nx: int, ny: int, nz: int):
@@ -155,6 +158,7 @@ def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = Fal
         fused=fused,
         res_sync=res_sync_workspace(fused, device),
         scalar_implicit=scalar_implicit,
+        dims=(nx + 1, ny + 1, nz + 1),
     )
 
 

@@ -22,6 +22,9 @@ lie close together in memory.
                K6 also stores the phi/T transport tangents into a (K, 8)
                staging buffer, and a second segment sum adds those.
   SpMV:        K7 `WinELLMatrixT.matvec_t` (sparse.win_kernels).
+  pc="mg":     with `with_amg` the context carries the pattern-only
+               algebraic-multigrid hierarchy of solver.amg (`build_win_amg`)
+               that AMGSchurPCT reuses at every assembly.
 
 Weak-BC facet terms ride the port's deterministic slot plans: the facet
 residual through the node plan of fem.face, the facet Jacobian through
@@ -91,15 +94,36 @@ class WinAssemblyContext:
     win_plan: WinPlan
     num_node: int
     num_elem: int
+    # algebraic-multigrid plan for pc="mg" (solver.amg.AMGIndices) and the
+    # entry of each CSR entry (the identity here: entries are CSR-ordered)
+    amg_idx: object | None = None
+    amg_eon: torch.Tensor | None = None
+
+
+def build_win_amg(sparsity: Sparsity, win_plan: WinPlan, n: int, min_nodes: int = 2048,
+                  device="cuda"):
+    """(amg_idx, amg_eon) for pc="mg" on the WinELL tier (win_assembly.py:165
+    of the JAX package): the pattern-only solver.amg hierarchy over the
+    nodal sparsity, and the entry of each CSR entry (the level-0 value
+    gather)."""
+    from dedflow_tpu_torch.solver.amg import AMGIndices, build_amg_plan
+
+    rp = np.asarray(sparsity.row_ptr, dtype=np.int64)
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(rp))
+    plans = build_amg_plan(rows, sparsity.col_ind, n, min_nodes=min_nodes)
+    amg_eon = torch.as_tensor(win_plan.entry_of_nnz, dtype=torch.long, device=device)
+    return AMGIndices.from_plan(plans, device), amg_eon
 
 
 def build_win_context(
     mesh, sparsity: Sparsity, device="cuda", dtype=None, jac_scatter: str = "ring",
+    with_amg: bool = False, amg_min_nodes: int = 2048,
 ) -> WinAssemblyContext:
     """`mesh` is expected RCM-reordered with elements sorted by min node
     (mesh.reorder.reorder_mesh); `sparsity` = build_sparsity(mesh.ien, N).
     On the card unless `device` says otherwise; the dtype defaults to the
-    device's (utils.dtypes.default_dtype)."""
+    device's (utils.dtypes.default_dtype). `with_amg` builds the AMG plan
+    of pc="mg" (NSSolver sets it, as the JAX package's does)."""
     if jac_scatter not in JAC_SCATTERS:
         raise ValueError(f"win_jac_scatter must be one of {JAC_SCATTERS}, got {jac_scatter!r}")
     device = resolve_device(device)
@@ -121,6 +145,9 @@ def build_win_context(
         (e[:, None] + np.arange(16)[None, :] * 18 * ne).reshape(-1),
         win_plan.S, device,
     ), ne, 16, 18)
+    amg_idx = amg_eon = None
+    if with_amg:
+        amg_idx, amg_eon = build_win_amg(sparsity, win_plan, n, amg_min_nodes, device)
     return WinAssemblyContext(
         res_geom=res_geom_rows(geom.shgrad, geom.det_j, geom.metric).contiguous(),
         lhs_geom=lhs_geom_rows(geom.shgrad, geom.det_j, geom.metric).contiguous(),
@@ -131,6 +158,8 @@ def build_win_context(
         win_plan=win_plan,
         num_node=n,
         num_elem=ne,
+        amg_idx=amg_idx,
+        amg_eon=amg_eon,
     )
 
 

@@ -11,21 +11,25 @@ dedflow_tpu/solver/newton.py).
 Three assembly tiers are ported, chosen by the JAX package's ladder
 (newton.py:560-672): the structured lattice of a generated box mesh
 (fem.lattice), the windowed irregular tier (fem.win_assembly) and the
-general gather tier (fem.assembly + fem.ns: any mesh, any node order,
-and every `assembly_chunk` run), with the field-split preconditioner and
-the linear solve in the state dtype. Every tier takes a nodal heat source
-(`source`, the moving laser of the melt-pool scenario) and the implicit
-phi/T tangents (`implicit_scalars`), where the JAX package places them
-(newton.py:57-222, 797-839). A mesh the JAX package would put on
-its translation-class tier, and every other unported option, raises
+general gather tier (fem.assembly + fem.ns: any mesh, any node order, and
+every `assembly_chunk` run). Every option of the JAX package's Krylov
+layer runs (assemble_system, _solve_linear): the field-split, SIMPLE and
+multigrid preconditioners (geometric on the lattice, algebraic on WinELL),
+the linear solve in the state dtype, in float64 or in float32 with float64
+iterative refinement, and the lagged Jacobian. Every tier takes a nodal
+heat source (`source`, the moving laser of the melt-pool scenario) and the
+implicit phi/T tangents (`implicit_scalars`), where the JAX package places
+them (newton.py:57-222, 797-839). A mesh the JAX package would put on its
+translation-class tier, and every other unported option, raises
 NotImplementedError naming the ROADMAP item that brings it; nothing
-silently takes another path. The adaptive Newton loop reads the four field norms to the host
-once per Newton iteration, the reference's own sync granularity
-(main.c:262-265).
+silently takes another path. The adaptive Newton loop reads the four field
+norms to the host once per Newton iteration, the reference's own sync
+granularity (main.c:262-265).
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,6 +42,7 @@ from dedflow_tpu_torch.fem.assembly import FEMContext, build_context
 from dedflow_tpu_torch.fem.element_rows import alpha_states
 from dedflow_tpu_torch.fem.face import build_face_context
 from dedflow_tpu_torch.fem.lattice import (
+    LatticeContext,
     assemble_jacobian_t,
     assemble_residual_t,
     build_lattice_context,
@@ -53,11 +58,14 @@ from dedflow_tpu_torch.fem.win_assembly import (
     residual_win,
 )
 from dedflow_tpu_torch.mesh.mesh import Mesh
+from dedflow_tpu_torch.solver.amg import AMGSchurPCT
 from dedflow_tpu_torch.solver.krylov import gmres
-from dedflow_tpu_torch.solver.pc import NSFieldSplitPCT
+from dedflow_tpu_torch.solver.mg import MGSIMPLEPCT, infer_dims
+from dedflow_tpu_torch.solver.pc import SIMPLEPC, SIMPLEPCT, NSFieldSplitPCT
+from dedflow_tpu_torch.solver.refine import gmres_ir_device
 from dedflow_tpu_torch.sparse.topology import build_sparsity
 from dedflow_tpu_torch.sparse.win_stream import stream_window_counts
-from dedflow_tpu_torch.utils.dtypes import default_dtype, disable_tf32, resolve_device
+from dedflow_tpu_torch.utils.dtypes import cast_floats, default_dtype, disable_tf32, resolve_device
 
 # ---------------------------------------------------------------------------
 # stepping functions (contexts passed explicitly: a LatticeContext, a
@@ -89,29 +97,107 @@ def residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze,
 
 
 def assemble_system(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme,
-                    scalar_implicit=False):
-    """The Jacobian and its field-split preconditioner at the current state;
+                    scalar_implicit=False, pc_type="fieldsplit", pc_sweeps=6, pc_omega=0.8,
+                    pc_mg_outer=2):
+    """The Jacobian and its preconditioner at the current state;
     `scalar_implicit` assembles the consistent phi/T tangents (a lattice
-    context carries the flag it was built with, which must agree)."""
+    context carries the flag it was built with, which must agree).
+
+    `pc_type` picks the preconditioner per tier as the JAX package does
+    (newton.py:90-218), with its fallbacks and warnings: "fieldsplit" the
+    reference's block-Jacobi split everywhere; "simple" the SIMPLE
+    pressure-Schur split on the lattice (SIMPLEPCT) and gather
+    (SIMPLEPC) tiers, fieldsplit on WinELL; "mg" the multigrid Schur
+    solve: geometric on the lattice (MGSIMPLEPCT; SIMPLE when no node grid
+    can be found), algebraic on WinELL (AMGSchurPCT, with the context's AMG
+    plan; fieldsplit without one), SIMPLE on the gather tier."""
     wa, dwa = alpha_states(wgold, dwgold, dwg, scheme)
-    if isinstance(ctx, FEMContext):
-        jmat = ns.assemble_jacobian(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme,
-                                    scalar_implicit)
-    elif isinstance(ctx, WinAssemblyContext):
+    if isinstance(ctx, WinAssemblyContext):
         jmat = jacobian_win(
             ctx, wa, phys, scheme, dw_alpha=dwa, face_ctxs=face_ctxs,
             scalar_implicit=scalar_implicit,
         ).zero_rows_t(mask_t)
-    else:
+        if pc_type == "mg" and ctx.amg_idx is not None:
+            return jmat, AMGSchurPCT.from_winell(jmat, ctx.amg_idx, ctx.amg_eon, outer=pc_mg_outer)
+        if pc_type != "fieldsplit":
+            warnings.warn(
+                f"krylov.pc={pc_type!r} is not available on the windowed "
+                "irregular path"
+                + (" without an AMG plan (build_win_context with_amg)" if pc_type == "mg" else "")
+                + "; using the fieldsplit (block-Jacobi) preconditioner",
+                stacklevel=2,
+            )
+        return jmat, NSFieldSplitPCT.from_diag_rows(jmat.diag_rows())
+    if isinstance(ctx, LatticeContext):
         if ctx.scalar_implicit != scalar_implicit:
             raise ValueError("scalar_implicit differs from the lattice context's")
         jmat = assemble_jacobian_t(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme)
+        dims = ctx.dims
+        if pc_type == "mg" and dims is None:
+            dims = infer_dims(ctx.offsets, ctx.num_node)
+            if dims is None:
+                warnings.warn(
+                    "krylov.pc='mg' needs a structured node grid and none "
+                    "could be inferred from the class stencil - falling "
+                    "back to the SIMPLE preconditioner",
+                    stacklevel=2,
+                )
+                pc_type = "simple"
+        if pc_type == "mg":
+            return jmat, MGSIMPLEPCT.from_matrix(jmat, dims=dims, outer=pc_mg_outer)
+        if pc_type == "simple":
+            return jmat, SIMPLEPCT.from_matrix(jmat, sweeps=pc_sweeps, omega=pc_omega)
+        return jmat, NSFieldSplitPCT.from_diag_rows(jmat.diag_rows())
+    jmat = ns.assemble_jacobian(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, scalar_implicit)
+    if pc_type == "mg":
+        warnings.warn(
+            "krylov.pc='mg' requires the lattice fast path (structured "
+            "node grid); falling back to the SIMPLE preconditioner",
+            stacklevel=2,
+        )
+        pc_type = "simple"
+    if pc_type == "simple":
+        return jmat, SIMPLEPC.from_matrix(jmat, sweeps=pc_sweeps, omega=pc_omega)
     return jmat, NSFieldSplitPCT.from_diag_rows(jmat.diag_rows())
 
 
+def _pc_kwargs(kcfg) -> dict:
+    """assemble_system's preconditioner arguments from a KrylovConfig."""
+    return dict(pc_type=kcfg.pc, pc_sweeps=kcfg.pc_schur_sweeps,
+                pc_omega=kcfg.pc_schur_omega, pc_mg_outer=kcfg.pc_mg_outer)
+
+
 def _solve_linear(jmat, pc, f, kcfg):
-    """Right-preconditioned solve of J dx = F in the state dtype. Returns
-    (dx, iters, rel_residual)."""
+    """Right-preconditioned solve of J dx = F honoring kcfg.precision
+    (newton.py:241-300 of the JAX package): "state" in the state dtype;
+    "f64" the operator, the preconditioner and GMRES in float64; "ir"
+    float32 GMRES with the float32 preconditioner inside float64 iterative
+    refinement (solver.refine). Returns (dx, iters, rel_residual): for
+    "ir" the inner iterations summed and the true float64 residual. The
+    operator is cast by value (utils.dtypes.cast_floats): K3 and K7 take
+    float32 and float64, so a cast matrix keeps its kernel."""
+    prec = kcfg.precision
+    if prec == "f64" and f.dtype != torch.float64:
+        m64 = cast_floats(jmat, torch.float64)
+        sol = gmres(
+            m64.matvec_t, f.to(torch.float64), maxit=kcfg.max_iter, atol=kcfg.atol,
+            rtol=kcfg.rtol, pc=cast_floats(pc, torch.float64), restart=kcfg.restart,
+        )
+        rel = sol.resnorm / torch.clamp(sol.resnorm0, min=1e-300)
+        return sol.x.to(f.dtype), sol.iters, rel.to(f.dtype)
+    if prec == "ir":
+        m64 = cast_floats(jmat, torch.float64) if f.dtype != torch.float64 else jmat
+        if f.dtype == torch.float32:
+            mv_lo, pc_lo = jmat.matvec_t, pc
+        else:
+            mv_lo = cast_floats(jmat, torch.float32).matvec_t
+            pc_lo = cast_floats(pc, torch.float32)
+        sol = gmres_ir_device(
+            m64.matvec_t, mv_lo, f.to(torch.float64), pc=pc_lo, tol=kcfg.ir_tol,
+            max_cycles=kcfg.ir_cycles, inner_maxit=kcfg.max_iter,
+            inner_rtol=kcfg.ir_inner_rtol,
+        )
+        return sol.x.to(f.dtype), sol.inner_iters, sol.rel_residual.to(f.dtype)
     sol = gmres(
         jmat.matvec_t, f, maxit=kcfg.max_iter, atol=kcfg.atol, rtol=kcfg.rtol,
         pc=pc, restart=kcfg.restart,
@@ -137,10 +223,12 @@ def newton_iter(
     ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg, freeze,
     nodal_force=None, source=None, scalar_implicit=False,
 ):
-    """One Newton iteration: assemble J, solve, update dwg, reassemble F.
-    Returns (dwg, f, field_norms, krylov_iters, linear_rel_residual)."""
+    """One Newton iteration: assemble J and the preconditioner kcfg names,
+    solve, update dwg, reassemble F. Returns (dwg, f, field_norms,
+    krylov_iters, linear_rel_residual)."""
     jmat, pc = assemble_system(
-        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, scalar_implicit
+        ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, scalar_implicit,
+        **_pc_kwargs(kcfg),
     )
     return solve_update(
         ctx, face_ctxs, mask_t, jmat, pc, wgold, dwgold, dwg, f, phys, scheme,
@@ -169,18 +257,33 @@ def update(wgold, dwgold, dwg, scheme):
 
 def step_fixed(
     ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, kcfg, freeze,
-    num_newton, nodal_force=None, source=None, scalar_implicit=False,
+    num_newton, nodal_force=None, source=None, scalar_implicit=False, lag_jacobian=False,
 ):
-    """One time step with a fixed Newton iteration count."""
+    """One time step with a fixed Newton iteration count; `lag_jacobian`
+    assembles J and the preconditioner once, at the predicted state, and
+    reuses them for every Newton iteration (newton.py:378-392 of the JAX
+    package)."""
     dwg = predict(dwg, scheme)
     f = residual(
         ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze, nodal_force, source
     )
-    for _ in range(num_newton):
-        dwg, f, _, _, _ = newton_iter(
-            ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg,
-            freeze, nodal_force, source, scalar_implicit,
+    lagged = None
+    if lag_jacobian:
+        lagged = assemble_system(
+            ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, scalar_implicit,
+            **_pc_kwargs(kcfg),
         )
+    for _ in range(num_newton):
+        if lagged is not None:
+            dwg, f, _, _, _ = solve_update(
+                ctx, face_ctxs, mask_t, *lagged, wgold, dwgold, dwg, f, phys, scheme, kcfg,
+                freeze, nodal_force, source,
+            )
+        else:
+            dwg, f, _, _, _ = newton_iter(
+                ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg,
+                freeze, nodal_force, source, scalar_implicit,
+            )
     new_wgold, new_dwgold = update(wgold, dwgold, dwg, scheme)
     return new_wgold, new_dwgold, dwg
 
@@ -188,9 +291,11 @@ def step_fixed(
 def newton_adaptive(
     ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, kcfg, freeze,
     max_iter, newton_rtol, newton_atol, nodal_force=None, source=None, scalar_implicit=False,
+    lag_jacobian=False,
 ):
     """The adaptive Newton loop (main.c:157-279): stop after the iteration
-    whose four field norms all pass (rn < rtol*rnorm0) | (rn < atol).
+    whose four field norms all pass (rn < rtol*rnorm0) | (rn < atol);
+    `lag_jacobian` as in step_fixed (newton.py:445-475 of the JAX package).
     Returns (dwg, rnorm0, rnorms, kits, lrels, converged), the norms as
     host tensors."""
     f = residual(
@@ -199,11 +304,23 @@ def newton_adaptive(
     rnorm0 = (field_norms_t(f) + 1e-16).cpu()  # main.c:152-155
     rnorms, kits, lrels = [], [], []
     conv = False
-    for _ in range(max_iter):
-        dwg, f, rn, kit, lrel = newton_iter(
-            ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg,
-            freeze, nodal_force, source, scalar_implicit,
+    lagged = None
+    if lag_jacobian:
+        lagged = assemble_system(
+            ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, scalar_implicit,
+            **_pc_kwargs(kcfg),
         )
+    for _ in range(max_iter):
+        if lagged is not None:
+            dwg, f, rn, kit, lrel = solve_update(
+                ctx, face_ctxs, mask_t, *lagged, wgold, dwgold, dwg, f, phys, scheme, kcfg,
+                freeze, nodal_force, source,
+            )
+        else:
+            dwg, f, rn, kit, lrel = newton_iter(
+                ctx, face_ctxs, mask_t, wgold, dwgold, dwg, f, phys, scheme, kcfg,
+                freeze, nodal_force, source, scalar_implicit,
+            )
         rn = rn.cpu()  # one host sync per Newton iteration
         rnorms.append(rn)
         kits.append(int(kit))
@@ -229,18 +346,13 @@ class NewtonStats:
 
 def _refuse_unported(mesh: Mesh, cfg: SolverConfig) -> None:
     """NotImplementedError for every option the port lacks (the tier is
-    chosen, or refused, by _choose_tier)."""
+    chosen, or refused, by _choose_tier). `krylov.solver` is not among
+    them: the JAX package's step ignores it and always runs GMRES
+    (config.py:99-101), and so does the port's."""
     checks = [
         (cfg.use_lattice == "off", "use_lattice='off' (the classes tier)", "A10"),
         (mesh.extra_cells != [], "prism/hex stencil cells", "A13"),
         (cfg.lattice_backend is not None, f"lattice_backend={cfg.lattice_backend!r}", "A9"),
-        (cfg.krylov.pc == "mg",
-         "krylov.pc='mg' (geometric MG on the lattice; AMG, solver/amg.py, on the "
-         "WinELL tier)", "A11/A14"),
-        (cfg.krylov.pc != "fieldsplit", f"krylov.pc={cfg.krylov.pc!r}", "A11"),
-        (cfg.krylov.precision != "state", f"krylov.precision={cfg.krylov.precision!r}", "A11"),
-        (cfg.krylov.solver != "gmres", f"krylov.solver={cfg.krylov.solver!r}", "A11"),
-        (cfg.newton.lag_jacobian, "newton.lag_jacobian", "A11"),
     ]
     for bad, what, item in checks:
         if bad:
@@ -334,8 +446,11 @@ class NSSolver:
         else:
             sparsity = build_sparsity(mesh.ien, mesh.num_node)
             if self.fastpath == "winell":
+                # pc="mg" on this tier is AMG: its pattern-only plan is
+                # built once here (newton.py:620-627 of the JAX package)
                 self.wctx = build_win_context(
-                    mesh, sparsity, self.device, self.dtype, cfg.win_jac_scatter
+                    mesh, sparsity, self.device, self.dtype, cfg.win_jac_scatter,
+                    with_amg=cfg.krylov.pc == "mg",
                 )
             else:
                 self.gctx = build_context(
@@ -378,7 +493,7 @@ class NSSolver:
         dwg, rnorm0, rns, kits, lrels, conv = newton_adaptive(
             *ctx, wgold, dwgold, dwg, kw["phys"], kw["scheme"], kw["kcfg"],
             kw["freeze"], newton.max_iter, newton.rtol, newton.atol, nodal_force, source,
-            self.cfg.implicit_scalars,
+            self.cfg.implicit_scalars, newton.lag_jacobian,
         )
         return dwg, NewtonStats(
             rnorm0=rnorm0.numpy(),
@@ -401,4 +516,5 @@ class NSSolver:
         return step_fixed(
             *ctx, wgold, dwgold, dwg, **kw, num_newton=num_newton, nodal_force=nodal_force,
             source=source, scalar_implicit=self.cfg.implicit_scalars,
+            lag_jacobian=self.cfg.newton.lag_jacobian,
         )

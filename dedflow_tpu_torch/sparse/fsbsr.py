@@ -23,9 +23,20 @@ ELL slot (r, p) of a valid row is CSR entry row_ptr[r] + p
 `matvec` is `matvec_t` on (6, N) vectors (kernel K7), `diag_vel_blocks` /
 `diag_p` are rows of `diag_rows()`, `zero_rows` is `zero_rows_t` and
 `to_block_dense` is the same dense expansion; `interop.fsbsr_from_numpy`
-carries the JAX data over. The component-restricted products `matvec_up`
-/ `matvec_pu` / `matvec_pp` serve the SIMPLE preconditioner and wait for
-it (ROADMAP queue A11).
+carries the JAX data over; its component-restricted products `matvec_up`
+/ `matvec_pu` / `matvec_pp` and `diag_p` serve the SIMPLE preconditioner
+(solver.pc.SIMPLEPC).
+
+The lattice matrix's component-restricted products and the compact Schur
+bands (`SchurBandsT`, fsbsr.py:461-635 of the JAX package) serve the SIMPLE
+and multigrid preconditioners. The JAX package writes each band product as
+a per-offset accumulator loop that XLA fuses into one pass; in eager torch
+that loop would be D launches a product. Here every product takes a fixed
+number of launches, whatever D: the padded vector's (2m + 1, N) window
+view (`Tensor.unfold`, no copy), one `index_select` of the D offset rows,
+one multiply and one sum (`shifted`). Zeros outside [0, N) stand for the
+columns past the grid's ends, whose entries the lattice assembly makes
+exactly 0 (fem.lattice's dead cells).
 
 Component order:
     0..8   uu[i*3+j]   d y_u[i] / d x_u[j]
@@ -42,6 +53,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 NUM_COMP = 18
 UU = lambda i, j: i * 3 + j
@@ -79,6 +91,56 @@ def diag_add_rows(mask_t: torch.Tensor, dtype) -> torch.Tensor:
     return out
 
 
+# The D offset rows of `shifted` by (offsets, reach, device): built once, so
+# a product queues no host-to-device copy (the rows never change).
+_SHIFT_ROWS: dict = {}
+
+
+def shifted(x: torch.Tensor, offsets: tuple) -> torch.Tensor:
+    """(..., N) -> (..., D, N): row k is x shifted by offsets[k] (x[n + o]),
+    zero outside [0, N). Two launches whatever D: the pad and one
+    index_select of the padded vector's window view."""
+    n = x.shape[-1]
+    m = max(max(abs(o) for o in offsets), 1)
+    key = (tuple(offsets), m, x.device)
+    rows = _SHIFT_ROWS.get(key)
+    if rows is None:
+        rows = torch.as_tensor([m + o for o in offsets], dtype=torch.long, device=x.device)
+        _SHIFT_ROWS[key] = rows
+    return F.pad(x, (m, m)).unfold(-1, n, 1).index_select(-2, rows)
+
+
+@dataclass
+class SchurBandsT:
+    """Compact pressure-Schur operator: the A_pp / A_pu / A_up component
+    planes of an FSDIAMatrixT with its linear DIA offsets (counterpart of
+    dedflow_tpu/sparse/fsbsr.py::SchurBandsT, :588). Each product is four
+    launches (module docstring); `matvec_pp_up` shares one shifted copy of
+    p between A_pp p and A_up p, the pair the Schur apply needs."""
+
+    app: torch.Tensor  # (D, N) pressure-pressure plane rows
+    apu: torch.Tensor  # (D, 3, N) pressure-row / velocity-col planes
+    aup: torch.Tensor  # (D, 3, N) velocity-row / pressure-col planes
+    offsets: tuple
+
+    def matvec_pp(self, p: torch.Tensor) -> torch.Tensor:
+        """(N,) -> (N,): the A_pp block only."""
+        return (self.app * shifted(p, self.offsets)).sum(0)
+
+    def matvec_pu(self, u: torch.Tensor) -> torch.Tensor:
+        """(3, N) velocity -> (N,) pressure row: the A_pu block only."""
+        return (self.apu * shifted(u, self.offsets).transpose(0, 1)).sum((0, 1))
+
+    def matvec_up(self, p: torch.Tensor) -> torch.Tensor:
+        """(N,) pressure -> (3, N) velocity rows: the A_up block only."""
+        return (self.aup * shifted(p, self.offsets)[:, None]).sum(0)
+
+    def matvec_pp_up(self, p: torch.Tensor) -> tuple:
+        """(A_pp p, A_up p) from one shifted copy of p."""
+        ps = shifted(p, self.offsets)
+        return (self.app * ps).sum(0), (self.aup * ps[:, None]).sum(0)
+
+
 @dataclass
 class FSDIAMatrixT:
     """Component-major DIA field-split matrix (see module docstring)."""
@@ -91,6 +153,10 @@ class FSDIAMatrixT:
     def _d0(self) -> int:
         return self.offsets.index(0)
 
+    @property
+    def num_rows(self) -> int:
+        return int(self.data.shape[2])
+
     def matvec_t(self, x_t: torch.Tensor) -> torch.Tensor:
         """(6, N) -> (6, N) SpMV (sparse.dia_kernels: the hand-written
         kernel on CUDA, its plain version on the CPU)."""
@@ -102,6 +168,59 @@ class FSDIAMatrixT:
         """(18, N) packed diagonal-block rows (PC setup)."""
         d0 = self._d0
         return torch.cat([self.data[d0], self.scal[2 * d0 : 2 * d0 + 2]], dim=0)
+
+    # -- component-restricted products (SIMPLE / Schur preconditioners)
+    def matvec_up(self, p: torch.Tensor) -> torch.Tensor:
+        """(N,) pressure -> (3, N) velocity rows: the A_up block only."""
+        return (self.data[:, UP(0) : UP(0) + 3] * shifted(p, self.offsets)[:, None]).sum(0)
+
+    def matvec_pu(self, u: torch.Tensor) -> torch.Tensor:
+        """(3, N) velocity -> (N,) pressure row: the A_pu block only."""
+        us = shifted(u, self.offsets).transpose(0, 1)
+        return (self.data[:, PU(0) : PU(0) + 3] * us).sum((0, 1))
+
+    def matvec_pp(self, p: torch.Tensor) -> torch.Tensor:
+        """(N,) -> (N,): the A_pp block only."""
+        return (self.data[:, PP] * shifted(p, self.offsets)).sum(0)
+
+    def schur_bands(self) -> SchurBandsT:
+        """The A_pp / A_pu / A_up planes as compact arrays, copied once at
+        preconditioner set-up (fsbsr.py:497-513 of the JAX package)."""
+        d = self.data
+        return SchurBandsT(
+            app=d[:, PP].contiguous(),
+            apu=d[:, PU(0) : PU(0) + 3].contiguous(),
+            aup=d[:, UP(0) : UP(0) + 3].contiguous(),
+            offsets=self.offsets,
+        )
+
+    def schur_diag(self, duinv_rows: torch.Tensor) -> torch.Tensor:
+        """(N,) diagonal of S_hat = A_pp - A_pu inv(D_u) A_up, with
+        duinv_rows (9, N) the row-major inverse velocity diagonal blocks
+        (fsbsr.py:515-540 of the JAX package): entry n = A_pp[d0][n] -
+        sum_o sum_ij pu_i[o][n] duinv[ij][n+o] up_j[-o][n+o], over the
+        offsets whose negation is an offset, all at once."""
+        d = self.data
+        n = d.shape[2]
+        pos = {o: k for k, o in enumerate(self.offsets)}
+        ks = [k for k, o in enumerate(self.offsets) if -o in pos]
+        kneg = [pos[-self.offsets[k]] for k in ks]
+        offs = tuple(self.offsets[k] for k in ks)
+        dev = d.device
+        h = shifted(duinv_rows, offs)  # (9, K, N): duinv at n + o_k
+        h = h.reshape(3, 3, len(ks), n).permute(2, 0, 1, 3)  # (K, i, j, N)
+        # up_j of plane -o_k at n + o_k: each plane row shifted by its own offset
+        m = max(max(abs(o) for o in offs), 1)
+        upn = F.pad(d[torch.as_tensor(kneg, device=dev), UP(0) : UP(0) + 3], (m, m))
+        idx = (torch.as_tensor([m + o for o in offs], device=dev)[:, None]
+               + torch.arange(n, device=dev)[None, :])
+        upn = torch.gather(upn, 2, idx[:, None, :].expand(len(ks), 3, n))  # (K, j, N)
+        pu = d[torch.as_tensor(ks, device=dev), PU(0) : PU(0) + 3]  # (K, i, N)
+        term = (pu[:, :, None] * h * upn[:, None]).sum((0, 1, 2))
+        return d[self._d0, PP] - term
+
+    def diag_p(self) -> torch.Tensor:
+        return self.data[self._d0, PP]
 
     def zero_rows_t(self, mask_t: torch.Tensor) -> "FSDIAMatrixT":
         """Zero constrained rows (mask_t (6, N) boolean, True = constrained)

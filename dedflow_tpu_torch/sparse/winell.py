@@ -108,6 +108,36 @@ class WinELLMatrixT:
 
         return winell_matvec(self, x_t)
 
+    # -- component-restricted products (solver.pc.SIMPLEPC). K7 on a vector
+    # that is zero outside the block's input component: the zero columns
+    # add exact zeros, K7's row order is fixed, so the products repeat bit
+    # for bit on the card and never scatter.
+    def _product(self, rows: slice, x_part: torch.Tensor) -> torch.Tensor:
+        x = torch.zeros((6, self.num_node), dtype=x_part.dtype, device=x_part.device)
+        x[rows] = x_part
+        return self.matvec_t(x)
+
+    def matvec_up(self, p: torch.Tensor) -> torch.Tensor:
+        """(N,) pressure -> (3, N) velocity rows: the A_up block only."""
+        return self._product(slice(3, 4), p[None])[:3]
+
+    def matvec_pu(self, u: torch.Tensor) -> torch.Tensor:
+        """(3, N) velocity -> (N,) pressure row: the A_pu block only."""
+        return self._product(slice(0, 3), u)[3]
+
+    def matvec_pp(self, p: torch.Tensor) -> torch.Tensor:
+        """(N,) -> (N,): the A_pp block only."""
+        return self._product(slice(3, 4), p[None])[3]
+
+    def matvec_pp_up(self, p: torch.Tensor) -> tuple:
+        """(A_pp p, A_up p) from one product."""
+        y = self._product(slice(3, 4), p[None])
+        return y[3], y[:3]
+
+    def diag_p(self) -> torch.Tensor:
+        """(N,) pressure-pressure diagonal."""
+        return self.vals[15, self.plan.diag_t]
+
     def diag_rows(self) -> torch.Tensor:
         """(18, N) packed diagonal-block rows in fsbsr component order
         (PC setup)."""

@@ -15,7 +15,7 @@ event of a call once.) On the CPU, where the wrappers run their plain
 versions, the host clock takes the events' place.
 
 Bounds use the H100 SXM peaks at 700 W (NVIDIA's data sheet): 3.35 TB/s
-HBM3 and 67 TFLOP/s FP32 outside the tensor cores.
+HBM3, 67 TFLOP/s FP32 and 34 TFLOP/s FP64 outside the tensor cores.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from dataclasses import dataclass
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 SECTOR = 32  # bytes the card moves between DRAM and L2 at a time
 QUEUE_AHEAD_MS = 50.0  # the longest a sample is held back while the host queues it
 CYCLES_PER_MS = 2.0e6  # sleep cycles a millisecond at an SM clock of at most 2 GHz
@@ -71,11 +72,12 @@ def sector_bytes(addr, elem_size: int = 4) -> int:
     return int(mark.sum()) * SECTOR
 
 
-def bound(nbytes_: float, ops: float) -> tuple[float, str]:
+def bound(nbytes_: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """(least ms the card could take, what sets it): the bytes over the HBM
-    rate against the operations over the FP32 rate."""
+    rate against the operations over their type's rate (FP32 unless
+    `ops_per_s` says otherwise)."""
     t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

@@ -50,3 +50,22 @@ def disable_tf32() -> None:
     three decimal digits). Both switches are set explicitly."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def cast_floats(obj, dtype: torch.dtype):
+    """`obj` with every floating tensor in it cast to `dtype`: tensors,
+    and the fields of dataclasses, tuples and lists, recursively (the JAX
+    package's tree_map over a pytree's floating leaves, newton.py:196-238).
+    Integer and bool tensors and everything else are kept as they are."""
+    import dataclasses
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dtype) if obj.is_floating_point() else obj
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(cast_floats(v, dtype) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: cast_floats(getattr(obj, f.name), dtype)
+            for f in dataclasses.fields(obj) if f.init
+        })
+    return obj

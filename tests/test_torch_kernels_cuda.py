@@ -33,7 +33,11 @@ components straight into K8's staging rows, from node-major states)
 matches its plain twin, equals the column K4's rows placed at the plan
 positions bit for bit (whole and chunked), and K8's segment sum alone over
 them equals K8 over the column rows bit for bit. A K1 call on a corrupted
-ticket workspace fails loudly instead of returning wrong sums.
+ticket workspace fails loudly instead of returning wrong sums. K3 and K7
+also run in float64 (their double instances, against the plain versions at
+float64 roundoff), refuse float16 and a CPU vector with a matrix on the
+card, and a repeated step with pc "mg" (geometric multigrid on the
+lattice, algebraic on WinELL) is bit-identical.
 """
 
 import dataclasses
@@ -66,10 +70,14 @@ from dedflow_tpu_torch.interop import state_from_numpy
 from dedflow_tpu_torch.mesh.gen import box_mesh, delaunay_mesh
 from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
 from dedflow_tpu_torch.solver.newton import NSSolver, assemble_system
-from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec, dia_matvec_plain
+from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec, dia_matvec_f64, dia_matvec_plain
 from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
 from dedflow_tpu_torch.sparse.win_gather import JAC_ROWMAP, RES_ROWMAP, win_gather, win_gather_plain
-from dedflow_tpu_torch.sparse.win_kernels import winell_matvec, winell_matvec_plain
+from dedflow_tpu_torch.sparse.win_kernels import (
+    winell_matvec,
+    winell_matvec_f64,
+    winell_matvec_plain,
+)
 from dedflow_tpu_torch.fem.assembly import build_context
 from dedflow_tpu_torch.sparse.win_ring import (
     ring_reduce,
@@ -262,13 +270,14 @@ def test_k3_kernel_matches_plain(card):
 
 
 def test_kernels_refuse_what_they_cannot_take(card):
-    """A CUDA tensor never takes the plain version: float64 raises."""
+    """A CUDA tensor never takes the plain version: K3 raises on float16
+    (it takes float32 and float64), K1 on float64."""
     solver, _, wa, dwa = card
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="float32 or float64"):
         dia_matvec(
-            torch.zeros((1, 16, 8), dtype=torch.float64, device="cuda"),
-            torch.zeros((2, 8), dtype=torch.float64, device="cuda"),
-            torch.zeros((6, 8), dtype=torch.float64, device="cuda"), (0,),
+            torch.zeros((1, 16, 8), dtype=torch.float16, device="cuda"),
+            torch.zeros((2, 8), dtype=torch.float16, device="cuda"),
+            torch.zeros((6, 8), dtype=torch.float16, device="cuda"), (0,),
         )
     with pytest.raises(ValueError, match="float32"):
         lat.residual_volume(
@@ -962,3 +971,103 @@ def test_probe_kernels_refuse_what_they_cannot_take():
     with pytest.raises(ValueError):
         tgp.element_gather(idx[:4, :64].contiguous(), torch.zeros((20000, 16), device=dev),
                            "staged")
+
+
+# Float64 modes of K3 and K7 (krylov.precision "f64" and "ir"): the double
+# instance of the same row-per-thread product. Against the plain version
+# in float64 on the same inputs: roundoff of sums of ~60 (K3) and ~64 (K7)
+# products a row, in another order, relative to each equation's scale.
+TOL_F64 = 1e-12
+
+
+def test_k3_f64_matches_plain(card):
+    solver, _, wa, dwa = card
+    jm = lat.assemble_jacobian_t(
+        solver.lctx, solver.face_ctxs, solver.mask_t, wa, dwa,
+        solver.cfg.physics, solver.cfg.time,
+    )
+    data, scal = jm.data.double(), jm.scal.double()
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal((6, solver.lctx.num_node)),
+                        dtype=torch.float64, device="cuda")
+    before32, before64 = dia_matvec.launches, dia_matvec_f64.launches
+    got, again = (dia_matvec(data, scal, x, jm.offsets) for _ in range(2))
+    assert (dia_matvec.launches, dia_matvec_f64.launches) == (before32, before64 + 2)
+    assert got.dtype == torch.float64 and torch.equal(got, again)
+    ref = dia_matvec_plain(data, scal, x, jm.offsets)
+    for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):
+        assert rel(got[rows], ref[rows]) < TOL_F64
+
+
+def test_k7_f64_matches_plain(irregular):
+    solver, state, _, _ = irregular
+    jm, _ = assemble_system(
+        solver.wctx, solver.face_ctxs, solver.mask_t, *state, solver.cfg.physics, solver.cfg.time
+    )
+    m64 = dataclasses.replace(jm, vals=jm.vals.double())
+    x = torch.as_tensor(np.random.default_rng(10).standard_normal((6, solver.mesh.num_node)),
+                        dtype=torch.float64, device="cuda")
+    before32, before64 = winell_matvec.launches, winell_matvec_f64.launches
+    got, again = (winell_matvec(m64, x) for _ in range(2))
+    assert (winell_matvec.launches, winell_matvec_f64.launches) == (before32, before64 + 2)
+    assert got.dtype == torch.float64 and torch.equal(got, again)
+    ref = winell_matvec_plain(m64, x)
+    for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):
+        assert rel(got[rows], ref[rows]) < TOL_F64
+
+
+def test_spmv_kernels_refuse_other_dtypes_and_mixed_devices(card, irregular):
+    """float16, mixed dtypes, and a CPU vector with a matrix on the card
+    raise: nothing falls back to the plain version."""
+    solver, _, wa, dwa = card
+    z = lambda *shape, dt=torch.float16, dev="cuda": torch.zeros(shape, dtype=dt, device=dev)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        dia_matvec(z(1, 16, 8, dt=torch.float64), z(2, 8, dt=torch.float64), z(6, 8), (0,))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        dia_matvec(z(1, 16, 8, dt=torch.float32), z(2, 8, dt=torch.float32),
+                   z(6, 8, dt=torch.float32, dev="cpu"), (0,))
+    isolver, state, _, _ = irregular
+    jm, _ = assemble_system(isolver.wctx, isolver.face_ctxs, isolver.mask_t, *state,
+                            isolver.cfg.physics, isolver.cfg.time)
+    n = isolver.mesh.num_node
+    with pytest.raises(ValueError, match="float32 or float64"):
+        winell_matvec(dataclasses.replace(jm, vals=jm.vals.half()), z(6, n))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        winell_matvec(jm, z(6, n, dt=torch.float32, dev="cpu"))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        winell_matvec_f64(dataclasses.replace(jm, vals=jm.vals.double()),
+                          z(6, n, dt=torch.float64, dev="cpu"))
+
+
+def test_repeated_amg_and_mg_steps_are_bit_identical(irregular):
+    """pc "mg": algebraic multigrid on the WinELL tier and geometric on the
+    lattice. Their sums are fixed-order segment reductions and gathers, no
+    atomics: a repeated step equals the first bit for bit."""
+    solver, state, _, _ = irregular
+    cfg = dataclasses.replace(solver.cfg, krylov=dataclasses.replace(solver.cfg.krylov, pc="mg"))
+    amg = NSSolver(solver.mesh, cfg, device="cuda")
+    assert amg.wctx.amg_idx is not None
+    mg = NSSolver(box_mesh(*BOX), dataclasses.replace(
+        reference_scenario_config(), krylov=cfg.krylov), device="cuda")
+    wg, dwgold, dwg = reference_initial_state(mg.mesh)
+    mstate = state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32)
+    for s, st in ((amg, state), (mg, mstate)):
+        *first, fstats = s.step(*st)
+        *again, astats = s.step(*st)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        assert fstats.krylov_iters == astats.krylov_iters
+        assert all(bool(torch.isfinite(t).all()) for t in first)
+
+
+@pytest.mark.parametrize("pc", ["simple", "mg"])
+def test_pc_steps_on_card_match_cpu_f64(card, pc):
+    """One step_fixed(num_newton=2) with pc "simple" / "mg" on the lattice:
+    float32 on the card against float64 on the CPU (chip_smoke.py phase
+    19's slice bar)."""
+    _, state, _, _ = card
+    cfg = reference_scenario_config()
+    cfg = dataclasses.replace(cfg, krylov=dataclasses.replace(cfg.krylov, pc=pc))
+    got = NSSolver(box_mesh(*BOX), cfg, device="cuda").step_fixed(*state, num_newton=2)
+    ref = NSSolver(box_mesh(*BOX), cfg, device="cpu").step_fixed(
+        *(t.cpu().double() for t in state), num_newton=2)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all() and rel(g, r) < 1e-4

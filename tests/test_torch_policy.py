@@ -34,7 +34,7 @@ from dedflow_tpu_torch.fem import lattice as lat
 from dedflow_tpu_torch.mesh.gen import box_mesh, delaunay_mesh
 from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
 from dedflow_tpu_torch.solver.newton import NSSolver
-from dedflow_tpu_torch.sparse import win_gather, win_kernels, win_ring, win_stream
+from dedflow_tpu_torch.sparse import dia_kernels, win_gather, win_kernels, win_ring, win_stream
 from dedflow_tpu_torch.sparse.winell import WinELLMatrixT, build_winell_plan
 from dedflow_tpu_torch.tools import gather_probe as tgp
 from dedflow_tpu_torch.tools import gmicro as tgm
@@ -192,23 +192,41 @@ def test_default_dtypes():
 @pytest.mark.parametrize(
     "overrides",
     [
+        dict(lattice_backend="xla"),
+        dict(use_lattice="off"),
+        dict(assembly_chunk=64, lattice_backend="xla"),
+    ],
+    ids=["lattice_backend", "use_lattice1", "assembly_chunk"],
+)
+def test_unported_options_raise(overrides):
+    """Options still unported raise, on the gather tier too (an assembly
+    chunk with a lattice backend)."""
+    cfg = dataclasses.replace(reference_scenario_config(), **overrides)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        NSSolver(box_mesh(2, 2, 2), cfg, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [
         dict(krylov=tcfg.KrylovConfig(pc="simple")),
         dict(krylov=tcfg.KrylovConfig(pc="mg")),
         dict(krylov=tcfg.KrylovConfig(precision="ir")),
         dict(assembly_chunk=64, krylov=tcfg.KrylovConfig(pc="simple")),
-        dict(lattice_backend="xla"),
-        dict(use_lattice="off"),
         dict(newton=tcfg.NewtonConfig(lag_jacobian=True)),
+        dict(krylov=tcfg.KrylovConfig(precision="f64")),
+        dict(krylov=tcfg.KrylovConfig(solver="cg")),
     ],
-    ids=["krylov0", "krylov1", "krylov2", "assembly_chunk", "lattice_backend", "use_lattice1",
-         "newton"],
+    ids=["krylov0", "krylov1", "krylov2", "assembly_chunk", "newton", "krylov3", "krylov4"],
 )
-def test_unported_options_raise(overrides):
-    """Options still unported raise, on the gather tier too (an assembly
-    chunk with the SIMPLE preconditioner)."""
+def test_ported_krylov_options_step(overrides):
+    """The Krylov options of ROADMAP A11 run (they raised before they were
+    ported): one step_fixed(num_newton=1) on box_mesh(2, 2, 2), finite."""
     cfg = dataclasses.replace(reference_scenario_config(), **overrides)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NSSolver(box_mesh(2, 2, 2), cfg, device="cpu")
+    solver = NSSolver(box_mesh(2, 2, 2), cfg, device="cpu")
+    z = torch.zeros((solver.mesh.num_node, 6), dtype=torch.float64)
+    out = solver.step_fixed(z, z, z + 0.01, num_newton=1)
+    assert all(bool(torch.isfinite(t).all()) for t in out)
 
 
 def test_mesh_without_lattice_raises():
@@ -256,6 +274,20 @@ def _k2_implicit():
 def _k7():
     plan = build_winell_plan([0, 1, 2], [0, 1], 2, device="cpu")
     return win_kernels.winell_matvec(WinELLMatrixT(torch.zeros((18, 2)), plan), torch.zeros((6, 2)))
+
+
+def _k7_f64():
+    plan = build_winell_plan([0, 1, 2], [0, 1], 2, device="cpu")
+    mat = WinELLMatrixT(torch.zeros((18, 2), dtype=torch.float64), plan)
+    return win_kernels.winell_matvec(mat, torch.zeros((6, 2), dtype=torch.float64))
+
+
+def _k3(dtype):
+    def call():
+        z = lambda *shape: torch.zeros(shape, dtype=dtype)
+        return dia_kernels.dia_matvec(z(1, 16, 4), z(2, 4), z(6, 4), (0,))
+
+    return call
 
 
 def _k8():
@@ -390,6 +422,9 @@ def _k13(idiom):
         (_k6_res, (ek, "res_rows")),
         (_k6_lhs, (ek, "lhs_rows")),
         (_k7, (win_kernels, "winell_matvec_plain")),
+        (_k7_f64, (win_kernels, "winell_matvec_plain")),
+        (_k3(torch.float32), (dia_kernels, "dia_matvec_plain")),
+        (_k3(torch.float64), (dia_kernels, "dia_matvec_plain")),
         (_k8, (win_stream, "seg_reduce_plain")),
         (_k9, (win_ring, "seg_reduce_plain")),
         (_k11, (dem_grid, "grid_pair_forces")),
@@ -415,7 +450,7 @@ def _k13(idiom):
         (_k4_staged, (ek, "ns_residual_gather_staged_plain")),
         (_k8_segment_sum, (win_stream, "stream_reduce_staged_plain")),
     ],
-    ids=["K6-res", "K6-lhs", "K7", "K8", "K9", "K11", "K4", "K5", "K10", "K1-source",
+    ids=["K6-res", "K6-lhs", "K7", "K7-f64", "K3", "K3-f64", "K8", "K9", "K11", "K4", "K5", "K10", "K1-source",
          "K2-implicit", "K6-lhs-implicit", "K5-implicit", "K12-copy", "K12-lane-smem",
          "K12-lane-shuffle", "K12-window", "K12-reduce", "K13-global", "K13-staged",
          "K6-staged", "K6-staged-implicit", "K5-staged", "K5-staged-implicit",
@@ -448,9 +483,12 @@ def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
      (_k6_staged, (ek, "lhs_rows_staged")), (_k5_staged, (ek, "ns_lhs_gather_staged")),
      (_k9_segment_sum, (win_ring, "ring_reduce_staged")),
      (_k4_staged, (ek, "ns_residual_gather_staged")),
-     (_k8_segment_sum, (win_stream, "stream_reduce_staged"))],
+     (_k8_segment_sum, (win_stream, "stream_reduce_staged")),
+     (_k7_f64, (win_kernels, "winell_matvec_f64")),
+     (_k3(torch.float64), (dia_kernels, "dia_matvec_f64"))],
     ids=["K4", "K5", "K10", "K12-copy", "K12-lane", "K12-window", "K12-reduce", "K13",
-         "K6-staged", "K5-staged", "K9-segment-sum", "K4-staged", "K8-segment-sum"],
+         "K6-staged", "K5-staged", "K9-segment-sum", "K4-staged", "K8-segment-sum",
+         "K7-f64", "K3-f64"],
 )
 def test_cpu_tensors_count_no_launch(call, counter):
     """On CPU tensors the wrappers run their plain twins and count nothing."""
@@ -465,16 +503,16 @@ def _rcm_delaunay():
     return reorder_mesh(mesh, rcm_order(mesh.ien, mesh.num_node))
 
 
-@pytest.mark.parametrize(
-    "overrides,item",
-    [(dict(krylov=tcfg.KrylovConfig(pc="mg")), "A14")],
-    ids=["pc-mg"],
-)
-def test_unported_options_on_the_winell_tier_raise(overrides, item):
+def test_pc_mg_on_the_winell_tier_builds_the_amg_plan():
+    """pc="mg" on the WinELL tier is algebraic multigrid: NSSolver builds
+    the pattern-only plan with the context (it raised, naming A14, before
+    A11 was ported)."""
     cfg = dataclasses.replace(reference_scenario_config(), bcs=(), pin_pressure=True)
-    assert NSSolver(_rcm_delaunay(), cfg, device="cpu").fastpath == "winell"
-    with pytest.raises(NotImplementedError, match=item):
-        NSSolver(_rcm_delaunay(), dataclasses.replace(cfg, **overrides), device="cpu")
+    plain = NSSolver(_rcm_delaunay(), cfg, device="cpu")
+    assert plain.fastpath == "winell" and plain.wctx.amg_idx is None
+    mg = NSSolver(_rcm_delaunay(), dataclasses.replace(
+        cfg, krylov=tcfg.KrylovConfig(pc="mg")), device="cpu")
+    assert mg.fastpath == "winell" and mg.wctx.amg_idx is not None
 
 
 def _fields(cls):

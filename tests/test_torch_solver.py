@@ -8,7 +8,10 @@
   JAX NSSolver from the same numpy state. New states to 1e-9 relative
   (max|port - jax| / max|jax| per state), equal Newton and Krylov counts.
 - The port's CLI at that size on the CPU, and its step count: `--steps`
-  overrides the config's `num_steps` only when given, as in the JAX CLI.
+  overrides the config's `num_steps` only when given, as in the JAX CLI;
+  without `--box` it runs box 8 x 8 x 8, as the JAX CLI does.
+- `krylov.solver` is ignored, as in the JAX package: a "cg" config steps
+  exactly like the "gmres" one.
 """
 
 import dataclasses
@@ -144,3 +147,22 @@ def test_cli_runs_num_steps_unless_steps_is_given(capsys, tmp_path, steps, expec
     assert tmain.main(argv + (["--steps", steps] if steps else [])) == 0
     recs = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.strip()]
     assert [r["step"] for r in recs] == list(range(1, expected + 1))
+
+
+def test_cli_box_defaults_to_the_jax_clis():
+    """The JAX CLI runs box_mesh(8, 8, 8) without --box (app/main.py:193)."""
+    assert tuple(tmain._parser().parse_args([]).box) == (8, 8, 8)
+
+
+def test_krylov_solver_is_ignored_as_in_the_jax_package(solvers):
+    """The JAX package's step never reads krylov.solver and always runs
+    GMRES (config.py:99-101): a "cg" config steps like the "gmres" one."""
+    _, ts, state = solvers
+    cfg = dataclasses.replace(ts.cfg, krylov=dataclasses.replace(ts.cfg.krylov, solver="cg"))
+    cg = TNSSolver(t_box_mesh(*BOX), cfg, device="cpu")
+    tstate = interop.state_from_numpy(*state, device="cpu")
+    *got, gstats = cg.step(*tstate)
+    *ref, rstats = ts.step(*tstate)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert gstats.krylov_iters == rstats.krylov_iters
