@@ -5,8 +5,8 @@
 
 Phases, one line each; the script exits non-zero at the first failure:
   1 card    nvidia-smi name and power limit, torch / CUDA versions
-  2 build   nvcc builds the eleven kernel libraries from csrc/ (the
-            solver's nine, the probes' two) in parallel (seconds, ptxas lines;
+  2 build   nvcc builds the twelve kernel libraries from csrc/ (the
+            solver's ten, the probes' two) in parallel (seconds, ptxas lines;
             the fused K1's and K2's and K11's registers and shared memory)
   lattice tier (box meshes):
   3 kernels at box_mesh(55, 55, 55) (998,250 tets), float32 on the card,
@@ -126,6 +126,28 @@ Phases, one line each; the script exits non-zero at the first failure:
             mg on the lattice, AMG on the converted box (WinELL), simple on
             the gather tier, the lagged Jacobian, and "ir", whose refined
             solves must reach 1e-10
+  mesh files and the translation-class tier (ROADMAP A10: any table of up
+  to 8 slabs, csrc/lattice_classes.cu):
+ 20 classes box 55 as (a) the deformed box without lattice metadata
+            (mesh.gen.deformed_mesh: the classes tier) and (b) a shuffled,
+            mirrored copy (mesh.gen.shuffled_mesh) recovered by
+            recover_lattice (the lattice tier with another split; the
+            recovery's host seconds on their own): K1c and K2c (frozen,
+            masked and unmasked) against their plain versions per equation /
+            vel/p block, with times, bounds and registers, and one adaptive
+            step of each (s/step, counts, peak memory, set-up s; K1c, K2c
+            and K3 launched, the fused K1 / K2 not); K3 on a synthetic
+            27-plane matrix (float32 and float64) against its plain version
+            and a CSR product; P1': the ticketed K1 and K1c in turns on the
+            Kuhn box 55 and the melt box 44 with its source; K2c implicit at
+            the melt box; box-12 slices, one adaptive step each, card
+            float32 against CPU float64 with equal Newton counts and Krylov
+            counts equal or witnessed by plain float32 steps on the CPU:
+            (a), (b), the L-shaped part of the box (mesh.gen.l_shaped_mesh),
+            the melt pool on (a) (K2c implicit's launches), pc "mg" on (a),
+            and a kernel check on a non-conforming stress mesh with 8
+            classes and 21 DIA planes (overlaid_mesh: K3's launches past 15
+            planes)
 Then, on lines of their own: the kernels JSON object (each kernel with its
 time, its plain version's, its bound and, where one PyTorch call computes
 the same function, that call's time), the card's name and power limit, and
@@ -570,7 +592,7 @@ def phase_build() -> None:
     libs = nvcc.load([
         "lattice_residual", "lattice_jacobian", "dia_spmv",
         "element_rows", "winell_spmv", "seg_reduce", "dem_contact",
-        "gather_elements", "win_gather", "gmicro", "gather_probe",
+        "gather_elements", "win_gather", "gmicro", "gather_probe", "lattice_classes",
     ])
     say(f"phase 2 build: {time.perf_counter() - t0:.2f} s wall for "
         f"{len(libs)} libraries (nvcc {nvcc.nvcc_path()})")
@@ -2389,6 +2411,448 @@ def phase_krylov(rcm, raw) -> tuple[list, dict]:
     return [r3 | {"launches": k3_launches}, r7 | {"launches": k7_launches}], summary
 
 
+# ---------------------------------------------------------------------------
+# phase 20: mesh files and the translation-class tier (ROADMAP A10): K1c /
+# K2c (any table of up to 8 slabs, csrc/lattice_classes.cu) and K3 past the
+# Kuhn lattice's 15 planes
+
+CLASS_KERNELS = (
+    ("K1 lattice residual (classes)", "dedflow_tpu_torch/csrc/lattice_classes.cu",
+     "dedflow_tpu/fem/lattice.py:779"),
+    ("K2 lattice jacobian (classes)", "dedflow_tpu_torch/csrc/lattice_classes.cu",
+     "dedflow_tpu/fem/lattice.py:835"),
+    ("K2 lattice jacobian (classes, implicit)", "dedflow_tpu_torch/csrc/lattice_classes.cu",
+     "dedflow_tpu/fem/pallas_kernels.py:544"),
+    ("K3 dia spmv (D > 16)", "dedflow_tpu_torch/csrc/dia_spmv.cu",
+     "dedflow_tpu/sparse/dia_kernels.py:56"),
+)
+# A float32 GMRES crosses its rtol at another iteration than a float64 one
+# now and then, kernels or not. Where the card's Krylov count of a slice
+# differs from the float64 step's, plain float32 steps on the CPU witness
+# it: on the same input and on copies perturbed by SLICE_F32_EPS relative
+# (the size of the kernels' agreement with their plain versions), at most
+# SLICE_F32_RUNS of them.
+SLICE_F32_EPS = 1e-6
+SLICE_F32_RUNS = 64
+
+
+def l_shaped_config():
+    """The reference scenario on mesh.gen.l_shaped_mesh: its BCs on the box
+    sides that remain, every component of the nodes no element touches
+    (group 7) held."""
+    import dataclasses
+
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+    from dedflow_tpu_torch.config import BCSpec
+
+    ref = reference_scenario_config()
+    return dataclasses.replace(ref, bcs=ref.bcs + (BCSpec(7, strong_components=(0, 1, 2, 3, 4,
+                                                                              5)),))
+
+
+def class_solver(mesh, cfg, tier: str, label: str):
+    """NSSolver on the card for a converted-mesh variant, on `tier`, with no
+    fused tables; (solver, set-up seconds)."""
+    import torch
+
+    from dedflow_tpu_torch.solver.newton import NSSolver
+
+    t0 = time.perf_counter()
+    solver = NSSolver(mesh, cfg, device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    if solver.fastpath != tier or solver.lctx.fused is not None:
+        raise PhaseError(f"classes {label}: fastpath {solver.fastpath!r} (expected {tier!r}), "
+                         f"fused tables {solver.lctx.fused is not None}")
+    return solver, setup
+
+
+def class_kernel_records(solver, label: str) -> list:
+    """K1c (no source) and K2c frozen (masked with the facet band, and
+    unmasked) on `solver`'s context at its size, against their plain
+    versions per equation / vel/p block (TOL_K1 / TOL_K2), then timed
+    against them with their bounds (K1's and K2's function)."""
+    import torch
+
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
+    from dedflow_tpu_torch.tools.timing import nbytes
+
+    phys, scheme, lctx, mask_t = solver.cfg.physics, solver.cfg.time, solver.lctx, solver.mask_t
+    wg, dwgold, dwg = perturbed_state(solver.mesh, "cuda", solver.dtype)
+    wa, dwa = alpha_states(wg, dwgold, dwg, scheme)
+    wa_t, dwa_t = wa.T.contiguous(), dwa.T.contiguous()
+    n, nd = lctx.num_node, len(lctx.offsets)
+    by_eq = reduce_parts()[0]
+    k1 = lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme)
+    p1 = lambda: lat.residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme)
+    e1 = compare(f"K1c F volume {label}", k1, p1, TOL_K1, parts=by_eq)
+    keep, add = keep_pc_rows(mask_t, solver.dtype), diag_add_rows(mask_t, solver.dtype)
+    band, lo = lat._masked_face_band(solver.face_ctxs, wa, dwa, phys, scheme, nd, keep)
+    keep16, add16 = keep[:16].contiguous(), add[:16].contiguous()
+    vp = {f" [{b}]": (lambda t, c=list(cs): t[:, c]) for b, cs in VP_BLOCKS.items()}
+    k2 = lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, band, lo)
+    p2 = lambda: lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, keep16, add16, band, lo)
+    e2 = compare(f"K2c data (masked) {label}", k2, p2, TOL_K2, parts=vp)
+    ones, zeros = torch.ones_like(keep16), torch.zeros_like(add16)
+    e2 = max(e2, compare(
+        f"K2c data (unmasked) {label}",
+        lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, ones, zeros),
+        lambda: lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, ones, zeros), TOL_K2, parts=vp))
+    data = k2()
+    out6 = torch.empty((6, n), dtype=torch.float32)
+    return [
+        finish(f"{CLASS_KERNELS[0][0]} {label}", {"max_abs_err": e1}, k1, p1, 20, 5,
+               nbytes(lctx.res_geom, wa_t, dwa_t, out6), op_count(p1)),
+        finish(f"{CLASS_KERNELS[1][0]} {label}", {"max_abs_err": e2}, k2, p2, 10, 3,
+               nbytes(lctx.lhs_geom, wa_t, keep16, add16, band, data), op_count(p2)),
+    ]
+
+
+def class_implicit_record(msolver) -> dict:
+    """K2c in its implicit mode at the melt box, on the melt solver's own
+    (Kuhn) context, against its plain version per vel/p block and phi/T
+    tangent, timed with K2's implicit bound."""
+    import torch
+
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
+    from dedflow_tpu_torch.tools.timing import nbytes
+
+    cfg, mesh, lctx = msolver.cfg, msolver.mesh, msolver.lctx
+    phys, scheme = cfg.physics, cfg.time
+    wg, dwgold, dwg = perturbed_melt_state(mesh, cfg, "cuda", msolver.dtype)
+    wa, dwa = alpha_states(wg, dwgold, dwg, scheme)
+    wa_t = wa.T.contiguous()
+    n, nd = lctx.num_node, len(lctx.offsets)
+    keep, add = keep_pc_rows(msolver.mask_t, msolver.dtype), diag_add_rows(msolver.mask_t,
+                                                                           msolver.dtype)
+    band, lo = lat._masked_face_band(msolver.face_ctxs, wa, dwa, phys, scheme, nd, keep)
+    pack = lambda d, sc: torch.cat([d.reshape(nd * 16, n), sc])
+    parts = {f" data [{b}]": (lambda t, c=list(cs): t[: nd * 16].reshape(nd, 16, n)[:, c])
+             for b, cs in VP_BLOCKS.items()}
+    parts[" scal [phi-phi]"] = lambda t: t[nd * 16 :: 2]
+    parts[" scal [T-T]"] = lambda t: t[nd * 16 + 1 :: 2]
+    k2 = lambda: pack(*lat.jacobian_volume_classes(lctx, wa_t, phys, scheme, keep, add, band, lo))
+    p2 = lambda: pack(*lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, keep, add, band, lo))
+    e2 = compare("K2c implicit (masked), melt box", k2, p2, TOL_K2, parts=parts)
+    data, scal = lat.jacobian_volume_classes(lctx, wa_t, phys, scheme, keep, add, band, lo)
+    return finish(CLASS_KERNELS[2][0], {"max_abs_err": e2}, k2, p2, 10, 3,
+                  nbytes(lctx.lhs_geom, lctx.res_geom[:, 13:19], wa_t[:3], keep, add, band,
+                         data, scal), op_count(p2))
+
+
+def k3_wide_records(n: int, sy: int, sz: int) -> list:
+    """K3 on a synthetic DIA matrix of 27 planes (every corner difference
+    of the lattice cell, sy / sz the node strides) at n rows,
+    float32 (TOL_K3) and float64 (TOL_F64) against its plain version,
+    timed with its bound and a CSR product of the same matrix."""
+    import torch
+
+    from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec, dia_matvec_plain
+    from dedflow_tpu_torch.tools.timing import FP64_OPS_PER_S, nbytes
+
+    offs = tuple(sorted(dx + sy * dy + sz * dz for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+                        for dx in (-1, 0, 1)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    recs = []
+    for dtype, tol in ((torch.float32, TOL_K3), (torch.float64, TOL_F64)):
+        data = torch.randn((len(offs), 16, n), generator=gen, device="cuda", dtype=dtype)
+        scal = torch.randn((2 * len(offs), n), generator=gen, device="cuda", dtype=dtype)
+        x = torch.randn((6, n), generator=gen, device="cuda", dtype=dtype)
+        kern = lambda: dia_matvec(data, scal, x, offs)
+        plain = lambda: dia_matvec_plain(data, scal, x, offs)
+        label = f"K3 A x, {len(offs)} planes, {str(dtype).split('.')[1]}"
+        err = compare(label, kern, plain, tol, parts=reduce_parts()[0])
+        pieces = []
+        for k, o in enumerate(offs):
+            r = torch.arange(max(0, -o), min(n, n - o), device="cuda")
+            by_comp = {c: data[k, c, r] for c in range(16)}
+            by_comp.update({16: scal[2 * k, r], 17: scal[2 * k + 1, r]})
+            pieces.append((r, r + o, by_comp))
+        csr = block_csr(n, pieces)
+        xflat = x.reshape(-1)
+        recs.append(finish(label, {"max_abs_err": err}, kern, plain, 50, 5,
+                           nbytes(data, scal, x, x), op_count(plain),
+                           library=(lambda: csr @ xflat, kern()),
+                           ops_per_s=FP64_OPS_PER_S if dtype == torch.float64 else None))
+        del csr, pieces, data, scal
+    return recs
+
+
+def class_main(solver, label: str) -> dict:
+    """One adaptive step of the reference scenario on `solver` from the
+    reference initial state: the launch counts of K1c, K2c and K3 set to 0
+    just before and read just after (each must be positive) and the fused
+    K1 / K2's, which must stay 0."""
+    import torch
+
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec
+
+    counters = (lat.residual_volume_classes, lat.jacobian_volume_classes, dia_matvec)
+    absent = (lat.residual_volume, lat.jacobian_volume)
+    for c in absent:
+        c.launches = 0
+    rec = krylov_step(solver, counters, f"main {label}")
+    off = [c.launches for c in absent]
+    say(f"  main {label}: fused K1 / K2 launches {off} (must be 0); fastpath {solver.fastpath}")
+    if any(off):
+        raise PhaseError(f"classes main {label}: the fused K1 / K2 ran on a class context: {off}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def overlaid_mesh(nx: int, ny: int, nz: int, extra: int = 2):
+    """A kernel stress input, not a mesh a user runs: box_mesh(nx, ny, nz)
+    with `extra` more tets in every cell, the first of the Kuhn split
+    mirrored in x. They overlap the Kuhn tets (the mesh is not conforming),
+    but its tables are the classes tier's widest: 6 + extra classes and,
+    for extra = 2, 21 DIA planes (a conforming split of a translation-
+    regular mesh has at most 15)."""
+    import numpy as np
+
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.mesh.mesh import Mesh
+
+    box = box_mesh(nx, ny, nz)
+    kuhn = box_mesh(1, 1, 1).ien  # node id = corner id ix + 2*iy + 4*iz
+    sy, sz = nx + 1, (nx + 1) * (ny + 1)
+    ix, iy, iz = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij")
+    base = (ix + sy * iy + sz * iz).ravel()
+    corner = np.array([(c & 1) + sy * ((c >> 1) & 1) + sz * ((c >> 2) & 1) for c in range(8)])
+    mirrored = (kuhn ^ 1)[:extra][:, [1, 0, 2, 3]]
+    ien = np.concatenate([box.ien, (base[:, None, None] + corner[mirrored][None]).reshape(-1, 4)])
+    return Mesh(xg=box.xg, ien=ien.astype(box.ien.dtype), boundaries=box.boundaries)
+
+
+def slice_inputs(mesh, cfg, device, dtype) -> tuple:
+    """A slice's perturbed state and, for the melt pool, its source."""
+    if cfg.implicit_scalars:
+        return (perturbed_melt_state(mesh, cfg, device, dtype),
+                melt_source(mesh, cfg, 1, device, dtype))
+    return perturbed_state(mesh, device, dtype), None
+
+
+def krylov_witness(label: str, mesh, cfg, card: list, ref: list) -> tuple:
+    """The card's Krylov counts `card` against the CPU float64 step's `ref`,
+    a list each per Newton iteration: plain float32 steps on the CPU (no
+    kernels), on the slice's input and on copies perturbed by SLICE_F32_EPS
+    relative (seeded), until every count of the card's lies between the
+    float64 count and the float32 ones of its Newton iteration. Returns (the
+    plain float32 counts on the slice's own input, the steps taken); raises
+    after SLICE_F32_RUNS steps."""
+    import torch
+
+    from dedflow_tpu_torch.solver.newton import NSSolver
+
+    solver = NSSolver(mesh, cfg, device="cpu", dtype=torch.float32)
+    lo, hi, own = list(ref), list(ref), None
+    for k in range(SLICE_F32_RUNS):
+        state, src = slice_inputs(mesh, cfg, "cpu", torch.float32)
+        if k:
+            gen = torch.Generator().manual_seed(SEED + k)
+            state = tuple(t * (1 + SLICE_F32_EPS * torch.randn(t.shape, generator=gen,
+                                                               dtype=t.dtype)) for t in state)
+        kry = solver.step(*state, source=src)[-1].krylov_iters
+        own = own or kry
+        for i, c in enumerate(kry[: len(lo)]):
+            lo[i], hi[i] = min(lo[i], c), max(hi[i], c)
+        if all(l <= c <= h for c, l, h in zip(card, lo, hi)):
+            return own, k + 1
+    raise PhaseError(f"classes slice {label}: the card's Krylov counts {card} leave the float32 "
+                     f"range {list(zip(lo, hi))} of {SLICE_F32_RUNS} plain steps")
+
+
+def class_slices() -> dict:
+    """Box 12, card float32 against CPU float64, one adaptive step each from
+    a perturbed state: states within TOL_SLICE, equal Newton counts, Krylov
+    counts equal or witnessed by plain float32 steps (krylov_witness). (a)
+    the deformed box (classes), (b) the shuffled, mirrored and recovered box
+    (lattice, another split), (c) the L-shaped part of the box (classes,
+    dead lanes), (d) the melt pool with its source on (a) (K2c implicit),
+    (e) pc "mg" on (a) (the grid inferred from the class stencil), and a
+    kernel check, (f) overlaid_mesh (8 classes, 21 DIA planes, in GMRES's
+    products). The launch counts of K1c, K2c, K2c's implicit mode and K3
+    are set to 0 just before each slice's card step and read just after.
+    Returns each slice's worst relative error, Krylov counts and
+    launches."""
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import melt_pool_scenario_config, reference_scenario_config
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.mesh.gen import box_mesh, deformed_mesh, l_shaped_mesh, shuffled_mesh
+    from dedflow_tpu_torch.mesh.recover import recover_lattice
+    from dedflow_tpu_torch.solver.newton import NSSolver
+    from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec
+
+    box = box_mesh(*SLICE_BOX)
+    deformed = deformed_mesh(box)
+    recovered = recover_lattice(shuffled_mesh(box, seed=SEED + 1, mirror=True))[0]
+    ref = reference_scenario_config()
+    cases = {
+        "(a) deformed": (deformed, ref, "classes"),
+        "(b) recovered, mirrored": (recovered, ref, "lattice"),
+        "(c) L-shaped": (l_shaped_mesh(*SLICE_BOX), l_shaped_config(), "classes"),
+        "(d) melt on (a)": (deformed, melt_pool_scenario_config(), "classes"),
+        "(e) pc mg on (a)": (deformed, with_krylov(ref, pc="mg"), "classes"),
+        "(f) kernel check, 8 classes, 21 planes": (overlaid_mesh(*SLICE_BOX), ref, "classes"),
+    }
+    names = ("K1c", "K2c", "K2c implicit", "K3")
+    out = {}
+    for label, (mesh, cfg, tier) in cases.items():
+        runs = []
+        for device in ("cuda", "cpu"):
+            solver = NSSolver(mesh, cfg, device=device)
+            if solver.fastpath != tier or solver.lctx.fused is not None:
+                raise PhaseError(f"classes slice {label}: fastpath {solver.fastpath!r}")
+            if label.startswith("(f)") and (len(solver.lctx.deltas), len(solver.lctx.offsets)) != (
+                    8, 21):
+                raise PhaseError(f"classes slice {label}: {len(solver.lctx.deltas)} classes, "
+                                 f"{len(solver.lctx.offsets)} planes")
+            state, src = slice_inputs(mesh, cfg, device, solver.dtype)
+            lat.residual_volume_classes.launches = lat.jacobian_volume_classes.launches = 0
+            lat.jacobian_volume_classes.implicit_launches = dia_matvec.launches = 0
+            *got, stats = solver.step(*state, source=src)
+            launches = [lat.residual_volume_classes.launches, lat.jacobian_volume_classes.launches,
+                        lat.jacobian_volume_classes.implicit_launches, dia_matvec.launches]
+            runs.append(([t.cpu() for t in got], len(stats.rnorms), stats.krylov_iters, launches))
+        (g_states, g_newton, g_kry, g_launches), (r_states, r_newton, r_kry, _) = runs
+        worst = 0.0
+        for g, r in zip(g_states, r_states):
+            if not bool(torch.isfinite(g).all()):
+                raise PhaseError(f"classes slice {label}: non-finite state on the card")
+            worst = max(worst, rel_err(g, r)[1])
+        say(f"  slice {label}: card f32 vs cpu f64 rel={worst:.3e} (tol {TOL_SLICE:.0e}); newton "
+            f"{g_newton} / {r_newton}, krylov {g_kry} / {r_kry}; launches "
+            f"{dict(zip(names, g_launches))}")
+        check(f"classes slice {label}", worst, TOL_SLICE)
+        if g_newton != r_newton:
+            raise PhaseError(f"classes slice {label}: the card's Newton count differs")
+        rec = {"rel": worst, "krylov_card": g_kry, "krylov_f64": r_kry,
+               "launches": dict(zip(names, g_launches))}
+        if g_kry != r_kry:
+            rec["krylov_f32_plain"], rec["f32_steps"] = krylov_witness(label, mesh, cfg, g_kry,
+                                                                       r_kry)
+            say(f"  slice {label}: krylov card {g_kry}, cpu f64 {r_kry}, cpu f32 plain "
+                f"{rec['krylov_f32_plain']}; the card's counts within the float32 range after "
+                f"{rec['f32_steps']} plain steps (inputs {SLICE_F32_EPS:.0e} apart)")
+        if min(g_launches[:2]) <= 0 or (cfg.implicit_scalars and g_launches[2] <= 0):
+            raise PhaseError(f"classes slice {label}: K1c / K2c did not run: {g_launches}")
+        out[label] = rec
+    if out["(f) kernel check, 8 classes, 21 planes"]["launches"]["K3"] <= 0:
+        raise PhaseError("classes slice (f): K3 did not run on 21 planes")
+    return out
+
+
+def p1_prime(msolver) -> dict:
+    """ROADMAP P1': the ticketed K1 against K1c on the same Kuhn contexts,
+    in turns (fused, classes, classes, fused): box 55 reference and the
+    melt box with its source; equal within TOL_K1."""
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.solver.newton import NSSolver
+    from dedflow_tpu_torch.tools.timing import time_ms
+
+    out = {}
+    box = NSSolver(box_mesh(*FULL_BOX), reference_scenario_config(), device="cuda")
+    for label, solver, melt in (("box 55", box, False), ("melt box 44 + source", msolver, True)):
+        cfg, lctx = solver.cfg, solver.lctx
+        state = (perturbed_melt_state(solver.mesh, cfg, "cuda", solver.dtype) if melt
+                 else perturbed_state(solver.mesh, "cuda", solver.dtype))
+        wa, dwa = alpha_states(*state, cfg.time)
+        src = melt_source(solver.mesh, cfg, 1, "cuda", solver.dtype) if melt else None
+        args = (lctx, wa.T.contiguous(), dwa.T.contiguous(), cfg.physics, cfg.time, src)
+        fused = lambda: lat.residual_volume(*args)
+        classes = lambda: lat.residual_volume_classes(*args)
+        _, rel = rel_err(classes(), fused())
+        check(f"P1' K1c vs the ticketed K1, {label}", rel, TOL_K1)
+        f1 = time_ms(fused, 20)
+        c1, c2 = time_ms(classes, 20), time_ms(classes, 20)
+        f2 = time_ms(fused, 20)
+        out[label] = {"fused_ms": [f1, f2], "classes_ms": [c1, c2], "rel": rel}
+        say(f"  P1' {label}: ticketed K1 {f1:.4f}, {f2:.4f} ms; K1c {c1:.4f}, {c2:.4f} ms "
+            f"(in turns); K1c vs K1 rel={rel:.3e}")
+    del box
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_classes() -> tuple[list, dict]:
+    """Phase 20: box 55 as (a) the deformed box without metadata (the
+    classes tier) and (b) a shuffled, mirrored copy recovered by
+    recover_lattice (the lattice tier with another split): K1c and K2c
+    against their plain versions with times and bounds, then one adaptive
+    step of each (main path, launches); K3 on a synthetic 27-plane
+    matrix; K2c implicit and P1' at the melt box; the box-12 slices. Returns the kernel records (CLASS_KERNELS' order, with their
+    launches) and the summary."""
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+    from dedflow_tpu_torch.mesh.gen import box_mesh, deformed_mesh, shuffled_mesh
+    from dedflow_tpu_torch.mesh.recover import recover_lattice
+    from dedflow_tpu_torch.utils import nvcc
+
+    summary = {}
+    ref = reference_scenario_config()
+    box = box_mesh(*FULL_BOX)
+    deformed = deformed_mesh(box)
+    asolver, asetup = class_solver(deformed, ref, "classes", "(a)")
+    say(f"  (a) deformed box {FULL_BOX}: {deformed.num_tet} tets, {len(asolver.lctx.deltas)} "
+        f"classes, {len(asolver.lctx.offsets)} planes, solver set-up {asetup:.2f} s")
+    a_recs = class_kernel_records(asolver, "(a)")
+    summary["(a) main"] = class_main(asolver, "(a) classes")
+    summary["(a) main"]["setup_s"] = asetup
+    del asolver
+    t0 = time.perf_counter()
+    shuffled = shuffled_mesh(box, seed=SEED + 1, mirror=True)
+    shuffle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recovered, _ = recover_lattice(shuffled)
+    recover_s = time.perf_counter() - t0
+    bsolver, bsetup = class_solver(recovered, ref, "lattice", "(b)")
+    say(f"  (b) shuffled, mirrored box {FULL_BOX}: shuffle {shuffle_s:.2f} s, recover_lattice "
+        f"{recover_s:.2f} s (lattice {recovered.lattice}, tets a cell "
+        f"{[list(map(int, t)) for t in recovered.lattice_tets]}), solver set-up {bsetup:.2f} s")
+    b_recs = class_kernel_records(bsolver, "(b)")
+    summary["(b) main"] = class_main(bsolver, "(b) recovered lattice")
+    summary["(b) main"].update(setup_s=bsetup, recover_s=recover_s)
+    del bsolver, shuffled, recovered
+    torch.cuda.empty_cache()
+    lib = nvcc.load("lattice_classes")["lattice_classes"]
+    say("  ptxas registers: K1c element pass "
+        f"{registers(lib, 'residual_classes_element_kernel')}, node pass "
+        f"{registers(lib, 'residual_classes_node_kernel')}; K2c element pass frozen "
+        f"{registers(lib, 'jacobian_classes_element_kernelILb0E')} implicit "
+        f"{registers(lib, 'jacobian_classes_element_kernelILb1E')}, plane pass "
+        f"{registers(lib, 'jacobian_classes_plane_kernelILi16E')} / "
+        f"{registers(lib, 'jacobian_classes_plane_kernelILi18E')}")
+    k3 = k3_wide_records(box.num_node, FULL_BOX[0] + 1, (FULL_BOX[0] + 1) * (FULL_BOX[1] + 1))
+    msolver, msetup = melt_solver()
+    summary["P1'"] = p1_prime(msolver)
+    implicit = class_implicit_record(msolver)
+    del msolver
+    torch.cuda.empty_cache()
+    summary["slices"] = class_slices()
+    launches = [summary["(a) main"]["launches"][0] + summary["(b) main"]["launches"][0],
+                summary["(a) main"]["launches"][1] + summary["(b) main"]["launches"][1]]
+    summary["b_kernels"] = b_recs
+    # no main path runs K2c's implicit mode or K3 past 15 planes: their
+    # launches are those of the slices that do, (d) and (f), each alone
+    slices = summary["slices"]
+    return [a_recs[0] | {"launches": launches[0]}, a_recs[1] | {"launches": launches[1]},
+            implicit | {"launches": slices["(d) melt on (a)"]["launches"]["K2c implicit"],
+                        "launches_of": "box-12 slice (d)"},
+            k3[0] | {"launches": slices["(f) kernel check, 8 classes, 21 planes"]["launches"]["K3"],
+                     "launches_of": "box-12 slice (f)"}], summary
+
+
 def run() -> int:
     try:
         import torch
@@ -2511,6 +2975,14 @@ def run() -> int:
         krylov_results, krylov = phase_krylov(rcm, raw)
         say(f"  krylov ({card}): {json.dumps(krylov)}")
         say(f"  phase 19: {time.perf_counter() - t0:.1f} s")
+        phase = "20 classes"
+        say(f"phase 20 classes ({card}): box {FULL_BOX} deformed (classes tier) and shuffled, "
+            f"mirrored, recovered (lattice tier, another split); K3 at 27 planes; K2c implicit and "
+            f"P1' at box {MELT_BOX}; box {SLICE_BOX} slices")
+        t0 = time.perf_counter()
+        class_results, classes = phase_classes()
+        say(f"  classes ({card}): {json.dumps(classes)}")
+        say(f"  phase 20: {time.perf_counter() - t0:.1f} s")
     except Exception as e:  # report the failed phase, then fail
         traceback.print_exc()
         print(f"FAIL phase {phase}: {type(e).__name__}: {e}", file=sys.stderr)
@@ -2527,15 +2999,15 @@ def run() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n, **r}
         for (name, src, rep), r, n in zip(
             KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS
-            + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS + KRYLOV_KERNELS,
+            + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS + KRYLOV_KERNELS + CLASS_KERNELS,
             results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit]
-            + ir_staged + ga_staged + ga_res_staged + krylov_results,
+            + ir_staged + ga_staged + ga_res_staged + krylov_results + class_results,
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
             + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
             + ga_main["launches"][3:]
             + melt_launches + staged_launches + ga_main["res_staged"]
-            + [r["launches"] for r in krylov_results],
+            + [r["launches"] for r in krylov_results] + [r["launches"] for r in class_results],
         )
     ]
     # the probes' launches: those of their entry points' runs (phase 18)

@@ -1,15 +1,27 @@
 """Command-line driver of the port: the reference, lid-driven cavity,
 moving-laser melt-pool or coupled FEM-DEM powder-settling scenario on a box
-mesh.
+mesh or on a mesh read from an HDF5 file.
 
-    python -m dedflow_tpu_torch.app.main [--box NX NY NZ] [--steps K] \\
-        --device cuda|cpu --dtype f32|f64 [--config cfg.json] [--chunk E] \\
-        [--scenario reference|cavity|melt-pool] [--fixed-newton K] \\
-        [--pc fieldsplit|simple|mg] [--precision state|f64|ir]
+    python -m dedflow_tpu_torch.app.main [--box NX NY NZ | --mesh PATH \\
+        [--no-lattice-recover]] [--steps K] --device cuda|cpu --dtype f32|f64 \\
+        [--config cfg.json] [--chunk E] [--scenario reference|cavity|melt-pool] \\
+        [--fixed-newton K] [--pc fieldsplit|simple|mg] [--precision state|f64|ir]
     python -m dedflow_tpu_torch.app.main --scenario coupled --box 55 55 55 \\
         --particles 100000 [--particle-radius R] [--dem-substeps 10] [--no-dem-grid]
 
-`--box` defaults to 8 8 8, as the JAX CLI's. `--steps K` runs K time
+`--mesh PATH` reads a mesh in the reference's HDF5 schema (io.h5,
+tools/mesh_convert.py's files; h5py is needed for it, and only for it).
+On a file without lattice metadata the run first tries
+mesh.recover.recover_lattice, as the JAX CLI does: a box stored as an
+unstructured tet soup comes back in lattice order with its cells' own tet
+split, and the solver takes the lattice tier; `--no-lattice-recover` skips
+that, and a translation-regular mesh then runs on the classes tier. The
+recovered node permutation (old -> new) is kept on the run for the solution
+files (ROADMAP A17b). A line on stderr names the mesh, its node and tet
+counts and the recovered lattice. `--mesh` excludes `--box`; without
+either the run takes box 8 8 8, as the JAX CLI's does. The coupled scenario
+runs on generated boxes only (its particle locator assumes the Kuhn
+split). `--steps K` runs K time
 steps; without it the run takes the config's `num_steps` (4000 for the
 built-in scenarios), as the JAX CLI does. `--config` loads a SolverConfig
 from JSON in place of the reference scenario's (config.load_config, as the
@@ -44,8 +56,8 @@ the scenario, the assembly tier (`fastpath`), wall seconds (after a device
 synchronize), the largest temperature (`t_max`) and, from the adaptive
 loop, Newton iterations, Krylov iterations per Newton iteration, the last
 field norms and whether Newton converged. Other flags of the JAX CLI
-(restarts, HDF5 snapshots, sharding) are not ported yet (ROADMAP queues
-A16, A17). """
+(restarts, HDF5 solution snapshots, sharding) are not ported yet (ROADMAP
+queues A16, A17b). """
 
 from __future__ import annotations
 
@@ -71,15 +83,22 @@ from dedflow_tpu_torch.app.scenarios import (
 )
 from dedflow_tpu_torch.config import load_config
 from dedflow_tpu_torch.interop import state_from_numpy
+from dedflow_tpu_torch.io.h5 import read_mesh_h5
 from dedflow_tpu_torch.mesh.gen import box_mesh
+from dedflow_tpu_torch.mesh.recover import recover_lattice
 from dedflow_tpu_torch.solver.newton import NSSolver
 from dedflow_tpu_torch.utils.dtypes import parse_dtype, resolve_device
 
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--box", type=int, nargs=3, default=(8, 8, 8),
-                   metavar=("NX", "NY", "NZ"), help="box cells per axis (default 8 8 8)")
+    m = p.add_mutually_exclusive_group()
+    m.add_argument("--mesh", default=None,
+                   help="mesh HDF5 (schema of tools/mesh_convert; needs h5py)")
+    m.add_argument("--box", type=int, nargs=3, default=(8, 8, 8), metavar=("NX", "NY", "NZ"),
+                   help="box cells per axis (default 8 8 8)")
+    p.add_argument("--no-lattice-recover", action="store_true",
+                   help="skip structured-lattice recovery on --mesh files")
     p.add_argument("--steps", type=int, default=None,
                    help="time steps to run (default: the config's num_steps)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -115,13 +134,43 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
+def load_mesh(args):
+    """(mesh, node permutation old -> new or None) of the parsed arguments:
+    the --mesh file, recovered into lattice order unless
+    --no-lattice-recover, or the box (8, 8, 8 by default); one line on
+    stderr describes it, as the JAX CLI's log lines do."""
+    if not args.mesh:
+        box = tuple(args.box)
+        mesh = box_mesh(*box)
+        print(f"box mesh {box[0]}x{box[1]}x{box[2]}: {mesh.num_node} nodes, {mesh.num_tet} tets",
+              file=sys.stderr)
+        return mesh, None
+    mesh = read_mesh_h5(args.mesh)
+    print(f"mesh {args.mesh}: {mesh.num_node} nodes, {mesh.num_tet} tets", file=sys.stderr)
+    if mesh.lattice is not None or args.no_lattice_recover:
+        return mesh, None
+    rec = recover_lattice(mesh)
+    if rec is None:
+        print("no structured lattice recovered", file=sys.stderr)
+        return mesh, None
+    mesh, perm = rec
+    nx, ny, nz = mesh.lattice
+    print(f"recovered {nx}x{ny}x{nz} lattice ({len(mesh.lattice_tets)} tets/cell)",
+          file=sys.stderr)
+    return mesh, perm
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    if args.scenario == "coupled" and args.mesh:
+        print("--scenario coupled runs on generated boxes only (--box)", file=sys.stderr)
+        return 2
     device = resolve_device(args.device)
     # ir = a float32 state with float64 refinement (the JAX CLI's rule)
     dtype = torch.float32 if args.precision == "ir" and args.dtype is None else parse_dtype(
         args.dtype, device)
-    mesh = box_mesh(*args.box)
+    # node_perm: the file's node order, for the solution files (ROADMAP A17b)
+    mesh, node_perm = load_mesh(args)
     scenario_config, initial_state = {
         "cavity": (lid_driven_cavity_config, lid_driven_cavity_initial_state),
         "melt-pool": (melt_pool_scenario_config, melt_pool_initial_state),

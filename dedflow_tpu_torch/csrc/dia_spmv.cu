@@ -17,6 +17,14 @@
 // Component order (sparse/fsbsr.py): 0..8 uu[i*3+j], 9..11 up[i],
 // 12..14 pu[j], 15 pp; scal rows 2k = phi-phi, 2k+1 = T-T.
 //
+// Any number of planes D up to kMaxPlanesSpmv, as the JAX package's DIA
+// SpMV takes (the Kuhn lattice has 15, a class table of T <= 8 slabs up to
+// 8 * 12 + 1 = 97): the offsets travel by value and the planes go in
+// unrolled chunks of kPlaneChunk, so that a chunk's loads go out together.
+// At 15 planes one unrolled chunk runs, its offsets indexed at compile
+// time; a plain loop over offsets read from device memory was 3% slower
+// there on an H100 (tools/spmv_time.py).
+//
 // The kernel is a template on the scalar type, built for float (the
 // solver's state type on the card) and double (the f64 operator of
 // krylov.precision "f64" and the residual of "ir"). The double instance is
@@ -28,7 +36,8 @@
 
 namespace dedflow {
 
-constexpr int kMaxPlanesSpmv = 16;
+constexpr int kMaxPlanesSpmv = 128;
+constexpr int kPlaneChunk = 16;
 
 struct Offsets {
   int o[kMaxPlanesSpmv];
@@ -45,23 +54,30 @@ dia_spmv_kernel(const T* __restrict__ data,  // (D, 16, n)
   if (r >= n) return;
   const size_t N = static_cast<size_t>(n);
   T y0 = 0, y1 = 0, y2 = 0, y3 = 0, y4 = 0, y5 = 0;
+  // planes k0 .. k0 + kPlaneChunk - 1; inlined, so that chunk(0) indexes
+  // the offsets at compile time
+  auto chunk = [&](const int k0) {
 #pragma unroll
-  for (int k = 0; k < kMaxPlanesSpmv; ++k) {
-    if (k < num_planes) {
-      const int col = r + off.o[k];
-      if (col >= 0 && col < n) {
-        const T x0 = x[col], x1 = x[N + col], x2 = x[2 * N + col];
-        const T x3 = x[3 * N + col], x4 = x[4 * N + col], x5 = x[5 * N + col];
-        const T* d = data + static_cast<size_t>(k) * 16 * N + r;
-        y0 += d[0] * x0 + d[N] * x1 + d[2 * N] * x2 + d[9 * N] * x3;
-        y1 += d[3 * N] * x0 + d[4 * N] * x1 + d[5 * N] * x2 + d[10 * N] * x3;
-        y2 += d[6 * N] * x0 + d[7 * N] * x1 + d[8 * N] * x2 + d[11 * N] * x3;
-        y3 += d[12 * N] * x0 + d[13 * N] * x1 + d[14 * N] * x2 + d[15 * N] * x3;
-        y4 += scal[(2 * k) * N + r] * x4;
-        y5 += scal[(2 * k + 1) * N + r] * x5;
+    for (int j = 0; j < kPlaneChunk; ++j) {
+      const int k = k0 + j;
+      if (k < num_planes) {
+        const int col = r + off.o[k];
+        if (col >= 0 && col < n) {
+          const T x0 = x[col], x1 = x[N + col], x2 = x[2 * N + col];
+          const T x3 = x[3 * N + col], x4 = x[4 * N + col], x5 = x[5 * N + col];
+          const T* d = data + static_cast<size_t>(k) * 16 * N + r;
+          y0 += d[0] * x0 + d[N] * x1 + d[2 * N] * x2 + d[9 * N] * x3;
+          y1 += d[3 * N] * x0 + d[4 * N] * x1 + d[5 * N] * x2 + d[10 * N] * x3;
+          y2 += d[6 * N] * x0 + d[7 * N] * x1 + d[8 * N] * x2 + d[11 * N] * x3;
+          y3 += d[12 * N] * x0 + d[13 * N] * x1 + d[14 * N] * x2 + d[15 * N] * x3;
+          y4 += scal[(2 * k) * N + r] * x4;
+          y5 += scal[(2 * k + 1) * N + r] * x5;
+        }
       }
     }
-  }
+  };
+  chunk(0);
+  for (int k0 = kPlaneChunk; k0 < num_planes; k0 += kPlaneChunk) chunk(k0);
   y[r] = y0;
   y[N + r] = y1;
   y[2 * N + r] = y2;
@@ -73,7 +89,9 @@ dia_spmv_kernel(const T* __restrict__ data,  // (D, 16, n)
 template <typename T>
 int launch(const void* data, const void* scal, const void* x, void* y, int n, int num_planes,
            const int* offsets, void* stream) {
-  if (num_planes < 1 || num_planes > kMaxPlanesSpmv) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_planes < 1 || num_planes > kMaxPlanesSpmv || n <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Offsets off{};
   for (int k = 0; k < num_planes; ++k) off.o[k] = offsets[k];
   dia_spmv_kernel<T><<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -1,4 +1,4 @@
-"""Gather-free structured-lattice path for box meshes (counterpart of
+"""Gather-free structured-lattice path (counterpart of
 dedflow_tpu/fem/lattice.py, single device).
 
 On the Kuhn-subdivided box lattice (mesh.gen.box_mesh) every element-node
@@ -6,34 +6,46 @@ access is a fixed index offset: cell id = the node id of its lowest corner,
 `ix + Sy*iy + Sz*iz`; vertex a of Kuhn tet ("slab") t of cell c is node
 c + delta[t][a]. Cells on the far faces (ix == nx, iy == ny or iz == nz) are
 dead: their geometry is zero, so their contributions are exactly zero and no
-masking is needed. Geometry is slab-major (6, rows, N) with column = cell,
+masking is needed. Geometry is slab-major (T, rows, N) with column = cell,
 vectors travel component-major (6, N), and the Jacobian lands directly in
-component-major DIA storage (sparse.fsbsr.FSDIAMatrixT).
+component-major DIA storage (sparse.fsbsr.FSDIAMatrixT). The same machinery
+serves any table of T <= 8 slabs: a recovered lattice whose cells carry
+another split (`mesh.lattice_tets`, mesh.recover) and the translation-class
+tier of a mesh without generator metadata (build_class_context: one slab a
+class of equal vertex-offset signature, column = the element's base node,
+zero geometry on the lanes without an element of that class).
 
-Two kernels carry the path, each behind a wrapper with a launch counter:
+Two kernels carry the path, each behind a wrapper with a launch counter,
+and each has a second entry for any cell table:
 
 - K1 `residual_volume`: the volume residual (6, N), with an optional nodal
-  heat source (melt-pool runs). On CUDA the kernel
-  csrc/lattice_residual.cu, which replaces fem/lattice.py::_res_t8_kernel of
-  the JAX package: one launch of ticketed work items (an 8 x 8 node tile of
-  one cell layer), each element computed once into a ring of cell layers
-  that stays in the L2, each node's 24 contributions added in the plain
-  version's order once its neighbours' items are done (RES_FUSED_*,
-  checked against the built kernel's `residual_kernel_layout`; the
-  context's `res_sync` workspace), with no element buffer in memory; on
-  the CPU `residual_volume_plain`, the unfused pipeline (shifted-slice
-  inputs -> element_rows.res_rows -> 24 shifted adds).
+  heat source (melt-pool runs). On CUDA, for the Kuhn split of a box (the
+  context's `fused` tables), the kernel csrc/lattice_residual.cu, which
+  replaces fem/lattice.py::_res_t8_kernel of the JAX package: one launch of
+  ticketed work items (an 8 x 8 node tile of one cell layer), each element
+  computed once into a ring of cell layers that stays in the L2, each
+  node's 24 contributions added in the plain version's order once its
+  neighbours' items are done (RES_FUSED_*, checked against the built
+  kernel's `residual_kernel_layout`; the context's `res_sync` workspace),
+  with no element buffer in memory. Any other table goes to K1c
+  `residual_volume_classes` (csrc/lattice_classes.cu: an element pass into
+  a (T, 24, N) buffer, then the node sums in the plain order). On the CPU
+  `residual_volume_plain`, the unfused pipeline (shifted-slice inputs ->
+  element_rows.res_rows -> 4T shifted adds).
 - K2 `jacobian_volume`: the finished (D, 16, N) velocity/pressure DIA data,
   Dirichlet-masked, unit diagonal on the zero-offset plane, facet band
-  added. On CUDA csrc/lattice_jacobian.cu, which replaces
-  fem/lattice.py::_lhs_fused_body (masked mode): one fused pass over
-  (x, y) node tiles sliding up z chunks, a component group a block
+  added. On CUDA, for the Kuhn split, csrc/lattice_jacobian.cu, which
+  replaces fem/lattice.py::_lhs_fused_body (masked mode): one fused pass
+  over (x, y) node tiles sliding up z chunks, a component group a block
   (`fused_tables`, FUSED_GROUPS, checked against the built kernel's
-  `fused_kernel_layout`), with no element buffer in device memory;
-  on the CPU `jacobian_volume_plain` (inputs -> element_rows.lhs_rows(ncomp=16)
-  -> 96 shifted adds -> the mask epilogue).
+  `fused_kernel_layout`), with no element buffer in device memory; any
+  other table goes to K2c `jacobian_volume_classes` (csrc/lattice_classes.cu:
+  an element pass into a (T, 16 * ncomp, N) buffer, then a plane pass in
+  the plain order, `plane_entries`, with the epilogue); on the CPU
+  `jacobian_volume_plain` (inputs -> element_rows.lhs_rows(ncomp=16) -> 16T
+  shifted adds -> the mask epilogue).
 
-A CUDA tensor always goes to the kernel (or raises); only a CPU tensor takes
+A CUDA tensor always goes to a kernel (or raises); only a CPU tensor takes
 the plain version. In the frozen-scalar mode the phi-phi / T-T components
 are state independent and come from the node multiplicity `mult`, outside
 the kernels. With `scalar_implicit` (melt-pool runs, the context's flag as
@@ -80,21 +92,23 @@ from dedflow_tpu_torch.utils import nvcc
 class LatticeContext:
     """Per-slab geometry rows + static shift tables."""
 
-    res_geom: torch.Tensor  # (6, 19, N) element_rows.res_geom_rows, column = cell
-    lhs_geom: torch.Tensor  # (6, 15, N) element_rows.lhs_geom_rows, column = cell
+    res_geom: torch.Tensor  # (T, 19, N) element_rows.res_geom_rows, column = cell
+    lhs_geom: torch.Tensor  # (T, 15, N) element_rows.lhs_geom_rows, column = cell
     # (N,) live-element multiplicity per node: the phi-phi/T-T identity
     # components of the Jacobian summed over incident live tets
     mult: torch.Tensor
     num_node: int
-    dmax: int  # largest vertex offset, 1 + Sy + Sz
-    deltas: tuple  # (6, 4) node offsets
+    dmax: int  # largest vertex offset (1 + Sy + Sz on a box)
+    deltas: tuple  # (T, 4) node offsets, T <= 8 slabs
     offsets: tuple  # sorted DIA column offsets
-    plane_tab: tuple  # (6, 4, 4) -> plane
-    # K2's fused pass: (sy, ny, nz, planes), see fused_tables
-    fused: tuple
+    plane_tab: tuple  # (T, 4, 4) -> plane
+    # K2's fused pass: (sy, ny, nz, planes), see fused_tables; None unless
+    # the table is the Kuhn split of a box (then K1c / K2c run instead)
+    fused: tuple | None
     # K1's ticket counter and item flags (res_sync_workspace), kept by the
-    # kernel from call to call: calls on one context run in order
-    res_sync: torch.Tensor
+    # kernel from call to call: calls on one context run in order; None
+    # with `fused`
+    res_sync: torch.Tensor | None
     # implicit phi/T transport tangents in the Jacobian (melt-pool runs)
     scalar_implicit: bool = False
     # node-grid shape (gx, gy, gz) = (nx+1, ny+1, nz+1), read by the
@@ -102,12 +116,11 @@ class LatticeContext:
     dims: tuple | None = None
 
 
-def lattice_tables(nx: int, ny: int, nz: int):
-    tets = _KUHN_TETS
-    nt = len(tets)
-    sy, sz = nx + 1, (nx + 1) * (ny + 1)
-    corner = [(o & 1) + sy * ((o >> 1) & 1) + sz * ((o >> 2) & 1) for o in range(8)]
-    deltas = tuple(tuple(int(corner[c]) for c in tets[t]) for t in range(nt))
+def _plane_tables(deltas: tuple) -> tuple:
+    """(sorted DIA offsets, plane_tab (T, 4, 4)) of slab vertex offsets
+    `deltas` (T, 4): plane_tab[t][a][b] is the plane of delta[t][b] -
+    delta[t][a]."""
+    nt = len(deltas)
     offs = sorted(
         {deltas[t][b] - deltas[t][a] for t in range(nt) for a in range(4) for b in range(4)}
     )
@@ -119,15 +132,40 @@ def lattice_tables(nx: int, ny: int, nz: int):
         )
         for t in range(nt)
     )
-    return sy, sz, deltas, tuple(offs), plane_tab
+    return tuple(offs), plane_tab
+
+
+def lattice_tables(nx: int, ny: int, nz: int, tets=None):
+    """(sy, sz, deltas, offsets, plane_tab) of the (nx, ny, nz) lattice whose
+    cells carry the (T, 4) cube-corner tets `tets` (corner = ix + 2*iy +
+    4*iz; None: the generator's Kuhn split), as the JAX package's
+    _lattice_tables (lattice.py:119)."""
+    if tets is None:
+        tets = _KUHN_TETS
+    nt = len(tets)
+    sy, sz = nx + 1, (nx + 1) * (ny + 1)
+    corner = [(o & 1) + sy * ((o >> 1) & 1) + sz * ((o >> 2) & 1) for o in range(8)]
+    deltas = tuple(tuple(int(corner[c]) for c in tets[t]) for t in range(nt))
+    offs, plane_tab = _plane_tables(deltas)
+    return sy, sz, deltas, offs, plane_tab
+
+
+def is_kuhn_split(tets) -> bool:
+    """Whether a mesh's `lattice_tets` is the generator's Kuhn split, vertex
+    order included (None stands for it): the fused K1 / K2 take only that
+    table."""
+    return tets is None or np.array_equal(np.asarray(tets), _KUHN_TETS)
 
 
 def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = False) -> LatticeContext:
-    """Build from a box mesh carrying `mesh.lattice = (nx, ny, nz)`."""
+    """Build from a box mesh carrying `mesh.lattice = (nx, ny, nz)` and, for
+    a recovered mesh, its cells' split `mesh.lattice_tets`. The fused K1 /
+    K2 tables (`fused`, `res_sync`) only for the Kuhn split; any other table
+    goes to K1c / K2c."""
     if mesh.lattice is None:
         raise ValueError("mesh has no lattice metadata")
     nx, ny, nz = mesh.lattice
-    sy, sz, deltas, offs, plane_tab = lattice_tables(nx, ny, nz)
+    sy, sz, deltas, offs, plane_tab = lattice_tables(nx, ny, nz, mesh.lattice_tets)
     n = mesh.num_node
     if n != (nx + 1) * (ny + 1) * (nz + 1):
         raise ValueError("node count does not match the lattice")
@@ -145,7 +183,7 @@ def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = Fal
     lc = cells[live]
     vidx = np.concatenate([lc + deltas[t][a] for t in range(len(deltas)) for a in range(4)])
     mult = np.bincount(vidx, minlength=n).astype(np.float64)
-    fused = fused_tables(deltas, offs, n)
+    fused = fused_tables(deltas, offs, n) if is_kuhn_split(mesh.lattice_tets) else None
     return LatticeContext(
         res_geom=torch.stack(rr).contiguous(),
         lhs_geom=torch.stack(lr).contiguous(),
@@ -156,7 +194,7 @@ def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = Fal
         offsets=offs,
         plane_tab=plane_tab,
         fused=fused,
-        res_sync=res_sync_workspace(fused, device),
+        res_sync=None if fused is None else res_sync_workspace(fused, device),
         scalar_implicit=scalar_implicit,
         dims=(nx + 1, ny + 1, nz + 1),
     )
@@ -182,23 +220,79 @@ def detect_delta_classes(ien: np.ndarray, max_classes: int = 8):
     return keys, cls_id.reshape(-1).astype(np.int64), base
 
 
-def classes_tier_applies(mesh: Mesh, mesh_offsets: tuple, dmax_limit: int = 16384) -> bool:
-    """Whether the JAX package would run `mesh` on its translation-class
-    tier: build_class_context returns a context (lattice.py:337-348) and
-    its stencil offsets equal the mesh's sparsity offsets (the solver's
-    agreement check, newton.py:597). Used only to route the tier; the
-    classes tier itself is not ported (ROADMAP A10)."""
+def _mesh_classes(mesh: Mesh, max_classes: int = 8, dmax_limit: int = 16384):
+    """(keys, cls_id, base) of detect_delta_classes when the JAX package's
+    build_class_context would build a context for `mesh` (lattice.py:337-348:
+    tets only, at most `max_classes` classes, 0 < dmax <= dmax_limit), else
+    None."""
     ien = np.asarray(mesh.ien, dtype=np.int64)
     if mesh.extra_cells or ien.size == 0:
-        return False
-    det = detect_delta_classes(ien)
+        return None
+    det = detect_delta_classes(ien, max_classes)
+    if det is None or not 0 < int(det[0].max()) <= dmax_limit:
+        return None
+    return det
+
+
+def classes_tier_applies(mesh: Mesh, mesh_offsets: tuple) -> bool:
+    """Whether the JAX package would run `mesh` on its translation-class
+    tier: build_class_context returns a context and its stencil offsets
+    equal the mesh's sparsity offsets (the solver's agreement check,
+    newton.py:597)."""
+    det = _mesh_classes(mesh)
+    return det is not None and _plane_tables(
+        tuple(tuple(int(d) for d in k) for k in det[0]))[0] == tuple(mesh_offsets)
+
+
+def build_class_context(
+    mesh: Mesh, device, dtype, max_classes: int = 8, dmax_limit: int = 16384,
+    scalar_implicit: bool = False,
+) -> LatticeContext | None:
+    """The translation-class tier for meshes without generator metadata
+    (counterpart of dedflow_tpu/fem/lattice.py::build_class_context, :314):
+    classes of equal vertex-offset signature from `ien` alone
+    (detect_delta_classes, the file's vertex order kept), one slab a class,
+    geometry at column = the element's base node (its smallest node id) and
+    zero geometry on the lanes without an element of that class (their
+    contributions are exact zeros, as a box's dead cells'), `mult` the node
+    multiplicity over all of `ien`, no node grid (`dims` None). None when the
+    mesh is not translation-regular. Its tables are not the Kuhn box's, so
+    K1c / K2c (csrc/lattice_classes.cu) assemble it on the card."""
+    det = _mesh_classes(mesh, max_classes, dmax_limit)
     if det is None:
-        return False
-    keys = det[0]
-    if not 0 < int(keys.max()) <= dmax_limit:
-        return False
-    offs = tuple(sorted({int(kb - ka) for k in keys for ka in k for kb in k}))
-    return offs == tuple(mesh_offsets)
+        return None
+    keys, cls_id, base = det
+    ien = np.asarray(mesh.ien, dtype=np.int64)
+    dmax = int(keys.max())
+    deltas = tuple(tuple(int(d) for d in k) for k in keys)
+    offs, plane_tab = _plane_tables(deltas)
+    n = mesh.num_node
+    xg = torch.as_tensor(mesh.xg, dtype=dtype, device=device)
+    lr, rr = [], []
+    for t in range(len(deltas)):
+        sel = np.nonzero(cls_id == t)[0]
+        geom = tet_geometry(xg[torch.as_tensor(ien[sel], device=device)])
+        bt = torch.as_tensor(base[sel], device=device)
+        for rows, out in ((lhs_geom_rows(geom.shgrad, geom.det_j, geom.metric), lr),
+                          (res_geom_rows(geom.shgrad, geom.det_j, geom.metric), rr)):
+            full = torch.zeros((rows.shape[0], n), dtype=dtype, device=device)
+            full[:, bt] = rows
+            out.append(full)
+    mult = np.bincount(ien.ravel(), minlength=n).astype(np.float64)
+    return LatticeContext(
+        res_geom=torch.stack(rr).contiguous(),
+        lhs_geom=torch.stack(lr).contiguous(),
+        mult=torch.as_tensor(mult, dtype=dtype, device=device),
+        num_node=n,
+        dmax=dmax,
+        deltas=deltas,
+        offsets=offs,
+        plane_tab=plane_tab,
+        fused=None,
+        res_sync=None,
+        scalar_implicit=scalar_implicit,
+        dims=None,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +300,7 @@ def classes_tier_applies(mesh: Mesh, mesh_offsets: tuple, dmax_limit: int = 1638
 
 
 def _residual_inputs(lctx: LatticeContext, wa_t, dwa_t, source=None) -> torch.Tensor:
-    """(6, 67, N) slab-major rows for element_rows.res_rows: column c reads
+    """(T, 67, N) slab-major rows for element_rows.res_rows: column c reads
     node c + delta[t][a]; nodes past N read zero. `source` (N,) is the
     nodal heat source (zero rows without one)."""
     n = lctx.num_node
@@ -231,7 +325,7 @@ def _residual_inputs(lctx: LatticeContext, wa_t, dwa_t, source=None) -> torch.Te
 
 
 def _lhs_inputs(lctx: LatticeContext, wa_t) -> torch.Tensor:
-    """(6, 27, N) slab-major rows for element_rows.lhs_rows; (6, 33, N)
+    """(T, 27, N) slab-major rows for element_rows.lhs_rows; (T, 33, N)
     with the context's scalar_implicit, the metric rows of res_geom last."""
     n = lctx.num_node
     upad = F.pad(wa_t[:3], (0, lctx.dmax))
@@ -248,8 +342,8 @@ def _lhs_inputs(lctx: LatticeContext, wa_t) -> torch.Tensor:
 
 
 def _reduce_residual(lctx: LatticeContext, out) -> torch.Tensor:
-    """(6, 24, N) element residual rows -> (6, N): node n receives slab t,
-    vertex a from cell n - delta[t][a] (24 shifted adds, (t, a) order)."""
+    """(T, 24, N) element residual rows -> (6, N): node n receives slab t,
+    vertex a from cell n - delta[t][a] (4T shifted adds, (t, a) order)."""
     n = lctx.num_node
     acc = torch.zeros((6, n), dtype=out.dtype, device=out.device)
     for t, dt_ in enumerate(lctx.deltas):
@@ -260,7 +354,7 @@ def _reduce_residual(lctx: LatticeContext, out) -> torch.Tensor:
 
 
 def _reduce_lhs_planes(lctx: LatticeContext, out, ncomp: int) -> list:
-    """(6, 16*ncomp, N) element Jacobians -> D x (ncomp, N) DIA planes (96
+    """(T, 16*ncomp, N) element Jacobians -> D x (ncomp, N) DIA planes (16T
     shifted adds, (t, a, b) order)."""
     n = lctx.num_node
     planes = [
@@ -478,9 +572,12 @@ def _flat_deltas(lctx):
 
 def residual_volume(lctx: LatticeContext, wa_t, dwa_t, phys, scheme, source=None) -> torch.Tensor:
     """K1: (6, N) volume residual from the alpha states (6, N) and the
-    nodal heat source `source` (N,) or None."""
+    nodal heat source `source` (N,) or None. A context without the fused
+    tables (any cell table but a box's Kuhn split) goes to K1c."""
     if not wa_t.is_cuda:
         return residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme, source)
+    if lctx.fused is None:
+        return residual_volume_classes(lctx, wa_t, dwa_t, phys, scheme, source)
     n = lctx.num_node
     _check_f32_cuda("lattice_residual", wa_t=wa_t, dwa_t=dwa_t, res_geom=lctx.res_geom,
                     **({} if source is None else {"source": source}))
@@ -519,9 +616,12 @@ residual_volume.launches = 0
 def jacobian_volume(lctx: LatticeContext, wa_t, phys, scheme, keep, add, band=None, band_lo=0):
     """K2: the finished (D, 16, N) velocity/pressure DIA data, and with the
     context's scalar_implicit also the (2D, N) scal rows (see
-    jacobian_volume_plain for the contract)."""
+    jacobian_volume_plain for the contract). A context without the fused
+    tables goes to K2c."""
     if not wa_t.is_cuda:
         return jacobian_volume_plain(lctx, wa_t, phys, scheme, keep, add, band, band_lo)
+    if lctx.fused is None:
+        return jacobian_volume_classes(lctx, wa_t, phys, scheme, keep, add, band, band_lo)
     n, nd = lctx.num_node, len(lctx.offsets)
     implicit = lctx.scalar_implicit
     nc = 18 if implicit else 16
@@ -562,6 +662,148 @@ def jacobian_volume(lctx: LatticeContext, wa_t, phys, scheme, keep, add, band=No
 
 
 jacobian_volume.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1c / K2c: any table of T <= 8 slabs (csrc/lattice_classes.cu), two passes
+# each through a (T, rows, N) element buffer
+
+MAX_CLASSES = 8  # the slabs csrc/lattice_classes.cu takes
+
+
+def _check_class_tables(what: str, lctx: LatticeContext) -> None:
+    nt = len(lctx.deltas)
+    if not 1 <= nt <= MAX_CLASSES or any(len(d) != 4 for d in lctx.deltas):
+        raise ValueError(f"{what} kernel: {nt} slabs; it takes 1 to {MAX_CLASSES} of 4 vertices")
+    if lctx.res_geom.shape[0] != nt or lctx.lhs_geom.shape[0] != nt:
+        raise ValueError(f"{what} kernel: geometry for {lctx.res_geom.shape[0]} slabs, tables "
+                         f"for {nt}")
+
+
+def residual_volume_classes(lctx: LatticeContext, wa_t, dwa_t, phys, scheme,
+                            source=None) -> torch.Tensor:
+    """K1c: the function of residual_volume_plain for any table of T <= 8
+    slabs. On CUDA csrc/lattice_classes.cu: an element pass, a thread a
+    (slab, base node), into a (T, 24, N) buffer, then a node pass that adds
+    each node's 4T contributions in the plain (t, a) order; on the CPU the
+    plain version."""
+    if not wa_t.is_cuda:
+        return residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme, source)
+    n, nt = lctx.num_node, len(lctx.deltas)
+    _check_class_tables("lattice_residual_classes", lctx)
+    _check_f32_cuda("lattice_residual_classes", wa_t=wa_t, dwa_t=dwa_t, res_geom=lctx.res_geom,
+                    **({} if source is None else {"source": source}))
+    if wa_t.shape != (6, n) or dwa_t.shape != (6, n) or (source is not None and source.shape != (n,)):
+        raise ValueError("lattice_residual_classes kernel: states must be (6, N), a source (N,)")
+    fn = nvcc.function(
+        "lattice_classes", "dedflow_lattice_residual_classes",
+        [nvcc.P] * 6 + [nvcc.I, nvcc.I, nvcc.P] + [nvcc.D] * 8 + [nvcc.P],
+    )
+    dev = wa_t.device
+    elem = torch.empty((nt, 24, n), dtype=torch.float32, device=dev)
+    out = torch.empty((6, n), dtype=torch.float32, device=dev)
+    a = _res_args(phys, scheme)
+    nvcc.check(
+        fn(lctx.res_geom.data_ptr(), wa_t.data_ptr(), dwa_t.data_ptr(),
+           None if source is None else source.data_ptr(), elem.data_ptr(), out.data_ptr(),
+           n, nt, _flat_deltas(lctx), a["rho"], a["mu"], a["cp"], a["kappa"], *a["fb"], a["dt"],
+           torch.cuda.current_stream(dev).cuda_stream),
+        "lattice_residual_classes",
+    )
+    residual_volume_classes.launches += 1
+    return out
+
+
+residual_volume_classes.launches = 0
+
+
+def plane_entries(lctx: LatticeContext, ncomp: int) -> tuple:
+    """K2c's plane table: (starts (D + 1,), entries (E, 2)) as int lists.
+    Plane p sums entries starts[p]..starts[p+1]-1, each (element-buffer row
+    (t*16 + a*4+b) * ncomp, vertex shift delta[t][a]), in the (t, a, b)
+    order of _reduce_lhs_planes."""
+    by_plane = [[] for _ in lctx.offsets]
+    for t, d in enumerate(lctx.deltas):
+        for a in range(4):
+            for b in range(4):
+                by_plane[lctx.plane_tab[t][a][b]].append(((t * 16 + a * 4 + b) * ncomp, d[a]))
+    starts = [0]
+    for ents in by_plane:
+        starts.append(starts[-1] + len(ents))
+    return starts, [e for ents in by_plane for e in ents]
+
+
+# plane tables on the card by (deltas, plane_tab, ncomp, device): built once
+# a context's tables and mode, so a call queues no host-to-device copy
+_PLANE_TABLES: dict = {}
+
+
+def _plane_tables_on(lctx: LatticeContext, ncomp: int, device) -> tuple:
+    key = (lctx.deltas, lctx.plane_tab, ncomp, device)
+    got = _PLANE_TABLES.get(key)
+    if got is None:
+        starts, ents = plane_entries(lctx, ncomp)
+        got = (torch.tensor(starts, dtype=torch.int32, device=device),
+               torch.tensor(ents, dtype=torch.int32, device=device).reshape(-1, 2).contiguous())
+        _PLANE_TABLES[key] = got
+    return got
+
+
+def jacobian_volume_classes(lctx: LatticeContext, wa_t, phys, scheme, keep, add, band=None,
+                            band_lo=0):
+    """K2c: the function of jacobian_volume_plain (the same contract as
+    jacobian_volume) for any table of T <= 8 slabs. On CUDA
+    csrc/lattice_classes.cu: an element pass, a thread a (slab, base node),
+    into a (T, 16 * ncomp, N) buffer, then a plane pass, a thread a (plane,
+    component, node), that sums the plane's entries in the plain order
+    (plane_entries) and applies the keep / add / band epilogue; on the CPU
+    the plain version."""
+    if not wa_t.is_cuda:
+        return jacobian_volume_plain(lctx, wa_t, phys, scheme, keep, add, band, band_lo)
+    n, nd, nt = lctx.num_node, len(lctx.offsets), len(lctx.deltas)
+    implicit = lctx.scalar_implicit
+    nc = 18 if implicit else 16
+    _check_class_tables("lattice_jacobian_classes", lctx)
+    _check_f32_cuda(
+        "lattice_jacobian_classes", wa_t=wa_t, keep=keep, add=add, lhs_geom=lctx.lhs_geom,
+        res_geom=lctx.res_geom, **({} if band is None else {"band": band}),
+    )
+    if wa_t.shape != (6, n) or keep.shape != (nc, n) or add.shape != (nc, n):
+        raise ValueError(f"lattice_jacobian_classes kernel: states (6, N), keep and add ({nc}, N)")
+    span = 0
+    if band is not None:
+        span = band.shape[2]
+        if band.shape[:2] != (nd, 16) or band_lo < 0 or band_lo + span > n:
+            raise ValueError("lattice_jacobian_classes kernel: band outside the matrix")
+    fn = nvcc.function(
+        "lattice_classes", "dedflow_lattice_jacobian_classes",
+        [nvcc.P] * 7 + [nvcc.I, nvcc.I, nvcc.P, nvcc.P] + [nvcc.I, nvcc.I, nvcc.P]
+        + [nvcc.I, nvcc.P, nvcc.P, nvcc.I] + [nvcc.D] * 7 + [nvcc.P],
+    )
+    dev = wa_t.device
+    starts, ents = _plane_tables_on(lctx, nc, dev)
+    elem = torch.empty((nt, 16 * nc, n), dtype=torch.float32, device=dev)
+    out = torch.empty((nd, 16, n), dtype=torch.float32, device=dev)
+    scal = torch.empty((2 * nd, n), dtype=torch.float32, device=dev) if implicit else None
+    a = _lhs_args(phys, scheme)
+    nvcc.check(
+        fn(lctx.lhs_geom.data_ptr(), lctx.res_geom.data_ptr() if implicit else None,
+           wa_t.data_ptr(), elem.data_ptr(), keep.data_ptr(), add.data_ptr(),
+           None if band is None else band.data_ptr(), int(band_lo), span,
+           out.data_ptr(), None if scal is None else scal.data_ptr(), n, nt, _flat_deltas(lctx),
+           nd, starts.data_ptr(), ents.data_ptr(), lctx.offsets.index(0),
+           a["rho"], a["mu"], a["f1"], a["f2"], a["dt"], a["cp"], a["kappa"],
+           torch.cuda.current_stream(dev).cuda_stream),
+        "lattice_jacobian_classes",
+    )
+    jacobian_volume_classes.launches += 1
+    if implicit:
+        jacobian_volume_classes.implicit_launches += 1
+    return (out, scal) if implicit else out
+
+
+jacobian_volume_classes.launches = 0  # both modes
+jacobian_volume_classes.implicit_launches = 0  # the implicit mode's alone
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,30 @@ _KUHN_TETS = np.array(
 )
 
 
+def _boundary_triangles(ien: np.ndarray, num_node: int) -> np.ndarray:
+    """The tet faces that appear exactly once, in their element's node
+    order."""
+    opp = np.array([[1, 2, 3], [0, 2, 3], [0, 1, 3], [0, 1, 2]], dtype=np.int64)
+    faces = ien[:, opp].reshape(-1, 3).astype(np.int64)  # (4*ne, 3)
+    sfaces = np.sort(faces, axis=1)
+    m = num_node
+    key = (sfaces[:, 0] * m + sfaces[:, 1]) * m + sfaces[:, 2]
+    _, first, counts = np.unique(key, return_index=True, return_counts=True)
+    return faces[first[counts == 1]]
+
+
+def _boundary_groups(ien: np.ndarray, btri: np.ndarray, group: np.ndarray,
+                     count: int) -> list[Boundary]:
+    """Boundary tables of groups 0..count-1 of the triangles `btri`."""
+    boundaries = []
+    for g in range(count):
+        tris = btri[group == g].astype(INDEX_DTYPE)
+        f2e, forn = facet_tables_from_tris(ien, tris)
+        boundaries.append(Boundary(nodes=np.unique(tris).astype(INDEX_DTYPE), ien=tris,
+                                   f2e=f2e, forn=forn))
+    return boundaries
+
+
 def box_mesh(
     nx: int,
     ny: int,
@@ -73,32 +97,16 @@ def box_mesh(
     )  # (ncell, 8)
     ien = corners[:, _KUHN_TETS].reshape(-1, 4).astype(INDEX_DTYPE)
 
-    # Boundary triangles: all tet faces that appear exactly once.
-    opp = np.array([[1, 2, 3], [0, 2, 3], [0, 1, 3], [0, 1, 2]], dtype=np.int64)
-    faces = ien[:, opp].reshape(-1, 3).astype(np.int64)  # (4*ne, 3)
-    sfaces = np.sort(faces, axis=1)
-    m = xg.shape[0]
-    key = (sfaces[:, 0] * m + sfaces[:, 1]) * m + sfaces[:, 2]
-    uniq, first, counts = np.unique(key, return_index=True, return_counts=True)
-    btri = faces[first[counts == 1]]  # boundary triangles, original node order
+    btri = _boundary_triangles(ien, xg.shape[0])
 
     # Classify each boundary triangle by box side.
     cx = xg[btri].mean(axis=1)  # (nb, 3) centroids
     eps_ = np.array([lx / nx, ly / ny, lz / nz]) * 1e-6
-    side_masks = [
-        np.abs(cx[:, 0] - ox) < eps_[0],
-        np.abs(cx[:, 0] - (ox + lx)) < eps_[0],
-        np.abs(cx[:, 1] - oy) < eps_[1],
-        np.abs(cx[:, 1] - (oy + ly)) < eps_[1],
-        np.abs(cx[:, 2] - oz) < eps_[2],
-        np.abs(cx[:, 2] - (oz + lz)) < eps_[2],
-    ]
-    boundaries = []
-    for mask in side_masks:
-        tris = btri[mask].astype(INDEX_DTYPE)
-        f2e, forn = facet_tables_from_tris(ien, tris)
-        nodes = np.unique(tris).astype(INDEX_DTYPE)
-        boundaries.append(Boundary(nodes=nodes, ien=tris, f2e=f2e, forn=forn))
+    side = np.full(btri.shape[0], 6)
+    for g, (d, v) in enumerate([(0, ox), (0, ox + lx), (1, oy), (1, oy + ly), (2, oz),
+                                (2, oz + lz)]):
+        side[np.abs(cx[:, d] - v) < eps_[d]] = g
+    boundaries = _boundary_groups(ien, btri, side, 6)
     mesh = Mesh(xg=xg, ien=ien, boundaries=boundaries, lattice=(nx, ny, nz))
     return mesh
 
@@ -117,3 +125,67 @@ def delaunay_mesh(num_points: int, seed: int = 0) -> Mesh:
     det = np.abs(np.linalg.det(p[:, 1:] - p[:, :1]))
     ien = ien[det > 1e-12]
     return Mesh(xg=pts, ien=ien.astype(INDEX_DTYPE), boundaries=[])
+
+
+# ---------------------------------------------------------------------------
+# Converted-mesh variants of a box: what a mesh file carries in place of the
+# generator's metadata. The solver's tier ladder must find the structure
+# from the tables alone (the JAX package's tests build the same meshes:
+# tests/test_classes.py::_deformed, tests/test_recover.py::_shuffled).
+
+
+def deformed_mesh(mesh: Mesh, amp: float = 0.08) -> Mesh:
+    """`mesh`'s connectivity and boundaries on smoothly deformed coordinates,
+    lattice metadata dropped: no tensor grid for mesh.recover, but still
+    translation-regular (the classes tier)."""
+    xg = mesh.xg + amp * np.sin(3.0 * mesh.xg[:, [1, 2, 0]])
+    return Mesh(xg=xg, ien=mesh.ien.copy(), boundaries=mesh.boundaries)
+
+
+def shuffled_mesh(mesh: Mesh, seed: int = 0, grade: bool = False, mirror: bool = False) -> Mesh:
+    """`mesh` with its nodes renumbered at random, its elements shuffled and
+    each element's vertices rotated (RandomState(seed)); `grade` spaces the
+    coordinates unevenly, `mirror` reflects x, which turns the Kuhn split
+    into another corner pattern (its vertex swap keeps every tet positively
+    oriented). Boundary tables follow."""
+    rng = np.random.RandomState(seed)
+    rp = rng.permutation(mesh.num_node)  # old node id -> new
+    xg = mesh.xg.copy()
+    if grade:
+        xg = np.sign(xg) * np.abs(xg) ** 1.5 + 0.05 * xg
+    if mirror:
+        xg[:, 0] = xg[:, 0].max() - xg[:, 0]
+    pv = [2, 1, 0, 3] if mirror else [1, 2, 0, 3]
+    forn_map = np.array([pv.index(k) for k in range(4)])
+    ien = rp[mesh.ien][:, pv]
+    eperm = rng.permutation(ien.shape[0])
+    e_inv = np.argsort(eperm)
+    bnds = [Boundary(nodes=np.sort(rp[b.nodes]), ien=rp[b.ien], f2e=e_inv[b.f2e],
+                     forn=forn_map[b.forn]) for b in mesh.boundaries]
+    return Mesh(xg=xg[np.argsort(rp)], ien=ien[eperm], boundaries=bnds)
+
+
+def l_shaped_mesh(nx: int, ny: int, nz: int) -> Mesh:
+    """box_mesh(nx, ny, nz) without the elements whose centroid lies in the
+    (+x, +y) quadrant, every node kept: translation-regular, with whole
+    regions of each class's lanes empty. Boundary groups: the box's six
+    sides where they remain, in box_mesh's order [x-, x+, y-, y+, z-, z+]
+    (so the reference scenario's BCs apply), 6 the walls the cut opened,
+    and 7 the nodes no element touches, without facets: their rows are all
+    zero, so a run constrains them (every component strong on group 7)."""
+    box = box_mesh(nx, ny, nz)
+    xg = box.xg
+    cent = xg[box.ien].mean(axis=1)
+    ien = box.ien[~((cent[:, 0] > 0.5) & (cent[:, 1] > 0.5))]
+    btri = _boundary_triangles(ien, xg.shape[0])
+    cx = xg[btri].mean(axis=1)
+    group = np.full(btri.shape[0], 6)
+    eps = 1e-6 / max(nx, ny, nz)
+    for g, (axis, val) in enumerate([(0, 0.0), (0, 1.0), (1, 0.0), (1, 1.0), (2, 0.0), (2, 1.0)]):
+        group[np.abs(cx[:, axis] - val) < eps] = g
+    boundaries = _boundary_groups(ien, btri, group, 7)
+    orphans = np.setdiff1d(np.arange(box.num_node), ien).astype(INDEX_DTYPE)
+    empty = np.zeros(0, dtype=INDEX_DTYPE)
+    boundaries.append(Boundary(nodes=orphans, ien=np.zeros((0, 3), dtype=INDEX_DTYPE),
+                               f2e=empty, forn=empty))
+    return Mesh(xg=xg.copy(), ien=ien, boundaries=boundaries)

@@ -8,19 +8,21 @@ dedflow_tpu/solver/newton.py).
   update:    wgold[vel,phi,T] += dt((1-g) dwgold + g dwg);
              dwgold = dwg                               (main.c:561-565)
 
-Three assembly tiers are ported, chosen by the JAX package's ladder
-(newton.py:560-672): the structured lattice of a generated box mesh
-(fem.lattice), the windowed irregular tier (fem.win_assembly) and the
-general gather tier (fem.assembly + fem.ns: any mesh, any node order, and
-every `assembly_chunk` run). Every option of the JAX package's Krylov
-layer runs (assemble_system, _solve_linear): the field-split, SIMPLE and
-multigrid preconditioners (geometric on the lattice, algebraic on WinELL),
-the linear solve in the state dtype, in float64 or in float32 with float64
-iterative refinement, and the lagged Jacobian. Every tier takes a nodal
+Every assembly tier of the JAX package is ported, chosen by its ladder
+(newton.py:560-672): the structured lattice of a box mesh, generated or
+recovered from a file (fem.lattice, with the cells' own tet split), the
+translation-class tier of a mesh without generator metadata
+(fem.lattice.build_class_context), the windowed irregular tier
+(fem.win_assembly) and the general gather tier (fem.assembly + fem.ns:
+any mesh, any node order, and every `assembly_chunk` run). Every option
+of the JAX package's Krylov layer runs (assemble_system, _solve_linear):
+the field-split, SIMPLE and multigrid preconditioners (geometric on the
+lattice, algebraic on WinELL), the linear solve in the state dtype, in
+float64 or in float32 with float64 iterative refinement, and the lagged
+Jacobian. Every tier takes a nodal
 heat source (`source`, the moving laser of the melt-pool scenario) and the
 implicit phi/T tangents (`implicit_scalars`), where the JAX package places
-them (newton.py:57-222, 797-839). A mesh the JAX package would put on its
-translation-class tier, and every other unported option, raises
+them (newton.py:57-222, 797-839). Every unported option raises
 NotImplementedError naming the ROADMAP item that brings it; nothing
 silently takes another path. The adaptive Newton loop reads the four field
 norms to the host once per Newton iteration, the reference's own sync
@@ -45,6 +47,7 @@ from dedflow_tpu_torch.fem.lattice import (
     LatticeContext,
     assemble_jacobian_t,
     assemble_residual_t,
+    build_class_context,
     build_lattice_context,
     classes_tier_applies,
     field_norms_t,
@@ -350,7 +353,6 @@ def _refuse_unported(mesh: Mesh, cfg: SolverConfig) -> None:
     them: the JAX package's step ignores it and always runs GMRES
     (config.py:99-101), and so does the port's."""
     checks = [
-        (cfg.use_lattice == "off", "use_lattice='off' (the classes tier)", "A10"),
         (mesh.extra_cells != [], "prism/hex stencil cells", "A13"),
         (cfg.lattice_backend is not None, f"lattice_backend={cfg.lattice_backend!r}", "A9"),
     ]
@@ -380,12 +382,15 @@ def _winell_gate(mesh: Mesh) -> bool:
 
 def _choose_tier(mesh: Mesh, cfg: SolverConfig) -> str:
     """The assembly tier the JAX package's ladder picks (newton.py:560-672):
-    "lattice", "winell" or "gather" (forced by use_lattice="gather" or an
-    assembly chunk, and the floor "auto" falls to when the WinELL gate
-    rejects the node order); the classes tier raises NotImplementedError
-    (ROADMAP A10)."""
+    "lattice" for a mesh with lattice metadata (generated, or recovered with
+    its `lattice_tets`) whose stencil offsets equal its sparsity's, unless
+    use_lattice="off", which ignores the metadata; else "classes" when the
+    mesh is translation-regular (fem.lattice.classes_tier_applies) on
+    "auto", "off" or "on"; "on" raises when neither applies; else "winell"
+    ("auto" only when its gate passes) or "gather" (forced by
+    use_lattice="gather" or an assembly chunk, and the floor)."""
     mode = cfg.use_lattice
-    if mode not in ("auto", "on", "winell", "gather"):
+    if mode not in ("auto", "on", "off", "winell", "gather"):
         raise ValueError(f"unknown use_lattice={mode!r}")
     if mode == "gather" or cfg.assembly_chunk is not None:
         return "gather"
@@ -394,25 +399,16 @@ def _choose_tier(mesh: Mesh, cfg: SolverConfig) -> str:
         int(o) for o in np.unique(ien[:, None, :] - ien[:, :, None])
     ) if ien.size else ()
     if mode != "winell":
-        if mesh.lattice is not None:
-            if mesh.lattice_tets is not None:
-                raise NotImplementedError(
-                    "dedflow_tpu_torch does not port recovered lattices with another "
-                    "tet split (classes tier) yet (ROADMAP queue A10)"
-                )
-            if lattice_tables(*mesh.lattice)[3] == mesh_offs:
+        if mesh.lattice is not None and mode != "off":
+            if lattice_tables(*mesh.lattice, mesh.lattice_tets)[3] == mesh_offs:
                 return "lattice"
         elif classes_tier_applies(mesh, mesh_offs):
-            raise NotImplementedError(
-                "dedflow_tpu_torch does not port a mesh without box-generator lattice "
-                "metadata on the translation-class tier (classes tier) yet "
-                "(ROADMAP queue A10)"
-            )
+            return "classes"
         if mode == "on":
             raise ValueError(
                 "use_lattice='on' but the mesh sparsity does not match the lattice/class stencil"
             )
-    if mesh.num_tet > 0 and (mode == "winell" or _winell_gate(mesh)):
+    if mesh.num_tet > 0 and (mode == "winell" or (mode == "auto" and _winell_gate(mesh))):
         return "winell"
     return "gather"
 
@@ -422,7 +418,8 @@ class NSSolver:
     one device. `device` is "cuda" unless the caller asks for "cpu" (as
     the JAX NSSolver runs on the accelerator); without a card a CUDA
     request raises. The dtype defaults to float64 on the CPU and float32
-    on CUDA. `fastpath` names the tier: "lattice", "winell" or "gather"."""
+    on CUDA. `fastpath` names the tier: "lattice", "classes", "winell" or
+    "gather"."""
 
     def __init__(self, mesh: Mesh, cfg: SolverConfig, device="cuda", dtype=None):
         _refuse_unported(mesh, cfg)
@@ -435,10 +432,9 @@ class NSSolver:
         self.fastpath = _choose_tier(mesh, cfg)
         weak = [bc.boundary for bc in cfg.bcs if bc.weak]
         self.lctx = self.wctx = self.gctx = None
-        if self.fastpath == "lattice":
-            self.lctx = build_lattice_context(
-                mesh, self.device, self.dtype, scalar_implicit=cfg.implicit_scalars
-            )
+        if self.fastpath in ("lattice", "classes"):
+            build = build_lattice_context if self.fastpath == "lattice" else build_class_context
+            self.lctx = build(mesh, self.device, self.dtype, scalar_implicit=cfg.implicit_scalars)
             self.face_ctxs = tuple(
                 build_face_context(mesh, b, self.lctx.offsets, self.device, self.dtype)
                 for b in weak

@@ -16,6 +16,9 @@ launch count: `dia_matvec.launches` counts the float32 launches only.
 On the card the product is bound by bytes: each row reads its 15 x 18
 matrix entries once (about 190 MB at 175,616 rows) and x is reused from
 cache; one thread per row keeps every read coalesced along the node axis.
+The kernel takes up to MAX_PLANES planes D, with the offsets by value: every
+D the solver builds (the Kuhn lattice has 15, a class table of up to 8
+slabs up to 97), as the JAX package's DIA SpMV takes any.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ def dia_matvec_plain(data, scal, x_t, offsets) -> torch.Tensor:
 
 
 _SYMBOLS = {torch.float32: "dedflow_dia_spmv", torch.float64: "dedflow_dia_spmv_f64"}
+MAX_PLANES = 128  # csrc/dia_spmv.cu kMaxPlanesSpmv
 
 
 def _kernel(data, scal, x_t, offsets) -> torch.Tensor:
@@ -65,6 +69,9 @@ def _kernel(data, scal, x_t, offsets) -> torch.Tensor:
             )
         if tuple(t.shape) != shape:
             raise ValueError(f"dia_matvec kernel: {name} has shape {tuple(t.shape)}, expected {shape}")
+    if len(offsets) != nd or not 1 <= nd <= MAX_PLANES:
+        raise ValueError(f"dia_matvec kernel: {len(offsets)} offsets for {nd} planes "
+                         f"(it takes 1 to {MAX_PLANES})")
     fn = nvcc.function(
         "dia_spmv", _SYMBOLS[dtype],
         [nvcc.P, nvcc.P, nvcc.P, nvcc.P, nvcc.I, nvcc.I, nvcc.P, nvcc.P],

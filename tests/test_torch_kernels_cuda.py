@@ -37,7 +37,13 @@ ticket workspace fails loudly instead of returning wrong sums. K3 and K7
 also run in float64 (their double instances, against the plain versions at
 float64 roundoff), refuse float16 and a CPU vector with a matrix on the
 card, and a repeated step with pc "mg" (geometric multigrid on the
-lattice, algebraic on WinELL) is bit-identical.
+lattice, algebraic on WinELL) is bit-identical. K1c and K2c (any table of
+up to 8 slabs) match their plain versions on a deformed box (the classes
+tier), a shuffled, mirrored and recovered box (the lattice tier with
+another split), an L-shaped part of a box (dead class lanes) and a box
+with 8 classes and 21 DIA planes (torch_meshes.overlaid_mesh, a kernel
+stress input), frozen and implicit, with and without the heat source; K3
+with 27 planes matches its plain version in float32 and float64.
 """
 
 import dataclasses
@@ -67,7 +73,15 @@ from dedflow_tpu_torch.fem import lattice as lat
 from dedflow_tpu_torch.fem import win_assembly as wa_
 from dedflow_tpu_torch.fem.element_rows import alpha_states
 from dedflow_tpu_torch.interop import state_from_numpy
-from dedflow_tpu_torch.mesh.gen import box_mesh, delaunay_mesh
+from dedflow_tpu_torch.config import BCSpec
+from dedflow_tpu_torch.mesh.gen import (
+    box_mesh,
+    deformed_mesh,
+    delaunay_mesh,
+    l_shaped_mesh,
+    shuffled_mesh,
+)
+from dedflow_tpu_torch.mesh.recover import recover_lattice
 from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
 from dedflow_tpu_torch.solver.newton import NSSolver, assemble_system
 from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec, dia_matvec_f64, dia_matvec_plain
@@ -95,6 +109,7 @@ from dedflow_tpu_torch.sparse.win_stream import (
 from dedflow_tpu_torch.sparse.winell import COMP2WIN
 from dedflow_tpu_torch.tools import gather_probe as tgp
 from dedflow_tpu_torch.tools import gmicro as tgm
+from torch_meshes import overlaid_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -1071,3 +1086,92 @@ def test_pc_steps_on_card_match_cpu_f64(card, pc):
         *(t.cpu().double() for t in state), num_newton=2)
     for g, r in zip(got, ref):
         assert torch.isfinite(g).all() and rel(g, r) < 1e-4
+
+
+def _class_mesh(name: str):
+    """The converted-mesh variants of box BOX (mesh.gen; the overlaid one
+    torch_meshes') and the configuration each runs with."""
+    box = box_mesh(*BOX)
+    if name == "l-shaped":  # every component of the nodes no element touches held
+        held = BCSpec(7, strong_components=(0, 1, 2, 3, 4, 5))
+        return l_shaped_mesh(*BOX), dict(bcs=reference_scenario_config().bcs + (held,))
+    if name == "recovered":
+        return recover_lattice(shuffled_mesh(box, seed=1, mirror=True))[0], {}
+    if name == "overlaid":  # 8 classes, 21 DIA planes: the widest tables
+        return overlaid_mesh(*BOX), {}
+    return deformed_mesh(box), {}
+
+
+@pytest.mark.parametrize("implicit", [False, True], ids=["frozen", "implicit"])
+@pytest.mark.parametrize("name", ["deformed", "recovered", "l-shaped", "overlaid"])
+def test_k1c_k2c_match_plain(name, implicit):
+    """K1c (with and without the heat source) and K2c (masked with the facet
+    band, and unmasked) on a context without the fused tables, against
+    their plain versions per equation / vel/p block / phi-T tangent; two
+    runs bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    mesh, over = _class_mesh(name)
+    base = melt_pool_scenario_config() if implicit else reference_scenario_config()
+    if "bcs" in over:
+        over = dict(bcs=base.bcs + over["bcs"][-1:])
+    cfg = dataclasses.replace(base, **over)
+    solver = NSSolver(mesh, cfg, device="cuda")
+    lctx, phys, scheme = solver.lctx, cfg.physics, cfg.time
+    assert lctx.fused is None and lctx.res_sync is None
+    assert solver.fastpath == ("lattice" if name == "recovered" else "classes")
+    init = melt_pool_initial_state if implicit else reference_initial_state
+    wg, dwgold, dwg = init(mesh)
+    rng = np.random.default_rng(21)
+    wg, dwg = wg + 0.1 * rng.standard_normal(wg.shape), dwg + 0.1 * rng.standard_normal(dwg.shape)
+    wa, dwa = alpha_states(*state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32), scheme)
+    wa_t, dwa_t = wa.T.contiguous(), dwa.T.contiguous()
+    src = torch.as_tensor(laser_source(melt_pool_scenario_config().physics.laser, mesh.xg, 0.01),
+                          dtype=torch.float32, device="cuda")
+    for source in (None, src):
+        args = (lctx, wa_t, dwa_t, phys, scheme, source)
+        got = _twice(lambda: lat.residual_volume(*args), lat.residual_volume_classes)
+        ref = lat.residual_volume_plain(*args)
+        for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):
+            assert rel(got[rows], ref[rows]) < 2e-5, rows
+    nc = 18 if implicit else 16
+    keep = keep_pc_rows(solver.mask_t, torch.float32)[:nc].contiguous()
+    add = diag_add_rows(solver.mask_t, torch.float32)[:nc].contiguous()
+    band, lo = lat._masked_face_band(solver.face_ctxs, wa, dwa, phys, scheme, len(lctx.offsets),
+                                     keep_pc_rows(solver.mask_t, torch.float32))
+    for k, a, b in ((keep, add, band), (torch.ones_like(keep), torch.zeros_like(add), None)):
+        call = lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, k, a, b, lo)
+        pack = (lambda: torch.cat([t.reshape(-1) for t in call()])) if implicit else call
+        _twice(pack, lat.jacobian_volume_classes)
+        got = call()
+        ref = lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, k, a, b, lo)
+        data, rdata = (got[0], ref[0]) if implicit else (got, ref)
+        for block, comps in VP_BLOCKS.items():
+            assert rel(data[:, list(comps)], rdata[:, list(comps)]) < 2e-5, block
+        if implicit:
+            assert rel(got[1][0::2], ref[1][0::2]) < 2e-5 and rel(got[1][1::2], ref[1][1::2]) < 2e-5
+    # the implicit mode has a count of its own; the frozen mode leaves it be
+    before = lat.jacobian_volume_classes.implicit_launches
+    lat.jacobian_volume_classes(lctx, wa_t, phys, scheme, keep, add)
+    assert lat.jacobian_volume_classes.implicit_launches == before + int(implicit)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)],
+                         ids=["f32", "f64"])
+def test_k3_wide_matches_plain(dtype, tol):
+    """K3 on 27 planes (every corner difference of a 7 x 5 x 6 lattice
+    cell), more than the Kuhn lattice's 15."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    sy, sz = 8, 48
+    offs = tuple(sorted(dx + sy * dy + sz * dz for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+                        for dx in (-1, 0, 1)))
+    n = 8 * 6 * 7
+    rng = np.random.default_rng(22)
+    data, scal, x = (torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device="cuda")
+                     for shape in ((27, 16, n), (54, n), (6, n)))
+    counter = dia_matvec if dtype == torch.float32 else dia_matvec_f64
+    got = _twice(lambda: dia_matvec(data, scal, x, offs), counter)
+    ref = dia_matvec_plain(data, scal, x, offs)
+    for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):
+        assert rel(got[rows], ref[rows]) < tol, rows

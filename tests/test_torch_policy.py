@@ -76,8 +76,9 @@ def test_fresh_interpreter_import_leaves_jax_out():
         "dedflow_tpu_torch.app.main, dedflow_tpu_torch.app.coupled, "
         "dedflow_tpu_torch.dem.grid, dedflow_tpu_torch.interop, "
         "dedflow_tpu_torch.tools.gmicro, dedflow_tpu_torch.tools.gather_probe, "
-        "dedflow_tpu_torch.fem.ns, dedflow_tpu_torch.app.kernel_ab, chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dedflow_tpu')]\n"
+        "dedflow_tpu_torch.fem.ns, dedflow_tpu_torch.app.kernel_ab, chip_smoke, "
+        "dedflow_tpu_torch.mesh.recover, dedflow_tpu_torch.io.h5\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dedflow_tpu', 'h5py')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -193,10 +194,9 @@ def test_default_dtypes():
     "overrides",
     [
         dict(lattice_backend="xla"),
-        dict(use_lattice="off"),
         dict(assembly_chunk=64, lattice_backend="xla"),
     ],
-    ids=["lattice_backend", "use_lattice1", "assembly_chunk"],
+    ids=["lattice_backend", "assembly_chunk"],
 )
 def test_unported_options_raise(overrides):
     """Options still unported raise, on the gather tier too (an assembly
@@ -229,11 +229,35 @@ def test_ported_krylov_options_step(overrides):
     assert all(bool(torch.isfinite(t).all()) for t in out)
 
 
-def test_mesh_without_lattice_raises():
-    mesh = box_mesh(2, 2, 2)
+def _mesh_without_lattice(mesh):
     mesh.lattice = None
-    with pytest.raises(NotImplementedError, match="classes tier"):
-        NSSolver(mesh, reference_scenario_config(), device="cpu")
+    return mesh
+
+
+@pytest.mark.parametrize(
+    "make_mesh,overrides",
+    [
+        (lambda jgen: jgen.box_mesh(2, 2, 2), dict(use_lattice="off")),
+        (lambda jgen: _mesh_without_lattice(jgen.box_mesh(2, 2, 2)), dict()),
+    ],
+    ids=["use_lattice1", "mesh_without_lattice"],
+)
+def test_ported_tier_options_step(make_mesh, overrides):
+    """The translation-class tier of ROADMAP A10 runs (these raised before
+    it was ported): use_lattice="off" on a box and a box without its
+    lattice metadata step, finite, on the tier the JAX NSSolver picks."""
+    from dedflow_tpu.app.scenarios import reference_scenario_config as jref
+    from dedflow_tpu.mesh import gen as jgen
+    from dedflow_tpu.solver.newton import NSSolver as JNSSolver
+    from dedflow_tpu_torch.mesh import gen as tgen
+
+    jcfg_ = dataclasses.replace(jref(), **overrides)
+    cfg = dataclasses.replace(reference_scenario_config(), **overrides)
+    solver = NSSolver(make_mesh(tgen), cfg, device="cpu")
+    assert solver.fastpath == JNSSolver(make_mesh(jgen), jcfg_).fastpath == "classes"
+    z = torch.zeros((solver.mesh.num_node, 6), dtype=torch.float64)
+    out = solver.step_fixed(z, z, z + 0.01, num_newton=1)
+    assert all(bool(torch.isfinite(t).all()) for t in out)
 
 
 def _no_nvcc(monkeypatch, tmp_path):
@@ -271,6 +295,37 @@ def _k2_implicit():
                                torch.zeros((18, 8)))[1]
 
 
+def _class_box(implicit: bool):
+    """A class context (6 classes) of box_mesh(1, 1, 1) without its
+    lattice metadata."""
+    mesh = box_mesh(1, 1, 1)
+    mesh.lattice = None
+    return lat.build_class_context(mesh, "cpu", torch.float32, scalar_implicit=implicit)
+
+
+def _k1c():
+    lctx, z = _class_box(False), torch.zeros((6, 8))
+    return lat.residual_volume_classes(lctx, z, z, *_phys_scheme(), source=torch.zeros(8))
+
+
+def _k1c_routed():
+    """K1's wrapper on a class context: K1c."""
+    lctx, z = _class_box(False), torch.zeros((6, 8))
+    return lat.residual_volume(lctx, z, z, *_phys_scheme())
+
+
+def _k2c():
+    lctx = _class_box(False)
+    return lat.jacobian_volume(lctx, torch.zeros((6, 8)), *_phys_scheme(), torch.ones((16, 8)),
+                               torch.zeros((16, 8)))
+
+
+def _k2c_implicit():
+    lctx = _class_box(True)
+    return lat.jacobian_volume_classes(lctx, torch.zeros((6, 8)), *_phys_scheme(),
+                                       torch.ones((18, 8)), torch.zeros((18, 8)))[1]
+
+
 def _k7():
     plan = build_winell_plan([0, 1, 2], [0, 1], 2, device="cpu")
     return win_kernels.winell_matvec(WinELLMatrixT(torch.zeros((18, 2)), plan), torch.zeros((6, 2)))
@@ -286,6 +341,17 @@ def _k3(dtype):
     def call():
         z = lambda *shape: torch.zeros(shape, dtype=dtype)
         return dia_kernels.dia_matvec(z(1, 16, 4), z(2, 4), z(6, 4), (0,))
+
+    return call
+
+
+def _k3_wide(dtype):
+    """K3 with 27 planes, more than the Kuhn lattice's 15."""
+    def call():
+        z = lambda *shape: torch.zeros(shape, dtype=dtype)
+        return dia_kernels.dia_matvec(z(27, 16, 40), z(54, 40), z(6, 40),
+                                      tuple(dx + 3 * dy + 9 * dz for dz in (-1, 0, 1)
+                                            for dy in (-1, 0, 1) for dx in (-1, 0, 1)))
 
     return call
 
@@ -449,12 +515,19 @@ def _k13(idiom):
         (_k9_segment_sum, (win_ring, "ring_reduce_staged_plain")),
         (_k4_staged, (ek, "ns_residual_gather_staged_plain")),
         (_k8_segment_sum, (win_stream, "stream_reduce_staged_plain")),
+        (_k1c, (lat, "residual_volume_plain")),
+        (_k1c_routed, (lat, "residual_volume_plain")),
+        (_k2c, (lat, "jacobian_volume_plain")),
+        (_k2c_implicit, (lat, "jacobian_volume_plain")),
+        (_k3_wide(torch.float32), (dia_kernels, "dia_matvec_plain")),
+        (_k3_wide(torch.float64), (dia_kernels, "dia_matvec_plain")),
     ],
     ids=["K6-res", "K6-lhs", "K7", "K7-f64", "K3", "K3-f64", "K8", "K9", "K11", "K4", "K5", "K10", "K1-source",
          "K2-implicit", "K6-lhs-implicit", "K5-implicit", "K12-copy", "K12-lane-smem",
          "K12-lane-shuffle", "K12-window", "K12-reduce", "K13-global", "K13-staged",
          "K6-staged", "K6-staged-implicit", "K5-staged", "K5-staged-implicit",
-         "K9-segment-sum", "K4-staged", "K8-segment-sum"],
+         "K9-segment-sum", "K4-staged", "K8-segment-sum", "K1c", "K1c-routed", "K2c",
+         "K2c-implicit", "K3-wide", "K3-wide-f64"],
 )
 def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     monkeypatch, tmp_path, call, plain
@@ -485,17 +558,23 @@ def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
      (_k4_staged, (ek, "ns_residual_gather_staged")),
      (_k8_segment_sum, (win_stream, "stream_reduce_staged")),
      (_k7_f64, (win_kernels, "winell_matvec_f64")),
-     (_k3(torch.float64), (dia_kernels, "dia_matvec_f64"))],
+     (_k3(torch.float64), (dia_kernels, "dia_matvec_f64")),
+     (_k1c, (lat, "residual_volume_classes")), (_k2c, (lat, "jacobian_volume_classes")),
+     (_k2c_implicit, (lat, "jacobian_volume_classes")),
+     (_k3_wide(torch.float32), (dia_kernels, "dia_matvec")),
+     (_k3_wide(torch.float64), (dia_kernels, "dia_matvec_f64"))],
     ids=["K4", "K5", "K10", "K12-copy", "K12-lane", "K12-window", "K12-reduce", "K13",
          "K6-staged", "K5-staged", "K9-segment-sum", "K4-staged", "K8-segment-sum",
-         "K7-f64", "K3-f64"],
+         "K7-f64", "K3-f64", "K1c", "K2c", "K2c-implicit", "K3-wide", "K3-wide-f64"],
 )
 def test_cpu_tensors_count_no_launch(call, counter):
-    """On CPU tensors the wrappers run their plain twins and count nothing."""
+    """On CPU tensors the wrappers run their plain twins and count nothing
+    (K2c's implicit-mode count included)."""
     fn = getattr(*counter)
-    before = fn.launches
+    counts = lambda: (fn.launches, getattr(fn, "implicit_launches", 0))
+    before = counts()
     assert call() is not None
-    assert fn.launches == before
+    assert counts() == before
 
 
 def _rcm_delaunay():

@@ -199,7 +199,7 @@ def _raw_delaunay():
         (_raw_delaunay, "gather"),
         (lambda: treo.reorder_mesh(_raw_delaunay(), treo.rcm_order(_raw_delaunay().ien, 800)),
          "winell"),
-        (lambda: dataclasses.replace(tgen.box_mesh(4, 4, 4), lattice=None), "A10"),
+        (lambda: dataclasses.replace(tgen.box_mesh(4, 4, 4), lattice=None), "classes"),
         (lambda: tgen.box_mesh(4, 4, 4), "lattice"),
     ],
     ids=["raw-delaunay", "rcm-delaunay", "box-without-lattice", "box"],
@@ -208,11 +208,7 @@ def test_tier_routing_follows_the_jax_ladder(make, expect):
     mesh = make()
     bcs = () if mesh.boundaries == [] else reference_scenario_config().bcs
     cfg = _tcfg(dataclasses.replace(reference_scenario_config(), bcs=bcs))
-    if expect.startswith("A"):
-        with pytest.raises(NotImplementedError, match=expect):
-            tnt.NSSolver(mesh, cfg, device="cpu")
-    else:
-        assert tnt.NSSolver(mesh, cfg, device="cpu").fastpath == expect
+    assert tnt.NSSolver(mesh, cfg, device="cpu").fastpath == expect
 
 
 def test_cli_config_reaches_the_winell_tier(tmp_path, capsys):
