@@ -127,27 +127,33 @@ Phases, one line each; the script exits non-zero at the first failure:
             the gather tier, the lagged Jacobian, and "ir", whose refined
             solves must reach 1e-10
   mesh files and the translation-class tier (ROADMAP A10: any table of up
-  to 8 slabs, csrc/lattice_classes.cu):
+  to 8 slabs; K1c / K2c in one pass where the table places on a node grid,
+  csrc/lattice_residual.cu and csrc/lattice_jacobian.cu, their two-pass
+  entries in csrc/lattice_classes.cu):
  20 classes box 55 as (a) the deformed box without lattice metadata
             (mesh.gen.deformed_mesh: the classes tier) and (b) a shuffled,
             mirrored copy (mesh.gen.shuffled_mesh) recovered by
             recover_lattice (the lattice tier with another split; the
-            recovery's host seconds on their own): K1c and K2c (frozen,
-            masked and unmasked) against their plain versions per equation /
-            vel/p block, with times, bounds and registers, and one adaptive
-            step of each (s/step, counts, peak memory, set-up s; K1c, K2c
-            and K3 launched, the fused K1 / K2 not); K3 on a synthetic
+            recovery's host seconds on their own): the one-pass K1c and K2c
+            (frozen, masked and unmasked) and the two-pass entries against
+            their plain versions per equation / vel/p block, with times and
+            bounds, the two routes timed in turns, ptxas registers and spill
+            bytes, and one adaptive step of each (s/step, counts, peak
+            memory, set-up s; the one-pass K1c, K2c and K3 launched, the
+            fused K1 / K2 and the two-pass entries not); K3 on a synthetic
             27-plane matrix (float32 and float64) against its plain version
-            and a CSR product; P1': the ticketed K1 and K1c in turns on the
-            Kuhn box 55 and the melt box 44 with its source; K2c implicit at
-            the melt box; box-12 slices, one adaptive step each, card
-            float32 against CPU float64 with equal Newton counts and Krylov
-            counts equal or witnessed by plain float32 steps on the CPU:
-            (a), (b), the L-shaped part of the box (mesh.gen.l_shaped_mesh),
-            the melt pool on (a) (K2c implicit's launches), pc "mg" on (a),
-            and a kernel check on a non-conforming stress mesh with 8
-            classes and 21 DIA planes (overlaid_mesh: K3's launches past 15
-            planes)
+            and a CSR product; P1': the Kuhn box 55 and the melt box 44 with
+            its source through the one-pass K1c / K2c on their own table, in
+            turns with the ticketed K1 (bit for bit) and the fused K2; K2c
+            implicit at the melt box, both routes, in turns; box-12 slices,
+            one adaptive step each, card float32 against CPU float64 with
+            equal Newton counts and Krylov counts equal or witnessed by
+            plain float32 steps on the CPU: (a), (b), the L-shaped part of
+            the box (mesh.gen.l_shaped_mesh), the melt pool on (a) (K2c
+            implicit's launches), pc "mg" on (a), and a kernel check on a
+            non-conforming stress mesh with 8 classes and 21 DIA planes
+            (overlaid_mesh: K3's launches past 15 planes); the two-pass
+            entries' launches 0 on every slice
 Then, on lines of their own: the kernels JSON object (each kernel with its
 time, its plain version's, its bound and, where one PyTorch call computes
 the same function, that call's time), the card's name and power limit, and
@@ -606,10 +612,11 @@ def phase_build() -> None:
     # the tile's halo cells in dynamic shared memory (as the kernel reports it)
     stage = {m: fused_kernel_layout(m)["stage_bytes"] for m in (False, True)}
     jac, dem = libs["lattice_jacobian"], libs["dem_contact"]
-    k1_regs = registers(libs["lattice_residual"], "residual_fused_kernel")
+    k1_regs = registers(libs["lattice_residual"], "residual_fused_kernel", "KuhnCells")
     say(f"  K1 fused pass: registers {k1_regs}; tiling {residual_kernel_layout()}")
-    say(f"  K2 fused pass: registers frozen {registers(jac, 'jacobian_fused_kernelILb0E')}, "
-        f"implicit {registers(jac, 'jacobian_fused_kernelILb1E')}; dynamic shared memory "
+    k2_regs = [registers(jac, f"jacobian_fused_kernelILb{m}E", "KuhnPlanes") for m in (0, 1)]
+    say(f"  K2 fused pass: registers frozen {k2_regs[0]}, "
+        f"implicit {k2_regs[1]}; dynamic shared memory "
         f"frozen {stage[False]} B, implicit {stage[True]} B")
     say(f"  K3 / K7 registers, float32 and float64 instances: "
         f"{registers(libs['dia_spmv'], 'dia_spmv_kernelIfE')}, "
@@ -680,9 +687,10 @@ def phase_kernels(solver) -> tuple[list, dict]:
     err1 = compare("K1 F volume", k1, p1, TOL_K1)
     same1 = torch.equal(k1(), lat._reduce_residual(lctx, ek.res_rows_call(
         lat._residual_inputs(lctx, wa_t, dwa_t), phys, scheme)))
+    k1_regs = registers(nvcc.load("lattice_residual")["lattice_residual"],
+                        "residual_fused_kernel", "KuhnCells")
     say(f"  K1 fused == K6's residual rows on the lattice inputs summed in the plain order "
-        f"(the two-pass kernel's result), bit for bit: {same1}; ptxas registers "
-        f"{registers(nvcc.load('lattice_residual')['lattice_residual'], 'residual_fused_kernel')}")
+        f"(the two-pass kernel's result), bit for bit: {same1}; ptxas registers {k1_regs}")
     if not same1:
         raise PhaseError("K1: the fused pass differs from the element rows summed in plain order")
 
@@ -1300,16 +1308,28 @@ def phase_coupled_main(solver, pstate0) -> dict:
     return {"launches": launches, "step_s": walls, "peak_bytes": peak}
 
 
-def registers(lib, kernel: str) -> int | None:
-    """The register count ptxas printed for the entry whose mangled name
-    contains `kernel`."""
-    entry = None
+def ptxas_of(lib, *parts) -> dict:
+    """What ptxas printed for the entry whose mangled name contains every
+    one of `parts`: registers, spill stores and loads (bytes); {} if none."""
+    entry, out = None, {}
     for ln in lib.ptxas:
         if "Function properties for" in ln:
-            entry = ln
-        elif "registers" in ln and entry is not None and kernel in entry:
-            return int(ln.split("Used ")[1].split(" registers")[0])
-    return None
+            entry = ln if all(p in ln for p in parts) else None
+            if entry is None and out:
+                break
+        elif entry is not None and "spill stores" in ln:
+            words = ln.replace(",", "").split()
+            out["spill_stores"] = int(words[words.index("spill") - 2])
+            out["spill_loads"] = int(words[len(words) - 1 - words[::-1].index("spill") - 2])
+        elif entry is not None and "registers" in ln:
+            out["registers"] = int(ln.split("Used ")[1].split(" registers")[0])
+    return out
+
+
+def registers(lib, *parts) -> int | None:
+    """The register count ptxas printed for the entry whose mangled name
+    contains every one of `parts`."""
+    return ptxas_of(lib, *parts).get("registers")
 
 
 def busy_share(fn) -> str:
@@ -1730,10 +1750,11 @@ def phase_melt_kernels(solver) -> tuple[list, dict]:
                nbytes(inp, out288), op_count(p6)),
     ]
     libs = nvcc.load(["lattice_residual", "lattice_jacobian", "element_rows"])
-    k1_regs = registers(libs["lattice_residual"], "residual_fused_kernel")
+    k1_regs = registers(libs["lattice_residual"], "residual_fused_kernel", "KuhnCells")
     say(f"  ptxas registers: K1 fused {k1_regs}, "
-        f"K2 fused frozen {registers(libs['lattice_jacobian'], 'jacobian_fused_kernelILb0E')} "
-        f"implicit {registers(libs['lattice_jacobian'], 'jacobian_fused_kernelILb1E')}, "
+        f"K2 fused frozen "
+        f"{registers(libs['lattice_jacobian'], 'jacobian_fused_kernelILb0E', 'KuhnPlanes')} "
+        f"implicit {registers(libs['lattice_jacobian'], 'jacobian_fused_kernelILb1E', 'KuhnPlanes')}, "
         f"K6 33-row {registers(libs['element_rows'], 'lhs_rows_kernelILb1E')}")
     del inp, out288
 
@@ -2417,12 +2438,18 @@ def phase_krylov(rcm, raw) -> tuple[list, dict]:
 # Kuhn lattice's 15 planes
 
 CLASS_KERNELS = (
-    ("K1 lattice residual (classes)", "dedflow_tpu_torch/csrc/lattice_classes.cu",
+    ("K1 lattice residual (classes, one pass)", "dedflow_tpu_torch/csrc/lattice_residual.cu",
      "dedflow_tpu/fem/lattice.py:779"),
-    ("K2 lattice jacobian (classes)", "dedflow_tpu_torch/csrc/lattice_classes.cu",
+    ("K2 lattice jacobian (classes, one pass)", "dedflow_tpu_torch/csrc/lattice_jacobian.cu",
      "dedflow_tpu/fem/lattice.py:835"),
-    ("K2 lattice jacobian (classes, implicit)", "dedflow_tpu_torch/csrc/lattice_classes.cu",
-     "dedflow_tpu/fem/pallas_kernels.py:544"),
+    ("K2 lattice jacobian (classes, one pass, implicit)",
+     "dedflow_tpu_torch/csrc/lattice_jacobian.cu", "dedflow_tpu/fem/pallas_kernels.py:544"),
+    ("K1 lattice residual (classes, two passes)", "dedflow_tpu_torch/csrc/lattice_classes.cu",
+     "dedflow_tpu/fem/lattice.py:779"),
+    ("K2 lattice jacobian (classes, two passes)", "dedflow_tpu_torch/csrc/lattice_classes.cu",
+     "dedflow_tpu/fem/lattice.py:835"),
+    ("K2 lattice jacobian (classes, two passes, implicit)",
+     "dedflow_tpu_torch/csrc/lattice_classes.cu", "dedflow_tpu/fem/pallas_kernels.py:544"),
     ("K3 dia spmv (D > 16)", "dedflow_tpu_torch/csrc/dia_spmv.cu",
      "dedflow_tpu/sparse/dia_kernels.py:56"),
 )
@@ -2461,17 +2488,33 @@ def class_solver(mesh, cfg, tier: str, label: str):
     solver = NSSolver(mesh, cfg, device="cuda")
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
-    if solver.fastpath != tier or solver.lctx.fused is not None:
+    if solver.fastpath != tier or solver.lctx.fused is not None or solver.lctx.grid is None:
         raise PhaseError(f"classes {label}: fastpath {solver.fastpath!r} (expected {tier!r}), "
-                         f"fused tables {solver.lctx.fused is not None}")
+                         f"fused tables {solver.lctx.fused is not None}, node grid "
+                         f"{solver.lctx.grid is not None}")
     return solver, setup
 
 
-def class_kernel_records(solver, label: str) -> list:
+def in_turns(label: str, one, two, reps: int) -> dict:
+    """The one-pass and the two-pass entry timed in turns on the same
+    inputs (two, one, one, two)."""
+    from dedflow_tpu_torch.tools.timing import time_ms
+
+    t1 = time_ms(two, reps)
+    o1, o2 = time_ms(one, reps), time_ms(one, reps)
+    t2 = time_ms(two, reps)
+    say(f"  {label} in turns: one pass {o1:.4f}, {o2:.4f} ms; two passes {t1:.4f}, {t2:.4f} ms")
+    return {"one_pass_ms": [o1, o2], "two_pass_ms": [t1, t2]}
+
+
+def class_kernel_records(solver, label: str) -> tuple[list, dict]:
     """K1c (no source) and K2c frozen (masked with the facet band, and
-    unmasked) on `solver`'s context at its size, against their plain
-    versions per equation / vel/p block (TOL_K1 / TOL_K2), then timed
-    against them with their bounds (K1's and K2's function)."""
+    unmasked) on `solver`'s context at its size: the one-pass kernels its
+    table routes to (placed on a node grid) and the two-pass entries, each
+    against its plain version per equation / vel/p block (TOL_K1 /
+    TOL_K2), timed against it with its bound (K1's and K2's function), and
+    the two routes timed in turns. Returns the records (one-pass K1c, K2c,
+    two-pass K1c, K2c) and the turns."""
     import torch
 
     from dedflow_tpu_torch.fem import lattice as lat
@@ -2480,40 +2523,64 @@ def class_kernel_records(solver, label: str) -> list:
     from dedflow_tpu_torch.tools.timing import nbytes
 
     phys, scheme, lctx, mask_t = solver.cfg.physics, solver.cfg.time, solver.lctx, solver.mask_t
+    if lctx.grid is None:
+        raise PhaseError(f"classes {label}: the table did not place on a node grid")
     wg, dwgold, dwg = perturbed_state(solver.mesh, "cuda", solver.dtype)
     wa, dwa = alpha_states(wg, dwgold, dwg, scheme)
     wa_t, dwa_t = wa.T.contiguous(), dwa.T.contiguous()
     n, nd = lctx.num_node, len(lctx.offsets)
     by_eq = reduce_parts()[0]
     k1 = lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme)
+    t1 = lambda: lat.residual_volume_two_pass(lctx, wa_t, dwa_t, phys, scheme)
     p1 = lambda: lat.residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme)
-    e1 = compare(f"K1c F volume {label}", k1, p1, TOL_K1, parts=by_eq)
+    before = lat.residual_volume_classes.launches
+    e1 = compare(f"K1c F volume (one pass) {label}", k1, p1, TOL_K1, parts=by_eq)
+    if lat.residual_volume_classes.launches == before:
+        raise PhaseError(f"classes {label}: K1's wrapper did not reach the one-pass K1c")
+    e1t = compare(f"K1c F volume (two passes) {label}", t1, p1, TOL_K1, parts=by_eq)
+    same = torch.equal(k1(), t1())
+    say(f"  K1c {label}: one pass == two passes bit for bit: {same}")
     keep, add = keep_pc_rows(mask_t, solver.dtype), diag_add_rows(mask_t, solver.dtype)
     band, lo = lat._masked_face_band(solver.face_ctxs, wa, dwa, phys, scheme, nd, keep)
     keep16, add16 = keep[:16].contiguous(), add[:16].contiguous()
     vp = {f" [{b}]": (lambda t, c=list(cs): t[:, c]) for b, cs in VP_BLOCKS.items()}
-    k2 = lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, band, lo)
-    p2 = lambda: lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, keep16, add16, band, lo)
-    e2 = compare(f"K2c data (masked) {label}", k2, p2, TOL_K2, parts=vp)
     ones, zeros = torch.ones_like(keep16), torch.zeros_like(add16)
-    e2 = max(e2, compare(
-        f"K2c data (unmasked) {label}",
-        lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, ones, zeros),
-        lambda: lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, ones, zeros), TOL_K2, parts=vp))
+    p2 = lambda: lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, keep16, add16, band, lo)
+    errs = {}
+    for route, fn in (("one pass", lat.jacobian_volume),
+                      ("two passes", lat.jacobian_volume_two_pass)):
+        errs[route] = max(
+            compare(f"K2c data (masked, {route}) {label}",
+                    lambda: fn(lctx, wa_t, phys, scheme, keep16, add16, band, lo), p2, TOL_K2,
+                    parts=vp),
+            compare(f"K2c data (unmasked, {route}) {label}",
+                    lambda: fn(lctx, wa_t, phys, scheme, ones, zeros),
+                    lambda: lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, ones, zeros),
+                    TOL_K2, parts=vp))
+    k2 = lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, band, lo)
+    t2 = lambda: lat.jacobian_volume_two_pass(lctx, wa_t, phys, scheme, keep16, add16, band, lo)
     data = k2()
     out6 = torch.empty((6, n), dtype=torch.float32)
-    return [
-        finish(f"{CLASS_KERNELS[0][0]} {label}", {"max_abs_err": e1}, k1, p1, 20, 5,
-               nbytes(lctx.res_geom, wa_t, dwa_t, out6), op_count(p1)),
-        finish(f"{CLASS_KERNELS[1][0]} {label}", {"max_abs_err": e2}, k2, p2, 10, 3,
-               nbytes(lctx.lhs_geom, wa_t, keep16, add16, band, data), op_count(p2)),
+    b1, ops1 = nbytes(lctx.res_geom, wa_t, dwa_t, out6), op_count(p1)
+    b2, ops2 = nbytes(lctx.lhs_geom, wa_t, keep16, add16, band, data), op_count(p2)
+    recs = [
+        finish(f"{CLASS_KERNELS[0][0]} {label}", {"max_abs_err": e1}, k1, p1, 20, 5, b1, ops1),
+        finish(f"{CLASS_KERNELS[1][0]} {label}", {"max_abs_err": errs["one pass"]}, k2, p2, 10, 3,
+               b2, ops2),
+        finish(f"{CLASS_KERNELS[3][0]} {label}", {"max_abs_err": e1t}, t1, p1, 20, 5, b1, ops1),
+        finish(f"{CLASS_KERNELS[4][0]} {label}", {"max_abs_err": errs["two passes"]}, t2, p2, 10,
+               3, b2, ops2),
     ]
+    turns = {"K1c": in_turns(f"K1c {label}", k1, t1, 20),
+             "K2c": in_turns(f"K2c {label}", k2, t2, 10), "k1c_one_equals_two": same}
+    return recs, turns
 
 
-def class_implicit_record(msolver) -> dict:
+def class_implicit_records(msolver) -> tuple[list, dict]:
     """K2c in its implicit mode at the melt box, on the melt solver's own
-    (Kuhn) context, against its plain version per vel/p block and phi/T
-    tangent, timed with K2's implicit bound."""
+    (Kuhn) context: the one-pass kernel and the two-pass entry against
+    their plain version per vel/p block and phi/T tangent, timed with K2's
+    implicit bound, then in turns."""
     import torch
 
     from dedflow_tpu_torch.fem import lattice as lat
@@ -2523,6 +2590,8 @@ def class_implicit_record(msolver) -> dict:
 
     cfg, mesh, lctx = msolver.cfg, msolver.mesh, msolver.lctx
     phys, scheme = cfg.physics, cfg.time
+    if lctx.grid is None:
+        raise PhaseError("classes melt box: the table did not place on a node grid")
     wg, dwgold, dwg = perturbed_melt_state(mesh, cfg, "cuda", msolver.dtype)
     wa, dwa = alpha_states(wg, dwgold, dwg, scheme)
     wa_t = wa.T.contiguous()
@@ -2536,12 +2605,17 @@ def class_implicit_record(msolver) -> dict:
     parts[" scal [phi-phi]"] = lambda t: t[nd * 16 :: 2]
     parts[" scal [T-T]"] = lambda t: t[nd * 16 + 1 :: 2]
     k2 = lambda: pack(*lat.jacobian_volume_classes(lctx, wa_t, phys, scheme, keep, add, band, lo))
+    t2 = lambda: pack(*lat.jacobian_volume_two_pass(lctx, wa_t, phys, scheme, keep, add, band,
+                                                    lo))
     p2 = lambda: pack(*lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, keep, add, band, lo))
-    e2 = compare("K2c implicit (masked), melt box", k2, p2, TOL_K2, parts=parts)
+    e2 = compare("K2c implicit (masked, one pass), melt box", k2, p2, TOL_K2, parts=parts)
+    e2t = compare("K2c implicit (masked, two passes), melt box", t2, p2, TOL_K2, parts=parts)
     data, scal = lat.jacobian_volume_classes(lctx, wa_t, phys, scheme, keep, add, band, lo)
-    return finish(CLASS_KERNELS[2][0], {"max_abs_err": e2}, k2, p2, 10, 3,
-                  nbytes(lctx.lhs_geom, lctx.res_geom[:, 13:19], wa_t[:3], keep, add, band,
-                         data, scal), op_count(p2))
+    b2 = nbytes(lctx.lhs_geom, lctx.res_geom[:, 13:19], wa_t[:3], keep, add, band, data, scal)
+    ops2 = op_count(p2)
+    recs = [finish(CLASS_KERNELS[2][0], {"max_abs_err": e2}, k2, p2, 10, 3, b2, ops2),
+            finish(CLASS_KERNELS[5][0], {"max_abs_err": e2t}, t2, p2, 10, 3, b2, ops2)]
+    return recs, in_turns("K2c implicit, melt box", k2, t2, 10)
 
 
 def k3_wide_records(n: int, sy: int, sz: int) -> list:
@@ -2584,23 +2658,27 @@ def k3_wide_records(n: int, sy: int, sz: int) -> list:
 
 def class_main(solver, label: str) -> dict:
     """One adaptive step of the reference scenario on `solver` from the
-    reference initial state: the launch counts of K1c, K2c and K3 set to 0
-    just before and read just after (each must be positive) and the fused
-    K1 / K2's, which must stay 0."""
+    reference initial state: the launch counts of the one-pass K1c, K2c
+    and K3 set to 0 just before and read just after (each must be
+    positive), and those of the fused K1 / K2 and of the two-pass K1c /
+    K2c, which must stay 0; its peak memory."""
     import torch
 
     from dedflow_tpu_torch.fem import lattice as lat
     from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec
 
     counters = (lat.residual_volume_classes, lat.jacobian_volume_classes, dia_matvec)
-    absent = (lat.residual_volume, lat.jacobian_volume)
+    absent = (lat.residual_volume, lat.jacobian_volume, lat.residual_volume_two_pass,
+              lat.jacobian_volume_two_pass)
     for c in absent:
         c.launches = 0
     rec = krylov_step(solver, counters, f"main {label}")
     off = [c.launches for c in absent]
-    say(f"  main {label}: fused K1 / K2 launches {off} (must be 0); fastpath {solver.fastpath}")
+    say(f"  main {label}: fused K1 / K2, two-pass K1c / K2c launches {off} (must be 0); "
+        f"fastpath {solver.fastpath}")
     if any(off):
-        raise PhaseError(f"classes main {label}: the fused K1 / K2 ran on a class context: {off}")
+        raise PhaseError(f"classes main {label}: an entry off the path ran: {off}")
+    rec["two_pass_launches"] = off[2:]
     torch.cuda.empty_cache()
     return rec
 
@@ -2676,7 +2754,9 @@ def class_slices() -> dict:
     (e) pc "mg" on (a) (the grid inferred from the class stencil), and a
     kernel check, (f) overlaid_mesh (8 classes, 21 DIA planes, in GMRES's
     products). The launch counts of K1c, K2c, K2c's implicit mode and K3
-    are set to 0 just before each slice's card step and read just after.
+    (the one-pass kernels: every slice's table places on a node grid) and
+    of the two-pass entries (which must stay 0) are set to 0 just before
+    each slice's card step and read just after.
     Returns each slice's worst relative error, Krylov counts and
     launches."""
     import torch
@@ -2700,24 +2780,31 @@ def class_slices() -> dict:
         "(e) pc mg on (a)": (deformed, with_krylov(ref, pc="mg"), "classes"),
         "(f) kernel check, 8 classes, 21 planes": (overlaid_mesh(*SLICE_BOX), ref, "classes"),
     }
-    names = ("K1c", "K2c", "K2c implicit", "K3")
+    names = ("K1c", "K2c", "K2c implicit", "K3", "K1c two passes", "K2c two passes",
+             "K2c two passes implicit")
     out = {}
     for label, (mesh, cfg, tier) in cases.items():
         runs = []
         for device in ("cuda", "cpu"):
             solver = NSSolver(mesh, cfg, device=device)
-            if solver.fastpath != tier or solver.lctx.fused is not None:
+            if solver.fastpath != tier or solver.lctx.fused is not None or solver.lctx.grid is None:
                 raise PhaseError(f"classes slice {label}: fastpath {solver.fastpath!r}")
             if label.startswith("(f)") and (len(solver.lctx.deltas), len(solver.lctx.offsets)) != (
                     8, 21):
                 raise PhaseError(f"classes slice {label}: {len(solver.lctx.deltas)} classes, "
                                  f"{len(solver.lctx.offsets)} planes")
             state, src = slice_inputs(mesh, cfg, device, solver.dtype)
-            lat.residual_volume_classes.launches = lat.jacobian_volume_classes.launches = 0
-            lat.jacobian_volume_classes.implicit_launches = dia_matvec.launches = 0
+            for c in (lat.residual_volume_classes, lat.jacobian_volume_classes, dia_matvec,
+                      lat.residual_volume_two_pass, lat.jacobian_volume_two_pass):
+                c.launches = 0
+            lat.jacobian_volume_classes.implicit_launches = 0
+            lat.jacobian_volume_two_pass.implicit_launches = 0
             *got, stats = solver.step(*state, source=src)
             launches = [lat.residual_volume_classes.launches, lat.jacobian_volume_classes.launches,
-                        lat.jacobian_volume_classes.implicit_launches, dia_matvec.launches]
+                        lat.jacobian_volume_classes.implicit_launches, dia_matvec.launches,
+                        lat.residual_volume_two_pass.launches,
+                        lat.jacobian_volume_two_pass.launches,
+                        lat.jacobian_volume_two_pass.implicit_launches]
             runs.append(([t.cpu() for t in got], len(stats.rnorms), stats.krylov_iters, launches))
         (g_states, g_newton, g_kry, g_launches), (r_states, r_newton, r_kry, _) = runs
         worst = 0.0
@@ -2741,6 +2828,8 @@ def class_slices() -> dict:
                 f"{rec['f32_steps']} plain steps (inputs {SLICE_F32_EPS:.0e} apart)")
         if min(g_launches[:2]) <= 0 or (cfg.implicit_scalars and g_launches[2] <= 0):
             raise PhaseError(f"classes slice {label}: K1c / K2c did not run: {g_launches}")
+        if any(g_launches[4:]):
+            raise PhaseError(f"classes slice {label}: the two-pass K1c / K2c ran: {g_launches}")
         out[label] = rec
     if out["(f) kernel check, 8 classes, 21 planes"]["launches"]["K3"] <= 0:
         raise PhaseError("classes slice (f): K3 did not run on 21 planes")
@@ -2748,9 +2837,12 @@ def class_slices() -> dict:
 
 
 def p1_prime(msolver) -> dict:
-    """ROADMAP P1': the ticketed K1 against K1c on the same Kuhn contexts,
-    in turns (fused, classes, classes, fused): box 55 reference and the
-    melt box with its source; equal within TOL_K1."""
+    """The Kuhn contexts' own table through the one-pass K1c / K2c, in turns
+    with the compile-time K1 / K2 (fused, classes, classes, fused): box 55
+    reference (K2 frozen, masked with the band) and the melt box with its
+    source (K2 implicit). K1c must equal the ticketed K1 bit for bit (both
+    add the plain order's contributions from +0.0f), K2c K2 within
+    TOL_K2."""
     import torch
 
     from dedflow_tpu_torch.app.scenarios import reference_scenario_config
@@ -2758,27 +2850,52 @@ def p1_prime(msolver) -> dict:
     from dedflow_tpu_torch.fem.element_rows import alpha_states
     from dedflow_tpu_torch.mesh.gen import box_mesh
     from dedflow_tpu_torch.solver.newton import NSSolver
+    from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
     from dedflow_tpu_torch.tools.timing import time_ms
+
+    def turns(label, fused, classes, reps):
+        f1 = time_ms(fused, reps)
+        c1, c2 = time_ms(classes, reps), time_ms(classes, reps)
+        f2 = time_ms(fused, reps)
+        say(f"  {label}: compile-time table {f1:.4f}, {f2:.4f} ms; run-time table {c1:.4f}, "
+            f"{c2:.4f} ms (in turns)")
+        return {"fused_ms": [f1, f2], "classes_ms": [c1, c2]}
 
     out = {}
     box = NSSolver(box_mesh(*FULL_BOX), reference_scenario_config(), device="cuda")
     for label, solver, melt in (("box 55", box, False), ("melt box 44 + source", msolver, True)):
         cfg, lctx = solver.cfg, solver.lctx
+        if lctx.grid is None or lctx.fused is None:
+            raise PhaseError(f"P1' {label}: a Kuhn context without its tables")
         state = (perturbed_melt_state(solver.mesh, cfg, "cuda", solver.dtype) if melt
                  else perturbed_state(solver.mesh, "cuda", solver.dtype))
         wa, dwa = alpha_states(*state, cfg.time)
         src = melt_source(solver.mesh, cfg, 1, "cuda", solver.dtype) if melt else None
-        args = (lctx, wa.T.contiguous(), dwa.T.contiguous(), cfg.physics, cfg.time, src)
+        wa_t = wa.T.contiguous()
+        args = (lctx, wa_t, dwa.T.contiguous(), cfg.physics, cfg.time, src)
         fused = lambda: lat.residual_volume(*args)
         classes = lambda: lat.residual_volume_classes(*args)
-        _, rel = rel_err(classes(), fused())
-        check(f"P1' K1c vs the ticketed K1, {label}", rel, TOL_K1)
-        f1 = time_ms(fused, 20)
-        c1, c2 = time_ms(classes, 20), time_ms(classes, 20)
-        f2 = time_ms(fused, 20)
-        out[label] = {"fused_ms": [f1, f2], "classes_ms": [c1, c2], "rel": rel}
-        say(f"  P1' {label}: ticketed K1 {f1:.4f}, {f2:.4f} ms; K1c {c1:.4f}, {c2:.4f} ms "
-            f"(in turns); K1c vs K1 rel={rel:.3e}")
+        same = torch.equal(classes(), fused())
+        say(f"  P1' {label}: one-pass K1c == the ticketed K1 bit for bit: {same}")
+        if not same:
+            raise PhaseError(f"P1' {label}: K1c on the Kuhn table differs from the ticketed K1")
+        rec = {"K1": turns(f"P1' K1 {label}", fused, classes, 20), "k1c_bit_equal": same}
+        nd = len(lctx.offsets)
+        keep, add = keep_pc_rows(solver.mask_t, solver.dtype), diag_add_rows(solver.mask_t,
+                                                                             solver.dtype)
+        band, lo = lat._masked_face_band(solver.face_ctxs, wa, dwa, cfg.physics, cfg.time, nd,
+                                         keep)
+        if not melt:
+            keep, add = keep[:16].contiguous(), add[:16].contiguous()
+        jargs = (lctx, wa_t, cfg.physics, cfg.time, keep, add, band, lo)
+        flat = lambda r: torch.cat([t.reshape(-1) for t in r]) if melt else r
+        k2 = lambda: flat(lat.jacobian_volume(*jargs))
+        k2c = lambda: flat(lat.jacobian_volume_classes(*jargs))
+        _, rel = rel_err(k2c(), k2())
+        check(f"P1' K2c vs K2, {label}", rel, TOL_K2)
+        rec["K2"] = turns(f"P1' K2 {label}", k2, k2c, 10)
+        rec["k2c_rel"] = rel
+        out[label] = rec
     del box
     torch.cuda.empty_cache()
     return out
@@ -2787,11 +2904,13 @@ def p1_prime(msolver) -> dict:
 def phase_classes() -> tuple[list, dict]:
     """Phase 20: box 55 as (a) the deformed box without metadata (the
     classes tier) and (b) a shuffled, mirrored copy recovered by
-    recover_lattice (the lattice tier with another split): K1c and K2c
-    against their plain versions with times and bounds, then one adaptive
-    step of each (main path, launches); K3 on a synthetic 27-plane
-    matrix; K2c implicit and P1' at the melt box; the box-12 slices. Returns the kernel records (CLASS_KERNELS' order, with their
-    launches) and the summary."""
+    recover_lattice (the lattice tier with another split): the one-pass
+    K1c and K2c (each table placed on its node grid) and the two-pass
+    entries against their plain versions with times and bounds, the two
+    routes in turns, then one adaptive step of each (main path: launches,
+    peak memory); K3 on a synthetic 27-plane matrix; K2c implicit (both
+    routes) and P1' at the melt box; the box-12 slices. Returns the kernel
+    records (CLASS_KERNELS' order, with their launches) and the summary."""
     import torch
 
     from dedflow_tpu_torch.app.scenarios import reference_scenario_config
@@ -2805,8 +2924,9 @@ def phase_classes() -> tuple[list, dict]:
     deformed = deformed_mesh(box)
     asolver, asetup = class_solver(deformed, ref, "classes", "(a)")
     say(f"  (a) deformed box {FULL_BOX}: {deformed.num_tet} tets, {len(asolver.lctx.deltas)} "
-        f"classes, {len(asolver.lctx.offsets)} planes, solver set-up {asetup:.2f} s")
-    a_recs = class_kernel_records(asolver, "(a)")
+        f"classes, {len(asolver.lctx.offsets)} planes, solver set-up {asetup:.2f} s; node grid "
+        f"{asolver.lctx.grid}")
+    a_recs, summary["(a) turns"] = class_kernel_records(asolver, "(a)")
     summary["(a) main"] = class_main(asolver, "(a) classes")
     summary["(a) main"]["setup_s"] = asetup
     del asolver
@@ -2819,36 +2939,53 @@ def phase_classes() -> tuple[list, dict]:
     bsolver, bsetup = class_solver(recovered, ref, "lattice", "(b)")
     say(f"  (b) shuffled, mirrored box {FULL_BOX}: shuffle {shuffle_s:.2f} s, recover_lattice "
         f"{recover_s:.2f} s (lattice {recovered.lattice}, tets a cell "
-        f"{[list(map(int, t)) for t in recovered.lattice_tets]}), solver set-up {bsetup:.2f} s")
-    b_recs = class_kernel_records(bsolver, "(b)")
+        f"{[list(map(int, t)) for t in recovered.lattice_tets]}), solver set-up {bsetup:.2f} s; "
+        f"node grid {bsolver.lctx.grid}")
+    b_recs, summary["(b) turns"] = class_kernel_records(bsolver, "(b)")
     summary["(b) main"] = class_main(bsolver, "(b) recovered lattice")
     summary["(b) main"].update(setup_s=bsetup, recover_s=recover_s)
     del bsolver, shuffled, recovered
     torch.cuda.empty_cache()
-    lib = nvcc.load("lattice_classes")["lattice_classes"]
-    say("  ptxas registers: K1c element pass "
-        f"{registers(lib, 'residual_classes_element_kernel')}, node pass "
-        f"{registers(lib, 'residual_classes_node_kernel')}; K2c element pass frozen "
-        f"{registers(lib, 'jacobian_classes_element_kernelILb0E')} implicit "
-        f"{registers(lib, 'jacobian_classes_element_kernelILb1E')}, plane pass "
-        f"{registers(lib, 'jacobian_classes_plane_kernelILi16E')} / "
-        f"{registers(lib, 'jacobian_classes_plane_kernelILi18E')}")
+    libs = nvcc.load(["lattice_classes", "lattice_residual", "lattice_jacobian"])
+    two, res, jac = libs["lattice_classes"], libs["lattice_residual"], libs["lattice_jacobian"]
+    ptxas = {
+        "K1c one pass": ptxas_of(res, "residual_fused_kernel", "GridCells"),
+        "K2c one pass frozen": ptxas_of(jac, "jacobian_fused_kernelILb0E", "GridPlanes"),
+        "K2c one pass implicit": ptxas_of(jac, "jacobian_fused_kernelILb1E", "GridPlanes"),
+        "K1 (Kuhn)": ptxas_of(res, "residual_fused_kernel", "KuhnCells"),
+        "K2 frozen (Kuhn)": ptxas_of(jac, "jacobian_fused_kernelILb0E", "KuhnPlanes"),
+        "K2 implicit (Kuhn)": ptxas_of(jac, "jacobian_fused_kernelILb1E", "KuhnPlanes"),
+        "K1c two passes: element / node": [ptxas_of(two, "residual_classes_element_kernel"),
+                                           ptxas_of(two, "residual_classes_node_kernel")],
+        "K2c two passes: element frozen / implicit, plane 16 / 18": [
+            ptxas_of(two, "jacobian_classes_element_kernelILb0E"),
+            ptxas_of(two, "jacobian_classes_element_kernelILb1E"),
+            ptxas_of(two, "jacobian_classes_plane_kernelILi16E"),
+            ptxas_of(two, "jacobian_classes_plane_kernelILi18E")],
+    }
+    summary["ptxas"] = ptxas
+    say(f"  ptxas (registers, spill bytes): {json.dumps(ptxas)}")
     k3 = k3_wide_records(box.num_node, FULL_BOX[0] + 1, (FULL_BOX[0] + 1) * (FULL_BOX[1] + 1))
     msolver, msetup = melt_solver()
     summary["P1'"] = p1_prime(msolver)
-    implicit = class_implicit_record(msolver)
+    implicit, summary["implicit turns"] = class_implicit_records(msolver)
     del msolver
     torch.cuda.empty_cache()
     summary["slices"] = class_slices()
-    launches = [summary["(a) main"]["launches"][0] + summary["(b) main"]["launches"][0],
-                summary["(a) main"]["launches"][1] + summary["(b) main"]["launches"][1]]
+    mains = (summary["(a) main"], summary["(b) main"])
+    launches = [sum(m["launches"][i] for m in mains) for i in range(2)]
+    two_pass = [sum(m["two_pass_launches"][i] for m in mains) for i in range(2)]
     summary["b_kernels"] = b_recs
     # no main path runs K2c's implicit mode or K3 past 15 planes: their
     # launches are those of the slices that do, (d) and (f), each alone
     slices = summary["slices"]
+    d_launches = slices["(d) melt on (a)"]["launches"]
     return [a_recs[0] | {"launches": launches[0]}, a_recs[1] | {"launches": launches[1]},
-            implicit | {"launches": slices["(d) melt on (a)"]["launches"]["K2c implicit"],
-                        "launches_of": "box-12 slice (d)"},
+            implicit[0] | {"launches": d_launches["K2c implicit"],
+                           "launches_of": "box-12 slice (d)"},
+            a_recs[2] | {"launches": two_pass[0]}, a_recs[3] | {"launches": two_pass[1]},
+            implicit[1] | {"launches": d_launches["K2c two passes implicit"],
+                           "launches_of": "box-12 slice (d)"},
             k3[0] | {"launches": slices["(f) kernel check, 8 classes, 21 planes"]["launches"]["K3"],
                      "launches_of": "box-12 slice (f)"}], summary
 

@@ -24,13 +24,19 @@ laser source (box 55 without one is the base run's "K1"), the gather
 tier's volume residual `fem.ns.residual_volume` (K4 and K8, or the staged
 K4 and K8's segment sum) on delaunay_mesh(56**3) in its generated order,
 and, as a control, the WinELL tier's `fem.win_assembly.residual_win` (K10,
-K6 and K8) on its RCM order. A kernel whose
+K6 and K8) on its RCM order; with `--classes` K1c and K2c as the solver
+calls them (`lattice.residual_volume` / `jacobian_volume`, whatever kernels
+the checkout runs inside them) on the translation-class contexts of
+chip_smoke.py's phase 20: box 55 deformed (the classes tier) and
+shuffled, mirrored and recovered (the lattice tier with another split),
+frozen, and K2c implicit on the deformed melt box 44 (about 15 s of host
+set-up on top). A kernel whose
 wrapper returns several tensors (K11's three forces, K2's data and scal)
 is timed as the wrapper call, and its digest is of the tensors flattened
 and concatenated.
 
     python dedflow_tpu_torch/app/kernel_ab.py --root CHECKOUT [--reps 5] [--reduces] [--dem]
-        [--implicit] [--elements] [--jpath] [--rpath]
+        [--implicit] [--elements] [--jpath] [--rpath] [--classes]
 
 Two checkouts (say a parent commit unpacked beside the working tree) are
 compared on one card by running this once per checkout, in turns: parent,
@@ -264,6 +270,67 @@ def _implicit_kernels():
     return {"K2_implicit": (call, 10)}
 
 
+def _class_kernels():
+    """{name: (call, reps)} of K1c and K2c as the solver calls them
+    (`lattice.residual_volume` / `jacobian_volume`, whatever kernels the
+    checkout runs inside them) on chip_smoke.py's phase-20 contexts: box
+    55 as (a) mesh.gen.deformed_mesh (the classes tier) and (b)
+    shuffled_mesh(seed=1, mirror=True) through recover_lattice (the
+    lattice tier with another split), frozen and masked with the facet
+    band, and the implicit mode on the deformed melt box 44
+    (melt_pool_scenario_config), at chip_smoke's perturbed states."""
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import (
+        melt_pool_initial_state,
+        melt_pool_scenario_config,
+        reference_initial_state,
+        reference_scenario_config,
+    )
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.mesh.gen import box_mesh, deformed_mesh, shuffled_mesh
+    from dedflow_tpu_torch.mesh.recover import recover_lattice
+    from dedflow_tpu_torch.solver.newton import NSSolver, predict
+    from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
+
+    box = box_mesh(55, 55, 55)
+    melt_box = deformed_mesh(box_mesh(44, 44, 44))
+    cases = (
+        ("a", deformed_mesh(box), reference_scenario_config(), "classes"),
+        ("b", recover_lattice(shuffled_mesh(box, seed=1, mirror=True))[0],
+         reference_scenario_config(), "lattice"),
+        ("melt", melt_box, melt_pool_scenario_config(), "classes"),
+    )
+    out = {}
+    for tag, mesh, cfg, tier in cases:
+        solver = NSSolver(mesh, cfg, device="cuda")
+        lctx, phys, scheme = solver.lctx, cfg.physics, cfg.time
+        if solver.fastpath != tier or lctx.fused is not None:
+            raise RuntimeError(f"{tag}: tier {solver.fastpath}, fused {lctx.fused is not None}")
+        implicit = cfg.implicit_scalars
+        init = melt_pool_initial_state if implicit else reference_initial_state
+        wg, dwgold, dwg = init(mesh)
+        dwg = dwg + 0.1 * np.random.default_rng(0).standard_normal(dwg.shape)
+        wg, dwgold, dwg = state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32)
+        wa, dwa = alpha_states(wg, dwgold, predict(dwg, scheme), scheme)
+        wa_t, dwa_t = wa.T.contiguous(), dwa.T.contiguous()
+        keep = keep_pc_rows(solver.mask_t, torch.float32)
+        add = diag_add_rows(solver.mask_t, torch.float32)
+        band, lo = lat._masked_face_band(solver.face_ctxs, wa, dwa, phys, scheme,
+                                         len(lctx.offsets), keep)
+        if not implicit:
+            keep, add = keep[:16].contiguous(), add[:16].contiguous()
+            out[f"K1c_{tag}"] = (lambda c=lctx, w=wa_t, d=dwa_t, p=phys, s=scheme:
+                                 lat.residual_volume(c, w, d, p, s), 20)
+        name = "K2c_implicit_melt" if implicit else f"K2c_{tag}"
+        out[name] = (lambda c=lctx, w=wa_t, p=phys, s=scheme, k=keep, a=add, b=band, o=lo:
+                     lat.jacobian_volume(c, w, p, s, k, a, b, o), 10)
+    return out
+
+
 def _element_kernels(mesh, lctx, wa, wa_t, phys, scheme):
     """{name: (call, reps)} of K6's Jacobian rows (27-row frozen, 33-row
     implicit: the lattice inputs with the metric rows of res_geom) at the
@@ -307,6 +374,10 @@ def main(argv=None) -> int:
     p.add_argument("--jpath", action="store_true",
                    help="also the WinELL and gather tiers' Jacobian entry functions (frozen, "
                         "implicit) on delaunay_mesh(56**3)")
+    p.add_argument("--classes", action="store_true",
+                   help="also K1c and K2c through the solver's entries on chip_smoke.py's "
+                        "phase-20 contexts (box 55 deformed and recovered; implicit on the "
+                        "deformed melt box 44)")
     p.add_argument("--rpath", action="store_true",
                    help="also K1 at box 44 with the melt source and the gather and WinELL "
                         "tiers' volume residuals on delaunay_mesh(56**3)")
@@ -361,6 +432,8 @@ def main(argv=None) -> int:
         kernels.update(_implicit_kernels())
     if args.elements:
         kernels.update(_element_kernels(mesh, lctx, wa, wa_t, phys, scheme))
+    if args.classes:
+        kernels.update(_class_kernels())
     timing = _timing()
     out = {"root": str(root)}
     for name, (fn, n) in kernels.items():

@@ -13,6 +13,11 @@
 // tets of a box; these entries take the slab offsets delta[t][a] and the
 // plane table at run time, in a struct by value and in a small device table.
 //
+// These two-pass entries serve the tables that fem/lattice.py::grid_tables
+// does not place on a node grid; a placed table runs the one-pass K1c / K2c
+// (lattice_residual.cu, lattice_jacobian.cu: K1's and K2's kernels over a
+// run-time table).
+//
 // Design (simple and right first; the pre-fusion two-pass K1 and K2,
 // generalised):
 // - K1c element pass: one thread per (slab t, base node c). It reads the 19
@@ -43,18 +48,16 @@
 // (operations for the residual, the DIA data's bytes for the Jacobian).
 // These passes add the element buffer's write and read (T * 24 floats a
 // node for K1c; T * 256 or 288 for K2c, about 1.08 GB at box 55 frozen):
-// that traffic is the design's cost, and fusing it away is later work.
+// that traffic is the design's cost, which the one-pass kernels avoid.
 
 #include "element_body.cuh"
 
 namespace dedflow {
 
-constexpr int kMaxClasses = 8;
-
 // Vertex offsets of the T <= 8 slabs, passed by value.
 struct ClassDeltas {
   int nt;
-  int d[kMaxClasses][4];
+  int d[kMaxSlabs][4];
 };
 
 // Vertex offsets of slab t (t is uniform across a block).
@@ -63,7 +66,7 @@ __device__ __forceinline__ void class_deltas(const ClassDeltas& dl, int t, int d
   for (int a = 0; a < 4; ++a) {
     int v = 0;
 #pragma unroll
-    for (int s = 0; s < kMaxClasses; ++s) v = (s == t) ? dl.d[s][a] : v;
+    for (int s = 0; s < kMaxSlabs; ++s) v = (s == t) ? dl.d[s][a] : v;
     dv[a] = v;
   }
 }
@@ -126,7 +129,7 @@ residual_classes_node_kernel(const float* __restrict__ elem,  // (T, 24, n)
   const size_t N = static_cast<size_t>(n);
   float acc = 0.f;
 #pragma unroll
-  for (int t = 0; t < kMaxClasses; ++t) {
+  for (int t = 0; t < kMaxSlabs; ++t) {
     if (t < dl.nt) {
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
@@ -221,7 +224,7 @@ jacobian_classes_plane_kernel(const float* __restrict__ elem,  // (T, 16*kComp, 
 }
 
 bool read_deltas(int nt, const int* deltas, ClassDeltas* dl) {
-  if (nt < 1 || nt > kMaxClasses) return false;
+  if (nt < 1 || nt > kMaxSlabs) return false;
   *dl = ClassDeltas{};
   dl->nt = nt;
   for (int t = 0; t < nt; ++t)

@@ -1,5 +1,6 @@
 // Shared tables and constants of the lattice kernels (lattice_residual.cu,
-// lattice_jacobian.cu). Built by dedflow_tpu_torch/utils/nvcc.py.
+// lattice_jacobian.cu, lattice_classes.cu). Built by
+// dedflow_tpu_torch/utils/nvcc.py.
 //
 // Lattice layout (dedflow_tpu_torch/fem/lattice.py): node id
 // n = ix + Sy*iy + Sz*iz, cell id = the id of its lowest corner, and the
@@ -15,6 +16,7 @@
 namespace dedflow {
 
 constexpr int kSlabs = 6;
+constexpr int kMaxSlabs = 8;  // slabs of a run-time table (K1c, K2c)
 
 // 4-point tet rule and its shape values (fem/quadrature.py):
 // SHL[q][a] = A if q == a else B, GW[q] = 1/24.

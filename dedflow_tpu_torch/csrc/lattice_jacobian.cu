@@ -58,6 +58,25 @@
 // frozen), which took most of its time (PERF.md §7 has the split).
 // Dead cells (zero geometry) give exact zeros: the tr > 0 guard keeps the
 // tau divisions finite.
+//
+// K2c (fem/lattice.py::jacobian_volume_classes) is the same kernel over a
+// run-time table (the GridPlanes policy below; K2 is KuhnPlanes): any
+// table of T <= 8 slabs that fem/lattice.py::grid_tables places on the
+// node grid, the translation-class tier and recovered lattices whose cells
+// carry another split. Slab t's element on cell c is column c + shift[t]
+// of the context's geometry, its vertex a node column + delta[t][a]; the
+// halo keeps the wrapped flat index and a column outside [0, N) gives
+// zero, so every node receives what the plain version adds, column
+// r - delta[t][a]. Its entries' planes and corners come at run time, so
+// the plane sums live in shared memory beside the stage (a plane index
+// known only at run time would put register accumulators in local
+// memory); the loops over a round's entries stay compile-time, reading the
+// table from the kernel's parameters (rounds of 3 slabs frozen, two blocks
+// an SM; 4 implicit, one block). The vertex order of the file stays
+// (the body's advection speed sums vertices 1..3): no slab is permuted
+// onto the Kuhn table. It takes the place of K2c's two passes
+// (lattice_classes.cu, now only for tables that do not place), whose
+// element buffer (1.08 GB at box 55 frozen) was most of their time.
 
 #include "element_body.cuh"
 
@@ -141,7 +160,7 @@ struct FusedArgs {
 
 template <bool kImplicit, int kGroup>
 __device__ __forceinline__ void produce_element(const FusedArgs& f, const RowsLhsParams& prm,
-                                                int t, int c, float* s) {
+                                                int t, int c, const int dv[4], float* s) {
   const size_t N = static_cast<size_t>(f.n);
   LhsInputs x;
   const float* g = f.geom + static_cast<size_t>(t) * 15 * N + c;
@@ -161,8 +180,6 @@ __device__ __forceinline__ void produce_element(const FusedArgs& f, const RowsLh
     x.m12 = mg[17 * N];
     x.m22 = mg[18 * N];
   }
-  int dv[4];
-  slab_deltas(f.dl, t, dv);
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int v = c + dv[a];
@@ -172,28 +189,32 @@ __device__ __forceinline__ void produce_element(const FusedArgs& f, const RowsLh
   lhs_body_to<kImplicit, kImplicit ? 18 : 16, Stage<kImplicit, kGroup>>(x, prm, s, 0);
 }
 
-// Round h of cell layer L: the elements of slabs 3h..3h+2 on the 81 halo
-// cells into the stage.
-template <bool kImplicit>
-__device__ __forceinline__ void produce_round(const FusedArgs& f, const RowsLhsParams& prm,
-                                              float* stage, int g, int x0, int y0, int L,
-                                              int h) {
+// Round h of cell layer L: the elements of the round's slabs on the 81 halo
+// cells into the stage. The table policy names the round's slabs and each
+// slab's vertex offsets and column shift: the element of slab t on cell c
+// is column c + shift (geometry), its vertex a node column + delta[t][a].
+template <bool kImplicit, class Tab>
+__device__ __forceinline__ void produce_round(const FusedArgs& f, const Tab& tab,
+                                              const RowsLhsParams& prm, float* stage, int g,
+                                              int x0, int y0, int L, int h) {
   using G = Groups<kImplicit>;
   constexpr int kThreads = kTileNodes * G::kSize;
-  for (int e = threadIdx.x; e < G::kRoundSlabs * kHalo; e += kThreads) {
+  for (int e = threadIdx.x; e < tab.round_slabs(h) * kHalo; e += kThreads) {
     const int ts = e / kHalo, hc = e - ts * kHalo;
     const int cx = x0 - 1 + hc % kHaloX, cy = y0 - 1 + hc / kHaloX;
-    const int c = cx + f.sy * cy + f.sz * L;
+    const int t = tab.first_slab(h) + ts;
+    int dv[4], shift;
+    tab.slab(f, t, dv, shift);
+    const int c = cx + f.sy * cy + f.sz * L + shift;
     float* s = stage + ts * 16 * G::kSize * kHalo + hc;
     // cells past the row or layer end feed no node of the tile
     if (cx < f.sy && cy < f.ny && c >= 0 && c < f.n) {
-      const int t = h * G::kRoundSlabs + ts;
       switch (g) {
-        case 0: produce_element<kImplicit, 0>(f, prm, t, c, s); break;
-        case 1: produce_element<kImplicit, 1>(f, prm, t, c, s); break;
-        case 2: produce_element<kImplicit, 2>(f, prm, t, c, s); break;
+        case 0: produce_element<kImplicit, 0>(f, prm, t, c, dv, s); break;
+        case 1: produce_element<kImplicit, 1>(f, prm, t, c, dv, s); break;
+        case 2: produce_element<kImplicit, 2>(f, prm, t, c, dv, s); break;
         default:
-          if constexpr (G::kCount > 3) produce_element<kImplicit, 3>(f, prm, t, c, s);
+          if constexpr (G::kCount > 3) produce_element<kImplicit, 3>(f, prm, t, c, dv, s);
           break;
       }
     } else {
@@ -230,12 +251,208 @@ __device__ __forceinline__ void consume_round(const float* stage, int slot, int 
   }
 }
 
+// Stores node layer L's value v of DIA plane dp for component k of node r,
+// the facet band added (velocity/pressure rows).
+__device__ __forceinline__ void store_plane(const FusedArgs& f, int k, int r, bool in_band,
+                                            int dp, float v) {
+  const size_t N = static_cast<size_t>(f.n);
+  if (in_band) v += f.band[(static_cast<size_t>(dp) * 16 + k) * f.band_span + (r - f.band_lo)];
+  if (k < 16)
+    f.out[(static_cast<size_t>(dp) * 16 + k) * N + r] = v;
+  else
+    f.scal[(static_cast<size_t>(2 * dp) + (k - 16)) * N + r] = v;
+}
+
+// Table policies of the fused pass: which slabs a round stages, each slab's
+// vertex offsets and column shift, and where the (t, a, b) entries of a
+// round go until their node layer is complete.
+//
+// KuhnPlanes (K2): the six Kuhn slabs at compile time, in G::kRounds
+// rounds, the 15 planes of kPlaneCodes summed in registers (cur: node layer
+// L, nxt: L + 1).
+struct KuhnArgs {};
+
 template <bool kImplicit>
-__global__ void __launch_bounds__(kTileNodes * Groups<kImplicit>::kSize, kImplicit ? 1 : 2)
-jacobian_fused_kernel(FusedArgs f, RowsLhsParams prm) {
+struct KuhnPlanes {
+  using Args = KuhnArgs;
   using G = Groups<kImplicit>;
-  extern __shared__ float stage[];  // kRoundSlabs x 16 x kSize x kHalo
   static_assert(G::kRounds <= 2 && G::kRounds * G::kRoundSlabs == kSlabs, "one or two rounds");
+  static constexpr int kStageBytes = G::kStageBytes;
+  float cur[kPlanes], nxt[kPlanes];
+
+  __device__ __forceinline__ KuhnPlanes(const KuhnArgs&, float*) {
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) cur[p] = nxt[p] = 0.f;
+  }
+  __device__ static constexpr int rounds() { return G::kRounds; }
+  __device__ static constexpr int round_slabs(int) { return G::kRoundSlabs; }
+  __device__ static constexpr int first_slab(int h) { return h * G::kRoundSlabs; }
+  __device__ __forceinline__ static void slab(const FusedArgs& f, int t, int dv[4], int& shift) {
+    slab_deltas(f.dl, t, dv);
+    shift = 0;
+  }
+  __device__ __forceinline__ void consume(int h, const float* stage, int slot, int lx, int ly,
+                                          int) {
+    if (h == 0)
+      consume_round<kImplicit, 0>(stage, slot, lx, ly, cur, nxt);
+    else if constexpr (G::kRounds > 1)
+      consume_round<kImplicit, 1>(stage, slot, lx, ly, cur, nxt);
+  }
+  __device__ __forceinline__ void store(const FusedArgs& f, int k, int r, float kp, float ad,
+                                        bool in_band, int) {
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) {
+      float v = cur[p] * kp;
+      if (p == kZeroPlane) v += ad;
+      store_plane(f, k, r, in_band, f.plane[p], v);
+    }
+  }
+  __device__ __forceinline__ void advance(int, bool) {
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) {
+      cur[p] = nxt[p];
+      nxt[p] = 0.f;
+    }
+  }
+};
+
+// GridPlanes (K2c): any table of T <= 8 slabs placed on the node grid
+// (fem/lattice.py::grid_tables), given at run time. A plane index known
+// only at run time cannot index a register array, so the plane sums live
+// in shared memory, (2, D, threads) floats after the stage: node layer L's
+// in half L & 1, each thread its own column (no bank conflicts, no
+// syncs). The zero-offset plane takes exactly the diagonal entries
+// (a == b, known at compile time), so its two sums stay in registers.
+// The consume loops over a round's (slab, a, b) entries at compile time,
+// as K2's does; what the table gives at run time (corner a's halo shift
+// and z bit, the entry's plane) comes from the kernel's parameters at
+// compile-time indices, so it reads the constant bank, not memory. The
+// three off-diagonal entries of a (t, a) go to three distinct planes, so
+// their sums are read, added and written back together (one shared-memory
+// latency a (t, a), not three). Each plane value is a fixed-order sum
+// ((t, a) order), so it repeats from run to run. Rounds of kRoundSlabs
+// slabs (frozen 3: two blocks an SM as K2; implicit 4: one block, two
+// element passes a layer for 6 slabs as for 8). The slabs' vertex offsets
+// and shifts, which the element pass reads at a slab index that differs
+// across a warp, are copied to shared memory once a block.
+struct GridArgs {
+  int nt, planes, d0;
+  int delta[kMaxSlabs][4];   // vertex offsets from the column
+  int shift[kMaxSlabs];      // column = cell + shift
+  int corner[kMaxSlabs][4];  // halo shift (1 - cy) * kHaloX + (1 - cx) | cz << 8
+  int sum[kMaxSlabs][16];    // entry (a, b)'s plane x threads: its plane sum's offset
+};
+
+template <bool kImplicit>
+struct GridPlanes {
+  using Args = GridArgs;
+  using G = Groups<kImplicit>;
+  static constexpr int kThreads = kTileNodes * G::kSize;
+  static constexpr int kRoundSlabs = kImplicit ? 4 : 3;
+  static constexpr int kMaxRounds = (kMaxSlabs + kRoundSlabs - 1) / kRoundSlabs;
+  static constexpr int kStageFloats = kRoundSlabs * 16 * G::kSize * kHalo;
+  const GridArgs& a;
+  float* sums;      // this thread's column of the (2, D, threads) sums
+  int* slabs;       // (kMaxSlabs, 5): delta[t][0..3], shift[t]
+  float d0cur, d0nxt;  // the zero-offset plane's sums of node layers L, L + 1
+
+  __device__ __forceinline__ GridPlanes(const GridArgs& args, float* smem) : a(args) {
+    sums = smem + kStageFloats + threadIdx.x;
+    slabs = reinterpret_cast<int*>(smem + kStageFloats + 2 * a.planes * kThreads);
+    for (int p = 0; p < 2 * a.planes; ++p) sums[p * kThreads] = 0.f;
+    d0cur = d0nxt = 0.f;
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int t = 0; t < kMaxSlabs; ++t) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) slabs[t * 5 + j] = a.delta[t][j];
+        slabs[t * 5 + 4] = a.shift[t];
+      }
+    }
+    __syncthreads();
+  }
+  __device__ __forceinline__ int rounds() const {
+    return (a.nt + kRoundSlabs - 1) / kRoundSlabs;
+  }
+  __device__ __forceinline__ int round_slabs(int h) const {
+    return min(kRoundSlabs, a.nt - h * kRoundSlabs);
+  }
+  __device__ static constexpr int first_slab(int h) { return h * kRoundSlabs; }
+  __device__ __forceinline__ void slab(const FusedArgs&, int t, int dv[4], int& shift) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dv[j] = slabs[t * 5 + j];
+    shift = slabs[t * 5 + 4];
+  }
+  template <int kH>
+  __device__ __forceinline__ void consume_round(const float* stage, int slot, int lx, int ly,
+                                                int L) {
+    constexpr int kG = G::kSize;
+    float* cur = sums + (L & 1) * a.planes * kThreads;  // node layer L's sums
+    float* nxt = sums + ((L + 1) & 1) * a.planes * kThreads;
+    const float* st = stage + slot * kHalo + ly * kHaloX + lx;
+#pragma unroll
+    for (int ts = 0; ts < kRoundSlabs; ++ts) {
+      const int t = kH * kRoundSlabs + ts;
+      const int tc = t < kMaxSlabs ? t : kMaxSlabs - 1;  // an index in range where t is not
+      if (t < a.nt) {
+#pragma unroll
+        for (int va = 0; va < 4; ++va) {
+          const int c = a.corner[tc][va];
+          const bool up = (c >> 8) != 0;  // corner a's z bit: node layer L + 1
+          const float* s = st + (ts * 16 + va * 4) * kG * kHalo + (c & 0xff);
+          float* d = up ? nxt : cur;
+          float v[4], w[4];
+#pragma unroll
+          for (int b = 0; b < 4; ++b) v[b] = s[b * kG * kHalo];
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (b != va) w[b] = d[a.sum[tc][va * 4 + b]];
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (b != va) d[a.sum[tc][va * 4 + b]] = w[b] + v[b];
+          d0cur += up ? 0.f : v[va];
+          d0nxt += up ? v[va] : 0.f;
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void consume(int h, const float* stage, int slot, int lx, int ly,
+                                          int L) {
+    switch (h) {
+      case 0: consume_round<0>(stage, slot, lx, ly, L); break;
+      case 1: consume_round<1>(stage, slot, lx, ly, L); break;
+      default:
+        if constexpr (kMaxRounds > 2) consume_round<2>(stage, slot, lx, ly, L);
+        break;
+    }
+  }
+  // stores node layer L's planes, zeroing their sums for layer L + 2
+  __device__ __forceinline__ void store(const FusedArgs& f, int k, int r, float kp, float ad,
+                                        bool in_band, int L) {
+    float* c = sums + (L & 1) * a.planes * kThreads;
+    for (int p = 0; p < a.planes; ++p) {
+      float v = (p == a.d0 ? d0cur : c[p * kThreads]) * kp;
+      c[p * kThreads] = 0.f;
+      if (p == a.d0) v += ad;
+      store_plane(f, k, r, in_band, p, v);
+    }
+  }
+  // layer L's half serves layer L + 2: zeroed here where store did not
+  __device__ __forceinline__ void advance(int L, bool stored) {
+    if (!stored) {
+      float* c = sums + (L & 1) * a.planes * kThreads;
+      for (int p = 0; p < a.planes; ++p) c[p * kThreads] = 0.f;
+    }
+    d0cur = d0nxt;
+    d0nxt = 0.f;
+  }
+};
+
+template <bool kImplicit, class Tab>
+__global__ void __launch_bounds__(kTileNodes * Groups<kImplicit>::kSize, kImplicit ? 1 : 2)
+jacobian_fused_kernel(FusedArgs f, typename Tab::Args targ, RowsLhsParams prm) {
+  using G = Groups<kImplicit>;
+  extern __shared__ float stage[];  // round slabs x 16 x kSize x kHalo (, the policy's)
   int bid = blockIdx.x;
   const int g = bid % G::kCount;  // the groups of a tile are neighbours in launch order
   bid /= G::kCount;
@@ -252,59 +469,68 @@ jacobian_fused_kernel(FusedArgs f, RowsLhsParams prm) {
   const bool own = x < f.sy && y < f.ny;
   const size_t N = static_cast<size_t>(f.n);
 
-  float cur[kPlanes], nxt[kPlanes];
-#pragma unroll
-  for (int p = 0; p < kPlanes; ++p) cur[p] = nxt[p] = 0.f;
-
+  Tab tab(targ, stage);
   for (int L = z0 - 1; L < z1; ++L) {
 #pragma unroll 1
-    for (int h = 0; h < G::kRounds; ++h) {
-      produce_round<kImplicit>(f, prm, stage, g, x0, y0, L, h);
+    for (int h = 0; h < tab.rounds(); ++h) {
+      produce_round<kImplicit>(f, tab, prm, stage, g, x0, y0, L, h);
       __syncthreads();
-      if (h == 0)
-        consume_round<kImplicit, 0>(stage, slot, lx, ly, cur, nxt);
-      else if constexpr (G::kRounds > 1)
-        consume_round<kImplicit, 1>(stage, slot, lx, ly, cur, nxt);
+      tab.consume(h, stage, slot, lx, ly, L);
       __syncthreads();
     }
-    if (L >= z0 && own) {  // node layer L is complete
+    const bool complete = L >= z0 && own;  // this thread's node of layer L is complete
+    if (complete) {
       const int r = x + f.sy * y + f.sz * L;
       const float kp = f.keep[k * N + r];
       const float ad = f.add[k * N + r];
       const bool in_band =
           k < 16 && f.band != nullptr && r >= f.band_lo && r < f.band_lo + f.band_span;
-#pragma unroll
-      for (int p = 0; p < kPlanes; ++p) {
-        const int dp = f.plane[p];
-        float v = cur[p] * kp;
-        if (p == kZeroPlane) v += ad;
-        if (in_band)
-          v += f.band[(static_cast<size_t>(dp) * 16 + k) * f.band_span + (r - f.band_lo)];
-        if (k < 16)
-          f.out[(static_cast<size_t>(dp) * 16 + k) * N + r] = v;
-        else
-          f.scal[(static_cast<size_t>(2 * dp) + (k - 16)) * N + r] = v;
-      }
+      tab.store(f, k, r, kp, ad, in_band, L);
     }
-#pragma unroll
-    for (int p = 0; p < kPlanes; ++p) {
-      cur[p] = nxt[p];
-      nxt[p] = 0.f;
-    }
+    tab.advance(L, complete);
   }
 }
 
-template <bool kImplicit>
-int launch(const FusedArgs& f, const RowsLhsParams& prm, cudaStream_t s) {
+template <bool kImplicit, class Tab>
+int launch(const FusedArgs& f, const typename Tab::Args& targ, int smem, const RowsLhsParams& prm,
+           cudaStream_t s) {
   using G = Groups<kImplicit>;
-  const int smem = G::kStageBytes;
-  cudaError_t err = cudaFuncSetAttribute(jacobian_fused_kernel<kImplicit>,
+  cudaError_t err = cudaFuncSetAttribute(jacobian_fused_kernel<kImplicit, Tab>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int chunks = (f.nz + f.zchunk - 1) / f.zchunk;
   const int blocks = G::kCount * f.tiles_x * f.tiles_y * chunks;
-  jacobian_fused_kernel<kImplicit><<<blocks, kTileNodes * G::kSize, smem, s>>>(f, prm);
+  jacobian_fused_kernel<kImplicit, Tab><<<blocks, kTileNodes * G::kSize, smem, s>>>(f, targ, prm);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The arguments both entries share; false if the lattice's sizes are not
+// a lattice's.
+bool fused_args(FusedArgs* f, const void* geom, const void* mgeom, const void* wa,
+                const void* keep, const void* add, const void* band, int band_lo, int band_span,
+                void* out, void* scal, int n, int sy, int ny, int nz, int zchunk) {
+  if (n <= 0 || sy < 1 || ny < 1 || nz < 1 || sy * ny * nz != n || zchunk < 1 ||
+      (mgeom != nullptr && scal == nullptr))
+    return false;
+  f->geom = static_cast<const float*>(geom);
+  f->mgeom = static_cast<const float*>(mgeom);
+  f->wa = static_cast<const float*>(wa);
+  f->keep = static_cast<const float*>(keep);
+  f->add = static_cast<const float*>(add);
+  f->band = static_cast<const float*>(band);
+  f->out = static_cast<float*>(out);
+  f->scal = static_cast<float*>(scal);
+  f->band_lo = band_lo;
+  f->band_span = band_span;
+  f->n = n;
+  f->sy = sy;
+  f->sz = sy * ny;
+  f->ny = ny;
+  f->nz = nz;
+  f->tiles_x = (sy + kTileX - 1) / kTileX;
+  f->tiles_y = (ny + kTileY - 1) / kTileY;
+  f->zchunk = zchunk;
+  return true;
 }
 
 template <bool kImplicit>
@@ -352,33 +578,76 @@ extern "C" int dedflow_lattice_jacobian(const void* geom, const void* mgeom, con
                                         double f2, double dt, double cp, double kappa,
                                         void* stream) {
   using namespace dedflow;
-  const bool implicit = mgeom != nullptr;
-  if (n <= 0 || sy < 1 || ny < 1 || nz < 1 || sy * ny * nz != n || zchunk < 1 ||
-      (implicit && scal == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
   FusedArgs f;
-  f.geom = static_cast<const float*>(geom);
-  f.mgeom = static_cast<const float*>(mgeom);
-  f.wa = static_cast<const float*>(wa);
-  f.keep = static_cast<const float*>(keep);
-  f.add = static_cast<const float*>(add);
-  f.band = static_cast<const float*>(band);
-  f.out = static_cast<float*>(out);
-  f.scal = static_cast<float*>(scal);
-  f.band_lo = band_lo;
-  f.band_span = band_span;
-  f.n = n;
-  f.sy = sy;
-  f.sz = sy * ny;
-  f.ny = ny;
-  f.nz = nz;
-  f.tiles_x = (sy + kTileX - 1) / kTileX;
-  f.tiles_y = (ny + kTileY - 1) / kTileY;
-  f.zchunk = zchunk;
+  if (!fused_args(&f, geom, mgeom, wa, keep, add, band, band_lo, band_span, out, scal, n, sy, ny,
+                  nz, zchunk))
+    return static_cast<int>(cudaErrorInvalidValue);
   for (int p = 0; p < kPlanes; ++p) f.plane[p] = planes[p];
   for (int t = 0; t < kSlabs; ++t)
     for (int a = 0; a < 4; ++a) f.dl.d[t][a] = deltas[t * 4 + a];
   const RowsLhsParams prm{rho, mu, f1, f2, dt, cp, kappa};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return implicit ? launch<true>(f, prm, s) : launch<false>(f, prm, s);
+  return mgeom != nullptr
+             ? launch<true, KuhnPlanes<true>>(f, KuhnArgs{}, KuhnPlanes<true>::kStageBytes, prm, s)
+             : launch<false, KuhnPlanes<false>>(f, KuhnArgs{}, KuhnPlanes<false>::kStageBytes,
+                                                prm, s);
+}
+
+// K2c in one pass: the same tiling over a table of nt <= 8 slabs placed on
+// the lattice of (sy, ny, nz) nodes (fem/lattice.py::grid_tables): slab t's
+// element at column c is the cell c - shifts[t], its vertex a node c +
+// deltas[t][a], the cell's corner corners[t][a] (0..7, bits x, y, z;
+// checked). plane_tab: (nt, 4, 4) DIA plane of entry (t, a, b) (D =
+// num_planes, d0 the zero-offset plane); round_slabs: slabs a round of the
+// stage, which must be this build's (3 frozen, 4 implicit; fem/lattice.py
+// checks its GRID_ROUND_SLABS against it). The other arguments are K2's.
+extern "C" int dedflow_lattice_jacobian_grid(
+    const void* geom, const void* mgeom, const void* wa, const void* keep, const void* add,
+    const void* band, int band_lo, int band_span, void* out, void* scal, int n, int sy, int ny,
+    int nz, int zchunk, int nt, const int* deltas, const int* corners, const int* shifts,
+    const int* plane_tab, int num_planes, int d0, int round_slabs, double rho, double mu,
+    double f1, double f2, double dt, double cp, double kappa, void* stream) {
+  using namespace dedflow;
+  const bool implicit = mgeom != nullptr;
+  const int rs = implicit ? GridPlanes<true>::kRoundSlabs : GridPlanes<false>::kRoundSlabs;
+  const int threads = implicit ? GridPlanes<true>::kThreads : GridPlanes<false>::kThreads;
+  FusedArgs f;
+  if (!fused_args(&f, geom, mgeom, wa, keep, add, band, band_lo, band_span, out, scal, n, sy, ny,
+                  nz, zchunk) ||
+      nt < 1 || nt > kMaxSlabs || num_planes < 1 || num_planes > 27 || d0 < 0 ||
+      d0 >= num_planes || round_slabs != rs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GridArgs g{};
+  g.nt = nt;
+  g.planes = num_planes;
+  g.d0 = d0;
+  for (int t = 0; t < nt; ++t) {
+    g.shift[t] = shifts[t];
+    if (shifts[t] < 0) return static_cast<int>(cudaErrorInvalidValue);
+    for (int a = 0; a < 4; ++a) {
+      const int c = corners[t * 4 + a];
+      if (c < 0 || c > 7 ||
+          deltas[t * 4 + a] + shifts[t] != (c & 1) + sy * ((c >> 1) & 1) + f.sz * (c >> 2))
+        return static_cast<int>(cudaErrorInvalidValue);
+      g.delta[t][a] = deltas[t * 4 + a];
+      g.corner[t][a] = (1 - ((c >> 1) & 1)) * kHaloX + (1 - (c & 1)) + ((c >> 2) << 8);
+      for (int b = 0; b < 4; ++b) {
+        const int p = plane_tab[(t * 4 + a) * 4 + b];
+        // the diagonal entries, and only they, go to the zero-offset plane;
+        // a vertex's four entries go to four planes
+        bool repeated = false;
+        for (int b2 = 0; b2 < b; ++b2) repeated |= plane_tab[(t * 4 + a) * 4 + b2] == p;
+        if (p < 0 || p >= num_planes || (p == d0) != (a == b) || repeated)
+          return static_cast<int>(cudaErrorInvalidValue);
+        g.sum[t][a * 4 + b] = p * threads;
+      }
+    }
+  }
+  const int smem = (rs * 16 * (implicit ? Groups<true>::kSize : Groups<false>::kSize) * kHalo +
+                    2 * num_planes * threads + kMaxSlabs * 5) *
+                   static_cast<int>(sizeof(float));
+  const RowsLhsParams prm{rho, mu, f1, f2, dt, cp, kappa};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return implicit ? launch<true, GridPlanes<true>>(f, g, smem, prm, s)
+                  : launch<false, GridPlanes<false>>(f, g, smem, prm, s);
 }

@@ -79,6 +79,22 @@
 //
 // The pressure travels in the rate slot: p comes from dw_alpha row 3. The
 // heat source (melt-pool runs) is a nodal (N,) row or null (zero).
+//
+// K1c (fem/lattice.py::residual_volume_classes) is the same kernel over a
+// run-time table (the GridCells policy below; K1 is KuhnCells): any table
+// of T <= 8 slabs that fem/lattice.py::grid_tables places on the node grid
+// (the translation-class tier, recovered lattices with another split).
+// Slab t's element on cell c is column c + shift[t] of the context's
+// geometry (a slab whose tet lacks corner 0 has its column at its smallest
+// node), its vertex a the corner corners[t][a] of the cell; a ring slot
+// holds T x 64 elements (T x 24 x 64 floats), computed ceil(T / 2) to a
+// thread, and each node adds its 4T contributions in the plain (t, a)
+// order. The cells left of, below and under the grid are zeros here, and
+// grid_tables places a class table only where the columns they stand for
+// hold no element, so the sums are the plain version's bit for bit, as
+// K1's are (on the Kuhn table the two kernels agree bit for bit). It takes
+// the place of K1c's two passes (lattice_classes.cu, now only for tables
+// that do not place), which wrote and read a (T, 24, N) element buffer.
 
 #include "element_body.cuh"
 
@@ -121,10 +137,67 @@ __device__ __forceinline__ bool wait_flag(const int* flag, int epoch) {
   return ok;
 }
 
+// Cell policies of the ticketed pass: the slabs, their corners, vertex
+// offsets and column shifts, and the floats of a ring slot.
+//
+// KuhnCells (K1): the six Kuhn slabs at compile time, 3 elements a thread.
+struct KuhnCells {
+  static constexpr bool kRunTime = false;
+  static constexpr int kMax = kSlabs;
+  __device__ static constexpr int slabs() { return kSlabs; }
+  __device__ static constexpr int rounds() { return kSlabs * kResCells / kResThreads; }
+  __device__ static constexpr int slot() { return kResSlot; }
+  __device__ static constexpr int corner(int t, int a) { return kuhn(t, a); }
+  __device__ __forceinline__ static void slab(const ResArgs& f, const int*, int t, int dv[4],
+                                              int& shift) {
+    slab_deltas(f.dl, t, dv);
+    shift = 0;
+  }
+};
+
+// GridCells (K1c): a table of nt <= 8 slabs placed on the node grid
+// (fem/lattice.py::grid_tables), at run time: slab t's element on cell c is
+// column c + shift[t] of the geometry, its vertex a node column +
+// delta[t][a] = cell + the offset of corner[t][a]. A slot holds 24 x nt x
+// 64 floats; an odd nt leaves the upper half of the last round's threads
+// without a slab (they compute slab nt - 1 again and store nothing). The
+// offsets and shifts are read from a copy in shared memory (a warp's slab
+// index is known only at run time).
+struct GridCells {
+  static constexpr bool kRunTime = true;
+  static constexpr int kMax = kMaxSlabs;
+  int nt, slot_floats;
+  int corners[kMaxSlabs][4], delta[kMaxSlabs][4], shift[kMaxSlabs];
+  __device__ __forceinline__ int slabs() const { return nt; }
+  __device__ __forceinline__ int rounds() const {
+    return (nt * kResCells + kResThreads - 1) / kResThreads;
+  }
+  __device__ __forceinline__ int slot() const { return slot_floats; }
+  __device__ __forceinline__ int corner(int t, int a) const { return corners[t][a]; }
+  // the (kMaxSlabs, 5) table of delta[t][0..3], shift[t] (thread 0)
+  __device__ __forceinline__ void copy_slabs(int* table) const {
+#pragma unroll
+    for (int t = 0; t < kMaxSlabs; ++t) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) table[t * 5 + a] = delta[t][a];
+      table[t * 5 + 4] = shift[t];
+    }
+  }
+  __device__ __forceinline__ static void slab(const ResArgs&, const int* table, int t, int dv[4],
+                                              int& sh) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) dv[a] = table[t * 5 + a];
+    sh = table[t * 5 + 4];
+  }
+};
+
+template <class Cells>
 __global__ void __launch_bounds__(kResThreads, kResBlocksPerSM)
-residual_fused_kernel(ResArgs f, RowsResParams prm) {
+residual_fused_kernel(ResArgs f, Cells cells, RowsResParams prm) {
   __shared__ int s_item, s_epoch, s_fault;
+  __shared__ int s_slabs[Cells::kRunTime ? kMaxSlabs * 5 : 1];
   if (threadIdx.x == 0) {
+    if constexpr (Cells::kRunTime) cells.copy_slabs(s_slabs);
     s_fault = 0;
     const unsigned long long ticket = atomicAdd(f.counter, 1ull);
     s_item = static_cast<int>(ticket % static_cast<unsigned long long>(f.items));
@@ -148,15 +221,28 @@ residual_fused_kernel(ResArgs f, RowsResParams prm) {
   }
   __syncthreads();
 
-  float* slot = f.ring + (static_cast<size_t>(L % f.ring_layers) * f.tiles + T) * kResSlot;
+  float* slot =
+      f.ring + (static_cast<size_t>(L % f.ring_layers) * f.tiles + T) * cells.slot();
 #pragma unroll 1
-  for (int rnd = 0; rnd < (L < f.nz ? 3 : 0); ++rnd) {
+  for (int rnd = 0; rnd < (L < f.nz ? cells.rounds() : 0); ++rnd) {
     const int e = threadIdx.x + rnd * kResThreads;
-    const int t = e / kResCells, cell = e - t * kResCells;
+    int t = e / kResCells;
+    const int cell = e - t * kResCells;
+    const bool stored = !Cells::kRunTime || t < cells.slabs();
+    if constexpr (Cells::kRunTime) t = min(t, cells.slabs() - 1);
     const int cx = x0 + cell % kResTile, cy = y0 + cell / kResTile;
-    // cells past the row or layer end feed no node
-    const bool valid = cx < f.sy && cy < f.ny;
-    const int c = valid ? cx + f.sy * cy + f.sz * L : 0;
+    int dv[4], shift;
+    cells.slab(f, s_slabs, t, dv, shift);
+    // cells past the row or layer end feed no node (nor columns past N)
+    bool valid = cx < f.sy && cy < f.ny;
+    int c;
+    if constexpr (Cells::kRunTime) {
+      const int col = cx + f.sy * cy + f.sz * L + shift;
+      valid = valid && col < f.n;
+      c = valid ? col : 0;
+    } else {
+      c = valid ? cx + f.sy * cy + f.sz * L : 0;
+    }
 
     ResInputs x;
     const float* g = f.geom + static_cast<size_t>(t) * 19 * N + c;
@@ -171,8 +257,6 @@ residual_fused_kernel(ResArgs f, RowsResParams prm) {
     x.m11 = g[16 * N];
     x.m12 = g[17 * N];
     x.m22 = g[18 * N];
-    int dv[4];
-    slab_deltas(f.dl, t, dv);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       const int v = c + dv[a];
@@ -191,11 +275,13 @@ residual_fused_kernel(ResArgs f, RowsResParams prm) {
     }
     float r[4][6];
     res_values(x, prm, r);
+    if (stored) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int k = 0; k < 6; ++k)
-        __stcg(slot + ((t * 4 + a) * 6 + k) * kResCells + cell, valid ? r[a][k] : 0.f);
+        for (int k = 0; k < 6; ++k)
+          __stcg(slot + ((t * 4 + a) * 6 + k) * kResCells + cell, valid ? r[a][k] : 0.f);
+    }
   }
   __threadfence();
   __syncthreads();
@@ -204,43 +290,76 @@ residual_fused_kernel(ResArgs f, RowsResParams prm) {
   // node layer Lc = L - 1 reads cell layers Lc and Lc - 1 of this tile and
   // of its left, lower and lower-left neighbours: items a layer or two back
   const int Lc = L - 1;
+  __shared__ int s_cell[Cells::kRunTime ? 8 : 1][kResCells];
   if (threadIdx.x < 8) {
     const int j = threadIdx.x, lr = Lc - (j >> 2);
     const int ux = tx - (j & 1), uy = ty - ((j >> 1) & 1);
     if (lr >= 0 && ux >= 0 && uy >= 0)
       if (!wait_flag(f.produced + lr * f.tiles + uy * f.tiles_x + ux, epoch)) s_fault = 1;
   }
+  if constexpr (Cells::kRunTime) {
+    // A corner known only at run time: the ring offset of the cell that
+    // corner c gives each node of the tile, once a block (-1 left of the
+    // lattice, below it or below layer 0), for the sums below to look up.
+    for (int i = threadIdx.x; i < 8 * kResCells; i += kResThreads) {
+      const int c = i / kResCells, nd = i - c * kResCells;
+      const int sx = nd % kResTile - (c & 1), sy = nd / kResTile - ((c >> 1) & 1), cz = c >> 2;
+      const int dx = sx < 0 ? 1 : 0, dy = sy < 0 ? 1 : 0;
+      const int layer = (L + f.ring_layers - 1 - cz) % f.ring_layers;
+      s_cell[c][nd] = tx >= dx && ty >= dy && Lc >= cz
+                          ? (layer * f.tiles + T - dx - dy * f.tiles_x) * cells.slot() +
+                                (sx & 7) + (sy & 7) * kResTile
+                          : -1;
+    }
+  }
   __syncthreads();
 
   // the thread's node and its components k0, k0 + 2, k0 + 4
   const int node = threadIdx.x % kResCells, k0 = threadIdx.x / kResCells;
   const int lx = node % kResTile, ly = node / kResTile;
-  // this tile's cell layers Lc and Lc - 1 in the ring (layers below 0: never read)
-  const float* layer_base[2] = {
-      f.ring + (static_cast<size_t>((L + f.ring_layers - 1) % f.ring_layers) * f.tiles + T) *
-                   kResSlot,
-      f.ring + (static_cast<size_t>((L + f.ring_layers - 2) % f.ring_layers) * f.tiles + T) *
-                   kResSlot};
   float acc[3] = {0.f, 0.f, 0.f};
+  if constexpr (Cells::kRunTime) {
 #pragma unroll
-  for (int t = 0; t < kSlabs; ++t)
+    for (int t = 0; t < Cells::kMax; ++t) {
+      if (t >= cells.slabs()) break;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int ca = kuhn(t, a);
-      const int sx = lx - (ca & 1), sy = ly - ((ca >> 1) & 1), cz = ca >> 2;
-      const int dx = sx < 0 ? 1 : 0, dy = sy < 0 ? 1 : 0;
-      // left of the lattice, below it or below layer 0: the plain version adds a
-      // dead cell's +-0 or nothing
-      const bool ok = tx >= dx && ty >= dy && Lc >= cz;
-      const int off = ((dx + dy * f.tiles_x) * -kResSlot) +
-                      (t * 4 + a) * 6 * kResCells + (sx & 7) + (sy & 7) * kResTile;
-      const float* p = layer_base[cz] + (ok ? off : 0);
+      for (int a = 0; a < 4; ++a) {
+        const int o = s_cell[cells.corner(t, a)][node];
+        const float* p = f.ring + (o >= 0 ? o : 0) + ((t * 4 + a) * 6 + k0) * kResCells;
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float v = __ldcg(p + (k0 + 2 * j) * kResCells);
-        acc[j] += ok ? v : 0.f;
+        for (int j = 0; j < 3; ++j) {
+          const float v = __ldcg(p + 2 * j * kResCells);
+          acc[j] += o >= 0 ? v : 0.f;
+        }
       }
     }
+  } else {
+    // this tile's cell layers Lc and Lc - 1 in the ring (layers below 0: never read)
+    const float* layer_base[2] = {
+        f.ring + (static_cast<size_t>((L + f.ring_layers - 1) % f.ring_layers) * f.tiles + T) *
+                     cells.slot(),
+        f.ring + (static_cast<size_t>((L + f.ring_layers - 2) % f.ring_layers) * f.tiles + T) *
+                     cells.slot()};
+#pragma unroll
+    for (int t = 0; t < Cells::kMax; ++t)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int ca = cells.corner(t, a);
+        const int sx = lx - (ca & 1), sy = ly - ((ca >> 1) & 1), cz = ca >> 2;
+        const int dx = sx < 0 ? 1 : 0, dy = sy < 0 ? 1 : 0;
+        // left of the lattice, below it or below layer 0: the plain version adds a
+        // dead cell's +-0 or nothing
+        const bool ok = tx >= dx && ty >= dy && Lc >= cz;
+        const int off = ((dx + dy * f.tiles_x) * -cells.slot()) +
+                        (t * 4 + a) * 6 * kResCells + (sx & 7) + (sy & 7) * kResTile;
+        const float* p = layer_base[cz] + (ok ? off : 0);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float v = __ldcg(p + (k0 + 2 * j) * kResCells);
+          acc[j] += ok ? v : 0.f;
+        }
+      }
+  }
   const int x = x0 + lx, y = y0 + ly;
   if (Lc >= 0 && x < f.sy && y < f.ny) {
     const size_t r = static_cast<size_t>(x) + static_cast<size_t>(f.sy) * y +
@@ -274,6 +393,37 @@ extern "C" int dedflow_lattice_residual_layout(int* out, int cap) {
   return 0;
 }
 
+namespace dedflow {
+
+// The arguments both entries share; false if they are not a lattice's.
+bool res_args(ResArgs* f, const void* geom, const void* wa, const void* dwa, const void* src,
+              void* out, void* ring, int ring_layers, void* sync, int n, int sy, int ny, int nz) {
+  if (n <= 0 || sy < 1 || ny < 1 || nz < 1 || sy * ny * nz != n || ring == nullptr ||
+      ring_layers < 4 || sync == nullptr || (reinterpret_cast<size_t>(sync) & 7) != 0)
+    return false;
+  f->geom = static_cast<const float*>(geom);
+  f->wa = static_cast<const float*>(wa);
+  f->dwa = static_cast<const float*>(dwa);
+  f->src = static_cast<const float*>(src);
+  f->out = static_cast<float*>(out);
+  f->ring = static_cast<float*>(ring);
+  f->ring_layers = ring_layers;
+  f->n = n;
+  f->sy = sy;
+  f->sz = sy * ny;
+  f->ny = ny;
+  f->nz = nz;
+  f->tiles_x = (sy + kResTile - 1) / kResTile;
+  f->tiles = f->tiles_x * ((ny + kResTile - 1) / kResTile);
+  f->items = f->tiles * (nz + 1);
+  f->counter = static_cast<unsigned long long*>(sync);
+  f->produced = static_cast<int*>(sync) + 2;
+  f->consumed = f->produced + f->items;
+  return true;
+}
+
+}  // namespace dedflow
+
 // The lattice is (sy, ny, nz) nodes, x fastest: sy nodes a row, ny rows a
 // layer, nz layers. deltas: (6, 4) vertex offsets, which must be the Kuhn
 // corners' (checked). src: the (n,) nodal heat source, or null for none.
@@ -292,29 +442,9 @@ extern "C" int dedflow_lattice_residual(const void* geom, const void* wa, const 
                                         double fb0, double fb1, double fb2, double dt,
                                         void* stream) {
   using namespace dedflow;
-  if (n <= 0 || sy < 1 || ny < 1 || nz < 1 || sy * ny * nz != n || ring == nullptr ||
-      ring_layers < 4 ||
-      sync == nullptr || (reinterpret_cast<size_t>(sync) & 7) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   ResArgs f;
-  f.geom = static_cast<const float*>(geom);
-  f.wa = static_cast<const float*>(wa);
-  f.dwa = static_cast<const float*>(dwa);
-  f.src = static_cast<const float*>(src);
-  f.out = static_cast<float*>(out);
-  f.ring = static_cast<float*>(ring);
-  f.ring_layers = ring_layers;
-  f.n = n;
-  f.sy = sy;
-  f.sz = sy * ny;
-  f.ny = ny;
-  f.nz = nz;
-  f.tiles_x = (sy + kResTile - 1) / kResTile;
-  f.tiles = f.tiles_x * ((ny + kResTile - 1) / kResTile);
-  f.items = f.tiles * (nz + 1);
-  f.counter = static_cast<unsigned long long*>(sync);
-  f.produced = static_cast<int*>(sync) + 2;
-  f.consumed = f.produced + f.items;
+  if (!res_args(&f, geom, wa, dwa, src, out, ring, ring_layers, sync, n, sy, ny, nz))
+    return static_cast<int>(cudaErrorInvalidValue);
   for (int t = 0; t < kSlabs; ++t)
     for (int a = 0; a < 4; ++a) {
       const int c = kuhn(t, a);
@@ -323,6 +453,47 @@ extern "C" int dedflow_lattice_residual(const void* geom, const void* wa, const 
         return static_cast<int>(cudaErrorInvalidValue);
     }
   const RowsResParams prm{rho, mu, cp, kappa, fb0, fb1, fb2, dt};
-  residual_fused_kernel<<<f.items, kResThreads, 0, static_cast<cudaStream_t>(stream)>>>(f, prm);
+  residual_fused_kernel<KuhnCells><<<f.items, kResThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      f, KuhnCells{}, prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1c in one pass: the same items over a table of nt <= 8 slabs placed on
+// the lattice (fem/lattice.py::grid_tables): slab t's element at column c
+// is the cell c - shifts[t], its vertex a node c + deltas[t][a], which must
+// be the cell's corner corners[t][a] (0..7, bits x, y, z; checked). ring:
+// ring_layers * tiles * 24 * nt * 64 floats; sync: as K1's (a context's
+// workspace serves both, calls in order on one stream). On the Kuhn table
+// it sums in K1's order: the same output bit for bit.
+extern "C" int dedflow_lattice_residual_grid(const void* geom, const void* wa, const void* dwa,
+                                             const void* src, void* out, void* ring,
+                                             int ring_layers, void* sync, int n, int sy, int ny,
+                                             int nz, int nt, const int* deltas,
+                                             const int* corners, const int* shifts, double rho,
+                                             double mu, double cp, double kappa, double fb0,
+                                             double fb1, double fb2, double dt, void* stream) {
+  using namespace dedflow;
+  ResArgs f;
+  if (!res_args(&f, geom, wa, dwa, src, out, ring, ring_layers, sync, n, sy, ny, nz) || nt < 1 ||
+      nt > kMaxSlabs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GridCells cells{};
+  cells.nt = nt;
+  cells.slot_floats = 24 * nt * kResCells;
+  for (int t = 0; t < nt; ++t) {
+    cells.shift[t] = shifts[t];
+    if (shifts[t] < 0) return static_cast<int>(cudaErrorInvalidValue);
+    for (int a = 0; a < 4; ++a) {
+      const int c = corners[t * 4 + a];
+      cells.corners[t][a] = c;
+      cells.delta[t][a] = deltas[t * 4 + a];
+      if (c < 0 || c > 7 ||
+          deltas[t * 4 + a] + shifts[t] != (c & 1) + sy * ((c >> 1) & 1) + f.sz * (c >> 2))
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const RowsResParams prm{rho, mu, cp, kappa, fb0, fb1, fb2, dt};
+  residual_fused_kernel<GridCells><<<f.items, kResThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      f, cells, prm);
   return static_cast<int>(cudaGetLastError());
 }

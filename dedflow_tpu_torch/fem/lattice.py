@@ -28,10 +28,13 @@ and each has a second entry for any cell table:
   neighbours' items are done (RES_FUSED_*, checked against the built
   kernel's `residual_kernel_layout`; the context's `res_sync` workspace),
   with no element buffer in memory. Any other table goes to K1c
-  `residual_volume_classes` (csrc/lattice_classes.cu: an element pass into
-  a (T, 24, N) buffer, then the node sums in the plain order). On the CPU
-  `residual_volume_plain`, the unfused pipeline (shifted-slice inputs ->
-  element_rows.res_rows -> 4T shifted adds).
+  `residual_volume_classes`: where grid_tables places the table on a node
+  grid (`grid`), the same ticketed kernel over the run-time table
+  (csrc/lattice_residual.cu); where it does not, `residual_volume_two_pass`
+  (csrc/lattice_classes.cu: an element pass into a (T, 24, N) buffer, then
+  the node sums in the plain order). On the CPU `residual_volume_plain`,
+  the unfused pipeline (shifted-slice inputs -> element_rows.res_rows -> 4T
+  shifted adds).
 - K2 `jacobian_volume`: the finished (D, 16, N) velocity/pressure DIA data,
   Dirichlet-masked, unit diagonal on the zero-offset plane, facet band
   added. On CUDA, for the Kuhn split, csrc/lattice_jacobian.cu, which
@@ -39,11 +42,14 @@ and each has a second entry for any cell table:
   over (x, y) node tiles sliding up z chunks, a component group a block
   (`fused_tables`, FUSED_GROUPS, checked against the built kernel's
   `fused_kernel_layout`), with no element buffer in device memory; any
-  other table goes to K2c `jacobian_volume_classes` (csrc/lattice_classes.cu:
-  an element pass into a (T, 16 * ncomp, N) buffer, then a plane pass in
-  the plain order, `plane_entries`, with the epilogue); on the CPU
-  `jacobian_volume_plain` (inputs -> element_rows.lhs_rows(ncomp=16) -> 16T
-  shifted adds -> the mask epilogue).
+  other table goes to K2c `jacobian_volume_classes`: on a node grid the
+  same fused pass over the run-time table, its plane sums in shared memory
+  (csrc/lattice_jacobian.cu, GRID_ROUND_SLABS); off one
+  `jacobian_volume_two_pass` (csrc/lattice_classes.cu: an element pass
+  into a (T, 16 * ncomp, N) buffer, then a plane pass in the plain order,
+  `plane_entries`, with the epilogue); on the CPU `jacobian_volume_plain`
+  (inputs -> element_rows.lhs_rows(ncomp=16) -> 16T shifted adds -> the
+  mask epilogue).
 
 A CUDA tensor always goes to a kernel (or raises); only a CPU tensor takes
 the plain version. In the frozen-scalar mode the phi-phi / T-T components
@@ -105,15 +111,19 @@ class LatticeContext:
     # K2's fused pass: (sy, ny, nz, planes), see fused_tables; None unless
     # the table is the Kuhn split of a box (then K1c / K2c run instead)
     fused: tuple | None
-    # K1's ticket counter and item flags (res_sync_workspace), kept by the
-    # kernel from call to call: calls on one context run in order; None
-    # with `fused`
+    # K1's and K1c's ticket counter and item flags (res_sync_workspace),
+    # kept by the kernels from call to call: calls on one context run in
+    # order; None without `grid`
     res_sync: torch.Tensor | None
     # implicit phi/T transport tangents in the Jacobian (melt-pool runs)
     scalar_implicit: bool = False
     # node-grid shape (gx, gy, gz) = (nx+1, ny+1, nz+1), read by the
     # geometric multigrid preconditioner (solver.mg)
     dims: tuple | None = None
+    # the table placed on a node grid, (sy, ny, nz, corners, shifts) of
+    # grid_tables: K1c / K2c's one-pass kernels; None where it does not
+    # place (then their two-pass kernels run)
+    grid: tuple | None = None
 
 
 def _plane_tables(deltas: tuple) -> tuple:
@@ -160,8 +170,9 @@ def is_kuhn_split(tets) -> bool:
 def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = False) -> LatticeContext:
     """Build from a box mesh carrying `mesh.lattice = (nx, ny, nz)` and, for
     a recovered mesh, its cells' split `mesh.lattice_tets`. The fused K1 /
-    K2 tables (`fused`, `res_sync`) only for the Kuhn split; any other table
-    goes to K1c / K2c."""
+    K2 tables (`fused`) only for the Kuhn split; any other table goes to
+    K1c / K2c, which take every split placed on the box's node grid
+    (`grid`; `res_sync` serves K1 and K1c)."""
     if mesh.lattice is None:
         raise ValueError("mesh has no lattice metadata")
     nx, ny, nz = mesh.lattice
@@ -184,7 +195,7 @@ def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = Fal
     vidx = np.concatenate([lc + deltas[t][a] for t in range(len(deltas)) for a in range(4)])
     mult = np.bincount(vidx, minlength=n).astype(np.float64)
     fused = fused_tables(deltas, offs, n) if is_kuhn_split(mesh.lattice_tets) else None
-    return LatticeContext(
+    return _with_grid(LatticeContext(
         res_geom=torch.stack(rr).contiguous(),
         lhs_geom=torch.stack(lr).contiguous(),
         mult=torch.as_tensor(mult, dtype=dtype, device=device),
@@ -194,10 +205,10 @@ def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = Fal
         offsets=offs,
         plane_tab=plane_tab,
         fused=fused,
-        res_sync=None if fused is None else res_sync_workspace(fused, device),
+        res_sync=None,
         scalar_implicit=scalar_implicit,
         dims=(nx + 1, ny + 1, nz + 1),
-    )
+    ), device)
 
 
 def detect_delta_classes(ien: np.ndarray, max_classes: int = 8):
@@ -257,7 +268,9 @@ def build_class_context(
     contributions are exact zeros, as a box's dead cells'), `mult` the node
     multiplicity over all of `ien`, no node grid (`dims` None). None when the
     mesh is not translation-regular. Its tables are not the Kuhn box's, so
-    K1c / K2c (csrc/lattice_classes.cu) assemble it on the card."""
+    K1c / K2c assemble it on the card: in one pass where grid_tables places
+    the table on a node grid (`grid`, `res_sync`), else in two
+    (csrc/lattice_classes.cu)."""
     det = _mesh_classes(mesh, max_classes, dmax_limit)
     if det is None:
         return None
@@ -279,7 +292,7 @@ def build_class_context(
             full[:, bt] = rows
             out.append(full)
     mult = np.bincount(ien.ravel(), minlength=n).astype(np.float64)
-    return LatticeContext(
+    return _with_grid(LatticeContext(
         res_geom=torch.stack(rr).contiguous(),
         lhs_geom=torch.stack(lr).contiguous(),
         mult=torch.as_tensor(mult, dtype=dtype, device=device),
@@ -292,7 +305,7 @@ def build_class_context(
         res_sync=None,
         scalar_implicit=scalar_implicit,
         dims=None,
-    )
+    ), device)
 
 
 # ---------------------------------------------------------------------------
@@ -492,12 +505,17 @@ RES_FUSED_BLOCKS_PER_SM = 3  # the kernel's launch bounds: 12 warps an SM
 RES_FUSED_RING_MARGIN = 8  # ring layers beyond those the resident items span
 
 
-def res_ring_layers(tiles: int, num_sms: int) -> int:
+def res_ring_layers(tiles: int, num_sms: int, slabs: int = 6) -> int:
     """Cell layers of K1's ring of element values: the layers the card's
     resident items span (RES_FUSED_BLOCKS_PER_SM blocks an SM, `tiles`
     items a layer) and RES_FUSED_RING_MARGIN more, so that an item seldom
-    waits for the readers of the layer its slot held."""
-    return -(-RES_FUSED_BLOCKS_PER_SM * num_sms // tiles) + RES_FUSED_RING_MARGIN
+    waits for the readers of the layer its slot held. A slot holds `slabs`
+    slabs' values; past six (K1c on wider tables) the ring keeps the bytes
+    of the six-slab ring (31 MB at box 55, in the L2), at least two layers
+    beyond the resident ones."""
+    base = -(-RES_FUSED_BLOCKS_PER_SM * num_sms // tiles)
+    layers = base + RES_FUSED_RING_MARGIN
+    return layers if slabs <= 6 else max(base + 2, layers * 6 // slabs)
 
 
 def res_fused_items(sy: int, ny: int, nz: int) -> tuple:
@@ -510,12 +528,13 @@ def res_fused_items(sy: int, ny: int, nz: int) -> tuple:
     return tiles_x, tiles, tiles * (nz + 1)
 
 
-def res_sync_workspace(fused: tuple, device) -> torch.Tensor:
-    """K1's persistent workspace for a lattice with K2's `fused` tables: a
+def res_sync_workspace(tables: tuple, device) -> torch.Tensor:
+    """K1's and K1c's persistent workspace for a lattice of (sy, ny, nz) =
+    tables[:3] nodes (K2's `fused` tables or the context's `grid`): a
     64-bit ticket counter, then each item's produced and consumed flags,
-    int32 zeros; the kernel keeps it from call to call (a call takes one
-    ticket an item)."""
-    return torch.zeros(2 + 2 * res_fused_items(*fused[:3])[2], dtype=torch.int32, device=device)
+    int32 zeros; the kernels keep it from call to call (a call takes one
+    ticket an item, whichever of the two it launches)."""
+    return torch.zeros(2 + 2 * res_fused_items(*tables[:3])[2], dtype=torch.int32, device=device)
 
 
 def residual_kernel_layout() -> dict:
@@ -552,6 +571,101 @@ def _check_res_layout() -> None:
 
 _check_res_layout.done = False
 
+
+# ---------------------------------------------------------------------------
+# A cell table placed on a node grid: the one-pass K1c / K2c, which
+# csrc/lattice_residual.cu and csrc/lattice_jacobian.cu build from the
+# ticketed K1's and the fused K2's code over a run-time table
+
+
+def _corner_offsets(sy: int, sz: int) -> list:
+    """Node offset of each cell corner o = ix + 2*iy + 4*iz on a grid of
+    strides (1, sy, sz)."""
+    return [(o & 1) + sy * ((o >> 1) & 1) + sz * (o >> 2) for o in range(8)]
+
+
+def _place_slabs(deltas, sy: int, sz: int):
+    """(corners, shifts) that put every vertex a of slab t on the cell
+    corner corners[t][a] with delta[t][a] + shifts[t] its offset on the
+    grid of strides (1, sy, sz), each slab with the smallest shift that
+    places it; None when a slab does not place."""
+    offs = _corner_offsets(sy, sz)
+    corner_at = {o: c for c, o in enumerate(offs)}
+    corners, shifts = [], []
+    for d in deltas:
+        shift = next((s for s in sorted(offs) if all(v + s in corner_at for v in d)), None)
+        if shift is None:
+            return None
+        corners.append(tuple(corner_at[v + shift] for v in d))
+        shifts.append(shift)
+    return tuple(corners), tuple(shifts)
+
+
+def _cells_inside(lctx: LatticeContext, sy: int, ny: int, nz: int, shifts) -> bool:
+    """Whether every column that holds an element of slab t (nonzero
+    geometry) is a cell inside the grid (x < sy - 1, y < ny - 1, z < nz -
+    1) plus shifts[t]: then the columns a cell left of, below or under the
+    grid stands for (x = -1 and y = -1 wrap to the previous row's and
+    layer's last cells) hold no element, and their contributions are exact
+    zeros, as a box's dead cells'."""
+    live = ((lctx.res_geom != 0).any(dim=1) | (lctx.lhs_geom != 0).any(dim=1)).cpu().numpy()
+    for t, s in enumerate(shifts):
+        cell = np.nonzero(live[t])[0] - s
+        if cell.size and (cell.min() < 0 or (cell % sy).max() > sy - 2
+                          or (cell // sy % ny).max() > ny - 2
+                          or (cell // (sy * ny)).max() > nz - 2):
+            return False
+    return True
+
+
+def grid_tables(lctx: LatticeContext):
+    """(sy, ny, nz, corners, shifts): the context's table placed on a node
+    grid of sy nodes a row, ny rows a layer and nz layers (x fastest), or
+    None. Slab t's element at column c is the cell c - shifts[t], and its
+    vertex a the cell's corner corners[t][a] (0..7, bits x, y, z):
+    delta[t][a] + shifts[t] = cx + sy*cy + sz*cz. A lattice context
+    (`dims`) takes its own grid (shifts 0, corners its split's). A class
+    context derives (sy, sz) from its offsets: the first pair, sy then sz
+    ascending, with sz a multiple of sy and a divisor of N, on which every
+    slab places and every element lies inside the grid (_cells_inside)."""
+    n = lctx.num_node
+    if lctx.dims is not None:
+        gx, gy, _ = lctx.dims
+        cands = [(gx, gx * gy)]
+    else:
+        pos = [o for o in lctx.offsets if o > 0]
+        cands = [(sy, sz) for sy in sorted({o + dx for o in pos for dx in (-1, 0, 1)})
+                 for sz in sorted({o - dx - sy * dy for o in pos for dx in (-1, 0, 1)
+                                   for dy in (-1, 0, 1)})]
+    for sy, sz in cands:
+        if sy < 2 or sz < 2 * sy or sz % sy or n % sz:
+            continue
+        placed = _place_slabs(lctx.deltas, sy, sz)
+        if placed is None:
+            continue
+        if lctx.dims is None and not _cells_inside(lctx, sy, sz // sy, n // sz, placed[1]):
+            continue
+        return (sy, sz // sy, n // sz) + placed
+    return None
+
+
+def _with_grid(lctx: LatticeContext, device) -> LatticeContext:
+    """The context with its `grid` (grid_tables) and, where it placed, the
+    ticket workspace K1 / K1c keep (`res_sync`)."""
+    lctx.grid = grid_tables(lctx)
+    if lctx.grid is not None:
+        lctx.res_sync = res_sync_workspace(lctx.grid, device)
+    return lctx
+
+
+# K2c's one-pass kernel stages the elements of a round of slabs (K2's
+# tiling, FUSED_TILE and FUSED_GROUPS) and keeps its plane sums in shared
+# memory beside the stage. Slabs a round, by mode: frozen three (two
+# blocks an SM, as K2), implicit four (one block; six or eight slabs in two
+# element passes a layer, as K2's one round of six). The kernel refuses
+# any other value.
+FUSED_HALO = (FUSED_TILE[0] + 1) * (FUSED_TILE[1] + 1)  # cells a block computes a layer
+GRID_ROUND_SLABS = {False: 3, True: 4}
 
 # ---------------------------------------------------------------------------
 # kernel wrappers
@@ -665,10 +779,12 @@ jacobian_volume.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K1c / K2c: any table of T <= 8 slabs (csrc/lattice_classes.cu), two passes
-# each through a (T, rows, N) element buffer
+# K1c / K2c: any table of T <= 8 slabs. One pass where the table placed on a
+# node grid (`grid`: csrc/lattice_residual.cu and csrc/lattice_jacobian.cu,
+# the templates of K1 and K2 over a run-time table); two passes through a
+# (T, rows, N) element buffer where it did not (csrc/lattice_classes.cu)
 
-MAX_CLASSES = 8  # the slabs csrc/lattice_classes.cu takes
+MAX_CLASSES = 8  # the slabs the kernels take
 
 
 def _check_class_tables(what: str, lctx: LatticeContext) -> None:
@@ -680,21 +796,77 @@ def _check_class_tables(what: str, lctx: LatticeContext) -> None:
                          f"for {nt}")
 
 
+def _check_residual_args(what: str, lctx: LatticeContext, wa_t, dwa_t, source) -> None:
+    n = lctx.num_node
+    _check_class_tables(what, lctx)
+    _check_f32_cuda(what, wa_t=wa_t, dwa_t=dwa_t, res_geom=lctx.res_geom,
+                    **({} if source is None else {"source": source}))
+    if wa_t.shape != (6, n) or dwa_t.shape != (6, n) or (source is not None and source.shape != (n,)):
+        raise ValueError(f"{what} kernel: states must be (6, N), a source (N,)")
+
+
 def residual_volume_classes(lctx: LatticeContext, wa_t, dwa_t, phys, scheme,
                             source=None) -> torch.Tensor:
     """K1c: the function of residual_volume_plain for any table of T <= 8
-    slabs. On CUDA csrc/lattice_classes.cu: an element pass, a thread a
-    (slab, base node), into a (T, 24, N) buffer, then a node pass that adds
-    each node's 4T contributions in the plain (t, a) order; on the CPU the
+    slabs. On CUDA, where the context's table placed on a node grid
+    (`grid`), one launch of the ticketed K1 over the run-time table
+    (csrc/lattice_residual.cu, `dedflow_lattice_residual_grid`): work items
+    of an 8 x 8 node tile and a cell layer, the tile's T x 64 elements
+    computed once into a ring of cell layers in the L2, each node's 4T
+    contributions added in the plain (t, a) order from +0.0f (so on a Kuhn
+    context it equals the ticketed K1 bit for bit), with the context's
+    `res_sync` workspace; where it did not place, residual_volume_two_pass;
+    on the CPU the plain version."""
+    if not wa_t.is_cuda:
+        return residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme, source)
+    if lctx.grid is None:
+        return residual_volume_two_pass(lctx, wa_t, dwa_t, phys, scheme, source)
+    n, nt = lctx.num_node, len(lctx.deltas)
+    _check_residual_args("lattice_residual_grid", lctx, wa_t, dwa_t, source)
+    fn = nvcc.function(
+        "lattice_residual", "dedflow_lattice_residual_grid",
+        [nvcc.P] * 6 + [nvcc.I, nvcc.P] + [nvcc.I] * 5 + [nvcc.P] * 3 + [nvcc.D] * 8 + [nvcc.P],
+    )
+    _check_res_layout()
+    sy, ny, nz, corners, shifts = lctx.grid
+    if lctx.res_sync.device != wa_t.device:
+        raise ValueError("lattice_residual_grid kernel: the context lives on another device")
+    dev = wa_t.device
+    tiles = res_fused_items(sy, ny, nz)[1]
+    layers = res_ring_layers(tiles, torch.cuda.get_device_properties(dev).multi_processor_count,
+                             nt)
+    ring = torch.empty(layers * tiles * 24 * nt * RES_FUSED_TILE**2, dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((6, n), dtype=torch.float32, device=dev)
+    a = _res_args(phys, scheme)
+    nvcc.check(
+        fn(lctx.res_geom.data_ptr(), wa_t.data_ptr(), dwa_t.data_ptr(),
+           None if source is None else source.data_ptr(), out.data_ptr(), ring.data_ptr(), layers,
+           lctx.res_sync.data_ptr(), n, sy, ny, nz, nt, _flat_deltas(lctx),
+           nvcc.int_array(c for cs in corners for c in cs), nvcc.int_array(shifts),
+           a["rho"], a["mu"], a["cp"], a["kappa"], *a["fb"], a["dt"],
+           torch.cuda.current_stream(dev).cuda_stream),
+        "lattice_residual_grid",
+    )
+    residual_volume_classes.launches += 1
+    return out
+
+
+residual_volume_classes.launches = 0  # the one-pass kernel's
+
+
+def residual_volume_two_pass(lctx: LatticeContext, wa_t, dwa_t, phys, scheme,
+                             source=None) -> torch.Tensor:
+    """K1c's two passes, for a table that does not place on a node grid
+    (and held against the plain version on the card): on CUDA
+    csrc/lattice_classes.cu, an element pass, a thread a (slab, base
+    node), into a (T, 24, N) buffer, then a node pass that adds each
+    node's 4T contributions in the plain (t, a) order; on the CPU the
     plain version."""
     if not wa_t.is_cuda:
         return residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme, source)
     n, nt = lctx.num_node, len(lctx.deltas)
-    _check_class_tables("lattice_residual_classes", lctx)
-    _check_f32_cuda("lattice_residual_classes", wa_t=wa_t, dwa_t=dwa_t, res_geom=lctx.res_geom,
-                    **({} if source is None else {"source": source}))
-    if wa_t.shape != (6, n) or dwa_t.shape != (6, n) or (source is not None and source.shape != (n,)):
-        raise ValueError("lattice_residual_classes kernel: states must be (6, N), a source (N,)")
+    _check_residual_args("lattice_residual_classes", lctx, wa_t, dwa_t, source)
     fn = nvcc.function(
         "lattice_classes", "dedflow_lattice_residual_classes",
         [nvcc.P] * 6 + [nvcc.I, nvcc.I, nvcc.P] + [nvcc.D] * 8 + [nvcc.P],
@@ -710,18 +882,18 @@ def residual_volume_classes(lctx: LatticeContext, wa_t, dwa_t, phys, scheme,
            torch.cuda.current_stream(dev).cuda_stream),
         "lattice_residual_classes",
     )
-    residual_volume_classes.launches += 1
+    residual_volume_two_pass.launches += 1
     return out
 
 
-residual_volume_classes.launches = 0
+residual_volume_two_pass.launches = 0
 
 
 def plane_entries(lctx: LatticeContext, ncomp: int) -> tuple:
-    """K2c's plane table: (starts (D + 1,), entries (E, 2)) as int lists.
-    Plane p sums entries starts[p]..starts[p+1]-1, each (element-buffer row
-    (t*16 + a*4+b) * ncomp, vertex shift delta[t][a]), in the (t, a, b)
-    order of _reduce_lhs_planes."""
+    """The two-pass K2c's plane table: (starts (D + 1,), entries (E, 2)) as
+    int lists. Plane p sums entries starts[p]..starts[p+1]-1, each
+    (element-buffer row (t*16 + a*4+b) * ncomp, vertex shift delta[t][a]),
+    in the (t, a, b) order of _reduce_lhs_planes."""
     by_plane = [[] for _ in lctx.offsets]
     for t, d in enumerate(lctx.deltas):
         for a in range(4):
@@ -749,32 +921,94 @@ def _plane_tables_on(lctx: LatticeContext, ncomp: int, device) -> tuple:
     return got
 
 
+def _check_jacobian_args(what: str, lctx: LatticeContext, wa_t, keep, add, band, band_lo) -> int:
+    """Check K2c's arguments; returns the band's span (0 without one)."""
+    n, nd = lctx.num_node, len(lctx.offsets)
+    nc = 18 if lctx.scalar_implicit else 16
+    _check_class_tables(what, lctx)
+    _check_f32_cuda(
+        what, wa_t=wa_t, keep=keep, add=add, lhs_geom=lctx.lhs_geom, res_geom=lctx.res_geom,
+        **({} if band is None else {"band": band}),
+    )
+    if wa_t.shape != (6, n) or keep.shape != (nc, n) or add.shape != (nc, n):
+        raise ValueError(f"{what} kernel: states (6, N), keep and add ({nc}, N)")
+    if band is None:
+        return 0
+    if band.shape[:2] != (nd, 16) or band_lo < 0 or band_lo + band.shape[2] > n:
+        raise ValueError(f"{what} kernel: band outside the matrix")
+    return band.shape[2]
+
+
 def jacobian_volume_classes(lctx: LatticeContext, wa_t, phys, scheme, keep, add, band=None,
                             band_lo=0):
     """K2c: the function of jacobian_volume_plain (the same contract as
-    jacobian_volume) for any table of T <= 8 slabs. On CUDA
-    csrc/lattice_classes.cu: an element pass, a thread a (slab, base node),
-    into a (T, 16 * ncomp, N) buffer, then a plane pass, a thread a (plane,
-    component, node), that sums the plane's entries in the plain order
-    (plane_entries) and applies the keep / add / band epilogue; on the CPU
-    the plain version."""
+    jacobian_volume) for any table of T <= 8 slabs. On CUDA, where the
+    context's table placed on a node grid (`grid`), one pass of the fused
+    K2's tiling over the run-time table (csrc/lattice_jacobian.cu,
+    `dedflow_lattice_jacobian_grid`): 8 x 8 node tiles sliding up z chunks,
+    a component group a block, the halo cells' elements of a round of
+    GRID_ROUND_SLABS slabs staged in shared memory, their (t, a, b) entries
+    added in that order into the plane sums of node layers L and L + 1 kept
+    in shared memory (the corners' halo shifts and the entries' planes
+    passed by value), each plane stored once with the epilogue: no element
+    buffer in device memory, no atomics. Where it did not place,
+    jacobian_volume_two_pass; on the CPU the plain version."""
+    if not wa_t.is_cuda:
+        return jacobian_volume_plain(lctx, wa_t, phys, scheme, keep, add, band, band_lo)
+    if lctx.grid is None:
+        return jacobian_volume_two_pass(lctx, wa_t, phys, scheme, keep, add, band, band_lo)
+    n, nd, nt = lctx.num_node, len(lctx.offsets), len(lctx.deltas)
+    implicit = lctx.scalar_implicit
+    span = _check_jacobian_args("lattice_jacobian_grid", lctx, wa_t, keep, add, band, band_lo)
+    fn = nvcc.function(
+        "lattice_jacobian", "dedflow_lattice_jacobian_grid",
+        [nvcc.P] * 6 + [nvcc.I, nvcc.I, nvcc.P, nvcc.P] + [nvcc.I] * 6 + [nvcc.P] * 4
+        + [nvcc.I] * 3 + [nvcc.D] * 7 + [nvcc.P],
+    )
+    _check_fused_layout(implicit)
+    sy, ny, nz, corners, shifts = lctx.grid
+    dev = wa_t.device
+    out = torch.empty((nd, 16, n), dtype=torch.float32, device=dev)
+    scal = torch.empty((2 * nd, n), dtype=torch.float32, device=dev) if implicit else None
+    a = _lhs_args(phys, scheme)
+    nvcc.check(
+        fn(lctx.lhs_geom.data_ptr(), lctx.res_geom.data_ptr() if implicit else None,
+           wa_t.data_ptr(), keep.data_ptr(), add.data_ptr(),
+           None if band is None else band.data_ptr(), int(band_lo), span,
+           out.data_ptr(), None if scal is None else scal.data_ptr(), n, sy, ny, nz,
+           FUSED_ZCHUNK[implicit], nt, _flat_deltas(lctx),
+           nvcc.int_array(c for cs in corners for c in cs), nvcc.int_array(shifts),
+           nvcc.int_array(p for pt in lctx.plane_tab for pa in pt for p in pa), nd,
+           lctx.offsets.index(0), GRID_ROUND_SLABS[implicit],
+           a["rho"], a["mu"], a["f1"], a["f2"], a["dt"], a["cp"], a["kappa"],
+           torch.cuda.current_stream(dev).cuda_stream),
+        "lattice_jacobian_grid",
+    )
+    jacobian_volume_classes.launches += 1
+    if implicit:
+        jacobian_volume_classes.implicit_launches += 1
+    return (out, scal) if implicit else out
+
+
+jacobian_volume_classes.launches = 0  # the one-pass kernel's, both modes
+jacobian_volume_classes.implicit_launches = 0  # its implicit mode's alone
+
+
+def jacobian_volume_two_pass(lctx: LatticeContext, wa_t, phys, scheme, keep, add, band=None,
+                             band_lo=0):
+    """K2c's two passes, for a table that does not place on a node grid
+    (and held against the plain version on the card): on CUDA
+    csrc/lattice_classes.cu, an element pass, a thread a (slab, base
+    node), into a (T, 16 * ncomp, N) buffer, then a plane pass, a thread a
+    (plane, component, node), that sums the plane's entries in the plain
+    order (plane_entries) and applies the keep / add / band epilogue; on
+    the CPU the plain version."""
     if not wa_t.is_cuda:
         return jacobian_volume_plain(lctx, wa_t, phys, scheme, keep, add, band, band_lo)
     n, nd, nt = lctx.num_node, len(lctx.offsets), len(lctx.deltas)
     implicit = lctx.scalar_implicit
     nc = 18 if implicit else 16
-    _check_class_tables("lattice_jacobian_classes", lctx)
-    _check_f32_cuda(
-        "lattice_jacobian_classes", wa_t=wa_t, keep=keep, add=add, lhs_geom=lctx.lhs_geom,
-        res_geom=lctx.res_geom, **({} if band is None else {"band": band}),
-    )
-    if wa_t.shape != (6, n) or keep.shape != (nc, n) or add.shape != (nc, n):
-        raise ValueError(f"lattice_jacobian_classes kernel: states (6, N), keep and add ({nc}, N)")
-    span = 0
-    if band is not None:
-        span = band.shape[2]
-        if band.shape[:2] != (nd, 16) or band_lo < 0 or band_lo + span > n:
-            raise ValueError("lattice_jacobian_classes kernel: band outside the matrix")
+    span = _check_jacobian_args("lattice_jacobian_classes", lctx, wa_t, keep, add, band, band_lo)
     fn = nvcc.function(
         "lattice_classes", "dedflow_lattice_jacobian_classes",
         [nvcc.P] * 7 + [nvcc.I, nvcc.I, nvcc.P, nvcc.P] + [nvcc.I, nvcc.I, nvcc.P]
@@ -796,14 +1030,14 @@ def jacobian_volume_classes(lctx: LatticeContext, wa_t, phys, scheme, keep, add,
            torch.cuda.current_stream(dev).cuda_stream),
         "lattice_jacobian_classes",
     )
-    jacobian_volume_classes.launches += 1
+    jacobian_volume_two_pass.launches += 1
     if implicit:
-        jacobian_volume_classes.implicit_launches += 1
+        jacobian_volume_two_pass.implicit_launches += 1
     return (out, scal) if implicit else out
 
 
-jacobian_volume_classes.launches = 0  # both modes
-jacobian_volume_classes.implicit_launches = 0  # the implicit mode's alone
+jacobian_volume_two_pass.launches = 0  # both modes
+jacobian_volume_two_pass.implicit_launches = 0  # the implicit mode's alone
 
 
 # ---------------------------------------------------------------------------

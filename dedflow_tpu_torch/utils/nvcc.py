@@ -37,7 +37,7 @@ class KernelLibrary:
     path: Path
     lib: ctypes.CDLL
     build_seconds: float  # 0.0 when an up-to-date build was reused
-    ptxas: list  # the compiler's register / shared-memory / spill lines
+    ptxas: list  # the compiler's register / shared-memory / stack and spill lines
 
 
 _lock = threading.Lock()
@@ -66,7 +66,7 @@ def _digest(name: str) -> str:
 
 
 def _ptxas_lines(log: str) -> list:
-    return [ln.strip() for ln in log.splitlines() if "ptxas" in ln]
+    return [ln.strip() for ln in log.splitlines() if "ptxas" in ln or "spill stores" in ln]
 
 
 def load(names) -> dict:

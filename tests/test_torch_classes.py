@@ -161,7 +161,9 @@ def test_context_matches_jax(solvers, case):
     assert js.fastpath == ts.fastpath == TIER[case]
     jl, tl = js.lctx, ts.lctx
     assert tl.deltas == jl.deltas and tl.offsets == jl.offsets and tl.plane_tab == jl.plane_tab
-    assert (tl.dims is None) == (jl.dims is None) and tl.fused is None and tl.res_sync is None
+    assert (tl.dims is None) == (jl.dims is None) and tl.fused is None
+    # each table places on a node grid: the one-pass K1c / K2c and K1c's workspace
+    assert tl.grid is not None and tl.res_sync is not None
     if case == "d":
         assert (len(tl.deltas), len(tl.offsets)) == (8, 21)
     n, dmax = tl.num_node, jl.dmax

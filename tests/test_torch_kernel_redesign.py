@@ -45,6 +45,7 @@ from dedflow_tpu_torch.interop import state_from_numpy
 from dedflow_tpu_torch.mesh.gen import _KUHN_TETS, box_mesh
 from dedflow_tpu_torch.solver.newton import NSSolver
 from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
+from torch_meshes import table_context
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -340,3 +341,255 @@ def test_k2_fused_tables_refuse_a_non_kuhn_context():
     lctx = lat.build_lattice_context(box_mesh(3, 4, 5), "cpu", torch.float64)
     with pytest.raises(ValueError, match="Kuhn"):
         lat.fused_tables(lctx.deltas[::-1], lctx.offsets, lctx.num_node)
+
+
+# ---------------------------------------------------------------------------
+# K2c's one pass: K2's tiling over a run-time table placed on a node grid
+
+
+def grid_emulation(lctx, elem, keep, add, band=None, band_lo=0, zchunk=None, computed=None):
+    """K2c's one pass in torch on the element outputs `elem` (T, 16*nc, N)
+    (the body's values for each (slab, column)), as the kernel runs it: a
+    block a (component group, z chunk, 8 x 8 tile), its threads (slot,
+    ly, lx); per cell layer the rounds of GRID_ROUND_SLABS slabs staged
+    into a flat float stage (unwritten floats NaN), slab t's halo cell c
+    at column c + shifts[t] (zero off the row / layer end or outside
+    [0, N)); then the round's entries (t, a, b), in that order, each read
+    at the thread's stage offset plus corner a's halo shift and added to
+    its plane's sum of node layer L + (corner a's z bit), (2, D, threads)
+    halves by layer parity; node layer L stored when complete, its half
+    zeroed. `computed` (T, N) bool records the columns staged. Returns
+    data (D, 16, N), and (data, scal) implicit."""
+    nc = elem.shape[1] // 16
+    implicit = nc == 18
+    zchunk = zchunk or lat.FUSED_ZCHUNK[implicit]
+    sy, ny, nz, corners, shifts = lctx.grid
+    nt, n, nd, sz = len(corners), lctx.num_node, len(lctx.offsets), sy * ny
+    (tx, ty), halo, hx = lat.FUSED_TILE, lat.FUSED_HALO, lat.FUSED_TILE[0] + 1
+    groups_k = lat.FUSED_GROUPS[implicit]
+    kg = len(groups_k[0])
+    threads = tx * ty * kg
+    rs = lat.GRID_ROUND_SLABS[implicit]
+    tid = torch.arange(threads)
+    slot, lx, ly = tid // (tx * ty), tid % tx, tid % (tx * ty) // tx
+    base = slot * halo + ly * hx + lx
+    hc = torch.arange(halo)
+    acc = torch.full((nd, nc, n), float("nan"), dtype=elem.dtype)
+    stored = torch.zeros((nc, n), dtype=torch.long)
+    for comps in groups_k:
+        k = torch.tensor(comps)[slot]
+        for z0 in range(0, nz, zchunk):
+            for y0 in range(0, ny, ty):
+                for x0 in range(0, sy, tx):
+                    sums = torch.zeros((2, nd, threads), dtype=elem.dtype)
+                    cx, cy = x0 - 1 + hc % hx, y0 - 1 + hc // hx
+                    for layer in range(z0 - 1, min(z0 + zchunk, nz)):
+                        for h in range(-(-nt // rs)):
+                            stage = torch.full((rs * 16 * kg * halo,), float("nan"),
+                                               dtype=elem.dtype)
+                            slabs = range(h * rs, min(nt, (h + 1) * rs))
+                            for t in slabs:
+                                ts = t - h * rs
+                                c = cx + sy * cy + sz * layer + shifts[t]
+                                ok = (cx < sy) & (cy < ny) & (c >= 0) & (c < n)
+                                vals = torch.where(ok, elem[t][:, c.clamp(0, n - 1)], 0.0)
+                                vals = vals.reshape(16, nc, halo)[:, list(comps)]
+                                stage[ts * 16 * kg * halo : (ts + 1) * 16 * kg * halo] = (
+                                    vals.reshape(-1))
+                                if computed is not None:
+                                    computed[t, c[ok]] = True
+                            for t in slabs:
+                                ts = t - h * rs
+                                for a in range(4):
+                                    ka, kb, kz = lat._corner(corners[t][a])
+                                    shift = (1 - kb) * hx + (1 - ka)
+                                    for b in range(4):
+                                        off = (ts * 16 + a * 4 + b) * kg * halo + shift
+                                        sums[(layer + kz) & 1, lctx.plane_tab[t][a][b]] += (
+                                            stage[base + off])
+                        if layer >= z0:
+                            x, y = x0 + lx, y0 + ly
+                            own = (x < sy) & (y < ny)
+                            r = (x + sy * y + sz * layer)[own]
+                            acc[:, k[own], r] = sums[layer & 1][:, own]
+                            stored[k[own], r] += 1
+                        sums[layer & 1] = 0.0
+    assert torch.equal(stored, torch.ones_like(stored))  # every (component, node) once
+    planes_t = acc * keep[None]
+    planes_t[lctx.offsets.index(0)] += add
+    data = planes_t[:, :16]
+    if band is not None:
+        data[:, :, band_lo : band_lo + band.shape[2]] += band
+    if nc == 16:
+        return data
+    return data.contiguous(), planes_t[:, 16:].reshape(-1, n)
+
+
+def _random_epilogue(lctx, implicit, seed):
+    rng = np.random.default_rng(seed)
+    n, nd, nc = lctx.num_node, len(lctx.offsets), 18 if implicit else 16
+    keep = torch.as_tensor(rng.uniform(0.5, 1.5, (nc, n)))
+    add = torch.as_tensor(rng.standard_normal((nc, n)))
+    band = torch.as_tensor(rng.standard_normal((nd, 16, n // 3)))
+    return keep, add, band, n // 5
+
+
+SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024  # bytes, an H100's
+
+
+def grid_smem_bytes(num_planes: int, implicit: bool) -> int:
+    """K2c's dynamic shared memory a block (csrc/lattice_jacobian.cu's
+    entry computes the same): a round's slabs x 16 pairs x the group's
+    components x the halo cells, the plane sums of node layers L and L + 1
+    for each (node, component) thread, and the slabs' offsets and shifts."""
+    kg = len(lat.FUSED_GROUPS[implicit][0])
+    threads = lat.FUSED_TILE[0] * lat.FUSED_TILE[1] * kg
+    return (lat.GRID_ROUND_SLABS[implicit] * 16 * kg * lat.FUSED_HALO + 2 * num_planes * threads
+            + lat.MAX_CLASSES * 5) * 4
+
+
+GRID_CASES = {  # name: (table, implicit)
+    "a": ("a", False), "b": ("b", False), "L": ("L", False), "melt-a": ("a", True),
+    "overlaid": ("overlaid", False), "overlaid-implicit": ("overlaid", True),
+    "kuhn": ("kuhn", False), "kuhn-implicit": ("kuhn", True),
+}
+
+
+@pytest.mark.parametrize("zchunk", [None, 2], ids=["kernel-chunk", "chunk-2"])
+@pytest.mark.parametrize("case", list(GRID_CASES))
+def test_k2c_one_pass_decomposition_matches_plain_f64(case, zchunk):
+    """In float64 the emulated one pass equals jacobian_volume_plain to
+    1e-12 (masked, with a band), every live (slab, column) element is
+    staged; on the Kuhn table it also equals K2's fused emulation. Box 8 x
+    8 x 3: 2 x 2 tiles, so halos cross tiles and wrap rows."""
+    name, implicit = GRID_CASES[case]
+    lctx = table_context(name, (8, 8, 3), implicit)
+    assert lctx.grid is not None
+    rng = np.random.default_rng(len(case))
+    wa_t = torch.as_tensor(rng.standard_normal((6, lctx.num_node)))
+    cfg = melt_pool_scenario_config() if implicit else reference_scenario_config()
+    phys, scheme = cfg.physics, cfg.time
+    nc = 18 if implicit else 16
+    elem = lhs_rows(lat._lhs_inputs(lctx, wa_t), ncomp=nc, scalar_implicit=implicit,
+                    **lhs_args(phys, scheme))
+    keep, add, band, lo = _random_epilogue(lctx, implicit, len(case) + 1)
+    computed = torch.zeros((len(lctx.deltas), lctx.num_node), dtype=torch.bool)
+    got = grid_emulation(lctx, elem, keep, add, band, lo, zchunk, computed)
+    ref = lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, keep, add, band, lo)
+    live = (lctx.lhs_geom != 0).any(dim=1)
+    assert bool(live.any()) and bool(computed[live].all())
+    for g, r in zip(got, ref) if implicit else ((got, ref),):
+        assert rel(g, r) < 1e-12
+    if lctx.fused is not None:
+        fused = fused_emulation(lctx, elem, keep, add, band, lo)
+        for g, f in zip(got, fused) if implicit else ((got, fused),):
+            assert rel(g, f) < 1e-12
+
+
+@pytest.mark.parametrize("case", ["a", "b", "L", "overlaid", "overlaid-implicit", "kuhn"])
+def test_k2c_one_pass_adds_every_entry_once(case):
+    """Counted through the emulation (every element output 1), each plane
+    value is the number of (t, a, b) entries the plain reduce adds there:
+    every entry once, none twice; the stage and the plane sums fit a
+    block's shared memory (two blocks an SM frozen), for the widest table
+    (27 planes) too."""
+    name, implicit = GRID_CASES[case]
+    lctx = table_context(name, (8, 8, 3), implicit)
+    n, nt, nd = lctx.num_node, len(lctx.deltas), len(lctx.offsets)
+    nc = 18 if implicit else 16
+    ones = torch.ones((nt, 16 * nc, n), dtype=torch.float64)
+    keep, add = torch.ones((nc, n), dtype=torch.float64), torch.zeros((nc, n), dtype=torch.float64)
+    got = grid_emulation(lctx, ones, keep, add)
+    counts = torch.cat([got[0], got[1].reshape(nd, 2, n)], dim=1) if implicit else got
+    assert torch.equal(counts, torch.stack(lat._reduce_lhs_planes(lctx, ones, nc)))
+    for planes in (nd, 27):
+        assert grid_smem_bytes(planes, implicit) <= SMEM_PER_BLOCK
+    if not implicit:
+        assert 2 * (grid_smem_bytes(nd, implicit) + SMEM_RESERVED) <= SMEM_PER_SM
+
+
+def test_grid_tables_of_the_kuhn_box_are_the_fused_tables():
+    """On the Kuhn box the grid is K2's fused (sy, ny, nz) with the Kuhn
+    corners in their order and no shifts, and the residual workspace is
+    the one K1 keeps; the deformed box (a) holds the same table in
+    np.unique order; the overlaid mesh's mirrored tet without corner 0
+    takes its column at its smallest node (shift 1)."""
+    for box in ((3, 4, 5), (7, 5, 6)):
+        lctx = lat.build_lattice_context(box_mesh(*box), "cpu", torch.float64)
+        sy, ny, nz, corners, shifts = lctx.grid
+        assert (sy, ny, nz) == lctx.fused[:3]
+        assert corners == tuple(tuple(int(c) for c in tet) for tet in _KUHN_TETS)
+        assert shifts == (0,) * 6
+        assert lctx.res_sync.numel() == 2 + 2 * lat.res_fused_items(sy, ny, nz)[2]
+    a = table_context("a", (4, 3, 3))
+    kuhn = {tuple(int(c) for c in tet) for tet in _KUHN_TETS}
+    assert a.fused is None and set(a.grid[3]) == kuhn and a.grid[4] == (0,) * 6
+    assert a.grid[:3] == (5, 4, 4)
+    ov = table_context("overlaid", (4, 3, 3))
+    assert len(ov.grid[3]) == 8 and sorted(ov.grid[4]) == [0] * 7 + [1]
+    b = table_context("b", (4, 3, 3))
+    assert b.grid[4] == (0,) * 6 and any(0 not in tet for tet in b.grid[3])
+
+
+def test_grid_tables_refuse_a_table_that_does_not_place():
+    """A table whose offsets are no cell's corners (a slab along one row)
+    or whose elements wrap past a row end does not place: grid_tables
+    returns None, and the context keeps no ticket workspace."""
+    a = table_context("a", (4, 3, 3))
+    row = dataclasses.replace(a, deltas=((0, 1, 2, 3),) + a.deltas[1:], grid=None, res_sync=None)
+    assert lat.grid_tables(row) is None
+    # an element whose cell lies on the last node column: its vertices wrap
+    geom = a.res_geom.clone()
+    sy = a.grid[0]
+    geom[0, :, sy - 1] = 1.0
+    assert lat.grid_tables(dataclasses.replace(a, res_geom=geom)) is None
+    mesh = box_mesh(4, 3, 3)
+    ien = mesh.ien.copy()
+    ien[0] = [0, 1, 2, 9]  # a tet off the cell corners: its class does not place
+    ctx = lat.build_class_context(dataclasses.replace(mesh, ien=ien, lattice=None), "cpu",
+                                  torch.float64)
+    assert ctx is not None and ctx.grid is None and ctx.res_sync is None
+
+
+class _CudaLike(torch.Tensor):
+    """A CPU tensor that reads as a CUDA one: routing checks only."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("placed", [True, False], ids=["grid", "no-grid"])
+def test_class_wrappers_route_by_the_grid(monkeypatch, placed):
+    """On a CUDA tensor K1's and K2's wrappers send a context without the
+    fused tables to K1c / K2c, which launch their one-pass kernels where
+    the table placed and their two-pass entries where it did not; each
+    route has its own counter (the launches stubbed here)."""
+    a = table_context("a", (4, 3, 3), dtype=torch.float32)
+    if not placed:
+        a = dataclasses.replace(a, grid=None, res_sync=None)
+    calls = []
+    for name in ("residual_volume_two_pass", "jacobian_volume_two_pass"):
+        monkeypatch.setattr(lat, name, lambda *args, name=name, **kw: calls.append(name))
+    monkeypatch.setattr(lat.nvcc, "function",
+                        lambda lib, sym, argtypes: calls.append(sym) or (lambda *x: 0))
+    monkeypatch.setattr(lat, "_check_res_layout", lambda: None)
+    monkeypatch.setattr(lat, "_check_fused_layout", lambda implicit: None)
+    monkeypatch.setattr(lat, "_check_f32_cuda", lambda *a_, **k: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev=None: type("P", (), {"multi_processor_count": 132})())
+    n = a.num_node
+    z = torch.zeros((6, n)).as_subclass(_CudaLike)
+    cfg = reference_scenario_config()
+    before = lat.residual_volume_classes.launches, lat.jacobian_volume_classes.launches
+    lat.residual_volume(a, z, z, cfg.physics, cfg.time)
+    lat.jacobian_volume(a, z, cfg.physics, cfg.time, torch.ones((16, n)), torch.zeros((16, n)))
+    after = lat.residual_volume_classes.launches, lat.jacobian_volume_classes.launches
+    if placed:
+        assert calls == ["dedflow_lattice_residual_grid", "dedflow_lattice_jacobian_grid"]
+        assert after == (before[0] + 1, before[1] + 1)
+    else:
+        assert calls == ["residual_volume_two_pass", "jacobian_volume_two_pass"]
+        assert after == before

@@ -42,8 +42,13 @@ up to 8 slabs) match their plain versions on a deformed box (the classes
 tier), a shuffled, mirrored and recovered box (the lattice tier with
 another split), an L-shaped part of a box (dead class lanes) and a box
 with 8 classes and 21 DIA planes (torch_meshes.overlaid_mesh, a kernel
-stress input), frozen and implicit, with and without the heat source; K3
-with 27 planes matches its plain version in float32 and float64.
+stress input), frozen and implicit, with and without the heat source:
+their one-pass kernels (each table placed on its node grid) and their
+two-pass entries, called directly and routed to on a context without a
+grid; the one-pass K1c equals the two-pass one and, on the Kuhn box's own
+table, the ticketed K1 bit for bit, and fails loudly on a corrupt ticket
+workspace as K1 does; K3 with 27 planes matches its plain version in
+float32 and float64.
 """
 
 import dataclasses
@@ -1102,47 +1107,52 @@ def _class_mesh(name: str):
     return deformed_mesh(box), {}
 
 
-@pytest.mark.parametrize("implicit", [False, True], ids=["frozen", "implicit"])
-@pytest.mark.parametrize("name", ["deformed", "recovered", "l-shaped", "overlaid"])
-def test_k1c_k2c_match_plain(name, implicit):
-    """K1c (with and without the heat source) and K2c (masked with the facet
-    band, and unmasked) on a context without the fused tables, against
-    their plain versions per equation / vel/p block / phi-T tangent; two
-    runs bit-identical."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+def _class_case(name: str, implicit: bool):
+    """(solver, wa, dwa, source) on the card for a converted-mesh variant
+    of box BOX, the melt-pool scenario when `implicit`."""
     mesh, over = _class_mesh(name)
     base = melt_pool_scenario_config() if implicit else reference_scenario_config()
     if "bcs" in over:
         over = dict(bcs=base.bcs + over["bcs"][-1:])
     cfg = dataclasses.replace(base, **over)
     solver = NSSolver(mesh, cfg, device="cuda")
-    lctx, phys, scheme = solver.lctx, cfg.physics, cfg.time
-    assert lctx.fused is None and lctx.res_sync is None
     assert solver.fastpath == ("lattice" if name == "recovered" else "classes")
     init = melt_pool_initial_state if implicit else reference_initial_state
     wg, dwgold, dwg = init(mesh)
     rng = np.random.default_rng(21)
     wg, dwg = wg + 0.1 * rng.standard_normal(wg.shape), dwg + 0.1 * rng.standard_normal(dwg.shape)
-    wa, dwa = alpha_states(*state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32), scheme)
-    wa_t, dwa_t = wa.T.contiguous(), dwa.T.contiguous()
+    wa, dwa = alpha_states(*state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32), cfg.time)
     src = torch.as_tensor(laser_source(melt_pool_scenario_config().physics.laser, mesh.xg, 0.01),
                           dtype=torch.float32, device="cuda")
+    return solver, wa, dwa, src
+
+
+def _check_k1c_k2c(solver, wa, dwa, src, residual, jacobian, counters):
+    """K1c (with and without the heat source) and K2c (masked with the
+    facet band, and unmasked) through `residual` / `jacobian` against their
+    plain versions per equation / vel/p block / phi-T tangent, each run
+    twice (bit-identical, `counters` count two launches); the implicit
+    mode's own count. Returns K1c's results."""
+    lctx, phys, scheme = solver.lctx, solver.cfg.physics, solver.cfg.time
+    implicit = lctx.scalar_implicit
+    wa_t, dwa_t = wa.T.contiguous(), dwa.T.contiguous()
+    out = []
     for source in (None, src):
         args = (lctx, wa_t, dwa_t, phys, scheme, source)
-        got = _twice(lambda: lat.residual_volume(*args), lat.residual_volume_classes)
+        got = _twice(lambda: residual(*args), counters[0])
         ref = lat.residual_volume_plain(*args)
         for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):
             assert rel(got[rows], ref[rows]) < 2e-5, rows
+        out.append(got)
     nc = 18 if implicit else 16
     keep = keep_pc_rows(solver.mask_t, torch.float32)[:nc].contiguous()
     add = diag_add_rows(solver.mask_t, torch.float32)[:nc].contiguous()
     band, lo = lat._masked_face_band(solver.face_ctxs, wa, dwa, phys, scheme, len(lctx.offsets),
                                      keep_pc_rows(solver.mask_t, torch.float32))
     for k, a, b in ((keep, add, band), (torch.ones_like(keep), torch.zeros_like(add), None)):
-        call = lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, k, a, b, lo)
+        call = lambda: jacobian(lctx, wa_t, phys, scheme, k, a, b, lo)
         pack = (lambda: torch.cat([t.reshape(-1) for t in call()])) if implicit else call
-        _twice(pack, lat.jacobian_volume_classes)
+        _twice(pack, counters[1])
         got = call()
         ref = lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, k, a, b, lo)
         data, rdata = (got[0], ref[0]) if implicit else (got, ref)
@@ -1151,9 +1161,103 @@ def test_k1c_k2c_match_plain(name, implicit):
         if implicit:
             assert rel(got[1][0::2], ref[1][0::2]) < 2e-5 and rel(got[1][1::2], ref[1][1::2]) < 2e-5
     # the implicit mode has a count of its own; the frozen mode leaves it be
-    before = lat.jacobian_volume_classes.implicit_launches
-    lat.jacobian_volume_classes(lctx, wa_t, phys, scheme, keep, add)
-    assert lat.jacobian_volume_classes.implicit_launches == before + int(implicit)
+    before = counters[1].implicit_launches
+    jacobian(lctx, wa_t, phys, scheme, keep, add)
+    assert counters[1].implicit_launches == before + int(implicit)
+    return out
+
+
+@pytest.mark.parametrize("implicit", [False, True], ids=["frozen", "implicit"])
+@pytest.mark.parametrize("name", ["deformed", "recovered", "l-shaped", "overlaid"])
+def test_k1c_k2c_match_plain(name, implicit):
+    """The one-pass K1c and K2c, reached through K1's and K2's wrappers on
+    a context without the fused tables whose table placed on a node grid
+    (T = 6 and 15 planes; overlaid: T = 8 and 21 planes), against their
+    plain versions per equation / vel/p block / phi-T tangent; two runs
+    bit-identical. The two-pass entries count no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    solver, wa, dwa, src = _class_case(name, implicit)
+    lctx = solver.lctx
+    assert lctx.fused is None and lctx.grid is not None and lctx.res_sync is not None
+    two = (lat.residual_volume_two_pass.launches, lat.jacobian_volume_two_pass.launches)
+    _check_k1c_k2c(solver, wa, dwa, src, lat.residual_volume, lat.jacobian_volume,
+                   (lat.residual_volume_classes, lat.jacobian_volume_classes))
+    assert (lat.residual_volume_two_pass.launches, lat.jacobian_volume_two_pass.launches) == two
+
+
+@pytest.mark.parametrize("implicit", [False, True], ids=["frozen", "implicit"])
+@pytest.mark.parametrize("name", ["deformed", "recovered", "overlaid"])
+def test_k1c_k2c_two_passes_match_plain(name, implicit):
+    """The two-pass entries, called directly and reached through the
+    wrappers on the same context with its node grid taken away (a table
+    that does not place), against their plain versions; their K1c equals
+    the one-pass K1c bit for bit (the same body's values added in the
+    plain order from +0.0f)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    solver, wa, dwa, src = _class_case(name, implicit)
+    counters = (lat.residual_volume_two_pass, lat.jacobian_volume_two_pass)
+    got = _check_k1c_k2c(solver, wa, dwa, src, lat.residual_volume_two_pass,
+                         lat.jacobian_volume_two_pass, counters)
+    one = [lat.residual_volume(solver.lctx, wa.T.contiguous(), dwa.T.contiguous(),
+                               solver.cfg.physics, solver.cfg.time, s) for s in (None, src)]
+    assert all(torch.equal(g, o) for g, o in zip(got, one))
+    solver.lctx = dataclasses.replace(solver.lctx, grid=None, res_sync=None)
+    before = lat.residual_volume_classes.launches, lat.jacobian_volume_classes.launches
+    _check_k1c_k2c(solver, wa, dwa, src, lat.residual_volume, lat.jacobian_volume, counters)
+    assert (lat.residual_volume_classes.launches, lat.jacobian_volume_classes.launches) == before
+
+
+def test_k1c_equals_the_ticketed_k1_on_a_kuhn_context(card, melt):
+    """The Kuhn box's own table through the one-pass K1c (the run-time
+    corners in the Kuhn order) gives the ticketed K1's output bit for bit,
+    with and without the heat source; the two share the context's ticket
+    workspace, calls in order."""
+    for solver, wa, dwa, src in ((card[0], card[2], card[3], None), melt[:1] + melt[2:]):
+        lctx = solver.lctx
+        assert lctx.fused is not None and lctx.grid is not None
+        args = (lctx, wa.T.contiguous(), dwa.T.contiguous(), solver.cfg.physics,
+                solver.cfg.time, src)
+        k1 = lat.residual_volume(*args)
+        k1c = _twice(lambda: lat.residual_volume_classes(*args), lat.residual_volume_classes)
+        assert torch.equal(k1c, k1)
+        assert torch.equal(lat.residual_volume(*args), k1)
+
+
+def test_k1c_fails_loudly_on_a_corrupt_workspace():
+    """The one-pass K1c waits as K1 does: on a class context whose ticket
+    counter is moved off its call boundary, the launch fails after the
+    wait's bound and the next synchronisation raises (fresh interpreter,
+    since a trap ends its process's CUDA context)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    code = textwrap.dedent("""
+        import numpy as np
+        import torch
+        from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+        from dedflow_tpu_torch.fem import lattice as lat
+        from dedflow_tpu_torch.mesh.gen import box_mesh, deformed_mesh
+        from dedflow_tpu_torch.solver.newton import NSSolver
+        solver = NSSolver(deformed_mesh(box_mesh(7, 5, 6)), reference_scenario_config(),
+                          device="cuda")
+        lctx, cfg = solver.lctx, solver.cfg
+        assert lctx.fused is None and lctx.grid is not None
+        w = torch.as_tensor(np.random.default_rng(3).standard_normal((2, 6, lctx.num_node)),
+                            dtype=torch.float32, device="cuda")
+        args = (lctx, w[0], w[1], cfg.physics, cfg.time)
+        ok = torch.isfinite(lat.residual_volume(*args)).all().item()
+        print("first call finite:", ok, lat.residual_volume_classes.launches, flush=True)
+        lctx.res_sync[0] += 1  # the ticket counter's low word
+        out = lat.residual_volume(*args)
+        torch.cuda.synchronize()
+        print("second call returned", flush=True)
+    """)
+    run = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=300)
+    assert "first call finite: True 1" in run.stdout, run.stderr[-2000:]
+    assert "second call returned" not in run.stdout
+    assert run.returncode != 0 and "CUDA error" in run.stderr, run.stderr[-2000:]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)],

@@ -314,6 +314,17 @@ def _k1c_routed():
     return lat.residual_volume(lctx, z, z, *_phys_scheme())
 
 
+def _k1c_two_pass():
+    lctx, z = _class_box(False), torch.zeros((6, 8))
+    return lat.residual_volume_two_pass(lctx, z, z, *_phys_scheme(), source=torch.zeros(8))
+
+
+def _k2c_two_pass():
+    lctx = _class_box(True)
+    return lat.jacobian_volume_two_pass(lctx, torch.zeros((6, 8)), *_phys_scheme(),
+                                        torch.ones((18, 8)), torch.zeros((18, 8)))[1]
+
+
 def _k2c():
     lctx = _class_box(False)
     return lat.jacobian_volume(lctx, torch.zeros((6, 8)), *_phys_scheme(), torch.ones((16, 8)),
@@ -521,13 +532,15 @@ def _k13(idiom):
         (_k2c_implicit, (lat, "jacobian_volume_plain")),
         (_k3_wide(torch.float32), (dia_kernels, "dia_matvec_plain")),
         (_k3_wide(torch.float64), (dia_kernels, "dia_matvec_plain")),
+        (_k1c_two_pass, (lat, "residual_volume_plain")),
+        (_k2c_two_pass, (lat, "jacobian_volume_plain")),
     ],
     ids=["K6-res", "K6-lhs", "K7", "K7-f64", "K3", "K3-f64", "K8", "K9", "K11", "K4", "K5", "K10", "K1-source",
          "K2-implicit", "K6-lhs-implicit", "K5-implicit", "K12-copy", "K12-lane-smem",
          "K12-lane-shuffle", "K12-window", "K12-reduce", "K13-global", "K13-staged",
          "K6-staged", "K6-staged-implicit", "K5-staged", "K5-staged-implicit",
          "K9-segment-sum", "K4-staged", "K8-segment-sum", "K1c", "K1c-routed", "K2c",
-         "K2c-implicit", "K3-wide", "K3-wide-f64"],
+         "K2c-implicit", "K3-wide", "K3-wide-f64", "K1c-two-pass", "K2c-two-pass"],
 )
 def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     monkeypatch, tmp_path, call, plain
@@ -562,10 +575,13 @@ def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
      (_k1c, (lat, "residual_volume_classes")), (_k2c, (lat, "jacobian_volume_classes")),
      (_k2c_implicit, (lat, "jacobian_volume_classes")),
      (_k3_wide(torch.float32), (dia_kernels, "dia_matvec")),
-     (_k3_wide(torch.float64), (dia_kernels, "dia_matvec_f64"))],
+     (_k3_wide(torch.float64), (dia_kernels, "dia_matvec_f64")),
+     (_k1c_two_pass, (lat, "residual_volume_two_pass")),
+     (_k2c_two_pass, (lat, "jacobian_volume_two_pass"))],
     ids=["K4", "K5", "K10", "K12-copy", "K12-lane", "K12-window", "K12-reduce", "K13",
          "K6-staged", "K5-staged", "K9-segment-sum", "K4-staged", "K8-segment-sum",
-         "K7-f64", "K3-f64", "K1c", "K2c", "K2c-implicit", "K3-wide", "K3-wide-f64"],
+         "K7-f64", "K3-f64", "K1c", "K2c", "K2c-implicit", "K3-wide", "K3-wide-f64",
+         "K1c-two-pass", "K2c-two-pass"],
 )
 def test_cpu_tensors_count_no_launch(call, counter):
     """On CPU tensors the wrappers run their plain twins and count nothing

@@ -64,6 +64,7 @@ from dedflow_tpu_torch.sparse.win_stream import (
     stream_reduce_staged,
     stream_reduce_staged_plain,
 )
+from torch_meshes import table_context
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -111,23 +112,27 @@ def k1_waits(item, tiles_x, tiles, ring):
 
 
 def fused_residual_emulation(lctx, elem, tile=lat.RES_FUSED_TILE, ring=None):
-    """K1's fused pass in torch on the element residual rows `elem`
-    (6, 24, N) (what the kernel's body computes for each (slab, cell)):
-    work items (L, T) in ticket order, L = 0..nz, each storing its tile's
-    cells of cell layer L (L < nz) into a ring of `ring` cell layers and
-    summing its nodes' 24 contributions of node layer L - 1 (L >= 1) from
-    the ring in the plain order. It checks the kernel's synchronization on
-    the way: every value a node reads is the layer it wants (no slot
-    overwritten early) and was stored by an item its produced-wait set
-    names, and an item that overwrites a slot waits (consumed set) for
-    every item that read the layer the slot held. Returns the (6, N)
-    residual; each node is stored once."""
-    sy, ny, nz, _ = lctx.fused
+    """K1's fused pass, and K1c's one pass, in torch on the element
+    residual rows `elem` (T, 24, N) (what the kernel's body computes for
+    each (slab, column)), over the context's node grid (`grid`: on the
+    Kuhn box K1's table; else K1c's run-time corners and shifts): work
+    items (L, T) in ticket order, L = 0..nz, each storing its tile's cells
+    of cell layer L (L < nz) into a ring of `ring` cell layers, slab t's
+    cell c from column c + shifts[t] (zero off the row / layer end or past
+    N), and summing its nodes' 4T contributions of node layer L - 1
+    (L >= 1) from the ring in the plain order. It checks the kernel's
+    synchronization on the way: every value a node reads is the layer it
+    wants (no slot overwritten early) and was stored by an item its
+    produced-wait set names, and an item that overwrites a slot waits
+    (consumed set) for every item that read the layer the slot held.
+    Returns the (6, N) residual; each node is stored once."""
+    sy, ny, nz, cells_of, shifts = lctx.grid
+    nt = len(cells_of)
     tiles_x = -(-sy // tile)
     tiles = tiles_x * -(-ny // tile)
     items = tiles * (nz + 1)
-    ring = ring or lat.res_ring_layers(tiles, H100_SMS)
-    corners = _corners()
+    ring = ring or lat.res_ring_layers(tiles, H100_SMS, nt)
+    corners = [lat._corner(c) for cs in cells_of for c in cs]
     n, sz = lctx.num_node, sy * ny
     out = torch.full((6, n), float("nan"), dtype=elem.dtype)
     stored = torch.zeros(n, dtype=torch.long)
@@ -140,9 +145,12 @@ def fused_residual_emulation(lctx, elem, tile=lat.RES_FUSED_TILE, ring=None):
         waits_p, waits_c = k1_waits(item, tiles_x, tiles, ring)
         if L < nz:  # produce: the tile's cells of layer L, zeros past the row or layer end
             cx, cy = tx * tile + lx, ty * tile + ly
-            valid = (cx < sy) & (cy < ny)
-            c = torch.where(valid, cx + sy * cy + sz * L, 0)
-            vals = torch.where(valid, elem[:, :, c], 0.0).reshape(24, 6, tile * tile)
+            vals = []
+            for t in range(nt):
+                c = cx + sy * cy + sz * L + shifts[t]
+                valid = (cx < sy) & (cy < ny) & (c < n)
+                vals.append(torch.where(valid, elem[t][:, torch.where(valid, c, 0)], 0.0))
+            vals = torch.stack(vals).reshape(4 * nt, 6, tile * tile)
             old = slots.get((L % ring, T))
             if old is not None:
                 assert readers.get((old[0], T), set()) <= waits_c
@@ -243,6 +251,59 @@ def test_k1_fused_tables_cover_every_contribution_once(box):
         for item in range(items):
             p, c = k1_waits(item, tiles_x, tiles, ring)
             assert all(w < item for w in p | c)
+
+
+# the tables K1c's one pass takes: (table_context name, with the heat source)
+K1C_CASES = {"a": ("a", False), "b": ("b", False), "L": ("L", False), "melt-a": ("a", True),
+             "overlaid": ("overlaid", False)}
+
+
+@pytest.mark.parametrize("tiling", list(TILINGS))
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("case", list(K1C_CASES))
+def test_k1c_one_pass_decomposition_matches_plain(case, dtype, tiling):
+    """K1c's one pass over the run-time tables (6 or 8 slabs, shifted
+    columns, corners without corner 0): float64 within 1e-12 of
+    residual_volume_plain, float32 bit for bit (the columns a cell off the
+    grid stands for hold no element, so their zeros are the plain
+    version's +-0)."""
+    name, source = K1C_CASES[case]
+    dt = {"f64": torch.float64, "f32": torch.float32}[dtype]
+    lctx = table_context(name, (7, 5, 4), dtype=dt)
+    assert lctx.fused is None and lctx.grid is not None
+    cfg = melt_pool_scenario_config() if source else reference_scenario_config()
+    rng = np.random.default_rng(len(case) + 7 * source)
+    n = lctx.num_node
+    wa_t, dwa_t = (torch.as_tensor(rng.standard_normal((6, n)), dtype=dt) for _ in range(2))
+    src = torch.as_tensor(rng.standard_normal(n), dtype=dt) if source else None
+    phys, scheme = cfg.physics, cfg.time
+    elem = res_rows(lat._residual_inputs(lctx, wa_t, dwa_t, src), **res_args(phys, scheme))
+    got = fused_residual_emulation(lctx, elem, **TILINGS[tiling])
+    ref = lat.residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme, src)
+    if dt == torch.float32:
+        assert torch.equal(got, ref)
+    else:
+        assert rel(got, ref) < 1e-12
+
+
+@pytest.mark.parametrize("case", ["a", "b", "L", "overlaid"])
+def test_k1c_one_pass_covers_every_contribution_once(case):
+    """Counted through the emulation (each column that holds an element
+    outputs 1, the others 0), every node receives exactly the (t, a,
+    element) contributions the plain reduce adds, each element's 4 x 6
+    once; the ring keeps the six-slab ring's bytes past six slabs."""
+    lctx = table_context(K1C_CASES[case][0], (7, 5, 4))
+    live = (lctx.res_geom != 0).any(dim=1).to(torch.float64)  # (T, N)
+    ones = live[:, None, :].expand(-1, 24, -1)
+    ref = lat._reduce_residual(lctx, ones)
+    for kw in TILINGS.values():
+        counts = fused_residual_emulation(lctx, ones, **kw)
+        assert torch.equal(counts, ref)
+        assert int(counts[0].sum()) == 4 * int(live.sum())
+    tiles = lat.res_fused_items(56, 56, 56)[1]
+    six = lat.res_ring_layers(tiles, H100_SMS)
+    assert lat.res_ring_layers(tiles, H100_SMS, 8) * 8 <= six * 6
+    assert lat.res_ring_layers(tiles, H100_SMS, 8) >= -(-3 * H100_SMS // tiles) + 2
 
 
 def test_k1_workspace_sizes():
