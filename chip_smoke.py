@@ -154,6 +154,31 @@ Phases, one line each; the script exits non-zero at the first failure:
             non-conforming stress mesh with 8 classes and 21 DIA planes
             (overlaid_mesh: K3's launches past 15 planes); the two-pass
             entries' launches 0 on every slice
+  the CLI's run outputs (ROADMAP A17b):
+ 21 run     app.main.main at box 55, reference scenario, --steps 2
+            --save-every 1 --metrics --profile: the solution files go to an
+            in-memory store of io.h5.solution_datasets where h5py does not
+            import (the card machine has none), real HDF5 files where it
+            does (the line says which); exit code 0, two metrics records
+            with the JAX CLI's keys, the step-2 snapshot equal bit for bit
+            to phase 5's state after the same two steps, the profiler trace
+            naming K1-K3's CUDA kernels; --resume 1 --steps 1 equal bit for
+            bit to NSSolver.step from the snapshot's reconstruction (dwgold
+            = dwg); the coupled scenario at box 12 with 200 particles
+            storing particles.1, equal bit for bit to a direct
+            CoupledSolver step; the snapshot's host cost (ms) and the steps'
+            walls with the trace on against phase 5's without it
+  the scalar heat / Poisson slice (ROADMAP A12, BASELINE config #1:
+  -lap(u) = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on the six faces):
+ 22 heat    Jacobi-preconditioned CG (rtol 1e-6, float32) at box 12, card
+            against the CPU's float64 solve; box 15 (20,250 tets) and box
+            55 (the main path, K8 / K9 launches read around it): set-up s,
+            assembly ms (fem.heat.assemble_poisson + the Dirichlet rows),
+            CG and GMRES(120) + Jacobi iterations, solve s and L2 error
+            against the exact solution, each solve run twice with equal
+            counts; K8 and K9 with one output row on the box-55 Poisson
+            plans against their plain versions, timed, with bounds and an
+            index_add
 Then, on lines of their own: the kernels JSON object (each kernel with its
 time, its plain version's, its bound and, where one PyTorch call computes
 the same function, that call's time), the card's name and power limit, and
@@ -1072,7 +1097,7 @@ def drive_main(solver, counters, label: str, absent=()) -> dict:
     if not same or stats.krylov_iters != first[1]:
         raise PhaseError("main: a repeated step differs from the first run")
     return {"launches": launches, "absent": list(off.values()), "step_s": steps,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "state": [t.cpu() for t in state]}
 
 
 def dem_case(x):
@@ -2990,6 +3015,385 @@ def phase_classes() -> tuple[list, dict]:
                      "launches_of": "box-12 slice (f)"}], summary
 
 
+
+# ---------------------------------------------------------------------------
+# phase 21: the CLI's run outputs (ROADMAP A17b: solution snapshots, restarts,
+# JSONL metrics, profiler traces, particle files)
+
+# The JAX CLI's metrics record (dedflow_tpu/app/main.py:355-368) and the
+# writer's wall_s (dedflow_tpu/utils/log.py:37).
+JAX_METRICS_KEYS = {"step", "t", "step_wall_s", "newton_iters", "converged", "rnorm",
+                    "krylov_iters", "linear_rel", "wall_s"}
+# The CUDA kernels of K1-K3 as a profiler trace names them.
+TRACE_KERNELS = {"K1": "residual_fused_kernel", "K2": "jacobian_fused_kernel",
+                 "K3": "dia_spmv_kernel"}
+RUN_PARTICLES = 200  # the coupled CLI run at SLICE_BOX
+
+
+class MemoryFiles:
+    """The CLI's solution and particle file calls on a dict, keyed by path:
+    the datasets of io.h5.solution_datasets and of
+    dem.particles.particle_datasets (a group each). The card machine has no
+    h5py; the same layout goes through the same CLI code."""
+
+    def __init__(self):
+        self.store = {}
+
+    def write_solution(self, path, wg, dwg, step=None, time=None):
+        from dedflow_tpu_torch.io.h5 import solution_datasets
+
+        self.store[path] = solution_datasets(wg, dwg, step, time)
+
+    def read_solution(self, path):
+        from dedflow_tpu_torch.io.h5 import state_from_datasets
+
+        return state_from_datasets(self.store[path])
+
+    def save_particles(self, path, group, state):
+        from dedflow_tpu_torch.dem.particles import particle_datasets
+
+        self.store.setdefault(path, {})[group] = particle_datasets(state)
+
+    def datasets(self, path, group=None) -> dict:
+        return self.store[path] if group is None else self.store[path][group]
+
+
+class H5Datasets:
+    """Reads back the datasets of the CLI's real HDF5 files (where h5py
+    imports)."""
+
+    def datasets(self, path, group=None) -> dict:
+        import h5py
+        import numpy as np
+
+        out = {}
+        with h5py.File(path, "r") as f:
+            g = f if group is None else f[group]
+            g.visititems(lambda name, obj: out.__setitem__(name, np.asarray(obj[()]))
+                         if isinstance(obj, h5py.Dataset) else None)
+        return out
+
+
+def run_files():
+    """(the CLI's RunFiles, a reader of what they stored, which one): real
+    HDF5 files where h5py imports, the in-memory store otherwise."""
+    from dedflow_tpu_torch.app.main import RunFiles
+
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        mem = MemoryFiles()
+        return (RunFiles(write_solution=mem.write_solution, read_solution=mem.read_solution,
+                         save_particles=mem.save_particles, needs_h5py=False), mem,
+                "in-memory datasets (no h5py on this machine)")
+    return RunFiles(), H5Datasets(), "HDF5 files (h5py)"
+
+
+def same_datasets(label: str, got: dict, ref: dict) -> None:
+    """Dataset names, dtypes and values equal bit for bit."""
+    import numpy as np
+
+    bad = sorted(set(got) ^ set(ref)) + [
+        k for k in set(got) & set(ref)
+        if got[k].dtype != ref[k].dtype or not np.array_equal(got[k], ref[k])]
+    say(f"  {label}: bit for bit {not bad}" + (f" (differ: {bad})" if bad else ""))
+    if bad:
+        raise PhaseError(f"{label}: datasets differ: {bad}")
+
+
+def cli(argv, files) -> tuple[int, list]:
+    """app.main.main on `argv`: (exit code, its stdout JSON lines), the lines
+    kept off this script's stdout."""
+    import contextlib
+    import io
+
+    from dedflow_tpu_torch.app import main as app_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = app_main.main(argv, files=files)
+    return rc, [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+
+
+def phase_run(main_out: dict) -> dict:
+    """Phase 21: the CLI at box 55 (reference scenario, two steps, a
+    snapshot each, metrics, a profiler trace): its step-2 snapshot equal
+    bit for bit to phase 5's state after the same two steps, the metrics
+    records with the JAX CLI's keys, the trace naming K1-K3's kernels;
+    `--resume 1 --steps 1` equal bit for bit to NSSolver.step from the
+    snapshot's reconstruction (dwgold = dwg); the coupled scenario at box
+    12 with RUN_PARTICLES particles storing particles.1, equal to a direct
+    CoupledSolver step. Prints the snapshot's host cost and the steps'
+    walls with the trace on against phase 5's without it."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dedflow_tpu_torch.app.coupled import CoupledSolver
+    from dedflow_tpu_torch.app.scenarios import (
+        coupled_scenario_setup,
+        reference_initial_state,
+        reference_scenario_config,
+    )
+    from dedflow_tpu_torch.dem.particles import particle_datasets, particles_from_datasets
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.io.h5 import solution_datasets, state_from_datasets
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.solver.newton import NSSolver
+
+    files, stored, how = run_files()
+    say(f"  solution files: {how}")
+    dt = reference_scenario_config().time.dt
+    box = [str(n) for n in FULL_BOX]
+    root = tempfile.mkdtemp(prefix="dedflow_run_")
+    summary = {"files": how}
+    try:
+        out, prof = os.path.join(root, "out"), os.path.join(root, "profile")
+        metrics = os.path.join(root, "metrics.jsonl")
+        t0 = time.perf_counter()
+        rc, lines = cli(["--box", *box, "--steps", "2", "--save-every", "1", "--metrics", metrics,
+                         "--profile", prof, "--out", out], files)
+        run_s = time.perf_counter() - t0
+        if rc != 0:
+            raise PhaseError(f"run: the CLI exited with {rc}")
+        recs = [json.loads(ln) for ln in open(metrics).read().splitlines()]
+        keys = [sorted(r) for r in recs]
+        say(f"  run: {run_s:.1f} s with set-up and trace; metrics records {len(recs)}, keys "
+            f"{keys[0] if keys else None}")
+        if len(recs) != 2 or any(set(r) != JAX_METRICS_KEYS for r in recs):
+            raise PhaseError(f"run: metrics records {keys}, not two with the JAX CLI's keys")
+        wg, _, dwg = main_out["state"]
+        same_datasets("sol.2 == phase 5's state after two steps",
+                      stored.datasets(os.path.join(out, "sol.2.h5")),
+                      solution_datasets(wg, dwg, 2, 2 * dt))
+        traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+        if len(traces) != 1:
+            raise PhaseError(f"run: {len(traces)} profiler trace files, not one")
+        text = open(traces[0]).read()
+        named = {k: text.count(name) for k, name in TRACE_KERNELS.items()}
+        trace_mb = os.path.getsize(traces[0]) / 1e6
+        say(f"  profiler trace {trace_mb:.1f} MB, occurrences of {TRACE_KERNELS}: {named}")
+        if min(named.values()) == 0:
+            raise PhaseError(f"run: the trace does not name every kernel of K1-K3: {named}")
+        del text
+        walls = [ln["wall_s"] for ln in lines]
+        summary.update(trace_mb=trace_mb, step_s_profiled=walls, step_s_plain=main_out["step_s"])
+        say(f"  steps with --profile: {walls} s; the same two steps without it (phase 5): "
+            f"{main_out['step_s']} s")
+        # the snapshot's host work at this size: the copies off the card and the layout
+        wg_c, dwg_c = (t.cuda() for t in (wg, dwg))
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            files.write_solution(os.path.join(root, "timed.h5"), wg_c.cpu().numpy(),
+                                 dwg_c.cpu().numpy(), step=2, time=2 * dt)
+            host.append((time.perf_counter() - t0) * 1e3)
+        summary["snapshot_ms"] = sorted(host)[2]
+        say(f"  snapshot host cost at box {FULL_BOX} ({wg.shape[0]} nodes): median "
+            f"{summary['snapshot_ms']:.2f} ms of {[round(h, 2) for h in host]}")
+        rc, lines = cli(["--box", *box, "--steps", "1", "--resume", "1", "--save-every", "1",
+                         "--metrics", os.path.join(root, "resume.jsonl"), "--out", out], files)
+        if rc != 0 or [ln["step"] for ln in lines] != [2]:
+            raise PhaseError(f"run: --resume 1 exited with {rc}, steps {lines}")
+        snap = state_from_datasets(stored.datasets(os.path.join(out, "sol.1.h5")))
+        solver = NSSolver(box_mesh(*FULL_BOX), reference_scenario_config(), device="cuda")
+        rwg, _, rdwg, stats = solver.step(*state_from_numpy(snap["wg"], snap["dwg"], snap["dwg"],
+                                                            "cuda", solver.dtype))
+        same_datasets("--resume 1 sol.2 == NSSolver.step from sol.1 with dwgold = dwg",
+                      stored.datasets(os.path.join(out, "sol.2.h5")),
+                      solution_datasets(rwg, rdwg, 2, 2 * dt))
+        summary["resume_step_s"] = lines[0]["wall_s"]
+        del solver
+        torch.cuda.empty_cache()
+        cout = os.path.join(root, "coupled")
+        rc, lines = cli(["--scenario", "coupled", "--box", *map(str, SLICE_BOX), "--particles",
+                         str(RUN_PARTICLES), "--steps", "1", "--save-every", "1", "--out", cout],
+                        files)
+        if rc != 0:
+            raise PhaseError(f"run: the coupled CLI exited with {rc}")
+        mesh = box_mesh(*SLICE_BOX)
+        ccfg, pst = coupled_scenario_setup(mesh, num_particles=RUN_PARTICLES, device="cuda")
+        csolver = CoupledSolver(mesh, reference_scenario_config(), ccfg, device="cuda")
+        *_, pst1, _ = csolver.step(*state_from_numpy(*reference_initial_state(mesh), "cuda",
+                                                     csolver.dtype), pst)
+        ptc = stored.datasets(os.path.join(cout, "particles.1.h5"), "ptc")
+        loaded = particles_from_datasets(ptc, device="cuda", dtype=csolver.dtype)
+        same_datasets(f"particles.1 ({loaded.num_particle} particles) == a direct "
+                      f"CoupledSolver step", particle_datasets(loaded), particle_datasets(pst1))
+        same_datasets("particles.1 rebuilt and stored again", particle_datasets(loaded), ptc)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the scalar heat / Poisson slice (ROADMAP A12, BASELINE config #1):
+# K8 and K9 with one output row
+
+HEAT_BOXES = ((15, 15, 15), FULL_BOX)  # BASELINE config #1's ~20k tets (20,250); 998,250 tets
+HEAT_SLICE_BOX = SLICE_BOX
+HEAT_RTOL = 1e-6  # float32 CG / GMRES stop
+HEAT_CG_MAXIT, HEAT_GMRES_RESTART, HEAT_GMRES_MAXIT = 2000, 120, 4800
+# The box-12 slice: a float32 CG stopped at rtol 1e-6 against a float64
+# one at 1e-10; the discrete solution is smooth and O(1), so the two agree
+# to the float32 solve's accuracy, well inside the other slices' bar.
+TOL_HEAT_SLICE = 1e-4
+HEAT_KERNELS = (
+    ("K8 stream reduce (heat, one row)", "dedflow_tpu_torch/csrc/seg_reduce.cu",
+     "dedflow_tpu/sparse/win_stream.py:251"),
+    ("K9 ring reduce (heat, one row)", "dedflow_tpu_torch/csrc/seg_reduce.cu",
+     "dedflow_tpu/sparse/win_ring.py:356"),
+)
+
+
+def poisson_system(mesh, device, dtype):
+    """The steady Poisson problem of the JAX package's tests/test_heat.py:
+    -lap(u) = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on all six faces
+    (exact solution the sine product). Returns (solve-ready (K, b), the
+    exact nodal solution, assemble: a function that assembles K and b
+    again, the context)."""
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.fem.assembly import build_context
+    from dedflow_tpu_torch.fem.dirichlet import StrongBC, apply_mat, apply_vec, build_mask
+    from dedflow_tpu_torch.fem.heat import assemble_poisson
+
+    ctx = build_context(mesh, device=device, dtype=dtype, scalar_plans=True)
+    x, y, z = mesh.xg.T
+    exact = np.sin(np.pi * x) * np.sin(np.pi * y) * np.sin(np.pi * z)
+    f = torch.as_tensor(3 * np.pi**2 * exact, dtype=dtype, device=device)
+    mask = torch.as_tensor(build_mask(mesh, [StrongBC(i, (0,)) for i in range(6)], 1),
+                           device=device)
+
+    def assemble():
+        k, b = assemble_poisson(ctx, f)
+        return apply_mat(mask, k), apply_vec(mask[:, 0], b)
+
+    return assemble(), exact, assemble, ctx
+
+
+def poisson_solve(system, method: str, rtol: float = HEAT_RTOL):
+    """Jacobi-preconditioned CG, or GMRES(120) + Jacobi, on (K, b)."""
+    from dedflow_tpu_torch.solver.krylov import cg, gmres
+    from dedflow_tpu_torch.solver.pc import JacobiPC
+
+    k, b = system
+    pc = JacobiPC.from_diag(k.diag_blocks()[:, 0, 0])
+    mv = lambda v: k.matvec(v[:, None])[:, 0]
+    if method == "cg":
+        return cg(mv, b, maxit=HEAT_CG_MAXIT, atol=0.0, rtol=rtol, pc=pc)
+    return gmres(mv, b, maxit=HEAT_GMRES_MAXIT, atol=0.0, rtol=rtol, pc=pc,
+                 restart=HEAT_GMRES_RESTART)
+
+
+def heat_kernel_records(ctx) -> list:
+    """K8 and K9 with one output row on the box-55 Poisson plans (seeded
+    element values), against their plain versions, timed, with bounds and
+    an index_add."""
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_plain
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_plain
+
+    rng = np.random.default_rng(SEED)
+    recs = []
+    for (label, _, _), plan, slots, kern, plain, tol in (
+            (HEAT_KERNELS[0], ctx.scalar_res_plan, 4, stream_reduce, stream_reduce_plain, TOL_K8),
+            (HEAT_KERNELS[1], ctx.scalar_jac_plan, 16, ring_reduce, ring_reduce_plain, TOL_K9)):
+        m = slots * ctx.num_elem
+        x = torch.as_tensor(rng.standard_normal((1, m)), dtype=torch.float32, device="cuda")
+        kcall, pcall = (lambda f=kern, p=plan: f(p, x)), (lambda f=plain, p=plan: f(p, x))
+        say(f"  {label}: {plan.src.numel()} contributions into {plan.num_tgt} targets")
+        err = compare(label, kcall, pcall, tol)
+        recs.append(finish(label, {"max_abs_err": err}, kcall, pcall, 20, 5,
+                           reduce_bytes(plan, (0,), 1), op_count(pcall),
+                           library=(index_add_call(plan, x, (0,), m), kcall())))
+    return recs
+
+
+def phase_heat() -> tuple[list, dict]:
+    """Phase 22: K8 / K9 one-row on the box-55 Poisson plans; the box-12
+    slice (card float32 CG against the CPU's float64 solve); then box 15
+    and box 55 (the main path, launch counts read around it): assembly ms,
+    CG and GMRES(120) iterations, solve s and the L2 error against the
+    exact solution, each solve repeated with its count."""
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce
+    from dedflow_tpu_torch.tools.timing import time_ms
+
+    summary = {}
+    sols = []
+    for device, dtype, rtol in (("cuda", torch.float32, HEAT_RTOL), ("cpu", torch.float64, 1e-10)):
+        system, _, _, _ = poisson_system(box_mesh(*HEAT_SLICE_BOX), device, dtype)
+        info = poisson_solve(system, "cg", rtol)
+        sols.append(info.x.cpu())
+        say(f"  slice box {HEAT_SLICE_BOX} {device} {dtype}: CG iters {info.iters}, converged "
+            f"{info.converged}")
+        if not info.converged:
+            raise PhaseError(f"heat slice: CG did not converge on {device}")
+    _, rel = rel_err(*sols)
+    say(f"  slice: card f32 CG vs cpu f64 rel={rel:.3e} (tol {TOL_HEAT_SLICE:.0e})")
+    check("heat slice", rel, TOL_HEAT_SLICE)
+    summary["slice_rel"] = rel
+    recs, launches = None, None
+    for box in HEAT_BOXES:
+        mesh = box_mesh(*box)
+        t0 = time.perf_counter()
+        main_box = box == FULL_BOX
+        if main_box:
+            for c in (stream_reduce, ring_reduce):
+                c.launches = 0
+        system, exact, assemble, ctx = poisson_system(mesh, "cuda", torch.float32)
+        setup_s = time.perf_counter() - t0
+        cell = {"tets": mesh.num_tet, "nodes": mesh.num_node, "setup_s": setup_s}
+        for method in ("cg", "gmres"):
+            runs = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                info = poisson_solve(system, method)
+                torch.cuda.synchronize()
+                runs.append((info, time.perf_counter() - t0))
+            (one, s1), (two, s2) = runs
+            err = float(np.sqrt(np.mean((one.x.double().cpu().numpy() - exact) ** 2)))
+            same_x = torch.equal(one.x, two.x)
+            cell[method] = {"iters": [one.iters, two.iters], "converged": one.converged,
+                            "solve_s": [s1, s2], "l2_err": err, "x_bit_equal": same_x,
+                            "rel_res": float(one.resnorm / one.resnorm0)}
+            say(f"  box {box} ({mesh.num_tet} tets) {method}: iters {one.iters} / {two.iters}, "
+                f"converged {one.converged}, relative residual {cell[method]['rel_res']:.3e}, "
+                f"solve {s1:.4f} / {s2:.4f} s, L2 error {err:.4e}, x bit-equal {same_x}")
+            if one.iters != two.iters:
+                raise PhaseError(f"heat box {box} {method}: counts {one.iters} != {two.iters}")
+            if not np.isfinite(err):
+                raise PhaseError(f"heat box {box} {method}: non-finite solution")
+        if main_box:
+            launches = [stream_reduce.launches, ring_reduce.launches]
+            say(f"  launches K8/K9 one-row over the box-55 assembly and solves: {launches}")
+            if min(launches) <= 0:
+                raise PhaseError(f"heat: a kernel of the path was not launched: {launches}")
+        cell["assembly_ms"] = time_ms(assemble, 5)
+        say(f"  box {box}: set-up {setup_s:.2f} s, assembly (K, b, Dirichlet rows) "
+            f"{cell['assembly_ms']:.3f} ms")
+        summary[f"box {box[0]}"] = cell
+        if main_box:
+            recs = heat_kernel_records(ctx)
+        del system, ctx
+        torch.cuda.empty_cache()
+    return [r | {"launches": n, "launches_of": "phase 22 heat: box-55 Poisson assembly + solves"}
+            for r, n in zip(recs, launches)], summary
+
+
 def run() -> int:
     try:
         import torch
@@ -3120,6 +3524,21 @@ def run() -> int:
         class_results, classes = phase_classes()
         say(f"  classes ({card}): {json.dumps(classes)}")
         say(f"  phase 20: {time.perf_counter() - t0:.1f} s")
+        phase = "21 run"
+        say(f"phase 21 run ({card}): the CLI at box {FULL_BOX} (2 steps, snapshots, metrics, "
+            f"--profile), --resume 1, the coupled scenario at box {SLICE_BOX}")
+        t0 = time.perf_counter()
+        run_out = phase_run(main)
+        say(f"  run ({card}): {json.dumps(run_out)}")
+        say(f"  phase 21: {time.perf_counter() - t0:.1f} s")
+        phase = "22 heat"
+        say(f"phase 22 heat ({card}): K8 / K9 one-row; Poisson box {HEAT_SLICE_BOX} slice, "
+            f"boxes {HEAT_BOXES[0]} and {HEAT_BOXES[1]}, CG and GMRES({HEAT_GMRES_RESTART}) + "
+            f"Jacobi")
+        t0 = time.perf_counter()
+        heat_results, heat = phase_heat()
+        say(f"  heat ({card}): {json.dumps(heat)}")
+        say(f"  phase 22: {time.perf_counter() - t0:.1f} s")
     except Exception as e:  # report the failed phase, then fail
         traceback.print_exc()
         print(f"FAIL phase {phase}: {type(e).__name__}: {e}", file=sys.stderr)
@@ -3136,15 +3555,18 @@ def run() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n, **r}
         for (name, src, rep), r, n in zip(
             KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS
-            + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS + KRYLOV_KERNELS + CLASS_KERNELS,
+            + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS + KRYLOV_KERNELS + CLASS_KERNELS
+            + HEAT_KERNELS,
             results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit]
-            + ir_staged + ga_staged + ga_res_staged + krylov_results + class_results,
+            + ir_staged + ga_staged + ga_res_staged + krylov_results + class_results
+            + heat_results,
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
             + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
             + ga_main["launches"][3:]
             + melt_launches + staged_launches + ga_main["res_staged"]
-            + [r["launches"] for r in krylov_results] + [r["launches"] for r in class_results],
+            + [r["launches"] for r in krylov_results] + [r["launches"] for r in class_results]
+            + [r["launches"] for r in heat_results],
         )
     ]
     # the probes' launches: those of their entry points' runs (phase 18)

@@ -26,6 +26,18 @@ package (assembly.py:1-17).
   it touches (`ElementRange`), and fem.ns runs the ranges in turn through
   the same kernels and the same reduce.
 
+The scalar heat / Poisson slice (fem.heat) runs on the same context with
+`scalar_plans=True`: `scatter_residual` and `scatter_matrix` (JAX
+assembly.py:236, :281) sum (ne, 4, ...) element vectors into the nodes and
+(ne, 4, 4, br, bc) element matrices into the CSR entries through K8
+(`win_stream.stream_reduce`) and K9 (`win_ring.ring_reduce`), one output
+row a trailing component, over plans cut from the same sorted tables
+(`scatter_permutation`) as the NS plans: the contribution (e, a) reads
+source c*4*ne + a*ne + e, (e, ab) reads c*16*ne + ab*ne + e, of the
+(C, slots, ne) element values. `gather_nodal` and `bsr_from_data` (JAX
+:409, :403) give the element gathers and the BSR matrix on the CSR
+entries.
+
 Not carried over (TPU layouts; sparse/tiered.py:1-30 says why they exist):
 the grouped gather plan, the prefix-scan offsets, the one-hot DIA planes
 and the degree-tiered plan (assembly.py:134-191). Their `scatter_method`
@@ -46,10 +58,13 @@ from dedflow_tpu_torch.fem.element_rows import lhs_geom_rows, res_geom_rows
 from dedflow_tpu_torch.fem.weakform import ElemGeom
 from dedflow_tpu_torch.fem.win_assembly import identity_rows
 from dedflow_tpu_torch.mesh.mesh import Mesh
+from dedflow_tpu_torch.sparse.bsr import BSRMatrix
 from dedflow_tpu_torch.sparse.topology import Sparsity, build_sparsity, scatter_permutation
+from dedflow_tpu_torch.sparse.win_ring import ring_reduce
 from dedflow_tpu_torch.sparse.win_stream import (
     ReducePlan,
     reduce_plan_from_sorted,
+    stream_reduce,
     with_element_positions,
 )
 from dedflow_tpu_torch.sparse.winell import WinPlan, build_winell_plan
@@ -88,15 +103,21 @@ class FEMContext:
     # the CPU element body: "xla" fem.weakform, "pallas" the K4/K5 plain
     # twins (CUDA always runs K4/K5)
     elements_kernel: str = "xla"
+    # the scalar plans (build_context(scalar_plans=True)): (e, a) -> node
+    # with source a*ne + e, and (e, ab) -> entry with source ab*ne + e
+    scalar_res_plan: ReducePlan | None = None
+    scalar_jac_plan: ReducePlan | None = None
 
 
 def build_context(
     mesh: Mesh, sparsity: Sparsity | None = None, device="cuda", dtype=None,
     chunk: int | None = None, scatter_method: str = "segment", elements_kernel: str = "xla",
+    scalar_plans: bool = False,
 ) -> FEMContext:
     """The general gather tier's context, on the card unless `device`
     says otherwise (dtype: the device's default). Every `scatter_method`
-    name selects the one reduce; an unknown name raises."""
+    name selects the one reduce; an unknown name raises. `scalar_plans`
+    adds the scalar scatters' plans (fem.heat)."""
     if scatter_method not in SCATTER_METHODS:
         raise ValueError(f"scatter_method must be one of {SCATTER_METHODS}, got {scatter_method!r}")
     if elements_kernel not in ELEMENTS_KERNELS:
@@ -130,6 +151,10 @@ def build_context(
         jac_plan, jac_tgt = _range_plan(*mat_plan, 16, 18, lo, hi, width, win_plan.S, chunk, device)
         jac_plan = with_element_positions(jac_plan, width, 16, 18)  # the staged K5's rows
         ranges.append(ElementRange(lo, lo + width, res_plan, jac_plan, res_tgt, jac_tgt))
+    scalar = (None, None)
+    if scalar_plans:  # whole-mesh plans over the real elements, one source row a slot
+        scalar = (_range_plan(*node_plan, 4, 1, 0, ne_real, ne, n, None, device)[0],
+                  _range_plan(*mat_plan, 16, 1, 0, ne_real, ne, win_plan.S, None, device)[0])
     return FEMContext(
         res_geom=res_geom_rows(geom.shgrad, geom.det_j, geom.metric).contiguous(),
         lhs_geom=lhs_geom_rows(geom.shgrad, geom.det_j, geom.metric).contiguous(),
@@ -140,6 +165,8 @@ def build_context(
         num_node=n,
         num_elem=ne,
         elements_kernel=elements_kernel,
+        scalar_res_plan=scalar[0],
+        scalar_jac_plan=scalar[1],
     )
 
 
@@ -173,3 +200,44 @@ def elem_geom(ctx: FEMContext, lo: int = 0, hi: int | None = None) -> ElemGeom:
         torch.stack([m02, m12, m22], -1),
     ], -2)
     return ElemGeom(shgrad=shgrad, det_j=g[12], metric=metric)
+
+
+def _scalar_plan(ctx: FEMContext, which: str) -> ReducePlan:
+    plan = getattr(ctx, f"scalar_{which}_plan")
+    if plan is None:
+        raise ValueError("the context has no scalar plans: build_context(..., scalar_plans=True)")
+    return plan
+
+
+def scatter_residual(ctx: FEMContext, elem_f: torch.Tensor) -> torch.Tensor:
+    """(ne, 4, ...) element vectors -> (N, ...) nodal sums, up to 8 trailing
+    components: K8 over the scalar residual plan, a deterministic sum in
+    the plan's order (JAX assembly.py:236, a sorted segment sum)."""
+    m, trail = ctx.num_elem, elem_f.shape[2:]
+    x = elem_f.reshape(m, 4, -1).permute(2, 1, 0).reshape(-1, 4 * m).contiguous()
+    out = stream_reduce(_scalar_plan(ctx, "res"), x)  # (C, N)
+    return out.T.reshape((ctx.num_node,) + trail)
+
+
+def scatter_matrix(ctx: FEMContext, elem_j: torch.Tensor) -> torch.Tensor:
+    """(ne, 4, 4, br, bc) element matrices -> (nnz, br, bc) BSR data on the
+    CSR entries, br * bc <= 16: K9 over the scalar matrix plan (JAX
+    assembly.py:281)."""
+    m = ctx.num_elem
+    br, bc = elem_j.shape[-2:]
+    x = elem_j.reshape(m, 16, br * bc).permute(2, 1, 0).reshape(-1, 16 * m).contiguous()
+    out = ring_reduce(_scalar_plan(ctx, "jac"), x)  # (br * bc, nnz)
+    return out.T.reshape(-1, br, bc)
+
+
+def bsr_from_data(ctx: FEMContext, data: torch.Tensor) -> BSRMatrix:
+    """The BSR matrix of (nnz, br, bc) data on the context's CSR entries."""
+    wp = ctx.win_plan
+    return BSRMatrix(data=data, col_ind=wp.col_t, row_ids=wp.grow_t, diag_idx=wp.diag_t,
+                     row_ptr=wp.row_ptr_t.long())
+
+
+def gather_nodal(ctx: FEMContext, x: torch.Tensor) -> torch.Tensor:
+    """(N, ...) nodal values -> (ne, 4, ...) element gathers
+    (LoadElementValueKernel, assemble.cu:135-154)."""
+    return x[ctx.ien_t.T.long()]

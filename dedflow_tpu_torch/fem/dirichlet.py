@@ -1,8 +1,10 @@
-"""Strong (Dirichlet) boundary conditions as boolean nodal masks (NumPy
-copy of the mask builder in dedflow_tpu/fem/dirichlet.py).
+"""Strong (Dirichlet) boundary conditions as boolean nodal masks
+(counterpart of dedflow_tpu/fem/dirichlet.py).
 
-Constrained residual rows are zeroed and constrained matrix rows get a
-unit diagonal (dirichlet.c:47-61 of the reference)."""
+Constrained residual rows are zeroed (`apply_vec`, dirichlet_impl.cu:16-21
+of the reference) and constrained matrix rows get a unit diagonal
+(`apply_mat`, dirichlet.c:47-61). The mask builder is NumPy; the two
+applications take the mask as a tensor on the data's device."""
 
 from __future__ import annotations
 
@@ -10,8 +12,10 @@ from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from dedflow_tpu_torch.mesh.mesh import Mesh
+from dedflow_tpu_torch.sparse.bsr import BSRMatrix
 
 
 @dataclass(frozen=True)
@@ -30,3 +34,13 @@ def build_mask(mesh: Mesh, bcs: Sequence[StrongBC], bs: int) -> np.ndarray:
         for c in bc.components:
             mask[nodes, c] = True
     return mask
+
+
+def apply_vec(mask: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Zero the constrained residual entries (dirichlet_impl.cu:16-21)."""
+    return torch.where(mask, torch.zeros((), dtype=f.dtype, device=f.device), f)
+
+
+def apply_mat(mask: torch.Tensor, mat: BSRMatrix) -> BSRMatrix:
+    """Zero the constrained rows, unit diagonal (dirichlet.c:47-61)."""
+    return mat.zero_rows(mask, unit_diag=True)

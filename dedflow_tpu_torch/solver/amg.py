@@ -119,7 +119,7 @@ class AMGIndices:
     ecs: tuple  # coarse entries per non-coarsest level
 
     @staticmethod
-    def from_plan(plans: tuple, device="cpu") -> "AMGIndices":
+    def from_plan(plans: tuple, device) -> "AMGIndices":
         as_t = lambda a, dt=torch.long: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
         coarse = [p for p in plans if p.f2c_perm is not None]
         return AMGIndices(

@@ -1,4 +1,5 @@
-"""Right-preconditioned GMRES (counterpart of dedflow_tpu/solver/krylov.py::gmres).
+"""Right-preconditioned GMRES and preconditioned CG (counterpart of
+dedflow_tpu/solver/krylov.py::gmres and ::cg).
 
 Same algorithm as the JAX package, so float64 iterates agree to roundoff
 and the iteration count is the same: Krylov dimension = maxit (or GMRES(m)
@@ -13,6 +14,12 @@ block's residual estimates once and takes the first converged iteration.
 Steps run past convergence inside a block change nothing the solution
 reads (columns and basis rows beyond it are never used). One solve makes
 1 + ceil(iters / 8) host syncs, plus one per restart cycle with `restart`.
+
+`cg` runs the JAX package's iterates and stopping test in blocks of
+_CG_BLOCK iterations between host syncs (1 + ceil(iters / 8) a solve): an
+iteration of a block that starts after convergence leaves x, r, p and rz
+as they were (a torch.where on a device flag), so the iteration count is
+the JAX loop's exactly.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Callable
 import torch
 
 _CGS_B = 8  # Gram-Schmidt block size (basis rows per block)
+_CG_BLOCK = 8  # CG iterations between host syncs
 
 
 @dataclass
@@ -179,3 +187,54 @@ def _gmres_restarted(matvec, b, x0, *, maxit, atol, rtol, pc, m) -> KrylovInfo:
         total += sol.iters
         done = bool(rnrm < tol)
     return KrylovInfo(x=x, iters=total, resnorm=rnrm, resnorm0=beta0, converged=done)
+
+
+def cg(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    *,
+    maxit: int = 1000,
+    atol: float = 1e-12,
+    rtol: float = 1e-8,
+    pc: Callable | None = None,
+) -> KrylovInfo:
+    """Preconditioned conjugate gradients for SPD operators (the reference
+    declares CG but never implements it, krylov.c:42-51). Stops once
+    ||r|| < max(atol, rtol * ||r0||) or after `maxit` iterations."""
+    if pc is None:
+        pc = lambda v: v
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    dot = lambda u, v: torch.dot(u.reshape(-1), v.reshape(-1))
+    x = x0
+    r = b - matvec(x0)
+    z = pc(r)
+    p = z
+    rz = dot(r, z)
+    rnrm0 = torch.linalg.vector_norm(r.reshape(-1))
+    tol = torch.clamp(rnrm0 * rtol, min=atol)
+    rnrm = rnrm0
+    iters = torch.zeros((), dtype=torch.int64, device=b.device)
+    done = 0
+    while done < maxit and bool(rnrm >= tol):  # one host sync per block
+        block = min(_CG_BLOCK, maxit - done)
+        for _ in range(block):
+            active = rnrm >= tol
+            ap = matvec(p)
+            alpha = rz / dot(p, ap)
+            x_new = x + alpha * p
+            r_new = r - alpha * ap
+            z = pc(r_new)
+            rz_new = dot(r_new, z)
+            p_new = z + (rz_new / rz) * p
+            x = torch.where(active, x_new, x)
+            r = torch.where(active, r_new, r)
+            p = torch.where(active, p_new, p)
+            rz = torch.where(active, rz_new, rz)
+            rnrm = torch.where(active, torch.linalg.vector_norm(r_new.reshape(-1)), rnrm)
+            iters = iters + active
+        done += block
+    return KrylovInfo(
+        x=x, iters=int(iters), resnorm=rnrm, resnorm0=rnrm0, converged=bool(rnrm < tol)
+    )

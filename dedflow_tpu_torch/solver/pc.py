@@ -1,5 +1,11 @@
-"""Preconditioners on component-major (6, N) vectors (counterpart of
-dedflow_tpu/solver/pc.py).
+"""Preconditioners (counterpart of dedflow_tpu/solver/pc.py).
+
+- identity_pc, JacobiPC (pointwise inverse diagonal) and BlockJacobiPC
+  (inverses of bs x bs diagonal blocks, closed form for 3 x 3): the
+  reference's PCNone / PCJacobi (pc.c:23-114), on vectors of any shape;
+  the scalar heat / Poisson slice's preconditioners (fem.heat).
+
+On component-major (6, N) vectors:
 
 - NSFieldSplitPCT: the reference's hard-coded decomposition
   (krylov.c:440-452): block-Jacobi 3x3 on velocity, Jacobi on pressure,
@@ -22,7 +28,42 @@ from dataclasses import dataclass
 
 import torch
 
+from dedflow_tpu_torch.fem.element import inv3x3
 from dedflow_tpu_torch.sparse.fsbsr import PHIPHI, PP, TT
+
+
+def identity_pc(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+@dataclass
+class JacobiPC:
+    """Pointwise inverse-diagonal (reference PCJacobi bs=1, pc.c:58-60)."""
+
+    inv_diag: torch.Tensor  # same shape as the vectors it applies to
+
+    @staticmethod
+    def from_diag(diag: torch.Tensor) -> "JacobiPC":
+        return JacobiPC(inv_diag=1.0 / diag)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.inv_diag
+
+
+@dataclass
+class BlockJacobiPC:
+    """Inverse of bs x bs diagonal blocks (reference PCJacobi bs>1,
+    pc.c:44-114): closed-form 3 x 3 inverses, torch.linalg.inv otherwise."""
+
+    inv_blocks: torch.Tensor  # (N, bs, bs)
+
+    @staticmethod
+    def from_blocks(blocks: torch.Tensor) -> "BlockJacobiPC":
+        inv = inv3x3(blocks)[0] if blocks.shape[-1] == 3 else torch.linalg.inv(blocks)
+        return BlockJacobiPC(inv_blocks=inv)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("nij,nj->ni", self.inv_blocks, x)
 
 
 @dataclass

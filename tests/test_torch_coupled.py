@@ -272,9 +272,9 @@ def test_coupled_step_matches_jax(coupled, use_grid, num_newton):
         assert tstats is None and jstats is None
 
 
-def test_cli_runs_the_coupled_scenario(capsys):
+def test_cli_runs_the_coupled_scenario(capsys, tmp_path):
     rc = tmain.main(["--scenario", "coupled", "--box", "4", "3", "3", "--particles", "64",
-                     "--steps", "1", "--device", "cpu"])
+                     "--steps", "1", "--device", "cpu", "--out", str(tmp_path)])
     assert rc == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["scenario"] == "coupled" and rec["fastpath"] == "lattice"

@@ -411,8 +411,9 @@ def test_win_assembly_through_k10_equals_the_index_gather(rcm_delaunay, dtype):
     assert twg.win_gather.launches == before  # CPU tensors: the plain version
 
 
-def test_cli_chunk_runs_the_gather_tier(capsys):
-    rc = tmain.main(["--box", "3", "3", "3", "--steps", "1", "--device", "cpu", "--chunk", "40"])
+def test_cli_chunk_runs_the_gather_tier(capsys, tmp_path):
+    rc = tmain.main(["--box", "3", "3", "3", "--steps", "1", "--device", "cpu", "--chunk", "40",
+                     "--out", str(tmp_path)])
     assert rc == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["fastpath"] == "gather" and all(np.isfinite(rec["field_norms"]))

@@ -48,7 +48,11 @@ two-pass entries, called directly and routed to on a context without a
 grid; the one-pass K1c equals the two-pass one and, on the Kuhn box's own
 table, the ticketed K1 bit for bit, and fails loudly on a corrupt ticket
 workspace as K1 does; K3 with 27 planes matches its plain version in
-float32 and float64.
+float32 and float64. The scalar heat / Poisson slice (fem.heat): K8 and
+K9 in their one-row mode on its plans match their plain versions and the
+plan-order sums bit for bit, and Jacobi-preconditioned CG on the card
+repeats its count and iterate bit for bit and agrees with the CPU's
+float64 solve.
 """
 
 import dataclasses
@@ -97,7 +101,11 @@ from dedflow_tpu_torch.sparse.win_kernels import (
     winell_matvec_f64,
     winell_matvec_plain,
 )
-from dedflow_tpu_torch.fem.assembly import build_context
+from dedflow_tpu_torch.fem import heat
+from dedflow_tpu_torch.fem.assembly import build_context, scatter_matrix, scatter_residual
+from dedflow_tpu_torch.fem.dirichlet import StrongBC, apply_mat, apply_vec, build_mask
+from dedflow_tpu_torch.solver.krylov import cg
+from dedflow_tpu_torch.solver.pc import JacobiPC
 from dedflow_tpu_torch.sparse.win_ring import (
     ring_reduce,
     ring_reduce_plain,
@@ -1279,3 +1287,67 @@ def test_k3_wide_matches_plain(dtype, tol):
     ref = dia_matvec_plain(data, scal, x, offs)
     for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):
         assert rel(got[rows], ref[rows]) < tol, rows
+
+
+# ---------------------------------------------------------------------------
+# the scalar heat / Poisson slice: K8 / K9 with one output row
+
+
+def _poisson_system(mesh, device, dtype):
+    """-lap(u) = 3 pi^2 sin(pi x) sin(pi y) sin(pi z), u = 0 on all faces:
+    (K, b) with the constrained rows applied, and the context."""
+    ctx = build_context(mesh, device=device, dtype=dtype, scalar_plans=True)
+    x, y, z = mesh.xg.T
+    f = 3 * np.pi**2 * np.sin(np.pi * x) * np.sin(np.pi * y) * np.sin(np.pi * z)
+    k, b = heat.assemble_poisson(ctx, torch.as_tensor(f, dtype=dtype, device=device))
+    mask = torch.as_tensor(build_mask(mesh, [StrongBC(i, (0,)) for i in range(6)], 1),
+                           device=device)
+    return apply_mat(mask, k), apply_vec(mask[:, 0], b), ctx
+
+
+@pytest.fixture(scope="module")
+def poisson():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    mesh = box_mesh(9, 8, 7)
+    return mesh, _poisson_system(mesh, "cuda", torch.float32)
+
+
+def test_k8_k9_one_row_match_plain(poisson):
+    """The heat scatters' one-row K8 / K9 on the Poisson plans: two runs
+    bit-identical, within 1e-5 of the plain version, equal to the
+    plan-order sum bit for bit; the scatters themselves through them."""
+    mesh, (_, _, ctx) = poisson
+    rng = np.random.default_rng(31)
+    m = ctx.num_elem
+    for plan, slots, kern, plain in ((ctx.scalar_res_plan, 4, stream_reduce, stream_reduce_plain),
+                                     (ctx.scalar_jac_plan, 16, ring_reduce, ring_reduce_plain)):
+        x = torch.as_tensor(rng.standard_normal((1, slots * m)), dtype=torch.float32,
+                            device="cuda")
+        got = _twice(lambda: kern(plan, x), kern)
+        assert rel(got, plain(plan, x)) < 1e-5
+        assert torch.equal(got, _plan_order_sum(plan, x, (0,), slots * m))
+    ef = torch.as_tensor(rng.standard_normal((m, 4)), dtype=torch.float32, device="cuda")
+    ej = torch.as_tensor(rng.standard_normal((m, 4, 4, 1, 1)), dtype=torch.float32,
+                         device="cuda")
+    before = (stream_reduce.launches, ring_reduce.launches)
+    f, data = scatter_residual(ctx, ef), scatter_matrix(ctx, ej)
+    assert (stream_reduce.launches, ring_reduce.launches) == (before[0] + 1, before[1] + 1)
+    assert rel(f, stream_reduce_plain(ctx.scalar_res_plan, ef.T.reshape(1, -1))[0]) < 1e-5
+    assert data.shape == (ctx.win_plan.S, 1, 1)
+
+
+def test_cg_on_card_repeats_and_matches_cpu_f64(poisson):
+    """Jacobi CG at rtol 1e-6 in float32: the same count and iterate bit for
+    bit on a second run (deterministic sums), and the solution within
+    1e-4 of the CPU's float64 solve."""
+    mesh, (k, b, _) = poisson
+    pc = JacobiPC.from_diag(k.diag_blocks()[:, 0, 0])
+    solve = lambda: cg(lambda v: k.matvec(v[:, None])[:, 0], b, maxit=500, atol=0.0,
+                       rtol=1e-6, pc=pc)
+    one, two = solve(), solve()
+    assert one.converged and one.iters == two.iters and torch.equal(one.x, two.x)
+    k64, b64, _ = _poisson_system(mesh, "cpu", torch.float64)
+    ref = cg(lambda v: k64.matvec(v[:, None])[:, 0], b64, maxit=500, atol=0.0, rtol=1e-10,
+             pc=JacobiPC.from_diag(k64.diag_blocks()[:, 0, 0]))
+    assert ref.converged and rel(one.x, ref.x) < 1e-4

@@ -431,10 +431,11 @@ def test_cpu_tensors_count_no_kernel_launch(lattice, delaunay):
      ["--scenario", "cavity", "--steps", "1"]],
     ids=["melt-pool", "melt-pool-fixed-newton", "cavity"],
 )
-def test_cli_scenarios(capsys, argv):
+def test_cli_scenarios(capsys, tmp_path, argv):
     """One JSON line a step; the laser heats the melt pool (t_max > 0) and
     the cavity's lid drives a flow (Krylov iterations, nonzero norms)."""
-    assert tmain.main(["--box", "4", "3", "3", "--device", "cpu", *argv]) == 0
+    assert tmain.main(["--box", "4", "3", "3", "--device", "cpu", "--out", str(tmp_path),
+                       *argv]) == 0
     recs = [json.loads(ln) for ln in capsys.readouterr().out.strip().splitlines()]
     assert len(recs) == int(argv[argv.index("--steps") + 1])
     for rec in recs:

@@ -221,8 +221,8 @@ def test_mesh_files_cross_between_the_packages(tmp_path, writer):
 # the CLI
 
 
-def _cli(capsys, argv):
-    rc = tmain.main(argv + ["--steps", "1", "--device", "cpu", "--dtype", "f64"])
+def _cli(capsys, argv, out):
+    rc = tmain.main(argv + ["--steps", "1", "--device", "cpu", "--dtype", "f64", "--out", str(out)])
     out = capsys.readouterr()
     recs = [json.loads(ln) for ln in out.out.splitlines() if ln.startswith("{")]
     return rc, recs, out.err
@@ -235,7 +235,7 @@ def test_cli_mesh_file_steps_on_the_recovered_lattice(tmp_path, capsys):
     path = str(tmp_path / "shuffled.h5")
     write_mesh_h5(path, _jax_mesh(tgen.shuffled_mesh(tgen.box_mesh(3, 2, 2), seed=7,
                                                      mirror=True)))
-    rc, recs, err = _cli(capsys, ["--mesh", path])
+    rc, recs, err = _cli(capsys, ["--mesh", path], tmp_path)
     assert rc == 0 and len(recs) == 1
     assert recs[0]["fastpath"] == "lattice" and all(np.isfinite(recs[0]["field_norms"]))
     assert "36 nodes, 72 tets" in err and "recovered 3x2x2 lattice (6 tets/cell)" in err
@@ -247,9 +247,9 @@ def test_cli_no_lattice_recover_runs_the_classes_tier(tmp_path, capsys):
 
     path = str(tmp_path / "box.h5")
     write_mesh_h5(path, box_mesh(3, 2, 2))  # the file carries no lattice metadata
-    rc, recs, err = _cli(capsys, ["--mesh", path, "--no-lattice-recover"])
+    rc, recs, err = _cli(capsys, ["--mesh", path, "--no-lattice-recover"], tmp_path)
     assert rc == 0 and recs[0]["fastpath"] == "classes" and "recovered" not in err
-    rc, recs, err = _cli(capsys, ["--mesh", path])
+    rc, recs, err = _cli(capsys, ["--mesh", path], tmp_path)
     assert rc == 0 and recs[0]["fastpath"] == "lattice" and "recovered 3x2x2" in err
 
 
@@ -267,5 +267,5 @@ def test_cli_runs_the_coupled_scenario_on_generated_boxes_only(tmp_path, capsys)
 
     path = str(tmp_path / "box.h5")
     write_mesh_h5(path, box_mesh(2, 2, 2))
-    rc, recs, err = _cli(capsys, ["--mesh", path, "--scenario", "coupled"])
+    rc, recs, err = _cli(capsys, ["--mesh", path, "--scenario", "coupled"], tmp_path)
     assert rc == 2 and recs == [] and "generated boxes only" in err

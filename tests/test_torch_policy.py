@@ -77,7 +77,9 @@ def test_fresh_interpreter_import_leaves_jax_out():
         "dedflow_tpu_torch.dem.grid, dedflow_tpu_torch.interop, "
         "dedflow_tpu_torch.tools.gmicro, dedflow_tpu_torch.tools.gather_probe, "
         "dedflow_tpu_torch.fem.ns, dedflow_tpu_torch.app.kernel_ab, chip_smoke, "
-        "dedflow_tpu_torch.mesh.recover, dedflow_tpu_torch.io.h5\n"
+        "dedflow_tpu_torch.mesh.recover, dedflow_tpu_torch.io.h5, dedflow_tpu_torch.fem.heat, "
+        "dedflow_tpu_torch.utils.log, dedflow_tpu_torch.utils.profiling, "
+        "dedflow_tpu_torch.dem.particles\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dedflow_tpu', 'h5py')]\n"
         "assert not bad, bad\n"
     )
@@ -137,9 +139,12 @@ def _small_mesh_and_sparsity():
         lambda: build_winell_plan([0, 1], [0], 1),
         lambda: _build_win_context(*_small_mesh_and_sparsity()),
         lambda: _build_context(*_small_mesh_and_sparsity()),
+        lambda: _bsr_zeros(_small_mesh_and_sparsity()[1]),
+        lambda: _particles_from_datasets(),
     ],
     ids=["state_from_numpy", "dia_from_numpy", "particles_from_numpy", "grid_state_from_numpy",
-         "build_reduce_plan", "build_winell_plan", "build_win_context", "build_context"],
+         "build_reduce_plan", "build_winell_plan", "build_win_context", "build_context",
+         "bsr_zeros", "particles_from_datasets"],
 )
 def test_constructors_default_to_the_card(monkeypatch, make):
     """The public constructors and converters put their tensors on the card
@@ -160,6 +165,47 @@ def _build_context(mesh, sparsity):
     from dedflow_tpu_torch.fem.assembly import build_context
 
     return build_context(mesh, sparsity)
+
+
+def _bsr_zeros(sparsity):
+    from dedflow_tpu_torch.sparse.bsr import bsr_zeros
+
+    return bsr_zeros(sparsity, 1, 1)
+
+
+def _particles_from_datasets():
+    from dedflow_tpu_torch.dem.particles import particles_from_datasets
+
+    return particles_from_datasets({"coord": [0.5] * 3, "vel": [0.0] * 3, "acc": [0.0] * 3})
+
+
+def _device_defaults(path: Path):
+    """(function, default) of each function argument named `device` with a
+    default in a port source."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, (ast.FunctionDef, ast.Lambda)):
+            args = node.args
+            pos = args.posonlyargs + args.args
+            pairs = list(zip(pos[len(pos) - len(args.defaults):], args.defaults))
+            pairs += [(a, d) for a, d in zip(args.kwonlyargs, args.kw_defaults) if d is not None]
+            for a, d in pairs:
+                if a.arg == "device" and isinstance(d, ast.Constant):
+                    yield getattr(node, "name", "<lambda>"), d.value
+
+
+def test_no_port_function_defaults_to_the_cpu():
+    """Every port function that takes a device defaults to the card or
+    requires it (AMGIndices.from_plan, the last one that defaulted to the
+    CPU, requires it)."""
+    import inspect
+
+    from dedflow_tpu_torch.solver.amg import AMGIndices
+
+    assert inspect.signature(AMGIndices.from_plan).parameters["device"].default is (
+        inspect.Parameter.empty)
+    found = {(p.name, fn): d for p in PORT_FILES if p.name != "chip_smoke.py"
+             for fn, d in _device_defaults(p)}
+    assert found and not {k: d for k, d in found.items() if d != "cuda"}
 
 
 def test_multi_device_options_raise_a16():

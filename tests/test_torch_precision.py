@@ -217,7 +217,7 @@ def test_step_from_f32_state_matches_jax(precision, rtol):
     assert max(tstats.linear_rels) <= 1e-10 and max(lrels) <= 1e-10
 
 
-def test_cli_precision_ir_runs_a_float32_state(monkeypatch, capsys):
+def test_cli_precision_ir_runs_a_float32_state(monkeypatch, capsys, tmp_path):
     seen = []
 
     class Recorder(tnt.NSSolver):
@@ -227,6 +227,6 @@ def test_cli_precision_ir_runs_a_float32_state(monkeypatch, capsys):
 
     monkeypatch.setattr(tmain, "NSSolver", Recorder)
     assert tmain.main(["--box", "3", "2", "2", "--steps", "1", "--device", "cpu",
-                       "--precision", "ir"]) == 0
+                       "--precision", "ir", "--out", str(tmp_path)]) == 0
     assert seen == [(torch.float32, "ir")]
     assert '"fastpath": "lattice"' in capsys.readouterr().out

@@ -306,8 +306,9 @@ def test_step_and_step_fixed_match_jax(case):
     assert tstats.krylov_iters == kits and tstats.converged == conv
 
 
-def test_cli_takes_pc(capsys):
-    rc = tmain.main(["--box", "3", "2", "2", "--steps", "1", "--device", "cpu", "--pc", "mg"])
+def test_cli_takes_pc(capsys, tmp_path):
+    rc = tmain.main(["--box", "3", "2", "2", "--steps", "1", "--device", "cpu", "--pc", "mg",
+                     "--out", str(tmp_path)])
     assert rc == 0
     rec = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
     assert len(rec) == 1 and '"fastpath": "lattice"' in rec[0]

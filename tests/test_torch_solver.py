@@ -120,8 +120,9 @@ def test_step_matches_jax(solvers):
     assert rel(np.stack(tstats.rnorms), np.stack(rstats.rnorms)) < 1e-8
 
 
-def test_cli_prints_one_json_line_per_step(capsys):
-    rc = tmain.main(["--box", *map(str, BOX), "--steps", "1", "--device", "cpu", "--dtype", "f64"])
+def test_cli_prints_one_json_line_per_step(capsys, tmp_path):
+    rc = tmain.main(["--box", *map(str, BOX), "--steps", "1", "--device", "cpu", "--dtype", "f64",
+                     "--out", str(tmp_path)])
     assert rc == 0
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
     assert len(lines) == 1
@@ -143,7 +144,8 @@ def test_cli_runs_num_steps_unless_steps_is_given(capsys, tmp_path, steps, expec
 
     cfg = tmp_path / "cfg.json"
     save_config(dataclasses.replace(t_reference(), num_steps=3), str(cfg))
-    argv = ["--box", "3", "3", "3", "--device", "cpu", "--dtype", "f64", "--config", str(cfg)]
+    argv = ["--box", "3", "3", "3", "--device", "cpu", "--dtype", "f64", "--config", str(cfg),
+            "--out", str(tmp_path)]
     assert tmain.main(argv + (["--steps", steps] if steps else [])) == 0
     recs = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.strip()]
     assert [r["step"] for r in recs] == list(range(1, expected + 1))

@@ -218,7 +218,7 @@ def test_cli_config_reaches_the_winell_tier(tmp_path, capsys):
     path = tmp_path / "cfg.json"
     tconfig.save_config(treference_config(use_lattice="winell"), str(path))
     rc = tmain.main(["--box", "3", "3", "3", "--steps", "1", "--device", "cpu",
-                     "--config", str(path)])
+                     "--config", str(path), "--out", str(tmp_path)])
     assert rc == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["fastpath"] == "winell" and all(np.isfinite(rec["field_norms"]))
