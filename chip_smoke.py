@@ -3294,7 +3294,9 @@ def poisson_solve(system, method: str, rtol: float = HEAT_RTOL):
 def heat_kernel_records(ctx) -> list:
     """K8 and K9 with one output row on the box-55 Poisson plans (seeded
     element values), against their plain versions, timed, with bounds and
-    an index_add."""
+    an index_add; each must beat its index_add (the one-pass entry of
+    csrc/seg_reduce.cu exists to: index_add's float32 atomics would not
+    repeat bit for bit)."""
     import numpy as np
     import torch
 
@@ -3311,18 +3313,36 @@ def heat_kernel_records(ctx) -> list:
         kcall, pcall = (lambda f=kern, p=plan: f(p, x)), (lambda f=plain, p=plan: f(p, x))
         say(f"  {label}: {plan.src.numel()} contributions into {plan.num_tgt} targets")
         err = compare(label, kcall, pcall, tol)
-        recs.append(finish(label, {"max_abs_err": err}, kcall, pcall, 20, 5,
-                           reduce_bytes(plan, (0,), 1), op_count(pcall),
-                           library=(index_add_call(plan, x, (0,), m), kcall())))
+        rec = finish(label, {"max_abs_err": err}, kcall, pcall, 20, 5,
+                     reduce_bytes(plan, (0,), 1), op_count(pcall),
+                     library=(index_add_call(plan, x, (0,), m), kcall()))
+        if not rec["ms"] < rec["library_ms"]:
+            raise PhaseError(f"{label}: {rec['ms']:.4f} ms, not faster than index_add's "
+                             f"{rec['library_ms']:.4f} ms")
+        recs.append(rec)
     return recs
+
+
+def peak_bytes(fn) -> int:
+    """Device bytes one call allocates at its peak, above what was
+    allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
 
 
 def phase_heat() -> tuple[list, dict]:
     """Phase 22: K8 / K9 one-row on the box-55 Poisson plans; the box-12
     slice (card float32 CG against the CPU's float64 solve); then box 15
-    and box 55 (the main path, launch counts read around it): assembly ms,
-    CG and GMRES(120) iterations, solve s and the L2 error against the
-    exact solution, each solve repeated with its count."""
+    and box 55 (the main path, launch counts read around it): assembly ms
+    and peak device memory, CG and GMRES(120) iterations, solve s and the
+    L2 error against the exact solution, each solve repeated with its
+    count."""
     import numpy as np
     import torch
 
@@ -3383,8 +3403,10 @@ def phase_heat() -> tuple[list, dict]:
             if min(launches) <= 0:
                 raise PhaseError(f"heat: a kernel of the path was not launched: {launches}")
         cell["assembly_ms"] = time_ms(assemble, 5)
+        cell["assembly_peak_bytes"] = peak_bytes(assemble)
         say(f"  box {box}: set-up {setup_s:.2f} s, assembly (K, b, Dirichlet rows) "
-            f"{cell['assembly_ms']:.3f} ms")
+            f"{cell['assembly_ms']:.3f} ms, peak {cell['assembly_peak_bytes'] / 1e6:.1f} MB "
+            f"above the context")
         summary[f"box {box[0]}"] = cell
         if main_box:
             recs = heat_kernel_records(ctx)

@@ -30,13 +30,20 @@ the checkout runs inside them) on the translation-class contexts of
 chip_smoke.py's phase 20: box 55 deformed (the classes tier) and
 shuffled, mirrored and recovered (the lattice tier with another split),
 frozen, and K2c implicit on the deformed melt box 44 (about 15 s of host
-set-up on top). A kernel whose
+set-up on top); with `--heat` the heat / Poisson slice at box 55
+(chip_smoke.py's phase 22): the one-row K8 and K9 as the slice calls them
+(`fem.assembly.scatter_residual` / `scatter_matrix` on seeded (ne, 4) and
+(ne, 4, 4, 1, 1) element arrays, whatever each checkout runs inside
+them), `torch.index_add` over the same contributions in the same sorted
+order as the library yardstick (float32 atomics: its digest varies from
+run to run), and one `fem.heat.assemble_poisson`, each also with the
+peak device memory one call allocates (`<name>_peak_bytes`). A kernel whose
 wrapper returns several tensors (K11's three forces, K2's data and scal)
 is timed as the wrapper call, and its digest is of the tensors flattened
 and concatenated.
 
     python dedflow_tpu_torch/app/kernel_ab.py --root CHECKOUT [--reps 5] [--reduces] [--dem]
-        [--implicit] [--elements] [--jpath] [--rpath] [--classes]
+        [--implicit] [--elements] [--jpath] [--rpath] [--classes] [--heat]
 
 Two checkouts (say a parent commit unpacked beside the working tree) are
 compared on one card by running this once per checkout, in turns: parent,
@@ -331,6 +338,61 @@ def _class_kernels():
     return out
 
 
+def _heat_kernels():
+    """{name: (call, reps)} of the heat / Poisson slice at box_mesh(55, 55,
+    55) (chip_smoke.py's phase 22): the scalar scatters as assemble_poisson
+    calls them on seeded element arrays, index_add over the same sorted
+    contributions, and assemble_poisson with the phase's source."""
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.fem.assembly import build_context, scatter_matrix, scatter_residual
+    from dedflow_tpu_torch.fem.heat import assemble_poisson
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.sparse.topology import build_sparsity
+
+    mesh = box_mesh(55, 55, 55)
+    ctx = build_context(mesh, device="cuda", dtype=torch.float32, scalar_plans=True)
+    ne, n = ctx.num_elem, mesh.num_node
+    rng = np.random.default_rng(0)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    ef = as_t(rng.standard_normal((ne, 4)))
+    ej = as_t(rng.standard_normal((ne, 4, 4, 1, 1)))
+    x, y, z = mesh.xg.T
+    f = as_t(3 * np.pi**2 * np.sin(np.pi * x) * np.sin(np.pi * y) * np.sin(np.pi * z))
+
+    def index_add(targets, values, num_tgt):
+        """torch.index_add of the contributions sorted stably by target:
+        the plans' order."""
+        flat = torch.as_tensor(np.asarray(targets).reshape(-1), dtype=torch.long, device="cuda")
+        perm = torch.argsort(flat, stable=True)
+        tgt, vals = flat[perm], values.reshape(-1)[perm]
+        zeros = torch.zeros(num_tgt, dtype=torch.float32, device="cuda")
+        return lambda: torch.index_add(zeros, 0, tgt, vals)
+
+    nnz = build_sparsity(mesh.ien, n).elem_nnz
+    return {
+        "K8_heat": (lambda: scatter_residual(ctx, ef), 20),
+        "K8_heat_index_add": (index_add(mesh.ien, ef, n), 20),
+        "K9_heat": (lambda: scatter_matrix(ctx, ej), 20),
+        "K9_heat_index_add": (index_add(nnz, ej, ctx.win_plan.S), 20),
+        "assemble_poisson": (lambda: (lambda k, b: (k.data, b))(*assemble_poisson(ctx, f)), 10),
+    }
+
+
+def _peak_bytes(fn) -> int:
+    """Device bytes one call allocates at its peak, above what was
+    allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
 def _element_kernels(mesh, lctx, wa, wa_t, phys, scheme):
     """{name: (call, reps)} of K6's Jacobian rows (27-row frozen, 33-row
     implicit: the lattice inputs with the metric rows of res_geom) at the
@@ -381,6 +443,9 @@ def main(argv=None) -> int:
     p.add_argument("--rpath", action="store_true",
                    help="also K1 at box 44 with the melt source and the gather and WinELL "
                         "tiers' volume residuals on delaunay_mesh(56**3)")
+    p.add_argument("--heat", action="store_true",
+                   help="also the heat / Poisson slice at box 55: the one-row K8 / K9 as "
+                        "assemble_poisson calls them, index_add, assemble_poisson, peak memory")
     args = p.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -434,10 +499,14 @@ def main(argv=None) -> int:
         kernels.update(_element_kernels(mesh, lctx, wa, wa_t, phys, scheme))
     if args.classes:
         kernels.update(_class_kernels())
+    heat = _heat_kernels() if args.heat else {}
+    kernels.update(heat)
     timing = _timing()
     out = {"root": str(root)}
     for name, (fn, n) in kernels.items():
         out[f"{name}_ms"] = timing.time_ms(fn, n, samples=args.reps)
+        if name in heat:
+            out[f"{name}_peak_bytes"] = _peak_bytes(fn)
         got = fn()
         if isinstance(got, (list, tuple)):
             got = torch.cat([g.reshape(-1) for g in got])

@@ -18,8 +18,10 @@
 // targets, column-sorted windows, double-buffered source slabs, rings of
 // partial sums and bf16-split one-hot MXU reductions. None of that carries
 // over. Each wrapper (stream_reduce, ring_reduce) launches its own
-// instantiation and keeps its own launch counter; one counted launch is the
-// two device kernels below, back to back on the caller's stream.
+// instantiation and keeps its own launch counter; one counted launch with
+// C > 1 is the two device kernels below (stage_kernel, segment_sum_kernel),
+// back to back on the caller's stream, and with C = 1 the one pass of
+// gather_sum_kernel (the last section of this header).
 //
 // What bounds a single pass on an H100: sectors. A pass that walks each
 // target's contributions in plan order reads, per contribution, C floats that
@@ -32,7 +34,7 @@
 // catches nothing, 7.36 ms. No other thread mapping of that one pass changes
 // the sector count.
 //
-// Design: two passes, no atomics.
+// Design for C > 1: two passes, no atomics.
 // 1. Stage (stage_kernel): one thread a contribution, in ascending source
 //    order (the plan's stage_src, with stage_pos its plan position). Thread i
 //    reads x[stage_src[i] + comps[r] * cstride] for r < C: consecutive threads
@@ -75,6 +77,40 @@
 // each contribution's 6 rows into a (K, 8) buffer, and K8's wrapper
 // stream_reduce_staged runs the segment sum alone over it: 0.072 ms at
 // 1.18M tets against K8's 0.218 with its staging pass, bit-equal.
+//
+// One output row (the scalar heat / Poisson scatters, fem/assembly.py): no
+// staging. With C = 1 a staged contribution is one float and seven zeros in
+// a 32-byte row, so the two passes above move about 1.2 GB for K9's
+// 15,972,000 contributions at box 55 against 148 MB of function (0.82 ms,
+// 5.4x index_add's 0.15). gather_sum_kernel is one pass instead:
+//
+//     y[t] = sum over k in [ptr[t], ptr[t+1]) of x[src[k]],   k ascending
+//
+// A block owns kGatherThreads consecutive targets, one thread each, so its
+// plan range [ptr[t0], ptr[t0 + 256]) is contiguous. In rounds of up to
+// kGatherTile contributions the block loads src coalesced (streaming, so
+// that src does not push x out of the L2), gathers x[src[k]] with
+// kGatherAhead loads in flight per thread into shared memory in plan
+// order, and then each thread adds the part of its own slice that the
+// round holds, k ascending, carrying its sum from round to round. A slice
+// longer than the tile, or a block whose slices together are, simply spans
+// several rounds: one route for every plan, and all 256 threads gather a
+// long slice's values. The additions are those of the staged kernels in
+// the same order (acc from 0.f, one float added a step; no warp tree), so
+// the result equals theirs bit for bit and repeats from run to run.
+// Shared-memory slot i lies at i + i/32: a thread's slice starts where its
+// neighbour's ends (about 24 floats on for K8, 6 for K9), and the padding
+// spreads those strides over the banks.
+// What bounds it: bytes, src and x read once each (64 + 64 MB for K9 at
+// box 55) plus ptr and y: 148 MB, 0.044 ms at 3.35 TB/s; K8 33 MB. The
+// scalar plans' sources are the flat (e, slot) indices of the element
+// arrays as they lie (JAX's node_perm / mat_perm), so an element's 4 or 16
+// values share one or two sectors, and the targets of one block read
+// neighbouring elements: the L2 serves most of the gathers. On an NVIDIA
+// H100 80GB HBM3 (700 W) at box 55, as the heat scatters call it
+// (app/kernel_ab.py --heat, in turns with the staged route): K8 0.0170 ms
+// (the staged route and its copy 0.1746; index_add 0.067), K9 0.0838 (1.166;
+// index_add 0.152), bit-equal; the Poisson assembly 4.1-4.2 -> 2.8-2.9 ms.
 
 #include <cuda_runtime.h>
 
@@ -181,6 +217,51 @@ int launch_width(const float* x, long long cstride, const int* ptr, const int* s
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kGatherThreads = 256;  // targets a block, one thread each
+constexpr int kGatherTile = 8192;    // contributions a block holds in shared memory a round
+constexpr int kGatherAhead = 8;      // gathers a thread has in flight
+
+__host__ __device__ constexpr int tile_slot(int i) { return i + (i >> 5); }  // bank spread
+
+__global__ void __launch_bounds__(kGatherThreads)
+gather_sum_kernel(const float* __restrict__ x,  // the source row, x[src[k]]
+                  const int* __restrict__ ptr,  // (num_tgt + 1,)
+                  const int* __restrict__ src,  // (num_contrib,) in plan order
+                  float* __restrict__ y,        // (num_tgt,)
+                  int num_tgt) {
+  __shared__ float tile[tile_slot(kGatherTile)];
+  const int t0 = blockIdx.x * kGatherThreads;
+  const int t = t0 + threadIdx.x;
+  const int k0 = ptr[t0], k1 = ptr[min(t0 + kGatherThreads, num_tgt)];
+  const int lo = t < num_tgt ? ptr[t] : 0, hi = t < num_tgt ? ptr[t + 1] : 0;
+  float acc = 0.f;
+  for (int c0 = k0; c0 < k1; c0 += kGatherTile) {
+    const int n = min(kGatherTile, k1 - c0);
+    for (int base = threadIdx.x; base < n; base += kGatherThreads * kGatherAhead) {
+      int s[kGatherAhead];
+      float v[kGatherAhead];
+#pragma unroll
+      for (int u = 0; u < kGatherAhead; ++u) {
+        const int i = base + u * kGatherThreads;
+        s[u] = i < n ? __ldcs(src + c0 + i) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kGatherAhead; ++u)
+        v[u] = s[u] >= 0 ? __ldg(x + static_cast<size_t>(s[u])) : 0.f;
+#pragma unroll
+      for (int u = 0; u < kGatherAhead; ++u) {
+        const int i = base + u * kGatherThreads;
+        if (i < n) tile[tile_slot(i)] = v[u];
+      }
+    }
+    __syncthreads();
+    const int end = min(hi, c0 + n);
+    for (int k = max(lo, c0); k < end; ++k) acc += tile[tile_slot(k - c0)];  // k ascending
+    __syncthreads();  // the next round overwrites the tile
+  }
+  if (t < num_tgt) y[t] = acc;
+}
+
 template <int MAXC>
 int launch(const void* x, long long cstride, const void* ptr, const void* stage_src,
            const void* stage_pos, int num_contrib, const int* comps, int num_rows,
@@ -243,4 +324,18 @@ extern "C" int dedflow_segment_sum(const void* stage, int width, const void* ptr
   if (width == 8) return launch_sum<8>(st, pt, num_rows, out, num_tgt, s);
   if (width == 16) return launch_sum<16>(st, pt, num_rows, out, num_tgt, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K8 and K9 with one output row, one pass with no staging buffer:
+// y[t] = sum over k in [ptr[t], ptr[t+1]) of x[src[k]] in plan order, over
+// the plan (ptr, src: int32; x, y: float32; num_tgt >= 1).
+extern "C" int dedflow_gather_sum(const void* x, const void* ptr, const void* src, void* y,
+                                  int num_tgt, void* stream) {
+  using namespace dedflow;
+  if (num_tgt <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  gather_sum_kernel<<<(num_tgt + kGatherThreads - 1) / kGatherThreads, kGatherThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int*>(ptr), static_cast<const int*>(src),
+      static_cast<float*>(y), num_tgt);
+  return static_cast<int>(cudaGetLastError());
 }

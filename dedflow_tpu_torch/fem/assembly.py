@@ -31,12 +31,16 @@ The scalar heat / Poisson slice (fem.heat) runs on the same context with
 assembly.py:236, :281) sum (ne, 4, ...) element vectors into the nodes and
 (ne, 4, 4, br, bc) element matrices into the CSR entries through K8
 (`win_stream.stream_reduce`) and K9 (`win_ring.ring_reduce`), one output
-row a trailing component, over plans cut from the same sorted tables
-(`scatter_permutation`) as the NS plans: the contribution (e, a) reads
-source c*4*ne + a*ne + e, (e, ab) reads c*16*ne + ab*ne + e, of the
-(C, slots, ne) element values. `gather_nodal` and `bsr_from_data` (JAX
-:409, :403) give the element gathers and the BSR matrix on the CSR
-entries.
+row a trailing component, over the same sorted tables
+(`scatter_permutation`) as the NS plans, taken as they are: the source of
+a contribution is its flat (e, slot) index p = e*4 + a or e*16 + ab, the
+JAX context's node_perm / mat_perm. One trailing component (every solver
+path) is read where the element array lies, with no copy, by the
+kernels' one-pass route (csrc/seg_reduce.cu, `dedflow_gather_sum`: no
+staging buffer). C > 1 (tests only) passes a transposed (C, slots*ne)
+copy, row c at c*slots*ne + p, and is the only route that still stages.
+`gather_nodal` and `bsr_from_data` (JAX :409, :403) give the element
+gathers and the BSR matrix on the CSR entries.
 
 Not carried over (TPU layouts; sparse/tiered.py:1-30 says why they exist):
 the grouped gather plan, the prefix-scan offsets, the one-hot DIA planes
@@ -104,7 +108,8 @@ class FEMContext:
     # twins (CUDA always runs K4/K5)
     elements_kernel: str = "xla"
     # the scalar plans (build_context(scalar_plans=True)): (e, a) -> node
-    # with source a*ne + e, and (e, ab) -> entry with source ab*ne + e
+    # with source e*4 + a, and (e, ab) -> entry with source e*16 + ab (the
+    # JAX context's node_perm / mat_perm)
     scalar_res_plan: ReducePlan | None = None
     scalar_jac_plan: ReducePlan | None = None
 
@@ -152,9 +157,9 @@ def build_context(
         jac_plan = with_element_positions(jac_plan, width, 16, 18)  # the staged K5's rows
         ranges.append(ElementRange(lo, lo + width, res_plan, jac_plan, res_tgt, jac_tgt))
     scalar = (None, None)
-    if scalar_plans:  # whole-mesh plans over the real elements, one source row a slot
-        scalar = (_range_plan(*node_plan, 4, 1, 0, ne_real, ne, n, None, device)[0],
-                  _range_plan(*mat_plan, 16, 1, 0, ne_real, ne, win_plan.S, None, device)[0])
+    if scalar_plans:  # whole-mesh plans over the real elements: source = flat (e, slot) index
+        scalar = (reduce_plan_from_sorted(node_plan[1], node_plan[0], n, device),
+                  reduce_plan_from_sorted(mat_plan[1], mat_plan[0], win_plan.S, device))
     return FEMContext(
         res_geom=res_geom_rows(geom.shgrad, geom.det_j, geom.metric).contiguous(),
         lhs_geom=lhs_geom_rows(geom.shgrad, geom.det_j, geom.metric).contiguous(),
@@ -209,13 +214,20 @@ def _scalar_plan(ctx: FEMContext, which: str) -> ReducePlan:
     return plan
 
 
+def _component_rows(elem: torch.Tensor, slots: int, m: int) -> torch.Tensor:
+    """(C, slots * m): row c holds trailing component c of every flat
+    (e, slot), so the plan's source p reads it at c * slots * m + p. With
+    one component that is the element array as it lies (a (1, M) view is
+    contiguous: no copy); with more, a transposed copy."""
+    return elem.reshape(slots * m, -1).T.contiguous()
+
+
 def scatter_residual(ctx: FEMContext, elem_f: torch.Tensor) -> torch.Tensor:
     """(ne, 4, ...) element vectors -> (N, ...) nodal sums, up to 8 trailing
     components: K8 over the scalar residual plan, a deterministic sum in
     the plan's order (JAX assembly.py:236, a sorted segment sum)."""
     m, trail = ctx.num_elem, elem_f.shape[2:]
-    x = elem_f.reshape(m, 4, -1).permute(2, 1, 0).reshape(-1, 4 * m).contiguous()
-    out = stream_reduce(_scalar_plan(ctx, "res"), x)  # (C, N)
+    out = stream_reduce(_scalar_plan(ctx, "res"), _component_rows(elem_f, 4, m))  # (C, N)
     return out.T.reshape((ctx.num_node,) + trail)
 
 
@@ -223,11 +235,9 @@ def scatter_matrix(ctx: FEMContext, elem_j: torch.Tensor) -> torch.Tensor:
     """(ne, 4, 4, br, bc) element matrices -> (nnz, br, bc) BSR data on the
     CSR entries, br * bc <= 16: K9 over the scalar matrix plan (JAX
     assembly.py:281)."""
-    m = ctx.num_elem
     br, bc = elem_j.shape[-2:]
-    x = elem_j.reshape(m, 16, br * bc).permute(2, 1, 0).reshape(-1, 16 * m).contiguous()
-    out = ring_reduce(_scalar_plan(ctx, "jac"), x)  # (br * bc, nnz)
-    return out.T.reshape(-1, br, bc)
+    out = ring_reduce(_scalar_plan(ctx, "jac"), _component_rows(elem_j, 16, ctx.num_elem))
+    return out.T.reshape(-1, br, bc)  # out: (br * bc, nnz)
 
 
 def bsr_from_data(ctx: FEMContext, data: torch.Tensor) -> BSRMatrix:

@@ -18,7 +18,9 @@ GMRES+Jacobi").
 The element terms are plain torch, as the JAX package's are jnp; the
 element-to-node and element-to-entry sums run K8 and K9 with one output
 row (fem.assembly.scatter_residual / scatter_matrix) on a context built
-with `scalar_plans=True`.
+with `scalar_plans=True`: one pass each over the (ne, 4) / (ne, 4, 4)
+element arrays where they lie (sources the flat (e, slot) indices), with
+no transposing copy and no staging buffer.
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ rows ab*18+c where the element kernel (K6) left them: the contribution
 (e, ab) has src = ab*18*ne + e and cstride = ne.
 
 `ring_reduce` is the K9 wrapper: on a CUDA tensor it launches the
-hand-written kernels of csrc/seg_reduce.cu (C <= 16; the staging pass and
-the segment sum, as K8's), which replace the TPU kernel
+hand-written kernels of csrc/seg_reduce.cu (C <= 16; as K8's, the staging
+pass and the segment sum for C > 1, the one pass with no staging buffer
+for one row), which replace the TPU kernel
 dedflow_tpu/sparse/win_ring.py::_ring_kernel; on a CPU tensor it runs
 `ring_reduce_plain`. The TPU's ring of partial sums, its SMEM budget
 and its fallback to the pull path do not exist here.

@@ -23,12 +23,15 @@ the element order.
 
 `stream_reduce` is the K8 wrapper: on a CUDA tensor it launches the
 hand-written kernels of csrc/seg_reduce.cu (C <= 8), which replace the
-TPU kernel dedflow_tpu/sparse/win_stream.py::_stream_kernel: a staging
-pass that reads the sources in ascending order into a (K, W) buffer at
-their plan positions (W = C rounded up to 8), then a segment sum of each
-target's contiguous rows in plan order. On a CPU tensor it runs
-`stream_reduce_plain`. The Jacobian's reduce (K9, sparse.win_ring) is the
-same computation with C <= 16 and its own wrapper.
+TPU kernel dedflow_tpu/sparse/win_stream.py::_stream_kernel. With C > 1:
+a staging pass that reads the sources in ascending order into a (K, W)
+buffer at their plan positions (W = C rounded up to 8), then a segment
+sum of each target's contiguous rows in plan order. With one output row
+(the scalar heat / Poisson scatters): one pass, `dedflow_gather_sum`,
+that gathers x[src[k]] in plan order and sums each target's slice, with
+no staging buffer and the same additions in the same order. On a CPU
+tensor it runs `stream_reduce_plain`. The Jacobian's reduce (K9,
+sparse.win_ring) is the same computation with C <= 16 and its own wrapper.
 
 `stream_reduce_staged` is K8's segment sum alone, the gather tier's
 residual reduce: the staged K4 (fem.element_kernels.
@@ -155,8 +158,10 @@ def seg_reduce_plain(plan: ReducePlan, x: torch.Tensor, comps, cstride) -> torch
 def seg_reduce_kernel(
     what: str, symbol: str, max_rows: int, plan: ReducePlan, x: torch.Tensor, comps, cstride
 ) -> torch.Tensor:
-    """Launch csrc/seg_reduce.cu's entry `symbol`: its staging pass and its
-    segment sum (checks, the staging buffer and the output)."""
+    """Launch csrc/seg_reduce.cu: one output row in one pass with no staging
+    buffer (`dedflow_gather_sum`, source row comps[0] read where it lies in
+    x), more through the entry `symbol`, its staging pass and its segment
+    sum (checks, the staging buffer and the output)."""
     if x.dtype != torch.float32 or not x.is_cuda or not x.is_contiguous():
         raise ValueError(f"{what} kernel: x must be a contiguous float32 CUDA tensor")
     if not 1 <= len(comps) <= max_rows:
@@ -167,6 +172,13 @@ def seg_reduce_kernel(
         raise ValueError(f"{what} kernel: a source offset lies outside x")
     out = torch.empty((len(comps), plan.num_tgt), dtype=torch.float32, device=x.device)
     if plan.num_tgt == 0:
+        return out
+    if len(comps) == 1:
+        fn = nvcc.function("seg_reduce", "dedflow_gather_sum",
+                           [nvcc.P, nvcc.P, nvcc.P, nvcc.P, nvcc.I, nvcc.P])
+        row = x.reshape(-1)[comps[0] * cstride:]
+        nvcc.check(fn(row.data_ptr(), plan.ptr.data_ptr(), plan.src.data_ptr(), out.data_ptr(),
+                      plan.num_tgt, torch.cuda.current_stream(x.device).cuda_stream), what)
         return out
     fn = nvcc.function(
         "seg_reduce", symbol,

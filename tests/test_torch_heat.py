@@ -5,7 +5,18 @@ solver/pc.py), float64 on the CPU.
 - Element residuals and Jacobians, assemble_heat and assemble_poisson
   (dense through bsr_to_dense) against JAX at 1e-12 on box 4 x 3 x 3; the
   scatters (K8 / K9 one-row plans, plain twins here) against a naive dense
-  sum, with trailing components too.
+  sum, with up to 8 (K8) and 16 (K9) trailing components too.
+- The scalar plans' sources are the flat (e, slot) indices, equal to the
+  JAX context's node_perm / mat_perm, their targets node_targets /
+  mat_targets; a one-component scatter reads the element array where it
+  lies (no copy).
+- The one-row kernel of csrc/seg_reduce.cu (`gather_sum_kernel`, which
+  runs only on the card) emulated in float32 with its block and tile
+  constants read from the source, and with a small block and tile: every
+  target in one block, every contribution in one round, and the sums
+  equal to a one-by-one plan-order sum bit for bit, on a Delaunay plan
+  (a high-degree node, targets without contributions, a target count that
+  is no multiple of the block) and on plans without contributions.
 - apply_vec / apply_mat and the Jacobi / block-Jacobi preconditioners
   against JAX.
 - cg's iterates against JAX's at 1e-10 with equal iteration counts (after
@@ -117,10 +128,14 @@ def test_assemble_poisson_matches_jax(pair):
     assert rel(b.numpy(), rb) < 1e-12
 
 
-@pytest.mark.parametrize("trail", [(), (3,), (2, 2)], ids=["scalar", "3-vector", "2x2"])
-def test_scatters_match_a_dense_sum(trail):
+@pytest.mark.parametrize(
+    "trail,bt",
+    [((), (1, 1)), ((3,), (1, 1)), ((2, 2), (2, 2)), ((8,), (2, 4)), ((2, 4), (4, 4))],
+    ids=["scalar", "3-vector", "2x2", "8", "16"])
+def test_scatters_match_a_dense_sum(trail, bt):
     """K8 / K9's one-row plans (and C trailing components, one output row
-    each) against the naive sums; bsr_zeros has the same pattern."""
+    each: up to K8's 8 and K9's 16) against the naive sums; bsr_zeros has
+    the same pattern."""
     mesh = box_mesh(2, 1, 2)
     ctx = _ctx(mesh)
     rng = np.random.default_rng(1)
@@ -129,7 +144,6 @@ def test_scatters_match_a_dense_sum(trail):
     f_ref = np.zeros((mesh.num_node,) + trail)
     np.add.at(f_ref, mesh.ien, ef)
     assert np.abs(f - f_ref).max() < 1e-13
-    bt = trail if len(trail) == 2 else (1, 1)
     ej = rng.standard_normal((mesh.num_tet, 4, 4) + bt)
     dense = bsr_to_dense(tasm.bsr_from_data(ctx, tasm.scatter_matrix(ctx, _t(ej))))
     n = mesh.num_node
@@ -142,6 +156,125 @@ def test_scatters_match_a_dense_sum(trail):
     zeros = bsr_zeros(build_sparsity(mesh.ien, n), *bt, device="cpu")
     np.testing.assert_array_equal(zeros.col_ind.numpy(), ctx.win_plan.col_t.numpy())
     np.testing.assert_array_equal(zeros.row_ids.numpy(), ctx.win_plan.grow_t.numpy())
+
+
+def _targets(plan) -> np.ndarray:
+    return np.repeat(np.arange(plan.num_tgt), np.diff(plan.ptr.numpy()))
+
+
+def test_scalar_plans_are_the_jax_permutations(pair):
+    """Sources = the flat (e, slot) indices in the JAX context's sorted
+    order (node_perm / mat_perm), targets node_targets / mat_targets."""
+    _, ctx, jctx, _ = pair
+    for plan, perm, tgt in ((ctx.scalar_res_plan, jctx.node_perm, jctx.node_targets),
+                            (ctx.scalar_jac_plan, jctx.mat_perm, jctx.mat_targets)):
+        np.testing.assert_array_equal(plan.src.numpy(), np.asarray(perm))
+        np.testing.assert_array_equal(_targets(plan), np.asarray(tgt))
+
+
+def test_one_component_scatters_read_the_elements_where_they_lie(pair, monkeypatch):
+    """scatter_residual / scatter_matrix hand K8 / K9 a (1, slots*ne) view
+    of the element array itself: no transposing copy."""
+    mesh, ctx, _, _ = pair
+    seen = {}
+
+    def spy(name, fn):
+        def call(plan, x, *a, **k):
+            seen[name] = x
+            return fn(plan, x, *a, **k)
+        return call
+
+    monkeypatch.setattr(tasm, "stream_reduce", spy("res", tasm.stream_reduce))
+    monkeypatch.setattr(tasm, "ring_reduce", spy("jac", tasm.ring_reduce))
+    ef = torch.randn((mesh.num_tet, 4), dtype=torch.float64)
+    ej = torch.randn((mesh.num_tet, 4, 4, 1, 1), dtype=torch.float64)
+    tasm.scatter_residual(ctx, ef)
+    tasm.scatter_matrix(ctx, ej)
+    for name, elem in (("res", ef), ("jac", ej)):
+        assert seen[name].shape == (1, elem.numel()) and seen[name].is_contiguous()
+        assert seen[name].data_ptr() == elem.data_ptr()
+
+
+def _kernel_constants() -> tuple[int, int]:
+    """(targets a block, contributions a round) of csrc/seg_reduce.cu's
+    one-row kernel, read from the source."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tasm.__file__).resolve().parents[1] / "csrc" / "seg_reduce.cu").read_text()
+    get = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    return get("kGatherThreads"), get("kGatherTile")
+
+
+def _gather_sum_emulated(plan, x: np.ndarray, threads: int, tile: int) -> np.ndarray:
+    """gather_sum_kernel in float32: block b owns targets [b*threads,
+    (b+1)*threads); in rounds of at most `tile` contributions of its plan
+    range it gathers x[src[k]] into the tile, then each target adds the
+    part of its slice the round holds, k ascending, its sum carried over
+    rounds. Checks that each target is in one block and each contribution
+    in one round."""
+    ptr, src = plan.ptr.numpy().astype(np.int64), plan.src.numpy()
+    y = np.zeros(plan.num_tgt, np.float32)
+    owner = np.zeros(plan.num_tgt, np.int64)
+    visits = np.zeros(src.size, np.int64)
+    for t0 in range(0, plan.num_tgt, threads):
+        t1 = min(t0 + threads, plan.num_tgt)
+        owner[t0:t1] += 1
+        acc = [np.float32(0.0)] * (t1 - t0)
+        for c0 in range(ptr[t0], ptr[t1], tile):
+            n = min(tile, ptr[t1] - c0)
+            shared = x[src[c0:c0 + n]]
+            visits[c0:c0 + n] += 1
+            for j, t in enumerate(range(t0, t1)):
+                for k in range(max(ptr[t], c0), min(ptr[t + 1], c0 + n)):
+                    acc[j] = np.float32(acc[j] + shared[k - c0])
+        y[t0:t1] = acc
+    assert (owner == 1).all() and (visits == 1).all()
+    return y
+
+
+def _one_by_one(plan, x: np.ndarray) -> np.ndarray:
+    """Each target's contributions added one at a time in plan order,
+    float32, from 0."""
+    ptr, src = plan.ptr.numpy(), plan.src.numpy()
+    y = np.zeros(plan.num_tgt, np.float32)
+    for t in range(plan.num_tgt):
+        acc = np.float32(0.0)
+        for k in range(ptr[t], ptr[t + 1]):
+            acc = np.float32(acc + x[src[k]])
+        y[t] = acc
+    return y
+
+
+@pytest.mark.parametrize("tiling", ["kernel", "small"])
+def test_one_row_kernel_sums_in_plan_order(tiling):
+    """The one-row kernel's summation, emulated with its own block and tile
+    (and with 16 targets a block, 32 contributions a round: slices and
+    blocks longer than the tile), equals the one-by-one plan-order sum bit
+    for bit on Delaunay plans."""
+    from dedflow_tpu_torch.mesh.gen import delaunay_mesh
+    from dedflow_tpu_torch.sparse.win_stream import build_reduce_plan
+
+    threads, tile = _kernel_constants() if tiling == "kernel" else (16, 32)
+    mesh = delaunay_mesh(600, seed=1)
+    ctx = _ctx(mesh)
+    n = mesh.num_node
+    assert n % threads
+    flat = mesh.ien.reshape(-1).astype(np.int64)
+    keep = np.nonzero(flat % 9 != 4)[0]  # every ninth node gets no contribution
+    plans = [ctx.scalar_res_plan, ctx.scalar_jac_plan,
+             build_reduce_plan(flat[keep], keep, n, device="cpu"),
+             build_reduce_plan([], [], n, device="cpu")]
+    counts = np.diff(plans[0].ptr.numpy())
+    assert counts.max() >= 2 * counts.mean()  # a high-degree node
+    assert (np.diff(plans[2].ptr.numpy()) == 0).sum() >= n // 9
+    if tiling == "small":
+        assert counts.max() > tile
+    rng = np.random.default_rng(7)
+    for plan in plans:
+        x = rng.standard_normal(max(plan.src_max + 1, 1)).astype(np.float32)
+        got = _gather_sum_emulated(plan, x, threads, tile)
+        assert np.array_equal(got, _one_by_one(plan, x))
 
 
 def test_scalar_scatters_need_the_scalar_plans():

@@ -50,9 +50,10 @@ table, the ticketed K1 bit for bit, and fails loudly on a corrupt ticket
 workspace as K1 does; K3 with 27 planes matches its plain version in
 float32 and float64. The scalar heat / Poisson slice (fem.heat): K8 and
 K9 in their one-row mode on its plans match their plain versions and the
-plan-order sums bit for bit, and Jacobi-preconditioned CG on the card
-repeats its count and iterate bit for bit and agrees with the CPU's
-float64 solve.
+plan-order sums bit for bit with no staging buffer (the one-pass entry,
+also on stress plans: empty targets, a target longer than its tile, no
+contributions), and Jacobi-preconditioned CG on the card repeats its
+count and iterate bit for bit and agrees with the CPU's float64 solve.
 """
 
 import dataclasses
@@ -1313,10 +1314,23 @@ def poisson():
     return mesh, _poisson_system(mesh, "cuda", torch.float32)
 
 
+def _peak_bytes(fn) -> int:
+    """Device bytes a call allocates at its peak, above what was allocated
+    before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
 def test_k8_k9_one_row_match_plain(poisson):
     """The heat scatters' one-row K8 / K9 on the Poisson plans: two runs
     bit-identical, within 1e-5 of the plain version, equal to the
-    plan-order sum bit for bit; the scatters themselves through them."""
+    plan-order sum bit for bit, with no (K, 8) staging buffer (the one-pass
+    entry allocates only its output); the scatters themselves through
+    them."""
     mesh, (_, _, ctx) = poisson
     rng = np.random.default_rng(31)
     m = ctx.num_elem
@@ -1327,14 +1341,40 @@ def test_k8_k9_one_row_match_plain(poisson):
         got = _twice(lambda: kern(plan, x), kern)
         assert rel(got, plain(plan, x)) < 1e-5
         assert torch.equal(got, _plan_order_sum(plan, x, (0,), slots * m))
+        assert _peak_bytes(lambda: kern(plan, x)) < plan.src.numel() * 32
     ef = torch.as_tensor(rng.standard_normal((m, 4)), dtype=torch.float32, device="cuda")
     ej = torch.as_tensor(rng.standard_normal((m, 4, 4, 1, 1)), dtype=torch.float32,
                          device="cuda")
     before = (stream_reduce.launches, ring_reduce.launches)
     f, data = scatter_residual(ctx, ef), scatter_matrix(ctx, ej)
     assert (stream_reduce.launches, ring_reduce.launches) == (before[0] + 1, before[1] + 1)
-    assert rel(f, stream_reduce_plain(ctx.scalar_res_plan, ef.T.reshape(1, -1))[0]) < 1e-5
+    assert torch.equal(f, stream_reduce(ctx.scalar_res_plan, ef.reshape(1, -1))[0])
+    assert rel(f, stream_reduce_plain(ctx.scalar_res_plan, ef.reshape(1, -1))[0]) < 1e-5
     assert data.shape == (ctx.win_plan.S, 1, 1)
+
+
+def test_one_row_reduce_stress():
+    """The one-pass one-row K8 / K9 on plans from build_reduce_plan:
+    targets without contributions, a target longer than the kernel's tile
+    of 8192 contributions, an odd target count, a plan without
+    contributions, and source row 1 of a (2, M) source (offset by cstride):
+    bit-equal to the plan-order sum, twice bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    rng = np.random.default_rng(41)
+    t = 1001
+    tgt = np.concatenate([rng.integers(0, t, 30000), np.full(10000, 517), np.full(300, 1000)])
+    tgt = tgt[tgt % 7 != 3]
+    src = rng.permutation(tgt.size)
+    for plan, x, comps, cstride in (
+            (build_reduce_plan(tgt, src, t), rng.standard_normal((1, tgt.size)), (0,), tgt.size),
+            (build_reduce_plan(tgt, src, t), rng.standard_normal((2, tgt.size)), (1,), tgt.size),
+            (build_reduce_plan([], [], 9), np.zeros((1, 4)), (0,), 4)):
+        x = torch.as_tensor(x, dtype=torch.float32, device="cuda")
+        ref = _plan_order_sum(plan, x, comps, cstride)
+        for kern in (stream_reduce, ring_reduce):
+            got = _twice(lambda: kern(plan, x, comps, cstride), kern)
+            assert got.shape == (1, plan.num_tgt) and torch.equal(got, ref)
 
 
 def test_cg_on_card_repeats_and_matches_cpu_f64(poisson):

@@ -423,6 +423,17 @@ def _k9():
     return win_ring.ring_reduce(plan, torch.zeros((16, 3)))
 
 
+def _k8_one_row():
+    """K8 with one output row: the one-pass entry (dedflow_gather_sum)."""
+    plan = win_stream.build_reduce_plan([0, 1, 1], [0, 1, 2], 2, device="cpu")
+    return win_stream.stream_reduce(plan, torch.zeros((1, 3)))
+
+
+def _k9_one_row():
+    plan = win_stream.build_reduce_plan([0, 1, 1], [2, 1, 0], 2, device="cpu")
+    return win_ring.ring_reduce(plan, torch.zeros((1, 3)))
+
+
 def _k11():
     from dedflow_tpu_torch.dem.cells import make_grid
     from dedflow_tpu_torch.dem.contact import ContactParams
@@ -580,13 +591,16 @@ def _k13(idiom):
         (_k3_wide(torch.float64), (dia_kernels, "dia_matvec_plain")),
         (_k1c_two_pass, (lat, "residual_volume_plain")),
         (_k2c_two_pass, (lat, "jacobian_volume_plain")),
+        (_k8_one_row, (win_stream, "seg_reduce_plain")),
+        (_k9_one_row, (win_ring, "seg_reduce_plain")),
     ],
     ids=["K6-res", "K6-lhs", "K7", "K7-f64", "K3", "K3-f64", "K8", "K9", "K11", "K4", "K5", "K10", "K1-source",
          "K2-implicit", "K6-lhs-implicit", "K5-implicit", "K12-copy", "K12-lane-smem",
          "K12-lane-shuffle", "K12-window", "K12-reduce", "K13-global", "K13-staged",
          "K6-staged", "K6-staged-implicit", "K5-staged", "K5-staged-implicit",
          "K9-segment-sum", "K4-staged", "K8-segment-sum", "K1c", "K1c-routed", "K2c",
-         "K2c-implicit", "K3-wide", "K3-wide-f64", "K1c-two-pass", "K2c-two-pass"],
+         "K2c-implicit", "K3-wide", "K3-wide-f64", "K1c-two-pass", "K2c-two-pass",
+         "K8-one-row", "K9-one-row"],
 )
 def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     monkeypatch, tmp_path, call, plain
@@ -606,6 +620,37 @@ def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
         call()
 
 
+@pytest.mark.parametrize("rows,symbol", [(1, "dedflow_gather_sum"), (6, "dedflow_stream_reduce"),
+                                         (16, "dedflow_ring_reduce")])
+def test_one_row_reduces_take_the_one_pass_entry(monkeypatch, rows, symbol):
+    """On a CUDA tensor, K8 / K9 with one output row launch the one-pass
+    entry and allocate only their output (no (K, 8) staging buffer); more
+    rows keep the staged entries. The launch is faked: no card here."""
+    plan = win_stream.build_reduce_plan([0, 1, 1, 2], [0, 1, 2, 3], 3, device="cpu")
+    asked, shapes = [], []
+    real_empty = torch.empty
+
+    def function(name, sym, argtypes):
+        asked.append((name, sym))
+        return lambda *a: 0
+
+    def empty(*shape, **kw):
+        shapes.append(tuple(shape[0]) if len(shape) == 1 else shape)
+        return real_empty(*shape, **kw)
+
+    monkeypatch.setattr(nvcc, "function", function)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(torch, "empty", empty)
+    wrapper = win_stream.stream_reduce if rows <= 8 else win_ring.ring_reduce
+    before = wrapper.launches
+    out = wrapper(plan, torch.zeros((rows, 4)))
+    assert asked == [("seg_reduce", symbol)] and out.shape == (rows, 3)
+    assert wrapper.launches == before + 1
+    assert shapes == ([(1, 3)] if rows == 1 else [(rows, 3), (4, 8 * -(-rows // 8))])
+
+
 @pytest.mark.parametrize(
     "call,counter",
     [(_k4, (ek, "ns_residual_gather")), (_k5, (ek, "ns_lhs_gather")),
@@ -623,11 +668,12 @@ def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
      (_k3_wide(torch.float32), (dia_kernels, "dia_matvec")),
      (_k3_wide(torch.float64), (dia_kernels, "dia_matvec_f64")),
      (_k1c_two_pass, (lat, "residual_volume_two_pass")),
-     (_k2c_two_pass, (lat, "jacobian_volume_two_pass"))],
+     (_k2c_two_pass, (lat, "jacobian_volume_two_pass")),
+     (_k8_one_row, (win_stream, "stream_reduce")), (_k9_one_row, (win_ring, "ring_reduce"))],
     ids=["K4", "K5", "K10", "K12-copy", "K12-lane", "K12-window", "K12-reduce", "K13",
          "K6-staged", "K5-staged", "K9-segment-sum", "K4-staged", "K8-segment-sum",
          "K7-f64", "K3-f64", "K1c", "K2c", "K2c-implicit", "K3-wide", "K3-wide-f64",
-         "K1c-two-pass", "K2c-two-pass"],
+         "K1c-two-pass", "K2c-two-pass", "K8-one-row", "K9-one-row"],
 )
 def test_cpu_tensors_count_no_launch(call, counter):
     """On CPU tensors the wrappers run their plain twins and count nothing
