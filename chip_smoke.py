@@ -179,6 +179,25 @@ Phases, one line each; the script exits non-zero at the first failure:
             counts; K8 and K9 with one output row on the box-55 Poisson
             plans against their plain versions, timed, with bounds and an
             index_add
+  mixed prism / hex meshes (ROADMAP A13: the cells' stencils enter the
+  matrix pattern, the tets are assembled):
+ 23 mixed   (a) box 12 with a hex over every cube and two prisms over each
+            cube of the lowest layer, on the tier the JAX ladder picks
+            (WinELL: the 27-point stencil leaves the lattice's): one
+            step_fixed(num_newton=2), card float32 against CPU float64;
+            (b) box 55 with a hex table over its 166,375 cubes (998,250
+            tets, 27 node blocks a row): K10, K6's residual rows, the staged
+            K6, K8, K9's segment sum and K7 on the 27-wide rows against
+            their plain versions as phase 6 holds them, timed with bounds
+            and library calls; then NSSolver.step twice (and step 1
+            repeated bit-identical) with set-up s, s/step, Newton and
+            Krylov counts, peak memory and each kernel's launches
+  the check tools (ROADMAP A18, dedflow_tpu_torch/tools):
+ 24 checks  residual_check at n = 15 (float64 GMRES through K3's float64
+            mode and "ir", both relative residuals <= 1e-10), selfcheck
+            (K1, K2, K2' against their plain versions at box_mesh(8, 6, 7)),
+            nonlinear_f64_check at box 24 (the card's float32 steps, "ir"
+            and "state", against the CPU's float64 step)
 Then, on lines of their own: the kernels JSON object (each kernel with its
 time, its plain version's, its bound and, where one PyTorch call computes
 the same function, that call's time), the card's name and power limit, and
@@ -599,21 +618,11 @@ def segment_sum_record(label: str, plan, stage, ring_out, reps: int,
 
 def perturbed_state(mesh, device, dtype):
     """Reference initial state with a seeded perturbation of dwg (so every
-    input row of the element bodies is non-zero), advanced by one predict."""
-    import numpy as np
+    input row of the element bodies is non-zero), advanced by one predict
+    (tools/selfcheck.py's state)."""
+    from dedflow_tpu_torch.tools import selfcheck
 
-    from dedflow_tpu_torch.app.scenarios import (
-        reference_initial_state,
-        reference_scenario_config,
-    )
-    from dedflow_tpu_torch.interop import state_from_numpy
-    from dedflow_tpu_torch.solver.newton import predict
-
-    wg, dwgold, dwg = reference_initial_state(mesh)
-    rng = np.random.default_rng(SEED)
-    dwg = dwg + 0.1 * rng.standard_normal(dwg.shape)
-    wg, dwgold, dwg = state_from_numpy(wg, dwgold, dwg, device, dtype)
-    return wg, dwgold, predict(dwg, reference_scenario_config().time)
+    return selfcheck.perturbed_state(mesh, device, dtype, SEED)
 
 
 def phase_build() -> None:
@@ -696,7 +705,7 @@ def phase_kernels(solver) -> tuple[list, dict]:
     from dedflow_tpu_torch.solver.krylov import gmres
     from dedflow_tpu_torch.solver.pc import NSFieldSplitPCT
     from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec, dia_matvec_plain
-    from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
+    from dedflow_tpu_torch.tools import selfcheck
     from dedflow_tpu_torch.tools.timing import nbytes, time_ms
     from dedflow_tpu_torch.utils import nvcc
 
@@ -704,12 +713,14 @@ def phase_kernels(solver) -> tuple[list, dict]:
     lctx, fctxs, mask_t = solver.lctx, solver.face_ctxs, solver.mask_t
     wg, dwgold, dwg = perturbed_state(solver.mesh, solver.device, solver.dtype)
     wa, dwa = alpha_states(wg, dwgold, dwg, scheme)
-    wa_t, dwa_t = wa.T.contiguous(), dwa.T.contiguous()
-    n, nd, d0 = lctx.num_node, len(lctx.offsets), lctx.offsets.index(0)
+    # K1, K2 (masked) and K2' (unmasked): tools/selfcheck.py's pairs
+    pairs = selfcheck.lattice_pairs(solver, wa, dwa)
+    inp = pairs.inputs
+    wa_t, dwa_t = inp["wa_t"], inp["dwa_t"]
+    n, d0 = lctx.num_node, lctx.offsets.index(0)
 
-    k1 = lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme)
-    p1 = lambda: lat.residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme)
-    err1 = compare("K1 F volume", k1, p1, TOL_K1)
+    k1, p1 = pairs.k1.kernel, pairs.k1.plain
+    err1 = compare("K1 F volume", k1, p1, pairs.k1.tol)
     same1 = torch.equal(k1(), lat._reduce_residual(lctx, ek.res_rows_call(
         lat._residual_inputs(lctx, wa_t, dwa_t), phys, scheme)))
     k1_regs = registers(nvcc.load("lattice_residual")["lattice_residual"],
@@ -720,23 +731,14 @@ def phase_kernels(solver) -> tuple[list, dict]:
         raise PhaseError("K1: the fused pass differs from the element rows summed in plain order")
 
     # K2 with the masked epilogue on the solver's own mask and facet band
-    keep_pc = keep_pc_rows(mask_t, solver.dtype)
-    add18 = diag_add_rows(mask_t, solver.dtype)
-    band, lo = lat._masked_face_band(fctxs, wa, dwa, phys, scheme, nd, keep_pc)
-    keep16, add16 = keep_pc[:16].contiguous(), add18[:16].contiguous()
-    k2 = lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, band, lo)
-    p2 = lambda: lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, keep16, add16, band, lo)
-    err2 = compare("K2 data (masked)", k2, p2, TOL_K2)
-    ones16 = torch.ones_like(keep16)
-    zeros16 = torch.zeros_like(add16)
-    raw = lambda f: (lambda: f(lctx, wa_t, phys, scheme, ones16, zeros16))
-    err2u = compare(
-        "K2 data (unmasked)", raw(lat.jacobian_volume), raw(lat.jacobian_volume_plain), TOL_K2
-    )
+    keep16, add16, band = inp["keep16"], inp["add16"], inp["band"]
+    k2, p2 = pairs.k2.kernel, pairs.k2.plain
+    err2 = compare("K2 data (masked)", k2, p2, pairs.k2.tol)
+    err2u = compare("K2 data (unmasked)", pairs.k2u.kernel, pairs.k2u.plain, pairs.k2u.tol)
     err2 = max(err2, err2u)
     jm = lat.assemble_jacobian_t(lctx, fctxs, mask_t, wa, dwa, phys, scheme)
     scal_p = torch.zeros_like(jm.scal)
-    scal_p[2 * d0 : 2 * d0 + 2] = lctx.mult * keep_pc[16:18] + add18[16:18]
+    scal_p[2 * d0 : 2 * d0 + 2] = lctx.mult * inp["keep_pc"][16:18] + inp["add18"][16:18]
     err2 = max(err2, compare("K2 scal", lambda: jm.scal, lambda: scal_p, 0.0))
 
     gen = torch.Generator(device=solver.device).manual_seed(SEED)
@@ -745,7 +747,7 @@ def phase_kernels(solver) -> tuple[list, dict]:
     p3 = lambda: dia_matvec_plain(jm.data, jm.scal, x, lctx.offsets)
     err3 = compare("K3 A x (masked)", k3, p3, TOL_K3)
     # unmasked data, zero phi/T rows: only element entries set the scale
-    raw_data, no_scal = raw(lat.jacobian_volume)(), torch.zeros_like(jm.scal)
+    raw_data, no_scal = pairs.k2u.kernel(), torch.zeros_like(jm.scal)
     err3 = max(err3, compare(
         "K3 A x (unmasked)",
         lambda: dia_matvec(raw_data, no_scal, x, lctx.offsets),
@@ -760,9 +762,9 @@ def phase_kernels(solver) -> tuple[list, dict]:
                 op_count(p2))
     # K2', the unmasked mode (the same kernel and launch count as K2)
     finish("K2' lattice jacobian (unmasked)", {"max_abs_err": err2u},
-           raw(lat.jacobian_volume), raw(lat.jacobian_volume_plain), 10, 3,
-           nbytes(lctx.lhs_geom, wa_t, ones16, zeros16, jm.data),
-           op_count(raw(lat.jacobian_volume_plain)))
+           pairs.k2u.kernel, pairs.k2u.plain, 10, 3,
+           nbytes(lctx.lhs_geom, wa_t, inp["ones16"], inp["zeros16"], jm.data),
+           op_count(pairs.k2u.plain))
     # the library yardstick: torch.sparse CSR of the same assembled matrix
     offs = lctx.offsets
     pieces = []
@@ -1401,6 +1403,50 @@ def gather_solver(raw):
     return solver, setup_s
 
 
+def k10_checks(mesh, ien_t, scheme) -> dict:
+    """K10 against its plain version (bit for bit) with the WinELL tier's
+    two row maps, on (4, ne) connectivity `ien_t` of `mesh` at its
+    perturbed state: {tag: (max abs error, kernel, plain, rows, x,
+    library)}, the library call an index gather of the same rows."""
+    import torch
+
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.sparse import win_gather as wg
+
+    n = mesh.num_node
+    iwa, idwa = alpha_states(*perturbed_state(mesh, "cuda", torch.float32), scheme)
+    x14 = torch.zeros((14, n), dtype=torch.float32, device="cuda")
+    x14[:6], x14[8:14] = iwa.T, idwa.T
+    x3 = iwa.T[:3].contiguous()
+    k10 = {}
+    for tag, rowmap, rows, x in (("residual", wg.RES_ROWMAP, 48, x14),
+                                 ("jacobian", wg.JAC_ROWMAP, 12, x3)):
+        kern = lambda rm=rowmap, r=rows, x=x: wg.win_gather(ien_t, x, rm, r)
+        plain = lambda rm=rowmap, r=rows, x=x: wg.win_gather_plain(ien_t, x, rm, r)
+        err = compare(f"K10 win gather ({tag} rows)", kern, plain, 0.0)
+        codes = wg.row_sources(rowmap, rows, x.shape[0])
+        cidx = torch.tensor([c & 255 for c in codes], device="cuda")[:, None]
+        eidx = ien_t.long()[torch.tensor([c >> 8 for c in codes], device="cuda")]
+        k10[tag] = (err, kern, plain, rows, x, (lambda x=x, c=cidx, e=eidx: x[c, e], kern()))
+    return k10
+
+
+def k10_records(k10: dict, ien_t, names) -> list:
+    """The records of k10_checks' residual and jacobian gathers under
+    `names`, as finish() makes them."""
+    import torch
+
+    from dedflow_tpu_torch.tools.timing import nbytes
+
+    out = []
+    for name, tag in zip(names, ("residual", "jacobian")):
+        err, kern, plain, rows, x, library = k10[tag]
+        rows_out = torch.empty((rows, ien_t.shape[1]), dtype=torch.float32)
+        out.append(finish(name, {"max_abs_err": err}, kern, plain, 50, 5,
+                          nbytes(ien_t, x, rows_out), op_count(plain), library=library))
+    return out
+
+
 def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, list, dict, dict]:
     """Phase 12: K4 and K5 on the gather tier's context (K5 also in its
     implicit mode, the metric rows read in place from the residual
@@ -1419,7 +1465,6 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, list, dic
     from dedflow_tpu_torch.fem.element_rows import alpha_states
     from dedflow_tpu_torch.solver.krylov import gmres
     from dedflow_tpu_torch.solver.newton import assemble_system, residual
-    from dedflow_tpu_torch.sparse import win_gather as wg
     from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
     from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_plain
     from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_plain
@@ -1457,21 +1502,7 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, list, dic
         raise PhaseError("K4/K5: not equal to K6 on the same inputs (one element body)")
 
     # K10 on the RCM mesh, with the WinELL tier's two row maps
-    n_rcm, ne_rcm = rcm.num_node, rcm_ien_t.shape[1]
-    iwa, idwa = alpha_states(*perturbed_state(rcm, "cuda", torch.float32), scheme)
-    x14 = torch.zeros((14, n_rcm), dtype=torch.float32, device="cuda")
-    x14[:6], x14[8:14] = iwa.T, idwa.T
-    x3 = iwa.T[:3].contiguous()
-    k10 = {}
-    for tag, rowmap, rows, x in (("residual", wg.RES_ROWMAP, 48, x14),
-                                 ("jacobian", wg.JAC_ROWMAP, 12, x3)):
-        kern = lambda rm=rowmap, r=rows, x=x: wg.win_gather(rcm_ien_t, x, rm, r)
-        plain = lambda rm=rowmap, r=rows, x=x: wg.win_gather_plain(rcm_ien_t, x, rm, r)
-        err = compare(f"K10 win gather ({tag} rows)", kern, plain, 0.0)
-        codes = wg.row_sources(rowmap, rows, x.shape[0])
-        cidx = torch.tensor([c & 255 for c in codes], device="cuda")[:, None]
-        eidx = rcm_ien_t.long()[torch.tensor([c >> 8 for c in codes], device="cuda")]
-        k10[tag] = (err, kern, plain, rows, x, (lambda x=x, c=cidx, e=eidx: x[c, e], kern()))
+    k10 = k10_checks(rcm, rcm_ien_t, scheme)
 
     # K8 and K9 on the gather tier's plans: the element rows of an
     # unordered mesh, read where K4/K5 left them
@@ -1541,11 +1572,7 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, list, dic
         finish(names[1], {"max_abs_err": e5}, k5, p5, 10, 3,
                nbytes(ctx.lhs_geom, ctx.ien_t, w_t[:3], out288), op_count(p5)),
     ]
-    for i, tag in ((2, "residual"), (3, "jacobian")):
-        err, kern, plain, rows, x, library = k10[tag]
-        out = torch.empty((rows, ne_rcm), dtype=torch.float32)
-        results.append(finish(names[i], {"max_abs_err": err}, kern, plain, 50, 5,
-                              nbytes(rcm_ien_t, x, out), op_count(plain), library=library))
+    results += k10_records(k10, rcm_ien_t, names[2:4])
     results += [
         finish(names[4], {"max_abs_err": e8}, k8, p8, 50, 5,
                reduce_bytes(rng.res_plan, range(6), 6), op_count(p8),
@@ -3416,6 +3443,245 @@ def phase_heat() -> tuple[list, dict]:
             for r, n in zip(recs, launches)], summary
 
 
+# Mixed prism / hex meshes (ROADMAP A13): a converted mesh's wedge and
+# hexahedron tables add stencil entries (their node pairs), and only the tets
+# are assembled. A hex table over every cube of the box gives the full
+# 27-point stencil, which leaves the lattice's 15: the JAX ladder then takes
+# the WinELL tier (box order passes its gate), whose kernels run on 27-wide
+# rows. The slice adds a prism boundary layer (two wedges a cube of the
+# lowest cell layer).
+MIXED_SLICE_PRISM_LAYERS = 1
+MIXED_TIER = "winell"
+MIXED_TAG = "mixed box-55 pattern"
+MIXED_KERNELS = (
+    ("K6 element rows (residual, " + MIXED_TAG + ")", "dedflow_tpu_torch/csrc/element_rows.cu",
+     "dedflow_tpu/fem/pallas_kernels.py:565"),
+    ("K6 element rows staged (jacobian, " + MIXED_TAG + ")",
+     "dedflow_tpu_torch/csrc/element_rows.cu", "dedflow_tpu/fem/pallas_kernels.py:565"),
+    ("K7 winell spmv (" + MIXED_TAG + ", 27-wide rows)", "dedflow_tpu_torch/csrc/winell_spmv.cu",
+     "dedflow_tpu/sparse/win_kernels.py:55"),
+    ("K8 stream reduce (" + MIXED_TAG + ")", "dedflow_tpu_torch/csrc/seg_reduce.cu",
+     "dedflow_tpu/sparse/win_stream.py:251"),
+    ("K9 segment sum (" + MIXED_TAG + ")", "dedflow_tpu_torch/csrc/seg_reduce.cu",
+     "dedflow_tpu/sparse/win_ring.py:356"),
+    ("K10 win gather (residual rows, " + MIXED_TAG + ")", "dedflow_tpu_torch/csrc/win_gather.cu",
+     "dedflow_tpu/sparse/win_gather.py:179"),
+    ("K10 win gather (jacobian rows, " + MIXED_TAG + ")", "dedflow_tpu_torch/csrc/win_gather.cu",
+     "dedflow_tpu/sparse/win_gather.py:179"),
+)
+
+
+def mixed_solver(box, prism_layers: int, device: str = "cuda", cfg=None):
+    """NSSolver on mesh.gen.mixed_box_mesh(*box) (a hex over every cube,
+    prisms on the lowest `prism_layers` layers), the reference scenario
+    unless `cfg`; its host set-up seconds. Fails off MIXED_TIER."""
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+    from dedflow_tpu_torch.mesh.gen import mixed_box_mesh
+    from dedflow_tpu_torch.solver.newton import NSSolver, stencil_offsets
+
+    mesh = mixed_box_mesh(*box, prism_layers=prism_layers)
+    t0 = time.perf_counter()
+    solver = NSSolver(mesh, cfg or reference_scenario_config(), device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    planes = len(stencil_offsets(mesh))
+    if solver.fastpath != MIXED_TIER or planes != 27:
+        raise PhaseError(f"mixed box {box}: fastpath {solver.fastpath!r}, {planes} stencil "
+                         f"offsets; expected {MIXED_TIER!r} on 27")
+    return solver, setup_s
+
+
+def phase_mixed_slice() -> dict:
+    """Phase 23 (a): the box-12 mixed mesh (every cube a hex, the lowest
+    layer's cubes two prisms each): one step_fixed(num_newton=2), card
+    float32 against CPU float64, TOL_SLICE."""
+    import torch
+
+    outs, summary = [], {}
+    for device in ("cuda", "cpu"):
+        solver, setup_s = mixed_solver(SLICE_BOX, MIXED_SLICE_PRISM_LAYERS, device)
+        mesh = solver.mesh
+        summary[f"{device}_setup_s"] = setup_s
+        state = perturbed_state(mesh, device, solver.dtype)
+        outs.append([t.cpu() for t in solver.step_fixed(*state, num_newton=2)])
+    say(f"  slice: {mesh.num_tet} tets, {mesh.num_hex} hexes, {mesh.num_prism} prisms, "
+        f"{solver.wctx.win_plan.S} matrix entries (max row {int(max(mesh_row_widths(solver)))} "
+        f"node blocks), fastpath {solver.fastpath}")
+    worst = 0.0
+    for name, g, r in zip(("wgold", "dwgold", "dwg"), *outs):
+        if not bool(torch.isfinite(g).all()):
+            raise PhaseError(f"mixed slice: non-finite {name} on the card")
+        _, rel = rel_err(g, r)
+        say(f"  {name}: card f32 vs cpu f64 rel={rel:.3e}")
+        worst = max(worst, rel)
+    check("mixed slice", worst, TOL_SLICE)
+    summary["slice_rel"] = worst
+    return summary
+
+
+def mesh_row_widths(solver):
+    """The node blocks of each matrix row of a WinELL solver."""
+    import numpy as np
+
+    return np.diff(solver.wctx.win_plan.row_ptr)
+
+
+def phase_mixed_kernels(solver) -> tuple[list, dict]:
+    """Phase 23 (b), the kernels of the WinELL tier on the mixed box-55
+    pattern against their plain versions, as phase 6 holds them on the
+    Delaunay mesh: K10 (both row maps, bit for bit), K6's residual rows,
+    the staged K6 (per block, and bit for bit against the column rows at
+    the plan positions), K8 on the residual plan, K9's segment sum on the
+    staged rows (bit for bit against K9 with its staging pass over the
+    column rows), and K7 on the assembled 27-wide Jacobian; each timed
+    with its bound and library call (K6: none). Returns the records in
+    MIXED_KERNELS' order (launches to be filled) and the system timings."""
+    import torch
+
+    from dedflow_tpu_torch.fem import element_kernels as ek
+    from dedflow_tpu_torch.fem import element_rows as er
+    from dedflow_tpu_torch.fem import win_assembly as wa_
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.solver.newton import assemble_system, residual
+    from dedflow_tpu_torch.sparse.win_kernels import winell_matvec, winell_matvec_plain
+    from dedflow_tpu_torch.sparse.win_ring import ring_reduce
+    from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_plain
+    from dedflow_tpu_torch.sparse.winell import COMP2WIN
+    from dedflow_tpu_torch.tools.timing import nbytes, time_ms
+
+    phys, scheme = solver.cfg.physics, solver.cfg.time
+    ctx, ne = solver.wctx, solver.wctx.num_elem
+    names = [name for name, _, _ in MIXED_KERNELS]
+    k10 = k10_checks(solver.mesh, ctx.ien_t, scheme)
+    wg, dwgold, dwg = perturbed_state(solver.mesh, solver.device, solver.dtype)
+    wa, dwa = alpha_states(wg, dwgold, dwg, scheme)
+    inp67, inp27 = wa_.residual_inputs(ctx, wa, dwa), wa_.jacobian_inputs(ctx, wa)
+    by_eq, entry_blocks = reduce_parts()
+
+    k6r = lambda: ek.res_rows_call(inp67, phys, scheme)
+    p6r = lambda: er.res_rows(inp67, **ek.res_args(phys, scheme))
+    e6r = compare(names[0], k6r, p6r, TOL_K6)
+    plan = ctx.jac_plan
+    staged, (stage16, _) = staged_record(
+        names[1], plan, lambda: ek.lhs_rows_staged(inp27, phys, scheme, plan),
+        lambda: ek.lhs_rows_staged_plain(inp27, phys, scheme, plan),
+        lambda: ek.stage_rows(plan, ek.lhs_rows_call(inp27, phys, scheme)),
+        False, TOL_K6, nbytes(inp27), 10)
+    out24 = k6r()
+    k8 = lambda: stream_reduce(ctx.res_plan, out24, range(6), ne)
+    p8 = lambda: stream_reduce_plain(ctx.res_plan, out24, range(6), ne)
+    e8 = compare(names[3], k8, p8, TOL_K8, parts=by_eq)
+    # K9 with its staging pass over the column rows: the bit-for-bit witness
+    out288 = ek.lhs_rows_call(inp27, phys, scheme)
+    k9col = ring_reduce(plan, out288, wa_.JAC_COMPS, ne)
+    del out288
+    seg = segment_sum_record(names[4], plan, stage16, k9col, 20)
+    del stage16, k9col
+
+    jm, pc = assemble_system(ctx, solver.face_ctxs, solver.mask_t, wg, dwgold, dwg, phys, scheme)
+    gen = torch.Generator(device=solver.device).manual_seed(SEED)
+    x = torch.randn((6, ctx.num_node), generator=gen, device=solver.device, dtype=solver.dtype)
+    k7 = lambda: winell_matvec(jm, x)
+    p7 = lambda: winell_matvec_plain(jm, x)
+    e7 = compare(names[2], k7, p7, TOL_K7, parts=by_eq)
+    wp = jm.plan
+    csr = block_csr(ctx.num_node, [(wp.grow_t.long(), wp.col_t.long(),
+                                    {c: jm.vals[int(COMP2WIN[c])] for c in range(18)})])
+    xflat = x.reshape(-1)
+    out6 = torch.empty((6, ctx.num_node), dtype=torch.float32)
+    r7 = finish(names[2], {"max_abs_err": e7}, k7, p7, 100, 10,
+                nbytes(jm.vals, wp.col_t, wp.row_ptr_t, x, out6), op_count(p7),
+                library=(lambda: csr @ xflat, k7()))
+    del csr
+    results = [
+        finish(names[0], {"max_abs_err": e6r}, k6r, p6r, 20, 3, nbytes(inp67, out24),
+               op_count(p6r)),
+        staged, r7,
+        finish(names[3], {"max_abs_err": e8}, k8, p8, 50, 5,
+               reduce_bytes(ctx.res_plan, range(6), 6), op_count(p8),
+               library=(index_add_call(ctx.res_plan, out24, range(6), ne), k8())),
+        seg,
+    ] + k10_records(k10, ctx.ien_t, names[5:7])
+    common = (ctx, solver.face_ctxs, solver.mask_t, wg, dwgold, dwg, phys, scheme)
+    widths = mesh_row_widths(solver)
+    times = {"F_ms": time_ms(lambda: residual(*common, solver.cfg.freeze_phi_temperature), 10),
+             "J_ms": time_ms(lambda: assemble_system(*common), 5), "SpMV_ms": r7["ms"],
+             "matrix_entries": wp.S, "row_blocks_max": int(widths.max()),
+             "row_blocks_mean": float(widths.mean()),
+             "jacobian_MB": jm.vals.numel() * jm.vals.element_size() / 1e6}
+    return results, times
+
+
+def phase_mixed() -> tuple[list, dict]:
+    """Phase 23: (a) the box-12 mixed slice; (b) the box-55 mixed mesh on
+    the WinELL tier: its kernels against their plain versions, then the
+    main path (drive_main through phase 8's counters: two steps, then step
+    1 repeated bit-identical), with set-up s, s/step, counts, peak memory
+    and each kernel's launches."""
+    out = {"slice": phase_mixed_slice()}
+    solver, setup_s = mixed_solver(FULL_BOX, 0)
+    mesh = solver.mesh
+    say(f"  main: box {FULL_BOX} + {mesh.num_hex} hexes: {mesh.num_tet} tets, {mesh.num_node} "
+        f"nodes, {solver.wctx.win_plan.S} matrix entries, fastpath {solver.fastpath}, host "
+        f"set-up {setup_s:.2f} s")
+    results, times = phase_mixed_kernels(solver)
+    say(f"  mixed system: {json.dumps(times)}")
+    main = phase_irregular_main(solver)
+    n6r, _, n7, n8, _ = main["launches"]
+    n6j, n9 = main["staged"]
+    launches = [n6r, n6j, n7, n8, n9, n6r, n6j]
+    out.update(setup_s=setup_s, step_s=main["step_s"], peak_bytes=main["peak_bytes"],
+               system=times, launches=dict(zip((n for n, _, _ in MIXED_KERNELS), launches)))
+    return [r | {"launches": n, "launches_of": "phase 23 mixed: box-55 + hex main path"}
+            for r, n in zip(results, launches)], out
+
+
+# The check tools (ROADMAP A18; dedflow_tpu_torch/tools): the 1e-10 bar at
+# BASELINE's ~20k tets, the lattice kernels' self-check at the JAX tool's
+# mesh, and the nonlinear parity at a box that keeps the phase near a minute
+# (the tool's own default, the JAX tool's 31, is for manual runs).
+CHECK_RESIDUAL_BOX = 15
+CHECK_NONLINEAR_BOX = 24
+CHECK_NONLINEAR_STEPS = 2
+
+
+def phase_checks() -> dict:
+    """Phase 24: tools.residual_check at n = 15 (both relative residuals
+    <= 1e-10, or the phase fails), tools.selfcheck at its default n (K1,
+    K2, K2' against their plain versions), tools.nonlinear_f64_check at
+    CHECK_NONLINEAR_BOX (the card's float32 steps, "ir" and "state", within
+    TOL_SLICE of the CPU float64 step's state, finite norms)."""
+    from dedflow_tpu_torch.tools import nonlinear_f64_check, residual_check, selfcheck
+
+    out = {}
+    t0 = time.perf_counter()
+    res = residual_check.residual_check(CHECK_RESIDUAL_BOX, "cuda")
+    say(f"  residual_check ({time.perf_counter() - t0:.1f} s): {json.dumps(res)}")
+    if not res["pass"]:
+        raise PhaseError("residual_check: a relative residual above 1e-10")
+    t0 = time.perf_counter()
+    sc = selfcheck.selfcheck(device="cuda")
+    say(f"  selfcheck ({time.perf_counter() - t0:.1f} s): {json.dumps(sc)}")
+    if not sc["pass"]:
+        raise PhaseError("selfcheck: a kernel differs from its plain version")
+    t0 = time.perf_counter()
+    nl = nonlinear_f64_check.nonlinear_check(CHECK_NONLINEAR_BOX, CHECK_NONLINEAR_STEPS, "cuda")
+    say(f"  nonlinear_f64_check at box {CHECK_NONLINEAR_BOX} ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(nl)}")
+    for run in ("cpu_f64", "device_ir", "device_f32"):
+        if not all(math.isfinite(v) for norms in nl[run]["field_norms"] for v in norms):
+            raise PhaseError(f"nonlinear_f64_check: non-finite field norms in {run}")
+    for run in ("device_ir", "device_f32"):
+        check(f"nonlinear_f64_check {run}", nl[run]["rel_state_diff_vs_cpu_f64"], TOL_SLICE)
+    out.update(residual=res, selfcheck_pass=sc["pass"], nonlinear_box=CHECK_NONLINEAR_BOX,
+               nonlinear_rel={r: nl[r]["rel_state_diff_vs_cpu_f64"]
+                              for r in ("device_ir", "device_f32")})
+    return out
+
+
 def run() -> int:
     try:
         import torch
@@ -3561,6 +3827,20 @@ def run() -> int:
         heat_results, heat = phase_heat()
         say(f"  heat ({card}): {json.dumps(heat)}")
         say(f"  phase 22: {time.perf_counter() - t0:.1f} s")
+        phase = "23 mixed"
+        say(f"phase 23 mixed ({card}): prism / hex meshes, box {SLICE_BOX} slice and box "
+            f"{FULL_BOX} with a hex table over its cubes on the {MIXED_TIER} tier")
+        t0 = time.perf_counter()
+        mixed_results, mixed = phase_mixed()
+        say(f"  mixed ({card}): {json.dumps(mixed)}")
+        say(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+        phase = "24 checks"
+        say(f"phase 24 checks ({card}): residual_check at n = {CHECK_RESIDUAL_BOX}, selfcheck, "
+            f"nonlinear_f64_check at box {CHECK_NONLINEAR_BOX}")
+        t0 = time.perf_counter()
+        checks = phase_checks()
+        say(f"  checks ({card}): {json.dumps(checks)}")
+        say(f"  phase 24: {time.perf_counter() - t0:.1f} s")
     except Exception as e:  # report the failed phase, then fail
         traceback.print_exc()
         print(f"FAIL phase {phase}: {type(e).__name__}: {e}", file=sys.stderr)
@@ -3578,17 +3858,17 @@ def run() -> int:
         for (name, src, rep), r, n in zip(
             KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS
             + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS + KRYLOV_KERNELS + CLASS_KERNELS
-            + HEAT_KERNELS,
+            + HEAT_KERNELS + MIXED_KERNELS,
             results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit]
             + ir_staged + ga_staged + ga_res_staged + krylov_results + class_results
-            + heat_results,
+            + heat_results + mixed_results,
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
             + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
             + ga_main["launches"][3:]
             + melt_launches + staged_launches + ga_main["res_staged"]
             + [r["launches"] for r in krylov_results] + [r["launches"] for r in class_results]
-            + [r["launches"] for r in heat_results],
+            + [r["launches"] for r in heat_results] + [r["launches"] for r in mixed_results],
         )
     ]
     # the probes' launches: those of their entry points' runs (phase 18)

@@ -19,6 +19,9 @@ first tries mesh.recover.recover_lattice, as the JAX CLI does: a box stored
 as an unstructured tet soup comes back in lattice order with its cells' own
 tet split, and the solver takes the lattice tier; `--no-lattice-recover`
 skips that, and a translation-regular mesh then runs on the classes tier.
+A file with prism / hex tables (tools.mesh_convert's `wedge` and
+`hexahedron` cells) runs as in the JAX CLI: recovery skips it and the
+solver takes the tier whose stencil holds its cells (solver.newton).
 `--mesh` excludes `--box`; without either the run takes box 8 8 8, as the
 JAX CLI's does. The coupled scenario runs on generated boxes only (its
 particle locator assumes the Kuhn split). `--steps K` runs K time steps;

@@ -134,7 +134,7 @@ def build_context(
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     if sparsity is None:
-        sparsity = build_sparsity(mesh.ien, mesh.num_node)
+        sparsity = build_sparsity(mesh.ien, mesh.num_node, extra_ien=mesh.extra_cells)
     ien = np.asarray(mesh.ien, dtype=np.int64)
     elem_nnz = np.asarray(sparsity.elem_nnz, dtype=np.int64).reshape(-1, 16)
     ne_real, n = ien.shape[0], mesh.num_node

@@ -19,9 +19,12 @@ p/phi/T (N), du (3N), dphi/dT (N), plus the JAX package's `meta` group
 (step, time). The state is (N, 6) with columns [u0,u1,u2,p,phi,T]; the
 pressure lives in the rate vector's slot 3 (main.c:584).
 
-Prism and hex tables are read and kept; the solver refuses them (ROADMAP
-A13). h5py is imported only inside the functions that read or write a
-file, so the package imports where h5py is not installed. The solution
+Prism and hex tables are read, kept and written as the JAX package does;
+the solver takes their stencils (only tets are assembled). The reference's
+flat (6N,) solution layout converts both ways with
+`state_to_reference_flat` / `reference_flat_to_state`. h5py is imported
+only inside the functions that read or write a file, so the package
+imports where h5py is not installed. The solution
 layout itself is split from the file calls: `solution_datasets` and
 `state_from_datasets` build and read the datasets as NumPy arrays in a
 dict, so a machine without h5py runs everything but the file access.
@@ -41,6 +44,29 @@ def _h5py():
     import h5py
 
     return h5py
+
+
+def state_to_reference_flat(state: np.ndarray) -> np.ndarray:
+    """(N, 6) -> the reference's flat (6N,) layout: u node-interleaved
+    (3N), then p, phi and T (N each); the dtype kept (h5.py:39-47 of the
+    JAX package)."""
+    state = np.asarray(state)
+    n = state.shape[0]
+    flat = np.empty(6 * n, dtype=state.dtype)
+    flat[: 3 * n] = state[:, :3].ravel()
+    flat[3 * n:] = state[:, 3:].T.ravel()
+    return flat
+
+
+def reference_flat_to_state(flat: np.ndarray) -> np.ndarray:
+    """The reference's flat (6N,) layout -> (N, 6) (h5.py:50-58 of the JAX
+    package)."""
+    flat = np.asarray(flat)
+    n = flat.shape[0] // 6
+    state = np.empty((n, 6), dtype=flat.dtype)
+    state[:, :3] = flat[: 3 * n].reshape(n, 3)
+    state[:, 3:] = flat[3 * n: 6 * n].reshape(3, n).T
+    return state
 
 
 def write_mesh_h5(path: str, mesh: Mesh) -> None:

@@ -1,5 +1,5 @@
-"""Built-in mesh generators (NumPy copy of dedflow_tpu/mesh/gen.py: box_mesh and
-delaunay_mesh).
+"""Built-in mesh generators (NumPy copy of dedflow_tpu/mesh/gen.py: box_mesh,
+single_tet_mesh and delaunay_mesh).
 
 The reference ships no mesh generator (it loads a pre-converted `box.h5`,
 main.c:360); these generators produce meshes with the same table structure
@@ -111,6 +111,14 @@ def box_mesh(
     return mesh
 
 
+def single_tet_mesh() -> Mesh:
+    """The reference's DBG_TET unit tet (tet.h5; main.c:357-358): one
+    element, no boundary tables (gen.py:36 of the JAX package)."""
+    xg = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
+    ien = np.array([[0, 1, 2, 3]], dtype=INDEX_DTYPE)
+    return Mesh(xg=xg, ien=ien, boundaries=[])
+
+
 def delaunay_mesh(num_points: int, seed: int = 0) -> Mesh:
     """Genuinely irregular tet mesh: Delaunay triangulation of uniform
     random points in the unit cube (~6.7 tets/point), no boundary tables
@@ -189,3 +197,31 @@ def l_shaped_mesh(nx: int, ny: int, nz: int) -> Mesh:
     boundaries.append(Boundary(nodes=orphans, ien=np.zeros((0, 3), dtype=INDEX_DTYPE),
                                f2e=empty, forn=empty))
     return Mesh(xg=xg.copy(), ien=ien, boundaries=boundaries)
+
+
+# Gmsh / VTK node orders of a hexahedron and of the two wedges (prisms) of
+# a cube cut along its (0, 0) - (1, 1) diagonal in x-y, as cube corner ids
+# ix + 2*iy + 4*iz.
+HEX_CORNERS = (0, 1, 3, 2, 4, 5, 7, 6)
+WEDGE_CORNERS = ((0, 1, 2, 4, 5, 6), (1, 3, 2, 5, 7, 6))
+
+
+def mixed_box_mesh(nx: int, ny: int, nz: int, hexes: bool = True, prism_layers: int = 0) -> Mesh:
+    """box_mesh(nx, ny, nz) with the prism / hex tables a converted mesh
+    carries (tools.mesh_convert's `wedge` and `hexahedron` cells): with
+    `hexes` a hexahedron over every cube, and two wedges over each cube of
+    the lowest `prism_layers` cell layers (a boundary layer on z-). The
+    solver assembles the tets only; the tables add stencil entries, a hex
+    all 27 corner differences of its cube (csr.c:107-130). Lattice
+    metadata kept."""
+    box = box_mesh(nx, ny, nz)
+    sy, sz = nx + 1, (nx + 1) * (ny + 1)
+    ix, iy, iz = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij")
+    base = (ix + sy * iy + sz * iz).transpose(2, 1, 0).reshape(-1)  # cubes, x fastest
+    corner = np.array([(c & 1) + sy * ((c >> 1) & 1) + sz * ((c >> 2) & 1) for c in range(8)])
+    cells = base[:, None] + corner[None, :]  # (ncell, 8) by corner id
+    low = cells[: nx * ny * prism_layers]
+    prisms = np.concatenate([low[:, list(w)] for w in WEDGE_CORNERS], axis=1).reshape(-1, 6)
+    return Mesh(xg=box.xg, ien=box.ien, boundaries=box.boundaries, lattice=box.lattice,
+                ien_hex=cells[:, list(HEX_CORNERS)] if hexes else None,
+                ien_prism=prisms if prism_layers else None)

@@ -14,7 +14,12 @@ recovered from a file (fem.lattice, with the cells' own tet split), the
 translation-class tier of a mesh without generator metadata
 (fem.lattice.build_class_context), the windowed irregular tier
 (fem.win_assembly) and the general gather tier (fem.assembly + fem.ns:
-any mesh, any node order, and every `assembly_chunk` run). Every option
+any mesh, any node order, and every `assembly_chunk` run). A mesh with
+prism / hex tables (a converted mesh with a prism boundary layer) runs as
+in the JAX package: only its tets are assembled, its mixed cells add
+stencil entries (exact zeros in J), and the tier is the one whose stencil
+holds them (`stencil_offsets`; the classes tier and lattice recovery
+refuse such meshes). Every option
 of the JAX package's Krylov layer runs (assemble_system, _solve_linear):
 the field-split, SIMPLE and multigrid preconditioners (geometric on the
 lattice, algebraic on WinELL), the linear solve in the state dtype, in
@@ -353,7 +358,6 @@ def _refuse_unported(mesh: Mesh, cfg: SolverConfig) -> None:
     them: the JAX package's step ignores it and always runs GMRES
     (config.py:99-101), and so does the port's."""
     checks = [
-        (mesh.extra_cells != [], "prism/hex stencil cells", "A13"),
         (cfg.lattice_backend is not None, f"lattice_backend={cfg.lattice_backend!r}", "A9"),
     ]
     for bad, what, item in checks:
@@ -380,10 +384,28 @@ def _winell_gate(mesh: Mesh) -> bool:
     return int(nwin.max()) < 1024 and float(nwin.mean()) < 8.0
 
 
+def stencil_offsets(mesh: Mesh) -> tuple:
+    """The node-id offsets (col - row) of the mesh's sparsity, ascending:
+    those of its tets' node pairs and of its prism / hex tables' (the mixed
+    cells add stencil entries, sparse.topology.build_sparsity). The JAX
+    solver compares these, its context's `dia_offsets`, with a lattice or
+    class stencil (newton.py:596-603); () for a mesh without tets."""
+    ien = np.asarray(mesh.ien, dtype=np.int64)
+    if not ien.size:
+        return ()
+    offs = set()
+    for t in (ien, *mesh.extra_cells):
+        t = np.asarray(t, dtype=np.int64)
+        offs.update(np.unique(t[:, None, :] - t[:, :, None]).tolist())
+    return tuple(sorted(offs))
+
+
 def _choose_tier(mesh: Mesh, cfg: SolverConfig) -> str:
     """The assembly tier the JAX package's ladder picks (newton.py:560-672):
     "lattice" for a mesh with lattice metadata (generated, or recovered with
-    its `lattice_tets`) whose stencil offsets equal its sparsity's, unless
+    its `lattice_tets`) whose stencil offsets equal its sparsity's
+    (`stencil_offsets`: a prism / hex table whose node pairs leave the
+    lattice's stencil keeps the mesh off the lattice), unless
     use_lattice="off", which ignores the metadata; else "classes" when the
     mesh is translation-regular (fem.lattice.classes_tier_applies) on
     "auto", "off" or "on"; "on" raises when neither applies; else "winell"
@@ -394,10 +416,7 @@ def _choose_tier(mesh: Mesh, cfg: SolverConfig) -> str:
         raise ValueError(f"unknown use_lattice={mode!r}")
     if mode == "gather" or cfg.assembly_chunk is not None:
         return "gather"
-    ien = np.asarray(mesh.ien, dtype=np.int64)
-    mesh_offs = tuple(
-        int(o) for o in np.unique(ien[:, None, :] - ien[:, :, None])
-    ) if ien.size else ()
+    mesh_offs = stencil_offsets(mesh)
     if mode != "winell":
         if mesh.lattice is not None and mode != "off":
             if lattice_tables(*mesh.lattice, mesh.lattice_tets)[3] == mesh_offs:
@@ -440,7 +459,9 @@ class NSSolver:
                 for b in weak
             )
         else:
-            sparsity = build_sparsity(mesh.ien, mesh.num_node)
+            # prism / hex tables add stencil entries only (newton.py:536-538
+            # of the JAX package): exact zeros in J
+            sparsity = build_sparsity(mesh.ien, mesh.num_node, extra_ien=mesh.extra_cells)
             if self.fastpath == "winell":
                 # pc="mg" on this tier is AMG: its pattern-only plan is
                 # built once here (newton.py:620-627 of the JAX package)

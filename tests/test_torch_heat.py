@@ -21,6 +21,12 @@ solver/pc.py), float64 on the CPU.
   against JAX.
 - cg's iterates against JAX's at 1e-10 with equal iteration counts (after
   a few iterations, a block boundary, and to convergence).
+- Float32 GMRES(120) + Jacobi on the manufactured Poisson problem at box
+  15 (chip_smoke.py phase 22's): the port stops where the JAX package does,
+  with the same iteration count and neither reaching rtol 1e-6 in the true
+  residual (the float32 attainable-accuracy floor: after the first cycle
+  every restart cycle takes one iteration whose estimate passes the
+  tolerance while the true residual stays near 1.5e-6).
 - The port alone, as the JAX package's tests/test_heat.py: the unit-tet
   golden values, J as the exact derivative, the linear-exact Poisson solve
   with CG and GMRES, and the manufactured solution's O(h^2) convergence
@@ -42,8 +48,7 @@ from dedflow_tpu.sparse.bsr import bsr_to_dense as jdense
 from dedflow_tpu_torch.fem import assembly as tasm
 from dedflow_tpu_torch.fem import heat as theat
 from dedflow_tpu_torch.fem.dirichlet import StrongBC, apply_mat, apply_vec, build_mask
-from dedflow_tpu_torch.mesh.gen import box_mesh
-from dedflow_tpu_torch.mesh.mesh import Mesh
+from dedflow_tpu_torch.mesh.gen import box_mesh, single_tet_mesh
 from dedflow_tpu_torch.solver import krylov as tkry
 from dedflow_tpu_torch.solver import pc as tpc
 from dedflow_tpu_torch.sparse.bsr import bsr_to_dense, bsr_zeros
@@ -343,10 +348,8 @@ def test_cg_iterates_match_jax(pair, maxit):
 
 
 def test_single_tet_heat_golden():
-    """The reference's unit tet (JAX mesh/gen.py::single_tet_mesh)."""
-    tet = Mesh(xg=np.array([[0.0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]]),
-               ien=np.array([[0, 1, 2, 3]], dtype=np.int32), boundaries=[])
-    ctx = _ctx(tet)
+    """The reference's unit tet (mesh.gen.single_tet_mesh)."""
+    ctx = _ctx(single_tet_mesh())
     f = theat.heat_element_residual(ctx, _t([0.0, 1.0, 0.0, 0.0]), torch.ones(4,
                                     dtype=torch.float64))[0].numpy()
     expect = np.full(4, 1.0 / 24.0) + (1.0 / 6.0) * np.array([-1.0, 1.0, 0.0, 0.0])
@@ -402,3 +405,33 @@ def test_poisson_manufactured_convergence():
         assert out.converged
         errs.append(float(np.sqrt(np.mean((out.x.numpy() - u_exact) ** 2))))
     assert errs[1] < errs[0] / 2.5, errs
+
+
+def test_float32_gmres_on_poisson_stops_where_jax_does():
+    """GMRES(120) + Jacobi, float32, rtol 1e-6, maxit 4800, on -lap(u) =
+    3 pi^2 sin(pi x) sin(pi y) sin(pi z) at box 15 (20,250 tets) in both
+    packages: equal iteration counts, neither converged, both true relative
+    residuals between 1e-6 and 2e-6 (ROADMAP's float32 GMRES item)."""
+    n = 15
+    mesh = box_mesh(n, n, n)
+    x, y, z = mesh.xg.T
+    src = 3.0 * np.pi**2 * np.sin(np.pi * x) * np.sin(np.pi * y) * np.sin(np.pi * z)
+    ctx = tasm.build_context(mesh, device="cpu", dtype=torch.float32, scalar_plans=True)
+    k, b = theat.assemble_poisson(ctx, torch.as_tensor(src, dtype=torch.float32))
+    mask = torch.as_tensor(build_mask(mesh, ALL_FACES, 1))
+    k, b = apply_mat(mask, k), apply_vec(mask[:, 0], b)
+    mv = lambda v: k.matvec(v[:, None])[:, 0]
+    got = tkry.gmres(mv, b, maxit=4800, atol=0.0, rtol=1e-6, restart=120,
+                     pc=tpc.JacobiPC.from_diag(k.diag_blocks()[:, 0, 0]))
+    got_rel = float(torch.linalg.vector_norm(b - mv(got.x)) / torch.linalg.vector_norm(b))
+    jctx = jasm.build_context(jbox_mesh(n, n, n), dtype=jnp.float32)
+    jk, jb = jheat.assemble_poisson(jctx, jnp.asarray(src, jnp.float32))
+    jmask = jnp.asarray(mask.numpy())
+    jk, jb = jdbc.apply_mat(jmask, jk), jdbc.apply_vec(jmask[:, 0], jb)
+    jmv = lambda v: jk.matvec(v[:, None])[:, 0]
+    ref = jkry.gmres(jmv, jb, maxit=4800, atol=0.0, rtol=1e-6, restart=120,
+                     pc=jpc.JacobiPC.from_diag(jk.diag_blocks()[:, 0, 0]))
+    ref_rel = float(jnp.linalg.norm(jb - jmv(ref.x)) / jnp.linalg.norm(jb))
+    assert got.iters == int(ref.iters)
+    assert not got.converged and not bool(ref.converged)
+    assert 1e-6 < got_rel < 2e-6 and 1e-6 < ref_rel < 2e-6

@@ -54,6 +54,11 @@ plan-order sums bit for bit with no staging buffer (the one-pass entry,
 also on stress plans: empty targets, a target longer than its tile, no
 contributions), and Jacobi-preconditioned CG on the card repeats its
 count and iterate bit for bit and agrees with the CPU's float64 solve.
+On a mixed mesh (mesh.gen.mixed_box_mesh: a hex over every cube and a
+prism boundary layer, the WinELL tier on the 27-point stencil) the staged
+K6, K9's segment sum and K7 on its 27-wide rows match their plain versions
+as on the Delaunay mesh, and a step on the card agrees with the CPU's
+float64 step.
 """
 
 import dataclasses
@@ -89,6 +94,7 @@ from dedflow_tpu_torch.mesh.gen import (
     deformed_mesh,
     delaunay_mesh,
     l_shaped_mesh,
+    mixed_box_mesh,
     shuffled_mesh,
 )
 from dedflow_tpu_torch.mesh.recover import recover_lattice
@@ -682,6 +688,68 @@ def test_k7_spmv_matches_plain(irregular):
     ref = winell_matvec_plain(jm, x)
     for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):  # u, p, phi/T equations
         assert rel(got[rows], ref[rows]) < 1e-5
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    """BOX with a hex over every cube and prisms on its lowest layer: the
+    WinELL tier with 27 node blocks a row, the reference scenario."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    mesh = mixed_box_mesh(*BOX, prism_layers=1)
+    solver = NSSolver(mesh, reference_scenario_config(), device="cuda")
+    assert solver.fastpath == "winell"
+    assert int(np.diff(solver.wctx.win_plan.row_ptr).max()) == 27
+    wg, dwgold, dwg = reference_initial_state(mesh)
+    dwg = dwg + 0.1 * np.random.default_rng(11).standard_normal(dwg.shape)
+    state = state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32)
+    return solver, state, alpha_states(*state, solver.cfg.time)[0]
+
+
+def test_mixed_k6_staged_and_k9_segment_sum_match_plain(mixed):
+    """The staged K6 and K9's segment sum on the mixed pattern (entries no
+    tet couples: exact zeros), as test_k6_staged_matches_plain_and_the_column_rows."""
+    solver, _, wa = mixed
+    phys, scheme, ctx = solver.cfg.physics, solver.cfg.time, solver.wctx
+    inp, plan = wa_.jacobian_inputs(ctx, wa), ctx.jac_plan
+    _check_staged(lambda: ek.lhs_rows_staged(inp, phys, scheme, plan), ek.lhs_rows_staged,
+                  lambda: ek.lhs_rows_staged_plain(inp, phys, scheme, plan),
+                  ek.lhs_rows_call(inp, phys, scheme), plan, ctx.num_elem, False)
+
+
+def test_mixed_k7_spmv_matches_plain(mixed):
+    """K7 on the assembled 27-wide Jacobian, per equation."""
+    solver, state, _ = mixed
+    jm, _ = assemble_system(
+        solver.wctx, solver.face_ctxs, solver.mask_t, *state, solver.cfg.physics, solver.cfg.time
+    )
+    x = torch.as_tensor(
+        np.random.default_rng(12).standard_normal((6, solver.mesh.num_node)),
+        dtype=torch.float32, device="cuda",
+    )
+    got = _twice(lambda: winell_matvec(jm, x), winell_matvec)
+    ref = winell_matvec_plain(jm, x)
+    for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):  # u, p, phi/T equations
+        assert rel(got[rows], ref[rows]) < 1e-5
+
+
+def test_mixed_step_on_card_matches_cpu_f64():
+    """One step_fixed(num_newton=2) of the mixed BOX on the card in float32
+    against the CPU in float64 (chip_smoke.py phase 23 (a))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    mesh = mixed_box_mesh(*BOX, prism_layers=1)
+    cfg = reference_scenario_config()
+    wg, dwgold, dwg = reference_initial_state(mesh)
+    dwg = dwg + 0.1 * np.random.default_rng(13).standard_normal(dwg.shape)
+    outs = []
+    for device in ("cuda", "cpu"):
+        solver = NSSolver(mesh, cfg, device=device)
+        assert solver.fastpath == "winell"
+        outs.append(solver.step_fixed(*state_from_numpy(wg, dwgold, dwg, device), num_newton=2))
+    for g, r in zip(*outs):
+        assert torch.isfinite(g).all()
+        assert rel(g, r) < 1e-4
 
 
 def test_irregular_kernels_refuse_what_they_cannot_take(irregular):
