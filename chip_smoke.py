@@ -198,6 +198,23 @@ Phases, one line each; the script exits non-zero at the first failure:
             (K1, K2, K2' against their plain versions at box_mesh(8, 6, 7)),
             nonlinear_f64_check at box 24 (the card's float32 steps, "ir"
             and "state", against the CPU's float64 step)
+  the multi-device path (ROADMAP A16: parallel.sharded, a box cut into
+  z-slabs over torch.distributed ranks; one card, so the ranks share it
+  through gloo, every exchange staged through pinned host memory):
+ 25 sharded (a) box 12 on 2 and 4 ranks, one adaptive step each against the
+            CPU float64 one-process step (TOL_SLICE, equal Newton counts,
+            Krylov counts equal or witnessed); (b) box 55 on 2 ranks, one
+            step from the reference initial state against phase 5's first
+            (each field within TOL_SLICE, equal Newton counts), with s/step
+            and its split (kernels, bands and carries, all-reduces, the
+            rest), each rank's launches of K1, K2 and K3's banded entry
+            (every one > 0, the plain twins never called), peak memory,
+            halo bytes a Newton iteration and all-reduces a Krylov
+            iteration; (c) each rank's slab K1, K2 (masked and unmasked) and
+            banded K3 (masked and unmasked) against their plain twins, timed
+            on rank 0 with bounds and a CSR product (3 kernel rows tagged
+            "slab, box-55 half"); (d) dryrun_multichip(2) on the card and
+            app.main --devices 2 at box (4, 3, 6)
 Then, on lines of their own: the kernels JSON object (each kernel with its
 time, its plain version's, its bound and, where one PyTorch call computes
 the same function, that call's time), the card's name and power limit, and
@@ -470,22 +487,24 @@ def finish(label: str, rec: dict, kernel, plain, reps: int, plain_reps: int,
     return rec
 
 
-def block_csr(n: int, pieces):
-    """The 6N x 6N matrix, component-major (row b*N + node), of `pieces`:
-    (row nodes, col nodes, {packed component: values}) triples, as one
-    torch.sparse CSR tensor (the library yardstick of the SpMVs)."""
+def block_csr(n: int, pieces, cols: int | None = None):
+    """The 6N x 6N matrix (6N x 6 cols with `cols`), component-major (row
+    b*N + node, column b*cols + node), of `pieces`: (row nodes, col nodes,
+    {packed component: values}) triples, as one torch.sparse CSR tensor
+    (the library yardstick of the SpMVs)."""
     import torch
 
     from dedflow_tpu_torch.sparse.fsbsr import COMP_SLOTS
 
-    rows, cols, vals = [], [], []
+    m = n if cols is None else cols
+    rows, cix, vals = [], [], []
     for r, c, by_comp in pieces:
         for comp, bi, bj in COMP_SLOTS:
             rows.append(bi * n + r)
-            cols.append(bj * n + c)
+            cix.append(bj * m + c)
             vals.append(by_comp[comp])
-    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
-    coo = torch.sparse_coo_tensor(idx, torch.cat(vals), (6 * n, 6 * n))
+    idx = torch.stack([torch.cat(rows), torch.cat(cix)])
+    coo = torch.sparse_coo_tensor(idx, torch.cat(vals), (6 * n, 6 * m))
     return coo.coalesce().to_sparse_csr()
 
 
@@ -1066,7 +1085,7 @@ def drive_main(solver, counters, label: str, absent=()) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for c in (*counters, *absent):
         c.launches = 0
-    steps = []
+    steps, newton = [], []
     for step in (1, 2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1076,6 +1095,7 @@ def drive_main(solver, counters, label: str, absent=()) -> dict:
         first = first or (state, stats.krylov_iters)
         norms = [float(v) for v in stats.rnorms[-1]]
         steps.append(wall)
+        newton.append(len(stats.rnorms))
         say(f"  step {step}: wall_s={wall:.4f} newton={len(stats.rnorms)} "
             f"krylov={stats.krylov_iters} converged={stats.converged} "
             f"field_norms={norms} launches {label} so far="
@@ -1099,7 +1119,8 @@ def drive_main(solver, counters, label: str, absent=()) -> dict:
     if not same or stats.krylov_iters != first[1]:
         raise PhaseError("main: a repeated step differs from the first run")
     return {"launches": launches, "absent": list(off.values()), "step_s": steps,
-            "peak_bytes": peak, "state": [t.cpu() for t in state]}
+            "newton": newton, "peak_bytes": peak, "state": [t.cpu() for t in state],
+            "first_state": [t.cpu() for t in first[0]]}
 
 
 def dem_case(x):
@@ -3682,6 +3703,317 @@ def phase_checks() -> dict:
     return out
 
 
+# The multi-device path (ROADMAP A16, first slice: parallel.sharded's z-slab
+# decomposition over torch.distributed). The card machine has one card, so
+# the ranks share it through gloo (parallel.launch), every band, carry and
+# all-reduce staged through pinned host memory.
+SHARDED_SLICE_RANKS = (2, 4)
+SHARDED_MAIN_RANKS = 2
+SHARDED_CLI_BOX = (4, 3, 6)  # the CLI's run through its ranks: 7 node layers
+SHARDED_KERNELS = (
+    ("K1 lattice residual (slab, box-55 half)", "dedflow_tpu_torch/csrc/lattice_residual.cu",
+     "dedflow_tpu/fem/lattice.py:966"),
+    ("K2 lattice jacobian (slab, box-55 half)", "dedflow_tpu_torch/csrc/lattice_jacobian.cu",
+     "dedflow_tpu/fem/lattice.py:1169"),
+    ("K3 dia spmv banded (slab, box-55 half)", "dedflow_tpu_torch/csrc/dia_spmv.cu",
+     "dedflow_tpu/sparse/dia_kernels.py:169"),
+)
+
+
+def npz_write_solution(path, wg, dwg, step=None, time=None):
+    """The CLI's snapshot as an .npz of io.h5.solution_datasets (the card
+    machine has no h5py; the ranks of a --devices run write from their own
+    process, so the in-memory store of phase 21 cannot serve)."""
+    import numpy as np
+
+    from dedflow_tpu_torch.io.h5 import solution_datasets
+
+    np.savez(path + ".npz", **solution_datasets(wg, dwg, step, time))
+
+
+def sharded_slice_rank(device, box=SLICE_BOX):
+    """A rank of phase 25 (a): one adaptive step of the reference scenario
+    on the box from chip_smoke's perturbed state; rank 0 returns the
+    gathered state and the counts."""
+    import torch.distributed as dist
+
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
+
+    solver = ShardedNSSolver(box_mesh(*box), reference_scenario_config(), device=device)
+    state = [t[solver.own] for t in perturbed_state(solver.mesh, device, solver.dtype)]
+    *new, stats = solver.step(*state)
+    full = [solver.gather_state(t) for t in new]
+    if dist.get_rank() == 0:
+        return {"state": full, "newton": len(stats.rnorms), "krylov": stats.krylov_iters}
+
+
+def _counting(fn, calls: list):
+    def wrapped(*a, **k):
+        calls[0] += 1
+        return fn(*a, **k)
+    return wrapped
+
+
+def sharded_main_rank(device):
+    """A rank of phase 25 (b) and (c). (b): ShardedNSSolver at box 55,
+    one step from the reference initial state, the launch counts set to
+    0 just before and read just after (the plain twins counted too: they
+    must not run), per-rank walls, exchange and all-reduce counts, bytes
+    and host seconds, peak memory; the gathered state. (c): the rank's
+    slab K1, K2 (masked and unmasked) and K3's banded entry (masked and
+    unmasked) against their plain twins on the step's last state; rank 0
+    times them while rank 1 waits. First, in the same process group, the
+    box-12 slice of (a). Rank 0 returns everything."""
+    import torch
+    import torch.distributed as dist
+
+    from dedflow_tpu_torch.app.scenarios import reference_initial_state, reference_scenario_config
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
+    from dedflow_tpu_torch.sparse import dia_kernels as dk
+    from dedflow_tpu_torch.tools.timing import nbytes
+
+    rank = dist.get_rank()
+    slice_out = sharded_slice_rank(device)
+    t0 = time.perf_counter()
+    mesh = box_mesh(*FULL_BOX)
+    solver = ShardedNSSolver(mesh, reference_scenario_config(), device=device)
+    state = [solver.shard_state(a) for a in reference_initial_state(mesh)]
+    setup_s = time.perf_counter() - t0
+    counters = (lat.residual_volume, lat.jacobian_volume, dk.dia_matvec_banded)
+    plains = ((lat, "residual_volume_plain"), (lat, "jacobian_volume_plain"),
+              (dk, "dia_matvec_banded_plain"))
+    plain_calls = [[0] for _ in plains]
+    originals = [getattr(m, n) for m, n in plains]
+    for (m, n), f, calls in zip(plains, originals, plain_calls):
+        setattr(m, n, _counting(f, calls))
+    comm = solver.comm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    comm.stats.reset()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    *state, stats = solver.step(*state)
+    torch.cuda.synchronize()
+    s = comm.stats
+    steps = [{"wall_s": time.perf_counter() - t1, "newton": len(stats.rnorms),
+              "krylov": stats.krylov_iters, "exchanges": s.exchanges, "sent_bytes": s.sent_bytes,
+              "exchange_s": s.exchange_s, "allreduces": s.allreduces,
+              "allreduce_s": s.allreduce_s, "stage_s": s.stage_s}]
+    launches = [c.launches for c in counters]
+    for (m, n), f in zip(plains, originals):
+        setattr(m, n, f)
+    rec = {"rank": rank, "n_own": solver.sctx.n_own, "setup_s": setup_s, "steps": steps,
+           "launches": launches, "plain_calls": [c[0] for c in plain_calls],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    full = [solver.gather_state(t) for t in state]
+
+    # (c) the slab kernels against their plain twins on this rank's inputs
+    sctx, cfg = solver.sctx, solver.cfg
+    phys, scheme, lctx = cfg.physics, cfg.time, sctx.lctx
+    wa, dwa = alpha_states(*state, scheme)
+    wa_t, dwa_t, _ = lat.slab_states(sctx, wa, dwa)
+    keep_pc, add18, band, lo = lat.slab_jacobian_inputs(sctx, solver.face_ctxs, solver.mask_t,
+                                                        wa_t, dwa_t, phys, scheme)
+    keep16, add16 = keep_pc[:16].contiguous(), add18[:16].contiguous()
+    ones16, zeros16 = torch.ones_like(keep16), torch.zeros_like(add16)
+    jm = lat.assemble_jacobian_slab(sctx, solver.face_ctxs, solver.mask_t, wa, dwa, phys, scheme)
+    left = sctx.width if comm.left is not None else 0
+    m = left + sctx.n_own + (sctx.width if comm.right is not None else 0)
+    gen = torch.Generator(device=device).manual_seed(SEED + rank)
+    x = torch.randn((6, m), generator=gen, device=device)
+    raw = lat.jacobian_volume(lctx, wa_t, phys, scheme, ones16, zeros16)[..., : sctx.n_own]
+    raw, no_scal = raw.contiguous(), torch.zeros_like(jm.scal)
+    pairs = {
+        "K1": (lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme),
+               lambda: lat.residual_volume_plain(lctx, wa_t, dwa_t, phys, scheme), TOL_K1),
+        "K2": (lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, band, lo),
+               lambda: lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, keep16, add16, band,
+                                                 lo), TOL_K2),
+        "K2'": (lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, ones16, zeros16),
+                lambda: lat.jacobian_volume_plain(lctx, wa_t, phys, scheme, ones16, zeros16),
+                TOL_K2),
+        "K3": (lambda: dk.dia_matvec_banded(jm.data, jm.scal, x, jm.offsets, left),
+               lambda: dk.dia_matvec_banded_plain(jm.data, jm.scal, x, jm.offsets, left), TOL_K3),
+        "K3'": (lambda: dk.dia_matvec_banded(raw, no_scal, x, jm.offsets, left),
+                lambda: dk.dia_matvec_banded_plain(raw, no_scal, x, jm.offsets, left), TOL_K3),
+    }
+    errs = {k: compare(f"rank {rank} slab {k}", kern, plain, tol)
+            for k, (kern, plain, tol) in pairs.items()}
+    rows = None
+    dist.barrier()
+    if rank == 0:  # the other ranks wait: one process on the card while it is timed
+        out6 = torch.empty((6, lctx.num_node), dtype=torch.float32)
+        offs, n = jm.offsets, sctx.n_own
+        pieces = []
+        for k, o in enumerate(offs):
+            rr = torch.arange(max(0, -o - left), min(n, m - left - o), device=device)
+            by_comp = {c: jm.data[k, c, rr] for c in range(16)}
+            by_comp.update({16: jm.scal[2 * k, rr], 17: jm.scal[2 * k + 1, rr]})
+            pieces.append((rr, rr + left + o, by_comp))
+        csr, xflat = block_csr(n, pieces, cols=m), x.reshape(-1)
+        (k1, p1, _), (k2, p2, _), (k3, p3, _) = pairs["K1"], pairs["K2"], pairs["K3"]
+        rows = [
+            finish(SHARDED_KERNELS[0][0], {"max_abs_err": errs["K1"]}, k1, p1, 20, 5,
+                   nbytes(lctx.res_geom, wa_t, dwa_t, out6), op_count(p1)),
+            finish(SHARDED_KERNELS[1][0], {"max_abs_err": max(errs["K2"], errs["K2'"])}, k2, p2,
+                   10, 3, nbytes(lctx.lhs_geom, wa_t, keep16, add16, band, k2()), op_count(p2)),
+            finish(SHARDED_KERNELS[2][0], {"max_abs_err": max(errs["K3"], errs["K3'"])}, k3, p3,
+                   100, 25, nbytes(jm.data, jm.scal, x, out6[:, :n]), op_count(p3),
+                   library=(lambda: csr @ xflat, k3())),
+        ]
+    dist.barrier()
+    recs = [None] * comm.world if rank == 0 else None
+    dist.gather_object(rec, recs, dst=0)
+    if rank == 0:
+        return {"ranks": recs, "state": full, "kernels": rows, "slice": slice_out}
+
+
+def phase_sharded(main_out: dict) -> tuple[list, dict]:
+    """Phase 25: (a) box 12 on 2 and 4 gloo ranks sharing the card, one
+    adaptive step each against the CPU float64 one-process step (TOL_SLICE,
+    equal Newton counts, Krylov counts equal or witnessed by plain float32
+    CPU steps); (b) box 55 on 2 ranks, one step from the reference initial
+    state against phase 5's first one-process card step (each field's
+    state within TOL_SLICE of its scale, equal Newton counts), with s/step, its
+    split, per-rank launches (each kernel > 0, plain twins never called),
+    peak memory, halo bytes a Newton iteration and all-reduces a Krylov
+    iteration; (c) each rank's slab K1 / K2 / K3 (banded) against their
+    plain twins, timed on rank 0 with bounds and a CSR product; (d)
+    dryrun_multichip(2) on the card against the CPU float64 step and
+    app.main --devices 2 at SHARDED_CLI_BOX against a one-process card
+    step."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.app.main import RunFiles
+    from dedflow_tpu_torch.app.scenarios import reference_initial_state, reference_scenario_config
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.parallel import launch
+    from dedflow_tpu_torch.parallel.dryrun import dryrun_multichip
+    from dedflow_tpu_torch.solver.newton import NSSolver
+
+    out = {"backend": launch.backend_for(SHARDED_MAIN_RANKS, "cuda")}
+    say(f"  ranks share {torch.cuda.device_count()} card(s): backend {out['backend']}")
+    # (a) box 12 on 2 and 4 ranks against the CPU float64 step
+    mesh, cfg = box_mesh(*SLICE_BOX), reference_scenario_config()
+    cpu = NSSolver(mesh, cfg, device="cpu")
+    *ref, rstats = cpu.step(*perturbed_state(mesh, "cpu", torch.float64))
+    ref_kry = rstats.krylov_iters
+    # the 2-rank slice runs in the spawn of (b), first
+    t0 = time.perf_counter()
+    res = launch.spawn(sharded_main_rank, SHARDED_MAIN_RANKS, "cuda", timeout=600)[0]
+    out["main_call_s"] = time.perf_counter() - t0
+    for world in SHARDED_SLICE_RANKS:
+        t0 = time.perf_counter()
+        got = res["slice"] if world == SHARDED_MAIN_RANKS else launch.spawn(
+            sharded_slice_rank, world, "cuda", timeout=300)[0]
+        worst = max(rel_err(torch.as_tensor(g), r)[1] for g, r in zip(got["state"], ref))
+        where = ("in (b)'s process group" if world == SHARDED_MAIN_RANKS
+                 else f"{time.perf_counter() - t0:.1f} s")
+        say(f"  (a) box {SLICE_BOX} on {world} ranks ({where}): state "
+            f"vs CPU f64 rel={worst:.3e}; newton {got['newton']} (CPU {len(rstats.rnorms)}), "
+            f"krylov {got['krylov']} (CPU {ref_kry})")
+        check(f"sharded slice {world} ranks", worst, TOL_SLICE)
+        if got["newton"] != len(rstats.rnorms):
+            raise PhaseError(f"sharded slice {world} ranks: Newton counts {got['newton']} vs "
+                             f"{len(rstats.rnorms)}")
+        if got["krylov"] != ref_kry:
+            own, runs = krylov_witness(f"sharded {world}", mesh, cfg, got["krylov"], ref_kry)
+            say(f"    krylov counts witnessed by plain float32 CPU steps ({runs} runs, own {own})")
+        out[f"slice_{world}_rel"] = worst
+    # (b) + (c) box 55 on 2 ranks
+    ranks = res["ranks"]
+    for r in ranks:
+        say(f"  (b) rank {r['rank']}: {r['n_own']} own nodes, set-up {r['setup_s']:.2f} s, "
+            f"launches K1/K2/K3-banded {r['launches']}, plain twins called {r['plain_calls']}, "
+            f"peak {r['peak_bytes'] / 2**30:.3f} GiB")
+        for i, s in enumerate(r["steps"], 1):
+            say(f"    step {i}: {json.dumps(s)}")
+        if min(r["launches"]) <= 0 or any(r["plain_calls"]):
+            raise PhaseError(f"sharded main: rank {r['rank']} launches {r['launches']}, plain "
+                             f"calls {r['plain_calls']}")
+    one_newton = main_out["newton"][: len(ranks[0]["steps"])]
+    newton = [s["newton"] for s in ranks[0]["steps"]]
+    fields = []
+    for c in range(6):
+        g = np.concatenate([a[:, c] for a in res["state"]])
+        rf = np.concatenate([a[:, c].numpy() for a in main_out["first_state"]])
+        fields.append(float(np.abs(g - rf).max() / max(np.abs(rf).max(), 1e-300)))
+    say(f"  (b) box {FULL_BOX} on {SHARDED_MAIN_RANKS} ranks vs phase 5: state rel per field "
+        f"{[f'{v:.3e}' for v in fields]}; newton {newton} (phase 5 {one_newton})")
+    check("sharded main state", max(fields), TOL_SLICE)
+    if newton != one_newton:
+        raise PhaseError(f"sharded main: Newton counts {newton} vs phase 5's {one_newton}")
+    kms = dict(zip(("K1", "K2", "K3"), (row["ms"] for row in res["kernels"])))
+    split = []
+    nsteps = len(ranks[0]["steps"])
+    for i in range(nsteps):
+        s0 = [r["steps"][i] for r in ranks]
+        kern = [(kms["K1"] * r["launches"][0] + kms["K2"] * r["launches"][1]
+                 + kms["K3"] * r["launches"][2]) / nsteps for r in ranks]
+        split.append({
+            "wall_s": max(s["wall_s"] for s in s0),
+            "kernels_s_est": max(kern) / 1e3,
+            "bands_carries_s": max(s["exchange_s"] for s in s0),
+            "allreduce_s": max(s["allreduce_s"] for s in s0),
+            # of the two above, the staging copies' wait for the card's queue
+            "staging_wait_s": max(s["stage_s"] for s in s0),
+            "exchanges": s0[0]["exchanges"], "allreduces": s0[0]["allreduces"],
+            "halo_bytes_per_newton": max(s["sent_bytes"] for s in s0) / s0[0]["newton"],
+            "allreduces_per_krylov_iter": s0[0]["allreduces"] / max(sum(s0[0]["krylov"]), 1),
+            "gmres_host_syncs": sum(1 + -(-k // 8) for k in s0[0]["krylov"]),
+        })
+        split[-1]["other_s"] = split[-1]["wall_s"] - split[-1]["kernels_s_est"] - split[-1][
+            "bands_carries_s"] - split[-1]["allreduce_s"]
+    out.update(main_state_rel=fields, main_newton=newton, main_split=split,
+               main_step_s=[sp["wall_s"] for sp in split],
+               one_process_step_s=main_out["step_s"][:nsteps],
+               peak_gib=[r["peak_bytes"] / 2**30 for r in ranks])
+    say(f"  (b) split per step: {json.dumps(split)}")
+    # (d) the dry run and the CLI on the card
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2)
+    dmesh = box_mesh(3, 3, 4)
+    dref = NSSolver(dmesh, cfg, device="cpu").step_fixed(
+        *state_from_numpy(*reference_initial_state(dmesh), device="cpu"), num_newton=2)
+    drel = max(rel_err(torch.as_tensor(g), r)[1] for g, r in zip(dry, dref))
+    say(f"  (d) dryrun_multichip(2) ({time.perf_counter() - t0:.1f} s): vs CPU f64 rel={drel:.3e}")
+    check("dryrun_multichip(2)", drel, TOL_SLICE)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        files = RunFiles(write_solution=npz_write_solution, needs_h5py=False)
+        rc, lines = cli(["--box", *map(str, SHARDED_CLI_BOX), "--steps", "1", "--save-every", "1",
+                         "--devices", "2", "--out", tmp, "--log-level", "warning"], files)
+        snap = dict(np.load(os.path.join(tmp, "sol.1.h5.npz")))
+        recs = [json.loads(ln) for ln in open(os.path.join(tmp, "metrics.jsonl"))]
+    cmesh = box_mesh(*SHARDED_CLI_BOX)
+    one = NSSolver(cmesh, cfg, device="cuda")
+    wg1 = one.step(*state_from_numpy(*reference_initial_state(cmesh), "cuda", torch.float32))[0]
+    crel = rel_err(torch.as_tensor(snap["u"]).reshape(-1, 3), wg1[:, :3].cpu())[1]
+    say(f"  (d) app.main --devices 2 at box {SHARDED_CLI_BOX} ({time.perf_counter() - t0:.1f} s): "
+        f"rc {rc}, "
+        f"metrics {recs}, sol.1 u vs a one-process card step rel={crel:.3e}")
+    if rc != 0 or not recs or recs[0].get("ranks") != 2:
+        raise PhaseError(f"app.main --devices 2: rc {rc}, metrics {recs}")
+    check("app.main --devices 2", crel, TOL_SLICE)
+    out.update(dryrun_rel=drel, cli_rel=crel)
+    kernels = res["kernels"]
+    launches = [sum(r["launches"][i] for r in ranks) for i in range(3)]
+    return [dict(r, launches=n) for r, n in zip(kernels, launches)], out
+
+
 def run() -> int:
     try:
         import torch
@@ -3841,6 +4173,15 @@ def run() -> int:
         checks = phase_checks()
         say(f"  checks ({card}): {json.dumps(checks)}")
         say(f"  phase 24: {time.perf_counter() - t0:.1f} s")
+        phase = "25 sharded"
+        say(f"phase 25 sharded ({card}): z-slab ranks sharing the card, box {SLICE_BOX} on "
+            f"{' and '.join(map(str, SHARDED_SLICE_RANKS))} ranks, box {FULL_BOX} on "
+            f"{SHARDED_MAIN_RANKS} (one step), the slab kernels, dryrun_multichip(2), app.main "
+            f"--devices 2")
+        t0 = time.perf_counter()
+        sharded_results, sharded = phase_sharded(main)
+        say(f"  sharded ({card}): {json.dumps(sharded)}")
+        say(f"  phase 25: {time.perf_counter() - t0:.1f} s")
     except Exception as e:  # report the failed phase, then fail
         traceback.print_exc()
         print(f"FAIL phase {phase}: {type(e).__name__}: {e}", file=sys.stderr)
@@ -3858,17 +4199,18 @@ def run() -> int:
         for (name, src, rep), r, n in zip(
             KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS
             + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS + KRYLOV_KERNELS + CLASS_KERNELS
-            + HEAT_KERNELS + MIXED_KERNELS,
+            + HEAT_KERNELS + MIXED_KERNELS + SHARDED_KERNELS,
             results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit]
             + ir_staged + ga_staged + ga_res_staged + krylov_results + class_results
-            + heat_results + mixed_results,
+            + heat_results + mixed_results + sharded_results,
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
             + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
             + ga_main["launches"][3:]
             + melt_launches + staged_launches + ga_main["res_staged"]
             + [r["launches"] for r in krylov_results] + [r["launches"] for r in class_results]
-            + [r["launches"] for r in heat_results] + [r["launches"] for r in mixed_results],
+            + [r["launches"] for r in heat_results] + [r["launches"] for r in mixed_results]
+            + [r["launches"] for r in sharded_results],
         )
     ]
     # the probes' launches: those of their entry points' runs (phase 18)

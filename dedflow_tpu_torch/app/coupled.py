@@ -42,14 +42,14 @@ class CoupledSolver:
     """Staggered FEM-DEM solver: NS solver + DEM + drag exchange, on one
     device ("cuda" unless the caller asks for "cpu"; the dtype follows the
     device as in NSSolver). `device_mesh` (the JAX package's sharded fluid
-    and DEM) raises NotImplementedError naming ROADMAP queue A16."""
+    and DEM) raises NotImplementedError naming ROADMAP queue A16 (c)."""
 
     def __init__(self, mesh: Mesh, cfg: SolverConfig, ccfg: CoupledConfig,
                  device="cuda", dtype=None, device_mesh=None):
         if device_mesh is not None:
             raise NotImplementedError(
                 "dedflow_tpu_torch does not port the sharded coupled solver "
-                "(device_mesh) yet (ROADMAP queue A16)"
+                "(device_mesh) yet (ROADMAP queue A16 (c))"
             )
         self.ccfg = ccfg
         self.fluid = NSSolver(mesh, cfg, device=device, dtype=dtype)

@@ -71,8 +71,17 @@ wall seconds (after a device synchronize), the largest temperature
 (`t_max`) and, from the adaptive loop, Newton iterations, Krylov
 iterations per Newton iteration, the last field norms and whether Newton
 converged. A non-finite residual or temperature ends the run with exit
-code 2. Multi-device runs (the JAX CLI's --devices) wait for ROADMAP A16;
-the JAX CLI's --platform is the port's --device.
+code 2. The JAX CLI's --platform is the port's --device.
+
+`--devices N` (N > 1; the JAX CLI's, dedflow_tpu/app/main.py:74, 255-283)
+runs the NS scenarios on a box mesh on N ranks, each owning a z-slab of
+the box (parallel.sharded.ShardedNSSolver, started by parallel.launch): on
+"cuda" one card a rank under NCCL where there are N cards, else every rank
+on card 0 under gloo; on "cpu" gloo. Rank 0 writes the snapshots, the
+metrics (with the ranks and the backend) and the JSON lines from the
+gathered state, the same files as one process; the other ranks log
+warnings only. `--scenario coupled` with N > 1 raises (ROADMAP A16 (c)),
+and so does every option ShardedNSSolver does not take.
 """
 
 from __future__ import annotations
@@ -177,6 +186,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="torch.profiler trace directory")
     p.add_argument("--log-level", default="info")
+    p.add_argument("--devices", type=int, default=1, metavar="N",
+                   help="ranks of a z-slab decomposed run (box meshes, NS scenarios)")
     return p
 
 
@@ -220,16 +231,48 @@ def main(argv=None, files: RunFiles | None = None) -> int:
     if args.scenario == "coupled" and args.mesh:
         log.error("--scenario coupled runs on generated boxes only (--box)")
         return 2
+    if args.scenario == "coupled" and args.devices > 1:
+        raise NotImplementedError("--scenario coupled on --devices N > 1 (the DEM shard path and "
+                                  "the coupled solver sharded) is not ported yet (ROADMAP A16 (c))")
     # every run writes sol.0.h5 or reads the snapshot it resumes from
     missing = _h5py_missing() if files.needs_h5py else None
     if missing:
         log.error("the solution files (%s/sol.<step>.h5) need h5py, which does not import "
                   "(%s)", args.out, missing)
         return 2
-    os.makedirs(args.out, exist_ok=True)
     device = resolve_device(args.device)
     log.info("device: %s", torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
+    if args.devices > 1:
+        from dedflow_tpu_torch.parallel import launch
+        from dedflow_tpu_torch.parallel.sharded import KERNEL_LIBRARIES
+
+        log.info("%d ranks, backend %s", args.devices, launch.backend_for(args.devices,
+                                                                         device.type))
+        if device.type == "cuda":
+            from dedflow_tpu_torch.utils import nvcc
+
+            nvcc.load(KERNEL_LIBRARIES)
+        return launch.spawn(_rank_run, args.devices, device.type, args=(args, files))[0]
+    return run(args, files, log, device)
+
+
+def _rank_run(device: str, args, files: RunFiles) -> int:
+    """One rank of a --devices run (parallel.launch.spawn's function)."""
+    import torch.distributed as dist
+
+    level = args.log_level if dist.get_rank() == 0 else "warning"
+    return run(args, files, get_logger(level=level), torch.device(device))
+
+
+def run(args, files: RunFiles, log, device: torch.device) -> int:
+    """The run of the parsed arguments on `device`: one process, or this
+    rank of a --devices run (its process group started)."""
+    import torch.distributed as dist
+
+    sharded = args.devices > 1
+    rank0 = not sharded or dist.get_rank() == 0
+    os.makedirs(args.out, exist_ok=True)
     # ir = a float32 state with float64 refinement (the JAX CLI's rule)
     dtype = torch.float32 if args.precision == "ir" and args.dtype is None else parse_dtype(
         args.dtype, device)
@@ -258,6 +301,12 @@ def main(argv=None, files: RunFiles | None = None) -> int:
         log.info("coupled FEM-DEM: %d particles r=%.4g, %d DEM substeps/step, grid path=%s",
                  pstate.num_particle, float(pstate.radius[0]), args.dem_substeps,
                  not args.no_dem_grid)
+    elif sharded:
+        from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
+
+        solver = ShardedNSSolver(mesh, cfg, device=device, dtype=dtype)
+        log.info("rank 0 of %d: node layers of %d nodes, %d own nodes, backend %s",
+                 solver.comm.world, solver.sctx.width, solver.sctx.n_own, solver.comm.backend)
     else:
         solver = NSSolver(mesh, cfg, device=device, dtype=dtype)
     log.info("assembly fastpath: %s", solver.fastpath)
@@ -270,6 +319,10 @@ def main(argv=None, files: RunFiles | None = None) -> int:
     else:
         from_file_order = to_file_order = lambda a: a
     to_host = lambda t: t.detach().cpu().numpy()
+    t_max = lambda wg: float(wg[:, 5].max())
+    if sharded:  # collectives: every rank calls them, rank 0 gets the state
+        to_host = solver.gather_state
+        t_max = lambda wg: float(solver.comm.allreduce_max(wg[:, 5].max()))
 
     dt, laser = cfg.time.dt, cfg.physics.laser
     step0 = args.resume
@@ -280,19 +333,25 @@ def main(argv=None, files: RunFiles | None = None) -> int:
         log.info("resumed from step %d", step0)
     else:
         wg_np, dwgold_np, dwg_np = initial_state(mesh)
-        files.write_solution(os.path.join(args.out, "sol.0.h5"), to_file_order(wg_np),
-                             to_file_order(dwg_np), step=0, time=0.0)
-    wg, dwgold, dwg = state_from_numpy(wg_np, dwgold_np, dwg_np, device, dtype)
+        if rank0:
+            files.write_solution(os.path.join(args.out, "sol.0.h5"), to_file_order(wg_np),
+                                 to_file_order(dwg_np), step=0, time=0.0)
+    if sharded:
+        wg, dwgold, dwg = (solver.shard_state(a) for a in (wg_np, dwgold_np, dwg_np))
+    else:
+        wg, dwgold, dwg = state_from_numpy(wg_np, dwgold_np, dwg_np, device, dtype)
 
-    metrics = MetricsWriter(args.metrics or os.path.join(args.out, "metrics.jsonl"))
+    metrics = MetricsWriter(args.metrics or os.path.join(args.out, "metrics.jsonl")) if rank0 \
+        else None
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    with trace(args.profile, cuda=device.type == "cuda"):
+    with trace(args.profile if rank0 else None, cuda=device.type == "cuda"):
         for step in range(step0 + 1, step0 + cfg.num_steps + 1):
             src = None
             if laser is not None:
                 # the moving source at the generalized-alpha level
                 t_alpha = (step - 1 + cfg.time.alpha_f) * dt
-                src = torch.as_tensor(laser_source(laser, mesh.xg, t_alpha), dtype=dtype,
+                src = laser_source(laser, mesh.xg, t_alpha)
+                src = torch.as_tensor(src[solver.own] if sharded else src, dtype=dtype,
                                       device=device)
             sync()
             t0 = time.perf_counter()
@@ -312,9 +371,12 @@ def main(argv=None, files: RunFiles | None = None) -> int:
                 "scenario": args.scenario,
                 "fastpath": solver.fastpath,
                 "wall_s": wall,
-                "t_max": float(wg[:, 5].max()),
+                "t_max": t_max(wg),
             }
             rec = {"step": step, "t": step * dt, "step_wall_s": round(wall, 4)}
+            if sharded:
+                line["ranks"] = rec["ranks"] = solver.comm.world
+                rec["backend"] = solver.comm.backend
             if stats is not None:
                 line.update(
                     newton_iters=len(stats.rnorms),
@@ -328,23 +390,28 @@ def main(argv=None, files: RunFiles | None = None) -> int:
                 rec["krylov_iters"] = stats.krylov_iters
                 if stats.linear_rels:
                     rec["linear_rel"] = [float(v) for v in stats.linear_rels]
-            metrics.write(**rec)
-            print(json.dumps(line), flush=True)
+            if rank0:
+                metrics.write(**rec)
+                print(json.dumps(line), flush=True)
             finite = line.get("field_norms", []) + [line["t_max"]]
             if not all(map(math.isfinite, finite)):
                 log.error("non-finite residual or temperature at step %d; aborting", step)
-                metrics.close()
+                if rank0:
+                    metrics.close()
                 return 2
             log.info("step %d  t=%.4f  wall=%.3fs%s", step, step * dt, wall,
                      f"  newton={rec['newton_iters']}" if stats else "")
             if step % cfg.save_every == 0:
-                files.write_solution(os.path.join(args.out, f"sol.{step}.h5"),
-                                     to_file_order(to_host(wg)), to_file_order(to_host(dwg)),
-                                     step=step, time=step * dt)
+                wg_host, dwg_host = to_host(wg), to_host(dwg)
+                if rank0:
+                    files.write_solution(os.path.join(args.out, f"sol.{step}.h5"),
+                                         to_file_order(wg_host), to_file_order(dwg_host),
+                                         step=step, time=step * dt)
                 if coupled:
                     files.save_particles(os.path.join(args.out, f"particles.{step}.h5"), "ptc",
                                          pstate)
-    metrics.close()
+    if rank0:
+        metrics.close()
     return 0
 
 

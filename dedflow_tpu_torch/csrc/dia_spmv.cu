@@ -25,6 +25,15 @@
 // time; a plain loop over offsets read from device memory was 3% slower
 // there on an H100 (tools/spmv_time.py).
 //
+// The banded entry (dedflow_dia_spmv_banded) serves a rank of the z-slab
+// decomposition (parallel.sharded): its rows are its own nodes and x holds
+// them with a band of the left neighbour's last node layer in front and one
+// of the right neighbour's first layer behind: x has its own length m and
+// row r reads column x_lo + r + offsets[k], zero outside [0, m). The whole
+// matrix's product is the case m = n, x_lo = 0: one kernel serves both, as
+// the JAX package's dia_matvec_pallas_shmap (dia_kernels.py:232) runs its
+// single-device body on a haloed window.
+//
 // The kernel is a template on the scalar type, built for float (the
 // solver's state type on the card) and double (the f64 operator of
 // krylov.precision "f64" and the residual of "ir"). The double instance is
@@ -49,10 +58,12 @@ dia_spmv_kernel(const T* __restrict__ data,  // (D, 16, n)
                 const T* __restrict__ scal,  // (2D, n)
                 const T* __restrict__ x,     // (6, n)
                 T* __restrict__ y,           // (6, n)
-                int n, int num_planes, Offsets off) {
+                int n, int m, int x_lo, int num_planes, Offsets off) {
+  // x is (6, m); row r reads column x_lo + r + offset
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const size_t N = static_cast<size_t>(n);
+  const size_t M = static_cast<size_t>(m);
   T y0 = 0, y1 = 0, y2 = 0, y3 = 0, y4 = 0, y5 = 0;
   // planes k0 .. k0 + kPlaneChunk - 1; inlined, so that chunk(0) indexes
   // the offsets at compile time
@@ -61,10 +72,10 @@ dia_spmv_kernel(const T* __restrict__ data,  // (D, 16, n)
     for (int j = 0; j < kPlaneChunk; ++j) {
       const int k = k0 + j;
       if (k < num_planes) {
-        const int col = r + off.o[k];
-        if (col >= 0 && col < n) {
-          const T x0 = x[col], x1 = x[N + col], x2 = x[2 * N + col];
-          const T x3 = x[3 * N + col], x4 = x[4 * N + col], x5 = x[5 * N + col];
+        const int col = x_lo + r + off.o[k];
+        if (col >= 0 && col < m) {
+          const T x0 = x[col], x1 = x[M + col], x2 = x[2 * M + col];
+          const T x3 = x[3 * M + col], x4 = x[4 * M + col], x5 = x[5 * M + col];
           const T* d = data + static_cast<size_t>(k) * 16 * N + r;
           y0 += d[0] * x0 + d[N] * x1 + d[2 * N] * x2 + d[9 * N] * x3;
           y1 += d[3 * N] * x0 + d[4 * N] * x1 + d[5 * N] * x2 + d[10 * N] * x3;
@@ -87,16 +98,16 @@ dia_spmv_kernel(const T* __restrict__ data,  // (D, 16, n)
 }
 
 template <typename T>
-int launch(const void* data, const void* scal, const void* x, void* y, int n, int num_planes,
-           const int* offsets, void* stream) {
-  if (num_planes < 1 || num_planes > kMaxPlanesSpmv || n <= 0) {
+int launch(const void* data, const void* scal, const void* x, void* y, int n, int m, int x_lo,
+           int num_planes, const int* offsets, void* stream) {
+  if (num_planes < 1 || num_planes > kMaxPlanesSpmv || n <= 0 || x_lo < 0 || m < x_lo + n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Offsets off{};
   for (int k = 0; k < num_planes; ++k) off.o[k] = offsets[k];
   dia_spmv_kernel<T><<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const T*>(scal), static_cast<const T*>(x),
-      static_cast<T*>(y), n, num_planes, off);
+      static_cast<T*>(y), n, m, x_lo, num_planes, off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -104,10 +115,16 @@ int launch(const void* data, const void* scal, const void* x, void* y, int n, in
 
 extern "C" int dedflow_dia_spmv(const void* data, const void* scal, const void* x, void* y,
                                 int n, int num_planes, const int* offsets, void* stream) {
-  return dedflow::launch<float>(data, scal, x, y, n, num_planes, offsets, stream);
+  return dedflow::launch<float>(data, scal, x, y, n, n, 0, num_planes, offsets, stream);
+}
+
+extern "C" int dedflow_dia_spmv_banded(const void* data, const void* scal, const void* x, void* y,
+                                       int n, int m, int x_lo, int num_planes, const int* offsets,
+                                       void* stream) {
+  return dedflow::launch<float>(data, scal, x, y, n, m, x_lo, num_planes, offsets, stream);
 }
 
 extern "C" int dedflow_dia_spmv_f64(const void* data, const void* scal, const void* x, void* y,
                                     int n, int num_planes, const int* offsets, void* stream) {
-  return dedflow::launch<double>(data, scal, x, y, n, num_planes, offsets, stream);
+  return dedflow::launch<double>(data, scal, x, y, n, n, 0, num_planes, offsets, stream);
 }

@@ -15,7 +15,7 @@ take raises. The rest of a substep (walls, gravity, drag, the update,
 to_grid/from_grid) is plain torch, as it is XLA code in JAX.
 
 Not ported here: `grid_run_shardmap` and `shard_halo_fits` (multi-device,
-ROADMAP queue A16); `dem_run_grid(shard=...)` raises naming A16.
+ROADMAP queue A16 (c)); `dem_run_grid(shard=...)` raises naming A16 (c).
 """
 
 from __future__ import annotations
@@ -265,7 +265,7 @@ def dem_run_grid(cfg: DEMConfig, state: ParticleState, num_steps: int,
     if shard is not None:
         raise NotImplementedError(
             "dedflow_tpu_torch does not port the sharded grid DEM (shard=) yet "
-            "(ROADMAP queue A16)"
+            "(ROADMAP queue A16 (c))"
         )
     p = state.num_particle
     mass = float(state.mass[0])

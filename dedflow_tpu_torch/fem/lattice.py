@@ -1,5 +1,5 @@
 """Gather-free structured-lattice path (counterpart of
-dedflow_tpu/fem/lattice.py, single device).
+dedflow_tpu/fem/lattice.py).
 
 On the Kuhn-subdivided box lattice (mesh.gen.box_mesh) every element-node
 access is a fixed index offset: cell id = the node id of its lowest corner,
@@ -51,6 +51,11 @@ and each has a second entry for any cell table:
   (inputs -> element_rows.lhs_rows(ncomp=16) -> 16T shifted adds -> the
   mask epilogue).
 
+A rank of a z-slab decomposition (parallel.sharded; the JAX package's
+`*_shmap` functions) builds the lattice context of its own sub-box
+(build_slab_context) and runs the same K1 / K2 on it; assemble_residual_slab
+and assemble_jacobian_slab add the halo layer's carries between neighbours.
+
 A CUDA tensor always goes to a kernel (or raises); only a CPU tensor takes
 the plain version. In the frozen-scalar mode the phi-phi / T-T components
 are state independent and come from the node multiplicity `mult`, outside
@@ -83,13 +88,14 @@ from dedflow_tpu_torch.fem.element_rows import (  # noqa: F401 (field_norms_t re
     res_rows,
 )
 from dedflow_tpu_torch.fem.face import (
+    build_face_context,
     face_dia_band,
     face_lhs_packed,
     face_residual_elements,
     face_residual_scatter,
 )
 from dedflow_tpu_torch.mesh.gen import _KUHN_TETS
-from dedflow_tpu_torch.mesh.mesh import Mesh
+from dedflow_tpu_torch.mesh.mesh import Boundary, Mesh
 from dedflow_tpu_torch.sparse.fsbsr import FSDIAMatrixT, diag_add_rows, keep_pc_rows
 from dedflow_tpu_torch.utils import nvcc
 
@@ -191,9 +197,7 @@ def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = Fal
         geom = tet_geometry(xg[torch.as_tensor(idx, device=device)])
         lr.append(lhs_geom_rows(geom.shgrad, geom.det_j, geom.metric))
         rr.append(res_geom_rows(geom.shgrad, geom.det_j, geom.metric))
-    lc = cells[live]
-    vidx = np.concatenate([lc + deltas[t][a] for t in range(len(deltas)) for a in range(4)])
-    mult = np.bincount(vidx, minlength=n).astype(np.float64)
+    mult = _live_multiplicity(cells[live], deltas, n)
     fused = fused_tables(deltas, offs, n) if is_kuhn_split(mesh.lattice_tets) else None
     return _with_grid(LatticeContext(
         res_geom=torch.stack(rr).contiguous(),
@@ -209,6 +213,13 @@ def build_lattice_context(mesh: Mesh, device, dtype, scalar_implicit: bool = Fal
         scalar_implicit=scalar_implicit,
         dims=(nx + 1, ny + 1, nz + 1),
     ), device)
+
+
+def _live_multiplicity(live_cells: np.ndarray, deltas: tuple, n: int) -> np.ndarray:
+    """(n,) float64: the live elements incident to each node (the cells
+    `live_cells` times the slabs' vertex offsets)."""
+    vidx = np.concatenate([live_cells + d[a] for d in deltas for a in range(4)])
+    return np.bincount(vidx, minlength=n).astype(np.float64)
 
 
 def detect_delta_classes(ien: np.ndarray, max_classes: int = 8):
@@ -1134,3 +1145,172 @@ def assemble_jacobian_t(
     scal = torch.zeros((2 * nd, lctx.num_node), dtype=dtype, device=w_alpha.device)
     scal[2 * d0 : 2 * d0 + 2] = lctx.mult.to(dtype) * keep_pc[16:18] + add18[16:18]
     return FSDIAMatrixT(data=data.to(dtype), scal=scal, offsets=lctx.offsets)
+
+
+# ---------------------------------------------------------------------------
+# The z-slab decomposition of a box over N ranks (parallel.sharded): the
+# counterpart of the JAX package's residual_fused_shmap /
+# jacobian_fused_shmap (lattice.py:1223, :1273), which run K1 and K2 once a
+# shard under shard_map and move the halo with ppermute. Here every rank
+# builds the lattice context of its own sub-box and runs K1 and K2 on it
+# through their usual wrappers; the bands and carries go through the
+# rank's communicator (parallel.spmd.SlabComm). The JAX package pads each
+# shard to a multiple of 1024 lanes (TPU tiling); ranks here hold unequal
+# row counts and nothing is padded.
+
+
+def slab_layers(num_layers: int, world: int) -> tuple:
+    """Bounds a_0 = 0 < a_1 < ... < a_world = num_layers of the z-slab cut:
+    rank r owns node layers [a_r, a_{r+1}), as even as possible (the first
+    ranks take one more), at least 2 a rank."""
+    if num_layers < 2 * world:
+        raise ValueError(
+            f"a z-slab cut gives each of {world} ranks at least 2 of the box's node layers; "
+            f"this box has {num_layers} (nz + 1): use fewer ranks or more cells along z"
+        )
+    base, extra = divmod(num_layers, world)
+    bounds = [0]
+    for r in range(world):
+        bounds.append(bounds[-1] + base + (r < extra))
+    return tuple(bounds)
+
+
+@dataclass
+class SlabContext:
+    """One rank's part of a z-slab decomposed box: `lctx` is the lattice
+    context of the sub-box of its own cells (cell layers [a_r, a_{r+1})),
+    whose node layers are its own ones and, on every rank but the last,
+    the right neighbour's first layer (the halo layer, last); its `mult` is
+    the whole mesh's (a sub-box alone would undercount the seam layer).
+    Vectors of the rank hold its own rows only (n_own); `comm` moves the
+    bands and carries of `width` nodes (a node layer) and sums over the
+    ranks."""
+
+    lctx: LatticeContext
+    comm: object  # parallel.spmd.SlabComm
+    node_lo: int  # global id of the first own node
+    n_own: int
+    width: int  # nodes a layer
+
+
+def _slab_mesh(mesh: Mesh, lo: int, top: int, layers_of_cells: tuple) -> Mesh:
+    """The sub-box of node layers lo..top (inclusive) of a box mesh, with
+    the tets of cell layers [c0, c1) renumbered into it and the facets of
+    every boundary whose parent tet is one of them."""
+    nx, ny, _ = mesh.lattice
+    sz = (nx + 1) * (ny + 1)
+    ien = np.asarray(mesh.ien, dtype=np.int64)
+    layer = ien.min(axis=1) // sz  # every Kuhn tet holds its cell's corner 0
+    c0, c1 = layers_of_cells
+    own = (layer >= c0) & (layer < c1)
+    local = np.full(ien.shape[0], -1, dtype=np.int64)
+    local[own] = np.arange(int(own.sum()))
+    boundaries = []
+    for b in mesh.boundaries:
+        f2e = np.asarray(b.f2e, dtype=np.int64)
+        keep = own[f2e]
+        tri = np.asarray(b.ien, dtype=np.int64)[keep] - lo * sz
+        boundaries.append(Boundary(nodes=np.unique(tri), ien=tri, f2e=local[f2e[keep]],
+                                   forn=np.asarray(b.forn)[keep]))
+    return Mesh(xg=mesh.xg[lo * sz : (top + 1) * sz], ien=ien[own] - lo * sz,
+                boundaries=boundaries, lattice=(nx, ny, top - lo))
+
+
+def build_slab_context(mesh: Mesh, comm, weak: tuple, device, dtype) -> tuple:
+    """(SlabContext, facet contexts) of rank `comm.rank` of `comm.world` on
+    a box mesh with the Kuhn split. The cut is slab_layers'. The facet
+    contexts are those of the boundaries `weak` whose parent tets lie in
+    the rank's cells, in its local node numbering (their rows in the halo
+    layer go into the carry)."""
+    nx, ny, nz = mesh.lattice
+    sz = (nx + 1) * (ny + 1)
+    bounds = slab_layers(nz + 1, comm.world)
+    lo, hi = bounds[comm.rank], bounds[comm.rank + 1]
+    last = comm.rank == comm.world - 1
+    top = nz if last else hi  # the sub-box's last node layer: the halo, or the box's last
+    sub = _slab_mesh(mesh, lo, top, (lo, nz if last else hi))
+    lctx = build_lattice_context(sub, device, dtype)
+    cells = np.arange(mesh.num_node, dtype=np.int64)
+    live = (cells % (nx + 1) < nx) & ((cells // (nx + 1)) % (ny + 1) < ny) & (cells // sz < nz)
+    mult = _live_multiplicity(cells[live], lctx.deltas, mesh.num_node)[lo * sz : (top + 1) * sz]
+    lctx.mult = torch.as_tensor(mult, dtype=dtype, device=device)
+    face_ctxs = tuple(
+        build_face_context(sub, b, lctx.offsets, device, dtype)
+        for b in weak if sub.boundaries[b].num_facet
+    )
+    sctx = SlabContext(lctx=lctx, comm=comm, node_lo=lo * sz, n_own=(hi - lo) * sz, width=sz)
+    return sctx, face_ctxs
+
+
+def slab_states(sctx: SlabContext, w_alpha, dw_alpha, source=None) -> tuple:
+    """(wa_t, dwa_t, source) on the rank's sub-box: its own rows (N, 6) as
+    (6, n) and, on every rank but the last, the right neighbour's first
+    layer appended (one band exchange)."""
+    rows = [w_alpha.T, dw_alpha.T] + ([] if source is None else [source[None]])
+    x = torch.cat(rows)
+    band = sctx.comm.band_from_right(x, sctx.width)
+    if band is not None:
+        x = torch.cat([x, band], dim=1)
+    return x[:6].contiguous(), x[6:12].contiguous(), None if source is None else x[12].contiguous()
+
+
+def assemble_residual_slab(sctx: SlabContext, face_ctxs: tuple, mask_t, w_alpha, dw_alpha, phys,
+                           scheme, freeze_phi_temperature: bool = True, nodal_force=None,
+                           source=None) -> torch.Tensor:
+    """The rank's own rows (6, n_own) of assemble_residual_t's F: K1 on the
+    sub-box (residual_volume, the kernel on CUDA), its facets, then the
+    halo layer's rows go to the right neighbour as a carry and the left
+    neighbour's are added into the first own layer; the nodal load, freeze
+    and mask apply after the carry. `nodal_force` (n_own, 3) and `source`
+    (n_own,) are the rank's own rows."""
+    wa_t, dwa_t, src = slab_states(sctx, w_alpha, dw_alpha, source)
+    f = residual_volume(sctx.lctx, wa_t, dwa_t, phys, scheme, src).to(w_alpha.dtype)
+    for fctx in face_ctxs:
+        face_residual_scatter(fctx, f, face_residual_elements(fctx, wa_t.T, dwa_t.T, phys))
+    f = sctx.comm.carry_to_right(f, sctx.width)
+    if nodal_force is not None:
+        f[:3] -= nodal_force.T
+    if freeze_phi_temperature:
+        f[4:] = 0.0  # main.c:64
+    return f.masked_fill(mask_t, 0.0)
+
+
+def slab_jacobian_inputs(sctx: SlabContext, face_ctxs: tuple, mask_t, wa_t, dwa_t, phys,
+                         scheme) -> tuple:
+    """(keep_pc (18, n), add18 (18, n), facet band, its first row) of K2 on
+    the rank's sub-box (n rows, the halo layer's last): the rank's mask on
+    its own rows, keep 1 and add 0 on the halo layer, the facet band
+    pre-masked by them."""
+    lctx, dtype = sctx.lctx, wa_t.dtype
+    halo = torch.zeros((6, lctx.num_node - sctx.n_own), dtype=torch.bool, device=mask_t.device)
+    mask_e = torch.cat([mask_t, halo], dim=1)
+    keep_pc = keep_pc_rows(mask_e, dtype)
+    add18 = diag_add_rows(mask_e, dtype)
+    band, lo = _masked_face_band(face_ctxs, wa_t.T, dwa_t.T, phys, scheme, len(lctx.offsets),
+                                 keep_pc)
+    return keep_pc, add18, band, lo
+
+
+def assemble_jacobian_slab(sctx: SlabContext, face_ctxs: tuple, mask_t, w_alpha, dw_alpha, phys,
+                           scheme):
+    """The rank's own rows of assemble_jacobian_t's J as a
+    sparse.fsbsr.SlabDIAMatrixT. K2 (jacobian_volume, the fused kernel on
+    CUDA) runs on the sub-box with its Dirichlet epilogue; the halo layer
+    is computed unmasked (keep 1, add 0, its facet rows unmasked) and goes
+    to the right neighbour, which adds keep * carry into its first layer,
+    so a constrained row stays an identity row."""
+    from dedflow_tpu_torch.sparse.fsbsr import SlabDIAMatrixT
+
+    lctx, dtype, n_own, width = sctx.lctx, w_alpha.dtype, sctx.n_own, sctx.width
+    wa_t, dwa_t, _ = slab_states(sctx, w_alpha, dw_alpha)
+    nd, d0 = len(lctx.offsets), lctx.offsets.index(0)
+    keep_pc, add18, band, lo = slab_jacobian_inputs(sctx, face_ctxs, mask_t, wa_t, dwa_t, phys,
+                                                    scheme)
+    data = jacobian_volume(
+        lctx, wa_t, phys, scheme, keep_pc[:16].contiguous(), add18[:16].contiguous(), band, lo,
+    ).to(dtype)
+    data = sctx.comm.carry_to_right(data, width, scale=keep_pc[:16, :width])
+    scal = torch.zeros((2 * nd, n_own), dtype=dtype, device=w_alpha.device)
+    scal[2 * d0 : 2 * d0 + 2] = (lctx.mult[:n_own].to(dtype) * keep_pc[16:18, :n_own]
+                                 + add18[16:18, :n_own])
+    return SlabDIAMatrixT(data=data, scal=scal, offsets=lctx.offsets, comm=sctx.comm, width=width)

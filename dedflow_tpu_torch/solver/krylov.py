@@ -40,6 +40,9 @@ class KrylovInfo:
     resnorm: torch.Tensor  # final (estimated) residual norm
     resnorm0: torch.Tensor  # initial residual norm
     converged: bool
+    # GMRES: the estimated residual norm after each iteration (restart
+    # cycles one after the other); None for CG
+    rhist: torch.Tensor | None = None
 
 
 def _givens_carry(cs, sn, h, it: int):
@@ -75,12 +78,18 @@ def gmres(
     rtol: float = 1e-4,
     pc: Callable | None = None,
     restart: int | None = None,
+    allreduce: Callable | None = None,
 ) -> KrylovInfo:
     """Solve A x = b; `pc` is the right preconditioner (approximate A^-1).
-    `atol` may be a float or a 0-d tensor."""
+    `atol` may be a float or a 0-d tensor. `allreduce` (a rank's own rows
+    of a distributed system, parallel.spmd.SlabComm.allreduce_sum) sums
+    each inner product and squared norm over the ranks, so H, beta and
+    every stop test are the same on every rank; None leaves the
+    one-process arithmetic as it is."""
     if restart is not None and restart < maxit:
         return _gmres_restarted(
-            matvec, b, x0, maxit=maxit, atol=atol, rtol=rtol, pc=pc, m=restart
+            matvec, b, x0, maxit=maxit, atol=atol, rtol=rtol, pc=pc, m=restart,
+            allreduce=allreduce,
         )
     if pc is None:
         pc = lambda v: v
@@ -90,8 +99,9 @@ def gmres(
     n = b.numel()
     eps = torch.finfo(dtype).tiny
 
+    red = allreduce or (lambda t: t)
     r0 = (b - matvec(x0)).reshape(-1)
-    beta0 = torch.linalg.vector_norm(r0)
+    beta0 = _norm(r0, allreduce)
     tol = torch.maximum(
         torch.as_tensor(atol, dtype=dtype, device=dev), (beta0 + 1e-16) * rtol
     )
@@ -113,11 +123,11 @@ def gmres(
             lo = bi * _CGS_B
             hi = min(lo + _CGS_B, it + 1)  # rows beyond `it` are masked to 0
             qb = Q[lo:hi]
-            hb = qb @ w
+            hb = red(qb @ w)
             w = w - qb.T @ hb
             h[lo:hi] = hb
         h = h[: maxit + 1]
-        hnext = torch.linalg.vector_norm(w)
+        hnext = _norm(w, allreduce)
         Q[it + 1] = w / torch.clamp(hnext, min=eps)
         hcol = _givens_carry(cs, sn, h, it)
         hk = hcol[it]
@@ -159,34 +169,44 @@ def gmres(
         dx = torch.zeros_like(b)
         resnorm = beta0
     return KrylovInfo(
-        x=x0 + dx, iters=it, resnorm=resnorm, resnorm0=beta0, converged=done
+        x=x0 + dx, iters=it, resnorm=resnorm, resnorm0=beta0, converged=done, rhist=rhist[:it]
     )
 
 
-def _gmres_restarted(matvec, b, x0, *, maxit, atol, rtol, pc, m) -> KrylovInfo:
+def _norm(v: torch.Tensor, allreduce=None) -> torch.Tensor:
+    """The 2-norm of a flat vector, over every rank with `allreduce`."""
+    if allreduce is None:
+        return torch.linalg.vector_norm(v)
+    return torch.sqrt(allreduce(torch.dot(v, v)))
+
+
+def _gmres_restarted(matvec, b, x0, *, maxit, atol, rtol, pc, m, allreduce=None) -> KrylovInfo:
     """GMRES(m): restart cycles of m-dimensional solves. Convergence uses
     the first cycle's residual norm for the relative test."""
     if pc is None:
         pc = lambda v: v
     if x0 is None:
         x0 = torch.zeros_like(b)
-    beta0 = torch.linalg.vector_norm((b - matvec(x0)).reshape(-1))
+    beta0 = _norm((b - matvec(x0)).reshape(-1), allreduce)
     tol = torch.maximum(
         torch.as_tensor(atol, dtype=b.dtype, device=b.device), (beta0 + 1e-16) * rtol
     )
     num_outer = -(-maxit // m)
-    x, outer, total = x0, 0, 0
+    x, outer, total, hist = x0, 0, 0, []
     rnrm = beta0
     done = bool(beta0 < tol)
     while outer < num_outer and not done:
         # inner cycle stops early only on the global absolute tolerance
-        sol = gmres(matvec, b, x, maxit=m, atol=tol, rtol=0.0, pc=pc)
+        sol = gmres(matvec, b, x, maxit=m, atol=tol, rtol=0.0, pc=pc, allreduce=allreduce)
         x = sol.x
-        rnrm = torch.linalg.vector_norm((b - matvec(x)).reshape(-1))
+        rnrm = _norm((b - matvec(x)).reshape(-1), allreduce)
         outer += 1
         total += sol.iters
+        hist.append(sol.rhist)
         done = bool(rnrm < tol)
-    return KrylovInfo(x=x, iters=total, resnorm=rnrm, resnorm0=beta0, converged=done)
+    rhist = torch.cat(hist) if hist else beta0.new_zeros(0)
+    return KrylovInfo(x=x, iters=total, resnorm=rnrm, resnorm0=beta0, converged=done,
+                      rhist=rhist)
 
 
 def cg(

@@ -30,7 +30,7 @@ A linear offset wraps at a grid border to an unrelated row, but the
 lattice assembly makes every such entry exactly 0.0 and the Galerkin sums
 keep it 0.0, so the flat linear-offset product is exact on every level.
 The sharded variants (`shard=`, `shard_z`, `axis=`) belong to ROADMAP A16
-and raise.
+(d') and raise.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ from dedflow_tpu_torch.sparse.fsbsr import shifted
 
 def _refuse_sharded(what: str) -> None:
     raise NotImplementedError(
-        f"dedflow_tpu_torch does not port {what} (sharded multigrid) yet (ROADMAP queue A16)"
+        f"dedflow_tpu_torch does not port {what} (sharded multigrid) yet (ROADMAP queue A16 (d'))"
     )
 
 

@@ -50,7 +50,10 @@ from dedflow_tpu_torch.fem.element_rows import alpha_states
 from dedflow_tpu_torch.fem.face import build_face_context
 from dedflow_tpu_torch.fem.lattice import (
     LatticeContext,
+    SlabContext,
+    assemble_jacobian_slab,
     assemble_jacobian_t,
+    assemble_residual_slab,
     assemble_residual_t,
     build_class_context,
     build_lattice_context,
@@ -77,7 +80,24 @@ from dedflow_tpu_torch.utils.dtypes import cast_floats, default_dtype, disable_t
 
 # ---------------------------------------------------------------------------
 # stepping functions (contexts passed explicitly: a LatticeContext, a
-# WinAssemblyContext or a FEMContext)
+# WinAssemblyContext, a FEMContext, or a SlabContext, one rank's part of a
+# z-slab decomposed box whose vectors hold the rank's own rows and whose
+# sums run over every rank: parallel.sharded)
+
+
+def _allreduce(ctx):
+    """The sum over the ranks of a SlabContext's decomposition, else None."""
+    return ctx.comm.allreduce_sum if isinstance(ctx, SlabContext) else None
+
+
+def _field_norms(f_t, allreduce=None) -> torch.Tensor:
+    """field_norms_t of a (6, N) residual; with `allreduce` over every
+    rank's own rows (the squared sums all-reduced, the same on each)."""
+    if allreduce is None:
+        return field_norms_t(f_t)
+    sq = torch.stack([f_t[:3].square().sum(), f_t[3].square().sum(), f_t[4].square().sum(),
+                      f_t[5].square().sum()])
+    return torch.sqrt(allreduce(sq))
 
 
 def residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze,
@@ -87,6 +107,10 @@ def residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze,
     mask (the JAX package's placement on every tier), `source` (N,) the
     nodal heat source of the T equation."""
     wa, dwa = alpha_states(wgold, dwgold, dwg, scheme)
+    if isinstance(ctx, SlabContext):
+        return assemble_residual_slab(
+            ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze, nodal_force, source
+        )
     if isinstance(ctx, FEMContext):
         return ns.assemble_residual(
             ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze, source=source,
@@ -120,6 +144,12 @@ def assemble_system(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme,
     can be found), algebraic on WinELL (AMGSchurPCT, with the context's AMG
     plan; fieldsplit without one), SIMPLE on the gather tier."""
     wa, dwa = alpha_states(wgold, dwgold, dwg, scheme)
+    if isinstance(ctx, SlabContext):
+        if pc_type != "fieldsplit" or scalar_implicit:
+            raise NotImplementedError("a z-slab decomposition takes the fieldsplit preconditioner "
+                                      "and frozen phi/T only (ROADMAP A16 (b') and (d'))")
+        jmat = assemble_jacobian_slab(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme)
+        return jmat, NSFieldSplitPCT.from_diag_rows(jmat.diag_rows())
     if isinstance(ctx, WinAssemblyContext):
         jmat = jacobian_win(
             ctx, wa, phys, scheme, dw_alpha=dwa, face_ctxs=face_ctxs,
@@ -175,7 +205,7 @@ def _pc_kwargs(kcfg) -> dict:
                 pc_omega=kcfg.pc_schur_omega, pc_mg_outer=kcfg.pc_mg_outer)
 
 
-def _solve_linear(jmat, pc, f, kcfg):
+def _solve_linear(jmat, pc, f, kcfg, allreduce=None):
     """Right-preconditioned solve of J dx = F honoring kcfg.precision
     (newton.py:241-300 of the JAX package): "state" in the state dtype;
     "f64" the operator, the preconditioner and GMRES in float64; "ir"
@@ -208,7 +238,7 @@ def _solve_linear(jmat, pc, f, kcfg):
         return sol.x.to(f.dtype), sol.inner_iters, sol.rel_residual.to(f.dtype)
     sol = gmres(
         jmat.matvec_t, f, maxit=kcfg.max_iter, atol=kcfg.atol, rtol=kcfg.rtol,
-        pc=pc, restart=kcfg.restart,
+        pc=pc, restart=kcfg.restart, allreduce=allreduce,
     )
     rel = sol.resnorm / torch.clamp(sol.resnorm0, min=torch.finfo(f.dtype).tiny)
     return sol.x, sol.iters, rel
@@ -219,12 +249,12 @@ def solve_update(
     nodal_force=None, source=None,
 ):
     """GMRES(J) dx = F; dwg -= dx; reassemble F (main.c:211-265)."""
-    dx, iters, lin_rel = _solve_linear(jmat, pc, f, kcfg)
+    dx, iters, lin_rel = _solve_linear(jmat, pc, f, kcfg, _allreduce(ctx))
     dwg = dwg - dx.T
     f = residual(
         ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze, nodal_force, source
     )
-    return dwg, f, field_norms_t(f), iters, lin_rel
+    return dwg, f, _field_norms(f, _allreduce(ctx)), iters, lin_rel
 
 
 def newton_iter(
@@ -309,7 +339,7 @@ def newton_adaptive(
     f = residual(
         ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze, nodal_force, source
     )
-    rnorm0 = (field_norms_t(f) + 1e-16).cpu()  # main.c:152-155
+    rnorm0 = (_field_norms(f, _allreduce(ctx)) + 1e-16).cpu()  # main.c:152-155
     rnorms, kits, lrels = [], [], []
     conv = False
     lagged = None

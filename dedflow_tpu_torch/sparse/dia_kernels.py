@@ -19,6 +19,12 @@ cache; one thread per row keeps every read coalesced along the node axis.
 The kernel takes up to MAX_PLANES planes D, with the offsets by value: every
 D the solver builds (the Kuhn lattice has 15, a class table of up to 8
 slabs up to 97), as the JAX package's DIA SpMV takes any.
+
+`dia_matvec_banded` is the product on one rank of the z-slab decomposition
+(parallel.sharded; the JAX package's dia_matvec_pallas_shmap,
+dia_kernels.py:232-290): its own rows, with x holding a band of each
+neighbour's node layer around them. It is the same kernel, given x's own
+length and the column of its first own node by argument.
 """
 
 from __future__ import annotations
@@ -31,10 +37,20 @@ from dedflow_tpu_torch.utils import nvcc
 
 def dia_matvec_plain(data, scal, x_t, offsets) -> torch.Tensor:
     """(6, N) = A x for data (D, 16, N), scal (2D, N), plain torch."""
-    n = data.shape[2]
-    m = max(max(abs(o) for o in offsets), 1)
-    xpad = torch.nn.functional.pad(x_t, (m, m))
-    xs = torch.stack([xpad[:, m + o : m + o + n] for o in offsets])  # (D, 6, N)
+    return dia_matvec_banded_plain(data, scal, x_t, offsets, 0)
+
+
+def dia_matvec_banded_plain(data, scal, x_t, offsets, x_lo: int) -> torch.Tensor:
+    """(6, n) = A x for data (D, 16, n), scal (2D, n) and x (6, m): row r
+    reads x's column x_lo + r + offsets[k], zero outside [0, m) (a rank's
+    own rows with a band of each neighbour's node layer around them in x;
+    m = n, x_lo = 0 is the whole matrix), plain torch."""
+    n, m = data.shape[2], x_t.shape[1]
+    if x_lo < 0 or m < x_lo + n:
+        raise ValueError(f"dia_matvec: x of {m} columns from {x_lo} does not cover {n} rows")
+    reach = max(max(abs(o) for o in offsets), 1)
+    xpad = torch.nn.functional.pad(x_t, (reach, reach))
+    xs = torch.stack([xpad[:, reach + x_lo + o : reach + x_lo + o + n] for o in offsets])
     d = data
     y = [
         (d[:, UU(i, 0)] * xs[:, 0] + d[:, UU(i, 1)] * xs[:, 1]
@@ -55,11 +71,17 @@ _SYMBOLS = {torch.float32: "dedflow_dia_spmv", torch.float64: "dedflow_dia_spmv_
 MAX_PLANES = 128  # csrc/dia_spmv.cu kMaxPlanesSpmv
 
 
-def _kernel(data, scal, x_t, offsets) -> torch.Tensor:
+def _kernel(data, scal, x_t, offsets, x_lo=None) -> torch.Tensor:
+    """The launch; `x_lo` None: the whole matrix's entry (x (6, n)), else
+    the banded one (float32, x (6, m) read from column x_lo)."""
     nd, nc, n = data.shape
     dtype = x_t.dtype
+    m = n if x_lo is None else x_t.shape[1]
+    if x_lo is not None and (dtype != torch.float32 or x_lo < 0 or m < x_lo + n):
+        raise ValueError(f"dia_matvec kernel: the banded entry takes float32 and an x of at "
+                         f"least x_lo + {n} columns (got {dtype}, {m} from {x_lo})")
     for name, t, shape in (
-        ("data", data, (nd, 16, n)), ("scal", scal, (2 * nd, n)), ("x", x_t, (6, n)),
+        ("data", data, (nd, 16, n)), ("scal", scal, (2 * nd, n)), ("x", x_t, (6, m)),
     ):
         if (t.dtype not in _SYMBOLS or t.dtype != dtype or not t.is_cuda
                 or t.device != data.device or not t.is_contiguous()):
@@ -72,14 +94,22 @@ def _kernel(data, scal, x_t, offsets) -> torch.Tensor:
     if len(offsets) != nd or not 1 <= nd <= MAX_PLANES:
         raise ValueError(f"dia_matvec kernel: {len(offsets)} offsets for {nd} planes "
                          f"(it takes 1 to {MAX_PLANES})")
-    fn = nvcc.function(
-        "dia_spmv", _SYMBOLS[dtype],
-        [nvcc.P, nvcc.P, nvcc.P, nvcc.P, nvcc.I, nvcc.I, nvcc.P, nvcc.P],
-    )
+    if x_lo is None:
+        fn = nvcc.function(
+            "dia_spmv", _SYMBOLS[dtype],
+            [nvcc.P, nvcc.P, nvcc.P, nvcc.P, nvcc.I, nvcc.I, nvcc.P, nvcc.P],
+        )
+        sizes = (n,)
+    else:
+        fn = nvcc.function(
+            "dia_spmv", "dedflow_dia_spmv_banded",
+            [nvcc.P, nvcc.P, nvcc.P, nvcc.P] + [nvcc.I] * 4 + [nvcc.P, nvcc.P],
+        )
+        sizes = (n, m, x_lo)
     y = torch.empty((6, n), dtype=dtype, device=data.device)
     stream = torch.cuda.current_stream(data.device).cuda_stream
     nvcc.check(
-        fn(data.data_ptr(), scal.data_ptr(), x_t.data_ptr(), y.data_ptr(), n, nd,
+        fn(data.data_ptr(), scal.data_ptr(), x_t.data_ptr(), y.data_ptr(), *sizes, nd,
            nvcc.int_array(offsets), stream),
         "dia_spmv",
     )
@@ -115,5 +145,18 @@ def dia_matvec_f64(data, scal, x_t, offsets) -> torch.Tensor:
     return y
 
 
-dia_matvec.launches = 0  # float32 launches
+def dia_matvec_banded(data, scal, x_t, offsets, x_lo: int) -> torch.Tensor:
+    """(6, n) = A x on a rank's own rows with x (6, m) banded around them
+    (dia_matvec_banded_plain's contract): the banded entry of the same
+    CUDA kernel (float32) when any operand is a CUDA tensor, with its own
+    launch count, the plain version on CPU tensors."""
+    if not _on_card(data, scal, x_t):
+        return dia_matvec_banded_plain(data, scal, x_t, offsets, x_lo)
+    y = _kernel(data, scal, x_t.contiguous(), offsets, x_lo)
+    dia_matvec_banded.launches += 1
+    return y
+
+
+dia_matvec.launches = 0  # float32 launches of the whole matrix's entry
+dia_matvec_banded.launches = 0
 dia_matvec_f64.launches = 0

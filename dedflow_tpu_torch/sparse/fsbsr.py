@@ -253,3 +253,25 @@ class FSDIAMatrixT:
                     d18[k, comp, rows[ok]],
                 )
         return dense
+
+
+@dataclass
+class SlabDIAMatrixT(FSDIAMatrixT):
+    """One rank's own rows of an FSDIAMatrixT on a z-slab decomposed box
+    (fem.lattice.assemble_jacobian_slab): the offsets reach at most one
+    node layer (`width` nodes) into either neighbour's rows, so a product
+    takes one band exchange through `comm` (parallel.spmd.SlabComm) and
+    K3's banded entry (the JAX package's fsbsr.py:355-399 with
+    dia_matvec_pallas_shmap). Entries whose column lies past the band are
+    the exact zeros of the box's dead cells."""
+
+    comm: object = None
+    width: int = 0
+
+    def matvec_t(self, x_t: torch.Tensor) -> torch.Tensor:
+        from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec_banded
+
+        left, right = self.comm.bands(x_t, self.width)
+        x_ext = torch.cat([p for p in (left, x_t, right) if p is not None], dim=1)
+        return dia_matvec_banded(self.data, self.scal, x_ext, self.offsets,
+                                 0 if left is None else self.width)

@@ -6,17 +6,22 @@ PyTorch headers, so a build takes seconds. Libraries land in
 `dedflow_tpu_torch/_build/` (ignored by git) under a name that carries a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is reused. A build that fails raises; nothing falls back.
+Builds and loads hold a file lock on the build directory (`build_lock`),
+so processes that find no built library (the ranks of a multi-device
+run) take turns: one builds, the others load its library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -69,6 +74,20 @@ def _ptxas_lines(log: str) -> list:
     return [ln.strip() for ln in log.splitlines() if "ptxas" in ln or "spill stores" in ln]
 
 
+@contextmanager
+def build_lock(build_dir: Path | None = None):
+    """An exclusive lock on `build_dir` (default BUILD_DIR) held across
+    processes (flock on its `.lock` file) for the duration of the block."""
+    build_dir = BUILD_DIR if build_dir is None else Path(build_dir)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".lock", "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def load(names) -> dict:
     """Build (where needed, in parallel) and load csrc/<name>.cu for each
     name; returns {name: KernelLibrary}."""
@@ -76,38 +95,45 @@ def load(names) -> dict:
     with _lock:
         todo = [n for n in names if n not in _loaded]
         if todo:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            procs = {}
-            for name in todo:
-                so = BUILD_DIR / f"{name}-{_digest(name)}.so"
-                if so.exists():
-                    log_path = so.with_suffix(".log")
-                    log = log_path.read_text() if log_path.exists() else ""
-                    _loaded[name] = KernelLibrary(
-                        name, so, ctypes.CDLL(str(so)), 0.0, _ptxas_lines(log)
-                    )
-                    continue
-                tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
-                cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-                procs[name] = (
-                    subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                    so, tmp, time.perf_counter(),
-                )
-            errors = []
-            for name, (proc, so, tmp, t0) in procs.items():
-                log, _ = proc.communicate()
-                secs = time.perf_counter() - t0
-                if proc.returncode != 0:
-                    errors.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
-                    continue
-                so.with_suffix(".log").write_text(log)
-                os.replace(tmp, so)
-                _loaded[name] = KernelLibrary(
-                    name, so, ctypes.CDLL(str(so)), secs, _ptxas_lines(log)
-                )
-            if errors:
-                raise RuntimeError("\n".join(errors))
+            with build_lock():
+                _build_and_load(todo)
         return {n: _loaded[n] for n in names}
+
+
+def _build_and_load(todo: list) -> None:
+    """Build the libraries of `todo` that have no up-to-date build (nvcc
+    processes in parallel) and load every one; the caller holds the
+    locks."""
+    procs = {}
+    for name in todo:
+        so = BUILD_DIR / f"{name}-{_digest(name)}.so"
+        if so.exists():
+            log_path = so.with_suffix(".log")
+            log = log_path.read_text() if log_path.exists() else ""
+            _loaded[name] = KernelLibrary(
+                name, so, ctypes.CDLL(str(so)), 0.0, _ptxas_lines(log)
+            )
+            continue
+        tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            so, tmp, time.perf_counter(),
+        )
+    errors = []
+    for name, (proc, so, tmp, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            continue
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)
+        _loaded[name] = KernelLibrary(
+            name, so, ctypes.CDLL(str(so)), secs, _ptxas_lines(log)
+        )
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 def function(name: str, symbol: str, argtypes: list):

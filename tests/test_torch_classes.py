@@ -182,16 +182,19 @@ def _alphas(cfg, state, jdtype, tdtype):
 
 @pytest.mark.parametrize("case", ["a", "b", "c", "d"])
 def test_residual_and_jacobian_match_jax(meshes, solvers, case):
+    """F and the dense J against the JAX solver's jitted residual and
+    assembly (assemble_residual_t / assemble_jacobian_t at the alpha
+    states; the residual's compile also serves jax_steps)."""
     js, ts = solvers[case]
     mesh, cfg = meshes[CASES[case][0]], CASES[case][1]
-    (wa, dwa), (twa, tdwa) = _alphas(cfg, _state(mesh, cfg, 4), jnp.float64, torch.float64)
-    ref = jlat.assemble_residual_t(js.lctx, js.face_ctxs, js.mask, wa, dwa, cfg.physics,
-                                   cfg.time, True)
+    state = _state(mesh, cfg, 4)
+    twa, tdwa = _alphas(cfg, state, jnp.float64, torch.float64)[1]
+    c, jstate = (js.solve_ctx, js.face_ctxs, js.mask), [jnp.asarray(a) for a in state]
+    ref = js._residual(*c, *jstate, source=None)
     got = tlat.assemble_residual_t(ts.lctx, ts.face_ctxs, ts.mask_t, twa, tdwa, cfg.physics,
                                    cfg.time, True)
     assert rel(got.numpy(), ref) < 1e-12
-    jref = jlat.assemble_jacobian_t(js.lctx, js.face_ctxs, js.mask, wa, dwa, cfg.physics,
-                                    cfg.time).to_block_dense()
+    jref = js._assemble_system(*c, *jstate)[0].to_block_dense()
     jgot = tlat.assemble_jacobian_t(ts.lctx, ts.face_ctxs, ts.mask_t, twa, tdwa, cfg.physics,
                                     cfg.time).to_block_dense()
     assert rel(jgot, jref) < 1e-12

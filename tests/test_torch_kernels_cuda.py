@@ -58,7 +58,13 @@ On a mixed mesh (mesh.gen.mixed_box_mesh: a hex over every cube and a
 prism boundary layer, the WinELL tier on the 27-point stencil) the staged
 K6, K9's segment sum and K7 on its 27-wide rows match their plain versions
 as on the Delaunay mesh, and a step on the card agrees with the CPU's
-float64 step.
+float64 step. K3's banded entry (a rank of the z-slab decomposition, x
+holding a node layer of each neighbour around the rank's rows) matches its
+plain twin on each slab of the box and, given the whole matrix as one
+slab, equals K3 bit for bit; two gloo ranks sharing the card
+(parallel.launch) assemble F and J and take a product on their slabs with
+K1, K2 and K3's banded entry (each launched on each rank, the plain twins
+never) and give the whole box's.
 """
 
 import dataclasses
@@ -100,7 +106,13 @@ from dedflow_tpu_torch.mesh.gen import (
 from dedflow_tpu_torch.mesh.recover import recover_lattice
 from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
 from dedflow_tpu_torch.solver.newton import NSSolver, assemble_system
-from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec, dia_matvec_f64, dia_matvec_plain
+from dedflow_tpu_torch.sparse.dia_kernels import (
+    dia_matvec,
+    dia_matvec_banded,
+    dia_matvec_banded_plain,
+    dia_matvec_f64,
+    dia_matvec_plain,
+)
 from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
 from dedflow_tpu_torch.sparse.win_gather import JAC_ROWMAP, RES_ROWMAP, win_gather, win_gather_plain
 from dedflow_tpu_torch.sparse.win_kernels import (
@@ -1459,3 +1471,51 @@ def test_cg_on_card_repeats_and_matches_cpu_f64(poisson):
     ref = cg(lambda v: k64.matvec(v[:, None])[:, 0], b64, maxit=500, atol=0.0, rtol=1e-10,
              pc=JacobiPC.from_diag(k64.diag_blocks()[:, 0, 0]))
     assert ref.converged and rel(one.x, ref.x) < 1e-4
+
+
+def test_k3_banded_matches_plain_and_the_whole_entry(card):
+    solver, _, wa, dwa = card
+    jm = lat.assemble_jacobian_t(solver.lctx, solver.face_ctxs, solver.mask_t, wa, dwa,
+                                 solver.cfg.physics, solver.cfg.time)
+    n, offs = solver.lctx.num_node, jm.offsets
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal((6, n)), dtype=torch.float32,
+                        device="cuda")
+    whole = dia_matvec(jm.data, jm.scal, x, offs)
+    before = dia_matvec_banded.launches
+    assert torch.equal(dia_matvec_banded(jm.data, jm.scal, x, offs, 0), whole)
+    assert dia_matvec_banded.launches == before + 1
+    sz = (BOX[0] + 1) * (BOX[1] + 1)
+    bounds = lat.slab_layers(BOX[2] + 1, 3)
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        a, b = lo * sz, hi * sz
+        xa, xb = max(a - sz, 0), min(b + sz, n)
+        args = (jm.data[..., a:b].contiguous(), jm.scal[:, a:b].contiguous(),
+                x[:, xa:xb].contiguous(), offs, a - xa)
+        got = dia_matvec_banded(*args)
+        assert rel(got, dia_matvec_banded_plain(*args)) < 1e-5
+        assert rel(got, whole[:, a:b]) < 1e-5
+
+
+def test_two_rank_slab_kernels_match_the_whole_box(card):
+    """2 gloo ranks sharing the card: F (K1), J (K2) and J x (K3's banded
+    entry) on their slabs, gathered, against the whole box's kernels."""
+    import torch_sharded_ranks
+
+    from dedflow_tpu_torch.parallel import launch
+    from dedflow_tpu_torch.parallel.sharded import KERNEL_LIBRARIES
+    from dedflow_tpu_torch.solver.newton import residual
+    from dedflow_tpu_torch.utils import nvcc
+
+    solver, state, wa, dwa = card
+    nvcc.load(KERNEL_LIBRARIES)
+    (f, data, scal, y), x, launches = launch.spawn(
+        torch_sharded_ranks.slab_kernels_on_card, 2, "cuda", args=(BOX, 5), timeout=300)[0]
+    assert all(min(r) > 0 for r in launches), launches
+    cfg = solver.cfg
+    ref_f = residual(solver.lctx, solver.face_ctxs, solver.mask_t, *state, cfg.physics, cfg.time,
+                     cfg.freeze_phi_temperature)
+    jm = lat.assemble_jacobian_t(solver.lctx, solver.face_ctxs, solver.mask_t, wa, dwa,
+                                 cfg.physics, cfg.time)
+    ref_y = jm.matvec_t(torch.as_tensor(x, dtype=torch.float32, device="cuda"))
+    for got, ref in ((f, ref_f), (data, jm.data), (scal, jm.scal), (y, ref_y)):
+        assert rel(torch.as_tensor(got), ref) < 2e-5

@@ -90,12 +90,16 @@ def test_context_tables_and_geometry(case):
     assert rel(tl.lhs_geom.numpy(), jh) < 1e-13
 
 
+def _jax_args(js, state):
+    """The JAX solver's contexts and the state: its jitted residual and
+    assembly (assemble_residual_t / assemble_jacobian_t at the alpha
+    states) take them."""
+    return (js.solve_ctx, js.face_ctxs, js.mask, *(jnp.asarray(a) for a in state))
+
+
 def test_residual_f64_matches_jax(case):
     mesh, cfg, js, ts, state = case
-    wa, dwa = _alphas_jax(cfg, state, jnp.float64)
-    ref = jlat.assemble_residual_t(
-        js.lctx, js.face_ctxs, js.mask, wa, dwa, cfg.physics, cfg.time, True
-    )
+    ref = js._residual(*_jax_args(js, state))
     twa, tdwa = _alphas_port(ts, state, torch.float64)
     got = tlat.assemble_residual_t(
         ts.lctx, ts.face_ctxs, ts.mask_t, twa, tdwa, ts.cfg.physics, ts.cfg.time, True
@@ -108,10 +112,7 @@ def test_residual_f64_matches_jax(case):
 
 def test_jacobian_f64_matches_jax(case):
     mesh, cfg, js, ts, state = case
-    wa, dwa = _alphas_jax(cfg, state, jnp.float64)
-    ref = jlat.assemble_jacobian_t(
-        js.lctx, js.face_ctxs, js.mask, wa, dwa, cfg.physics, cfg.time
-    ).to_block_dense()
+    ref = js._assemble_system(*_jax_args(js, state))[0].to_block_dense()
     twa, tdwa = _alphas_port(ts, state, torch.float64)
     jm = tlat.assemble_jacobian_t(
         ts.lctx, ts.face_ctxs, ts.mask_t, twa, tdwa, ts.cfg.physics, ts.cfg.time

@@ -194,11 +194,13 @@ def oracle(delaunay):
     jm, tm, jctx, tsp, wa, dwa, src = delaunay
     mask = jnp.zeros((jm.num_node, 6), bool)
     jwa, jdwa = jnp.asarray(wa), jnp.asarray(dwa)
-    f_ref = np.asarray(jns.assemble_residual(
-        jctx, (), mask, jwa, jdwa, CFG.physics, CFG.time, freeze_phi_temperature=False,
-        source=jnp.asarray(src))).T
-    j_ref = jns.assemble_jacobian(jctx, (), mask, jwa, jdwa, CFG.physics, CFG.time,
-                                  scalar_implicit=True).to_block_dense()
+    # each assembly jitted once (op by op it compiles every op)
+    f_ref = np.asarray(jax.jit(lambda a, b, s: jns.assemble_residual(
+        jctx, (), mask, a, b, CFG.physics, CFG.time, freeze_phi_temperature=False,
+        source=s))(jwa, jdwa, jnp.asarray(src))).T
+    j_ref = jax.jit(lambda a, b: jns.assemble_jacobian(
+        jctx, (), mask, a, b, CFG.physics, CFG.time, scalar_implicit=True))(
+        jwa, jdwa).to_block_dense()
     return f_ref, j_ref
 
 

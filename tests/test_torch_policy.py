@@ -79,7 +79,9 @@ def test_fresh_interpreter_import_leaves_jax_out():
         "dedflow_tpu_torch.fem.ns, dedflow_tpu_torch.app.kernel_ab, chip_smoke, "
         "dedflow_tpu_torch.mesh.recover, dedflow_tpu_torch.io.h5, dedflow_tpu_torch.fem.heat, "
         "dedflow_tpu_torch.utils.log, dedflow_tpu_torch.utils.profiling, "
-        "dedflow_tpu_torch.dem.particles\n"
+        "dedflow_tpu_torch.dem.particles, dedflow_tpu_torch.parallel.sharded, "
+        "dedflow_tpu_torch.parallel.launch, dedflow_tpu_torch.parallel.dryrun, "
+        "dedflow_tpu_torch.parallel.partition, dedflow_tpu_torch.parallel.spmd\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'dedflow_tpu', 'h5py')]\n"
         "assert not bad, bad\n"
     )
@@ -109,9 +111,12 @@ def _coupled_solver(**kw):
         lambda: _coupled_solver(),
         lambda: _coupled_solver(device="cuda"),
         lambda: NSSolver(box_mesh(2, 2, 2), reference_scenario_config(use_lattice="gather")),
+        lambda: _sharded_solver(),
+        lambda: _dryrun(),
     ],
     ids=["resolve_device", "NSSolver-cuda", "NSSolver-default", "CoupledSolver-default",
-         "CoupledSolver-cuda", "NSSolver-gather-default"],
+         "CoupledSolver-cuda", "NSSolver-gather-default", "ShardedNSSolver-default",
+         "dryrun_multichip-default"],
 )
 def test_cuda_request_without_card_raises(monkeypatch, make):
     """The entry points target the card unless asked for the CPU, and a
@@ -119,6 +124,18 @@ def test_cuda_request_without_card_raises(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="never falls back"):
         make()
+
+
+def _sharded_solver():
+    from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
+
+    return ShardedNSSolver(box_mesh(2, 2, 4), reference_scenario_config())
+
+
+def _dryrun():
+    from dedflow_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    return dryrun_multichip(2)
 
 
 def _small_mesh_and_sparsity():
@@ -413,6 +430,13 @@ def _k3_wide(dtype):
     return call
 
 
+def _k3_banded():
+    """K3's banded entry (a rank of the z-slab decomposition): 4 own rows,
+    x with a band of 2 nodes each side."""
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32)
+    return dia_kernels.dia_matvec_banded(z(3, 16, 4), z(6, 4), z(6, 8), (-2, 0, 2), 2)
+
+
 def _k8():
     plan = win_stream.build_reduce_plan([0, 1, 1], [0, 1, 2], 2, device="cpu")
     return win_stream.stream_reduce(plan, torch.zeros((6, 3)))
@@ -593,6 +617,7 @@ def _k13(idiom):
         (_k2c_two_pass, (lat, "jacobian_volume_plain")),
         (_k8_one_row, (win_stream, "seg_reduce_plain")),
         (_k9_one_row, (win_ring, "seg_reduce_plain")),
+        (_k3_banded, (dia_kernels, "dia_matvec_banded_plain")),
     ],
     ids=["K6-res", "K6-lhs", "K7", "K7-f64", "K3", "K3-f64", "K8", "K9", "K11", "K4", "K5", "K10", "K1-source",
          "K2-implicit", "K6-lhs-implicit", "K5-implicit", "K12-copy", "K12-lane-smem",
@@ -600,7 +625,7 @@ def _k13(idiom):
          "K6-staged", "K6-staged-implicit", "K5-staged", "K5-staged-implicit",
          "K9-segment-sum", "K4-staged", "K8-segment-sum", "K1c", "K1c-routed", "K2c",
          "K2c-implicit", "K3-wide", "K3-wide-f64", "K1c-two-pass", "K2c-two-pass",
-         "K8-one-row", "K9-one-row"],
+         "K8-one-row", "K9-one-row", "K3-banded"],
 )
 def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     monkeypatch, tmp_path, call, plain
@@ -669,11 +694,12 @@ def test_one_row_reduces_take_the_one_pass_entry(monkeypatch, rows, symbol):
      (_k3_wide(torch.float64), (dia_kernels, "dia_matvec_f64")),
      (_k1c_two_pass, (lat, "residual_volume_two_pass")),
      (_k2c_two_pass, (lat, "jacobian_volume_two_pass")),
-     (_k8_one_row, (win_stream, "stream_reduce")), (_k9_one_row, (win_ring, "ring_reduce"))],
+     (_k8_one_row, (win_stream, "stream_reduce")), (_k9_one_row, (win_ring, "ring_reduce")),
+     (_k3_banded, (dia_kernels, "dia_matvec_banded"))],
     ids=["K4", "K5", "K10", "K12-copy", "K12-lane", "K12-window", "K12-reduce", "K13",
          "K6-staged", "K5-staged", "K9-segment-sum", "K4-staged", "K8-segment-sum",
          "K7-f64", "K3-f64", "K1c", "K2c", "K2c-implicit", "K3-wide", "K3-wide-f64",
-         "K1c-two-pass", "K2c-two-pass", "K8-one-row", "K9-one-row"],
+         "K1c-two-pass", "K2c-two-pass", "K8-one-row", "K9-one-row", "K3-banded"],
 )
 def test_cpu_tensors_count_no_launch(call, counter):
     """On CPU tensors the wrappers run their plain twins and count nothing

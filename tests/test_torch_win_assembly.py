@@ -24,6 +24,7 @@ numpy from a seed. Relative error = max|port - jax| / max|jax|.
 import dataclasses
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,12 +94,13 @@ def test_residual_and_jacobian_f64_match_gather_oracle(delaunay):
     gctx = build_context(jm, jsp)
     mask = jnp.zeros((jm.num_node, 6), bool)
     jwa, jdwa = jnp.asarray(wa), jnp.asarray(dwa)
-    f_ref = np.asarray(ns.assemble_residual(
-        gctx, (), mask, jwa, jdwa, cfg.physics, cfg.time, freeze_phi_temperature=False
-    )).T
+    # the oracle's assembly jitted once each (op by op it compiles every op)
+    f_ref = np.asarray(jax.jit(lambda a, b: ns.assemble_residual(
+        gctx, (), mask, a, b, cfg.physics, cfg.time, freeze_phi_temperature=False))(jwa, jdwa)).T
     f = twin.residual_win(ctx, torch.as_tensor(wa), torch.as_tensor(dwa), tc.physics, tc.time)
     assert rel(f.numpy(), f_ref) < 1e-12
-    j_ref = ns.assemble_jacobian(gctx, (), mask, jwa, jdwa, cfg.physics, cfg.time)
+    j_ref = jax.jit(lambda a, b: ns.assemble_jacobian(
+        gctx, (), mask, a, b, cfg.physics, cfg.time))(jwa, jdwa)
     jm_t = twin.jacobian_win(ctx, torch.as_tensor(wa), tc.physics, tc.time)
     assert rel(jm_t.to_block_dense(), j_ref.to_block_dense()) < 1e-12
 
@@ -156,15 +158,15 @@ def test_facets_and_mask_match_gather_solver(converted):
     js, ts, state = converted
     rng = np.random.default_rng(4)
     states = [rng.normal(size=state[0].shape) for _ in range(3)]
-    jcommon = dict(phys=js.cfg.physics, scheme=js.cfg.time)
     tcommon = dict(phys=ts.cfg.physics, scheme=ts.cfg.time)
     jst, tst = [jnp.asarray(s) for s in states], [torch.as_tensor(s) for s in states]
-    f_ref = jnt.residual(js.solve_ctx, js.face_ctxs, js.mask, *jst, **jcommon,
-                         freeze=js.cfg.freeze_phi_temperature)
+    # the gather solver's jitted residual and assembly (its configuration's
+    # physics, scheme and freeze)
+    f_ref = js._residual(js.solve_ctx, js.face_ctxs, js.mask, *jst)
     f = tnt.residual(ts.solve_ctx, ts.face_ctxs, ts.mask_t, *tst, **tcommon,
                      freeze=ts.cfg.freeze_phi_temperature)
     assert rel(f.numpy(), np.asarray(f_ref).T) < 1e-12
-    j_ref, _ = jnt.assemble_system(js.solve_ctx, js.face_ctxs, js.mask, *jst, **jcommon)
+    j_ref, _ = js._assemble_system(js.solve_ctx, js.face_ctxs, js.mask, *jst)
     jmat, pc = tnt.assemble_system(ts.solve_ctx, ts.face_ctxs, ts.mask_t, *tst, **tcommon)
     assert rel(jmat.to_block_dense(), j_ref.to_block_dense()) < 1e-12
     assert torch.isfinite(pc(torch.ones((6, ts.mesh.num_node), dtype=torch.float64))).all()
