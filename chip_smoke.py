@@ -36,7 +36,8 @@ Phases, one line each; the script exits non-zero at the first failure:
   8 main    NSSolver(that Delaunay mesh, reference_scenario_config(bcs=(),
             pin_pressure=True), device="cuda").step twice on the "winell"
             fastpath, with the launch counts of K6-K10 (the staged K6 and
-            K9's segment sum; none of the column K6 or of K9's staging pass)
+            K9's segment sum; none of the column K6 or of K9's staging pass;
+            K10's residual and Jacobian instances each by its own counter)
   coupled FEM-DEM step (DEM grid contact sweep K11 + the lattice tier):
   9 dem     K11 against its plain twin (bit for bit), float32, at bench.py's DEM cases
             (uniform_100k, settled_bed_100k: radius 0.006, 69**3 cells, K
@@ -51,8 +52,12 @@ Phases, one line each; the script exits non-zero at the first failure:
  12 kernels K4 and K5 (also in its implicit mode) at phase 6's Delaunay mesh
             in its generated (unordered) node order, on the solver of phase
             14, each also equal to K6 on the same inputs; K10 at phase 6's
-            RCM mesh with the
-            residual's 48-row and the Jacobian's 12-row map (bit for bit);
+            RCM mesh, node-major states in, bit for bit: the residual's
+            48-row map with the geometry copied in (the (67, ne) K6 input),
+            the same with a heat source, the 48 rows alone, and the
+            Jacobian's 12-row map into rows 12-23 (library calls: one
+            indexing of an (N, 14) node-major table, with the geometry's
+            cat where the kernel copies it in; one indexing of w_alpha);
             K8 and K9 on the gather tier's plans (unordered sources)
             against their plain versions; the staged K5 (frozen and
             implicit) and K9's segment sum on the gather plan as in phase
@@ -100,12 +105,13 @@ Phases, one line each; the script exits non-zero at the first failure:
             1, 2, 4 and the one-hot row, the segment reduce for hb 16, 8, 4,
             1) on the (8, 2**23) stream, and K13 (the element gather, global
             and staged) at W = 4096, 65,536 elements: each kernel against its
-            plain version (copies and gathers bit for bit, the reduce and its
-            accumulators within TOL_K12_REDUCE; the window gathers and the
-            reduce also on ids over their full range) and its library call;
-            then the probes' own path, their entry points' runs
-            (gmicro.run, gather_probe.run), with the launch counts of the
-            five probe wrappers
+            plain version (copies and gathers bit for bit, the reduce within
+            TOL_K12_REDUCE; the window gathers and the reduce also on ids
+            over their full range) and its library call; the reduce (rows,
+            then bins) at hb 1, 2, 4, 8 and 16 on both id sets; then the
+            probes' own path, their entry points' runs (gmicro.run,
+            gather_probe.run), with the launch counts of the five probe
+            wrappers
   the Krylov options (ROADMAP A11: pc "simple" / "mg", precision "f64" /
   "ir", the lagged Jacobian):
  19 krylov  box 55, reference scenario: one adaptive step for each pc
@@ -189,7 +195,9 @@ Phases, one line each; the script exits non-zero at the first failure:
             tets, 27 node blocks a row): K10, K6's residual rows, the staged
             K6, K8, K9's segment sum and K7 on the 27-wide rows against
             their plain versions as phase 6 holds them, timed with bounds
-            and library calls; then NSSolver.step twice (and step 1
+            and library calls; K10's residual also with the elements sorted
+            by minimum node, in Morton order and shuffled; then
+            NSSolver.step twice (and step 1
             repeated bit-identical) with set-up s, s/step, Newton and
             Krylov counts, peak memory and each kernel's launches
   the check tools (ROADMAP A18, dedflow_tpu_torch/tools):
@@ -285,13 +293,14 @@ TOL_SLICE = 1e-4
 # margin and checked (phase_coupled_slice).
 TOL_PARTICLES = 1e-4
 
-# K12's segment reduce adds each block's 512 sources x 8 rows into its
-# (8 hb, 128) bins by shared-memory atomics, in an order that changes from
-# run to run; the plain version adds in source order. What may differ is
-# float32 roundoff of sums of at most 512 terms a bin (4096 a collapsed
-# column), relative to the largest sum. Its copies and gathers only move
-# values: bit for bit.
+# K12's segment reduce sums each column's 8 rows, then adds the 512 column
+# sums of a block into its 128 bins through warp sums and shared-memory
+# atomics, in an order that changes from run to run; the plain version
+# sums the rows, then the columns in order. What may differ is float32
+# roundoff of sums of at most 512 column sums a bin, relative to the
+# largest sum. Its copies and gathers only move values: bit for bit.
 TOL_K12_REDUCE = 1e-5
+REDUCE_HBS = (1, 2, 4, 8, 16)  # the segment reduce's hb, each held against its plain twin
 PROBE_N = 1 << 23  # tools/gmicro.py's lanes a row
 PROBE_W = 4096  # tools/gather_probe.py's window
 
@@ -321,6 +330,16 @@ GATHER_KERNELS = (
      "dedflow_tpu/sparse/win_stream.py:251"),
     ("K9 ring reduce (gather plan)", "dedflow_tpu_torch/csrc/seg_reduce.cu",
      "dedflow_tpu/sparse/win_ring.py:356"),
+)
+# K10's instances beside GATHER_KERNELS' two, on the same RCM mesh: the
+# residual map with the heat source (the melt pool's WinELL residual) and
+# the residual map alone, the 48 rows without the geometry copy (the
+# function the former kernel computed from a (14, N) table; on no path)
+K10_KERNELS = (
+    ("K10 win gather (residual rows, heat source)", "dedflow_tpu_torch/csrc/win_gather.cu",
+     "dedflow_tpu/sparse/win_gather.py:179"),
+    ("K10 win gather (residual map alone, no geometry)", "dedflow_tpu_torch/csrc/win_gather.cu",
+     "dedflow_tpu/sparse/win_gather.py:179"),
 )
 GATHER_CONFIG = dict(bcs=(), pin_pressure=True, scatter_method="tiered",
                      elements_kernel="pallas")  # bench.py:133-151's Delaunay settings
@@ -853,28 +872,33 @@ def phase_irregular_main(solver) -> dict:
     """drive_main on the WinELL tier: the staged K6 and K9's segment sum,
     never the column K6 or K9's staging pass. K10 gathers the input rows
     of every K6 launch, with the residual's row map before K6res and the
-    Jacobian's before the staged K6: its launches split by map as K6's do,
-    which is checked. Returns launches in IRREGULAR_KERNELS' order (the
-    column Jacobian and K9 with its staging pass: 0) and `staged`, those of
-    the staged K6 and K9's segment sum."""
+    Jacobian's before the staged K6: each instance has its own counter, and
+    its launches must equal those of the K6 it feeds. Returns launches in
+    IRREGULAR_KERNELS' order (the column Jacobian and K9 with its staging
+    pass: 0), `staged`, those of the staged K6 and K9's segment sum, and
+    `k10_launches`, those of K10's residual and Jacobian instances (the
+    instance with the heat source is off this path)."""
     from dedflow_tpu_torch.fem import element_kernels as ek
-    from dedflow_tpu_torch.sparse.win_gather import win_gather
+    from dedflow_tpu_torch.sparse import win_gather as wg
     from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
     from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_staged
     from dedflow_tpu_torch.sparse.win_stream import stream_reduce
 
+    by_map = wg.win_gather.instances
     counters = (ek.res_rows_call, ek.lhs_rows_staged, winell_matvec, stream_reduce,
-                ring_reduce_staged, win_gather)
-    out = drive_main(solver, counters, "K6res/K6staged/K7/K8/K9sum/K10",
-                     absent=(ek.lhs_rows_call, ring_reduce))
-    n6r, n6j, n7, n8, n9, n10 = out["launches"]
-    if n10 != n6r + n6j:
-        raise PhaseError(f"main: {n10} K10 launches, not one per K6 launch ({n6r} + {n6j})")
+                ring_reduce_staged, wg.win_gather, by_map[wg.RESIDUAL_MAP],
+                by_map[wg.JACOBIAN_MAP])
+    out = drive_main(solver, counters, "K6res/K6staged/K7/K8/K9sum/K10/K10res/K10jac",
+                     absent=(ek.lhs_rows_call, ring_reduce, by_map[wg.RESIDUAL_SOURCE_MAP]))
+    n6r, n6j, n7, n8, n9, n10, n10r, n10j = out["launches"]
+    if (n10r, n10j) != (n6r, n6j) or n10 != n10r + n10j:
+        raise PhaseError(f"main: K10 launches {n10} (residual {n10r}, jacobian {n10j}), not "
+                         f"one per K6 launch of its map ({n6r} + {n6j})")
     if n9 != n6j:
         raise PhaseError(f"main: {n9} K9 segment sums, not one per Jacobian ({n6j})")
     out["launches"] = [n6r, out["absent"][0], n7, n8, out["absent"][1]]
     out["staged"] = [n6j, n9]
-    out["k10_launches"] = {"residual": n6r, "jacobian": n6j}
+    out["k10_launches"] = {"residual": n10r, "jacobian": n10j}
     return out
 
 
@@ -932,9 +956,11 @@ def phase_irregular_kernels(solver) -> tuple[list, list, dict]:
     wg, dwgold, dwg = perturbed_state(solver.mesh, solver.device, solver.dtype)
     wa, dwa = alpha_states(wg, dwgold, dwg, scheme)
     inp67 = wa_.residual_inputs(ctx, wa, dwa)  # through K10
-    inp27 = wa_.jacobian_inputs(ctx, wa)
+    # the Jacobian rows are a view of the context's buffer: kept by clones
+    inp27 = wa_.jacobian_inputs(ctx, wa).clone()
+    lhs_geom = torch.cat([ctx.jac_in[:12], ctx.jac_in[24:27]])  # element_rows.lhs_geom_rows
     same = (torch.equal(inp67, ek.res_gather_inputs(ctx.res_geom, ctx.ien_t, wa.T, dwa.T))
-            and torch.equal(inp27, ek.lhs_gather_inputs(ctx.lhs_geom, ctx.ien_t, wa.T)))
+            and torch.equal(inp27, ek.lhs_gather_inputs(lhs_geom, ctx.ien_t, wa.T)))
     say(f"  element input rows through K10 equal the index gather's: {same}")
     if not same:
         raise PhaseError("K10: the WinELL element input rows differ from the index gather")
@@ -951,7 +977,7 @@ def phase_irregular_kernels(solver) -> tuple[list, list, dict]:
     p6j = lambda: er.lhs_rows(inp27, **largs)
     e6j = compare("K6 lhs rows", k6j, p6j, TOL_K6, parts=lhs_blocks)
     # the 33-row implicit mode on the same elements (timed in phase 15)
-    inp33 = wa_.jacobian_inputs(ctx, wa, scalar_implicit=True)
+    inp33 = wa_.jacobian_inputs(ctx, wa, scalar_implicit=True).clone()
     compare("K6 lhs rows, 33-row implicit", lambda: ek.lhs_rows_call(inp33, phys, scheme, True),
             lambda: er.lhs_rows(inp33, scalar_implicit=True, **largs), TOL_K6,
             parts=jacobian_blocks(ne, implicit=True))
@@ -1424,61 +1450,160 @@ def gather_solver(raw):
     return solver, setup_s
 
 
-def k10_checks(mesh, ien_t, scheme) -> dict:
-    """K10 against its plain version (bit for bit) with the WinELL tier's
-    two row maps, on (4, ne) connectivity `ien_t` of `mesh` at its
-    perturbed state: {tag: (max abs error, kernel, plain, rows, x,
-    library)}, the library call an index gather of the same rows."""
+def state_sector_bytes(ien_t, comps: int, cols: int = 6) -> int:
+    """Bytes of the 32-byte sectors of a node-major (N, cols) float32 array
+    whose first `comps` columns K10 reads at the nodes of `ien_t`."""
+    import torch
+
+    from dedflow_tpu_torch.tools.timing import sector_bytes
+
+    nodes = torch.unique(ien_t.long())
+    return sector_bytes((cols * nodes[:, None] + torch.arange(comps, device=nodes.device))
+                        .reshape(-1))
+
+
+def k10_checks(mesh, ien_t, res_geom, scheme) -> dict:
+    """K10 against its plain version (bit for bit), node-major states in,
+    rows out into K6's input layout, on (4, ne) connectivity `ien_t` of
+    `mesh` at its perturbed state: the residual map with the geometry
+    rows `res_geom` copied in (the (67, ne) rows the solver's residual
+    reads), the same with a heat source, the residual map alone (rows
+    19-66 of a given buffer: the function the former kernel computed
+    from a (14, N) table) and the Jacobian map (rows 12-23). {tag: (max abs error,
+    kernel, plain, bytes, library)}: the timed calls write into one
+    buffer each. The library calls: for the Jacobian map one indexing of
+    w_alpha; for the residual map one indexing T[eidx, cidx] of the
+    node-major (N, 14) table of the JAX row map's columns (w_alpha, the
+    source or zeros, dw_alpha; built outside the timing, as are the
+    indices), and where the geometry is copied in, that indexing and the
+    cat of the geometry rows with it (the former residual_inputs)."""
     import torch
 
     from dedflow_tpu_torch.fem.element_rows import alpha_states
     from dedflow_tpu_torch.sparse import win_gather as wg
+    from dedflow_tpu_torch.tools.timing import nbytes
 
-    n = mesh.num_node
-    iwa, idwa = alpha_states(*perturbed_state(mesh, "cuda", torch.float32), scheme)
-    x14 = torch.zeros((14, n), dtype=torch.float32, device="cuda")
-    x14[:6], x14[8:14] = iwa.T, idwa.T
-    x3 = iwa.T[:3].contiguous()
+    ne = ien_t.shape[1]
+    w, dw = alpha_states(*perturbed_state(mesh, "cuda", torch.float32), scheme)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    src = torch.rand(mesh.num_node, generator=gen, device="cuda")
+    # each state array's sectors at the mesh's nodes: all 6 comps, the velocities, the source
+    sectors = {"all": state_sector_bytes(ien_t, 6), "u": state_sector_bytes(ien_t, 3),
+               "source": state_sector_bytes(ien_t, 1, 1)}
+    cases = {
+        "residual": (67, 19, (w, dw, None), res_geom),
+        "residual, heat source": (67, 19, (w, dw, src), res_geom),
+        "residual map alone": (48 + 19, 19, (w, dw, None), None),
+        "jacobian": (24, 12, (w,), None),
+    }
+    # the residual map's (a, c) a row, and the (N, 14) tables it indexes
+    pairs = sorted((r, a, c) for a, row in enumerate(wg.RES_ROWMAP) for c, r in enumerate(row)
+                   if r >= 0)
+    rmap_a = torch.tensor([a for _, a, _ in pairs], device="cuda")
+    rmap_c = torch.tensor([c for _, _, c in pairs], device="cuda")[:, None]
+    res_eidx = ien_t.long()[rmap_a]
+    tables = {}
+    for with_src in (False, True):
+        t = torch.zeros((mesh.num_node, 14), dtype=torch.float32, device="cuda")
+        t[:, :6], t[:, 8:] = w, dw
+        if with_src:
+            t[:, 6] = src
+        tables[with_src] = t
     k10 = {}
-    for tag, rowmap, rows, x in (("residual", wg.RES_ROWMAP, 48, x14),
-                                 ("jacobian", wg.JAC_ROWMAP, 12, x3)):
-        kern = lambda rm=rowmap, r=rows, x=x: wg.win_gather(ien_t, x, rm, r)
-        plain = lambda rm=rowmap, r=rows, x=x: wg.win_gather_plain(ien_t, x, rm, r)
-        err = compare(f"K10 win gather ({tag} rows)", kern, plain, 0.0)
-        codes = wg.row_sources(rowmap, rows, x.shape[0])
-        cidx = torch.tensor([c & 255 for c in codes], device="cuda")[:, None]
-        eidx = ien_t.long()[torch.tensor([c >> 8 for c in codes], device="cuda")]
-        k10[tag] = (err, kern, plain, rows, x, (lambda x=x, c=cidx, e=eidx: x[c, e], kern()))
+    for tag, (rows, row0, states, geom) in cases.items():
+        nrows = 48 if len(states) == 3 else 12
+        bufs = [torch.empty((rows, ne), dtype=torch.float32, device="cuda") for _ in range(2)]
+        kern = lambda b=bufs[0], r=row0, st=states, g=geom: wg.win_gather(ien_t, b, r, *st, geom=g)
+        plain = (lambda b=bufs[1], r=row0, st=states, g=geom:
+                 wg.win_gather_plain(ien_t, b, r, *st, geom=g))
+        lo = 0 if geom is not None else row0  # the rows the call writes
+        err = compare(f"K10 win gather ({tag})", lambda k=kern, lo=lo, hi=row0 + nrows:
+                      k()[lo:hi].clone(), lambda p=plain, lo=lo, hi=row0 + nrows: p()[lo:hi],
+                      0.0)
+        if nrows == 12:
+            reads = sectors["u"]
+        else:
+            reads = 2 * sectors["all"] + (sectors["source"] if states[2] is not None else 0)
+        bytes_ = nbytes(ien_t, geom) + 4 * (row0 + nrows - lo) * ne + reads
+        if tag == "jacobian":
+            a = torch.tensor([r % 4 for r in range(12)], device="cuda")
+            cidx = torch.tensor([r // 4 for r in range(12)], device="cuda")[:, None]
+            eidx = ien_t.long()[a]
+            library = (lambda e=eidx, c=cidx: w[e, c], kern()[12:24].clone())
+        else:
+            table = tables[states[2] is not None]
+            index = lambda t=table: t[res_eidx, rmap_c]
+            call = index if geom is None else lambda i=index, g=geom: torch.cat([g, i()])
+            library = (call, kern()[lo:row0 + nrows].clone())
+        k10[tag] = (err, kern, plain, bytes_, library)
+    say("  K10's state sectors (MB): "
+        + ", ".join(f"{k} {v / 1e6:.3f}" for k, v in sectors.items()))
     return k10
 
 
-def k10_records(k10: dict, ien_t, names) -> list:
-    """The records of k10_checks' residual and jacobian gathers under
-    `names`, as finish() makes them."""
+def k10_order_ms(mesh, ien_t, res_geom) -> dict:
+    """K10's residual instance (the 19 geometry rows copied in) timed on
+    `ien_t` as the solver holds it and with its element columns (and the
+    geometry's) in three other orders: sorted by minimum node (the RCM
+    Delaunay mesh's convention, mesh.reorder), the Morton order of the
+    element centroids (a warp's 32 elements in one small cube of space),
+    and shuffled. The bound does not move: every node's states are read
+    and every row written in each order. {order: ms}."""
+    import numpy as np
     import torch
 
-    from dedflow_tpu_torch.tools.timing import nbytes
+    from dedflow_tpu_torch.sparse import win_gather as wg
+    from dedflow_tpu_torch.tools.timing import time_ms
 
-    out = []
-    for name, tag in zip(names, ("residual", "jacobian")):
-        err, kern, plain, rows, x, library = k10[tag]
-        rows_out = torch.empty((rows, ien_t.shape[1]), dtype=torch.float32)
-        out.append(finish(name, {"max_abs_err": err}, kern, plain, 50, 5,
-                          nbytes(ien_t, x, rows_out), op_count(plain), library=library))
+    ne = ien_t.shape[1]
+    ien = ien_t.T.cpu().numpy()
+    cent = mesh.xg[ien].mean(axis=1)
+    q = ((cent - cent.min(0)) / np.maximum(np.ptp(cent, axis=0), 1e-300) * 1023).astype(np.int64)
+    code = np.zeros(ne, dtype=np.int64)
+    for bit in range(10):
+        for d in range(3):
+            code |= ((q[:, d] >> bit) & 1) << (3 * bit + d)
+    orders = {"as held": None, "min node": np.argsort(ien.min(axis=1), kind="stable"),
+              "morton": np.argsort(code, kind="stable"),
+              "shuffled": np.random.default_rng(SEED).permutation(ne)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    w, dw = torch.randn((2, mesh.num_node, 6), generator=gen, device="cuda")
+    buf = torch.empty((67, ne), dtype=torch.float32, device="cuda")
+    out = {}
+    for tag, perm in orders.items():
+        it, g = ien_t, res_geom
+        if perm is not None:
+            p = torch.as_tensor(perm, device="cuda")
+            it, g = ien_t[:, p].contiguous(), res_geom[:, p].contiguous()
+        out[tag] = time_ms(lambda it=it, g=g: wg.win_gather(it, buf, 19, w, dw, geom=g), 50)
+    say("  K10 residual (geometry copied in) by element order, ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
     return out
 
 
-def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, list, dict, dict]:
+def k10_records(k10: dict, names, tags=("residual", "jacobian")) -> list:
+    """The records of k10_checks' gathers `tags` under `names`, as
+    finish() makes them."""
+    out = []
+    for name, tag in zip(names, tags):
+        err, kern, plain, bytes_, library = k10[tag]
+        out.append(finish(name, {"max_abs_err": err}, kern, plain, 50, 5, bytes_, (0, []),
+                          library=library))
+    return out
+
+
+def phase_gather_kernels(gsolver, rcm, rcm_ien_t, rcm_geom) -> tuple[list, list, list, dict,
+                                                                   dict, list]:
     """Phase 12: K4 and K5 on the gather tier's context (K5 also in its
     implicit mode, the metric rows read in place from the residual
-    geometry), K10 on phase 6's RCM mesh `rcm` and its WinELL connectivity
-    `rcm_ien_t`, K8 and K9 on the gather tier's plans, each against its
-    plain version; then the staged K5 (frozen, implicit) and K9's segment
-    sum on the gather plan, and the staged K4 and K8's segment sum on the
-    residual plan. Returns the six kernel records (GATHER_KERNELS' order),
+    geometry), K10 on phase 6's RCM mesh `rcm`, its WinELL connectivity
+    `rcm_ien_t` and residual geometry `rcm_geom` (on the host), K8 and K9
+    on the gather tier's plans, each against its plain version; then the
+    staged K5 (frozen, implicit) and K9's segment sum on the gather plan,
+    and the staged K4 and K8's segment sum on the residual plan. Returns the six kernel records (GATHER_KERNELS' order),
     the three staged Jacobian records, the two staged residual records
-    (RESIDUAL_STAGED_KERNELS' order), the gather tier's system timings and
-    K5's implicit record."""
+    (RESIDUAL_STAGED_KERNELS' order), the gather tier's system timings,
+    K5's implicit record and K10's records in K10_KERNELS' order."""
     import torch
 
     from dedflow_tpu_torch.fem import element_kernels as ek
@@ -1523,7 +1648,7 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, list, dic
         raise PhaseError("K4/K5: not equal to K6 on the same inputs (one element body)")
 
     # K10 on the RCM mesh, with the WinELL tier's two row maps
-    k10 = k10_checks(rcm, rcm_ien_t, scheme)
+    k10 = k10_checks(rcm, rcm_ien_t, rcm_geom.to("cuda"), scheme)
 
     # K8 and K9 on the gather tier's plans: the element rows of an
     # unordered mesh, read where K4/K5 left them
@@ -1583,8 +1708,9 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, list, dic
     libs = nvcc.load(["gather_elements", "win_gather"])
     regs = {names[0]: registers(libs["gather_elements"], "res_gather_kernel"),
             names[1]: registers(libs["gather_elements"], "lhs_gather_kernelILb0E"),
-            names[2]: registers(libs["win_gather"], "win_gather_kernel")}
-    regs[names[3]] = regs[names[2]]
+            names[2]: registers(libs["win_gather"], "win_gather_kernelILi1E"),
+            names[3]: registers(libs["win_gather"], "win_gather_kernelILi0E"),
+            K10_KERNELS[0][0]: registers(libs["win_gather"], "win_gather_kernelILi2E")}
     out24 = torch.empty((24, ne), dtype=torch.float32)
     out288 = torch.empty((288, ne), dtype=torch.float32)
     results = [
@@ -1593,7 +1719,7 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, list, dic
         finish(names[1], {"max_abs_err": e5}, k5, p5, 10, 3,
                nbytes(ctx.lhs_geom, ctx.ien_t, w_t[:3], out288), op_count(p5)),
     ]
-    results += k10_records(k10, rcm_ien_t, names[2:4])
+    results += k10_records(k10, names[2:4])
     results += [
         finish(names[4], {"max_abs_err": e8}, k8, p8, 50, 5,
                reduce_bytes(rng.res_plan, range(6), 6), op_count(p8),
@@ -1630,7 +1756,9 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t) -> tuple[list, list, list, dic
     times = {"F_ms": f_ms, "J_ms": j_ms, "SpMV_ms": spmv_ms,
              "GMRES120_s": time.perf_counter() - t0, "GMRES120_iters": sol.iters,
              "matrix_entries": ctx.win_plan.S}
-    return results, staged, res_staged, times, implicit5
+    k10_extra = k10_records(k10, [n for n, _, _ in K10_KERNELS],
+                            ("residual, heat source", "residual map alone"))
+    return results, staged, res_staged, times, implicit5, k10_extra
 
 
 def phase_gather_slice() -> None:
@@ -1856,7 +1984,8 @@ def phase_melt_slice() -> dict:
     CPU float64, TOL_SLICE. Each card step runs with its tier's launch
     counters set to 0 just before and read just after (the column K6 / K5
     Jacobian, K9's staging pass and the column K4 must stay at 0, and on
-    the gather tier K8's staging pass); returns {tier: launches}."""
+    the gather tier K8's staging pass, on the WinELL tier K10's residual
+    instance without the source); returns {tier: launches}."""
     import dataclasses
 
     import torch
@@ -1867,32 +1996,37 @@ def phase_melt_slice() -> dict:
     from dedflow_tpu_torch.mesh.gen import box_mesh
     from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
     from dedflow_tpu_torch.solver.newton import NSSolver
+    from dedflow_tpu_torch.sparse import win_gather as wg
     from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec
-    from dedflow_tpu_torch.sparse.win_gather import win_gather
     from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
     from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_staged
     from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_staged
 
+    by_map = wg.win_gather.instances
     box = box_mesh(*SLICE_BOX)
     converted = dataclasses.replace(box, lattice=None)
     converted = reorder_mesh(converted, rcm_order(converted.ien, converted.num_node))
     tiers = {
         "lattice": (box, "auto", (lat.residual_volume, lat.jacobian_volume, dia_matvec),
                     "K1/K2/K3"),
-        "winell": (converted, "winell", (win_gather, ek.res_rows_call, ek.lhs_rows_staged,
-                                         winell_matvec, stream_reduce, ring_reduce_staged),
-                   "K10/K6res/K6staged/K7/K8/K9sum"),
+        "winell": (converted, "winell", (wg.win_gather, ek.res_rows_call, ek.lhs_rows_staged,
+                                         winell_matvec, stream_reduce, ring_reduce_staged,
+                                         by_map[wg.RESIDUAL_SOURCE_MAP], by_map[wg.JACOBIAN_MAP]),
+                   "K10/K6res/K6staged/K7/K8/K9sum/K10source/K10jac"),
         "gather": (box, "gather", (ek.ns_residual_gather_staged, ek.ns_lhs_gather_staged,
                                    winell_matvec, stream_reduce_staged, ring_reduce_staged),
                    "K4staged/K5staged/K7/K8sum/K9sum"),
     }
     # the entries off the paths: the irregular tiers' column K6 / K5 and K9
     # with its staging pass, the column K4; on the gather tier also K8 with
-    # its staging pass (the WinELL tier's residual reduce)
+    # its staging pass (the WinELL tier's residual reduce), on the WinELL
+    # tier K10's residual instance without the source (every residual there
+    # takes the laser's)
     absent = (ek.lhs_rows_call, ek.ns_lhs_gather, ring_reduce, ek.ns_residual_gather)
     launches = {}
     for tier, (mesh, mode, counters, label) in tiers.items():
-        absent_here = absent + ((stream_reduce,) if tier == "gather" else ())
+        absent_here = absent + {"gather": (stream_reduce,),
+                                "winell": (by_map[wg.RESIDUAL_MAP],)}.get(tier, ())
         cfg = melt_pool_scenario_config(use_lattice=mode)
         outs = []
         for device in ("cuda", "cpu"):
@@ -1922,6 +2056,12 @@ def phase_melt_slice() -> dict:
         say(f"  {tier}: card f32 vs cpu f64 rel={worst:.3e} (T {rel_t:.3e}); launches {label} = "
             f"{launches[tier]}")
         check(f"melt slice {tier}", max(worst, rel_t), TOL_SLICE)
+        if tier == "winell" and (launches[tier][6:8] != launches[tier][1:3]
+                                 or launches[tier][0] != sum(launches[tier][6:8])):
+            raise PhaseError(f"melt slice winell: K10 launches {launches[tier][0]} (with the "
+                             f"source {launches[tier][6]}, jacobian {launches[tier][7]}), not one "
+                             f"per K6 launch of its map ({launches[tier][1]} + "
+                             f"{launches[tier][2]})")
         if min(launches[tier]) <= 0:
             raise PhaseError(f"melt slice {tier}: a kernel of the path was not launched")
     return launches
@@ -2027,7 +2167,7 @@ def phase_probes() -> list:
     tools/gather_probe.py's W = 4096 and 65,536 elements. First each
     kernel is held against its plain version and its library call against
     the kernel, on the tools' ids; the window gathers and the segment
-    reduce (with its accumulators) also on ids over their full range,
+    reduce also on ids over their full range,
     [0, 512 * 5). Then the probes' own path: the entry points' runs
     (gmicro.run, gather_probe.run) at those sizes, with the count of every
     probe wrapper set to 0 just before and read just after; each kernel
@@ -2055,15 +2195,11 @@ def phase_probes() -> list:
         probe_check(f"K12 window gather nwin={nw}, full-range ids",
                     lambda nw=nw: tgm.window_gather(x, full, nw),
                     lambda nw=nw: tgm.window_gather_plain(x, full, nw), True)
-    for hb in tgm.HBS:
-        for i, part in enumerate(("o", "acc")):
-            probe_check(f"K12 segment reduce hb={hb} {part}, full-range ids",
-                        lambda hb=hb, i=i: tgm.segment_reduce(x, full, hb, acc=True)[i],
-                        lambda hb=hb, i=i: tgm.segment_reduce_plain(x, full, hb, acc=True)[i],
-                        False)
-        probe_check(f"K12 segment reduce hb={hb} acc, the tool's ids",
-                    lambda hb=hb: tgm.segment_reduce(x, idx, hb, acc=True)[1],
-                    lambda hb=hb: tgm.segment_reduce_plain(x, idx, hb, acc=True)[1], False)
+    for hb in REDUCE_HBS:  # rows, then bins: every hb, both id sets
+        for tag, ids in (("full-range ids", full), ("the tool's ids", idx)):
+            probe_check(f"K12 segment reduce hb={hb}, {tag}",
+                        lambda hb=hb, ids=ids: tgm.segment_reduce(x, ids, hb),
+                        lambda hb=hb, ids=ids: tgm.segment_reduce_plain(x, ids, hb), False)
     del full
     errs = {p.name: held(f"K12 {p.name} [{p.what}]", p) for p in tgm.probes(x, idx)}
     del x, idx
@@ -2097,7 +2233,6 @@ def phase_probes() -> list:
             out.append((f"K12 {r['name']} [{r['what']}]", "dedflow_tpu_torch/csrc/gmicro.cu",
                         "tools/gmicro.py:47", rec))
     return out
-
 
 
 # ---------------------------------------------------------------------------
@@ -3558,7 +3693,8 @@ def phase_mixed_kernels(solver) -> tuple[list, dict]:
     the plan positions), K8 on the residual plan, K9's segment sum on the
     staged rows (bit for bit against K9 with its staging pass over the
     column rows), and K7 on the assembled 27-wide Jacobian; each timed
-    with its bound and library call (K6: none). Returns the records in
+    with its bound and library call (K6: none); K10's residual instance
+    also in other element orders (k10_order_ms). Returns the records in
     MIXED_KERNELS' order (launches to be filled) and the system timings."""
     import torch
 
@@ -3576,10 +3712,12 @@ def phase_mixed_kernels(solver) -> tuple[list, dict]:
     phys, scheme = solver.cfg.physics, solver.cfg.time
     ctx, ne = solver.wctx, solver.wctx.num_elem
     names = [name for name, _, _ in MIXED_KERNELS]
-    k10 = k10_checks(solver.mesh, ctx.ien_t, scheme)
+    k10 = k10_checks(solver.mesh, ctx.ien_t, ctx.res_geom, scheme)
+    k10_order = k10_order_ms(solver.mesh, ctx.ien_t, ctx.res_geom)
     wg, dwgold, dwg = perturbed_state(solver.mesh, solver.device, solver.dtype)
     wa, dwa = alpha_states(wg, dwgold, dwg, scheme)
-    inp67, inp27 = wa_.residual_inputs(ctx, wa, dwa), wa_.jacobian_inputs(ctx, wa)
+    # the Jacobian rows are a view of the context's buffer: kept by a clone
+    inp67, inp27 = wa_.residual_inputs(ctx, wa, dwa), wa_.jacobian_inputs(ctx, wa).clone()
     by_eq, entry_blocks = reduce_parts()
 
     k6r = lambda: ek.res_rows_call(inp67, phys, scheme)
@@ -3625,14 +3763,15 @@ def phase_mixed_kernels(solver) -> tuple[list, dict]:
                reduce_bytes(ctx.res_plan, range(6), 6), op_count(p8),
                library=(index_add_call(ctx.res_plan, out24, range(6), ne), k8())),
         seg,
-    ] + k10_records(k10, ctx.ien_t, names[5:7])
+    ] + k10_records(k10, names[5:7])
     common = (ctx, solver.face_ctxs, solver.mask_t, wg, dwgold, dwg, phys, scheme)
     widths = mesh_row_widths(solver)
     times = {"F_ms": time_ms(lambda: residual(*common, solver.cfg.freeze_phi_temperature), 10),
              "J_ms": time_ms(lambda: assemble_system(*common), 5), "SpMV_ms": r7["ms"],
              "matrix_entries": wp.S, "row_blocks_max": int(widths.max()),
              "row_blocks_mean": float(widths.mean()),
-             "jacobian_MB": jm.vals.numel() * jm.vals.element_size() / 1e6}
+             "jacobian_MB": jm.vals.numel() * jm.vals.element_size() / 1e6,
+             "k10_order_ms": k10_order}
     return results, times
 
 
@@ -3653,7 +3792,8 @@ def phase_mixed() -> tuple[list, dict]:
     main = phase_irregular_main(solver)
     n6r, _, n7, n8, _ = main["launches"]
     n6j, n9 = main["staged"]
-    launches = [n6r, n6j, n7, n8, n9, n6r, n6j]
+    launches = [n6r, n6j, n7, n8, n9, main["k10_launches"]["residual"],
+                main["k10_launches"]["jacobian"]]
     out.update(setup_s=setup_s, step_s=main["step_s"], peak_bytes=main["peak_bytes"],
                system=times, launches=dict(zip((n for n, _, _ in MIXED_KERNELS), launches)))
     return [r | {"launches": n, "launches_of": "phase 23 mixed: box-55 + hex main path"}
@@ -4069,7 +4209,9 @@ def run() -> int:
         phase = "8 irregular main"
         say(f"phase 8 irregular main path at {solver.mesh.num_tet} Delaunay tets")
         ir_main = phase_irregular_main(solver)
-        rcm, rcm_ien_t = solver.mesh, solver.wctx.ien_t  # phase 12 runs K10 on them
+        # phase 12 runs K10 on them (the geometry waits on the host, out of
+        # the device peaks of phases 9-11)
+        rcm, rcm_ien_t, rcm_geom = solver.mesh, solver.wctx.ien_t, solver.wctx.res_geom.cpu()
         del solver
         phase = "9 dem"
         mesh = box_mesh(*FULL_BOX)
@@ -4096,10 +4238,10 @@ def run() -> int:
             f"order, {gsolver.gctx.win_plan.S} matrix entries, fastpath {gsolver.fastpath} "
             f"(host setup s: delaunay_s {setup['delaunay_s']:.2f} shared with phase 6, "
             f"solver_s {gsetup:.2f}); K10 at phase 6's RCM mesh")
-        ga_results, ga_staged, ga_res_staged, ga_times, k5_implicit = phase_gather_kernels(
-            gsolver, rcm, rcm_ien_t)
+        (ga_results, ga_staged, ga_res_staged, ga_times, k5_implicit,
+         k10_extra) = phase_gather_kernels(gsolver, rcm, rcm_ien_t, rcm_geom)
         say(f"  gather system: {json.dumps(ga_times)}")
-        del rcm_ien_t
+        del rcm_ien_t, rcm_geom
         phase = "13 gather slice"
         say(f"phase 13 gather slice at box {SLICE_BOX}")
         phase_gather_slice()
@@ -4199,10 +4341,10 @@ def run() -> int:
         for (name, src, rep), r, n in zip(
             KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS
             + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS + KRYLOV_KERNELS + CLASS_KERNELS
-            + HEAT_KERNELS + MIXED_KERNELS + SHARDED_KERNELS,
+            + HEAT_KERNELS + MIXED_KERNELS + SHARDED_KERNELS + K10_KERNELS,
             results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit]
             + ir_staged + ga_staged + ga_res_staged + krylov_results + class_results
-            + heat_results + mixed_results + sharded_results,
+            + heat_results + mixed_results + sharded_results + k10_extra,
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
             + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
@@ -4210,7 +4352,10 @@ def run() -> int:
             + melt_launches + staged_launches + ga_main["res_staged"]
             + [r["launches"] for r in krylov_results] + [r["launches"] for r in class_results]
             + [r["launches"] for r in heat_results] + [r["launches"] for r in mixed_results]
-            + [r["launches"] for r in sharded_results],
+            + [r["launches"] for r in sharded_results]
+            # K10 with the source: its instance's count on the WinELL melt slice
+            # (phase 16); the residual map alone runs on no path
+            + [slice_launches["winell"][6], 0],
         )
     ]
     # the probes' launches: those of their entry points' runs (phase 18)

@@ -23,8 +23,20 @@ delaunay_mesh(56**3): `fem.win_assembly.jacobian_win` on the RCM order
 laser source (box 55 without one is the base run's "K1"), the gather
 tier's volume residual `fem.ns.residual_volume` (K4 and K8, or the staged
 K4 and K8's segment sum) on delaunay_mesh(56**3) in its generated order,
-and, as a control, the WinELL tier's `fem.win_assembly.residual_win` (K10,
-K6 and K8) on its RCM order; with `--classes` K1c and K2c as the solver
+and the WinELL tier's `fem.win_assembly.residual_win` (K10, K6 and K8) on
+its RCM order; with `--jpath` or `--rpath` also the WinELL tier's input
+builders alone (`residual_inputs`, `jacobian_inputs`: K10 and whatever the
+checkout does around it), the peak device memory one `residual_win` /
+`jacobian_win` call allocates (`<name>_peak_bytes`); with `--steps` two
+WinELL `NSSolver.step` from the reference initial state on
+delaunay_mesh(56**3) + RCM and on box 55 with a hex over every cube
+(chip_smoke.py's phases 8 and 23): the peak device memory, all
+allocations counted (`<mesh>_steps_peak_bytes`), the wall seconds and a
+digest of the state; with `--probes` K12's segment reduce
+(`tools.gmicro.segment_reduce`) on the tool's (8, 2**23) stream at hb 16,
+8, 4, 2 and 1, each with its relative error against the plain version
+(`<name>_rel`; the kernel adds in an order that varies, so its digest
+varies); with `--classes` K1c and K2c as the solver
 calls them (`lattice.residual_volume` / `jacobian_volume`, whatever kernels
 the checkout runs inside them) on the translation-class contexts of
 chip_smoke.py's phase 20: box 55 deformed (the classes tier) and
@@ -43,7 +55,7 @@ is timed as the wrapper call, and its digest is of the tensors flattened
 and concatenated.
 
     python dedflow_tpu_torch/app/kernel_ab.py --root CHECKOUT [--reps 5] [--reduces] [--dem]
-        [--implicit] [--elements] [--jpath] [--rpath] [--classes] [--heat]
+        [--implicit] [--elements] [--jpath] [--rpath] [--classes] [--heat] [--probes] [--steps]
 
 Two checkouts (say a parent commit unpacked beside the working tree) are
 compared on one card by running this once per checkout, in turns: parent,
@@ -147,7 +159,7 @@ def _jacobian_paths(wsolver, gsolver):
 
     phys, scheme = wsolver.cfg.physics, wsolver.cfg.time
     wctx, gctx, wa_w, wa_g = wsolver.wctx, gsolver.gctx, _alpha(wsolver)[0], _alpha(gsolver)[0]
-    out = {}
+    out = {"J_winell_inputs": (lambda: wa_.jacobian_inputs(wctx, wa_w), 20)}
     for tag, implicit in (("", False), ("_implicit", True)):
         out[f"J_winell{tag}"] = (lambda i=implicit: wa_.jacobian_win(
             wctx, wa_w, phys, scheme, scalar_implicit=i).vals, 10)
@@ -160,7 +172,7 @@ def _residual_paths(wsolver, gsolver):
     """{name: (call, reps)} of the irregular tiers' volume residuals as the
     solvers call them, at seeded alpha states of each mesh (the reference
     initial state, dwg perturbed as chip_smoke.py's): the gather tier's
-    fem.ns.residual_volume and, as a control, the WinELL tier's
+    fem.ns.residual_volume and the WinELL tier's
     fem.win_assembly.residual_win."""
     from dedflow_tpu_torch.fem import ns
     from dedflow_tpu_torch.fem import win_assembly as wa_
@@ -170,7 +182,64 @@ def _residual_paths(wsolver, gsolver):
     return {
         "F_gather": (lambda: ns.residual_volume(gsolver.gctx, wa_g, dwa_g, phys, scheme), 20),
         "F_winell": (lambda: wa_.residual_win(wsolver.wctx, wa_w, dwa_w, phys, scheme), 20),
+        "F_winell_inputs": (lambda: wa_.residual_inputs(wsolver.wctx, wa_w, dwa_w), 20),
     }
+
+
+def _winell_steps(wsolver) -> dict:
+    """chip_smoke.py's phases 8 and 23 on the WinELL tier: two
+    NSSolver.step from the reference initial state on the solver of
+    delaunay_mesh(56**3) + RCM and on one of box 55 with a hex over every
+    cube (mesh.gen.mixed_box_mesh); per mesh the device bytes allocated
+    before the steps and at their peak (everything live counted), the
+    steps' wall seconds and a digest of the state after them."""
+    import time
+
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_initial_state, reference_scenario_config
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.mesh.gen import mixed_box_mesh
+    from dedflow_tpu_torch.solver.newton import NSSolver
+
+    out = {}
+    for tag, make in (("delaunay", lambda: wsolver),
+                      ("mixed", lambda: NSSolver(mixed_box_mesh(55, 55, 55),
+                                                 reference_scenario_config(), device="cuda"))):
+        solver = make()
+        if solver.fastpath != "winell":
+            raise RuntimeError(f"{tag}: tier {solver.fastpath}, not winell")
+        state = state_from_numpy(*reference_initial_state(solver.mesh), "cuda", torch.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[f"{tag}_steps_base_bytes"] = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            *state, _ = solver.step(*state)
+        torch.cuda.synchronize()
+        out[f"{tag}_steps_s"] = time.perf_counter() - t0
+        out[f"{tag}_steps_peak_bytes"] = torch.cuda.max_memory_allocated()
+        flat = torch.cat([t.reshape(-1) for t in state]).cpu()
+        out[f"{tag}_steps_digest"] = hashlib.sha256(flat.numpy().tobytes()).hexdigest()[:16]
+        del solver, state
+    return out
+
+
+def _probe_kernels():
+    """{name: (call, reps)} of K12's segment reduce on tools/gmicro.py's
+    (8, 2**23) stream at hb 16, 8, 4, 2, 1, and {name: relative error
+    against the plain version}."""
+    from dedflow_tpu_torch.tools import gmicro as tgm
+
+    x, idx = tgm.inputs(1 << 23, "cuda")
+    calls, rel = {}, {}
+    for hb in (16, 8, 4, 2, 1):
+        name = f"K12_reduce_hb{hb}"
+        calls[name] = (lambda hb=hb: tgm.segment_reduce(x, idx, hb), 8)
+        ref = tgm.segment_reduce_plain(x, idx, hb)
+        rel[f"{name}_rel"] = float((tgm.segment_reduce(x, idx, hb) - ref).abs().max()
+                                   / ref.abs().max())
+    return calls, rel
 
 
 def _melt_residual():
@@ -446,6 +515,11 @@ def main(argv=None) -> int:
     p.add_argument("--heat", action="store_true",
                    help="also the heat / Poisson slice at box 55: the one-row K8 / K9 as "
                         "assemble_poisson calls them, index_add, assemble_poisson, peak memory")
+    p.add_argument("--steps", action="store_true",
+                   help="also two WinELL steps (chip_smoke.py's phases 8 and 23): peak memory, "
+                        "wall s and a digest of the state")
+    p.add_argument("--probes", action="store_true",
+                   help="also K12's segment reduce on the tool's (8, 2**23) stream, hb 16-1")
     args = p.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -482,7 +556,7 @@ def main(argv=None) -> int:
         "K1": (lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme), 20),
         "K2": (lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, band, lo), 10),
     }
-    if args.reduces or args.jpath or args.rpath:
+    if args.reduces or args.jpath or args.rpath or args.steps:
         delaunay = _delaunay_solvers()
     if args.reduces:
         kernels.update(_reduce_kernels(*delaunay))
@@ -501,17 +575,25 @@ def main(argv=None) -> int:
         kernels.update(_class_kernels())
     heat = _heat_kernels() if args.heat else {}
     kernels.update(heat)
+    checks = {}
+    if args.probes:
+        probe_calls, checks = _probe_kernels()
+        kernels.update(probe_calls)
+    peaks = set(heat) | {"F_winell", "J_winell", "J_winell_implicit"}
     timing = _timing()
-    out = {"root": str(root)}
+    out = {"root": str(root)} | checks
     for name, (fn, n) in kernels.items():
         out[f"{name}_ms"] = timing.time_ms(fn, n, samples=args.reps)
-        if name in heat:
+        if name in peaks:
             out[f"{name}_peak_bytes"] = _peak_bytes(fn)
         got = fn()
         if isinstance(got, (list, tuple)):
             got = torch.cat([g.reshape(-1) for g in got])
         got = got.contiguous().cpu()
         out[f"{name}_digest"] = hashlib.sha256(got.numpy().tobytes()).hexdigest()[:16]
+    if args.steps:
+        del kernels, heat
+        out.update(_winell_steps(delaunay[0]))
     out["card"] = timing.card_line()
     print(json.dumps(out), flush=True)
     return 0

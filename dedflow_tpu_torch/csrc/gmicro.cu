@@ -14,10 +14,10 @@
 //   window gather   o[r, 512b + j] = x[r, 512b + (id & 511)] if 0 <= id >> 9 < nwin,
 //                   else 0, with id = idx[0, 512b + j]    (k_winbody(nwin);
 //                   k_ohgather is nwin = 1 on id & 511: `wrap`)
-//   segment reduce  acc[b][8h + r, l] = sum of x[r, 512b + j] over the j with
-//                   (idx[0, 512b + j] & (128 hb - 1)) = 128h + l; then
-//                   o[r', 512b + 128q + l] = sum over h, r of acc[b][8h + r, l]
-//                                                          (k_reduce(hb))
+//   segment reduce  o[r', 512b + 128q + l] = sum over the columns j of block b
+//                   with (idx[0, 512b + j] & 127) = l of sum_r x[r, 512b + j],
+//                   the same for every hb: k_reduce(hb)'s (8 hb, 128) bins
+//                   collapsed over h and r                  (k_reduce(hb))
 //
 // What bounds them on an H100: bytes (each input read once, each output
 // written once; the arithmetic is negligible). The designs:
@@ -31,13 +31,20 @@
 // - window gather: the block staged as in (i); the 512 ids of row 0 are
 //   read once and serve all 8 rows. nwin only moves the zero predicate, so
 //   its time should not depend on nwin.
-// - segment reduce: the (8 hb, 128) accumulator lives in shared memory
-//   (hb = 16: 64 KB, dynamic, past the 48 KB default after
-//   cudaFuncSetAttribute); sources are added by shared-memory atomics (the
-//   order of the adds varies from run to run: float32 roundoff of at most
-//   512 terms a bin), then 256 threads collapse the 8 hb rows column by
-//   column in a fixed order. With `acc` non-null the accumulators are also
-//   written out, (n / 512, 8 hb, 128), so that a check can hold them.
+// - segment reduce: rows first, then bins (seg_bins_kernel). A CTA of 128
+//   threads takes 512-lane blocks in a grid-stride loop, the next block's
+//   loads in flight while the current one is binned: a thread reads its 4
+//   neighbouring columns of the 8 rows as 8 float4 (coalesced, streaming)
+//   and their 4 ids as an int4, and sums the rows in registers; the 512
+//   column sums go into 128 bins in shared memory (512 B, two buffers so
+//   that one barrier separates a block's reads from the next block's
+//   adds), added warp-aggregated: the lanes of a warp whose columns share a
+//   bin (__match_any_sync) sum their values in a tree over their ranks and
+//   the lowest lane adds the sum by a shared atomic. Warps' adds into one
+//   bin race, so the float32 sum order varies from run to run (roundoff of
+//   at most 512 column sums a bin). Each thread then stores its 4 columns'
+//   bins to the 8 rows as float4 (streaming). No (8 hb, 128) accumulator:
+//   the time does not depend on hb.
 
 #include <cuda_runtime.h>
 
@@ -139,36 +146,77 @@ window_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx0,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-seg_reduce_kernel(const float* __restrict__ x, const int* __restrict__ idx0,
-                  float* __restrict__ o, float* __restrict__ acc_out, long long n, int hb) {
-  extern __shared__ float acc[];  // (8 hb, 128)
-  __shared__ float half_sum[2][kTile];
-  const int nacc = kRows * hb * kTile;
-  const long long base = static_cast<long long>(blockIdx.x) * kBlock;
-  for (int k = threadIdx.x; k < nacc; k += kThreads) acc[k] = 0.f;
-  __syncthreads();
-  const int mask = hb * kTile - 1;
-  for (int j = threadIdx.x; j < kBlock; j += kThreads) {
-    const int e = idx0[base + j] & mask;
-    float* a = acc + (e >> 7) * (kRows * kTile) + (e & (kTile - 1));
+// The sum of v over the lanes of the warp whose `bin` equals this lane's,
+// valid in the lowest of them (a tree over the peers' ranks: the order
+// depends only on which lanes are peers); every lane of the warp calls it.
+__device__ __forceinline__ float peer_sum(int bin, float v, bool* leader) {
+  const int lane = threadIdx.x & 31;
+  unsigned peers = __match_any_sync(0xffffffffu, bin);
+  *leader = (__ffs(peers) - 1) == lane;
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  peers &= ~((2u << lane) - 1u);  // the peers above this lane
+  while (__any_sync(0xffffffffu, peers != 0u)) {
+    const int next = __ffs(peers);  // the next peer above, 1-based; 0: none
+    const float t = __shfl_sync(0xffffffffu, v, next > 0 ? next - 1 : lane);
+    if (next > 0) v += t;
+    // lanes of odd rank have been added into their lower neighbour
+    peers &= ~__ballot_sync(0xffffffffu, rank & 1);
+    rank >>= 1;
+  }
+  return v;
+}
+
+constexpr int kBinThreads = kBlock / 4;  // a thread a column quad of a block
+
+__global__ void __launch_bounds__(kBinThreads)
+seg_bins_kernel(const float4* __restrict__ x, const int4* __restrict__ idx0,
+                float4* __restrict__ o, long long n4, long long nblk) {
+  __shared__ __align__(16) float bins[2][kTile];
+  const int t = threadIdx.x;
+  bins[0][t] = 0.f;
+  bins[1][t] = 0.f;
+  long long b = blockIdx.x;
+  float4 v[kRows];
+  int4 id = make_int4(0, 0, 0, 0);
+  if (b < nblk) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) atomicAdd(a + r * kTile, x[r * n + base + j]);
+    for (int r = 0; r < kRows; ++r) v[r] = __ldcs(x + r * n4 + b * kBinThreads + t);
+    id = __ldcs(idx0 + b * kBinThreads + t);
   }
   __syncthreads();
-  if (acc_out != nullptr) {
-    float* dst = acc_out + static_cast<long long>(blockIdx.x) * nacc;
-    for (int k = threadIdx.x; k < nacc; k += kThreads) dst[k] = acc[k];
-  }
-  // collapse: thread (half, l) sums rows half * 4 hb .. + 4 hb of column l
-  const int l = threadIdx.x & (kTile - 1), half = threadIdx.x >> 7;
-  float sum = 0.f;
-  for (int row = half * 4 * hb; row < (half + 1) * 4 * hb; ++row) sum += acc[row * kTile + l];
-  half_sum[half][l] = sum;
-  __syncthreads();
-  for (int k = threadIdx.x; k < kRows * kBlock; k += kThreads) {
-    const int r = k / kBlock, c = k % kBlock, lc = c & (kTile - 1);
-    o[r * n + base + c] = half_sum[0][lc] + half_sum[1][lc];
+  for (int k = 0; b < nblk; b += gridDim.x, ++k) {
+    float4 s = v[0];
+#pragma unroll
+    for (int r = 1; r < kRows; ++r) {
+      s.x += v[r].x;
+      s.y += v[r].y;
+      s.z += v[r].z;
+      s.w += v[r].w;
+    }
+    const int4 cur = id;
+    const long long nb = b + gridDim.x;
+    if (nb < nblk) {  // the next block's loads, in flight while this one is binned
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) v[r] = __ldcs(x + r * n4 + nb * kBinThreads + t);
+      id = __ldcs(idx0 + nb * kBinThreads + t);
+    }
+    float* bin = bins[k & 1];
+    const int ids[4] = {cur.x, cur.y, cur.z, cur.w};
+    const float sums[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int l = ids[q] & (kTile - 1);
+      bool leader;
+      const float total = peer_sum(l, sums[q], &leader);
+      if (leader) atomicAdd(bin + l, total);
+    }
+    __syncthreads();
+    // lanes 4t .. 4t + 3 of the block lie at tile lanes 4 (t % 32) .. + 3
+    const float4 out = reinterpret_cast<const float4*>(bin)[t & (kTile / 4 - 1)];
+    bins[(k + 1) & 1][t] = 0.f;  // its last reads were before the barrier above
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) __stcs(o + r * n4 + b * kBinThreads + t, out);
+    __syncthreads();
   }
 }
 
@@ -218,18 +266,20 @@ extern "C" int dedflow_gm_window_gather(const void* x, const void* idx, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dedflow_gm_seg_reduce(const void* x, const void* idx, void* o, void* acc,
-                                     long long n, int hb, void* stream) {
+extern "C" int dedflow_gm_seg_reduce(const void* x, const void* idx, void* o, long long n,
+                                     void* stream) {
   using namespace dedflow;
-  if (n <= 0 || n % kBlock != 0 || hb < 1 || hb > 16 || (hb & (hb - 1)) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = kRows * hb * kTile * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(seg_reduce_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (n <= 0 || n % kBlock != 0) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_bins_kernel, kBinThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  seg_reduce_kernel<<<static_cast<unsigned>(n / kBlock), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(idx), static_cast<float*>(o),
-      static_cast<float*>(acc), n, hb);
+  const long long nblk = n / kBlock, fill = static_cast<long long>(sms) * per_sm;
+  const unsigned grid = static_cast<unsigned>(nblk < fill ? nblk : fill);
+  seg_bins_kernel<<<grid, kBinThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<const int4*>(idx), static_cast<float4*>(o),
+      n / 4, nblk);
   return static_cast<int>(cudaGetLastError());
 }

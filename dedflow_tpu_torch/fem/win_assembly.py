@@ -6,20 +6,23 @@ RCM-reordered with its elements sorted by their minimum node
 (mesh.reorder), so each element's nodes, and each target's contributions,
 lie close together in memory.
 
-  residual F:  K10 `win_gather`: the alpha states (and the heat source)
-               of each element's 4 nodes into the (67, ne) input rows -> K6
-               `res_rows_call` -> (24, ne) rows a*6+c -> K8
-               `stream_reduce`: 4 contributions per element into the
-               (6, N) nodes, read where K6 left them.
-  jacobian J:  K10: the nodal velocities into the (27, ne) rows -> K6
-               staged, `lhs_rows_staged`: each element's 16 contributions
+  residual F:  K10 `win_gather`: the 19 geometry rows and the alpha
+               states (and the heat source) of each element's 4 nodes,
+               read node-major where they lie, into the (67, ne) input
+               rows in one pass -> K6 `res_rows_call` -> (24, ne) rows
+               a*6+c -> K8 `stream_reduce`: 4 contributions per element
+               into the (6, N) nodes, read where K6 left them.
+  jacobian J:  K10: the nodal velocities into rows 12-23 of the context's
+               persistent (33, ne) input buffer, whose geometry rows are
+               written once -> K6 staged, `lhs_rows_staged` on its first
+               27 rows: each element's 16 contributions
                straight into K9's (K, 16) staging rows at their plan
                positions, in WinELL component order -> K9's segment sum
                `ring_reduce_staged`: the 16 velocity/pressure rows of the
                WinELL entries (sparse.winell); the phi/T identity rows are
                the static nodal multiplicity. With scalar_implicit
-               (melt-pool runs) the input gains the 6 metric rows (33, ne),
-               K6 also stores the phi/T transport tangents into a (K, 8)
+               (melt-pool runs) K6 reads all 33 rows (the 6 metric rows
+               last), also stores the phi/T transport tangents into a (K, 8)
                staging buffer, and a second segment sum adds those.
   SpMV:        K7 `WinELLMatrixT.matvec_t` (sparse.win_kernels).
   pc="mg":     with `with_amg` the context carries the pattern-only
@@ -42,6 +45,14 @@ rows always come through K10, which the JAX package keeps opt-in
 (`with_win_gather`, win_assembly.py:295-303) because its TPU kernel
 measured slower than XLA's gather; on the card K10 is the faster gather,
 and it needs no window schedule (`GatherPlan`, win_gather.py:42-72).
+Nor are the JAX module's (14, N) state table and concatenations
+(win_assembly.py:371-380, :450-471) made: K10 reads the node-major states
+where they lie and writes the rows where K6 reads them. The Jacobian's
+input is the context's persistent (33, ne) buffer (`jac_in`); the
+residual's is a fresh (67, ne) array a call, geometry copied in by K10,
+because a persistent one would keep its 48 state rows (227 MB at 1.18M
+tets) alive through the Jacobian's (K, 16) staging buffer, the tier's
+peak of device memory.
 """
 
 from __future__ import annotations
@@ -64,7 +75,7 @@ from dedflow_tpu_torch.fem.face import (
     slot_plan,
 )
 from dedflow_tpu_torch.sparse.topology import Sparsity
-from dedflow_tpu_torch.sparse.win_gather import JAC_ROWMAP, RES_ROWMAP, win_gather
+from dedflow_tpu_torch.sparse.win_gather import win_gather
 from dedflow_tpu_torch.sparse.win_ring import ring_reduce_staged
 from dedflow_tpu_torch.sparse.win_stream import (
     ReducePlan,
@@ -83,7 +94,10 @@ class WinAssemblyContext:
     """Device tables and plans of the windowed irregular tier."""
 
     res_geom: torch.Tensor  # (19, ne) element_rows.res_geom_rows
-    lhs_geom: torch.Tensor  # (15, ne) element_rows.lhs_geom_rows
+    # (33, ne) K6 Jacobian input: lhs_geom_rows' 12 shape-gradient rows, K10's
+    # 12 velocity rows (rewritten by every jacobian_inputs call), det, gg, tr
+    # and the 6 metric rows of res_geom (the implicit mode's)
+    jac_in: torch.Tensor
     ien_t: torch.Tensor  # (4, ne) int32
     # residual reduce: contribution (e, a) -> node ien[e, a], source a*6*ne + e
     res_plan: ReducePlan
@@ -98,6 +112,14 @@ class WinAssemblyContext:
     # entry of each CSR entry (the identity here: entries are CSR-ordered)
     amg_idx: object | None = None
     amg_eon: torch.Tensor | None = None
+
+
+def jacobian_buffer(lhs_geom: torch.Tensor, res_geom: torch.Tensor) -> torch.Tensor:
+    """The (33, ne) Jacobian input buffer with its geometry rows (the
+    velocity rows 12-23 zero until K10 writes them)."""
+    buf = torch.zeros((33, lhs_geom.shape[1]), dtype=lhs_geom.dtype, device=lhs_geom.device)
+    buf[:12], buf[24:27], buf[27:33] = lhs_geom[:12], lhs_geom[12:15], res_geom[13:19]
+    return buf
 
 
 def build_win_amg(sparsity: Sparsity, win_plan: WinPlan, n: int, min_nodes: int = 2048,
@@ -148,9 +170,10 @@ def build_win_context(
     amg_idx = amg_eon = None
     if with_amg:
         amg_idx, amg_eon = build_win_amg(sparsity, win_plan, n, amg_min_nodes, device)
+    res_geom = res_geom_rows(geom.shgrad, geom.det_j, geom.metric).contiguous()
     return WinAssemblyContext(
-        res_geom=res_geom_rows(geom.shgrad, geom.det_j, geom.metric).contiguous(),
-        lhs_geom=lhs_geom_rows(geom.shgrad, geom.det_j, geom.metric).contiguous(),
+        res_geom=res_geom,
+        jac_in=jacobian_buffer(lhs_geom_rows(geom.shgrad, geom.det_j, geom.metric), res_geom),
         ien_t=ien_t,
         res_plan=res_plan,
         jac_plan=jac_plan,
@@ -193,28 +216,25 @@ def attach_face_win_plans(face_ctxs: tuple, sparsity: Sparsity, win_plan: WinPla
 
 
 def residual_inputs(ctx: WinAssemblyContext, w_alpha, dw_alpha, source=None) -> torch.Tensor:
-    """(67, ne) K6 residual input rows: geometry, then the element nodes'
-    u, du (rows i*4+a), p (dw_alpha slot 3), phi, T, dphi, dT and the heat
-    source `source` (N,) (zero without one), gathered by K10 with the
-    residual's row map."""
-    # the state table of win_assembly.py:371-375: rows 0-5 w_alpha, 6 the
-    # source, 8-13 dw_alpha
-    x = torch.zeros((14, ctx.num_node), dtype=w_alpha.dtype, device=w_alpha.device)
-    x[:6] = w_alpha.T
-    if source is not None:
-        x[6] = source
-    x[8:14] = dw_alpha.T
-    return torch.cat([ctx.res_geom, win_gather(ctx.ien_t, x, RES_ROWMAP, 48)])
+    """(67, ne) K6 residual input rows, a fresh array: the geometry, then
+    the element nodes' u, du (rows i*4+a), p (dw_alpha slot 3), phi, T,
+    dphi, dT and the heat source `source` (N,) (zero without one), all
+    written by one K10 launch with the residual's row map from the
+    node-major (N, 6) states."""
+    out = torch.empty((67, ctx.num_elem), dtype=ctx.res_geom.dtype, device=ctx.res_geom.device)
+    return win_gather(ctx.ien_t, out, 19, w_alpha, dw_alpha, source, geom=ctx.res_geom)
 
 
 def jacobian_inputs(ctx: WinAssemblyContext, w_alpha, scalar_implicit: bool = False) -> torch.Tensor:
     """(27, ne) K6 Jacobian input rows: shape gradients, the element
-    nodes' velocity (rows i*4+a), det, gg, tr, gathered by K10 with the
-    Jacobian's row map; (33, ne) with `scalar_implicit`, the 6 metric rows
-    of the residual geometry appended (win_assembly.py:467-471)."""
-    u = win_gather(ctx.ien_t, w_alpha.T[:3].contiguous(), JAC_ROWMAP, 12)
-    metric = [ctx.res_geom[13:19]] if scalar_implicit else []
-    return torch.cat([ctx.lhs_geom[:12], u, ctx.lhs_geom[12:], *metric])
+    nodes' velocity (rows i*4+a, written by K10 with the Jacobian's row map
+    from the node-major (N, 6) w_alpha), det, gg, tr; (33, ne) with
+    `scalar_implicit`, the 6 metric rows of the residual geometry appended
+    (win_assembly.py:467-471). A view of the context's `jac_in`: the next
+    call overwrites its velocity rows, in stream order, so a caller that
+    keeps it across calls must clone it."""
+    win_gather(ctx.ien_t, ctx.jac_in, 12, w_alpha)
+    return ctx.jac_in if scalar_implicit else ctx.jac_in[:27]
 
 
 def residual_win(

@@ -18,8 +18,10 @@ under its names):
   window gather of row 0's ids (`window_gather`; the one-hot row is
   nwin = 1 on ids & 511);
 - `OH seg-reduce quad HB=16/8/4/1`: the segment reduce of each block's
-  512 sources x 8 rows into (8 hb, 128) bins, collapsed
-  (`segment_reduce`).
+  512 sources x 8 rows, collapsed to 128 bins by idx's lane bits
+  (`segment_reduce`): the JAX kernel's (8 hb, 128) bins summed over h and
+  rows, which is the same function for every hb; the kernel sums the rows
+  first, then bins the 512 column sums.
 
 Each line gives the kernel's time (CUDA events, its launches queued
 ahead of the card: tools/timing.py) and ns a block, GB/s and the share of
@@ -37,7 +39,8 @@ tensors and run their plain versions (`*_plain`) on CPU tensors; each
 counts its launches. The kernels replace the TPU kernels timed by
 tools/gmicro.py::_run (pallas_call at :47). Copies and gathers equal their
 plain versions bit for bit; the segment reduce adds in another order
-(shared-memory atomics), float32 roundoff of at most 512 terms a bin.
+(warp sums into shared-memory atomics), float32 roundoff of at most 512
+column sums a bin.
 """
 
 from __future__ import annotations
@@ -87,28 +90,28 @@ def window_gather_plain(x: torch.Tensor, idx: torch.Tensor, nwin: int,
     return torch.where(hit, x[:, src], torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def acc_index(idx: torch.Tensor, hb: int) -> torch.Tensor:
-    """For each element of the (8, n) stream, in its order, the flat index
-    of its bin in the (n / 512, 8 hb, 128) accumulators: block b, row
-    8h + r, lane l, where (idx[0, j] & (128 hb - 1)) = 128h + l."""
+def bin_index(idx: torch.Tensor) -> torch.Tensor:
+    """For each lane j of the stream, the flat index of its bin in the
+    (n / 512, 128) collapsed bins: block j // 512, lane idx[0, j] & 127."""
     n = idx.shape[1]
-    e = (idx[0] & (TILE * hb - 1)).long()
     blk = torch.arange(n, device=idx.device) // BLOCK
-    row = blk * (ROWS * hb) + ROWS * (e >> 7)
-    r = torch.arange(ROWS, device=idx.device)[:, None]
-    return ((row[None, :] + r) * TILE + (e & (TILE - 1))[None, :]).reshape(-1)
+    return blk * TILE + (idx[0] & (TILE - 1)).long()
 
 
-def segment_reduce_plain(x: torch.Tensor, idx: torch.Tensor, hb: int, acc: bool = False):
-    """o (8, n): o[., 512b + 128q + l] = sum over h, r of acc[b, 8h + r, l];
-    with `acc`, (o, the (n / 512, 8 hb, 128) accumulators)."""
+def broadcast_bins(bins: torch.Tensor, n: int) -> torch.Tensor:
+    """o (8, n) from the (n / 512, 128) bins: o[., 512b + 128q + l] = bins[b, l]."""
+    return bins.reshape(n // BLOCK, 1, TILE).expand(n // BLOCK, BLOCK // TILE, TILE).reshape(
+        1, n).expand(ROWS, n).contiguous()
+
+
+def segment_reduce_plain(x: torch.Tensor, idx: torch.Tensor, hb: int) -> torch.Tensor:
+    """o (8, n): o[., 512b + 128q + l] = the sum over the columns j of block
+    b with (idx[0, 512b + j] & 127) = l of x's 8 rows at j, rows summed
+    first, then the columns in order (hb does not enter)."""
     n = x.shape[1]
-    sums = torch.zeros((n // BLOCK) * ROWS * hb * TILE, dtype=x.dtype, device=x.device)
-    sums.index_add_(0, acc_index(idx, hb), x.reshape(-1))
-    sums = sums.reshape(n // BLOCK, ROWS * hb, TILE)
-    col = sums.sum(1)  # (n / 512, 128), rows summed in order
-    o = col.repeat(1, BLOCK // TILE).reshape(1, n).expand(ROWS, n).contiguous()
-    return (o, sums) if acc else o
+    bins = torch.zeros((n // BLOCK) * TILE, dtype=x.dtype, device=x.device)
+    bins.index_add_(0, bin_index(idx), x.sum(0))
+    return broadcast_bins(bins, n)
 
 
 # ---- wrappers --------------------------------------------------------------
@@ -187,25 +190,22 @@ def window_gather(x: torch.Tensor, idx: torch.Tensor, nwin: int,
     return o
 
 
-def segment_reduce(x: torch.Tensor, idx: torch.Tensor, hb: int, acc: bool = False):
-    """The segment reduce of idx's row 0 into (8 hb, 128) bins a block,
-    collapsed: the kernel on CUDA tensors (hb 1, 2, 4, 8 or 16), the plain
-    version on CPU tensors. With `acc`, also the accumulators."""
+def segment_reduce(x: torch.Tensor, idx: torch.Tensor, hb: int) -> torch.Tensor:
+    """The segment reduce of idx's row 0, collapsed to 128 bins a block
+    (hb 1, 2, 4, 8 or 16, the JAX kernel's parameter, which does not enter
+    the function): the kernel on CUDA tensors (rows, then bins), the plain
+    version on CPU tensors."""
     if not x.is_cuda:
-        return segment_reduce_plain(x, idx, hb, acc)
+        return segment_reduce_plain(x, idx, hb)
     n = _check_stream(x, idx)
     if hb not in (1, 2, 4, 8, 16):
         raise ValueError(f"segment_reduce kernel: hb 1, 2, 4, 8 or 16, got {hb}")
-    fn = nvcc.function("gmicro", "dedflow_gm_seg_reduce",
-                       [nvcc.P, nvcc.P, nvcc.P, nvcc.P, nvcc.LL, nvcc.I, nvcc.P])
+    fn = nvcc.function("gmicro", "dedflow_gm_seg_reduce", [nvcc.P, nvcc.P, nvcc.P, nvcc.LL, nvcc.P])
     o = torch.empty_like(x)
-    sums = (torch.empty((n // BLOCK, ROWS * hb, TILE), dtype=x.dtype, device=x.device)
-            if acc else None)
-    nvcc.check(fn(x.data_ptr(), idx.data_ptr(), o.data_ptr(),
-                  sums.data_ptr() if acc else None, n, hb, _stream(x)),
+    nvcc.check(fn(x.data_ptr(), idx.data_ptr(), o.data_ptr(), n, _stream(x)),
                "gmicro segment_reduce")
     segment_reduce.launches += 1
-    return (o, sums) if acc else o
+    return o
 
 
 copy2.launches = 0
@@ -246,8 +246,10 @@ def probes(x: torch.Tensor, idx: torch.Tensor) -> list:
     library call's inputs (int64 indices) are made here, outside its
     timing; the window gather's library call (a torch.gather of
     512b + (id & 511)) computes the function only where every id is a hit
-    (0 <= id >> 9 < nwin), as in the tool's data (ids < 128). The bytes of
-    the gathers count the sectors of x that these ids read."""
+    (0 <= id >> 9 < nwin), as in the tool's data (ids < 128); the segment
+    reduce's times `index_add` of the column sums x.sum(0) into the blocks'
+    128 bins, then the broadcast to the 8 rows. The bytes of the gathers
+    count the sectors of x that these ids read."""
     n = x.shape[1]
     o = torch.empty_like(x)
     lane_idx = (idx & (TILE - 1)).long().view(ROWS, n // TILE, TILE)
@@ -275,19 +277,17 @@ def probes(x: torch.Tensor, idx: torch.Tensor) -> list:
                      lambda: window_gather(x, idx, 1, True),
                      lambda: window_gather_plain(x, idx, 1, True), lib_win,
                      window_gather_bytes(x, idx, 1, True), 0, window_gather))
-    flat = x.view(1, -1)
+    bins = torch.zeros((n // BLOCK) * TILE, dtype=x.dtype, device=x.device)
+    where = bin_index(idx)
+    # index_add_ of the column sums into the blocks' 128 bins, then the broadcast
+    library = (lambda: broadcast_bins(torch.index_add(bins, 0, where, x.sum(0)), n),
+               lambda: segment_reduce(x, idx, HBS[0]))
     for hb in HBS:
-        index = acc_index(idx, hb)[None]
-        zeros = torch.zeros((1, (n // BLOCK) * ROWS * hb * TILE), dtype=x.dtype, device=x.device)
-        library = (lambda index=index, zeros=zeros, hb=hb: torch.scatter_add(
-                       zeros, 1, index, flat).view(n // BLOCK, ROWS * hb, TILE),
-                   lambda hb=hb: segment_reduce(x, idx, hb, acc=True)[1])
-        # one add a source into its bin, one add a bin into its column
-        ops = x.numel() + zeros.numel()
+        # 7 adds a column for its 8 rows, one add a column into its bin
         out.append(Probe(f"OH seg-reduce quad HB={hb}", f"segment reduce, hb={hb}",
                          lambda hb=hb: segment_reduce(x, idx, hb),
                          lambda hb=hb: segment_reduce_plain(x, idx, hb), library,
-                         nbytes(x, idx[0], o), ops, segment_reduce, exact=False))
+                         nbytes(x, idx[0], o), x.numel(), segment_reduce, exact=False))
     return out
 
 

@@ -16,8 +16,11 @@ Inputs are made with numpy from a seed. Relative error = max|port - jax|
   interpret mode: 2e-5 (float32 roundoff of the element bodies).
 - Steps: 1e-9 with equal Newton and Krylov counts against the JAX gather
   solver (both run GMRES with the same block-Jacobi field split).
-- K10's plain twin equals the JAX Pallas kernel (interpret mode) and its
-  XLA lowering exactly: a gather is exact.
+- K10's plain twin, fed node-major states, equals the JAX Pallas kernel
+  (interpret mode) and its XLA lowering on the table JAX builds from the
+  same states exactly (a gather is exact), also on a small mixed box; the
+  WinELL tier's K6 inputs equal JAX's concatenations (float64: gathered
+  rows exactly, geometry 1e-13).
 """
 
 import json
@@ -375,22 +378,127 @@ def rcm_delaunay(delaunay):
     return jm, tm
 
 
+def _jax_table(wa, dwa, src):
+    """JAX's (14, N) component-major state table (win_assembly.py:371-375)
+    from node-major states: rows 0-5 w_alpha, 6 the source, 8-13 dw_alpha."""
+    x = jnp.zeros((14, wa.shape[0]), jnp.asarray(wa).dtype)
+    x = x.at[:6].set(jnp.asarray(wa).T).at[8:14].set(jnp.asarray(dwa).T)
+    return x if src is None else x.at[6].set(jnp.asarray(src))
+
+
+def _k10_port(ien_t, kind, wa, dwa, src, pad=3):
+    """The port's K10 plain twin into rows pad.. of a NaN-filled buffer;
+    checks that the rows before them stay untouched and returns the rest."""
+    rows = 12 if kind == "jacobian" else 48
+    out = torch.full((pad + rows, ien_t.shape[1]), float("nan"), dtype=torch.float32)
+    args = (torch.as_tensor(wa),) if kind == "jacobian" else (
+        torch.as_tensor(wa), torch.as_tensor(dwa), None if src is None else torch.as_tensor(src))
+    assert twg.win_gather(torch.as_tensor(ien_t), out, pad, *args) is out
+    assert bool(torch.isnan(out[:pad]).all())
+    return out[pad:].numpy()
+
+
 @pytest.mark.parametrize("kind", ["residual", "jacobian"])
 def test_k10_plain_twin_equals_jax_exactly(rcm_delaunay, kind):
     """On the first 512 elements (one grid step of the interpreted TPU
-    kernel), the JAX row maps."""
+    kernel), the JAX row maps; the port reads node-major states (the
+    residual with the heat source), JAX its table built from them."""
     jm, tm = rcm_delaunay
     assert twg.RES_ROWMAP == jwin._RES_ROWMAP and twg.JAC_ROWMAP == jwin._JAC_ROWMAP
-    rowmap, rows, c = (twg.RES_ROWMAP, 48, 14) if kind == "residual" else (twg.JAC_ROWMAP, 12, 3)
-    x = np.random.default_rng(9).normal(size=(c, tm.num_node)).astype(np.float32)
+    rowmap, rows = (twg.RES_ROWMAP, 48) if kind == "residual" else (twg.JAC_ROWMAP, 12)
+    rng = np.random.default_rng(9)
+    wa, dwa = rng.normal(size=(2, tm.num_node, 6)).astype(np.float32)
+    src = rng.normal(size=tm.num_node).astype(np.float32)
+    x = _jax_table(wa, dwa, src)
+    x = x if kind == "residual" else x[:3]
     ien_t = np.ascontiguousarray(tm.ien[:512].T).astype(np.int32)
     plan = jwg.build_gather_plan(ien_t, tm.num_node)
-    ref = np.asarray(jwg.win_gather(plan, jnp.asarray(ien_t), jnp.asarray(x), rowmap, rows,
-                                    interpret=True))
-    xla = np.asarray(jwg.win_gather_xla(jnp.asarray(ien_t), jnp.asarray(x), rowmap, rows))
-    got = twg.win_gather(torch.as_tensor(ien_t), torch.as_tensor(x), rowmap, rows).numpy()
+    ref = np.asarray(jwg.win_gather(plan, jnp.asarray(ien_t), x, rowmap, rows, interpret=True))
+    xla = np.asarray(jwg.win_gather_xla(jnp.asarray(ien_t), x, rowmap, rows))
+    got = _k10_port(ien_t, kind, wa, dwa, src)
     assert got.dtype == np.float32
     assert np.array_equal(got, ref) and np.array_equal(got, xla)
+
+
+@pytest.fixture(scope="module")
+def mixed_small():
+    """A small mixed box (hexes over every cube, a prism layer): its tets
+    are what the WinELL tier's K10 gathers."""
+    return tgen.mixed_box_mesh(3, 3, 3, prism_layers=1)
+
+
+@pytest.mark.parametrize("kind", ["residual", "residual-source", "jacobian"])
+@pytest.mark.parametrize("mesh", ["rcm-delaunay", "mixed-box"])
+def test_k10_node_major_twin_equals_jax_xla(rcm_delaunay, mixed_small, mesh, kind):
+    """K10's plain twin fed node-major states (float32) equals JAX's
+    win_gather_xla on the table JAX builds from the same states, bit for
+    bit, with both row maps, with and without a source (zero rows)."""
+    tm = rcm_delaunay[1] if mesh == "rcm-delaunay" else mixed_small
+    rng = np.random.default_rng(11)
+    wa, dwa = rng.normal(size=(2, tm.num_node, 6)).astype(np.float32)
+    src = rng.normal(size=tm.num_node).astype(np.float32) if kind == "residual-source" else None
+    ien_t = np.ascontiguousarray(np.asarray(tm.ien).T).astype(np.int32)
+    x = _jax_table(wa, dwa, src)
+    rowmap, rows = (twg.JAC_ROWMAP, 12) if kind == "jacobian" else (twg.RES_ROWMAP, 48)
+    want = np.asarray(jwg.win_gather_xla(jnp.asarray(ien_t), x[:3] if kind == "jacobian" else x,
+                                         rowmap, rows))
+    got = _k10_port(ien_t, kind.split("-")[0], wa, dwa, src)
+    assert np.array_equal(got, want)
+    if kind == "residual":
+        assert not got[44:].any()  # the source rows, zero without one
+
+
+def _jax_inputs(jctx, ien, wa, dwa, src):
+    """JAX's concatenated K6 inputs (win_assembly.py:371-380 and :450-471,
+    the windowed-gather branch) in float64, the geometry rows of the JAX
+    gather context `jctx` (its WinELL context keeps float32 ones): the
+    (67, ne) residual rows and the (33, ne) implicit Jacobian rows."""
+    ien_t = jnp.asarray(np.asarray(ien).T)
+    res = jnp.concatenate([jctx.res_geom, jwg.win_gather_xla(
+        ien_t, _jax_table(wa, dwa, src), jwin._RES_ROWMAP, 48)])
+    u = jwg.win_gather_xla(ien_t, jnp.asarray(wa)[:, :3].T, jwin._JAC_ROWMAP, 12)
+    jac = jnp.concatenate([jctx.lhs_geom[:12], u, jctx.lhs_geom[12:], jctx.res_geom[13:19]])
+    return np.asarray(res), np.asarray(jac)
+
+
+def test_win_inputs_equal_jax_concatenation_in_f64(rcm_delaunay):
+    """residual_inputs (with and without the source) and jacobian_inputs
+    (27 and 33 rows) against JAX's concatenations in float64: the gathered
+    rows exactly, the geometry 1e-13. Two calls with other states give
+    their own rows (the Jacobian's is a view of the context's buffer: kept
+    by a clone), and the geometry rows stay bit-unchanged."""
+    jm, tm = rcm_delaunay
+    jctx = jbuild_context(jm, jtop.build_sparsity(np.asarray(jm.ien), jm.num_node, native=False))
+    assert jctx.res_geom.dtype == jnp.float64 and jctx.res_geom.shape == (19, tm.num_tet)
+    ctx = twin.build_win_context(tm, ttop.build_sparsity(tm.ien, tm.num_node), device="cpu",
+                                 dtype=torch.float64)
+    res_geom, jac_in = ctx.res_geom.clone(), ctx.jac_in.clone()
+    gathered = np.r_[19:67]
+    kept = []
+    for seed, with_src in ((21, True), (22, False)):
+        rng = np.random.default_rng(seed)
+        wa, dwa = rng.normal(size=(2, tm.num_node, 6))
+        src = rng.normal(size=tm.num_node) if with_src else None
+        want_res, want_jac = _jax_inputs(jctx, jm.ien, wa, dwa, src)
+        res = twin.residual_inputs(ctx, torch.as_tensor(wa), torch.as_tensor(dwa),
+                                   None if src is None else torch.as_tensor(src))
+        jac27 = twin.jacobian_inputs(ctx, torch.as_tensor(wa))
+        jac33 = twin.jacobian_inputs(ctx, torch.as_tensor(wa), scalar_implicit=True)
+        assert res.shape == (67, ctx.num_elem) and jac27.shape == (27, ctx.num_elem)
+        assert jac33.is_contiguous() and jac27.is_contiguous()
+        assert jac27.data_ptr() == jac33.data_ptr() == ctx.jac_in.data_ptr()
+        assert np.array_equal(res.numpy()[gathered], want_res[gathered])
+        assert rel(res.numpy()[:19], want_res[:19]) < 1e-13
+        assert np.array_equal(jac33.numpy()[12:24], want_jac[12:24])
+        assert rel(jac33.numpy(), want_jac) < 1e-13
+        assert torch.equal(jac27, jac33[:27])
+        kept.append((res, jac33.clone(), want_jac[12:24]))
+    (res1, jac1, want1), (res2, jac2, want2) = kept
+    assert np.array_equal(jac1.numpy()[12:24], want1) and not torch.equal(jac1, jac2)
+    assert res1.data_ptr() != res2.data_ptr() and not torch.equal(res1, res2)
+    assert torch.equal(res1[:19], res_geom) and torch.equal(ctx.res_geom, res_geom)
+    geom_rows = np.r_[0:12, 24:33]
+    assert torch.equal(ctx.jac_in[geom_rows], jac_in[geom_rows])
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -406,8 +514,9 @@ def test_win_assembly_through_k10_equals_the_index_gather(rcm_delaunay, dtype):
     before = twg.win_gather.launches
     assert torch.equal(twin.residual_inputs(ctx, wa, dwa),
                        ek.res_gather_inputs(ctx.res_geom, ctx.ien_t, wa.T, dwa.T))
+    lhs_geom = torch.cat([ctx.jac_in[:12], ctx.jac_in[24:27]])
     assert torch.equal(twin.jacobian_inputs(ctx, wa),
-                       ek.lhs_gather_inputs(ctx.lhs_geom, ctx.ien_t, wa.T))
+                       ek.lhs_gather_inputs(lhs_geom, ctx.ien_t, wa.T))
     assert twg.win_gather.launches == before  # CPU tensors: the plain version
 
 

@@ -114,7 +114,7 @@ from dedflow_tpu_torch.sparse.dia_kernels import (
     dia_matvec_plain,
 )
 from dedflow_tpu_torch.sparse.fsbsr import diag_add_rows, keep_pc_rows
-from dedflow_tpu_torch.sparse.win_gather import JAC_ROWMAP, RES_ROWMAP, win_gather, win_gather_plain
+from dedflow_tpu_torch.sparse.win_gather import win_gather, win_gather_plain
 from dedflow_tpu_torch.sparse.win_kernels import (
     winell_matvec,
     winell_matvec_f64,
@@ -927,21 +927,55 @@ def test_k4_k5_kernels_match_plain(gather):
                       implicit=True)
 
 
+def _k10_cases(ctx, wa, dwa, src):
+    """(rows, row0, states, geom) of K10's instances: the residual map with
+    the geometry copied in (with and without a source), the residual map
+    alone and the Jacobian map."""
+    return [(67, 19, (wa, dwa, None), ctx.res_geom), (67, 19, (wa, dwa, src), ctx.res_geom),
+            (67, 19, (wa, dwa, None), None), (24, 12, (wa,), None)]
+
+
+def _k10_equals_plain(ien_t, cases) -> None:
+    """Each K10 instance into a buffer filled with a marker (rows it does
+    not write keep it), twice, equal to the plain twin bit for bit."""
+    mark = 12345.0
+    for rows, row0, states, geom in cases:
+        def run(fn):
+            out = torch.full((rows, ien_t.shape[1]), mark, device="cuda")
+            return fn(ien_t, out, row0, *states, geom=geom)
+        got = _twice(lambda: run(win_gather), win_gather)
+        assert torch.equal(got, run(win_gather_plain)), (row0, geom is None)
+        assert bool((got[:row0] == mark).all()) == (geom is None)
+
+
 def test_k10_gather_equals_plain_bit_for_bit(irregular):
-    """K10 with the residual's 48-row and the Jacobian's 12-row maps, and
-    the WinELL tier's element inputs through it: equal to the index gather
-    exactly."""
+    """K10 with the residual's 48-row map (with the geometry copied in,
+    with a heat source, alone) and the Jacobian's 12-row map, node-major
+    states in, on the RCM order; the WinELL tier's element inputs through
+    it equal the index gather exactly."""
     solver, _, wa, dwa = irregular
     ctx = solver.wctx
-    x = torch.as_tensor(np.random.default_rng(12).standard_normal((14, ctx.num_node)),
-                        dtype=torch.float32, device="cuda")
-    for rowmap, rows, table in ((RES_ROWMAP, 48, x), (JAC_ROWMAP, 12, x[:3].contiguous())):
-        got = _twice(lambda: win_gather(ctx.ien_t, table, rowmap, rows), win_gather)
-        assert torch.equal(got, win_gather_plain(ctx.ien_t, table, rowmap, rows))
+    src = torch.as_tensor(np.random.default_rng(12).standard_normal(ctx.num_node),
+                          dtype=torch.float32, device="cuda")
+    _k10_equals_plain(ctx.ien_t, _k10_cases(ctx, wa, dwa, src))
     got = _twice(lambda: wa_.residual_inputs(ctx, wa, dwa), win_gather)
     assert torch.equal(got, ek.res_gather_inputs(ctx.res_geom, ctx.ien_t, wa.T, dwa.T))
-    got = _twice(lambda: wa_.jacobian_inputs(ctx, wa), win_gather)
-    assert torch.equal(got, ek.lhs_gather_inputs(ctx.lhs_geom, ctx.ien_t, wa.T))
+    got = _twice(lambda: wa_.jacobian_inputs(ctx, wa).clone(), win_gather)
+    lhs_geom = torch.cat([ctx.jac_in[:12], ctx.jac_in[24:27]])
+    assert torch.equal(got, ek.lhs_gather_inputs(lhs_geom, ctx.ien_t, wa.T))
+
+
+def test_k10_on_shuffled_ids_equals_plain(irregular):
+    """The same instances with the elements in a random order (each
+    element's nodes far from its neighbours'): bit for bit."""
+    solver, _, wa, dwa = irregular
+    ctx = solver.wctx
+    perm = torch.randperm(ctx.num_elem, generator=torch.Generator().manual_seed(13)).cuda()
+    ien_t = ctx.ien_t[:, perm].contiguous()
+    src = torch.rand(ctx.num_node, device="cuda")
+    cases = [(r, r0, st, None if g is None else g[:, perm].contiguous())
+             for r, r0, st, g in _k10_cases(ctx, wa, dwa, src)]
+    _k10_equals_plain(ien_t, cases)
 
 
 def test_gather_kernels_refuse_what_they_cannot_take(gather):
@@ -951,8 +985,16 @@ def test_gather_kernels_refuse_what_they_cannot_take(gather):
         ek.ns_residual_gather(ctx.res_geom.double(), ctx.ien_t, w_t, dw_t, phys, scheme)
     with pytest.raises(ValueError, match="int32"):
         ek.ns_lhs_gather(ctx.lhs_geom, ctx.ien_t.long(), w_t, phys, scheme)
-    with pytest.raises(ValueError, match="C <= 16"):
-        win_gather(ctx.ien_t, torch.zeros((17, ctx.num_node), device="cuda"), JAC_ROWMAP, 12)
+    w = torch.zeros((ctx.num_node, 6), device="cuda")
+    out = torch.zeros((27, ctx.num_elem), device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        win_gather(ctx.ien_t, out, 12, w.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        win_gather(ctx.ien_t, out, 12, torch.zeros((ctx.num_node, 7), device="cuda")[:, :6])
+    with pytest.raises(ValueError, match="rows 12..60"):
+        win_gather(ctx.ien_t, out, 12, w, w)
+    with pytest.raises(ValueError, match="geom"):
+        win_gather(ctx.ien_t, out, 12, w, geom=out[:12])
 
 
 @pytest.mark.parametrize("tier", ["winell", "gather"])
@@ -1010,10 +1052,9 @@ def _card():
 @pytest.mark.parametrize("ids", [128, 2560], ids=["tool-ids", "full-range-ids"])
 def test_k12_probes_match_plain(ids):
     """Every K12 kernel on an (8, 8192) stream, on the tool's ids (< 128)
-    and on ids up to 512 * 5 (every window gather's zero branch, every bin
-    row of the reduce): copies and gathers bit for bit, the segment reduce
-    and its accumulators to float32 roundoff (shared-memory atomics add in
-    another order)."""
+    and on ids up to 512 * 5 (every window gather's zero branch): copies
+    and gathers bit for bit, the segment reduce (hb 1-16) to float32
+    roundoff (shared-memory atomics add in another order)."""
     dev = _card()
     x, _ = tgm.inputs(8192, dev, seed=12)
     idx = torch.randint(0, ids, x.shape, generator=torch.Generator(device=dev).manual_seed(ids),
@@ -1027,12 +1068,10 @@ def test_k12_probes_match_plain(ids):
             assert rel(got, ref) < 1e-5, probe.name
     for nw in tgm.NWINS:
         assert torch.equal(tgm.window_gather(x, idx, nw), tgm.window_gather_plain(x, idx, nw))
-    for hb in tgm.HBS:
-        o, acc = tgm.segment_reduce(x, idx, hb, acc=True)
-        po, pacc = tgm.segment_reduce_plain(x, idx, hb, acc=True)
-        assert rel(acc, pacc) < 1e-5 and rel(o, po) < 1e-5
+    for hb in (1, 2, 4, 8, 16):  # rows, then bins: hb does not enter
+        assert rel(tgm.segment_reduce(x, idx, hb), tgm.segment_reduce_plain(x, idx, hb)) < 1e-5
     assert tgm.lane_gather.launches == before[0] + 2
-    assert tgm.segment_reduce.launches == before[1] + 2 * len(tgm.HBS)
+    assert tgm.segment_reduce.launches == before[1] + len(tgm.HBS) + 5
 
 
 @pytest.mark.parametrize("w", [512, 4096, 9000], ids=["1-pass", "2-pass", "4-pass"])

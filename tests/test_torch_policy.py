@@ -546,7 +546,14 @@ def _k8_segment_sum():
 
 def _k10():
     ien = torch.zeros((4, 8), dtype=torch.int32)
-    return win_gather.win_gather(ien, torch.zeros((3, 5)), win_gather.JAC_ROWMAP, 12)
+    return win_gather.win_gather(ien, torch.zeros((27, 8)), 12, torch.zeros((5, 6)))
+
+
+def _k10_residual():
+    ien = torch.zeros((4, 8), dtype=torch.int32)
+    w = torch.zeros((5, 6))
+    return win_gather.win_gather(ien, torch.zeros((67, 8)), 19, w, w, torch.zeros(5),
+                                 geom=torch.zeros((19, 8)))
 
 
 def _stream():
@@ -566,7 +573,11 @@ def _k12_window():
 
 
 def _k12_reduce():
-    return tgm.segment_reduce(*_stream(), 16, acc=True)
+    return tgm.segment_reduce(*_stream(), 16)
+
+
+def _k12_bins():
+    return tgm.segment_reduce(*_stream(), 2)
 
 
 def _k13(idiom):
@@ -598,6 +609,8 @@ def _k13(idiom):
         (_k12_lane("shuffle"), (tgm, "lane_gather_plain")),
         (_k12_window, (tgm, "window_gather_plain")),
         (_k12_reduce, (tgm, "segment_reduce_plain")),
+        (_k12_bins, (tgm, "segment_reduce_plain")),
+        (_k10_residual, (win_gather, "win_gather_plain")),
         (_k13("global"), (tgp, "element_gather_plain")),
         (_k13("staged"), (tgp, "element_gather_plain")),
         (_k6_staged, (ek, "lhs_rows_staged_plain")),
@@ -621,7 +634,8 @@ def _k13(idiom):
     ],
     ids=["K6-res", "K6-lhs", "K7", "K7-f64", "K3", "K3-f64", "K8", "K9", "K11", "K4", "K5", "K10", "K1-source",
          "K2-implicit", "K6-lhs-implicit", "K5-implicit", "K12-copy", "K12-lane-smem",
-         "K12-lane-shuffle", "K12-window", "K12-reduce", "K13-global", "K13-staged",
+         "K12-lane-shuffle", "K12-window", "K12-reduce", "K12-reduce-bins", "K10-residual",
+         "K13-global", "K13-staged",
          "K6-staged", "K6-staged-implicit", "K5-staged", "K5-staged-implicit",
          "K9-segment-sum", "K4-staged", "K8-segment-sum", "K1c", "K1c-routed", "K2c",
          "K2c-implicit", "K3-wide", "K3-wide-f64", "K1c-two-pass", "K2c-two-pass",
@@ -695,11 +709,13 @@ def test_one_row_reduces_take_the_one_pass_entry(monkeypatch, rows, symbol):
      (_k1c_two_pass, (lat, "residual_volume_two_pass")),
      (_k2c_two_pass, (lat, "jacobian_volume_two_pass")),
      (_k8_one_row, (win_stream, "stream_reduce")), (_k9_one_row, (win_ring, "ring_reduce")),
-     (_k3_banded, (dia_kernels, "dia_matvec_banded"))],
+     (_k3_banded, (dia_kernels, "dia_matvec_banded")), (_k10_residual, (win_gather, "win_gather")),
+     (_k12_bins, (tgm, "segment_reduce"))],
     ids=["K4", "K5", "K10", "K12-copy", "K12-lane", "K12-window", "K12-reduce", "K13",
          "K6-staged", "K5-staged", "K9-segment-sum", "K4-staged", "K8-segment-sum",
          "K7-f64", "K3-f64", "K1c", "K2c", "K2c-implicit", "K3-wide", "K3-wide-f64",
-         "K1c-two-pass", "K2c-two-pass", "K8-one-row", "K9-one-row", "K3-banded"],
+         "K1c-two-pass", "K2c-two-pass", "K8-one-row", "K9-one-row", "K3-banded",
+         "K10-residual", "K12-reduce-bins"],
 )
 def test_cpu_tensors_count_no_launch(call, counter):
     """On CPU tensors the wrappers run their plain twins and count nothing

@@ -12,15 +12,15 @@ body, one-hot ones included, is exact: the bf16 hi/lo split keeps them
 whole and their sums are exact in float32) and raw float32 values (exact
 for the copy and the lane and window gathers; within 3e-5 of the largest
 value for the one-hot bodies, whose hi/lo split keeps ~16 of 24 mantissa
-bits). The segment reduce's accumulators are held against a numpy
-definition, and the library calls chip_smoke.py times against the plain
-versions.
+bits). The segment reduce's bins are held against a numpy definition,
+and the library calls chip_smoke.py times against the plain versions.
 
 K13: `tools/gather_probe.py`'s one-hot kernel (both precisions) and its
 take_along_axis kernel, at W = 512, E = 256 and 2 blocks in interpret
 mode, against the port's element gather: exact.
 """
 
+import functools
 import importlib.util
 import sys
 from pathlib import Path
@@ -147,28 +147,67 @@ def test_k12_plain_twins_match_the_jax_kernels(tool_kernels, name, indices):
             np.testing.assert_array_equal(got, want, err_msg=kind)
 
 
-def _acc_numpy(x, idx, hb):
-    """acc[b, 8h + r, l] = sum of x[r, 512b + j] over the j with
-    (idx[0, 512b + j] & (128 hb - 1)) = 128h + l."""
+def _bins_numpy(x, idx):
+    """o[r, 512b + 128q + l] = sum of x[r', 512b + j] over the rows r' and
+    the j with (idx[0, 512b + j] & 127) = l."""
     nblk = x.shape[1] // 512
-    acc = np.zeros((nblk, 8 * hb, 128))
+    bins = np.zeros((nblk, 128))
     for b in range(nblk):
         for j in range(512):
-            e = int(idx[0, 512 * b + j]) & (128 * hb - 1)
-            acc[b, 8 * (e >> 7) + np.arange(8), e & 127] += x[:, 512 * b + j]
-    return acc
+            bins[b, int(idx[0, 512 * b + j]) & 127] += x[:, 512 * b + j].sum()
+    return np.broadcast_to(np.repeat(bins[:, None, :], 4, axis=1).reshape(1, -1), x.shape)
 
 
 @pytest.mark.parametrize("hb", tgm.HBS)
-def test_k12_segment_reduce_accumulators(hb):
+def test_k12_segment_reduce_equals_numpy_bins(hb):
     rng = np.random.default_rng(hb)
     x, _ = _inputs(rng)
     idx = rng.integers(0, 2048, (8, N)).astype(np.int32)
-    o, acc = tgm.segment_reduce(torch.from_numpy(x), torch.from_numpy(idx), hb, acc=True)
-    want = _acc_numpy(x, idx, hb)
-    np.testing.assert_array_equal(acc.numpy(), want)  # exact: sums of multiples of 1/8
-    col = np.repeat(want.sum(1)[:, None, :], 4, axis=1).reshape(1, N)
-    np.testing.assert_array_equal(o.numpy(), np.broadcast_to(col, (8, N)))
+    o = tgm.segment_reduce(torch.from_numpy(x), torch.from_numpy(idx), hb)
+    np.testing.assert_array_equal(o.numpy(), _bins_numpy(x, idx))  # exact: multiples of 1/8
+
+
+@pytest.fixture(scope="module")
+def jax_gmicro():
+    """tools/gmicro.py as a module (its `k_reduce` takes hb as an argument)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(ROOT)  # the tool imports bench.py from "."
+        return _load_tool("gmicro")
+
+
+@pytest.mark.parametrize("hb", (1, 2, 4, 8, 16))
+def test_k12_segment_reduce_o_equals_jax_k_reduce_at_every_hb(jax_gmicro, hb):
+    """The reduce's o (rows, then bins) against the JAX kernel k_reduce(hb)
+    in interpret mode, hb 2 included (the tool sweeps 16 / 8 / 4 / 1), on
+    ids over [0, 2048): exact on bf16-representable values, within the
+    one-hot bodies' 3e-5 on raw float32."""
+    block = pl.BlockSpec((8, 512), lambda i: (0, i))
+    call = jax.jit(pl.pallas_call(
+        functools.partial(jax_gmicro.k_reduce, hb=hb),
+        out_shape=jax.ShapeDtypeStruct((8, N), jnp.float32), grid=(N // 512,),
+        in_specs=[block, block], out_specs=block, interpret=True))
+    rng = np.random.default_rng(100 + hb)
+    idx = rng.integers(0, 2048, (8, N)).astype(np.int32)
+    for kind, x in zip(("bf16", "f32"), _inputs(rng)):
+        want = np.asarray(call(jnp.asarray(x), jnp.asarray(idx)))
+        got = tgm.segment_reduce(torch.from_numpy(x), torch.from_numpy(idx), hb).numpy()
+        if kind == "bf16":
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert np.abs(got.astype(np.float64) - want).max() / np.abs(want).max() <= TOL_ONE_HOT
+
+
+def test_k12_segment_reduce_o_is_the_same_for_every_hb():
+    """The collapsed bins do not depend on hb: o is equal bit for bit for
+    hb 1-16 on raw float32 inputs and full-range ids, and agrees with the
+    numpy bins in float64 within 1e-5."""
+    rng = np.random.default_rng(17)
+    _, x = _inputs(rng)
+    x, idx = torch.from_numpy(x), torch.from_numpy(rng.integers(0, 2048, (8, N)).astype(np.int32))
+    outs = [tgm.segment_reduce(x, idx, hb) for hb in (1, 2, 4, 8, 16)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    want = _bins_numpy(x.numpy().astype(np.float64), idx.numpy())
+    assert np.abs(outs[0].numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("name", VARIANTS)
