@@ -76,7 +76,8 @@ Phases, one line each; the script exits non-zero at the first failure:
             (the "auto" ladder's floor) .step twice, with the launch counts of
             the staged K4, the staged K5, K7 and K8's and K9's segment sums
             (none of the column K4 / K5 or of K8's / K9's staging pass), and
-            the device's busy share over one Newton iteration (torch.profiler)
+            the device's busy share over one Newton iteration (torch.profiler);
+            then phase 26 (b)'s reference (gather_perturbed_step)
   moving-laser melt pool (BASELINE config #3: implicit phi/T tangents and a
   heat source):
  15 kernels at box_mesh(44, 44, 44) (511,104 tets), melt_pool_scenario_config():
@@ -223,6 +224,33 @@ Phases, one line each; the script exits non-zero at the first failure:
             on rank 0 with bounds and a CSR product (3 kernel rows tagged
             "slab, box-55 half"); (d) dryrun_multichip(2) on the card and
             app.main --devices 2 at box (4, 3, 6)
+ 26 rcb     the RCB mode (any tet mesh RCB-partitioned onto the gather tier,
+            each rank's local submesh with its ghosts): (a) delaunay_mesh(500,
+            seed=7) on 2 and 4 ranks, one adaptive step each from
+            perturbed_state and from perturbed_flow_state against the CPU
+            float64 one-process gather step and a one-process card step on
+            the same input (the bar TOL_SLICE, or twice a plain float32 CPU
+            step's distance from float64 where that is larger: 2.2e-3 from
+            perturbed_state, whose small fields are float32 noise; equal
+            Newton counts, Krylov counts equal or witnessed); (b) phase 14's
+            Delaunay mesh, 1,181,683 tets in generated order, on 2 ranks at
+            perturbed_flow_state against phase 14's one-process solver: F,
+            J x (the halo exchange and K7's halo entry) and the field-split
+            apply, each field within TOL_SLICE; one step, equal Newton and
+            Krylov counts, each field within RCB_WITNESS_FACTOR times the
+            distance float32 roundoff of the input alone moves the
+            one-process step (GMRES stalls at its 120 cap there), with
+            its split (kernels, halo exchanges, all-reduces, staging),
+            ghosts, bytes per exchange, peak memory and each rank's
+            launches of the staged K4 / K5, K7's halo entry and K8's / K9's
+            segment sums (every one > 0; their plain twins, the whole-matrix
+            K7 and the column K4 / K5 never); (c) each rank's part kernels
+            against their plain twins and the column kernels' route, timed
+            on rank 0 with bounds, a CSR product and index_add (5 kernel rows
+            tagged "RCB part, Delaunay half"); (d) the melt pool on box 12
+            (gather) on 2 ranks, as (a); (e) app.main --devices 2 --mesh on a
+            shuffled box's file read without lattice recovery (an .npz: the
+            card machine has no h5py) against a one-process card step
 Then, on lines of their own: the kernels JSON object (each kernel with its
 time, its plain version's, its bound and, where one PyTorch call computes
 the same function, that call's time), the card's name and power limit, and
@@ -652,6 +680,27 @@ def segment_sum_record(label: str, plan, stage, ring_out, reps: int,
     return finish(label, {"max_abs_err": err}, kern, plain, reps, 3,
                   nbytes(plan.ptr, stage[:, :rows], out), op_count(plain),
                   library=(lambda: torch.index_add(zeros, 0, tgt, stage).T[:rows], kern()))
+
+
+def perturbed_flow_state(mesh, device, dtype):
+    """perturbed_state with a smooth seeded velocity and pressure added to
+    wgold and dwgold (0.1 sin(2 pi k . x + phi) a component): the step's
+    every field then has a scale of its own, not the float32 noise of a
+    uniform flow."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 1)
+    xg = np.asarray(mesh.xg, dtype=np.float64)
+    wg, dwgold, dwg = perturbed_state(mesh, device, dtype)
+
+    def smooth(t):
+        k, phi = rng.integers(1, 4, size=(3, 4)), rng.uniform(0, 2 * np.pi, size=4)
+        wave = np.zeros(tuple(t.shape))
+        wave[:, :4] = 0.1 * np.sin(2 * np.pi * xg @ k + phi)
+        return torch.as_tensor(wave, dtype=dtype, device=t.device)
+
+    return wg + smooth(wg), dwgold + smooth(dwgold), dwg
 
 
 def perturbed_state(mesh, device, dtype):
@@ -1111,7 +1160,7 @@ def drive_main(solver, counters, label: str, absent=()) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for c in (*counters, *absent):
         c.launches = 0
-    steps, newton = [], []
+    steps, newton, krylov = [], [], []
     for step in (1, 2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1122,6 +1171,7 @@ def drive_main(solver, counters, label: str, absent=()) -> dict:
         norms = [float(v) for v in stats.rnorms[-1]]
         steps.append(wall)
         newton.append(len(stats.rnorms))
+        krylov.append(stats.krylov_iters)
         say(f"  step {step}: wall_s={wall:.4f} newton={len(stats.rnorms)} "
             f"krylov={stats.krylov_iters} converged={stats.converged} "
             f"field_norms={norms} launches {label} so far="
@@ -1145,7 +1195,7 @@ def drive_main(solver, counters, label: str, absent=()) -> dict:
     if not same or stats.krylov_iters != first[1]:
         raise PhaseError("main: a repeated step differs from the first run")
     return {"launches": launches, "absent": list(off.values()), "step_s": steps,
-            "newton": newton, "peak_bytes": peak, "state": [t.cpu() for t in state],
+            "newton": newton, "krylov": krylov, "peak_bytes": peak, "state": [t.cpu() for t in state],
             "first_state": [t.cpu() for t in first[0]]}
 
 
@@ -1827,6 +1877,62 @@ def phase_gather_main(gsolver) -> dict:
                              cfg.freeze_phi_temperature)
     it()  # warm
     say(f"  one Newton iteration under torch.profiler: {busy_share(it)}")
+    return out
+
+
+def rcb_probe_vector(num_node: int, device, dtype):
+    """(6, N) seeded vector for phase 26 (b)'s product and field-split apply."""
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(np.random.default_rng(SEED + 2).standard_normal((6, num_node)),
+                           dtype=dtype, device=device)
+
+
+def rcb_operator(solver, state, x) -> dict:
+    """F, J x and the field-split apply P x at `state` on `solver`'s own rows
+    (all rows in one process; a rank's own rows in the RCB mode, J x through
+    the halo exchange and K7's halo entry), each (rows, 6)."""
+    from dedflow_tpu_torch.solver.newton import assemble_system, residual
+
+    cfg, ctx = solver.cfg, (solver.solve_ctx, solver.face_ctxs, solver.mask_t)
+    f = residual(*ctx, *state, cfg.physics, cfg.time, cfg.freeze_phi_temperature)
+    jm, pc = assemble_system(*ctx, *state, cfg.physics, cfg.time)
+    return {"F": f.T, "Ax": jm.matvec_t(x).T, "Px": pc(x).T}
+
+
+def gather_perturbed_step(gsolver, raw) -> dict:
+    """Phase 26 (b)'s reference on phase 14's one-process gather solver, at
+    perturbed_flow_state(raw): F, J x and P x (rcb_operator, x
+    rcb_probe_vector), one adaptive step, and RCB_WITNESSES steps from the
+    input times (1 + RCB_WITNESS_EPS N(0, 1)) (seeded): `spread`, each
+    field's largest distance of a witness step from the step, is how far
+    float32 roundoff of the input alone moves it."""
+    import torch
+
+    state = perturbed_flow_state(raw, "cuda", gsolver.dtype)
+    op = rcb_operator(gsolver, state, rcb_probe_vector(raw.num_node, "cuda", gsolver.dtype))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    *new, stats = gsolver.step(*state)
+    torch.cuda.synchronize()
+    out = {"operator": {k: v.cpu() for k, v in op.items()}, "state": [t.cpu() for t in new],
+           "newton": len(stats.rnorms), "krylov": stats.krylov_iters,
+           "step_s": time.perf_counter() - t0, "spread": [0.0] * 18, "witness_krylov": [],
+           "linear_rels": [float(v) for v in stats.linear_rels or ()]}
+    for k in range(RCB_WITNESSES):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + k)
+        noisy = [t * (1 + RCB_WITNESS_EPS * torch.randn(t.shape, generator=gen, device=t.device,
+                                                        dtype=t.dtype)) for t in state]
+        *w, wstats = gsolver.step(*noisy)
+        out["spread"] = [max(a, b) for a, b in
+                         zip(out["spread"], field_errs([t.cpu() for t in w], out["state"]))]
+        out["witness_krylov"].append(wstats.krylov_iters)
+    say(f"  one step from perturbed_flow_state (phase 26 (b)'s reference): {out['step_s']:.3f} s, "
+        f"newton {out['newton']}, krylov {out['krylov']}, linear residuals "
+        f"{fmt_list(out['linear_rels'])}; {RCB_WITNESSES} steps from the input x "
+        f"(1 + {RCB_WITNESS_EPS:.0e} N(0, 1)): krylov {out['witness_krylov']}, each field's "
+        f"largest distance {fmt_list(out['spread'])}")
     return out
 
 
@@ -2922,14 +3028,15 @@ def slice_inputs(mesh, cfg, device, dtype) -> tuple:
     return perturbed_state(mesh, device, dtype), None
 
 
-def krylov_witness(label: str, mesh, cfg, card: list, ref: list) -> tuple:
+def krylov_witness(label: str, mesh, cfg, card: list, ref: list, inputs=None) -> tuple:
     """The card's Krylov counts `card` against the CPU float64 step's `ref`,
     a list each per Newton iteration: plain float32 steps on the CPU (no
     kernels), on the slice's input and on copies perturbed by SLICE_F32_EPS
     relative (seeded), until every count of the card's lies between the
-    float64 count and the float32 ones of its Newton iteration. Returns (the
-    plain float32 counts on the slice's own input, the steps taken); raises
-    after SLICE_F32_RUNS steps."""
+    float64 count and the float32 ones of its Newton iteration. `inputs`
+    (mesh, cfg, device, dtype) -> (state, source) makes the input
+    (slice_inputs by default). Returns (the plain float32 counts on the
+    slice's own input, the steps taken); raises after SLICE_F32_RUNS steps."""
     import torch
 
     from dedflow_tpu_torch.solver.newton import NSSolver
@@ -2937,7 +3044,7 @@ def krylov_witness(label: str, mesh, cfg, card: list, ref: list) -> tuple:
     solver = NSSolver(mesh, cfg, device="cpu", dtype=torch.float32)
     lo, hi, own = list(ref), list(ref), None
     for k in range(SLICE_F32_RUNS):
-        state, src = slice_inputs(mesh, cfg, "cpu", torch.float32)
+        state, src = (inputs or slice_inputs)(mesh, cfg, "cpu", torch.float32)
         if k:
             gen = torch.Generator().manual_seed(SEED + k)
             state = tuple(t * (1 + SLICE_F32_EPS * torch.randn(t.shape, generator=gen,
@@ -4154,6 +4261,549 @@ def phase_sharded(main_out: dict) -> tuple[list, dict]:
     return [dict(r, launches=n) for r, n in zip(kernels, launches)], out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the RCB mode (parallel.sharded, ROADMAP A16 (b')): any tet mesh
+# RCB-partitioned onto the gather tier, each rank's part with its halo.
+
+RCB_SLICE_POINTS = 500  # delaunay_mesh(500, seed=7): tests/test_sharding.py:77-110's mesh
+RCB_SLICE_SEED = 7
+RCB_SLICE_RANKS = (2, 4)
+RCB_MAIN_RANKS = 2
+RCB_MELT_BOX = SLICE_BOX
+# The slices' bar: TOL_SLICE, or where a plain float32 CPU step itself lies
+# farther from the float64 step than that (the Delaunay slice), this factor
+# times its distance: the card's float32 step sums in other orders.
+RCB_F32_FACTOR = 2.0
+# (b)'s step at full width: fieldsplit GMRES stalls at its 120 cap on
+# this mesh (its float32 linear residuals end at 0.4-0.8 on the card after
+# the first Newton iteration), so a one-process step from the input times
+# (1 + 1e-7 N(0, 1)) lands 2-3e-2 from the step, field by field. F, J x
+# and P x are held at TOL_SLICE; the step's fields within
+# RCB_WITNESS_FACTOR times the largest such distance of RCB_WITNESSES
+# witness steps (or TOL_SLICE where that is larger).
+RCB_WITNESSES = 3
+RCB_WITNESS_EPS = 1e-7
+RCB_WITNESS_FACTOR = 5.0
+# the CLI's --mesh (an .npz here: no h5py): a converted box's file, nodes
+# shuffled (mesh.gen.shuffled_mesh), read without lattice recovery: no
+# lattice metadata, no translation classes, the reference scenario's walls
+RCB_CLI_BOX = (10, 8, 9)
+RCB_CONFIG = dict(bcs=(), pin_pressure=True)
+RCB_KERNELS = (
+    ("K4 gathered element residual staged (RCB part, Delaunay half)",
+     "dedflow_tpu_torch/csrc/gather_elements.cu", "dedflow_tpu/fem/pallas_kernels.py:434"),
+    ("K5 gathered element jacobian staged (RCB part, Delaunay half)",
+     "dedflow_tpu_torch/csrc/gather_elements.cu", "dedflow_tpu/fem/pallas_kernels.py:507"),
+    ("K7 winell spmv halo (RCB part, Delaunay half)", "dedflow_tpu_torch/csrc/winell_spmv.cu",
+     "dedflow_tpu/sparse/win_kernels.py:213"),
+    ("K8 segment sum (RCB part, Delaunay half)", "dedflow_tpu_torch/csrc/seg_reduce.cu",
+     "dedflow_tpu/sparse/win_stream.py:432"),
+    ("K9 segment sum (RCB part, Delaunay half)", "dedflow_tpu_torch/csrc/seg_reduce.cu",
+     "dedflow_tpu/sparse/win_ring.py:622"),
+)
+
+
+def rcb_config(**kw):
+    """The gather tier's configuration of the Delaunay cells (bench.py's
+    settings, phase 14), use_lattice "gather" as the RCB mode runs it."""
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+
+    return reference_scenario_config(**RCB_CONFIG, use_lattice="gather", **kw)
+
+
+def field_errs(got, ref) -> list:
+    """Each field's largest error over its own largest value: the states
+    (N, C) of `got` (numpy or torch) against `ref` (torch), state by state,
+    component by component."""
+    import torch
+
+    return [rel_err(torch.as_tensor(g)[:, c], r[:, c])[1]
+            for g, r in zip(got, ref) for c in range(r.shape[1])]
+
+
+def fmt_list(vals) -> str:
+    return "[" + ", ".join(f"{v:.3e}" for v in vals) + "]"
+
+
+def rcb_slice_mesh():
+    from dedflow_tpu_torch.mesh.gen import delaunay_mesh
+
+    return delaunay_mesh(RCB_SLICE_POINTS, seed=RCB_SLICE_SEED)
+
+
+def rcb_slice_inputs(mesh, cfg, device, dtype) -> dict:
+    """Phase 26 (a) / (d)'s inputs, name -> (state, source): the melt pool's
+    perturbed state and laser source; on the Delaunay slice perturbed_state
+    (the step's small fields are float32 noise of a uniform flow) and
+    perturbed_flow_state (every field a scale of its own)."""
+    if cfg.implicit_scalars:
+        return {"melt": slice_inputs(mesh, cfg, device, dtype)}
+    return {"perturbed": (perturbed_state(mesh, device, dtype), None),
+            "flow": (perturbed_flow_state(mesh, device, dtype), None)}
+
+
+def rcb_slice_rank(device, mesh=None, cfg=None):
+    """A rank of phase 26 (a) or (d): one adaptive step on `mesh` (the
+    Delaunay slice by default) from each of its rcb_slice_inputs; rank 0
+    returns, per input, the gathered state and the counts."""
+    import torch.distributed as dist
+
+    from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
+
+    mesh = rcb_slice_mesh() if mesh is None else mesh
+    cfg = rcb_config() if cfg is None else cfg
+    solver = ShardedNSSolver(mesh, cfg, device=device)
+    if solver.mode != "rcb":
+        raise PhaseError(f"rcb slice: mode {solver.mode!r}")
+    own = torch_index(solver.own, device)
+    out = {}
+    for key, (state, src) in rcb_slice_inputs(mesh, cfg, device, solver.dtype).items():
+        *new, stats = solver.step(*(t[own] for t in state),
+                                  source=None if src is None else src[own])
+        out[key] = {"state": [solver.gather_state(t) for t in new], "newton": len(stats.rnorms),
+                    "krylov": stats.krylov_iters}
+    if dist.get_rank() == 0:
+        return out
+
+
+def torch_index(idx, device):
+    import torch
+
+    return torch.as_tensor(idx, dtype=torch.long, device=device)
+
+
+def rcb_compare(tag: str, pairs: dict) -> dict:
+    """compare() for the RCB parts: each kernel run twice (bit-identical,
+    finite) and its plain twin once on this rank's part; the tolerance is
+    held by the parts' outputs together, the distributed function's whole
+    output (the largest error of any rank over the largest value of any
+    rank, per view): a part's own largest value is a chance of the cut,
+    and a part's rows are the whole function's rows. Returns {kernel: the
+    largest abs error over every rank}."""
+    import torch
+    import torch.distributed as dist
+
+    mine = {}
+    for key, (kern, plain, _, parts) in pairs.items():
+        got, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()) or not torch.equal(got, again):
+            raise PhaseError(f"{tag} {key}: non-finite, or two runs of the kernel differ")
+        mine[key] = {name: (float((view(got).double() - view(ref).double()).abs().max()),
+                            float(view(ref).double().abs().max())) for name, view in parts.items()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    errs = {}
+    for key, (_, _, tol, parts) in pairs.items():
+        for name in parts:
+            err = max(e[key][name][0] for e in every)
+            scale = max(e[key][name][1] for e in every)
+            own_rel = mine[key][name][0] / max(mine[key][name][1], 1e-300)
+            say(f"  {tag} {key}{name}: max_abs_err={mine[key][name][0]:.3e} (own rel "
+                f"{own_rel:.3e}); every part: max_abs_err={err:.3e} rel={err / max(scale, 1e-300):.3e}"
+                f" (tol {tol:.0e})")
+            check(f"{tag} {key}{name}", err / max(scale, 1e-300), tol)
+            errs[key] = max(errs.get(key, 0.0), err)
+    return errs
+
+
+def rcb_part_records(solver, wg, dwgold, dwg) -> list | None:
+    """Phase 26 (c) on this rank: its part's K4 staged, K5 staged, K7 halo
+    entry, K8's and K9's segment sums against their plain twins at the
+    given own rows of a state (rcb_compare; the staged rows and the segment
+    sums also against the column kernels' route over the same elements,
+    bit for bit); then, on
+    rank 0 while the others wait, their records with bounds and library
+    calls (a CSR product over the local vector, index_add). Returns the
+    records on rank 0, else None."""
+    import torch
+    import torch.distributed as dist
+
+    from dedflow_tpu_torch.fem import element_kernels as ek
+    from dedflow_tpu_torch.fem import win_assembly as wa_
+    from dedflow_tpu_torch.fem.element_rows import alpha_states
+    from dedflow_tpu_torch.fem.ns import part_states
+    from dedflow_tpu_torch.solver.newton import assemble_system
+    from dedflow_tpu_torch.sparse.win_kernels import winell_matvec_halo, winell_matvec_plain
+    from dedflow_tpu_torch.sparse.win_ring import (
+        ring_reduce,
+        ring_reduce_staged,
+        ring_reduce_staged_plain,
+    )
+    from dedflow_tpu_torch.sparse.win_stream import (
+        stream_reduce,
+        stream_reduce_staged,
+        stream_reduce_staged_plain,
+    )
+    from dedflow_tpu_torch.sparse.winell import COMP2WIN
+    from dedflow_tpu_torch.tools.timing import nbytes
+
+    rank, cfg, ctx = dist.get_rank(), solver.cfg, solver.gctx
+    phys, scheme, ne = cfg.physics, cfg.time, ctx.num_elem
+    wa, dwa = alpha_states(wg, dwgold, dwg, scheme)
+    w, dw, _ = part_states(solver.pctx, wa, dwa)  # (n_x, 6) local states
+    w_t, dw_t = w.T.contiguous(), dw.T.contiguous()
+    jm, _ = assemble_system(solver.pctx, solver.face_ctxs, solver.mask_t, wg, dwgold, dwg, phys,
+                            scheme)
+    (rng,) = ctx.ranges
+    rplan, jplan = rng.res_plan, rng.jac_plan
+    n_own, n_x = jm.plan.num_node, solver.comm.plan.n_x
+    gen = torch.Generator(device=w.device).manual_seed(SEED + rank)
+    x = torch.randn((6, n_x), generator=gen, device=w.device, dtype=w.dtype)
+    stage8 = ek.ns_residual_gather_staged(ctx.res_geom, ctx.ien_t, w, dw, phys, scheme, rplan)
+    stage16 = ek.ns_lhs_gather_staged(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme, jplan)[0]
+    by_eq, entry_blocks = reduce_parts()
+    pairs = {  # name: (kernel, plain, tolerance, parts)
+        "K4": (lambda: ek.ns_residual_gather_staged(ctx.res_geom, ctx.ien_t, w, dw, phys, scheme,
+                                                    rplan),
+               lambda: ek.ns_residual_gather_staged_plain(ctx.res_geom, ctx.ien_t, w, dw, phys,
+                                                          scheme, rplan),
+               TOL_K4, {" [rows]": lambda t: t[:, :6], " [padding]": lambda t: t[:, 6:]}),
+        "K5": (lambda: ek.ns_lhs_gather_staged(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme,
+                                               jplan)[0],
+               lambda: ek.ns_lhs_gather_staged_plain(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme,
+                                                     jplan)[0],
+               TOL_K5, staged_blocks(False)),
+        "K7": (lambda: winell_matvec_halo(jm, x), lambda: winell_matvec_plain(jm, x, n_x),
+               TOL_K7, by_eq),
+        "K8": (lambda: stream_reduce_staged(rplan, stage8, 6),
+               lambda: stream_reduce_staged_plain(rplan, stage8, 6), TOL_K8, by_eq),
+        "K9": (lambda: ring_reduce_staged(jplan, stage16, 16),
+               lambda: ring_reduce_staged_plain(jplan, stage16, 16), TOL_K9, entry_blocks),
+    }
+    tag = f"rank {rank} RCB part"
+    errs = rcb_compare(tag, pairs)
+    # the staged rows and their segment sums equal the column kernels' route
+    rows24 = ek.ns_residual_gather(ctx.res_geom, ctx.ien_t, w_t, dw_t, phys, scheme)
+    rows288 = ek.ns_lhs_gather(ctx.lhs_geom, ctx.ien_t, w_t, phys, scheme)
+    same = {"K4": torch.equal(stage8, ek.stage_residual_rows(rplan, rows24)),
+            "K5": torch.equal(stage16, ek.stage_rows(jplan, rows288)[0]),
+            "K8": torch.equal(pairs["K8"][0](), stream_reduce(rplan, rows24, range(6), ne)),
+            "K9": torch.equal(pairs["K9"][0](), ring_reduce(jplan, rows288, wa_.JAC_COMPS, ne))}
+    say(f"  (c) {tag}: {n_own} own rows, {n_x - n_own} ghosts, {ne} elements, {jm.plan.S} "
+        f"entries; == the column kernels' route, bit for bit: {same}")
+    if not all(same.values()):
+        raise PhaseError(f"{tag}: the staged route differs from the column kernels' {same}")
+    del rows24, rows288
+    rows = None
+    dist.barrier()
+    if rank == 0:  # the other ranks wait: one process on the card while it is timed
+        k = rplan.src.numel()
+        csr = block_csr(n_own, [(jm.plan.grow_t.long(), jm.plan.col_t.long(),
+                                 {c: jm.vals[int(COMP2WIN[c])] for c in range(18)})], cols=n_x)
+        xflat, out6 = x.reshape(-1), torch.empty((6, n_own), dtype=torch.float32)
+        index_add = {}
+        for key, plan, stage, nrow in (("K8", rplan, stage8, 6), ("K9", jplan, stage16, 16)):
+            tgt = torch.repeat_interleave(torch.diff(plan.ptr.long()))
+            zeros = torch.zeros((plan.num_tgt, stage.shape[1]), dtype=stage.dtype,
+                                device=stage.device)
+            index_add[key] = (lambda z=zeros, t=tgt, st=stage, r=nrow:
+                              torch.index_add(z, 0, t, st).T[:r], pairs[key][0]())
+        spec = {  # name: (reps, bytes, library)
+            "K4": (20, nbytes(ctx.res_geom, ctx.ien_t, w, dw, rplan.elem_pos) + 4 * 6 * k, None),
+            "K5": (10, nbytes(ctx.lhs_geom, ctx.ien_t, w_t[:3], jplan.elem_pos, stage16), None),
+            "K7": (100, nbytes(jm.vals, jm.plan.col_t, jm.plan.row_ptr_t, x, out6),
+                   (lambda: csr @ xflat, pairs["K7"][0]())),
+            "K8": (50, nbytes(rplan.ptr, stage8[:, :6], out6), index_add["K8"]),
+            "K9": (20, nbytes(jplan.ptr, stage16, torch.empty((16, jplan.num_tgt))),
+                   index_add["K9"]),
+        }
+        rows = [finish(name, {"max_abs_err": errs[key]}, pairs[key][0], pairs[key][1], reps, 3,
+                       nb, op_count(pairs[key][1]), library=lib)
+                for (name, _, _), (key, (reps, nb, lib)) in zip(RCB_KERNELS, spec.items())]
+        del csr, index_add
+    dist.barrier()
+    return rows
+
+
+def rcb_main_rank(device, raw):
+    """A rank of phase 26 (a) 2-rank, (b), (c) and (d). (a): the Delaunay
+    slice (rcb_slice_rank). (d): the melt pool on a box-12 gather RCB. (b):
+    ShardedNSSolver on the full Delaunay mesh `raw` (phase 14's, generated
+    order) at perturbed_flow_state(raw) (phase 14's gather_perturbed_step
+    is its reference): F, J x and P x (rcb_operator), then one adaptive
+    step, the launch counts set to 0 just before and read just after (the
+    plain twins and the whole-matrix K7 counted too: they must not run),
+    the step's split from CommStats, ghosts, bytes per exchange, peak
+    memory; the gathered state. (c): rcb_part_records on the same input
+    state. Rank 0 returns everything."""
+    import torch
+    import torch.distributed as dist
+
+    from dedflow_tpu_torch.app.scenarios import melt_pool_scenario_config
+    from dedflow_tpu_torch.fem import element_kernels as ek
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
+    from dedflow_tpu_torch.sparse import win_kernels as wk
+    from dedflow_tpu_torch.sparse import win_ring, win_stream
+
+    rank = dist.get_rank()
+    slice_out = rcb_slice_rank(device)
+    melt_out = rcb_slice_rank(device, box_mesh(*RCB_MELT_BOX),
+                              melt_pool_scenario_config(use_lattice="gather"))
+    t0 = time.perf_counter()
+    solver = ShardedNSSolver(raw, rcb_config(), device=device)
+    own = torch_index(solver.own, device)
+    inputs = [t[own] for t in perturbed_flow_state(raw, device, solver.dtype)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    x = rcb_probe_vector(raw.num_node, device, solver.dtype)[:, own].contiguous()
+    operator = {k: solver.gather_state(v) for k, v in rcb_operator(solver, inputs, x).items()}
+    counters = (ek.ns_residual_gather_staged, ek.ns_lhs_gather_staged, wk.winell_matvec_halo,
+                win_stream.stream_reduce_staged, win_ring.ring_reduce_staged)
+    absent = (wk.winell_matvec, ek.ns_residual_gather, ek.ns_lhs_gather)
+    plains = ((ek, "ns_residual_gather_staged_plain"), (ek, "ns_lhs_gather_staged_plain"),
+              (wk, "winell_matvec_plain"), (win_stream, "stream_reduce_staged_plain"),
+              (win_ring, "ring_reduce_staged_plain"))
+    plain_calls = [[0] for _ in plains]
+    originals = [getattr(m, n) for m, n in plains]
+    for (m, n), f, calls in zip(plains, originals, plain_calls):
+        setattr(m, n, _counting(f, calls))
+    comm = solver.comm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in (*counters, *absent):
+        c.launches = 0
+    comm.stats.reset()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    *state, stats = solver.step(*inputs)
+    torch.cuda.synchronize()
+    s = comm.stats
+    step = {"wall_s": time.perf_counter() - t1, "newton": len(stats.rnorms),
+            "krylov": stats.krylov_iters, "exchanges": s.exchanges, "sent_bytes": s.sent_bytes,
+            "exchange_s": s.exchange_s, "allreduces": s.allreduces,
+            "allreduce_s": s.allreduce_s, "stage_s": s.stage_s,
+            "linear_rels": [float(v) for v in stats.linear_rels or ()]}
+    launches = [c.launches for c in counters]
+    off = [c.launches for c in absent]
+    for (m, n), f in zip(plains, originals):
+        setattr(m, n, f)
+    plan = comm.plan
+    rec = {"rank": rank, "n_own": plan.n_own, "n_ghost": plan.n_ghost,
+           "elements": solver.gctx.num_elem, "entries": solver.gctx.win_plan.S,
+           "peers": {q: len(i) for q, i in plan.send.items()}, "setup_s": setup_s,
+           "step": step, "launches": launches, "absent": off,
+           "plain_calls": [c[0] for c in plain_calls],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    full = [solver.gather_state(t) for t in state]
+    rows = rcb_part_records(solver, *inputs)
+    recs = [None] * comm.world if rank == 0 else None
+    dist.gather_object(rec, recs, dst=0)
+    if rank == 0:
+        return {"ranks": recs, "state": full, "operator": operator, "newton": len(stats.rnorms),
+                "krylov": stats.krylov_iters, "kernels": rows, "slice": slice_out,
+                "melt": melt_out}
+
+
+BOUNDARY_FIELDS = ("nodes", "ien", "f2e", "forn")
+
+
+def npz_write_mesh(path, mesh) -> None:
+    """A tet mesh with its boundary tables as an .npz: the --mesh file of
+    phase 26 (e) (the card machine has no h5py)."""
+    import numpy as np
+
+    tables = {f"b{i}_{f}": getattr(b, f) for i, b in enumerate(mesh.boundaries)
+              for f in BOUNDARY_FIELDS}
+    np.savez(path, xg=mesh.xg, ien=mesh.ien, **tables)
+
+
+def npz_read_mesh(path):
+    """The mesh npz_write_mesh wrote (RunFiles.read_mesh of phase 26 (e))."""
+    import numpy as np
+
+    from dedflow_tpu_torch.mesh.mesh import Boundary, Mesh
+
+    with np.load(path) as d:
+        nb = len([k for k in d.files if k.endswith("_forn")])
+        return Mesh(xg=d["xg"], ien=d["ien"], boundaries=[
+            Boundary(*(d[f"b{i}_{f}"] for f in BOUNDARY_FIELDS)) for i in range(nb)])
+
+
+def phase_rcb(ga_main: dict, raw) -> tuple[list, dict]:
+    """Phase 26: (a) the Delaunay slice (delaunay_mesh(500, seed=7)) on 2
+    and 4 gloo ranks sharing the card, one adaptive step from each of its
+    rcb_slice_inputs against the CPU float64 one-process gather step and a
+    one-process card step on the same input (TOL_SLICE, or RCB_F32_FACTOR
+    times a plain float32 CPU step's distance from float64 where that is
+    larger; equal Newton counts, Krylov counts equal or witnessed by plain
+    float32 CPU steps); (b) the full Delaunay mesh of phase 14 (1,181,683
+    tets, generated order) on 2 ranks at perturbed_flow_state against
+    phase 14's one-process solver (gather_perturbed_step): F, J x and P x
+    each field within TOL_SLICE; one adaptive step with equal Newton and
+    Krylov counts, each field within max(TOL_SLICE, RCB_WITNESS_FACTOR x
+    its witness spread); its split, ghosts, bytes per exchange, peak
+    memory and per-rank launches (K4 staged, K5 staged, K7 halo, K8 and K9
+    segment sums > 0; their plain twins, the whole-matrix K7 and the
+    column K4 / K5 never); (c) each rank's part kernels against their
+    plain twins, timed on rank 0 with bounds and library calls; (d) the
+    melt pool on a box-12 gather RCB on 2 ranks, as (a); (e) app.main
+    --devices 2 --mesh on a shuffled box's file (no lattice metadata: the
+    RCB mode) against a one-process card gather step."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.app.main import RunFiles
+    from dedflow_tpu_torch.app.scenarios import (
+        melt_pool_scenario_config,
+        reference_initial_state,
+        reference_scenario_config,
+    )
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.mesh.gen import box_mesh, shuffled_mesh
+    from dedflow_tpu_torch.parallel import launch
+    from dedflow_tpu_torch.solver.newton import NSSolver
+
+    out = {"backend": launch.backend_for(RCB_MAIN_RANKS, "cuda")}
+    t0 = time.perf_counter()
+    res = launch.spawn(rcb_main_rank, RCB_MAIN_RANKS, "cuda", args=(raw,), timeout=600)[0]
+    out["main_call_s"] = time.perf_counter() - t0
+    # (a) and (d) against the CPU float64 one-process step and a one-process
+    # card step (float32, the same kernels) on the same input
+    slices = {"delaunay": (rcb_slice_mesh(), rcb_config()),
+              "melt": (box_mesh(*RCB_MELT_BOX), melt_pool_scenario_config(use_lattice="gather"))}
+    for name, (mesh, cfg) in slices.items():
+        tag = "a" if name == "delaunay" else "d"
+        refs = {}
+        one = NSSolver(mesh, cfg, device="cuda")
+        cards = rcb_slice_inputs(mesh, cfg, "cuda", one.dtype)
+        for key, (state, src) in rcb_slice_inputs(mesh, cfg, "cpu", torch.float64).items():
+            *ref, rstats = NSSolver(mesh, cfg, device="cpu").step(*state, source=src)
+            # float32's own distance from the float64 step: a plain float32
+            # CPU step on the same input (500 random points leave slivers,
+            # and from perturbed_state the pressure rate's float32 step lands
+            # 2e-3 from float64 there)
+            state32, src32 = rcb_slice_inputs(mesh, cfg, "cpu", torch.float32)[key]
+            f32 = NSSolver(mesh, cfg, device="cpu", dtype=torch.float32)
+            f32_rel = max(rel_err(g, r)[1]
+                          for g, r in zip(f32.step(*state32, source=src32)[:3], ref))
+            bar = max(TOL_SLICE, RCB_F32_FACTOR * f32_rel)
+            *card1, cstats = one.step(*cards[key][0], source=cards[key][1])
+            refs[key] = (ref, rstats, [t.cpu() for t in card1], cstats, bar)
+            say(f"  ({tag}) {name} {key}: a plain float32 CPU step vs the float64 one "
+                f"rel={f32_rel:.3e}; the bar max(TOL_SLICE, {RCB_F32_FACTOR} x that) = {bar:.3e}; "
+                f"the one-process card step: newton {len(cstats.rnorms)}, krylov "
+                f"{cstats.krylov_iters}")
+        del one, cards
+        worlds = RCB_SLICE_RANKS if name == "delaunay" else (RCB_MAIN_RANKS,)
+        for world in worlds:
+            t0 = time.perf_counter()
+            if world == RCB_MAIN_RANKS:
+                runs = res["slice" if name == "delaunay" else "melt"]
+            else:
+                runs = launch.spawn(rcb_slice_rank, world, "cuda", timeout=300)[0]
+            where = ("in (b)'s process group" if world == RCB_MAIN_RANKS
+                     else f"{time.perf_counter() - t0:.1f} s")
+            for key, got in runs.items():
+                ref, rstats, card1, cstats, bar = refs[key]
+                worst = max(rel_err(torch.as_tensor(g), r)[1] for g, r in zip(got["state"], ref))
+                twin = max(rel_err(torch.as_tensor(g), r)[1]
+                           for g, r in zip(got["state"], card1))
+                say(f"  ({tag}) {name} {key} ({mesh.num_tet} tets) on {world} ranks ({where}): "
+                    f"state vs CPU f64 rel={worst:.3e}, vs the one-process card step "
+                    f"rel={twin:.3e} (per field {fmt_list(field_errs(got['state'], card1))}); "
+                    f"newton {got['newton']} (CPU {len(rstats.rnorms)}, card "
+                    f"{len(cstats.rnorms)}), krylov {got['krylov']} (CPU {rstats.krylov_iters}, "
+                    f"card {cstats.krylov_iters})")
+                check(f"rcb {name} {key} {world} ranks", worst, bar)
+                check(f"rcb {name} {key} {world} ranks vs one process", twin, bar)
+                if not got["newton"] == len(rstats.rnorms) == len(cstats.rnorms):
+                    raise PhaseError(f"rcb {name} {key} {world} ranks: Newton counts "
+                                     f"{got['newton']} vs {len(rstats.rnorms)} (CPU), "
+                                     f"{len(cstats.rnorms)} (card)")
+                if got["krylov"] != rstats.krylov_iters:
+                    own, n = krylov_witness(
+                        f"rcb {name} {key} {world}", mesh, cfg, got["krylov"],
+                        rstats.krylov_iters,
+                        lambda m, c, d, t, k=key: rcb_slice_inputs(m, c, d, t)[k])
+                    say(f"    krylov counts witnessed by plain float32 CPU steps ({n} runs, "
+                        f"own {own})")
+                out[f"{name}_{key}_{world}_rel"] = worst
+                out[f"{name}_{key}_{world}_vs_one_process"] = twin
+    # (b) the full Delaunay mesh on 2 ranks against phase 14's one-process
+    # step from the same perturbed state
+    ranks = res["ranks"]
+    for r in ranks:
+        say(f"  (b) rank {r['rank']}: {r['n_own']} own nodes, {r['n_ghost']} ghosts (sent to "
+            f"each peer: {r['peers']}), {r['elements']} elements, {r['entries']} entries, "
+            f"set-up {r['setup_s']:.2f} s, launches K4s/K5s/K7halo/K8sum/K9sum {r['launches']}, "
+            f"whole-matrix K7 / column K4 / K5 {r['absent']}, plain twins called "
+            f"{r['plain_calls']}, peak {r['peak_bytes'] / 2**30:.3f} GiB")
+        say(f"    step: {json.dumps(r['step'])}")
+        if min(r["launches"]) <= 0 or any(r["plain_calls"]) or any(r["absent"]):
+            raise PhaseError(f"rcb main: rank {r['rank']} launches {r['launches']}, absent "
+                             f"{r['absent']}, plain calls {r['plain_calls']}")
+    one = ga_main["perturbed"]
+    ops = {k: field_errs([res["operator"][k]], [one["operator"][k]]) for k in one["operator"]}
+    say(f"  (b) {raw.num_tet} tets on {RCB_MAIN_RANKS} ranks vs phase 14's one process at "
+        f"perturbed_flow_state, per field: "
+        + "; ".join(f"{k} {fmt_list(v)}" for k, v in ops.items()))
+    for k, v in ops.items():
+        check(f"rcb main {k}, every field", max(v), TOL_SLICE)
+    fields = field_errs(res["state"], one["state"])
+    scales = [float(a[:, c].abs().max()) for a in one["state"] for c in range(a.shape[1])]
+    bars = [max(TOL_SLICE, RCB_WITNESS_FACTOR * w) for w in one["spread"]]
+    say(f"  (b) the step vs phase 14's one-process step, per field (wgold, dwgold, dwg x 6 "
+        f"components) {fmt_list(fields)} of scales {fmt_list(scales)}; the one-process "
+        f"witnesses' largest distances {fmt_list(one['spread'])}; newton {res['newton']} (one "
+        f"process {one['newton']}), krylov {res['krylov']} (one process {one['krylov']})")
+    check("rcb main step, every field over its bar", max(f / b for f, b in zip(fields, bars)), 1.0)
+    if res["newton"] != one["newton"] or res["krylov"] != one["krylov"]:
+        raise PhaseError(f"rcb main: Newton / Krylov counts {res['newton']} {res['krylov']} vs "
+                         f"one process {one['newton']} {one['krylov']}")
+    kms = [row["ms"] for row in res["kernels"]]
+    steps = [r["step"] for r in ranks]
+    split = {
+        "wall_s": max(s["wall_s"] for s in steps),
+        "kernels_s_est": max(sum(m * n for m, n in zip(kms, r["launches"])) for r in ranks) / 1e3,
+        "halo_exchange_s": max(s["exchange_s"] for s in steps),
+        "allreduce_s": max(s["allreduce_s"] for s in steps),
+        "staging_wait_s": max(s["stage_s"] for s in steps),
+        "exchanges": steps[0]["exchanges"], "allreduces": steps[0]["allreduces"],
+        "bytes_per_exchange": max(s["sent_bytes"] / max(s["exchanges"], 1) for s in steps),
+        "allreduces_per_krylov_iter": steps[0]["allreduces"] / max(sum(steps[0]["krylov"]), 1),
+        "ghosts": [r["n_ghost"] for r in ranks], "own": [r["n_own"] for r in ranks],
+    }
+    split["other_s"] = (split["wall_s"] - split["kernels_s_est"] - split["halo_exchange_s"]
+                        - split["allreduce_s"])
+    say(f"  (b) split: {json.dumps(split)}")
+    out.update(main_operator_rel={k: max(v) for k, v in ops.items()}, main_field_rel=fields,
+               main_field_scale=scales, main_witness_spread=one["spread"],
+               main_newton=res["newton"], main_krylov=res["krylov"],
+               main_split=split, one_process_step_s=one["step_s"],
+               peak_gib=[r["peak_bytes"] / 2**30 for r in ranks],
+               setup_s=[r["setup_s"] for r in ranks])
+    # (e) the CLI's --devices 2 on a mesh file
+    t0 = time.perf_counter()
+    cmesh = shuffled_mesh(box_mesh(*RCB_CLI_BOX), seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        mpath = os.path.join(tmp, "mesh.npz")
+        npz_write_mesh(mpath, cmesh)
+        files = RunFiles(read_mesh=npz_read_mesh, write_solution=npz_write_solution,
+                         needs_h5py=False)
+        rc, _ = cli(["--mesh", mpath, "--no-lattice-recover", "--steps", "1", "--save-every",
+                     "1", "--devices", "2", "--out", tmp, "--log-level", "warning"], files)
+        snap = dict(np.load(os.path.join(tmp, "sol.1.h5.npz")))
+        recs = [json.loads(ln) for ln in open(os.path.join(tmp, "metrics.jsonl"))]
+    one = NSSolver(cmesh, reference_scenario_config(use_lattice="gather"), device="cuda")
+    wg1 = one.step(*state_from_numpy(*reference_initial_state(cmesh), "cuda", one.dtype))[0]
+    crel = rel_err(torch.as_tensor(snap["u"]).reshape(-1, 3), wg1[:, :3].cpu())[1]
+    say(f"  (e) app.main --devices 2 --mesh (box {RCB_CLI_BOX} shuffled, {cmesh.num_tet} tets, "
+        f"no lattice recovery) ({time.perf_counter() - t0:.1f} s): rc {rc}, metrics {recs}, "
+        f"sol.1 u vs a one-process card gather step rel={crel:.3e}")
+    if rc != 0 or not recs or recs[0].get("ranks") != 2:
+        raise PhaseError(f"app.main --devices 2 --mesh: rc {rc}, metrics {recs}")
+    check("app.main --devices 2 --mesh", crel, TOL_SLICE)
+    out["cli_rel"] = crel
+    launches = [sum(r["launches"][i] for r in ranks) for i in range(len(RCB_KERNELS))]
+    return [dict(row, launches=n) for row, n in zip(res["kernels"], launches)], out
+
+
 def run() -> int:
     try:
         import torch
@@ -4248,6 +4898,7 @@ def run() -> int:
         phase = "14 gather main"
         say(f"phase 14 gather main path at {raw.num_tet} Delaunay tets, generated node order")
         ga_main = phase_gather_main(gsolver)
+        ga_main["perturbed"] = gather_perturbed_step(gsolver, raw)
         del gsolver
         phase = "15 melt kernels"
         msolver, msetup = melt_solver()
@@ -4324,6 +4975,15 @@ def run() -> int:
         sharded_results, sharded = phase_sharded(main)
         say(f"  sharded ({card}): {json.dumps(sharded)}")
         say(f"  phase 25: {time.perf_counter() - t0:.1f} s")
+        phase = "26 rcb"
+        say(f"phase 26 rcb ({card}): RCB parts on the gather tier, ranks sharing the card: "
+            f"delaunay_mesh({RCB_SLICE_POINTS}) on {' and '.join(map(str, RCB_SLICE_RANKS))} "
+            f"ranks, {raw.num_tet} Delaunay tets on {RCB_MAIN_RANKS} (one step), the part "
+            f"kernels, the melt pool at box {RCB_MELT_BOX}, app.main --devices 2 --mesh")
+        t0 = time.perf_counter()
+        rcb_results, rcb = phase_rcb(ga_main, raw)
+        say(f"  rcb ({card}): {json.dumps(rcb)}")
+        say(f"  phase 26: {time.perf_counter() - t0:.1f} s")
     except Exception as e:  # report the failed phase, then fail
         traceback.print_exc()
         print(f"FAIL phase {phase}: {type(e).__name__}: {e}", file=sys.stderr)
@@ -4341,10 +5001,10 @@ def run() -> int:
         for (name, src, rep), r, n in zip(
             KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS
             + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS + KRYLOV_KERNELS + CLASS_KERNELS
-            + HEAT_KERNELS + MIXED_KERNELS + SHARDED_KERNELS + K10_KERNELS,
+            + HEAT_KERNELS + MIXED_KERNELS + SHARDED_KERNELS + RCB_KERNELS + K10_KERNELS,
             results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit]
             + ir_staged + ga_staged + ga_res_staged + krylov_results + class_results
-            + heat_results + mixed_results + sharded_results + k10_extra,
+            + heat_results + mixed_results + sharded_results + rcb_results + k10_extra,
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
             + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
@@ -4352,7 +5012,7 @@ def run() -> int:
             + melt_launches + staged_launches + ga_main["res_staged"]
             + [r["launches"] for r in krylov_results] + [r["launches"] for r in class_results]
             + [r["launches"] for r in heat_results] + [r["launches"] for r in mixed_results]
-            + [r["launches"] for r in sharded_results]
+            + [r["launches"] for r in sharded_results] + [r["launches"] for r in rcb_results]
             # K10 with the source: its instance's count on the WinELL melt slice
             # (phase 16); the residual map alone runs on no path
             + [slice_launches["winell"][6], 0],

@@ -74,14 +74,17 @@ converged. A non-finite residual or temperature ends the run with exit
 code 2. The JAX CLI's --platform is the port's --device.
 
 `--devices N` (N > 1; the JAX CLI's, dedflow_tpu/app/main.py:74, 255-283)
-runs the NS scenarios on a box mesh on N ranks, each owning a z-slab of
-the box (parallel.sharded.ShardedNSSolver, started by parallel.launch): on
-"cuda" one card a rank under NCCL where there are N cards, else every rank
-on card 0 under gloo; on "cpu" gloo. Rank 0 writes the snapshots, the
-metrics (with the ranks and the backend) and the JSON lines from the
-gathered state, the same files as one process; the other ranks log
-warnings only. `--scenario coupled` with N > 1 raises (ROADMAP A16 (c)),
-and so does every option ShardedNSSolver does not take.
+runs the NS scenarios on N ranks (parallel.sharded.ShardedNSSolver,
+started by parallel.launch), on any mesh: a Kuhn box on its lattice tier
+with each rank owning a z-slab of it, every other mesh (`--mesh FILE`,
+`--chunk`, a config's use_lattice "gather" / "winell", the melt pool)
+RCB-partitioned onto the gather tier with each rank owning a part and
+exchanging its ghosts. On "cuda" one card a rank under NCCL where there
+are N cards, else every rank on card 0 under gloo; on "cpu" gloo. Rank 0
+writes the snapshots, the metrics (with the ranks and the backend) and
+the JSON lines from the gathered state, the same files as one process;
+the other ranks log warnings only. `--scenario coupled` with N > 1 raises
+(ROADMAP A16 (c)), and so does every option ShardedNSSolver does not take.
 """
 
 from __future__ import annotations
@@ -124,11 +127,12 @@ from dedflow_tpu_torch.utils.profiling import trace
 
 @dataclass(frozen=True)
 class RunFiles:
-    """The run's solution and particle file calls: HDF5 through h5py by
-    default (io.h5, dem.particles). A caller on a machine without h5py
+    """The run's mesh, solution and particle file calls: HDF5 through h5py
+    by default (io.h5, dem.particles). A caller on a machine without h5py
     passes its own with `needs_h5py=False` (chip_smoke.py keeps the
     datasets of io.h5.solution_datasets in memory)."""
 
+    read_mesh: Callable = read_mesh_h5  # --mesh path -> Mesh
     write_solution: Callable = write_solution_h5  # (path, wg, dwg, step=, time=)
     read_solution: Callable = read_solution_h5  # path -> {"wg", "dwg", ...}
     save_particles: Callable = save_particles  # (path, group, state)
@@ -191,17 +195,17 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_mesh(args, log):
+def load_mesh(args, log, read_mesh=read_mesh_h5):
     """(mesh, node permutation old -> new or None) of the parsed arguments:
-    the --mesh file, recovered into lattice order unless
-    --no-lattice-recover, or the box (8, 8, 8 by default); log lines
+    the --mesh file (read by `read_mesh`), recovered into lattice order
+    unless --no-lattice-recover, or the box (8, 8, 8 by default); log lines
     describe it, as the JAX CLI's do."""
     if not args.mesh:
         box = tuple(args.box)
         mesh = box_mesh(*box)
         log.info("box mesh %dx%dx%d: %d nodes, %d tets", *box, mesh.num_node, mesh.num_tet)
         return mesh, None
-    mesh = read_mesh_h5(args.mesh)
+    mesh = read_mesh(args.mesh)
     log.info("mesh %s: %d nodes, %d tets", args.mesh, mesh.num_node, mesh.num_tet)
     if mesh.lattice is not None or args.no_lattice_recover:
         return mesh, None
@@ -276,7 +280,7 @@ def run(args, files: RunFiles, log, device: torch.device) -> int:
     # ir = a float32 state with float64 refinement (the JAX CLI's rule)
     dtype = torch.float32 if args.precision == "ir" and args.dtype is None else parse_dtype(
         args.dtype, device)
-    mesh, node_perm = load_mesh(args, log)
+    mesh, node_perm = load_mesh(args, log, files.read_mesh)
     scenario_config, initial_state = {
         "cavity": (lid_driven_cavity_config, lid_driven_cavity_initial_state),
         "melt-pool": (melt_pool_scenario_config, melt_pool_initial_state),
@@ -305,8 +309,8 @@ def run(args, files: RunFiles, log, device: torch.device) -> int:
         from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
 
         solver = ShardedNSSolver(mesh, cfg, device=device, dtype=dtype)
-        log.info("rank 0 of %d: node layers of %d nodes, %d own nodes, backend %s",
-                 solver.comm.world, solver.sctx.width, solver.sctx.n_own, solver.comm.backend)
+        log.info("rank 0 of %d: %s mode, %d own nodes, backend %s", solver.comm.world,
+                 solver.mode, len(solver.own), solver.comm.backend)
     else:
         solver = NSSolver(mesh, cfg, device=device, dtype=dtype)
     log.info("assembly fastpath: %s", solver.fastpath)

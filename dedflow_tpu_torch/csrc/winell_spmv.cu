@@ -25,6 +25,12 @@
 //
 // WinELL component order: row 4k+i (i<3) = d y_u[i] / d x_[k], row 4k+3 =
 // d y_p / d x_[k] (k<3 velocity, k=3 pressure), rows 16/17 phi-phi / T-T.
+//
+// x has n_x >= n columns: the whole matrix's product passes n_x = n; a
+// rank's own rows of an RCB partition (parallel.sharded) pass the extended
+// vector [own | ghosts] of its halo plan, whose columns the entries index.
+// The stride is the only difference: the whole matrix's product is the
+// same arithmetic as with n as the stride.
 
 #include <cuda_runtime.h>
 
@@ -37,22 +43,23 @@ __global__ void __launch_bounds__(256)
 winell_spmv_kernel(const T* __restrict__ vals,        // (18, S)
                    const int* __restrict__ row_ptr,   // (n + 1,)
                    const int* __restrict__ col,       // (S,)
-                   const T* __restrict__ x,           // (6, n)
+                   const T* __restrict__ x,           // (6, n_x)
                    T* __restrict__ y,                 // (6, n)
-                   int n, long long num_entries) {
+                   int n, long long n_x, long long num_entries) {
   const long long gid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & (kLanesPerRow - 1);
   const long long row = gid / kLanesPerRow;
   const bool active = row < n;
   const size_t N = static_cast<size_t>(n);
+  const size_t NX = static_cast<size_t>(n_x);
   const size_t S = static_cast<size_t>(num_entries);
   T acc[6] = {0, 0, 0, 0, 0, 0};
   if (active) {
     const int end = row_ptr[row + 1];
     for (int s = row_ptr[row] + lane; s < end; s += kLanesPerRow) {
       const int c = col[s];
-      const T x0 = x[c], x1 = x[N + c], x2 = x[2 * N + c];
-      const T x3 = x[3 * N + c], x4 = x[4 * N + c], x5 = x[5 * N + c];
+      const T x0 = x[c], x1 = x[NX + c], x2 = x[2 * NX + c];
+      const T x3 = x[3 * NX + c], x4 = x[4 * NX + c], x5 = x[5 * NX + c];
       const T* v = vals + s;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -76,26 +83,27 @@ winell_spmv_kernel(const T* __restrict__ vals,        // (18, S)
 
 template <typename T>
 int launch(const void* vals, const void* row_ptr, const void* col, const void* x, void* y, int n,
-           long long num_entries, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+           long long n_x, long long num_entries, void* stream) {
+  if (n <= 0 || n_x < n) return static_cast<int>(cudaErrorInvalidValue);
   const long long threads = static_cast<long long>(n) * kLanesPerRow;
   const unsigned blocks = static_cast<unsigned>((threads + 255) / 256);
   winell_spmv_kernel<T><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(vals), static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-      static_cast<const T*>(x), static_cast<T*>(y), n, num_entries);
+      static_cast<const T*>(x), static_cast<T*>(y), n, n_x, num_entries);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace dedflow
 
+// x (6, n_x): n_x = n for the whole matrix, [own | ghosts] for a rank's part.
 extern "C" int dedflow_winell_spmv(const void* vals, const void* row_ptr, const void* col,
-                                   const void* x, void* y, int n, long long num_entries,
-                                   void* stream) {
-  return dedflow::launch<float>(vals, row_ptr, col, x, y, n, num_entries, stream);
+                                   const void* x, void* y, int n, long long n_x,
+                                   long long num_entries, void* stream) {
+  return dedflow::launch<float>(vals, row_ptr, col, x, y, n, n_x, num_entries, stream);
 }
 
 extern "C" int dedflow_winell_spmv_f64(const void* vals, const void* row_ptr, const void* col,
-                                       const void* x, void* y, int n, long long num_entries,
-                                       void* stream) {
-  return dedflow::launch<double>(vals, row_ptr, col, x, y, n, num_entries, stream);
+                                       const void* x, void* y, int n, long long n_x,
+                                       long long num_entries, void* stream) {
+  return dedflow::launch<double>(vals, row_ptr, col, x, y, n, n_x, num_entries, stream);
 }

@@ -26,6 +26,14 @@ package (assembly.py:1-17).
   it touches (`ElementRange`), and fem.ns runs the ranges in turn through
   the same kernels and the same reduce.
 
+With `own` (a rank's local submesh of an RCB partition, parallel.sharded:
+its nodes [own | ghosts], its own rows first in the CSR), the plans keep
+only the contributions to own targets, residual rows < own and matrix
+entries < row_ptr[own]; the matrix is the own rows' CSR entries (their
+columns index the whole local vector) and `mult_win` their static rows.
+K8 and K9 then write only the rank's rows. The one-process context is
+`own` = None, unchanged.
+
 The scalar heat / Poisson slice (fem.heat) runs on the same context with
 `scalar_plans=True`: `scatter_residual` and `scatter_matrix` (JAX
 assembly.py:236, :281) sum (ne, 4, ...) element vectors into the nodes and
@@ -101,8 +109,8 @@ class FEMContext:
     ien_t: torch.Tensor  # (4, ne) int32
     ranges: tuple  # ElementRange per assembly chunk (one without chunking)
     mult_win: torch.Tensor  # (2, S) static phi-phi / T-T rows (frozen mode)
-    win_plan: WinPlan  # the matrix's CSR entries
-    num_node: int
+    win_plan: WinPlan  # the matrix's CSR entries (with `own`, the own rows')
+    num_node: int  # the rows assembled: every node, or the `own` ones
     num_elem: int  # padded to a multiple of the assembly chunk
     # the CPU element body: "xla" fem.weakform, "pallas" the K4/K5 plain
     # twins (CUDA always runs K4/K5)
@@ -117,12 +125,13 @@ class FEMContext:
 def build_context(
     mesh: Mesh, sparsity: Sparsity | None = None, device="cuda", dtype=None,
     chunk: int | None = None, scatter_method: str = "segment", elements_kernel: str = "xla",
-    scalar_plans: bool = False,
+    scalar_plans: bool = False, own: int | None = None,
 ) -> FEMContext:
     """The general gather tier's context, on the card unless `device`
     says otherwise (dtype: the device's default). Every `scatter_method`
     name selects the one reduce; an unknown name raises. `scalar_plans`
-    adds the scalar scatters' plans (fem.heat)."""
+    adds the scalar scatters' plans (fem.heat). `own` restricts the plans
+    and the matrix to the first `own` rows (a rank's local submesh)."""
     if scatter_method not in SCATTER_METHODS:
         raise ValueError(f"scatter_method must be one of {SCATTER_METHODS}, got {scatter_method!r}")
     if elements_kernel not in ELEMENTS_KERNELS:
@@ -131,22 +140,28 @@ def build_context(
         raise ValueError(f"assembly chunk must be positive, got {chunk}")
     if mesh.num_tet == 0:
         raise ValueError("the gather tier assembles tets: the mesh has none")
+    if own is not None and scalar_plans:
+        raise ValueError("scalar plans are whole-mesh plans: build them without `own`")
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     if sparsity is None:
         sparsity = build_sparsity(mesh.ien, mesh.num_node, extra_ien=mesh.extra_cells)
     ien = np.asarray(mesh.ien, dtype=np.int64)
     elem_nnz = np.asarray(sparsity.elem_nnz, dtype=np.int64).reshape(-1, 16)
-    ne_real, n = ien.shape[0], mesh.num_node
+    ne_real = ien.shape[0]
+    n = mesh.num_node if own is None else int(own)
     ne = ne_real if chunk is None else -(-ne_real // chunk) * chunk
     ien_pad = np.concatenate([ien, np.zeros((ne - ne_real, 4), dtype=np.int64)])
     xg = torch.as_tensor(mesh.xg, dtype=dtype, device=device)
     ien_t = torch.as_tensor(np.ascontiguousarray(ien_pad.T), dtype=torch.int32, device=device)
     geom = tet_geometry(xg[ien_t.T.long()])
-    win_plan = build_winell_plan(sparsity.row_ptr, sparsity.col_ind, n, device)
+    s_own = int(sparsity.row_ptr[n])  # the own rows' entries come first
+    win_plan = build_winell_plan(sparsity.row_ptr[: n + 1], sparsity.col_ind[:s_own], n, device)
 
-    node_plan = scatter_permutation(ien)  # node_perm, node_targets (assembly.py:120)
-    mat_plan = scatter_permutation(elem_nnz)  # mat_perm, mat_targets (assembly.py:121)
+    # node_perm, node_targets and mat_perm, mat_targets (assembly.py:120-121),
+    # their sorted targets cut to the rows assembled
+    node_plan = _own_targets(*scatter_permutation(ien), n)
+    mat_plan = _own_targets(*scatter_permutation(elem_nnz), s_own)
     width = ne if chunk is None else chunk
     ranges = []
     for lo in range(0, ne_real, width):
@@ -173,6 +188,12 @@ def build_context(
         scalar_res_plan=scalar[0],
         scalar_jac_plan=scalar[1],
     )
+
+
+def _own_targets(perm, tgt, num_tgt: int) -> tuple:
+    """A sorted plan's contributions to targets below num_tgt (a prefix)."""
+    k = int(np.searchsorted(tgt, num_tgt))
+    return perm[:k], tgt[:k]
 
 
 def _range_plan(perm, tgt, per, rows, lo, hi, width, num_tgt, chunk, device):

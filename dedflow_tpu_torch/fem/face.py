@@ -54,25 +54,29 @@ class FaceContext:
 
 def slot_plan(targets: np.ndarray, num_slots: int) -> np.ndarray:
     """(num_slots, K) source indices per target, ascending; pad entries
-    point at len(targets), the zero row the caller appends."""
+    point at len(targets), the zero row the caller appends. Sources with a
+    negative target (another rank's rows) are left out."""
     m = targets.size
-    counts = np.bincount(targets, minlength=num_slots)
-    k = max(int(counts.max()) if m else 0, 1)
-    order = np.argsort(targets, kind="stable")
+    live = np.flatnonzero(targets >= 0)
+    t = targets[live]
+    counts = np.bincount(t, minlength=num_slots)
+    k = max(int(counts.max()) if t.size else 0, 1)
+    order = np.argsort(t, kind="stable")
     start = np.zeros(num_slots, dtype=np.int64)
     start[1:] = np.cumsum(counts)[:-1]
     slot = np.full((num_slots, k), m, dtype=np.int64)
-    slot[targets[order], np.arange(m) - start[targets[order]]] = order
+    slot[t[order], np.arange(t.size) - start[t[order]]] = live[order]
     return slot
 
 
 def build_face_context(
-    mesh: Mesh, boundary: int, offsets: tuple | None, device, dtype
+    mesh: Mesh, boundary: int, offsets: tuple | None, device, dtype, own: int | None = None
 ) -> FaceContext:
     """Facet context of one boundary (face.py::build_face_context); the
     parent geometry is computed for the facets' elements only. With
     `offsets` None (no DIA stencil: the WinELL tier) no band plan is
-    built."""
+    built. With `own` (a rank's local submesh, parallel.sharded) the
+    residual plan keeps only the contributions to rows below `own`."""
     b = mesh.boundaries[boundary]
     f2e = np.asarray(b.f2e, dtype=np.int64)
     ien_np = np.asarray(mesh.ien, dtype=np.int64)[f2e]  # (nf, 4)
@@ -82,11 +86,14 @@ def build_face_context(
     nv = face_normals(geom.inv_j, geom.det_j, forn)
     shlb = torch.as_tensor(quad.SHLB, dtype=dtype, device=device)[forn]
     nf = ien_np.shape[0]
-    if nf:
-        lo = int(ien_np.min())
-        span = int(ien_np.max()) - lo + 1
+    vert = ien_np.reshape(-1)  # the (f, a) residual contributions' rows
+    kept = vert if own is None else vert[vert < own]
+    if kept.size:
+        lo = int(kept.min())
+        span = int(kept.max()) - lo + 1
     else:
         lo, span = 0, 1
+    node_tgt = vert - lo if own is None else np.where(vert < own, vert - lo, -1)
     as_long = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
     band_slots = None
     if offsets is not None:
@@ -105,7 +112,7 @@ def build_face_context(
         shgrad=geom.shgrad,
         nv=nv,
         shlb=shlb,
-        node_slots=as_long(slot_plan(ien_np.reshape(-1) - lo, span)),
+        node_slots=as_long(slot_plan(node_tgt, span)),
         band_slots=band_slots,
         num_facet=nf,
         dia_row_lo=lo,

@@ -32,9 +32,20 @@ assembly chunk the context's element ranges run in turn through the same
 kernels and the same reduce, each adding its sums into the nodes and
 entries it touches (ns.py:60-98's streaming paths, deterministic: the
 ranges' targets are unique).
+
+A rank of an RCB partition (parallel.sharded) assembles on a
+`PartContext`: the gather-tier context of its local submesh, built with
+the own-target plans (fem.assembly.build_context's `own`), and its halo.
+`assemble_residual_part` / `assemble_jacobian_part` exchange the ghost
+nodes' alpha states (and the heat source) in one exchange, then run the
+same kernels and reduces: K4 / K5 on every local element, K8 / K9 into
+the own rows only. Its J is a sparse.winell.HaloWinELLMatrixT, whose
+product exchanges the ghosts of x and runs K7's halo entry.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -50,7 +61,7 @@ from dedflow_tpu_torch.fem.element_kernels import (
 from dedflow_tpu_torch.fem.face import face_residual_elements, face_residual_scatter
 from dedflow_tpu_torch.fem.win_assembly import add_face_entries, reduce_entries
 from dedflow_tpu_torch.sparse.win_stream import stream_reduce_staged
-from dedflow_tpu_torch.sparse.winell import WinELLMatrixT
+from dedflow_tpu_torch.sparse.winell import HaloWinELLMatrixT, WinELLMatrixT
 
 
 def _xla_body(ctx: FEMContext, w_alpha) -> bool:
@@ -145,3 +156,51 @@ def assemble_jacobian(
     vals = ent if scalar_implicit else torch.cat([ent, ctx.mult_win.to(ent.dtype)])
     add_face_entries(vals, face_ctxs, w_alpha, dw_alpha, phys, scheme)
     return WinELLMatrixT(vals=vals, plan=ctx.win_plan).zero_rows_t(mask_t)
+
+
+@dataclass
+class PartContext:
+    """One rank's part of an RCB decomposition (parallel.sharded): `fem`
+    the gather-tier context of its local submesh, nodes [own | ghosts],
+    plans over its `n_own` rows; `comm` its parallel.spmd.HaloComm. Its
+    vectors hold the own rows; every sum over the ranks goes through
+    `comm`."""
+
+    fem: FEMContext
+    comm: object
+
+
+def part_states(pctx: PartContext, w_alpha, dw_alpha, source=None) -> tuple:
+    """The local (n_x, 6) alpha states and (n_x,) source of the rank's own
+    rows: the ghosts' values from their owners, in one exchange."""
+    rows = [w_alpha.T, dw_alpha.T] + ([] if source is None else [source[None]])
+    x = pctx.comm.exchange(torch.cat(rows))
+    return x[:6].T.contiguous(), x[6:12].T.contiguous(), None if source is None else x[12]
+
+
+def _refuse_nodal_force(nodal_force) -> None:
+    if nodal_force is not None:
+        raise NotImplementedError("a nodal force on an RCB partition (the coupled solver sharded) "
+                                  "is not ported yet (ROADMAP A16 (c))")
+
+
+def assemble_residual_part(
+    pctx: PartContext, face_ctxs, mask_t, w_alpha, dw_alpha, phys: Physics, scheme: TimeScheme,
+    freeze_phi_temperature: bool = True, source=None, nodal_force=None,
+) -> torch.Tensor:
+    """The rank's own rows (6, n_own) of F; states and `source` are its own
+    rows, `mask_t` (6, n_own)."""
+    _refuse_nodal_force(nodal_force)
+    wa, dwa, src = part_states(pctx, w_alpha, dw_alpha, source)
+    return assemble_residual(pctx.fem, face_ctxs, mask_t, wa, dwa, phys, scheme,
+                             freeze_phi_temperature, src)
+
+
+def assemble_jacobian_part(
+    pctx: PartContext, face_ctxs, mask_t, w_alpha, dw_alpha, phys: Physics, scheme: TimeScheme,
+    scalar_implicit: bool = False,
+) -> HaloWinELLMatrixT:
+    """The rank's own rows of J, masked, as a HaloWinELLMatrixT."""
+    wa, dwa, _ = part_states(pctx, w_alpha, dw_alpha)
+    jm = assemble_jacobian(pctx.fem, face_ctxs, mask_t, wa, dwa, phys, scheme, scalar_implicit)
+    return HaloWinELLMatrixT(vals=jm.vals, plan=jm.plan, halo=pctx.comm)

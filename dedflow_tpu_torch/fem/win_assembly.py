@@ -188,8 +188,10 @@ def build_win_context(
 
 def identity_rows(ien, win_plan: WinPlan, dtype, device) -> torch.Tensor:
     """(2, S) static phi-phi / T-T rows of the frozen mode: the nodal tet
-    multiplicity at the diagonal entries (assemble.cu:757-758)."""
-    mult = np.bincount(np.asarray(ien, dtype=np.int64).ravel(), minlength=win_plan.num_node)
+    multiplicity at the diagonal entries (assemble.cu:757-758), of the
+    plan's rows (a rank's own rows: every tet of an own node is local)."""
+    n = win_plan.num_node
+    mult = np.bincount(np.asarray(ien, dtype=np.int64).ravel(), minlength=n)[:n]
     mw = np.zeros((2, win_plan.S))
     mw[:, win_plan.diag_entry] = mult[None, :]
     return torch.as_tensor(mw, dtype=dtype, device=device)
@@ -200,16 +202,20 @@ def attach_face_win_plans(face_ctxs: tuple, sparsity: Sparsity, win_plan: WinPla
     contribution (f, a, b) goes to the parent element's entry of the pair
     (a, b); per unique entry of the boundary (`win_uniq`) a slot plan
     lists its sources, so the facet Jacobian costs O(boundary), not
-    O(matrix)."""
+    O(matrix). A plan of the first rows of `sparsity` (a rank's own rows,
+    fem.assembly.build_context's `own`) keeps the entries of those rows."""
     elem_nnz = np.asarray(sparsity.elem_nnz, dtype=np.int64).reshape(-1, 16)
     out = []
     for fctx in face_ctxs:
-        tgt = win_plan.entry_of_nnz[elem_nnz[fctx.f2e].reshape(-1)]
-        uniq, inv = np.unique(tgt, return_inverse=True)
+        nnz = elem_nnz[fctx.f2e].reshape(-1)
+        live = nnz < win_plan.S
+        uniq, inv = np.unique(win_plan.entry_of_nnz[nnz[live]], return_inverse=True)
+        tgt = np.full(nnz.size, -1, dtype=np.int64)
+        tgt[live] = inv.reshape(-1)
         dev = fctx.ien.device
         out.append(dataclasses.replace(
             fctx,
-            win_slots=torch.as_tensor(slot_plan(inv.reshape(-1), uniq.size), device=dev),
+            win_slots=torch.as_tensor(slot_plan(tgt, uniq.size), device=dev),
             win_uniq=torch.as_tensor(uniq, dtype=torch.long, device=dev),
         ))
     return tuple(out)

@@ -6,10 +6,16 @@ are contiguous index ranges padded to one size per part: pad nodes touch
 no real element and pad elements are degenerate (four copies of one node,
 zero geometry), so their contributions are exact zeros. The z-slab path
 of parallel.sharded does not use it (a box's own node order is already a
-slab decomposition); the RCB path onto the gather tier (ROADMAP A16,
-mode 3) will. The JAX package's C++ fast path of `rcb_parts`
-(dedflow_tpu/native/topology.cpp, ROADMAP A14b) is not ported: this
-NumPy body is that package's oracle, and it gives the same parts.
+slab decomposition); its RCB mode does, through `part_layout`: rank r
+owns the real nodes of part r in partitioned order (the padding slots, a
+TPU layout, are dropped) and assembles on its local submesh, every
+element with at least one own node, numbered [own nodes | ghost nodes]
+(the ghosts sorted by their partitioned id, so each owner's ghosts are
+one contiguous block). Every own row then sums all of its element and
+facet contributions on its rank. The JAX package's C++ fast path of
+`rcb_parts` (dedflow_tpu/native/topology.cpp, ROADMAP A14b) is not
+ported: this NumPy body is that package's oracle, and it gives the same
+parts.
 """
 
 from __future__ import annotations
@@ -154,3 +160,63 @@ def permute_state(info: PartitionInfo, state: np.ndarray) -> np.ndarray:
 def unpermute_state(info: PartitionInfo, state: np.ndarray) -> np.ndarray:
     """Padded partitioned-order state -> (N_orig, ...) original order."""
     return np.asarray(state)[info.node_map]
+
+
+@dataclass(frozen=True)
+class PartLayout:
+    """Rank `rank`'s piece of the RCB partition of a mesh into `num_parts`
+    (`part_layout`). Local node i < n_own is the rank's own node of
+    partitioned id (`node_key`) rank * L + i; the ghosts follow, sorted by
+    partitioned id."""
+
+    rank: int
+    num_parts: int
+    mesh: Mesh  # the local submesh: its tets and facets, local node ids
+    n_own: int
+    nodes: np.ndarray  # (n_local,) original node id of each local node
+    node_part: np.ndarray  # (N,) owning part of each original node
+    node_key: np.ndarray  # (N,) partitioned id of each original node (owners' blocks ascending)
+    elems: np.ndarray  # (ne_local,) original element id of each local element
+
+    def owned(self, part: int) -> np.ndarray:
+        """Original ids of part `part`'s own nodes in its local order."""
+        ids = np.flatnonzero(self.node_part == part)
+        return ids[np.argsort(self.node_key[ids], kind="stable")]
+
+
+def part_layout(mesh: Mesh, num_parts: int, rank: int) -> PartLayout:
+    """Rank `rank`'s local submesh of the RCB partition (`partition_mesh`'s
+    parts, its padding dropped): every tet with at least one own node, in
+    partitioned element order, its nodes numbered [own | ghosts], and of
+    each boundary the facets whose parent tet is local. Prism / hex tables
+    are dropped, as partition_mesh drops them: they add stencil entries
+    whose values are exact zeros, so F and J are unchanged."""
+    _, info = partition_mesh(mesh, num_parts)
+    P, r = int(num_parts), int(rank)
+    node_key = info.node_map
+    node_part = info.node_part[node_key]
+    ien = np.asarray(mesh.ien, dtype=np.int64)
+    own = np.flatnonzero(node_part == r)
+    own = own[np.argsort(node_key[own], kind="stable")]
+    local_elem = np.flatnonzero((node_part[ien] == r).any(axis=1))
+    local_elem = local_elem[np.argsort(info.elem_map[local_elem], kind="stable")]
+    touched = np.unique(ien[local_elem])
+    ghosts = touched[node_part[touched] != r]
+    ghosts = ghosts[np.argsort(node_key[ghosts], kind="stable")]
+    nodes = np.concatenate([own, ghosts])
+    local_of = np.full(mesh.num_node, -1, dtype=np.int64)
+    local_of[nodes] = np.arange(nodes.size)
+    elem_of = np.full(ien.shape[0], -1, dtype=np.int64)
+    elem_of[local_elem] = np.arange(local_elem.size)
+    boundaries = []
+    for b in mesh.boundaries:
+        f2e = elem_of[np.asarray(b.f2e, dtype=np.int64)]
+        keep = f2e >= 0
+        tri = local_of[np.asarray(b.ien, dtype=np.int64)[keep]]
+        boundaries.append(Boundary(nodes=np.unique(tri).astype(INDEX_DTYPE),
+                                   ien=tri.astype(INDEX_DTYPE), f2e=f2e[keep].astype(INDEX_DTYPE),
+                                   forn=np.asarray(b.forn)[keep]))
+    sub = Mesh(xg=np.asarray(mesh.xg)[nodes], ien=local_of[ien[local_elem]].astype(INDEX_DTYPE),
+               boundaries=boundaries)
+    return PartLayout(rank=r, num_parts=P, mesh=sub, n_own=int(own.size), nodes=nodes,
+                      node_part=node_part, node_key=node_key, elems=local_elem)

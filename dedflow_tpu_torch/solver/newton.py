@@ -80,14 +80,17 @@ from dedflow_tpu_torch.utils.dtypes import cast_floats, default_dtype, disable_t
 
 # ---------------------------------------------------------------------------
 # stepping functions (contexts passed explicitly: a LatticeContext, a
-# WinAssemblyContext, a FEMContext, or a SlabContext, one rank's part of a
-# z-slab decomposed box whose vectors hold the rank's own rows and whose
-# sums run over every rank: parallel.sharded)
+# WinAssemblyContext, a FEMContext, or one rank's part of a decomposition
+# whose vectors hold the rank's own rows and whose sums run over every rank
+# (parallel.sharded): a SlabContext (a z-slab of a box) or an
+# fem.ns.PartContext (an RCB part on the gather tier))
 
 
 def _allreduce(ctx):
-    """The sum over the ranks of a SlabContext's decomposition, else None."""
-    return ctx.comm.allreduce_sum if isinstance(ctx, SlabContext) else None
+    """The sum over the ranks of a decomposition's context (any context
+    that carries a communicator), else None."""
+    comm = getattr(ctx, "comm", None)
+    return None if comm is None else comm.allreduce_sum
 
 
 def _field_norms(f_t, allreduce=None) -> torch.Tensor:
@@ -115,6 +118,10 @@ def residual(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme, freeze,
         return ns.assemble_residual(
             ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze, source=source,
             nodal_force=nodal_force,
+        )
+    if isinstance(ctx, ns.PartContext):
+        return ns.assemble_residual_part(
+            ctx, face_ctxs, mask_t, wa, dwa, phys, scheme, freeze, source, nodal_force
         )
     if isinstance(ctx, WinAssemblyContext):
         f = residual_win(ctx, wa, dwa, phys, scheme, face_ctxs, source)
@@ -147,8 +154,15 @@ def assemble_system(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme,
     if isinstance(ctx, SlabContext):
         if pc_type != "fieldsplit" or scalar_implicit:
             raise NotImplementedError("a z-slab decomposition takes the fieldsplit preconditioner "
-                                      "and frozen phi/T only (ROADMAP A16 (b') and (d'))")
+                                      "and frozen phi/T only (ROADMAP A16 (b'') and (d'))")
         jmat = assemble_jacobian_slab(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme)
+        return jmat, NSFieldSplitPCT.from_diag_rows(jmat.diag_rows())
+    if isinstance(ctx, ns.PartContext):
+        if pc_type != "fieldsplit":
+            raise NotImplementedError("an RCB partition takes the fieldsplit preconditioner only "
+                                      "(ROADMAP A16 (d'))")
+        jmat = ns.assemble_jacobian_part(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme,
+                                         scalar_implicit)
         return jmat, NSFieldSplitPCT.from_diag_rows(jmat.diag_rows())
     if isinstance(ctx, WinAssemblyContext):
         jmat = jacobian_win(

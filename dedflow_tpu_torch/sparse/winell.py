@@ -16,6 +16,11 @@ bitcast index rows 18/19, the vmax tail and the window schedule) exists
 for the TPU's lane gather and MXU one-hot reductions and is not carried
 over. Tests compare the two layouts through `entry_of_nnz` and
 `to_block_dense`.
+
+`HaloWinELLMatrixT` is a rank's own rows of an RCB partition
+(parallel.sharded): its columns index the rank's local vector [own |
+ghosts], and its product exchanges the ghosts first (the counterpart of
+dedflow_tpu/parallel/spmd.py::fsbsr_matvec_halo, :154-210).
 """
 
 from __future__ import annotations
@@ -166,3 +171,21 @@ class WinELLMatrixT:
                 dense, (self.plan.grow * 6 + bi, self.plan.col * 6 + bj), v[COMP2WIN[comp]]
             )
         return dense
+
+
+@dataclass
+class HaloWinELLMatrixT(WinELLMatrixT):
+    """A rank's own rows of the matrix (fem.ns.assemble_jacobian_part):
+    `plan` over its n_own rows, columns in [0, n_x) of its local vector.
+    `halo` is its parallel.spmd.HaloComm."""
+
+    halo: object = None
+
+    def matvec_t(self, x_t: torch.Tensor) -> torch.Tensor:
+        """(6, n_own) -> (6, n_own): x's own columns copied into the halo's
+        persistent (6, n_x) buffer, the ghosts received into its tail (one
+        exchange), then K7's halo entry (sparse.win_kernels)."""
+        from dedflow_tpu_torch.sparse.win_kernels import winell_matvec_halo
+
+        x = self.halo.exchange(x_t, out=self.halo.buffer(6, x_t))
+        return winell_matvec_halo(self, x)

@@ -33,7 +33,9 @@ components straight into K8's staging rows, from node-major states)
 matches its plain twin, equals the column K4's rows placed at the plan
 positions bit for bit (whole and chunked), and K8's segment sum alone over
 them equals K8 over the column rows bit for bit. A K1 call on a corrupted
-ticket workspace fails loudly instead of returning wrong sums. K3 and K7
+ticket workspace fails loudly instead of returning wrong sums. K7's halo
+entry (an RCB part's own rows on its local vector [own | ghosts]) matches
+its plain twin and the whole matrix's rows. K3 and K7
 also run in float64 (their double instances, against the plain versions at
 float64 roundoff), refuse float16 and a CPU vector with a matrix on the
 card, and a repeated step with pc "mg" (geometric multigrid on the
@@ -118,6 +120,7 @@ from dedflow_tpu_torch.sparse.win_gather import win_gather, win_gather_plain
 from dedflow_tpu_torch.sparse.win_kernels import (
     winell_matvec,
     winell_matvec_f64,
+    winell_matvec_halo,
     winell_matvec_plain,
 )
 from dedflow_tpu_torch.fem import heat
@@ -138,7 +141,8 @@ from dedflow_tpu_torch.sparse.win_stream import (
     stream_reduce_staged,
     stream_reduce_staged_plain,
 )
-from dedflow_tpu_torch.sparse.winell import COMP2WIN
+from dedflow_tpu_torch.sparse.winell import COMP2WIN, WinELLMatrixT
+from dedflow_tpu_torch.parallel.partition import part_layout
 from dedflow_tpu_torch.tools import gather_probe as tgp
 from dedflow_tpu_torch.tools import gmicro as tgm
 from torch_meshes import overlaid_mesh
@@ -700,6 +704,35 @@ def test_k7_spmv_matches_plain(irregular):
     ref = winell_matvec_plain(jm, x)
     for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):  # u, p, phi/T equations
         assert rel(got[rows], ref[rows]) < 1e-5
+
+
+def test_k7_halo_entry_matches_plain_and_the_whole_rows(irregular):
+    """K7's halo entry on one RCB part's own rows of the irregular J (their
+    entries cut from the whole matrix, columns in the part's local vector
+    [own | ghosts]): its plain twin, and the whole matrix's product on those
+    rows, at float32 roundoff per equation; the whole-matrix count stays."""
+    solver, state, _, _ = irregular
+    mesh = solver.mesh
+    jm, _ = assemble_system(
+        solver.wctx, solver.face_ctxs, solver.mask_t, *state, solver.cfg.physics, solver.cfg.time
+    )
+    lay = part_layout(mesh, 2, 1)
+    plan = build_context(lay.mesh, None, device="cuda", own=lay.n_own).win_plan
+    key = jm.plan.grow * mesh.num_node + jm.plan.col
+    at = np.searchsorted(key, lay.nodes[plan.grow] * mesh.num_node + lay.nodes[plan.col])
+    part = WinELLMatrixT(vals=jm.vals[:, torch.as_tensor(at, device="cuda")].contiguous(),
+                         plan=plan)
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal((6, mesh.num_node)),
+                        dtype=torch.float32, device="cuda")
+    xl = x[:, torch.as_tensor(lay.nodes, device="cuda")].contiguous()
+    before = winell_matvec.launches
+    got = _twice(lambda: winell_matvec_halo(part, xl), winell_matvec_halo)
+    assert winell_matvec.launches == before
+    ref = winell_matvec_plain(part, xl, xl.shape[1])
+    whole = winell_matvec(jm, x)[:, torch.as_tensor(lay.nodes[: lay.n_own], device="cuda")]
+    for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):  # u, p, phi/T equations
+        assert rel(got[rows], ref[rows]) < 1e-5
+        assert rel(got[rows], whole[rows]) < 1e-5
 
 
 @pytest.fixture(scope="module")

@@ -405,6 +405,13 @@ def _k7():
     return win_kernels.winell_matvec(WinELLMatrixT(torch.zeros((18, 2)), plan), torch.zeros((6, 2)))
 
 
+def _k7_halo():
+    plan = build_winell_plan([0, 1, 2], [0, 1], 2, device="cpu")
+    plan.col_t[1] = 3  # row 1 couples to a ghost column of the (6, 4) local vector
+    return win_kernels.winell_matvec_halo(WinELLMatrixT(torch.zeros((18, 2)), plan),
+                                          torch.zeros((6, 4)))
+
+
 def _k7_f64():
     plan = build_winell_plan([0, 1, 2], [0, 1], 2, device="cpu")
     mat = WinELLMatrixT(torch.zeros((18, 2), dtype=torch.float64), plan)
@@ -631,6 +638,7 @@ def _k13(idiom):
         (_k8_one_row, (win_stream, "seg_reduce_plain")),
         (_k9_one_row, (win_ring, "seg_reduce_plain")),
         (_k3_banded, (dia_kernels, "dia_matvec_banded_plain")),
+        (_k7_halo, (win_kernels, "winell_matvec_plain")),
     ],
     ids=["K6-res", "K6-lhs", "K7", "K7-f64", "K3", "K3-f64", "K8", "K9", "K11", "K4", "K5", "K10", "K1-source",
          "K2-implicit", "K6-lhs-implicit", "K5-implicit", "K12-copy", "K12-lane-smem",
@@ -639,7 +647,7 @@ def _k13(idiom):
          "K6-staged", "K6-staged-implicit", "K5-staged", "K5-staged-implicit",
          "K9-segment-sum", "K4-staged", "K8-segment-sum", "K1c", "K1c-routed", "K2c",
          "K2c-implicit", "K3-wide", "K3-wide-f64", "K1c-two-pass", "K2c-two-pass",
-         "K8-one-row", "K9-one-row", "K3-banded"],
+         "K8-one-row", "K9-one-row", "K3-banded", "K7-halo"],
 )
 def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(
     monkeypatch, tmp_path, call, plain
@@ -710,12 +718,12 @@ def test_one_row_reduces_take_the_one_pass_entry(monkeypatch, rows, symbol):
      (_k2c_two_pass, (lat, "jacobian_volume_two_pass")),
      (_k8_one_row, (win_stream, "stream_reduce")), (_k9_one_row, (win_ring, "ring_reduce")),
      (_k3_banded, (dia_kernels, "dia_matvec_banded")), (_k10_residual, (win_gather, "win_gather")),
-     (_k12_bins, (tgm, "segment_reduce"))],
+     (_k12_bins, (tgm, "segment_reduce")), (_k7_halo, (win_kernels, "winell_matvec_halo"))],
     ids=["K4", "K5", "K10", "K12-copy", "K12-lane", "K12-window", "K12-reduce", "K13",
          "K6-staged", "K5-staged", "K9-segment-sum", "K4-staged", "K8-segment-sum",
          "K7-f64", "K3-f64", "K1c", "K2c", "K2c-implicit", "K3-wide", "K3-wide-f64",
          "K1c-two-pass", "K2c-two-pass", "K8-one-row", "K9-one-row", "K3-banded",
-         "K10-residual", "K12-reduce-bins"],
+         "K10-residual", "K12-reduce-bins", "K7-halo"],
 )
 def test_cpu_tensors_count_no_launch(call, counter):
     """On CPU tensors the wrappers run their plain twins and count nothing

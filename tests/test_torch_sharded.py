@@ -1,13 +1,14 @@
-"""dedflow_tpu_torch's multi-device path (ROADMAP A16, first slice) on gloo
-ranks on the CPU, float64.
+"""dedflow_tpu_torch's multi-device path (ROADMAP A16, the z-slab and RCB
+modes) on gloo ranks on the CPU, float64.
 
-A box cut into z-slabs over 2 and 3 ranks (parallel.sharded.ShardedNSSolver):
-one spawn per world size (a module fixture) runs every case on the ranks
+parallel.sharded.ShardedNSSolver on 2 and 3 ranks: one spawn per world
+size (a module fixture; in turns, in the background, while this
+process builds its references) runs every case on the ranks
 (tests/torch_sharded_ranks.py) and writes the gathered arrays to a file;
 the cases below are asserts on it, against the port's one-process solver
 and the JAX package's one-device functions (which tests/test_sharding.py
-holds equal to its shard_map functions), relative error max|got - ref| /
-max|ref|:
+holds equal to its sharded solver), relative error max|got - ref| /
+max|ref|. A box cut into z-slabs:
 
 - F, J (DIA data and scal rows: masked, with the facet band of the weak
   z+ wall on the last rank) at 1e-12, and the same with a weak x+ face,
@@ -17,13 +18,30 @@ max|ref|:
   and count, the same count and residual history on every rank;
 - step_fixed(num_newton=2) and step within 1e-9 of the JAX one-device
   step, with equal Newton and Krylov counts;
-- the CLI's --devices run writes the one-process run's snapshots; the
-  dry run's step; dryrun_multichip(2) itself on the CPU.
+- the CLI's --devices run writes the one-process run's snapshots (also
+  with --chunk 64, the RCB mode); the dry run's step in both modes;
+  dryrun_multichip(2) itself on the CPU.
+
+The RCB mode (torch_sharded_ranks.RCB_CASES: a Delaunay mesh, a box on
+"gather" with its weak z+ wall across the parts, the melt pool with its
+source, an assembly chunk, a mixed box on "winell"), against the port's
+one-process gather solver and the JAX one-device gather NSSolver (its
+references jitted once per mesh in a module fixture):
+
+- F, J (each rank's entries mapped to the one-process CSR entries), the
+  K7 halo product and the field-split apply at 1e-12; GMRES at 1e-9 with
+  equal counts; step_fixed(2) and step at 1e-9 with equal Newton and
+  Krylov counts; every rank's histories the same bits;
+- the halo exchange equals the ghosts' own values, moves no more values
+  than the neighbours' ghosts, and no collective that moves a whole vector
+  runs in a step.
 
 Without spawning: the partition functions bit-equal to the JAX package's,
-the z-slab cut, K3's banded plain twin against the whole matrix's rows,
-the refused options, the launcher's failure and timeout paths and the
-kernel build's file lock across two processes.
+the RCB halo plan against the JAX build_halo_plan, the mode choice against
+the JAX constructor's conditions, the z-slab cut, K3's banded and K7's
+halo plain twins against the whole matrix's rows, the refused options,
+the launcher's failure and timeout paths and the kernel build's file lock
+across two processes.
 """
 
 import dataclasses
@@ -31,15 +49,18 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import h5py
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch_sharded_ranks as ranks_mod
-from torch_sharded_ranks import BOX, CLI_STEPS, CONFIGS, case_state, cli_argv, probe_vector
+from torch_sharded_ranks import BOX, CLI_MODES, CLI_STEPS, CONFIGS, RCB_CASES, case_state
+from torch_sharded_ranks import cli_argv, probe_vector, rcb_state
 
 from dedflow_tpu.app.scenarios import box_channel_bcs as j_box_channel_bcs
 from dedflow_tpu.app.scenarios import reference_scenario_config as j_reference_config
@@ -52,16 +73,22 @@ from dedflow_tpu_torch import interop
 from dedflow_tpu_torch.app import main as tmain
 from dedflow_tpu_torch.app.scenarios import reference_initial_state, reference_scenario_config
 from dedflow_tpu_torch.fem.lattice import slab_layers
-from dedflow_tpu_torch.mesh.gen import _KUHN_TETS, box_mesh
-from dedflow_tpu_torch.parallel import launch
+from dedflow_tpu_torch.fem import assembly as tasm
+from dedflow_tpu_torch.mesh import gen as tgen_mod
+from dedflow_tpu_torch.mesh.gen import _KUHN_TETS, box_mesh, delaunay_mesh, mixed_box_mesh
+from dedflow_tpu_torch.parallel import launch, sharded
 from dedflow_tpu_torch.parallel import partition as tpart
 from dedflow_tpu_torch.parallel.dryrun import dryrun_multichip
 from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
+from dedflow_tpu_torch.parallel.spmd import build_halo_plan
 from dedflow_tpu_torch.solver.krylov import gmres as tgmres
 from dedflow_tpu_torch.solver.newton import NSSolver as TNSSolver
-from dedflow_tpu_torch.solver.newton import assemble_system, residual
+from dedflow_tpu_torch.solver.newton import _choose_tier, assemble_system, residual
 from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec_banded_plain, dia_matvec_plain
 from dedflow_tpu_torch.sparse.fsbsr import FSDIAMatrixT
+from dedflow_tpu_torch.sparse.topology import build_sparsity
+from dedflow_tpu_torch.sparse.win_kernels import winell_matvec_plain
+from dedflow_tpu_torch.sparse.winell import WinELLMatrixT
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -81,33 +108,50 @@ def rel(got, ref) -> float:
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
 
 
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory):
+    """{world: (its run, output directory)}: one spawn a world size of gloo
+    ranks running every case (torch_sharded_ranks.scenarios), one after
+    the other in a background thread (at most 3 ranks at once beside the
+    other test workers), so that the ranks run while this process builds
+    its references."""
+    pool = ThreadPoolExecutor(max_workers=1)
+    runs = {}
+    for world in (2, 3):
+        out = tmp_path_factory.mktemp(f"sharded{world}")
+        runs[world] = (pool.submit(launch.spawn, ranks_mod.scenarios, world, "cpu",
+                                   args=(str(out),), timeout=300), out)
+    yield runs
+    pool.shutdown(wait=True)
+
+
 @pytest.fixture(scope="module", params=(2, 3), ids=("w2", "w3"))
-def ranks(request, tmp_path_factory):
-    """(world, gathered arrays, output directory) of one spawn of `world`
-    gloo ranks running every case (torch_sharded_ranks.scenarios)."""
+def ranks(request, spawned, refs, rcb_refs, jax_ref_steps, one_process_cli):
+    """(world, gathered arrays, output directory) of the spawn of `world`
+    ranks; the references are built first, while the ranks run."""
     world = request.param
-    out = tmp_path_factory.mktemp(f"sharded{world}")
-    launch.spawn(ranks_mod.scenarios, world, "cpu", args=(str(out),), timeout=300)
+    run, out = spawned[world]
+    run.result()
     return world, dict(np.load(out / f"w{world}.npz")), out
 
 
-def jax_steps(js, state, num_newton=2):
+def jax_steps(js, state, num_newton=2, source=None):
     """The JAX package's step and step_fixed(num_newton) from its solver's
     jitted pieces, one compile of its Newton iteration serving both
-    (tests/test_torch_classes.py::jax_steps). Returns ((wgold, dwgold,
-    dwg), krylov_iters, newton count) of the adaptive step and the fixed
-    step's three states."""
+    (tests/test_torch_classes.py::jax_steps), with the nodal heat `source`
+    where given. Returns ((wgold, dwgold, dwg), krylov_iters) of the
+    adaptive step and the fixed step's three states."""
     wg, dwo, dwg = (jnp.asarray(a) for a in state)
     c = (js.solve_ctx, js.face_ctxs, js.mask)
     newton = js.cfg.newton
 
     def run(num, adaptive):
         d = js._predict(dwg)
-        f = js._residual(*c, wg, dwo, d)
+        f = js._residual(*c, wg, dwo, d, source=source)
         rnorm0 = js._norms(f) + 1e-16
         kits = []
         for _ in range(num):
-            d, f, rn, kit, _ = js._newton_iter(*c, wg, dwo, d, f)
+            d, f, rn, kit, _ = js._newton_iter(*c, wg, dwo, d, f, source=source)
             kits.append(int(kit))
             if adaptive and bool(jnp.all((rn < newton.rtol * rnorm0) | (rn < newton.atol))):
                 break
@@ -265,19 +309,31 @@ def _h5_datasets(path: Path) -> dict:
 
 @pytest.fixture(scope="module")
 def one_process_cli(tmp_path_factory):
-    out = tmp_path_factory.mktemp("cli1")
-    assert tmain.main(cli_argv(1, str(out))) == 0
-    return out
+    """The one-process CLI's run directory of each mode's arguments."""
+    runs = {}
+    for mode in CLI_MODES:
+        runs[mode] = tmp_path_factory.mktemp(f"cli1_{mode}")
+        assert tmain.main(cli_argv(1, str(runs[mode]), mode)) == 0
+    return runs
 
 
 def test_cli_devices_writes_the_one_process_snapshots(ranks, one_process_cli):
     """--devices N: rank 0 writes sol.0 .. sol.<steps> from the gathered
     state, with the one-process run's datasets and values."""
+    _check_cli_run(ranks, one_process_cli["slab"], "")
+
+
+def test_cli_devices_rcb_writes_the_one_process_snapshots(ranks, one_process_cli):
+    """The same with --chunk 64: every rank takes the RCB mode."""
+    _check_cli_run(ranks, one_process_cli["rcb"], "_rcb")
+
+
+def _check_cli_run(ranks, ref_dir, tag: str) -> None:
     world, got, out = ranks
-    assert int(got["cli_rc"]) == 0
+    assert int(got[f"cli{tag}_rc"]) == 0
     for step in range(CLI_STEPS + 1):
-        ref = _h5_datasets(one_process_cli / f"sol.{step}.h5")
-        sharded = _h5_datasets(out / f"cli{world}" / f"sol.{step}.h5")
+        ref = _h5_datasets(ref_dir / f"sol.{step}.h5")
+        sharded = _h5_datasets(out / f"cli{world}{tag}" / f"sol.{step}.h5")
         assert sorted(sharded) == sorted(ref)
         for key, r in ref.items():
             if np.asarray(r).dtype.kind == "f":
@@ -285,14 +341,14 @@ def test_cli_devices_writes_the_one_process_snapshots(ranks, one_process_cli):
                     sharded[key], r), key
             else:
                 assert np.array_equal(sharded[key], r), key
-    recs = [json.loads(ln) for ln in (out / f"cli{world}" / "metrics.jsonl").read_text()
+    recs = [json.loads(ln) for ln in (out / f"cli{world}{tag}" / "metrics.jsonl").read_text()
             .splitlines()]
     assert [r["step"] for r in recs] == list(range(1, CLI_STEPS + 1))
     assert all(r["ranks"] == world and r["backend"] == "gloo" for r in recs)
 
 
-def _one_process_fixed(mesh):
-    ts = TNSSolver(mesh, reference_scenario_config(), device="cpu")
+def _one_process_fixed(mesh, **overrides):
+    ts = TNSSolver(mesh, reference_scenario_config(**overrides), device="cpu")
     state = interop.state_from_numpy(*reference_initial_state(mesh), device="cpu")
     return [t.numpy() for t in ts.step_fixed(*state, num_newton=2)]
 
@@ -304,11 +360,196 @@ def test_dryrun_body_matches_one_process(ranks):
         assert rel(got[f"dryrun_{key}"], r) < 1e-9, key
 
 
+def test_dryrun_rcb_body_matches_one_process(ranks):
+    """The dry run's RCB mode: the same box on use_lattice "gather"."""
+    world, got, _ = ranks
+    ref = _one_process_fixed(box_mesh(3, 3, 2 * world), use_lattice="gather")
+    for key, r in zip(("wgold", "dwgold", "dwg"), ref):
+        assert rel(got[f"dryrun_rcb_{key}"], r) < 1e-9, key
+
+
 def test_dryrun_multichip_on_the_cpu():
     """The public dry run: its own 2 gloo ranks, box_mesh(3, 3, 4)."""
     got = dryrun_multichip(2, device="cpu", timeout=120)
     for g, r in zip(got, _one_process_fixed(box_mesh(3, 3, 4))):
         assert rel(g, r) < 1e-9
+
+
+# ---------------------------------------------------------------------------
+# the RCB mode (rcb_scenarios in the same spawn)
+
+RCB_NAMES = list(RCB_CASES)
+
+
+def _jax_mesh(m):
+    """The JAX package's copy of a port mesh (the same arrays)."""
+    from dedflow_tpu.mesh.mesh import Boundary as JBoundary
+    from dedflow_tpu.mesh.mesh import Mesh as JMesh
+
+    return JMesh(xg=m.xg.copy(), ien=m.ien.copy(),
+                 boundaries=[JBoundary(b.nodes.copy(), b.ien.copy(), b.f2e.copy(), b.forn.copy())
+                             for b in m.boundaries],
+                 lattice=m.lattice, ien_prism=m.ien_prism, ien_hex=m.ien_hex)
+
+
+def _jax_config(cfg, path):
+    """The JAX package's copy of a port configuration (through its JSON)."""
+    from dedflow_tpu import config as jcfg
+    from dedflow_tpu_torch import config as tcfg
+
+    tcfg.save_config(cfg, str(path))
+    return jcfg.load_config(str(path))
+
+
+@pytest.fixture(scope="module")
+def rcb_refs(tmp_path_factory):
+    """Per RCB case, on its mesh in its own node order: the port's
+    one-process gather solver and the JAX one-device gather NSSolver (its
+    residual, assembly and Newton iteration, and here its product with the
+    field-split apply and its GMRES, each jitted once); their F, J on the
+    port's CSR entries, product, field-split apply and GMRES at the case's
+    state, and the JAX steps."""
+    from dedflow_tpu.solver.krylov import gmres as jgmres
+    from dedflow_tpu.solver.newton import NSSolver as JSolver
+
+    out = {}
+    for name, (make_mesh, make_cfg, melt) in RCB_CASES.items():
+        mesh, cfg = make_mesh(), dataclasses.replace(make_cfg(), use_lattice="gather")
+        ts = TNSSolver(mesh, cfg, device="cpu")
+        js = JSolver(_jax_mesh(mesh), _jax_config(cfg, tmp_path_factory.mktemp(name) / "c.json"))
+        assert ts.fastpath == js.fastpath == "gather"
+        wg, dwo, dwg, src = rcb_state(mesh, melt)
+        tst = interop.state_from_numpy(wg, dwo, dwg, device="cpu")
+        tsrc = None if src is None else torch.as_tensor(src)
+        f = residual(ts.solve_ctx, ts.face_ctxs, ts.mask_t, *tst, cfg.physics, cfg.time,
+                     cfg.freeze_phi_temperature, None, tsrc)
+        jm, pc = assemble_system(ts.solve_ctx, ts.face_ctxs, ts.mask_t, *tst, cfg.physics,
+                                 cfg.time, cfg.implicit_scalars)
+        x = torch.as_tensor(probe_vector(mesh.num_node))
+        sol = tgmres(jm.matvec_t, f, maxit=120, atol=1e-12, rtol=1e-6, pc=pc)
+        c, jstate = (js.solve_ctx, js.face_ctxs, js.mask), [jnp.asarray(a) for a in (wg, dwo, dwg)]
+        jsrc = None if src is None else jnp.asarray(src)
+        jf = js._residual(*c, *jstate, source=jsrc)
+        jj, jpc = js._assemble_system(*c, *jstate)
+        sparsity = build_sparsity(mesh.ien, mesh.num_node, extra_ien=mesh.extra_cells)
+        jvals = interop.fsbsr_from_numpy(np.asarray(jj.data), sparsity, jm.plan).vals.numpy()
+        xj = jnp.asarray(x.numpy().T)
+        jax_ax, jax_px = jax.jit(lambda v: (jj.matvec(v), jpc(v)))(xj)
+        jsol = jax.jit(lambda b: jgmres(jj.matvec, b, maxit=120, atol=1e-12, rtol=1e-6,
+                                        pc=jpc))(jf)
+        out[name] = dict(
+            mesh=mesh, port_F=f.numpy().T, jax_F=np.asarray(jf), port_J=jm.vals.numpy(),
+            jax_J=jvals, plan=jm.plan, port_Ax=jm.matvec_t(x).numpy().T,
+            jax_Ax=np.asarray(jax_ax), port_Px=pc(x).numpy().T, jax_Px=np.asarray(jax_px),
+            port_gmres_x=sol.x.numpy().T, port_gmres_iters=sol.iters,
+            jax_gmres_x=np.asarray(jsol.x), jax_gmres_iters=int(jsol.iters),
+            jax_steps=jax_steps(js, (wg, dwo, dwg), source=jsrc),
+        )
+    return out
+
+
+def _rcb_J(got: dict, name: str, world: int, plan) -> tuple:
+    """The ranks' entries placed on the one-process CSR entries: (18, S)
+    values and which entries a rank holds (each at most once)."""
+    keys = plan.grow * plan.num_node + plan.col
+    vals, held = np.zeros((18, plan.S)), np.zeros(plan.S, dtype=bool)
+    for r in range(world):
+        k = got[f"rcb_{name}_rank{r}_keys"]
+        at = np.searchsorted(keys, k)
+        assert np.array_equal(keys[at], k), "an entry outside the one-process pattern"
+        assert not held[at].any(), "an entry on two ranks"
+        vals[:, at], held[at] = got[f"rcb_{name}_rank{r}_vals"], True
+    return vals, held
+
+
+@pytest.mark.parametrize("name", RCB_NAMES)
+def test_rcb_residual_matches_one_process_and_jax(ranks, rcb_refs, name):
+    _, got, _ = ranks
+    ref = rcb_refs[name]
+    assert rel(got[f"rcb_{name}_F"], ref["port_F"]) < 1e-12
+    assert rel(got[f"rcb_{name}_F"], ref["jax_F"]) < 1e-12
+
+
+@pytest.mark.parametrize("name", RCB_NAMES)
+def test_rcb_jacobian_matches_one_process_and_jax(ranks, rcb_refs, name):
+    """Each own row's entries on exactly one rank, masked, with the facet
+    blocks; the one-process pattern's other entries (a mixed mesh's prism /
+    hex stencil) are zeros there too."""
+    world, got, _ = ranks
+    ref = rcb_refs[name]
+    vals, held = _rcb_J(got, name, world, ref["plan"])
+    assert rel(vals, ref["port_J"]) < 1e-12
+    assert rel(vals, ref["jax_J"]) < 1e-12
+    assert held.all() != (name == "mixed")
+    assert not ref["port_J"][:, ~held].any()
+
+
+@pytest.mark.parametrize("what", ["Ax", "Px"])
+@pytest.mark.parametrize("name", RCB_NAMES)
+def test_rcb_product_and_preconditioner_match(ranks, rcb_refs, name, what):
+    """K7's halo entry (plain twin: the ghosts exchanged, then the own
+    rows' product) and the field-split apply (node-local)."""
+    _, got, _ = ranks
+    ref = rcb_refs[name]
+    assert rel(got[f"rcb_{name}_{what}"], ref[f"port_{what}"]) < 1e-12
+    assert rel(got[f"rcb_{name}_{what}"], ref[f"jax_{what}"]) < 1e-12
+
+
+@pytest.mark.parametrize("name", RCB_NAMES)
+def test_rcb_gmres_matches_one_process(ranks, rcb_refs, name):
+    """GMRES on the halo operator against the port's one-process solve and
+    the JAX package's gmres at the same f, field-split PC and settings."""
+    _, got, _ = ranks
+    ref = rcb_refs[name]
+    iters = int(got[f"rcb_{name}_rank0_gmres_iters"])
+    assert iters == ref["port_gmres_iters"] == ref["jax_gmres_iters"] > 0
+    assert rel(got[f"rcb_{name}_gmres_x"], ref["port_gmres_x"]) < 1e-9
+    assert rel(got[f"rcb_{name}_gmres_x"], ref["jax_gmres_x"]) < 1e-9
+
+
+@pytest.mark.parametrize("name", RCB_NAMES)
+def test_rcb_step_fixed_matches_jax(ranks, rcb_refs, name):
+    _, got, _ = ranks
+    ref = rcb_refs[name]["jax_steps"][1]
+    for key, r in zip(("wgold", "dwgold", "dwg"), ref):
+        assert rel(got[f"rcb_{name}_fixed_{key}"], r) < 1e-9, key
+
+
+@pytest.mark.parametrize("name", RCB_NAMES)
+def test_rcb_step_matches_jax(ranks, rcb_refs, name):
+    _, got, _ = ranks
+    (ref, kits), _ = rcb_refs[name]["jax_steps"]
+    for key, r in zip(("wgold", "dwgold", "dwg"), ref):
+        assert rel(got[f"rcb_{name}_step_{key}"], r) < 1e-9, key
+    assert got[f"rcb_{name}_rank0_step_krylov"].tolist() == kits
+    assert len(got[f"rcb_{name}_rank0_step_rnorms"]) == len(kits)
+
+
+@pytest.mark.parametrize("name", RCB_NAMES)
+def test_rcb_ranks_share_the_krylov_path_and_exchange_ghosts_only(ranks, name):
+    """Every rank took the RCB mode on the gather tier; its iteration counts
+    and residual histories are the same bits; the halo exchange filled the
+    ghosts with their owners' values, the ranks sent as many values as
+    they hold ghosts (each ghost filled once, by its owner), no rank holds
+    every other rank's nodes, and no collective that moves a whole vector
+    ran in the step (test_halo_plan_moves_surface_values checks the sizes
+    on larger meshes)."""
+    world, got, _ = ranks
+    n = RCB_CASES[name][0]().num_node
+    at = lambda r, k: got[f"rcb_{name}_rank{r}_{k}"]
+    keys = ("gmres_iters", "gmres_rhist", "step_krylov", "step_rnorms", "step_converged")
+    for r in range(world):
+        assert str(at(r, "mode")) == "rcb" and str(at(r, "fastpath")) == "gather"
+        assert bool(at(r, "halo_ok")) and int(at(r, "whole_vector_calls")) == 0
+        for k in keys:
+            assert np.array_equal(at(r, k), at(0, k)), (r, k)
+        assert int(at(r, "sent_values")) > 0
+        assert int(at(r, "n_ghost")) < n - int(at(r, "n_own"))
+        assert int(at(r, "exchanges")) > 0 and int(at(r, "allreduces")) > 0
+    assert sum(int(at(r, "n_own")) for r in range(world)) == n
+    # every value sent fills one ghost slot, and each ghost is filled once
+    assert sum(int(at(r, "sent_values")) for r in range(world)) == sum(
+        int(at(r, "n_ghost")) for r in range(world))
 
 
 # ---------------------------------------------------------------------------
@@ -388,11 +629,11 @@ def test_banded_product_is_the_whole_matrix_rows():
 @pytest.mark.parametrize(
     "overrides,item",
     [
-        (dict(use_lattice="gather"), "A16 \\(b'\\)"),
-        (dict(use_lattice="winell"), "A16 \\(b'\\)"),
-        (dict(assembly_chunk=64), "A16 \\(b'\\)"),
-        (dict(use_lattice="off"), "A16 \\(b'\\)"),
-        (dict(implicit_scalars=True), "A16 \\(b'\\)"),
+        (dict(use_lattice="gather"), "rcb"),
+        (dict(use_lattice="winell"), "rcb"),
+        (dict(assembly_chunk=64), "rcb"),
+        (dict(use_lattice="off"), "A16 \\(b''\\)"),
+        (dict(implicit_scalars=True), "rcb"),
         (dict(krylov_pc="mg"), "A16 \\(d'\\)"),
         (dict(krylov_pc="simple"), "A16 \\(d'\\)"),
         (dict(krylov_precision="f64"), "A16 \\(d'\\)"),
@@ -400,12 +641,14 @@ def test_banded_product_is_the_whole_matrix_rows():
         (dict(lag_jacobian=True), "A16 \\(d'\\)"),
         (dict(lattice_backend="xla"), "A9"),
     ],
-    ids=["gather", "winell", "chunk", "classes", "implicit", "pc-mg", "pc-simple", "f64", "ir",
-         "lagged", "lattice-backend"],
+    ids=["gather-runs-rcb", "winell-runs-rcb", "chunk-runs-rcb", "classes-b2", "implicit-runs-rcb",
+         "pc-mg", "pc-simple", "f64", "ir", "lagged", "lattice-backend"],
 )
 def test_options_outside_the_slice_raise(overrides, item):
     """Nothing silently runs one process: each option ShardedNSSolver does
-    not take raises before any rank communicates."""
+    not take raises before any rank communicates, naming its ROADMAP item;
+    "gather", "winell", an assembly chunk and implicit_scalars take the RCB
+    mode (the spawned cases run them)."""
     from dedflow_tpu_torch import config as tcfg
 
     cfg = reference_scenario_config()
@@ -415,6 +658,9 @@ def test_options_outside_the_slice_raise(overrides, item):
     if overrides.pop("lag_jacobian", False):
         cfg = dataclasses.replace(cfg, newton=tcfg.NewtonConfig(lag_jacobian=True))
     cfg = dataclasses.replace(cfg, **overrides)
+    if item == "rcb":
+        assert sharded._refuse_unported(box_mesh(2, 2, 4), cfg) == "rcb"
+        return
     with pytest.raises(NotImplementedError, match=item):
         ShardedNSSolver(box_mesh(2, 2, 4), cfg, device="cpu")
 
@@ -422,9 +668,12 @@ def test_options_outside_the_slice_raise(overrides, item):
 @pytest.mark.parametrize("make_mesh", [
     lambda: _without_lattice(box_mesh(2, 2, 4)),
     lambda: _with_tets(box_mesh(2, 2, 4), _KUHN_TETS[::-1].copy()),
-], ids=["no-lattice", "other-split"])
+], ids=["no-lattice-classes-b2", "other-split-b2"])
 def test_meshes_outside_the_slice_raise(make_mesh):
-    with pytest.raises(NotImplementedError, match="A16 \\(b'\\)"):
+    """A box without its lattice metadata (the classes tier) and a lattice
+    of another tet split: the JAX lattice mode's meshes that the z-slab
+    path does not take yet."""
+    with pytest.raises(NotImplementedError, match="A16 \\(b''\\)"):
         ShardedNSSolver(make_mesh(), reference_scenario_config(), device="cpu")
 
 
@@ -436,6 +685,130 @@ def _without_lattice(mesh):
 def _with_tets(mesh, tets):
     mesh.lattice_tets = tets
     return mesh
+
+
+MODE_MESHES = {
+    "box": lambda: box_mesh(2, 2, 4),
+    "no-lattice": lambda: _without_lattice(box_mesh(2, 2, 4)),
+    "other-split": lambda: _with_tets(box_mesh(2, 2, 4), _KUHN_TETS[::-1].copy()),
+    "mixed": lambda: mixed_box_mesh(2, 2, 3),
+    "delaunay": lambda: delaunay_mesh(60, seed=2),
+}
+MODE_OPTIONS = {"auto": {}, "gather": dict(use_lattice="gather"),
+                "winell": dict(use_lattice="winell"), "off": dict(use_lattice="off"),
+                "on": dict(use_lattice="on"), "chunk": dict(assembly_chunk=32),
+                "implicit": dict(implicit_scalars=True)}
+
+
+@pytest.mark.parametrize("option", list(MODE_OPTIONS))
+@pytest.mark.parametrize("mesh_name", list(MODE_MESHES))
+def test_sharded_mode_matches_the_jax_constructor(mesh_name, option):
+    """The mode against the JAX ShardedNSSolver's conditions
+    (dedflow_tpu/parallel/sharded.py:121-150): its lattice mode takes a mesh
+    only if `use_lattice` is not "gather", there is no chunk and no
+    implicit_scalars, the mesh has lattice metadata (not under "off") or
+    the JAX detect_delta_classes finds translation classes on a tets-only
+    mesh, and the one-device solver then lands on a lattice context
+    (fastpath "lattice" or "classes": the tier that solver.newton's
+    _choose_tier picks, which test_torch_mixed.py and test_torch_mesh_io.py
+    hold equal to the JAX solver's per use_lattice mode). Every other mesh
+    takes the RCB mode."""
+    from dedflow_tpu.fem.lattice import detect_delta_classes as jdetect
+
+    mesh = MODE_MESHES[mesh_name]()
+    cfg = reference_scenario_config(**MODE_OPTIONS[option])
+    maybe_fast = (cfg.use_lattice != "gather" and cfg.assembly_chunk is None
+                  and not cfg.implicit_scalars)
+    regular = (mesh.lattice is not None and cfg.use_lattice != "off") or (
+        not mesh.extra_cells and jdetect(np.asarray(mesh.ien)) is not None)
+    if maybe_fast and regular:
+        try:
+            lattice_ctx = _choose_tier(mesh, cfg) in ("lattice", "classes")
+        except ValueError:  # use_lattice "on" off its stencil: both constructors raise
+            with pytest.raises(ValueError, match="use_lattice='on'"):
+                sharded.sharded_mode(mesh, cfg)
+            return
+    expected = "slab" if maybe_fast and regular and lattice_ctx else "rcb"
+    assert sharded.sharded_mode(mesh, cfg) == expected
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("mesh_name", ["delaunay", "box"])
+def test_halo_plan_matches_jax_build_halo_plan(mesh_name, parts):
+    """On the same partition, each rank's sends to each other rank are the
+    JAX plan's send table row of that hop (sender-local indices, ascending,
+    then the table's zero padding), and the receiver's ghost block from
+    that rank has the same length; ranks the JAX plan does not pair
+    exchange nothing."""
+    from dedflow_tpu.mesh import gen as jgen
+    from dedflow_tpu.parallel.spmd import build_halo_plan as jbuild_halo_plan
+    from dedflow_tpu.sparse import topology as jtop
+
+    make = {"delaunay": lambda g: g.delaunay_mesh(500, seed=7), "box": lambda g: g.box_mesh(5, 4, 6)}
+    tmesh, jmesh = make[mesh_name](tgen_mod), make[mesh_name](jgen)
+    pmesh, _ = jpart.partition_mesh(jmesh, parts)
+    ell_col = jtop.build_sparsity(pmesh.ien, pmesh.num_node, native=False).ell_tables()[0]
+    hops, send_idx, _, _ = jbuild_halo_plan(ell_col, parts)
+    lays = [tpart.part_layout(tmesh, parts, r) for r in range(parts)]
+    plans = [build_halo_plan(tmesh.ien, lay) for lay in lays]
+    paired = set()
+    for s_hop in hops:
+        tbl = np.asarray(send_idx[s_hop])
+        for src in range(parts):
+            dst = src - s_hop
+            if not 0 <= dst < parts:
+                continue
+            ours = plans[src].send.get(dst, np.zeros(0, dtype=np.int64))
+            assert np.array_equal(tbl[src, : ours.size], ours), (s_hop, src)
+            assert not tbl[src, ours.size :].any(), (s_hop, src)
+            lo, hi = plans[dst].recv.get(src, (0, 0))
+            assert hi - lo == ours.size
+            paired.add((src, dst))
+    for r, plan in enumerate(plans):
+        assert {(r, q) for q in plan.send} <= paired
+        assert (plan.n_own, plan.n_x) == (lays[r].n_own, lays[r].mesh.num_node)
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_halo_plan_moves_surface_values(parts):
+    """On a 16^3 box, each rank receives exactly its ghosts (one exchange
+    fills them, by block), the ranks send exactly as many values as they
+    receive, and a rank's ghosts are a few node layers of the cuts (under 3
+    layers of 17 x 17 a neighbour), not the other ranks' nodes."""
+    mesh = box_mesh(16, 16, 16)
+    layer = 17 * 17
+    plans = [build_halo_plan(mesh.ien, tpart.part_layout(mesh, parts, r)) for r in range(parts)]
+    for plan in plans:
+        blocks = sorted(plan.recv.values())
+        assert blocks[0][0] == 0 and blocks[-1][1] == plan.n_ghost
+        assert all(a[1] == b[0] for a, b in zip(blocks, blocks[1:]))
+        assert plan.n_ghost <= 3 * layer * len(plan.recv)
+        assert plan.n_ghost < (mesh.num_node - plan.n_own) / 2
+    assert sum(i.size for p in plans for i in p.send.values()) == sum(p.n_ghost for p in plans)
+
+
+def test_halo_product_is_the_whole_matrix_rows():
+    """K7's halo plain twin on a part's own rows, x its local vector
+    [own | ghosts], equals the whole matrix's product on those rows to
+    roundoff (a row's entries are summed in its local column order)."""
+    mesh = delaunay_mesh(300, seed=4)
+    ts = TNSSolver(mesh, reference_scenario_config(bcs=(), pin_pressure=True), device="cpu")
+    state = interop.state_from_numpy(*case_state(mesh), device="cpu")
+    jm, _ = assemble_system(ts.solve_ctx, ts.face_ctxs, ts.mask_t, *state, ts.cfg.physics,
+                            ts.cfg.time)
+    x = torch.as_tensor(probe_vector(mesh.num_node))
+    whole = winell_matvec_plain(jm, x)
+    lay = tpart.part_layout(mesh, 2, 1)
+    sub = lay.mesh
+    own = tasm.build_context(sub, None, device="cpu", own=lay.n_own)
+    rows, cols = lay.nodes[own.win_plan.grow], lay.nodes[own.win_plan.col]
+    key = jm.plan.grow * mesh.num_node + jm.plan.col
+    at = torch.as_tensor(np.searchsorted(key, rows * mesh.num_node + cols))
+    part = WinELLMatrixT(vals=jm.vals[:, at].contiguous(), plan=own.win_plan)
+    got = winell_matvec_plain(part, x[:, lay.nodes].contiguous(), sub.num_node)
+    assert rel(got.numpy(), whole[:, lay.nodes[: lay.n_own]].numpy()) < 1e-14
+    with pytest.raises(ValueError, match="expected"):
+        winell_matvec_plain(part, x[:, lay.nodes].contiguous())
 
 
 def test_coupled_devices_raises_a16c(tmp_path):

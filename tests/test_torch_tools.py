@@ -26,7 +26,10 @@ import sys
 import types
 from pathlib import Path
 
+from functools import partial
+
 import h5py
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -201,8 +204,9 @@ def test_cli_steps_a_converted_mixed_mesh(tmp_path, capsys, meshio_standin):
 
 def test_residual_check_assembles_the_jax_tools_system(tmp_path, capsys):
     """J and F as the JAX tool assembles them on its host (NSSolver +
-    build_lattice_context(rows_backend="xla"), float64), 1e-12; the solves
-    pass the bar; main prints and writes one line."""
+    build_lattice_context(rows_backend="xla"), float64; its functions
+    jitted, one compile each), 1e-12; the solves pass the bar; main prints
+    and writes one line."""
     n = 4
     j, f, mesh = residual_check.assemble_f64(n)
     jmesh = jgen.box_mesh(n, n, n)
@@ -211,9 +215,11 @@ def test_residual_check_assembles_the_jax_tools_system(tmp_path, capsys):
     lctx = build_lattice_context(jmesh, dtype=jnp.float64, rows_backend="xla")
     wa, dwa = jns.alpha_states(*(jnp.asarray(a) for a in jsc.reference_initial_state(jmesh)),
                                cfg.time)
-    args = (lctx, js.face_ctxs, js.mask, wa, dwa, cfg.physics, cfg.time)
-    assert rel(f.numpy(), np.asarray(assemble_residual_t(*args))) < 1e-12
-    assert rel(j.to_block_dense(), assemble_jacobian_t(*args).to_block_dense()) < 1e-12
+    args = (lctx, js.face_ctxs, js.mask, wa, dwa)
+    kw = dict(phys=cfg.physics, scheme=cfg.time)
+    assert rel(f.numpy(), np.asarray(jax.jit(partial(assemble_residual_t, **kw))(*args))) < 1e-12
+    assert rel(j.to_block_dense(),
+               jax.jit(partial(assemble_jacobian_t, **kw))(*args).to_block_dense()) < 1e-12
     out = tmp_path / "res.json"
     assert residual_check.main([str(n), "--device", "cpu", "--out", str(out)]) == 0
     line = capsys.readouterr().out.strip()

@@ -2,7 +2,8 @@
 the CPU (no JAX here, so that a rank imports only torch and the port).
 
 `scenarios(device, out_dir)` runs every sharded case once on the ranks of
-one process group and rank 0 writes the gathered arrays to
+one process group, the z-slab cases and then the RCB cases (`RCB_CASES`,
+`rcb_scenarios`), and rank 0 writes the gathered arrays to
 out_dir/w<world>.npz; the test module's cases are asserts on that file.
 """
 
@@ -17,9 +18,10 @@ import torch.distributed as dist
 
 from dedflow_tpu_torch.app import main as tmain
 from dedflow_tpu_torch.app.scenarios import box_channel_bcs, reference_scenario_config
-from dedflow_tpu_torch.app.scenarios import reference_initial_state
+from dedflow_tpu_torch.app.scenarios import laser_source, melt_pool_initial_state
+from dedflow_tpu_torch.app.scenarios import melt_pool_scenario_config, reference_initial_state
 from dedflow_tpu_torch.config import BCSpec
-from dedflow_tpu_torch.mesh.gen import box_mesh
+from dedflow_tpu_torch.mesh.gen import box_mesh, delaunay_mesh, mixed_box_mesh
 from dedflow_tpu_torch.parallel import dryrun
 from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
 from dedflow_tpu_torch.solver.krylov import gmres
@@ -52,10 +54,137 @@ def probe_vector(num_node: int) -> np.ndarray:
     return np.random.default_rng(SEED + 1).standard_normal((6, num_node))
 
 
-def cli_argv(devices: int, out: str) -> list:
+# The RCB mode's cases: name -> (mesh, configuration, melt pool). Each
+# mesh is one the JAX ShardedNSSolver RCB-partitions (its
+# tests/test_sharding.py:77-110 Delaunay mesh, a box forced to gather whose
+# weak z+ facets cross the parts, the melt pool with its source, an
+# assembly chunk, a mixed box on use_lattice "winell").
+RCB_CASES = {
+    "delaunay": (lambda: delaunay_mesh(500, seed=7),
+                 lambda: reference_scenario_config(bcs=(), pin_pressure=True), False),
+    "gather": (lambda: box_mesh(5, 4, 6), lambda: reference_scenario_config(use_lattice="gather"),
+               False),
+    "melt": (lambda: box_mesh(4, 4, 4), lambda: melt_pool_scenario_config(use_lattice="gather"),
+             True),
+    "chunk": (lambda: box_mesh(*BOX), lambda: reference_scenario_config(assembly_chunk=64), False),
+    "mixed": (lambda: mixed_box_mesh(3, 3, 4, prism_layers=1),
+              lambda: reference_scenario_config(use_lattice="winell"), False),
+}
+MELT_T = 0.05  # the laser's time for the melt case's source
+
+
+def rcb_state(mesh, melt: bool):
+    """(wgold, dwgold, dwg, source or None) of an RCB case (numpy)."""
+    if not melt:
+        return (*case_state(mesh), None)
+    wg, dwgold, dwg = melt_pool_initial_state(mesh)
+    rng = np.random.default_rng(SEED)
+    dwg = dwg + 0.1 * rng.standard_normal(dwg.shape)
+    src = laser_source(melt_pool_scenario_config().physics.laser, mesh.xg, MELT_T)
+    return wg + 0.05 * rng.standard_normal(wg.shape), dwgold, dwg, src
+
+
+def global_keys(s) -> np.ndarray:
+    """row * N + column of each of the rank's matrix entries, in the
+    mesh's node order."""
+    plan = s.gctx.win_plan
+    return s.own[plan.grow] * s.mesh.num_node + s.layout.nodes[plan.col]
+
+
+class NoWholeVector:
+    """A context in which every torch.distributed collective that moves a
+    whole vector (all_gather, gather, broadcast, scatter and their object
+    forms) raises; `calls` counts the attempts."""
+
+    NAMES = ("all_gather", "all_gather_into_tensor", "all_gather_object", "gather",
+             "gather_object", "broadcast", "broadcast_object_list", "scatter", "all_to_all",
+             "all_to_all_single", "reduce_scatter", "reduce_scatter_tensor")
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        self.saved = {n: getattr(dist, n) for n in self.NAMES if hasattr(dist, n)}
+
+        def refuse(*a, **k):
+            self.calls += 1
+            raise AssertionError("a collective that moves a whole vector ran on the RCB path")
+
+        for n in self.saved:
+            setattr(dist, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(dist, n, f)
+
+
+def rcb_scenarios(device: str, out: dict) -> None:
+    """Every RCB case on this process group: F, J (each rank's entries with
+    their global keys), the K7 halo product, the field-split apply, the
+    halo exchange against the ghosts' own values, GMRES, step_fixed(2) and
+    step, the step with every whole-vector collective refused; rank 0 adds
+    the gathered arrays to `out`."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    for name, (make_mesh, make_cfg, melt) in RCB_CASES.items():
+        mesh, cfg = make_mesh(), make_cfg()
+        s = ShardedNSSolver(mesh, cfg, device=device)
+        wg, dwgold, dwg, src = rcb_state(mesh, melt)
+        state = [s.shard_state(a) for a in (wg, dwgold, dwg)]
+        source = None if src is None else s.shard_nodal(src)
+        phys, scheme = cfg.physics, cfg.time
+
+        def gather(t, key):
+            full = s.gather_state(t)
+            if rank == 0:
+                out[f"rcb_{name}_{key}"] = full
+
+        f = s.residual(*state, source=source)
+        gather(f.T, "F")
+        jm, pc = assemble_system(s.pctx, s.face_ctxs, s.mask_t, *state, phys, scheme,
+                                 cfg.implicit_scalars)
+        x = s.shard_state(probe_vector(mesh.num_node).T).T.contiguous()
+        gather(jm.matvec_t(x).T, "Ax")
+        gather(pc(x).T, "Px")
+        ghosts = s.shard_nodal(probe_vector(mesh.num_node).T, ghosts=True).T
+        halo_ok = bool(torch.equal(s.comm.exchange(x), ghosts))
+        sol = gmres(jm.matvec_t, f, maxit=120, atol=1e-12, rtol=1e-6, pc=pc,
+                    allreduce=s.comm.allreduce_sum)
+        gather(sol.x.T, "gmres_x")
+        for key, t in zip(("wgold", "dwgold", "dwg"),
+                          s.step_fixed(*state, num_newton=2, source=source)):
+            gather(t, f"fixed_{key}")
+        s.comm.stats.reset()
+        with NoWholeVector() as guard:
+            *new, stats = s.step(*state, source=source)
+        st = s.comm.stats
+        for key, t in zip(("wgold", "dwgold", "dwg"), new):
+            gather(t, f"step_{key}")
+        plan = s.comm.plan
+        hist = {"mode": s.mode, "fastpath": s.fastpath, "keys": global_keys(s),
+                "vals": jm.vals.numpy(), "halo_ok": halo_ok, "gmres_iters": sol.iters,
+                "gmres_rhist": sol.rhist.numpy(), "step_krylov": np.asarray(stats.krylov_iters),
+                "step_rnorms": np.stack(stats.rnorms), "step_converged": stats.converged,
+                "n_own": plan.n_own, "n_ghost": plan.n_ghost,
+                "sent_values": sum(i.size for i in plan.send.values()),
+                "peers": sorted(plan.send), "exchanges": st.exchanges,
+                "sent_bytes": st.sent_bytes, "allreduces": st.allreduces,
+                "whole_vector_calls": guard.calls, "elems": s.gctx.num_elem}
+        hists = [None] * world if rank == 0 else None
+        dist.gather_object(hist, hists, dst=0)
+        if rank == 0:
+            for r, h in enumerate(hists):
+                out.update({f"rcb_{name}_rank{r}_{k}": np.asarray(v) for k, v in h.items()})
+
+
+# the CLI's modes: the box on z-slabs, and with assembly chunks (the RCB mode)
+CLI_MODES = {"slab": (), "rcb": ("--chunk", "64")}
+
+
+def cli_argv(devices: int, out: str, mode: str = "slab") -> list:
     return ["--box", *map(str, BOX), "--steps", str(CLI_STEPS), "--save-every", "1",
             "--devices", str(devices), "--device", "cpu", "--dtype", "f64", "--out", out,
-            "--log-level", "warning"]
+            "--log-level", "warning", *CLI_MODES[mode]]
 
 
 def scenarios(device: str, out_dir: str) -> None:
@@ -104,16 +233,22 @@ def scenarios(device: str, out_dir: str) -> None:
         for r, h in enumerate(hists):
             out.update({f"rank{r}_{k}": np.asarray(v) for k, v in h.items()})
 
-    # the CLI's --devices run, in this process group
-    args = tmain._parser().parse_args(cli_argv(world, os.path.join(out_dir, f"cli{world}")))
-    rc = tmain.run(args, tmain.RunFiles(), tmain.get_logger(level="warning"),
-                   torch.device(device))
-    # the dry run's body
-    fixed = dryrun._dryrun_rank(device, world)
+    rcb_scenarios(device, out)
+
+    # the CLI's --devices runs, in this process group
+    rcs = {}
+    for mode in CLI_MODES:
+        path = os.path.join(out_dir, f"cli{world}" + ("" if mode == "slab" else f"_{mode}"))
+        args = tmain._parser().parse_args(cli_argv(world, path, mode))
+        rcs[mode] = tmain.run(args, tmain.RunFiles(), tmain.get_logger(level="warning"),
+                              torch.device(device))
+    # the dry run's body, in both modes
+    fixed = {mode: dryrun._dryrun_rank(device, world, mode) for mode in dryrun.MODES}
     if rank == 0:
-        out["cli_rc"] = np.asarray(rc)
-        for key, a in zip(("wgold", "dwgold", "dwg"), fixed):
-            out[f"dryrun_{key}"] = a
+        out["cli_rc"], out["cli_rcb_rc"] = np.asarray(rcs["slab"]), np.asarray(rcs["rcb"])
+        for mode, states in fixed.items():
+            for key, a in zip(("wgold", "dwgold", "dwg"), states):
+                out[f"dryrun_{key}" if mode == "slab" else f"dryrun_{mode}_{key}"] = a
         np.savez(os.path.join(out_dir, f"w{world}.npz"), **out)
 
 
