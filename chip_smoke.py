@@ -251,6 +251,23 @@ Phases, one line each; the script exits non-zero at the first failure:
             (gather) on 2 ranks, as (a); (e) app.main --devices 2 --mesh on a
             shuffled box's file read without lattice recovery (an .npz: the
             card machine has no h5py) against a one-process card step
+  the coupled FEM-DEM step on ranks (ROADMAP A16 (c): the fluid on z-slabs,
+  each particle's drag computed by the rank that owns its element, the DEM
+  on cell slabs of the flat cell axis through K11's halo entry):
+ 27 coupled sharded
+            (a) phase 11's main path (box 55, 100,000 particles) on 2
+            gloo ranks sharing the card, one adaptive step from the reference
+            initial state against phase 11's first: the particles bit for
+            bit, each fluid field within TOL_SLICE, equal Newton counts;
+            each rank's launches of K1, K2, K3's banded entry and K11's halo
+            entry (> 0; the whole-grid K11 and every plain twin never), the
+            drag / fluid / DEM split, the fluid's and the DEM's band
+            exchanges, bytes and all-reduces, peak memory; (b) K11's halo
+            entry on each rank's window against its plain twin, bit for bit,
+            timed on rank 0 with its bound (one kernel row); (c) app.main
+            --scenario coupled --devices 2 at box 12 against a one-process
+            card CoupledSolver step (particles.1 bit for bit, sol.1 within
+            TOL_SLICE)
 Then, on lines of their own: the kernels JSON object (each kernel with its
 time, its plain version's, its bound and, where one PyTorch call computes
 the same function, that call's time), the card's name and power limit, and
@@ -1405,7 +1422,7 @@ def phase_coupled_main(solver, pstate0) -> dict:
         t0 = time.perf_counter()
         *state, pst, stats = solver.step(*state, pst, timings=parts)
         wall = time.perf_counter() - t0
-        first = first or (state, pst, stats.krylov_iters)
+        first = first or (state, pst, stats.krylov_iters, len(stats.rnorms))
         norms = [float(v) for v in stats.rnorms[-1]]
         ke = float(kinetic_energy(pst))
         walls.append(wall)
@@ -1429,7 +1446,11 @@ def phase_coupled_main(solver, pstate0) -> dict:
         f"krylov {stats.krylov_iters}")
     if not (same and same_p) or stats.krylov_iters != first[2]:
         raise PhaseError("coupled main: a repeated step differs from the first run")
-    return {"launches": launches, "step_s": walls, "peak_bytes": peak}
+    # phase 27's reference: the first step's states and particles, on the host
+    host = {"state": [t.cpu() for t in first[0]], "x": first[1].x.cpu(), "v": first[1].v.cpu(),
+            "newton": first[3]}
+    return {"launches": launches, "step_s": walls, "peak_bytes": peak, "first": host,
+            "x0": pstate0.x.cpu()}
 
 
 def ptxas_of(lib, *parts) -> dict:
@@ -4804,6 +4825,266 @@ def phase_rcb(ga_main: dict, raw) -> tuple[list, dict]:
     return [dict(row, launches=n) for row, n in zip(res["kernels"], launches)], out
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the coupled FEM-DEM step on ranks (ROADMAP A16 (c)): the fluid on
+# z-slabs, each particle's drag computed by one rank, the DEM on cell slabs
+# of the flat cell axis through K11's halo entry.
+
+COUPLED_SHARDED_RANKS = 2
+COUPLED_CLI_PARTICLES = RUN_PARTICLES  # the coupled CLI run at SLICE_BOX, as phase 21's
+COUPLED_SHARDED_KERNELS = (
+    ("K11 dem contact sweep (halo entry, cell slab of 2 ranks)",
+     "dedflow_tpu_torch/csrc/dem_contact.cu", "dedflow_tpu/dem/grid.py:294"),
+)
+
+
+def npz_write_particles(path, group, state):
+    """The CLI's particle group as an .npz of dem.particles.particle_datasets
+    (no h5py on the card machine; the ranks write from their own process)."""
+    import numpy as np
+
+    from dedflow_tpu_torch.dem.particles import particle_datasets
+
+    np.savez(f"{path}.{group}.npz", **particle_datasets(state))
+
+
+def window_live_pairs(grid, win, nloc: int) -> tuple[int, int]:
+    """(live slots of the window, live pair slots of its centres): the
+    (centre, neighbour) slot pairs with both slots occupied, itself
+    included, for the centres [omax, omax + nloc) (live_pairs' count on a
+    window)."""
+    from dedflow_tpu_torch.dem.grid import _offsets, halo_width
+
+    occ = win.mask.sum(0).double()
+    omax = halo_width(grid)
+    ctr = occ[omax : omax + nloc]
+    pairs = sum(float((ctr * occ[omax + o : omax + o + nloc]).sum()) for o in _offsets(grid))
+    return int(occ.sum()), int(pairs)
+
+
+def coupled_sharded_rank(device):
+    """A rank of phase 27: CoupledSolver(box 55, coupled_scenario_setup(mesh,
+    COUPLED_PARTICLES), sharded=True) one adaptive step from the reference
+    initial state (phase 11's first), after one drag exchange and one DEM
+    window as a warm-up, the launch counts of K1, K2, K3's
+    banded entry, K11's halo entry and the whole-grid K11 set to 0 just
+    before and read just after (the plain twins counted: they must not
+    run), the drag / fluid / DEM split, the fluid's and the DEM's
+    exchanges and all-reduces, peak memory; the gathered state and the
+    particles. Then K11's halo entry on this rank's window of the initial
+    particles against its plain twin (bit for bit), timed on rank 0 with
+    its bound. Rank 0 returns everything."""
+    import torch
+    import torch.distributed as dist
+
+    from dedflow_tpu_torch.app.coupled import CoupledSolver
+    from dedflow_tpu_torch.app.scenarios import (
+        coupled_scenario_setup,
+        reference_initial_state,
+        reference_scenario_config,
+    )
+    from dedflow_tpu_torch.dem import grid as dg
+    from dedflow_tpu_torch.fem import lattice as lat
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.sparse import dia_kernels as dk
+    from dedflow_tpu_torch.tools.timing import nbytes
+
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    mesh = box_mesh(*FULL_BOX)
+    ccfg, pst0 = coupled_scenario_setup(mesh, num_particles=COUPLED_PARTICLES, device=device)
+    solver = CoupledSolver(mesh, reference_scenario_config(), ccfg, device=device, sharded=True)
+    fluid, dem_comm = solver.fluid, solver.dem_comm
+    state = [fluid.shard_state(a) for a in reference_initial_state(mesh)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # one drag exchange and one DEM window first (both ranks): the timed
+    # step's split then holds no first call's library loads and allocations
+    solver.advance_particles(pst0, solver.drag(state[0], pst0)[0])
+    counters = (lat.residual_volume, lat.jacobian_volume, dk.dia_matvec_banded,
+                dg.halo_pair_forces_cuda, dg.grid_pair_forces_cuda)
+    plains = ((lat, "residual_volume_plain"), (lat, "jacobian_volume_plain"),
+              (dk, "dia_matvec_banded_plain"), (dg, "halo_pair_forces"),
+              (dg, "grid_pair_forces"))
+    plain_calls = [[0] for _ in plains]
+    originals = [getattr(m, n) for m, n in plains]
+    for (m, n), f, calls in zip(plains, originals, plain_calls):
+        setattr(m, n, _counting(f, calls))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    for comm in (fluid.comm, dem_comm):
+        comm.stats.reset()
+    dg.dem_run_grid.windows.update(slabs=0, replicated=0)
+    dist.barrier()
+    torch.cuda.synchronize()
+    parts = {}
+    t1 = time.perf_counter()
+    *new, pst1, stats = solver.step(*state, pst0, timings=parts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = [c.launches for c in counters]
+    for (m, n), f in zip(plains, originals):
+        setattr(m, n, f)
+    comm_rec = lambda st: {"exchanges": st.exchanges, "sent_bytes": st.sent_bytes,
+                           "exchange_s": st.exchange_s, "allreduces": st.allreduces,
+                           "allreduce_s": st.allreduce_s, "stage_s": st.stage_s}
+    rec = {"rank": rank, "setup_s": setup_s, "wall_s": wall, **parts,
+           "newton": len(stats.rnorms), "krylov": stats.krylov_iters,
+           "fluid_comm": comm_rec(fluid.comm.stats), "dem_comm": comm_rec(dem_comm.stats),
+           "windows": dict(dg.dem_run_grid.windows), "launches": launches,
+           "plain_calls": [c[0] for c in plain_calls],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    full = [fluid.gather_state(t) for t in new]
+
+    # K11's halo entry on this rank's window of the initial particles
+    grid, prm, p = ccfg.dem.grid, ccfg.dem.contact, pst0.num_particle
+    world = dem_comm.world
+    nloc = -(-grid.num_cell // world)
+    own = dg._own_slab(dg.to_grid(grid, pst0, p), rank * nloc, (rank + 1) * nloc, p)
+    omax = dg.halo_width(grid)
+    static = dg._window(dem_comm, torch.stack([own.radius, own.mask]), omax)
+    moving = dg._window(dem_comm, torch.stack([*own.pos, *own.vel]), omax)
+    win = dg.GridState(pos=tuple(moving[:3]), vel=tuple(moving[3:]), radius=static[0],
+                       mask=static[1], pid=dg._window(dem_comm, own.pid, omax))
+    label = f"rank {rank} K11 halo entry"
+    kernel = lambda: torch.stack(dg.halo_pair_forces_cuda(grid, win, nloc, prm))
+    plain = lambda: torch.stack(dg.halo_pair_forces(grid, win, nloc, prm))
+    err = compare(label, kernel, plain, TOL_K11)
+    rows = None
+    dist.barrier()
+    if rank == 0:  # the other rank waits: one process on the card while it is timed
+        k, ncw = win.mask.shape
+        live, pairs = window_live_pairs(grid, win, nloc)
+        dense_pairs = 27 * k * k * nloc
+        dense_ops, skipped = op_count(plain)
+        # as K11's row: the centres' masks and outputs, the window's masks, the
+        # other eight fields of its live slots
+        live_bytes = 16 * k * nloc + 4 * k * (ncw - nloc) + 32 * live
+        rows = [finish(COUPLED_SHARDED_KERNELS[0][0], {"max_abs_err": err}, kernel, plain, 20,
+                       3, live_bytes, (dense_ops * pairs / dense_pairs, skipped))]
+        say(f"  {label}: K={k} window {ncw} columns ({nloc} own), live slots {live}, live pair "
+            f"slots {pairs} of {dense_pairs}; window bytes {nbytes(win.mask) * 9 / 1e6:.1f} MB")
+    dist.barrier()
+    recs = [None] * world if rank == 0 else None
+    dist.gather_object(rec, recs, dst=0)
+    if rank == 0:
+        return {"ranks": recs, "state": full, "x": pst1.x.cpu(), "v": pst1.v.cpu(),
+                "kernels": rows}
+
+
+def phase_coupled_sharded(co_main: dict) -> tuple[list, dict]:
+    """Phase 27: (a) the coupled main path of phase 11 (box 55, 100,000
+    particles) on 2 gloo ranks sharing the card, one adaptive step from
+    the reference initial state against phase 11's first: the particles
+    bit for bit, each fluid field within TOL_SLICE, equal Newton counts;
+    each rank's launches of K1, K2, K3's banded entry and K11's halo entry
+    (> 0; the whole-grid K11 and every plain twin never), the drag / fluid
+    / DEM split, band exchanges and bytes, all-reduces, peak memory; (b)
+    K11's halo entry on each rank's window against its plain twin, timed
+    with its bound (one kernel row); (c) app.main --scenario coupled
+    --devices 2 at box 12 against a one-process card CoupledSolver step
+    (particles.1 bit for bit, sol.1 within TOL_SLICE)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.app.coupled import CoupledSolver
+    from dedflow_tpu_torch.app.main import RunFiles
+    from dedflow_tpu_torch.app.scenarios import (
+        coupled_scenario_setup,
+        reference_initial_state,
+        reference_scenario_config,
+    )
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.parallel import launch
+
+    out = {"backend": launch.backend_for(COUPLED_SHARDED_RANKS, "cuda")}
+    t0 = time.perf_counter()
+    res = launch.spawn(coupled_sharded_rank, COUPLED_SHARDED_RANKS, "cuda", timeout=600)[0]
+    out["main_call_s"] = time.perf_counter() - t0
+    ranks = res["ranks"]
+    keys = ("setup_s", "wall_s", "drag_s", "fluid_s", "dem_s", "newton", "krylov", "windows",
+            "launches", "plain_calls")
+    for r in ranks:
+        say(f"  (a) rank {r['rank']}: {json.dumps({k: r[k] for k in keys})}; peak "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB")
+        say(f"    fluid exchanges {json.dumps(r['fluid_comm'])}")
+        say(f"    DEM band exchanges {json.dumps(r['dem_comm'])}")
+        if min(r["launches"][:4]) <= 0 or r["launches"][4] or any(r["plain_calls"]):
+            raise PhaseError(f"coupled sharded: rank {r['rank']} launches K1/K2/K3-banded/"
+                             f"K11-halo/K11-whole {r['launches']}, plain calls "
+                             f"{r['plain_calls']}")
+        if r["windows"] != {"slabs": 1, "replicated": 0}:
+            raise PhaseError(f"coupled sharded: DEM windows {r['windows']}")
+    fx, fv, fstate, fnewton = (co_main["first"][k] for k in ("x", "v", "state", "newton"))
+    same_x, same_v = torch.equal(res["x"], fx), torch.equal(res["v"], fv)
+    moved = float((fx - co_main["x0"]).abs().max())
+    fields = []
+    for c in range(6):
+        g = np.concatenate([a[:, c] for a in res["state"]])
+        rf = np.concatenate([a[:, c].numpy() for a in fstate])
+        fields.append(float(np.abs(g - rf).max() / max(np.abs(rf).max(), 1e-300)))
+    newton = ranks[0]["newton"]
+    say(f"  (a) box {FULL_BOX}, {COUPLED_PARTICLES} particles on {COUPLED_SHARDED_RANKS} ranks "
+        f"vs phase 11's first step: particles x / v bit-equal {same_x} / {same_v} (largest "
+        f"displacement {moved:.3e}); fluid rel per field {[f'{v:.3e}' for v in fields]}; "
+        f"newton {newton} (phase 11 {fnewton})")
+    if not (same_x and same_v):
+        raise PhaseError("coupled sharded: the particles differ from phase 11's first step")
+    check("coupled sharded fluid", max(fields), TOL_SLICE)
+    if newton != fnewton:
+        raise PhaseError(f"coupled sharded: Newton counts {newton} vs phase 11's {fnewton}")
+    split = {k: max(r[k] for r in ranks) for k in ("wall_s", "drag_s", "fluid_s", "dem_s")}
+    split.update(
+        fluid_exchange_s=max(r["fluid_comm"]["exchange_s"] for r in ranks),
+        fluid_allreduce_s=max(r["fluid_comm"]["allreduce_s"] for r in ranks),
+        fluid_allreduces=ranks[0]["fluid_comm"]["allreduces"],
+        dem_band_exchanges=ranks[0]["dem_comm"]["exchanges"],
+        dem_band_bytes=[r["dem_comm"]["sent_bytes"] for r in ranks],
+        dem_exchange_s=max(r["dem_comm"]["exchange_s"] for r in ranks),
+        dem_allreduces=ranks[0]["dem_comm"]["allreduces"],
+        peak_gib=[r["peak_bytes"] / 2**30 for r in ranks],
+        one_process_step_s=co_main["step_s"][0], setup_s=[r["setup_s"] for r in ranks])
+    say(f"  (a) split: {json.dumps(split)}")
+    out.update(fluid_rel=fields, newton=newton, split=split)
+
+    # (c) the CLI on 2 ranks at box 12 against a one-process card step
+    t0 = time.perf_counter()
+    cmesh = box_mesh(*SLICE_BOX)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = RunFiles(write_solution=npz_write_solution, save_particles=npz_write_particles,
+                         needs_h5py=False)
+        rc, lines = cli(["--scenario", "coupled", "--box", *map(str, SLICE_BOX), "--particles",
+                         str(COUPLED_CLI_PARTICLES), "--steps", "1", "--save-every", "1",
+                         "--devices", "2", "--out", tmp, "--log-level", "warning"], files)
+        snap = dict(np.load(os.path.join(tmp, "sol.1.h5.npz")))
+        parts = dict(np.load(os.path.join(tmp, "particles.1.h5.ptc.npz")))
+        recs = [json.loads(ln) for ln in open(os.path.join(tmp, "metrics.jsonl"))]
+    ccfg, pst = coupled_scenario_setup(cmesh, num_particles=COUPLED_CLI_PARTICLES, device="cuda")
+    one = CoupledSolver(cmesh, reference_scenario_config(), ccfg, device="cuda")
+    wg1, _, _, pst1, _ = one.step(*state_from_numpy(*reference_initial_state(cmesh), "cuda",
+                                                    torch.float32), pst)
+    crel = rel_err(torch.as_tensor(snap["u"]).reshape(-1, 3), wg1[:, :3].cpu())[1]
+    same_p = (np.array_equal(parts["coord"], pst1.x.cpu().numpy().reshape(-1))
+              and np.array_equal(parts["vel"], pst1.v.cpu().numpy().reshape(-1)))
+    say(f"  (c) app.main --scenario coupled --devices 2 at box {SLICE_BOX}, "
+        f"{COUPLED_CLI_PARTICLES} particles ({time.perf_counter() - t0:.1f} s): rc {rc}, "
+        f"metrics {recs}, sol.1 u vs a one-process card step rel={crel:.3e}, particles.1 "
+        f"bit-equal {same_p}")
+    if rc != 0 or not recs or recs[0].get("ranks") != 2 or not same_p:
+        raise PhaseError(f"app.main --scenario coupled --devices 2: rc {rc}, metrics {recs}, "
+                         f"particles bit-equal {same_p}")
+    check("app.main --scenario coupled --devices 2", crel, TOL_SLICE)
+    out["cli_rel"] = crel
+    launches = sum(r["launches"][3] for r in ranks)
+    return [dict(row, launches=launches) for row in res["kernels"]], out
+
+
 def run() -> int:
     try:
         import torch
@@ -4984,6 +5265,14 @@ def run() -> int:
         rcb_results, rcb = phase_rcb(ga_main, raw)
         say(f"  rcb ({card}): {json.dumps(rcb)}")
         say(f"  phase 26: {time.perf_counter() - t0:.1f} s")
+        phase = "27 coupled sharded"
+        say(f"phase 27 coupled sharded ({card}): box {FULL_BOX} with {COUPLED_PARTICLES} "
+            f"particles on {COUPLED_SHARDED_RANKS} ranks sharing the card (one step), K11's halo "
+            f"entry, app.main --scenario coupled --devices 2 at box {SLICE_BOX}")
+        t0 = time.perf_counter()
+        coupled_sharded_results, coupled_sharded = phase_coupled_sharded(co_main)
+        say(f"  coupled sharded ({card}): {json.dumps(coupled_sharded)}")
+        say(f"  phase 27: {time.perf_counter() - t0:.1f} s")
     except Exception as e:  # report the failed phase, then fail
         traceback.print_exc()
         print(f"FAIL phase {phase}: {type(e).__name__}: {e}", file=sys.stderr)
@@ -5001,10 +5290,12 @@ def run() -> int:
         for (name, src, rep), r, n in zip(
             KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS
             + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS + KRYLOV_KERNELS + CLASS_KERNELS
-            + HEAT_KERNELS + MIXED_KERNELS + SHARDED_KERNELS + RCB_KERNELS + K10_KERNELS,
+            + HEAT_KERNELS + MIXED_KERNELS + SHARDED_KERNELS + RCB_KERNELS + K10_KERNELS
+            + COUPLED_SHARDED_KERNELS,
             results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit]
             + ir_staged + ga_staged + ga_res_staged + krylov_results + class_results
-            + heat_results + mixed_results + sharded_results + rcb_results + k10_extra,
+            + heat_results + mixed_results + sharded_results + rcb_results + k10_extra
+            + coupled_sharded_results,
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
             + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
@@ -5015,7 +5306,8 @@ def run() -> int:
             + [r["launches"] for r in sharded_results] + [r["launches"] for r in rcb_results]
             # K10 with the source: its instance's count on the WinELL melt slice
             # (phase 16); the residual map alone runs on no path
-            + [slice_launches["winell"][6], 0],
+            + [slice_launches["winell"][6], 0]
+            + [r["launches"] for r in coupled_sharded_results],
         )
     ]
     # the probes' launches: those of their entry points' runs (phase 18)

@@ -74,8 +74,8 @@ converged. A non-finite residual or temperature ends the run with exit
 code 2. The JAX CLI's --platform is the port's --device.
 
 `--devices N` (N > 1; the JAX CLI's, dedflow_tpu/app/main.py:74, 255-283)
-runs the NS scenarios on N ranks (parallel.sharded.ShardedNSSolver,
-started by parallel.launch), on any mesh: a Kuhn box on its lattice tier
+runs a scenario on N ranks (parallel.sharded.ShardedNSSolver, started
+by parallel.launch), on any mesh: a Kuhn box on its lattice tier
 with each rank owning a z-slab of it, every other mesh (`--mesh FILE`,
 `--chunk`, a config's use_lattice "gather" / "winell", the melt pool)
 RCB-partitioned onto the gather tier with each rank owning a part and
@@ -83,8 +83,12 @@ exchanging its ghosts. On "cuda" one card a rank under NCCL where there
 are N cards, else every rank on card 0 under gloo; on "cpu" gloo. Rank 0
 writes the snapshots, the metrics (with the ranks and the backend) and
 the JSON lines from the gathered state, the same files as one process;
-the other ranks log warnings only. `--scenario coupled` with N > 1 raises
-(ROADMAP A16 (c)), and so does every option ShardedNSSolver does not take.
+the other ranks log warnings only. `--scenario coupled --devices N` runs
+app.coupled.CoupledSolver(sharded=True) on the ranks: the fluid in either
+mode, the DEM on cell slabs with K11's halo entry; rank 0 writes
+`sol.<step>.h5` from the gathered state and `particles.<step>.h5` (the
+particles are the same on every rank). Every option ShardedNSSolver does
+not take raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -191,7 +195,7 @@ def _parser() -> argparse.ArgumentParser:
                    help="torch.profiler trace directory")
     p.add_argument("--log-level", default="info")
     p.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="ranks of a z-slab decomposed run (box meshes, NS scenarios)")
+                   help="ranks of a decomposed run (z-slabs of a box, else RCB parts)")
     return p
 
 
@@ -235,9 +239,6 @@ def main(argv=None, files: RunFiles | None = None) -> int:
     if args.scenario == "coupled" and args.mesh:
         log.error("--scenario coupled runs on generated boxes only (--box)")
         return 2
-    if args.scenario == "coupled" and args.devices > 1:
-        raise NotImplementedError("--scenario coupled on --devices N > 1 (the DEM shard path and "
-                                  "the coupled solver sharded) is not ported yet (ROADMAP A16 (c))")
     # every run writes sol.0.h5 or reads the snapshot it resumes from
     missing = _h5py_missing() if files.needs_h5py else None
     if missing:
@@ -300,7 +301,7 @@ def run(args, files: RunFiles, log, device: torch.device) -> int:
             substeps=args.dem_substeps, use_grid=not args.no_dem_grid,
             device=device, dtype=dtype,
         )
-        csolver = CoupledSolver(mesh, cfg, ccfg, device=device, dtype=dtype)
+        csolver = CoupledSolver(mesh, cfg, ccfg, device=device, dtype=dtype, sharded=sharded)
         solver = csolver.fluid
         log.info("coupled FEM-DEM: %d particles r=%.4g, %d DEM substeps/step, grid path=%s",
                  pstate.num_particle, float(pstate.radius[0]), args.dem_substeps,
@@ -411,7 +412,7 @@ def run(args, files: RunFiles, log, device: torch.device) -> int:
                     files.write_solution(os.path.join(args.out, f"sol.{step}.h5"),
                                          to_file_order(wg_host), to_file_order(dwg_host),
                                          step=step, time=step * dt)
-                if coupled:
+                if coupled and rank0:
                     files.save_particles(os.path.join(args.out, f"particles.{step}.h5"), "ptc",
                                          pstate)
     if rank0:

@@ -8,11 +8,17 @@
 // carries over: it computes the function of grid_pair_forces (the JAX
 // _pair_sweep and the port's plain twin in dem/grid.py).
 //
-// Fields are (K, NC) float32, slot-major, flat cell index c fastest
-// (z fastest inside a cell row); pid is int32. Neighbour offset (dx, dy, dz)
-// of cell c is cell c + (dx*ny + dy)*nz + dz. A neighbour index outside
-// [0, NC) is the plain version's zero padding (mask 0): no contribution.
-// An index inside the range that wraps across a grid row is read as it is.
+// Fields are (K, NCw) float32, slot-major, flat cell index c fastest
+// (z fastest inside a cell row); pid is int32. The centres are the NC
+// columns [c0, c0 + NC) of that window; the forces are (K, NC). The whole
+// grid is c0 = 0, NCw = NC. A rank's cell slab (dem/grid.py's sharded run,
+// the counterpart of the JAX grid_run_shardmap's per-shard _pair_sweep) is
+// c0 = omax, NCw = NC + 2 omax: [left band | own cells | right band], each
+// band omax = (ny + 1) nz + 1 columns, zeros (mask 0) where there is no
+// neighbour rank. Neighbour offset (dx, dy, dz) of window column c is
+// column c + (dx*ny + dy)*nz + dz. A neighbour column outside [0, NCw) is
+// the plain version's zero padding (mask 0): no contribution. A column
+// inside the range that wraps across a grid row is read as it is.
 //
 // What bounds it on an H100: a dilute cloud leaves most slots empty (the
 // coupled grid: 100k live of 9.26M slots, K = 8), and an empty slot costs
@@ -20,8 +26,8 @@
 // The live slots' 27 x K candidates are a chain of dependent L1/L2 loads
 // (mask, then pid and seven fields), so their cost is latency, not bytes.
 //
-// Design: a thread per slot (k, c), c fastest, for the empty slots: a warp
-// reads 32 consecutive masks and stores zeros, coalesced. A warp with live
+// Design: a thread per centre slot (k, c), c fastest, for the empty slots: a
+// warp reads 32 consecutive masks and stores zeros, coalesced. A warp with live
 // lanes (__ballot_sync) serves them one at a time with all 32 lanes: lane
 // l takes candidates e = l, l + 32, ... of the centre's 27 x K list in the
 // plain version's order (e = offset * K + kp, offsets in _offsets order),
@@ -54,7 +60,7 @@ struct Fields {
   const int* pid;
 };
 
-// The live centre of a sweep, broadcast to the warp.
+// The live centre of a sweep, broadcast to the warp: its window column c.
 struct Centre {
   float x0, x1, x2, u0, u1, u2, r, m;
   int id, c;
@@ -62,13 +68,13 @@ struct Centre {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// Candidate e of the centre's 27 x K list: its slot index j, or -1 where
-// the neighbour cell lies outside [0, NC).
-__device__ __forceinline__ int candidate(int e, int K, int c, int NC, int ny, int nz) {
+// Candidate e of the centre's 27 x K list (window column c): its window
+// slot index j, or -1 where the neighbour column lies outside [0, NCw).
+__device__ __forceinline__ int candidate(int e, int K, int c, int NCw, int ny, int nz) {
   const int o = e / K, kp = e - o * K;
   const int dx = o / 9 - 1, dy = (o / 3) % 3 - 1, dz = o % 3 - 1;
   const int cn = c + (dx * ny + dy) * nz + dz;
-  return (cn < 0 || cn >= NC) ? -1 : kp * NC + cn;
+  return (cn < 0 || cn >= NCw) ? -1 : kp * NCw + cn;
 }
 
 // The pair terms of candidate slot j against centre s: w*n (t[0..2]) and
@@ -146,21 +152,25 @@ __device__ __forceinline__ void add_group(bool act, const float t[6], int tangen
 template <int KT>
 __global__ void __launch_bounds__(256, 5)
 dem_contact_kernel(Fields fl, float* __restrict__ fx, float* __restrict__ fy,
-                   float* __restrict__ fz, int Krt, int NC, int ny, int nz, ContactArgs a) {
+                   float* __restrict__ fz, int Krt, int NC, int c0, int NCw, int ny, int nz,
+                   ContactArgs a) {
   const int K = KT > 0 ? KT : Krt;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   const bool in = idx < K * NC;
-  const float m = in ? fl.msk[idx] : 0.f;
+  // the centre's window slot: (idx / NC) * NCw + c0 + idx % NC; the whole
+  // grid (NCw = NC, c0 = 0) takes idx itself, with no division
+  const int wi = NCw == NC ? idx : idx + (idx / NC) * (NCw - NC) + c0;
+  const float m = in ? fl.msk[wi] : 0.f;
   float out[3] = {0.f, 0.f, 0.f};
   unsigned live = __ballot_sync(kFull, m != 0.f);
   while (live) {
     const int src = __ffs(live) - 1;
     live &= live - 1;
     Centre s;
-    const int ci = __shfl_sync(kFull, idx, src);
+    const int ci = __shfl_sync(kFull, wi, src);
     s.m = __shfl_sync(kFull, m, src);
-    s.c = ci % NC;
+    s.c = ci % NCw;  // its window column
     s.x0 = fl.px[ci], s.x1 = fl.py[ci], s.x2 = fl.pz[ci];  // one address: broadcast
     s.u0 = fl.vx[ci], s.u1 = fl.vy[ci], s.u2 = fl.vz[ci];
     s.r = fl.rad[ci];
@@ -172,7 +182,7 @@ dem_contact_kernel(Fields fl, float* __restrict__ fx, float* __restrict__ fy,
 #pragma unroll
       for (int g = 0; g < kGroups; ++g) {
         const int e = g * 32 + lane;
-        const int j = e < 27 * KT ? candidate(e, KT, s.c, NC, ny, nz) : -1;
+        const int j = e < 27 * KT ? candidate(e, KT, s.c, NCw, ny, nz) : -1;
         mn[g] = j >= 0 ? fl.msk[j] : 0.f;
       }
 #pragma unroll
@@ -180,13 +190,13 @@ dem_contact_kernel(Fields fl, float* __restrict__ fx, float* __restrict__ fy,
         const int e = g * 32 + lane;
         float t[6] = {};
         const bool act =
-            mn[g] != 0.f && pair_terms(fl, s, candidate(e, KT, s.c, NC, ny, nz), mn[g], a, t);
+            mn[g] != 0.f && pair_terms(fl, s, candidate(e, KT, s.c, NCw, ny, nz), mn[g], a, t);
         add_group(act, t, a.tangential, f);
       }
     } else {
       for (int base = 0; base < 27 * K; base += 32) {
         const int e = base + lane;
-        const int j = e < 27 * K ? candidate(e, K, s.c, NC, ny, nz) : -1;
+        const int j = e < 27 * K ? candidate(e, K, s.c, NCw, ny, nz) : -1;
         float t[6] = {};
         const bool act = j >= 0 && pair_terms(fl, s, j, fl.msk[j], a, t);
         add_group(act, t, a.tangential, f);
@@ -206,10 +216,11 @@ dem_contact_kernel(Fields fl, float* __restrict__ fx, float* __restrict__ fy,
 }
 
 template <int KT>
-void launch(const Fields& fl, float* fx, float* fy, float* fz, int K, int NC, int ny, int nz,
-            const ContactArgs& a, cudaStream_t s) {
+void launch(const Fields& fl, float* fx, float* fy, float* fz, int K, int NC, int c0, int NCw,
+            int ny, int nz, const ContactArgs& a, cudaStream_t s) {
   const int total = K * NC;
-  dem_contact_kernel<KT><<<(total + 255) / 256, 256, 0, s>>>(fl, fx, fy, fz, K, NC, ny, nz, a);
+  dem_contact_kernel<KT><<<(total + 255) / 256, 256, 0, s>>>(fl, fx, fy, fz, K, NC, c0, NCw,
+                                                             ny, nz, a);
 }
 
 }  // namespace dedflow
@@ -217,12 +228,14 @@ void launch(const Fields& fl, float* fx, float* fy, float* fz, int K, int NC, in
 extern "C" int dedflow_dem_contact(const void* px, const void* py, const void* pz,
                                    const void* vx, const void* vy, const void* vz,
                                    const void* rad, const void* msk, const void* pid,
-                                   void* fx, void* fy, void* fz, int K, int NC, int ny,
-                                   int nz, double k_n, double gamma_n, double mu,
-                                   double gamma_t, double eps, int tangential,
+                                   void* fx, void* fy, void* fz, int K, int NC, int c0,
+                                   int NCw, int ny, int nz, double k_n, double gamma_n,
+                                   double mu, double gamma_t, double eps, int tangential,
                                    void* stream) {
   using namespace dedflow;
-  if (K < 1 || NC < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // the fields are (K, NCw) windows, the centres their columns [c0, c0 + NC)
+  if (K < 1 || NC < 1 || c0 < 0 || c0 + NC > NCw || static_cast<long long>(K) * NCw >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   const ContactArgs a{static_cast<float>(k_n), static_cast<float>(gamma_n),
                       static_cast<float>(mu), static_cast<float>(gamma_t),
                       static_cast<float>(eps), tangential};
@@ -238,18 +251,18 @@ extern "C" int dedflow_dem_contact(const void* px, const void* py, const void* p
   // the capacities of the repository's grids unrolled: the coupled
   // scenario's 8, bench.py's DEM cases (7, 9) and the small grids' 2-12
   switch (K) {
-    case 2: launch<2>(fl, ox, oy, oz, K, NC, ny, nz, a, s); break;
-    case 3: launch<3>(fl, ox, oy, oz, K, NC, ny, nz, a, s); break;
-    case 4: launch<4>(fl, ox, oy, oz, K, NC, ny, nz, a, s); break;
-    case 5: launch<5>(fl, ox, oy, oz, K, NC, ny, nz, a, s); break;
-    case 6: launch<6>(fl, ox, oy, oz, K, NC, ny, nz, a, s); break;
-    case 7: launch<7>(fl, ox, oy, oz, K, NC, ny, nz, a, s); break;
-    case 8: launch<8>(fl, ox, oy, oz, K, NC, ny, nz, a, s); break;
-    case 9: launch<9>(fl, ox, oy, oz, K, NC, ny, nz, a, s); break;
-    case 10: launch<10>(fl, ox, oy, oz, K, NC, ny, nz, a, s); break;
-    case 11: launch<11>(fl, ox, oy, oz, K, NC, ny, nz, a, s); break;
-    case 12: launch<12>(fl, ox, oy, oz, K, NC, ny, nz, a, s); break;
-    default: launch<0>(fl, ox, oy, oz, K, NC, ny, nz, a, s); break;
+    case 2: launch<2>(fl, ox, oy, oz, K, NC, c0, NCw, ny, nz, a, s); break;
+    case 3: launch<3>(fl, ox, oy, oz, K, NC, c0, NCw, ny, nz, a, s); break;
+    case 4: launch<4>(fl, ox, oy, oz, K, NC, c0, NCw, ny, nz, a, s); break;
+    case 5: launch<5>(fl, ox, oy, oz, K, NC, c0, NCw, ny, nz, a, s); break;
+    case 6: launch<6>(fl, ox, oy, oz, K, NC, c0, NCw, ny, nz, a, s); break;
+    case 7: launch<7>(fl, ox, oy, oz, K, NC, c0, NCw, ny, nz, a, s); break;
+    case 8: launch<8>(fl, ox, oy, oz, K, NC, c0, NCw, ny, nz, a, s); break;
+    case 9: launch<9>(fl, ox, oy, oz, K, NC, c0, NCw, ny, nz, a, s); break;
+    case 10: launch<10>(fl, ox, oy, oz, K, NC, c0, NCw, ny, nz, a, s); break;
+    case 11: launch<11>(fl, ox, oy, oz, K, NC, c0, NCw, ny, nz, a, s); break;
+    case 12: launch<12>(fl, ox, oy, oz, K, NC, c0, NCw, ny, nz, a, s); break;
+    default: launch<0>(fl, ox, oy, oz, K, NC, c0, NCw, ny, nz, a, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

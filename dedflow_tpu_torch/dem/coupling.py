@@ -17,6 +17,16 @@ those four, computed by fem.element.tet_geometry (the JAX context's own
 convention). `reaction_to_nodes` is deterministic on the card: a stable
 sort of the (node, contribution) pairs and a segmented sum
 (torch.segment_reduce) in place of an atomic scatter-add.
+
+On N ranks (app.coupled.CoupledSolver(sharded=True)) every rank locates
+every particle on the whole mesh's geometry, and each particle's drag is
+computed by exactly one rank, the owner of its element (`RankRows`), from
+that rank's local velocity rows; `owned_exchange` gives every rank the
+whole drag (P, 3) through one all-reduce of disjoint rows (O(P), the
+one-process values bit for bit) and the reaction of its own particles on
+its local rows, which the caller returns to their owners. The JAX package
+runs the exchange on the whole unsharded context and lets GSPMD gather the
+state; nothing here moves a whole nodal vector.
 """
 
 from __future__ import annotations
@@ -131,18 +141,24 @@ def stokes_drag(u_fluid: torch.Tensor, state: ParticleState, mu: float) -> torch
     return coef[:, None] * (u_fluid - state.v)
 
 
-def reaction_to_nodes(geom: CouplingGeometry, elem, bary, f_particle, num_node: int) -> torch.Tensor:
-    """-f_particle summed onto the mesh nodes with barycentric weights,
-    (N, 3). Deterministic: contributions sorted stably by node and summed
-    per node in that order (one segmented sum, no atomics)."""
-    e = torch.clamp(elem, min=0).long()
-    nodes = geom.ien[e].reshape(-1)  # (4P,)
+def _node_sums(nodes, bary, f_particle, num_node: int) -> torch.Tensor:
+    """-f_particle with the barycentric weights `bary` (P, 4) summed onto
+    `nodes` (P, 4) of num_node rows: contributions sorted stably by node
+    and summed per node in that order (one segmented sum, no atomics)."""
+    nodes = nodes.reshape(-1)  # (4P,)
     vals = (-bary[..., None] * f_particle[:, None, :]).reshape(-1, 3)
     order = torch.argsort(nodes, stable=True)
     lengths = torch.bincount(nodes, minlength=num_node)
     return torch.segment_reduce(
         vals[order], "sum", lengths=lengths, axis=0, unsafe=True, initial=0.0
     )
+
+
+def reaction_to_nodes(geom: CouplingGeometry, elem, bary, f_particle, num_node: int) -> torch.Tensor:
+    """-f_particle summed onto the mesh nodes with barycentric weights,
+    (N, 3). Deterministic (`_node_sums`)."""
+    e = torch.clamp(elem, min=0).long()
+    return _node_sums(geom.ien[e], bary, f_particle, num_node)
 
 
 def _exchange(geom, elem, bary, state, w, mu):
@@ -189,3 +205,48 @@ def drag_exchange_lattice(lattice: tuple, origin, spacing, geom: CouplingGeometr
     """drag_exchange with the closed-form lattice locator."""
     elem, bary = locate_lattice(lattice, np.asarray(origin), np.asarray(spacing), geom, state.x)
     return _exchange(geom, elem, bary, state, w, mu)
+
+
+@dataclass
+class RankRows:
+    """One rank's share of the drag exchange on N ranks: `mine` (ne,) the
+    elements whose particles it owns; `local` (N,) the local row of each
+    mesh node in its local vectors ([own | band or ghosts], 0 for a node it
+    does not hold); `n_local` their length. Every vertex of an owned
+    element is a local row."""
+
+    mine: torch.Tensor
+    local: torch.Tensor
+    n_local: int
+
+
+def rank_rows(owner: np.ndarray, rank: int, local_of: np.ndarray, device) -> RankRows:
+    """RankRows of `rank` from the owner rank of each element (ne,) and the
+    local row of each node (N,), -1 off the rank."""
+    local_of = np.asarray(local_of, dtype=np.int64)
+    return RankRows(mine=torch.as_tensor(np.asarray(owner) == rank, device=device),
+                    local=torch.as_tensor(np.maximum(local_of, 0), device=device),
+                    n_local=int(local_of.max()) + 1)
+
+
+def owned_exchange(geom: CouplingGeometry, rows: RankRows, elem, bary, state: ParticleState,
+                   u_local: torch.Tensor, mu: float, allreduce):
+    """The drag exchange of one rank of N: (the drag of every particle
+    (P, 3), the same on every rank; the reaction of the particles this rank
+    owns on its local rows (n_local, 3)). `elem`, `bary` locate every
+    particle on the whole mesh (`locate` / `locate_lattice`), `u_local`
+    (n_local, 3) is the fluid velocity on this rank's local rows, and
+    `allreduce` sums over the ranks. The owner interpolates and computes
+    the drag with the one-process operations on the same shapes; the other
+    ranks add -0.0, so the sum is the one-process drag bit for bit."""
+    e = torch.clamp(elem, min=0).long()
+    found = elem >= 0
+    mine = found & rows.mine[e]
+    nodes = rows.local[geom.ien[e]]  # (P, 4)
+    u_p = torch.einsum("pa,pa...->p...", bary, u_local[nodes])
+    f_d = stokes_drag(u_p, state, mu)
+    part = torch.where(mine[:, None], f_d, torch.full((), -0.0, dtype=f_d.dtype, device=f_d.device))
+    f_p = torch.where(found[:, None], allreduce(part),
+                      torch.zeros((), dtype=f_d.dtype, device=f_d.device))
+    own = torch.nonzero(mine)[:, 0]
+    return f_p, _node_sums(nodes[own], bary[own], f_d[own], rows.n_local)

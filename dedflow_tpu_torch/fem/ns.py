@@ -39,8 +39,10 @@ the own-target plans (fem.assembly.build_context's `own`), and its halo.
 `assemble_residual_part` / `assemble_jacobian_part` exchange the ghost
 nodes' alpha states (and the heat source) in one exchange, then run the
 same kernels and reduces: K4 / K5 on every local element, K8 / K9 into
-the own rows only. Its J is a sparse.winell.HaloWinELLMatrixT, whose
-product exchanges the ghosts of x and runs K7's halo entry.
+the own rows only; a nodal momentum load (the coupled solver's drag
+reaction) comes as the own rows' (n_own, 3). Its J is a
+sparse.winell.HaloWinELLMatrixT, whose product exchanges the ghosts of x
+and runs K7's halo entry.
 """
 
 from __future__ import annotations
@@ -178,22 +180,15 @@ def part_states(pctx: PartContext, w_alpha, dw_alpha, source=None) -> tuple:
     return x[:6].T.contiguous(), x[6:12].T.contiguous(), None if source is None else x[12]
 
 
-def _refuse_nodal_force(nodal_force) -> None:
-    if nodal_force is not None:
-        raise NotImplementedError("a nodal force on an RCB partition (the coupled solver sharded) "
-                                  "is not ported yet (ROADMAP A16 (c))")
-
-
 def assemble_residual_part(
     pctx: PartContext, face_ctxs, mask_t, w_alpha, dw_alpha, phys: Physics, scheme: TimeScheme,
     freeze_phi_temperature: bool = True, source=None, nodal_force=None,
 ) -> torch.Tensor:
-    """The rank's own rows (6, n_own) of F; states and `source` are its own
-    rows, `mask_t` (6, n_own)."""
-    _refuse_nodal_force(nodal_force)
+    """The rank's own rows (6, n_own) of F; states, `source` and
+    `nodal_force` (n_own, 3) are its own rows, `mask_t` (6, n_own)."""
     wa, dwa, src = part_states(pctx, w_alpha, dw_alpha, source)
     return assemble_residual(pctx.fem, face_ctxs, mask_t, wa, dwa, phys, scheme,
-                             freeze_phi_temperature, src)
+                             freeze_phi_temperature, src, nodal_force)
 
 
 def assemble_jacobian_part(

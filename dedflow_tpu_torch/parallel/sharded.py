@@ -38,7 +38,9 @@ and the Newton norms all-reduced, so every rank takes the same branch at
 each host sync. States enter and leave in the mesh's own node order
 (`shard_state` / `gather_state`). Options outside the port's slices raise
 NotImplementedError naming their ROADMAP item; nothing falls back to one
-process.
+process. A nodal momentum load comes as the rank's own rows in either
+mode: app.coupled.CoupledSolver(sharded=True) runs the coupled FEM-DEM
+step on this solver, its drag reaction the load.
 """
 
 from __future__ import annotations
@@ -61,10 +63,11 @@ from dedflow_tpu_torch.solver.newton import NSSolver, _choose_tier, residual
 from dedflow_tpu_torch.sparse.topology import build_sparsity
 from dedflow_tpu_torch.utils.dtypes import default_dtype, disable_tf32, resolve_device
 
-# the kernel libraries of both modes, built before ranks start
-# (parallel.launch): K1, K2, K3 (slab); K4 / K5, K7, K8 / K9 (rcb)
+# the kernel libraries of both modes and of the coupled solver, built
+# before ranks start (parallel.launch): K1, K2, K3 (slab); K4 / K5, K7,
+# K8 / K9 (rcb); K11 (the DEM's halo entry)
 KERNEL_LIBRARIES = ("lattice_residual", "lattice_jacobian", "dia_spmv", "gather_elements",
-                    "winell_spmv", "seg_reduce")
+                    "winell_spmv", "seg_reduce", "dem_contact")
 
 
 def sharded_mode(mesh: Mesh, cfg: SolverConfig) -> str:

@@ -21,7 +21,9 @@ rank). Two decompositions build on it:
   local vectors its ghosts after them ([own | ghosts], parallel.partition
   .part_layout). `build_halo_plan` lists, per neighbour rank, the own
   nodes it needs and the ghost slots it fills; `exchange` fills the ghosts
-  of x in one exchange. The JAX plan is keyed per hop between equal
+  of x in one exchange, and `reverse_add`, its reverse on the same plan,
+  sends the ghost columns of a local vector back to their owners, which
+  add them (the coupled solver's drag reaction). The JAX plan is keyed per hop between equal
   padded blocks (`send_idx[s]`, (P, H_s) padded with 0); this one per
   neighbour rank, unpadded, each owner's ghosts one contiguous block. It
   moves O(surface) values: no rank sends more than the ghosts its
@@ -299,4 +301,22 @@ class HaloComm(GroupComm):
         got = self._exchange(sends, recvs, x)
         for q, (lo, hi) in plan.recv.items():
             out[:, plan.n_own + lo : plan.n_own + hi] = got[q]
+        return out
+
+    def reverse_add(self, y: torch.Tensor) -> torch.Tensor:
+        """y (C, n_x), a local vector -> its own columns (C, n_own) with the
+        other ranks' ghost columns of this rank's nodes added (one exchange,
+        the reverse of `exchange`: each ghost block goes back to its owner).
+        The arrivals are added in ascending order of the sending rank, each
+        at the own nodes this rank sends it in `exchange` (unique within a
+        rank), so the sums repeat bit for bit. A new tensor."""
+        plan = self.plan
+        if y.dim() != 2 or y.shape[1] != plan.n_x:
+            raise ValueError(f"reverse add: y must be (C, {plan.n_x}), got {tuple(y.shape)}")
+        out = y[:, : plan.n_own].clone()
+        sends = {q: y[:, plan.n_own + lo : plan.n_own + hi] for q, (lo, hi) in plan.recv.items()}
+        recvs = {q: (y.shape[0], i.numel()) for q, i in self._send.items()}
+        got = self._exchange(sends, recvs, y)
+        for q in sorted(got):
+            out[:, self._send[q]] += got[q]
         return out

@@ -13,7 +13,9 @@
   20-particle configuration of tests/test_dem.py:190-203 (cell capacity
   3), for use_grid
   True and False (adaptive step) and `step(num_newton=2)`: fluid and
-  particle states at 1e-9 with equal Newton and Krylov counts;
+  particle states at 1e-9 with equal Newton and Krylov counts, against
+  the JAX CoupledSolver.step's parts driven from its jitted pieces (one
+  compile of its Newton iteration serves every case);
 - the CLI's coupled scenario.
 
 torch runs with one intra-op thread here (see tests/test_torch_dem.py).
@@ -23,6 +25,7 @@ import copy
 import dataclasses
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -245,17 +248,60 @@ def test_residual_with_nodal_force_matches_jax(coupled, make):
     assert rel((f0 - f)[:3][free], torch.as_tensor(load).T[free]) < 1e-12
 
 
+@pytest.fixture(scope="module")
+def jax_coupled_steps(coupled):
+    """The JAX CoupledSolver.step's three parts on the slice
+    (dedflow_tpu/app/coupled.py:110-135) from its own pieces, so that one
+    compile of its Newton iteration (shared with the nodal-load residual
+    test's) serves the adaptive step and step_fixed(2): the drag
+    (drag_exchange_lattice on the fluid's FEMContext, jitted whole), the
+    fluid's predict / residual / Newton iterations / update with the
+    reaction as the nodal load (the adaptive loop stops on the JAX
+    solver's own predicate, newton_adaptive's), then dem_run_grid or the
+    candidate-list dem_run with the drag. Returns {(use_grid, num_newton):
+    (fluid states, particles, (Krylov counts, converged) or None)}."""
+    from dedflow_tpu.dem.grid import dem_run_grid as jdem_run_grid
+    from dedflow_tpu.dem.integrate import dem_run as jdem_run
+
+    js, _, x, state = coupled
+    fl, ccfg = js.fluid, js.ccfg
+    pst = particle_state(x, radius=0.02, mass=0.01)
+    wg, dwo, dwg = (jnp.asarray(a) for a in state)
+    f_p, f_nodes = jax.jit(lambda ctx, p, w: jcoup.drag_exchange_lattice(
+        js._lattice, js._lat_origin, js._lat_spacing, ctx, p, w, ccfg.drag_mu))(
+        js._coupling_ctx, pst, wg)
+    load = f_nodes.astype(wg.dtype)
+    c = (fl.solve_ctx, fl.face_ctxs, fl.mask)
+
+    def fluid(num, adaptive):
+        d = fl._predict(dwg)
+        f = fl._residual(*c, wg, dwo, d, nodal_force=load)
+        rnorm0 = fl._norms(f) + 1e-16
+        kits, conv = [], False
+        for _ in range(num):
+            d, f, rn, kit, _ = fl._newton_iter(*c, wg, dwo, d, f, nodal_force=load)
+            kits.append(int(kit))
+            conv = bool(jnp.all((rn < fl.cfg.newton.rtol * rnorm0) | (rn < fl.cfg.newton.atol)))
+            if adaptive and conv:
+                break
+        return (*fl._update(wg, dwo, d), d), (kits, conv)
+
+    adaptive, fixed = fluid(fl.cfg.newton.max_iter, True), fluid(2, False)
+    grid_p = jdem_run_grid(ccfg.dem, pst, ccfg.substeps, ext=f_p)
+    return {(True, None): (adaptive[0], grid_p, adaptive[1]),
+            (False, None): (adaptive[0], jdem_run(ccfg.dem, pst, ccfg.substeps, ext=f_p),
+                            adaptive[1]),
+            (True, 2): (fixed[0], grid_p, None)}
+
+
 @pytest.mark.parametrize(
     "use_grid,num_newton", [(True, None), (False, None), (True, 2)],
     ids=["grid-adaptive", "candidates-adaptive", "grid-fixed2"],
 )
-def test_coupled_step_matches_jax(coupled, use_grid, num_newton):
-    js, ts, x, state = coupled
-    js, ts = with_grid(js, use_grid), with_grid(ts, use_grid)
-    *jfluid, jp, jstats = js.step(
-        *(jnp.asarray(a) for a in state), particle_state(x, radius=0.02, mass=0.01),
-        num_newton=num_newton,
-    )
+def test_coupled_step_matches_jax(coupled, jax_coupled_steps, use_grid, num_newton):
+    _, ts, x, state = coupled
+    ts = with_grid(ts, use_grid)
+    jfluid, jp, jstats = jax_coupled_steps[(use_grid, num_newton)]
     *tfluid, tp, tstats = ts.step(
         *interop.state_from_numpy(*state, device="cpu"),
         interop.particles_from_numpy(x, None, 0.01, 0.02, device="cpu"), num_newton=num_newton,
@@ -266,9 +312,9 @@ def test_coupled_step_matches_jax(coupled, use_grid, num_newton):
     for name in ("x", "v"):
         assert rel(getattr(tp, name), getattr(jp, name)) < 1e-9, name
     if num_newton is None:
-        assert len(tstats.rnorms) == len(jstats.rnorms)
-        assert tstats.krylov_iters == jstats.krylov_iters
-        assert tstats.converged == jstats.converged
+        assert len(tstats.rnorms) == len(jstats[0])
+        assert tstats.krylov_iters == jstats[0]
+        assert tstats.converged == jstats[1]
     else:
         assert tstats is None and jstats is None
 

@@ -15,8 +15,12 @@ kernel's plain twin included). Tolerances: max|port - jax| / max|jax|.
 - K11: the plain twin `grid_pair_forces` against the JAX sweep at 1e-12
   (f64, K = 2, 3, 5, 11), and in float32 against the JAX TPU kernel run in
   interpret mode at the JAX test's bar (rtol 2e-5, atol 1e-4);
+- K11's halo entry: its plain twin (`_pair_sweep` on a rank's window of
+  the flat cell axis, zero bands where there is no neighbour rank) against
+  the JAX `_pair_sweep` on the same windows at 1e-12 (f64), and bit-equal
+  to the whole grid's sweep on the rank's columns;
 - `grid_pair_forces_cuda` on a CPU tensor is the plain twin; `shard=`
-  raises naming ROADMAP A16.
+  takes the ranks' communicator (tests/test_torch_sharded.py runs it).
 
 torch runs with one intra-op thread in this module (restored after it):
 with several, about one run in four on a shared CPU host gave one
@@ -206,7 +210,8 @@ def test_dem_run_grid_matches_jax(settling):
     got = tgrid.dem_run_grid(tcfg, ts, 20, rebuild_every=5, ext=torch.as_tensor(ext))
     for name in ("x", "v"):
         assert rel(getattr(got, name), getattr(ref, name)) < 1e-10, name
-    with pytest.raises(NotImplementedError, match="A16"):
+    # shard= takes this rank's SlabComm, not the JAX (device mesh, axis) pair
+    with pytest.raises(TypeError, match="SlabComm"):
         tgrid.dem_run_grid(tcfg, ts, 1, shard=("mesh", "dd"))
 
 
@@ -249,3 +254,52 @@ def test_k11_plain_twin_f32_matches_tpu_kernel_interpret():
     for c in range(3):
         assert got[c].dtype == torch.float32
         np.testing.assert_allclose(got[c].numpy(), np.asarray(ref[c]), rtol=2e-5, atol=1e-4)
+
+
+def halo_windows(gs, omax: int, world: int) -> list:
+    """Each rank's (K, nloc + 2 omax) window of a grid state's fields: the
+    flat cell axis padded to a multiple of `world` with empty cells, cut
+    into slabs of nloc, with omax columns of each neighbour's slab around
+    it and zeros where there is none. Returns [(nloc, lo, window fields)]."""
+    nc = gs.mask.shape[1]
+    ncp = -(-nc // world) * world
+    nloc = ncp // world
+    pad = lambda a: np.pad(np.asarray(a), ((0, 0), (omax, omax + ncp - nc)))
+    fields = [pad(a) for a in (*gs.pos, *gs.vel, gs.radius, gs.mask, gs.pid)]
+    return [(nloc, r * nloc, [f[:, r * nloc : (r + 1) * nloc + 2 * omax] for f in fields])
+            for r in range(world)]
+
+
+def test_k11_halo_twin_matches_jax_pair_sweep():
+    """The plain twin of K11's halo entry against the JAX `_pair_sweep`
+    (dedflow_tpu/dem/grid.py:125, as grid_run_shardmap calls it a shard) on
+    the first, interior and last of three ranks' windows of one grid, f64,
+    eagerly; on each rank's own columns it equals the whole grid's sweep
+    bit for bit (the same candidates in the same order)."""
+    world = 3
+    grid, jgs, tgs = k_sweep_state(2, jnp.float64)
+    prm = dict(k_n=2e3, gamma_n=3.0, mu=0.3, gamma_t=2.0)
+    tprm, jprm = tcontact.ContactParams(**prm), jcontact.ContactParams(**prm)
+    tg = tgrid_cfg(grid)
+    omax = tgrid.halo_width(tg)
+    whole = tgrid.grid_pair_forces_cuda(tg, tgs, tprm)
+    offs = jgrid._offsets(grid)
+    nc = tgs.mask.shape[1]
+    for nloc, lo, f in halo_windows(tgs, omax, world):
+        win = interop.grid_state_from_numpy(f[0:3], f[3:6], f[6], f[7], f[8].astype(np.int32),
+                                            device="cpu")
+        got = tgrid.halo_pair_forces_cuda(tg, win, nloc, tprm)
+        cut = lambda a: jnp.asarray(a[:, omax : omax + nloc])
+        ref = jgrid._pair_sweep(
+            ([cut(a) for a in f[0:3]], [cut(a) for a in f[3:6]], cut(f[6]), cut(f[7]),
+             cut(f[8]).astype(jnp.int32)),
+            (jnp.asarray(f[7]), [jnp.asarray(a) for a in f[0:3]],
+             [jnp.asarray(a) for a in f[3:6]], jnp.asarray(f[6]),
+             jnp.asarray(f[8]).astype(jnp.int32)),
+            offs, omax, nloc, grid.capacity, jprm,
+        )
+        hi = min(lo + nloc, nc)
+        for c in range(3):
+            assert np.abs(np.asarray(ref[c])).max() > 0
+            assert rel(got[c], ref[c]) < 1e-12, c
+            assert torch.equal(got[c][:, : hi - lo], whole[c][:, lo:hi]), c

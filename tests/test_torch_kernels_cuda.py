@@ -35,7 +35,10 @@ positions bit for bit (whole and chunked), and K8's segment sum alone over
 them equals K8 over the column rows bit for bit. A K1 call on a corrupted
 ticket workspace fails loudly instead of returning wrong sums. K7's halo
 entry (an RCB part's own rows on its local vector [own | ghosts]) matches
-its plain twin and the whole matrix's rows. K3 and K7
+its plain twin and the whole matrix's rows. K11's halo entry (a rank's
+cell slab on its window [left band | own | right band]) equals its plain
+twin and the whole grid's sweep bit for bit on the first, interior and
+last of three ranks' windows, and refuses a window it cannot take. K3 and K7
 also run in float64 (their double instances, against the plain versions at
 float64 roundoff), refuse float16 and a CPU vector with a matrix on the
 card, and a repeated step with pc "mg" (geometric multigrid on the
@@ -902,6 +905,69 @@ def test_k11_bit_equal_to_plain_on_bench_like_clouds(cloud, tangential):
     for c in range(3):
         assert float(ref[c].abs().max()) > 0
         assert torch.equal(got[c], ref[c]) and torch.equal(got[c], again[c])
+
+
+def _halo_windows(grid, gs, world: int) -> list:
+    """Each rank's window GridState (K, nloc + 2 omax) of the flat cell axis
+    cut into `world` slabs (padded to a multiple of it with empty cells),
+    zero bands where there is no neighbour rank, with (nloc, first cell)."""
+    omax = dem_grid.halo_width(grid)
+    nc = gs.mask.shape[1]
+    ncp = -(-nc // world) * world
+    nloc = ncp // world
+    pad = lambda a: torch.nn.functional.pad(a, (omax, omax + ncp - nc))
+    out = []
+    for r in range(world):
+        cut = lambda a: pad(a)[:, r * nloc : (r + 1) * nloc + 2 * omax].contiguous()
+        out.append((nloc, r * nloc, dem_grid.GridState(
+            pos=tuple(cut(a) for a in gs.pos), vel=tuple(cut(a) for a in gs.vel),
+            radius=cut(gs.radius), mask=cut(gs.mask), pid=cut(gs.pid))))
+    return out
+
+
+@pytest.mark.parametrize("cap", [3, 8, 13])
+def test_k11_halo_entry_matches_plain(cap):
+    """K11's halo entry on the first, interior and last of three ranks'
+    windows (the kernel given the window's first centre column and row
+    stride) equals its plain twin `_pair_sweep` bit for bit, and the whole
+    grid's K11 on the rank's own columns; it counts its launches apart
+    from the whole grid's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    grid, gs = _dem_grid_state(cap)
+    prm = ContactParams(k_n=2e3, gamma_n=3.0, mu=0.3, gamma_t=2.0)
+    whole = dem_grid.grid_pair_forces_cuda(grid, gs, prm)
+    nc = gs.mask.shape[1]
+    for nloc, lo, win in _halo_windows(grid, gs, 3):
+        before = (dem_grid.halo_pair_forces_cuda.launches, dem_grid.grid_pair_forces_cuda.launches)
+        got = dem_grid.halo_pair_forces_cuda(grid, win, nloc, prm)
+        assert (dem_grid.halo_pair_forces_cuda.launches,
+                dem_grid.grid_pair_forces_cuda.launches) == (before[0] + 1, before[1])
+        ref = dem_grid.halo_pair_forces(grid, win, nloc, prm)
+        hi = min(lo + nloc, nc)
+        for c in range(3):
+            assert got[c].shape == (cap, nloc) and torch.isfinite(got[c]).all()
+            assert torch.equal(got[c], ref[c])
+            assert torch.equal(got[c][:, : hi - lo], whole[c][:, lo:hi])
+        assert float(ref[0].abs().max()) > 0
+
+
+def test_k11_halo_entry_refuses_what_it_cannot_take():
+    """A window of the wrong width, a float64 field or an int64 pid raises;
+    nothing falls back to the plain twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    grid, gs = _dem_grid_state(3)
+    prm = ContactParams(k_n=2e3, gamma_n=3.0)
+    nloc, _, win = _halo_windows(grid, gs, 2)[0]
+    with pytest.raises(ValueError, match="expected|the grid"):
+        dem_grid.halo_pair_forces_cuda(grid, win, nloc + 1, prm)
+    wide = dataclasses.replace(win, radius=win.radius.double())
+    with pytest.raises(ValueError, match="float32"):
+        dem_grid.halo_pair_forces_cuda(grid, wide, nloc, prm)
+    with pytest.raises(ValueError, match="int32"):
+        dem_grid.halo_pair_forces_cuda(grid, dataclasses.replace(win, pid=win.pid.long()), nloc,
+                                       prm)
 
 
 def test_k11_refuses_float64():

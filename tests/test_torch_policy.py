@@ -226,13 +226,25 @@ def test_no_port_function_defaults_to_the_cpu():
 
 
 def test_multi_device_options_raise_a16():
+    """The coupled solver on ranks (A16 (c), ported) takes `sharded=True`
+    and the process group, not the JAX package's device mesh; the fluid
+    options A16 (d') leaves out raise, naming it, before any rank
+    communicates. dem_run_grid's `shard` is the ranks' SlabComm."""
+    import dataclasses
+
+    from dedflow_tpu_torch.app.coupled import CoupledSolver
+    from dedflow_tpu_torch.config import NewtonConfig
     from dedflow_tpu_torch.dem.grid import dem_run_grid
     from dedflow_tpu_torch.dem.particles import particle_state
 
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="device_mesh"):
         _coupled_solver(device="cpu", device_mesh=object())
+    lagged = dataclasses.replace(reference_scenario_config(),
+                                 newton=NewtonConfig(lag_jacobian=True))
+    with pytest.raises(NotImplementedError, match="A16 \\(d'\\)"):
+        CoupledSolver(box_mesh(2, 2, 4), lagged, _coupled_config(), device="cpu", sharded=True)
     pst = particle_state([[0.5, 0.5, 0.5]], device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="SlabComm"):
         dem_run_grid(_coupled_config().dem, pst, 1, shard=(object(), "dd"))
 
 

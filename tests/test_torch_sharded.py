@@ -1,5 +1,5 @@
-"""dedflow_tpu_torch's multi-device path (ROADMAP A16, the z-slab and RCB
-modes) on gloo ranks on the CPU, float64.
+"""dedflow_tpu_torch's multi-device path (ROADMAP A16: the z-slab and RCB
+modes, the coupled FEM-DEM step) on gloo ranks on the CPU, float64.
 
 parallel.sharded.ShardedNSSolver on 2 and 3 ranks: one spawn per world
 size (a module fixture; in turns, in the background, while this
@@ -36,6 +36,20 @@ references jitted once per mesh in a module fixture):
   than the neighbours' ghosts, and no collective that moves a whole vector
   runs in a step.
 
+The coupled FEM-DEM step (torch_sharded_ranks.COUPLED_CASES: the box on
+z-slabs, the Delaunay mesh on RCB parts; CoupledSolver(sharded=True)
+.step(num_newton=2)) and the sharded DEM (DEM_CASES, one rebuild window):
+
+- the fluid within 1e-12 of the port's one process and, on the box,
+  within 1e-8 of the JAX CoupledSolver's step (the bar of the JAX
+  package's own sharded coupled test); the particles bit-equal to one
+  process's on every rank, the DEM on cell slabs with its bands traded,
+  no whole-vector collective in the step;
+- dem_run_grid(shard=) bit-equal to one process's, within 1e-12 of the
+  JAX dem_run_grid, replicated where its reach does not fit a slab;
+  HaloComm.reverse_add sums the ghost rows onto their owners; the CLI's
+  `--scenario coupled --devices 2` writes the one-process run's files.
+
 Without spawning: the partition functions bit-equal to the JAX package's,
 the RCB halo plan against the JAX build_halo_plan, the mode choice against
 the JAX constructor's conditions, the z-slab cut, K3's banded and K7's
@@ -60,7 +74,9 @@ import pytest
 import torch
 import torch_sharded_ranks as ranks_mod
 from torch_sharded_ranks import BOX, CLI_MODES, CLI_STEPS, CONFIGS, RCB_CASES, case_state
-from torch_sharded_ranks import cli_argv, probe_vector, rcb_state
+from torch_sharded_ranks import COUPLED_CASES, COUPLED_NEWTON, DEM_CASES, DEM_STEPS
+from torch_sharded_ranks import cli_argv, cli_coupled_argv, coupled_setup, dem_case_run
+from torch_sharded_ranks import probe_vector, rcb_state
 
 from dedflow_tpu.app.scenarios import box_channel_bcs as j_box_channel_bcs
 from dedflow_tpu.app.scenarios import reference_scenario_config as j_reference_config
@@ -71,8 +87,10 @@ from dedflow_tpu.solver.newton import NSSolver as JNSSolver
 from dedflow_tpu.solver.pc import NSFieldSplitPCT as JPC
 from dedflow_tpu_torch import interop
 from dedflow_tpu_torch.app import main as tmain
+from dedflow_tpu_torch.app.coupled import CoupledSolver as TCoupledSolver
 from dedflow_tpu_torch.app.scenarios import reference_initial_state, reference_scenario_config
 from dedflow_tpu_torch.fem.lattice import slab_layers
+from dedflow_tpu_torch.dem import grid as tdem_grid
 from dedflow_tpu_torch.fem import assembly as tasm
 from dedflow_tpu_torch.mesh import gen as tgen_mod
 from dedflow_tpu_torch.mesh.gen import _KUHN_TETS, box_mesh, delaunay_mesh, mixed_box_mesh
@@ -126,7 +144,7 @@ def spawned(tmp_path_factory):
 
 
 @pytest.fixture(scope="module", params=(2, 3), ids=("w2", "w3"))
-def ranks(request, spawned, refs, rcb_refs, jax_ref_steps, one_process_cli):
+def ranks(request, spawned, refs, rcb_refs, jax_ref_steps, one_process_cli, coupled_refs):
     """(world, gathered arrays, output directory) of the spawn of `world`
     ranks; the references are built first, while the ranks run."""
     world = request.param
@@ -135,23 +153,26 @@ def ranks(request, spawned, refs, rcb_refs, jax_ref_steps, one_process_cli):
     return world, dict(np.load(out / f"w{world}.npz")), out
 
 
-def jax_steps(js, state, num_newton=2, source=None):
+def jax_steps(js, state, num_newton=2, source=None, nodal_force=None):
     """The JAX package's step and step_fixed(num_newton) from its solver's
     jitted pieces, one compile of its Newton iteration serving both
     (tests/test_torch_classes.py::jax_steps), with the nodal heat `source`
-    where given. Returns ((wgold, dwgold, dwg), krylov_iters) of the
-    adaptive step and the fixed step's three states."""
+    and the nodal momentum load `nodal_force` where given. Returns
+    ((wgold, dwgold, dwg), krylov_iters) of the adaptive step and the fixed
+    step's three states."""
     wg, dwo, dwg = (jnp.asarray(a) for a in state)
     c = (js.solve_ctx, js.face_ctxs, js.mask)
     newton = js.cfg.newton
+    kw = {"source": source} if nodal_force is None else {"source": source,
+                                                           "nodal_force": nodal_force}
 
     def run(num, adaptive):
         d = js._predict(dwg)
-        f = js._residual(*c, wg, dwo, d, source=source)
+        f = js._residual(*c, wg, dwo, d, **kw)
         rnorm0 = js._norms(f) + 1e-16
         kits = []
         for _ in range(num):
-            d, f, rn, kit, _ = js._newton_iter(*c, wg, dwo, d, f, source=source)
+            d, f, rn, kit, _ = js._newton_iter(*c, wg, dwo, d, f, **kw)
             kits.append(int(kit))
             if adaptive and bool(jnp.all((rn < newton.rtol * rnorm0) | (rn < newton.atol))):
                 break
@@ -181,10 +202,12 @@ def refs():
         jm, pc = assemble_system(ts.lctx, ts.face_ctxs, ts.mask_t, *tstate, cfg.physics, cfg.time)
         js = JNSSolver(jmesh, jc)
         # its jitted residual and assembly (assemble_residual_t /
-        # assemble_jacobian_t at the alpha states; the residual's compile
-        # also serves jax_steps)
+        # assemble_jacobian_t at the alpha states; the residual's compile,
+        # with a zero nodal load, also serves jax_steps and the coupled
+        # step's fluid, jax_coupled_step)
         c, jstate = (js.solve_ctx, js.face_ctxs, js.mask), [jnp.asarray(a) for a in state]
-        jf, (jj, _) = js._residual(*c, *jstate), js._assemble_system(*c, *jstate)
+        jf = js._residual(*c, *jstate, source=None, nodal_force=zero_load(tmesh))
+        jj, _ = js._assemble_system(*c, *jstate)
         out[name] = dict(ts=ts, js=js, jm=jm, pc=pc, jj=jj, port_F=residual(ts.solve_ctx, ts.face_ctxs, ts.mask_t, *tstate, cfg.physics, cfg.time,
                                          cfg.freeze_phi_temperature).numpy(),
                          port_J=jm.to_block_dense(), jax_F=np.asarray(jf),
@@ -273,10 +296,16 @@ def test_ranks_take_the_same_krylov_path(ranks):
         assert np.array_equal(got[f"rank{r}_broadcast_dwg"], got["step_dwg"])
 
 
+def zero_load(mesh):
+    """A zero nodal momentum load (N, 3): the JAX solver's jitted pieces then
+    take the coupled step's signature, and one compile serves both."""
+    return jnp.zeros((mesh.num_node, 3))
+
+
 @pytest.fixture(scope="module")
 def jax_ref_steps(refs):
     state, _, out = refs
-    return jax_steps(out["ref"]["js"], state)
+    return jax_steps(out["ref"]["js"], state, nodal_force=zero_load(box_mesh(*BOX)))
 
 
 def test_step_fixed_matches_jax(ranks, jax_ref_steps):
@@ -314,6 +343,8 @@ def one_process_cli(tmp_path_factory):
     for mode in CLI_MODES:
         runs[mode] = tmp_path_factory.mktemp(f"cli1_{mode}")
         assert tmain.main(cli_argv(1, str(runs[mode]), mode)) == 0
+    runs["coupled"] = tmp_path_factory.mktemp("cli1_coupled")
+    assert tmain.main(cli_coupled_argv(1, str(runs["coupled"]))) == 0
     return runs
 
 
@@ -550,6 +581,223 @@ def test_rcb_ranks_share_the_krylov_path_and_exchange_ghosts_only(ranks, name):
     # every value sent fills one ghost slot, and each ghost is filled once
     assert sum(int(at(r, "sent_values")) for r in range(world)) == sum(
         int(at(r, "n_ghost")) for r in range(world))
+
+
+# ---------------------------------------------------------------------------
+# the coupled FEM-DEM step and the sharded DEM (coupled_scenarios in the same spawn)
+
+COUPLED_NAMES = list(COUPLED_CASES)
+DEM_NAMES = list(DEM_CASES)
+
+
+def _jax_dem_config(cfg):
+    """The JAX package's copy of a port DEMConfig."""
+    from dedflow_tpu.dem.cells import CellGrid as JCellGrid
+    from dedflow_tpu.dem.contact import ContactParams as JContactParams
+    from dedflow_tpu.dem.integrate import DEMConfig as JDEMConfig
+
+    d = dataclasses.asdict(cfg)
+    d["grid"] = JCellGrid(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in d["grid"].items()})
+    d["contact"] = JContactParams(**d["contact"])
+    return JDEMConfig(**d)
+
+
+def jax_coupled_step(js, mesh, jccfg, pst, state, num_newton: int):
+    """The JAX CoupledSolver.step(num_newton=) on a box (its
+    app/coupled.py:110-135: drag_exchange_lattice on the solver's
+    FEMContext, step_fixed with the reaction as the nodal force, then
+    dem_run_grid with the drag), its step_fixed driven from the solver's
+    jitted pieces (`jax_steps`, compiled once with a nodal load for the
+    box's other cases), the drag jitted whole. Returns ((wgold, dwgold,
+    dwg), particle state)."""
+    from dedflow_tpu.dem import coupling as jcoup
+    from dedflow_tpu.dem.grid import dem_run_grid as jdem_run_grid
+
+    lo, hi = np.asarray(mesh.xg).min(axis=0), np.asarray(mesh.xg).max(axis=0)
+    spacing = (hi - lo) / np.asarray(mesh.lattice, float)
+    f_p, f_nodes = jax.jit(lambda ctx, p, w: jcoup.drag_exchange_lattice(
+        mesh.lattice, lo, spacing, ctx, p, w, jccfg.drag_mu))(js.ctx, pst, jnp.asarray(state[0]))
+    _, fixed = jax_steps(js, state, num_newton, nodal_force=f_nodes.astype(jnp.float64))
+    return [np.asarray(a) for a in fixed], jdem_run_grid(jccfg.dem, pst, jccfg.substeps,
+                                                         ext=f_p)
+
+
+@pytest.fixture(scope="module")
+def coupled_refs(refs):
+    """Per coupled case, the port's one-process CoupledSolver.step(num_newton
+    =COUPLED_NEWTON) (the Delaunay mesh on the gather tier, as the RCB
+    mode) and its initial particles; the JAX CoupledSolver's step on the
+    box (`jax_coupled_step`, on the "ref" case's JAX solver); per DEM case
+    the port's one-process dem_run_grid, and the JAX dem_run_grid of the
+    packed cloud."""
+    from dedflow_tpu.app.scenarios import coupled_scenario_setup as j_coupled_setup
+    from dedflow_tpu.dem.grid import dem_run_grid as jdem_run_grid
+    from dedflow_tpu.dem.particles import particle_state as jparticles
+
+    out = {}
+    for name, (make_mesh, make_cfg) in COUPLED_CASES.items():
+        mesh = make_mesh()
+        cfg = dataclasses.replace(make_cfg(), use_lattice="gather") if name != "box" \
+            else make_cfg()
+        ccfg, pst = coupled_setup(mesh, "cpu")
+        ts = TCoupledSolver(mesh, cfg, ccfg, device="cpu")
+        state = case_state(mesh)
+        *fluid, p1, _ = ts.step(*interop.state_from_numpy(*state, device="cpu"), pst,
+                                num_newton=COUPLED_NEWTON)
+        out[name] = dict(fluid=[t.numpy() for t in fluid], x=p1.x.numpy(), v=p1.v.numpy(),
+                         x0=pst.x.numpy(), mesh=mesh)
+        if name == "box":
+            f_p = ts.drag(torch.as_tensor(state[0]), pst)[0]
+            ts.ccfg = dataclasses.replace(ccfg, use_grid=False)
+            cand = ts.advance_particles(pst, f_p)
+            out[name].update(candidates_x=cand.x.numpy(), candidates_v=cand.v.numpy())
+        if name == "box":
+            jmesh = j_box_mesh(*BOX)
+            jccfg, jpst = j_coupled_setup(jmesh, num_particles=pst.num_particle)
+            np.testing.assert_array_equal(np.asarray(jpst.x), pst.x.numpy())
+            jccfg = dataclasses.replace(jccfg, dem=_jax_dem_config(ccfg.dem))
+            jfluid, jp1 = jax_coupled_step(refs[2]["ref"]["js"], jmesh, jccfg, jpst, state,
+                                           COUPLED_NEWTON)
+            out[name].update(jax_fluid=jfluid, jax_x=np.asarray(jp1.x), jax_v=np.asarray(jp1.v))
+    for name, make in DEM_CASES.items():
+        x, v, r, cfg, ext = make()
+        got = dem_case_run(name, "cpu")
+        out[f"dem_{name}"] = dict(x=got.x.numpy(), v=got.v.numpy(), x0=x, cfg=cfg, r=r)
+        if name == "packed":
+            ref = jdem_run_grid(_jax_dem_config(cfg), jparticles(x, v, mass=1.0, radius=r),
+                                DEM_STEPS, rebuild_every=DEM_STEPS, ext=jnp.asarray(ext))
+            out[f"dem_{name}"].update(jax_x=np.asarray(ref.x), jax_v=np.asarray(ref.v))
+    return out
+
+
+@pytest.mark.parametrize("name", COUPLED_NAMES)
+def test_coupled_step_matches_one_process(ranks, coupled_refs, name):
+    """CoupledSolver(sharded=True).step(num_newton=2) against the port's one
+    process: the fluid to 1e-12, the particles bit for bit (each drag
+    computed by one rank with the one-process operations; the DEM on cell
+    slabs, K11's halo entry's plain twin), the same particles on every
+    rank; the DEM ran on slabs, traded its bands (two static, then one a
+    substep), and no collective moved a whole vector."""
+    world, got, _ = ranks
+    ref = coupled_refs[name]
+    for key, r in zip(("wgold", "dwgold", "dwg"), ref["fluid"]):
+        assert rel(got[f"coupled_{name}_{key}"], r) < 1e-12, key
+    assert np.abs(ref["x"] - ref["x0"]).max() > 0  # the particles moved
+    at = lambda k, r: got[f"coupled_{name}_{k}_rank{r}"]
+    for r in range(world):
+        assert np.array_equal(at("x", r), ref["x"]) and np.array_equal(at("v", r), ref["v"])
+        assert str(at("mode", r)) == ("slab" if name == "box" else "rcb")
+        assert at("windows", r).tolist() == [1, 0]
+        assert int(at("dem_exchanges", r)) == 2 + 10  # coupled_scenario_setup's 10 substeps
+        assert int(at("fluid_exchanges", r)) > 0 and int(at("whole_vector_calls", r)) == 0
+        assert at("timings", r).tolist() == ["dem_s", "drag_s", "fluid_s"]
+
+
+def test_coupled_candidate_dem_is_replicated(ranks, coupled_refs):
+    """With use_grid=False the ranks run the candidate-list dem_run on every
+    particle, as the JAX package does: bit-equal to one process's from the
+    same (bit-equal) drag."""
+    world, got, _ = ranks
+    ref = coupled_refs["box"]
+    assert np.abs(ref["candidates_x"] - ref["x0"]).max() > 0
+    for r in range(world):
+        for key in ("x", "v"):
+            assert np.array_equal(got[f"coupled_box_candidates_{key}_rank{r}"],
+                                  ref[f"candidates_{key}"]), (r, key)
+
+
+def test_coupled_step_matches_jax(ranks, coupled_refs):
+    """The sharded coupled step on the box against the JAX package's
+    one-device CoupledSolver step, at the bar of its own sharded test
+    (tests/test_sharding.py:211-245: rtol 1e-8)."""
+    _, got, _ = ranks
+    ref = coupled_refs["box"]
+    for key, r in zip(("wgold", "dwgold", "dwg"), ref["jax_fluid"]):
+        assert rel(got[f"coupled_box_{key}"], r) < 1e-8, key
+    for key in ("x", "v"):
+        assert rel(got[f"coupled_box_{key}_rank0"], ref[f"jax_{key}"]) < 1e-8, key
+
+
+def _touching_pairs_across_slabs(x, r, grid, world: int) -> int:
+    """Touching pairs whose cells lie in two ranks' slabs of the flat cell
+    axis (padded to a multiple of `world`)."""
+    coords = np.clip(np.floor((x - np.asarray(grid.origin)) / grid.cell_size), 0,
+                     np.asarray(grid.dims) - 1).astype(np.int64)
+    nx, ny, nz = grid.dims
+    cid = (coords[:, 0] * ny + coords[:, 1]) * nz + coords[:, 2]
+    slab = cid // (-(-grid.num_cell // world))
+    gap = np.sqrt(((x[:, None] - x[None]) ** 2).sum(-1)) - 2 * r
+    i, j = np.triu_indices(len(x), 1)
+    return int(((gap[i, j] < 0) & (slab[i] != slab[j])).sum())
+
+
+@pytest.mark.parametrize("name", DEM_NAMES)
+def test_sharded_dem_run_grid_bit_equal_to_one_process(ranks, coupled_refs, name):
+    """dem_run_grid(shard=SlabComm) over one window: bit-equal to one
+    process's on every rank. The packed cloud runs on slabs at 2 and 3
+    ranks (touching pairs across the seams); the coarse grid's reach fits
+    a slab on 2 ranks, not on 3, where every rank runs the whole grid
+    (no band traded), as the JAX package does."""
+    world, got, _ = ranks
+    ref = coupled_refs[f"dem_{name}"]
+    cfg = ref["cfg"]
+    ncp = -(-cfg.grid.num_cell // world) * world
+    fits = tdem_grid.shard_halo_fits(cfg.grid, ncp, world)
+    assert fits == (name == "packed" or world == 2)
+    assert np.abs(ref["x"] - ref["x0"]).max() > 0
+    if name == "packed":
+        assert _touching_pairs_across_slabs(ref["x0"], ref["r"], cfg.grid, world) > 0
+    for r in range(world):
+        at = lambda k: got[f"dem_{name}_{k}_rank{r}"]
+        assert np.array_equal(at("x"), ref["x"]) and np.array_equal(at("v"), ref["v"])
+        assert at("windows").tolist() == ([1, 0] if fits else [0, 1])
+        assert int(at("exchanges")) == (2 + DEM_STEPS if fits else 0)
+
+
+def test_sharded_dem_run_grid_matches_jax(ranks, coupled_refs):
+    _, got, _ = ranks
+    ref = coupled_refs["dem_packed"]
+    for key in ("x", "v"):
+        assert rel(got[f"dem_packed_{key}_rank0"], ref[f"jax_{key}"]) < 1e-12, key
+
+
+def test_reverse_add_returns_ghost_rows_to_their_owners(ranks):
+    """HaloComm.reverse_add on the Delaunay mesh's parts: each rank's local
+    rows of one nodal array, summed back onto the owners, give each node's
+    value times 1 + the number of ranks that hold it as a ghost."""
+    world, got, _ = ranks
+    mesh = COUPLED_CASES["delaunay"][0]()
+    g = probe_vector(mesh.num_node)[:3].T
+    held = np.ones(mesh.num_node)
+    for r in range(world):
+        lay = tpart.part_layout(mesh, world, r)
+        held[lay.nodes[lay.n_own :]] += 1
+    assert held.max() > 1
+    assert rel(got["coupled_delaunay_reverse_add"], g * held[:, None]) < 1e-14
+
+
+def test_cli_coupled_devices_writes_the_one_process_files(spawned, one_process_cli):
+    """`--scenario coupled --devices 2`: rank 0 writes sol.0, sol.1 (the
+    gathered state, within 1e-9 of the one-process run's) and particles.1
+    (the one-process run's bit for bit: the first step's drag reads the
+    initial state), with the metrics of 2 gloo ranks."""
+    run, out = spawned[2]
+    run.result()
+    assert int(np.load(out / "w2.npz")["cli_coupled_rc"]) == 0
+    ref_dir, got_dir = one_process_cli["coupled"], out / "cli2_coupled"
+    for step in (0, 1):
+        ref, sharded_ = (_h5_datasets(d / f"sol.{step}.h5") for d in (ref_dir, got_dir))
+        assert sorted(sharded_) == sorted(ref)
+        for key, r in ref.items():
+            assert (rel(sharded_[key], r) < 1e-9 if np.asarray(r).dtype.kind == "f"
+                    and np.abs(r).max() else np.array_equal(sharded_[key], r)), key
+    ref, sharded_ = (_h5_datasets(d / "particles.1.h5") for d in (ref_dir, got_dir))
+    assert sorted(sharded_) == sorted(ref) and ref
+    for key, r in ref.items():
+        assert np.array_equal(sharded_[key], r), key
+    recs = [json.loads(ln) for ln in (got_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [(r["step"], r["ranks"], r["backend"]) for r in recs] == [(1, 2, "gloo")]
 
 
 # ---------------------------------------------------------------------------
@@ -812,9 +1060,17 @@ def test_halo_product_is_the_whole_matrix_rows():
 
 
 def test_coupled_devices_raises_a16c(tmp_path):
-    with pytest.raises(NotImplementedError, match="A16 \\(c\\)"):
-        tmain.main(["--scenario", "coupled", "--devices", "2", "--box", "2", "2", "4",
-                    "--device", "cpu", "--out", str(tmp_path)])
+    """A16 (c) is ported: `--scenario coupled --devices N` runs (the world-2
+    spawn's CLI case). What stays refused, before any rank starts, is the
+    coupled scenario on a mesh file (its particle locator assumes the
+    generator's Kuhn split), and the fluid options A16 (d') leaves out,
+    before the coupled solver's ranks communicate."""
+    assert tmain.main(["--scenario", "coupled", "--devices", "2", "--mesh", "box.h5",
+                       "--device", "cpu", "--out", str(tmp_path)]) == 2
+    mesh, cfg = box_mesh(2, 2, 4), reference_scenario_config()
+    cfg = dataclasses.replace(cfg, krylov=dataclasses.replace(cfg.krylov, pc="mg"))
+    with pytest.raises(NotImplementedError, match="A16 \\(d'\\)"):
+        TCoupledSolver(mesh, cfg, coupled_setup(mesh, "cpu")[0], device="cpu", sharded=True)
 
 
 def test_spawn_fails_on_a_failing_rank_and_times_out_on_a_hung_one():

@@ -2,13 +2,15 @@
 the CPU (no JAX here, so that a rank imports only torch and the port).
 
 `scenarios(device, out_dir)` runs every sharded case once on the ranks of
-one process group, the z-slab cases and then the RCB cases (`RCB_CASES`,
-`rcb_scenarios`), and rank 0 writes the gathered arrays to
+one process group, the z-slab cases, the RCB cases (`RCB_CASES`,
+`rcb_scenarios`) and the coupled FEM-DEM cases (`COUPLED_CASES`,
+`DEM_CASES`, `coupled_scenarios`), and rank 0 writes the gathered arrays to
 out_dir/w<world>.npz; the test module's cases are asserts on that file.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -17,13 +19,21 @@ import torch
 import torch.distributed as dist
 
 from dedflow_tpu_torch.app import main as tmain
+from dedflow_tpu_torch.app.coupled import CoupledSolver
+from dedflow_tpu_torch.app.scenarios import coupled_scenario_setup
 from dedflow_tpu_torch.app.scenarios import box_channel_bcs, reference_scenario_config
 from dedflow_tpu_torch.app.scenarios import laser_source, melt_pool_initial_state
 from dedflow_tpu_torch.app.scenarios import melt_pool_scenario_config, reference_initial_state
 from dedflow_tpu_torch.config import BCSpec
+from dedflow_tpu_torch.dem import grid as dem_grid
+from dedflow_tpu_torch.dem.cells import CellGrid, cell_stats, make_grid
+from dedflow_tpu_torch.dem.contact import ContactParams
+from dedflow_tpu_torch.dem.integrate import DEMConfig
+from dedflow_tpu_torch.dem.particles import particle_state
 from dedflow_tpu_torch.mesh.gen import box_mesh, delaunay_mesh, mixed_box_mesh
 from dedflow_tpu_torch.parallel import dryrun
 from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
+from dedflow_tpu_torch.parallel.spmd import SlabComm
 from dedflow_tpu_torch.solver.krylov import gmres
 from dedflow_tpu_torch.solver.newton import assemble_system
 
@@ -177,6 +187,132 @@ def rcb_scenarios(device: str, out: dict) -> None:
                 out.update({f"rcb_{name}_rank{r}_{k}": np.asarray(v) for k, v in h.items()})
 
 
+# The coupled FEM-DEM cases: name -> (mesh, configuration). The box takes
+# the z-slab mode, the Delaunay mesh (the RCB cases' first) the RCB mode.
+# COUPLED_P particles of coupled_scenario_setup's default radius (a 5%
+# solids fraction: 0.0499 on the unit box) give an (11, 11, 11) DEM grid,
+# whose reach omax = 133 cells fits a slab of 666 / 444 cells on 2 / 3
+# ranks; the cell capacity is the cloud's largest occupancy + 1 (the JAX
+# reference's sweep compiles in time with K).
+COUPLED_CASES = {
+    "box": (lambda: box_mesh(*BOX), reference_scenario_config),
+    "delaunay": RCB_CASES["delaunay"][:2],
+}
+COUPLED_P = 48
+COUPLED_NEWTON = 2
+
+
+def coupled_setup(mesh, device):
+    """(CoupledConfig, ParticleState) of a coupled case on `device`."""
+    ccfg, pst = coupled_scenario_setup(mesh, num_particles=COUPLED_P, device=device)
+    k = cell_stats(ccfg.dem.grid, pst.x.cpu().numpy())["max_per_cell"] + 1
+    grid = dataclasses.replace(ccfg.dem.grid, capacity=k)
+    return dataclasses.replace(ccfg, dem=dataclasses.replace(ccfg.dem, grid=grid)), pst
+
+
+def packed_cloud():
+    """90 particles of radius 0.03 on a jittered 10 x 3 x 3 lattice of
+    spacing 0.058 along x from 0.28 to 0.80, every lattice neighbour
+    touching, across the seams of 2 and 3 ranks' slabs; walls, gravity,
+    linear drag and an external force; a (15, 15, 15) grid (omax 241 fits
+    a slab of 1,688 / 1,125 cells on 2 / 3 ranks) of capacity the largest
+    occupancy + 1. Returns (x, v, radius, DEMConfig, ext)."""
+    rng = np.random.default_rng(7)
+    i = np.arange(90)
+    x = np.stack([0.28 + (i % 10) * 0.058, 0.45 + (i // 10 % 3) * 0.058,
+                  0.45 + (i // 30) * 0.058], axis=1) + rng.uniform(-0.002, 0.002, size=(90, 3))
+    v = rng.normal(scale=0.05, size=(90, 3))
+    grid = make_grid([0, 0, 0], [1, 1, 1], cell_size=0.08, capacity=1)
+    grid = dataclasses.replace(grid, capacity=cell_stats(grid, x)["max_per_cell"] + 1)
+    cfg = DEMConfig(grid=grid, contact=ContactParams(k_n=2e3, gamma_n=3.0, mu=0.3, gamma_t=2.0),
+                    gravity=(0.0, 0.0, -9.81), dt=1e-4, walls_lo=(0, 0, 0), walls_hi=(1, 1, 1),
+                    linear_drag=0.5)
+    ext = np.random.default_rng(8).normal(scale=0.2, size=x.shape)
+    return x, v, 0.03, cfg, ext
+
+
+def coarse_cloud():
+    """Twelve particles on a (3, 3, 3) grid (cells of 0.5): omax = 13 fits
+    a slab of 14 cells on 2 ranks, not of 9 on 3, where the run stays
+    replicated."""
+    rng = np.random.default_rng(9)
+    x = rng.uniform(0.1, 0.9, size=(12, 3))
+    v = rng.normal(scale=0.05, size=(12, 3))
+    grid = CellGrid(origin=(-0.25, -0.25, -0.25), cell_size=0.5, dims=(3, 3, 3), capacity=8)
+    cfg = DEMConfig(grid=grid, contact=ContactParams(k_n=2e3, gamma_n=3.0), dt=1e-4,
+                    walls_lo=(0, 0, 0), walls_hi=(1, 1, 1))
+    return x, v, 0.12, cfg, None
+
+
+# The sharded dem_run_grid's cases: one rebuild window of DEM_STEPS substeps.
+DEM_CASES = {"packed": packed_cloud, "coarse": coarse_cloud}
+DEM_STEPS = 5
+
+
+def dem_case_run(name: str, device, shard=None):
+    """dem_run_grid over one window of DEM_STEPS substeps of a DEM case."""
+    x, v, r, cfg, ext = DEM_CASES[name]()
+    st = particle_state(x, v, radius=r, mass=1.0, device=device)
+    ext_t = None if ext is None else torch.as_tensor(ext, dtype=st.x.dtype, device=st.x.device)
+    return dem_grid.dem_run_grid(cfg, st, DEM_STEPS, rebuild_every=DEM_STEPS, ext=ext_t,
+                                 shard=shard)
+
+
+def coupled_scenarios(device: str, out: dict) -> None:
+    """The coupled cases on this process group: CoupledSolver(sharded=True)
+    .step(num_newton=COUPLED_NEWTON) from the case's state, with every
+    whole-vector collective refused (the drag exchange moves O(P) values
+    and bands); on the box, the DEM substeps with use_grid=False (dem_run
+    on every rank) from the initial drag; the sharded dem_run_grid of the
+    DEM cases; on the RCB
+    mesh, HaloComm.reverse_add of the local rows of a seeded nodal array.
+    Rank 0 adds the gathered arrays and every rank's counters to `out`."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    hist = {}
+    for name, (make_mesh, make_cfg) in COUPLED_CASES.items():
+        mesh = make_mesh()
+        ccfg, pst = coupled_setup(mesh, device)
+        s = CoupledSolver(mesh, make_cfg(), ccfg, device=device, sharded=True)
+        state = [s.fluid.shard_state(a) for a in case_state(mesh)]
+        dem_grid.dem_run_grid.windows.update(slabs=0, replicated=0)
+        timings = {}
+        with NoWholeVector() as guard:
+            *new, p1, _ = s.step(*state, pst, num_newton=COUPLED_NEWTON, timings=timings)
+        for key, t in zip(("wgold", "dwgold", "dwg"), new):
+            full = s.fluid.gather_state(t)
+            if rank == 0:
+                out[f"coupled_{name}_{key}"] = full
+        hist.update({f"coupled_{name}_{k}": v for k, v in (
+            ("x", p1.x.numpy()), ("v", p1.v.numpy()), ("mode", s.fluid.mode),
+            ("windows", [dem_grid.dem_run_grid.windows[k] for k in ("slabs", "replicated")]),
+            ("dem_exchanges", s.dem_comm.stats.exchanges),
+            ("fluid_exchanges", s.fluid.comm.stats.exchanges),
+            ("whole_vector_calls", guard.calls), ("timings", sorted(timings)))})
+        if name == "box":  # use_grid=False: the candidate-list DEM, replicated on every rank
+            f_p = s.drag(state[0], pst)[0]
+            s.ccfg = dataclasses.replace(ccfg, use_grid=False)
+            cand = s.advance_particles(pst, f_p)
+            hist.update(coupled_box_candidates_x=cand.x.numpy(),
+                        coupled_box_candidates_v=cand.v.numpy())
+        if s.fluid.mode == "rcb":
+            y = s.fluid.shard_nodal(probe_vector(mesh.num_node)[:3].T, ghosts=True).T
+            got = s.fluid.gather_state(s.fluid.comm.reverse_add(y.contiguous()).T)
+            if rank == 0:
+                out[f"coupled_{name}_reverse_add"] = got
+    for name in DEM_CASES:
+        comm = SlabComm()
+        dem_grid.dem_run_grid.windows.update(slabs=0, replicated=0)
+        got = dem_case_run(name, device, shard=comm)
+        hist.update({f"dem_{name}_{k}": v for k, v in (
+            ("x", got.x.numpy()), ("v", got.v.numpy()), ("exchanges", comm.stats.exchanges),
+            ("windows", [dem_grid.dem_run_grid.windows[k] for k in ("slabs", "replicated")]))})
+    hists = [None] * world if rank == 0 else None
+    dist.gather_object(hist, hists, dst=0)
+    if rank == 0:
+        for r, h in enumerate(hists):
+            out.update({f"{k}_rank{r}": np.asarray(v) for k, v in h.items()})
+
+
 # the CLI's modes: the box on z-slabs, and with assembly chunks (the RCB mode)
 CLI_MODES = {"slab": (), "rcb": ("--chunk", "64")}
 
@@ -185,6 +321,14 @@ def cli_argv(devices: int, out: str, mode: str = "slab") -> list:
     return ["--box", *map(str, BOX), "--steps", str(CLI_STEPS), "--save-every", "1",
             "--devices", str(devices), "--device", "cpu", "--dtype", "f64", "--out", out,
             "--log-level", "warning", *CLI_MODES[mode]]
+
+
+def cli_coupled_argv(devices: int, out: str) -> list:
+    """The coupled scenario's CLI run: one adaptive step of COUPLED_P
+    particles on the box, snapshots sol.0, sol.1 and particles.1."""
+    return ["--scenario", "coupled", "--box", *map(str, BOX), "--particles", str(COUPLED_P),
+            "--steps", "1", "--save-every", "1", "--devices", str(devices), "--device", "cpu",
+            "--dtype", "f64", "--out", out, "--log-level", "warning"]
 
 
 def scenarios(device: str, out_dir: str) -> None:
@@ -234,18 +378,23 @@ def scenarios(device: str, out_dir: str) -> None:
             out.update({f"rank{r}_{k}": np.asarray(v) for k, v in h.items()})
 
     rcb_scenarios(device, out)
+    coupled_scenarios(device, out)
 
-    # the CLI's --devices runs, in this process group
+    # the CLI's --devices runs, in this process group (the coupled one on 2 ranks)
     rcs = {}
-    for mode in CLI_MODES:
-        path = os.path.join(out_dir, f"cli{world}" + ("" if mode == "slab" else f"_{mode}"))
-        args = tmain._parser().parse_args(cli_argv(world, path, mode))
+    argvs = {mode: cli_argv(world, os.path.join(
+        out_dir, f"cli{world}" + ("" if mode == "slab" else f"_{mode}")), mode) for mode in CLI_MODES}
+    if world == 2:
+        argvs["coupled"] = cli_coupled_argv(world, os.path.join(out_dir, "cli2_coupled"))
+    for mode, argv in argvs.items():
+        args = tmain._parser().parse_args(argv)
         rcs[mode] = tmain.run(args, tmain.RunFiles(), tmain.get_logger(level="warning"),
                               torch.device(device))
     # the dry run's body, in both modes
     fixed = {mode: dryrun._dryrun_rank(device, world, mode) for mode in dryrun.MODES}
     if rank == 0:
-        out["cli_rc"], out["cli_rcb_rc"] = np.asarray(rcs["slab"]), np.asarray(rcs["rcb"])
+        for mode, rc in rcs.items():
+            out["cli_rc" if mode == "slab" else f"cli_{mode}_rc"] = np.asarray(rc)
         for mode, states in fixed.items():
             for key, a in zip(("wgold", "dwgold", "dwg"), states):
                 out[f"dryrun_{key}" if mode == "slab" else f"dryrun_{mode}_{key}"] = a
