@@ -303,6 +303,10 @@ TOL_K2 = 2e-5
 TOL_K3 = 1e-5  # 60 products per output row, no cancellation-heavy terms
 TOL_K6 = 2e-5  # the element bodies of K1/K2 on element columns
 TOL_K7 = 1e-5  # about 16 entries x 4 products per output row
+# K7's product (float32, float64) holds two entries' loads in flight in
+# these registers (csrc/winell_spmv.cu, schedule_fence); ptxas's other
+# schedule, loads interleaved with the FMAs in 40 / 64, runs 9-28% slower
+K7_REGISTERS = (64, 124)
 TOL_K8 = 1e-5  # 4 to 40 contributions per node, one add each
 TOL_K9 = 1e-5  # about 6.6 contributions per entry
 # K11 adds each centre's pair terms in its plain twin's order with IEEE
@@ -375,6 +379,12 @@ GATHER_KERNELS = (
      "dedflow_tpu/sparse/win_stream.py:251"),
     ("K9 ring reduce (gather plan)", "dedflow_tpu_torch/csrc/seg_reduce.cu",
      "dedflow_tpu/sparse/win_ring.py:356"),
+)
+# K7 on the gather tier's matrix: the same tets as IRREGULAR_KERNELS' K7 in
+# their generated node order (phase 12's record, phase 14's launches)
+GATHER_SPMV_KERNELS = (
+    ("K7 winell spmv (gather matrix, generated order)", "dedflow_tpu_torch/csrc/winell_spmv.cu",
+     "dedflow_tpu/sparse/win_kernels.py:55"),
 )
 # K10's instances beside GATHER_KERNELS' two, on the same RCM mesh: the
 # residual map with the heat source (the melt pool's WinELL residual) and
@@ -756,11 +766,17 @@ def phase_build() -> None:
     say(f"  K2 fused pass: registers frozen {k2_regs[0]}, "
         f"implicit {k2_regs[1]}; dynamic shared memory "
         f"frozen {stage[False]} B, implicit {stage[True]} B")
-    say(f"  K3 / K7 registers, float32 and float64 instances: "
+    say(f"  K3 registers, float32 and float64 instances: "
         f"{registers(libs['dia_spmv'], 'dia_spmv_kernelIfE')}, "
-        f"{registers(libs['dia_spmv'], 'dia_spmv_kernelIdE')} / "
-        f"{registers(libs['winell_spmv'], 'winell_spmv_kernelIfE')}, "
-        f"{registers(libs['winell_spmv'], 'winell_spmv_kernelIdE')}")
+        f"{registers(libs['dia_spmv'], 'dia_spmv_kernelIdE')}")
+    spmv = libs["winell_spmv"]
+    k7_regs = tuple(registers(spmv, f"winell_spmv_kernelI{t}E") for t in "fd")
+    say(f"  K7 registers, float32 / float64: product {k7_regs[0]} / {k7_regs[1]}, "
+        f"node-major pass {registers(spmv, 'node_major_kernelIfE')} / "
+        f"{registers(spmv, 'node_major_kernelIdE')}")
+    if k7_regs != K7_REGISTERS:
+        raise PhaseError(f"K7's product takes {k7_regs} registers, not {K7_REGISTERS}: ptxas "
+                         "changed its schedule (csrc/winell_spmv.cu, schedule_fence)")
     say("  K11 sweep: registers by capacity K (0: any K) "
         + ", ".join(f"{k}: {registers(dem, f'dem_contact_kernelILi{k}E')}" for k in range(13)
                     if k != 1))
@@ -1664,7 +1680,7 @@ def k10_records(k10: dict, names, tags=("residual", "jacobian")) -> list:
 
 
 def phase_gather_kernels(gsolver, rcm, rcm_ien_t, rcm_geom) -> tuple[list, list, list, dict,
-                                                                   dict, list]:
+                                                                   dict, list, dict]:
     """Phase 12: K4 and K5 on the gather tier's context (K5 also in its
     implicit mode, the metric rows read in place from the residual
     geometry), K10 on phase 6's RCM mesh `rcm`, its WinELL connectivity
@@ -1674,7 +1690,8 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t, rcm_geom) -> tuple[list, list,
     and the staged K4 and K8's segment sum on the residual plan. Returns the six kernel records (GATHER_KERNELS' order),
     the three staged Jacobian records, the two staged residual records
     (RESIDUAL_STAGED_KERNELS' order), the gather tier's system timings,
-    K5's implicit record and K10's records in K10_KERNELS' order."""
+    K5's implicit record, K10's records in K10_KERNELS' order and K7's
+    record on the gather tier's matrix (generated node order)."""
     import torch
 
     from dedflow_tpu_torch.fem import element_kernels as ek
@@ -1682,9 +1699,10 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t, rcm_geom) -> tuple[list, list,
     from dedflow_tpu_torch.fem.element_rows import alpha_states
     from dedflow_tpu_torch.solver.krylov import gmres
     from dedflow_tpu_torch.solver.newton import assemble_system, residual
-    from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
+    from dedflow_tpu_torch.sparse.win_kernels import winell_matvec, winell_matvec_plain
     from dedflow_tpu_torch.sparse.win_ring import ring_reduce, ring_reduce_plain
     from dedflow_tpu_torch.sparse.win_stream import stream_reduce, stream_reduce_plain
+    from dedflow_tpu_torch.sparse.winell import COMP2WIN
     from dedflow_tpu_torch.tools.timing import nbytes, time_ms
     from dedflow_tpu_torch.utils import nvcc
 
@@ -1816,7 +1834,18 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t, rcm_geom) -> tuple[list, list,
     jm, pc = assemble_system(*common)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn((6, ctx.num_node), generator=gen, device="cuda", dtype=gsolver.dtype)
-    spmv_ms = time_ms(lambda: winell_matvec(jm, x), 100)
+    k7 = lambda: winell_matvec(jm, x)
+    p7 = lambda: winell_matvec_plain(jm, x)
+    e7 = compare("K7 A x (gather matrix, generated order)", k7, p7, TOL_K7, parts=reduce_parts()[0])
+    plan = jm.plan
+    csr = block_csr(ctx.num_node, [(plan.grow_t.long(), plan.col_t.long(),
+                                    {c: jm.vals[int(COMP2WIN[c])] for c in range(18)})])
+    xflat = x.reshape(-1)
+    k7_rec = finish(GATHER_SPMV_KERNELS[0][0], {"max_abs_err": e7}, k7, p7, 100, 10,
+                    nbytes(jm.vals, plan.col_t, plan.row_ptr_t, x, x), op_count(p7),
+                    library=(lambda: csr @ xflat, k7()))
+    del csr
+    spmv_ms = k7_rec["ms"]
     f = residual(*common, gsolver.cfg.freeze_phi_temperature)
     gmres120 = lambda: gmres(jm.matvec_t, f, maxit=120, atol=0.0, rtol=0.0, pc=pc)
     gmres120()
@@ -1829,7 +1858,7 @@ def phase_gather_kernels(gsolver, rcm, rcm_ien_t, rcm_geom) -> tuple[list, list,
              "matrix_entries": ctx.win_plan.S}
     k10_extra = k10_records(k10, [n for n, _, _ in K10_KERNELS],
                             ("residual, heat source", "residual map alone"))
-    return results, staged, res_staged, times, implicit5, k10_extra
+    return results, staged, res_staged, times, implicit5, k10_extra, k7_rec
 
 
 def phase_gather_slice() -> None:
@@ -5170,7 +5199,7 @@ def run() -> int:
             f"(host setup s: delaunay_s {setup['delaunay_s']:.2f} shared with phase 6, "
             f"solver_s {gsetup:.2f}); K10 at phase 6's RCM mesh")
         (ga_results, ga_staged, ga_res_staged, ga_times, k5_implicit,
-         k10_extra) = phase_gather_kernels(gsolver, rcm, rcm_ien_t, rcm_geom)
+         k10_extra, ga_k7) = phase_gather_kernels(gsolver, rcm, rcm_ien_t, rcm_geom)
         say(f"  gather system: {json.dumps(ga_times)}")
         del rcm_ien_t, rcm_geom
         phase = "13 gather slice"
@@ -5291,11 +5320,11 @@ def run() -> int:
             KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS
             + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS + KRYLOV_KERNELS + CLASS_KERNELS
             + HEAT_KERNELS + MIXED_KERNELS + SHARDED_KERNELS + RCB_KERNELS + K10_KERNELS
-            + COUPLED_SHARDED_KERNELS,
+            + COUPLED_SHARDED_KERNELS + GATHER_SPMV_KERNELS,
             results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit]
             + ir_staged + ga_staged + ga_res_staged + krylov_results + class_results
             + heat_results + mixed_results + sharded_results + rcb_results + k10_extra
-            + coupled_sharded_results,
+            + coupled_sharded_results + [ga_k7],
             main["launches"] + ir_main["launches"] + co_main["launches"][3:]
             + ga_main["launches"][:2]
             + [ir_main["k10_launches"]["residual"], ir_main["k10_launches"]["jacobian"]]
@@ -5307,7 +5336,8 @@ def run() -> int:
             # K10 with the source: its instance's count on the WinELL melt slice
             # (phase 16); the residual map alone runs on no path
             + [slice_launches["winell"][6], 0]
-            + [r["launches"] for r in coupled_sharded_results],
+            + [r["launches"] for r in coupled_sharded_results]
+            + [ga_main["launches"][2]],
         )
     ]
     # the probes' launches: those of their entry points' runs (phase 18)

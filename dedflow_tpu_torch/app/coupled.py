@@ -3,8 +3,9 @@
 Per fluid step:
   1. locate the particles in the mesh, interpolate the fluid velocity,
      compute the Stokes drag on each particle and the equal-and-opposite
-     nodal reaction (dem.coupling.drag_exchange_lattice on a box mesh,
-     drag_exchange elsewhere),
+     nodal reaction (dem.coupling.locate_lattice on a lattice mesh, with
+     the table of each cell's elements (`lattice_cells`) that finds a
+     recovered mesh's elements too, dem.coupling.locate elsewhere),
   2. advance the fluid one generalized-alpha step with the reaction as a
      nodal momentum load (NSSolver.step / step_fixed, nodal_force=),
   3. advance the DEM `substeps` explicit substeps with the drag held fixed
@@ -77,11 +78,17 @@ class CoupledSolver:
         self.geom = coupling.coupling_geometry(mesh.xg, mesh.ien, self.device, self.dtype)
         self._lattice = mesh.lattice
         if self._lattice is not None:
-            # closed-form cell lookup on box meshes (locate_lattice)
+            # closed-form cell lookup on lattice meshes (locate_lattice),
+            # through a table of each cell's T elements: box_mesh's 6 Kuhn
+            # tets, or a recovered mesh's file order and split
             lo = np.asarray(mesh.xg).min(axis=0)
             hi = np.asarray(mesh.xg).max(axis=0)
             self._lat_origin = lo
             self._lat_spacing = (hi - lo) / np.asarray(self._lattice, float)
+            tets = 6 if mesh.lattice_tets is None else len(mesh.lattice_tets)
+            cells = coupling.lattice_cells(self._lattice, lo, self._lat_spacing, mesh.xg,
+                                           mesh.ien, tets)
+            self._lat_cells = torch.as_tensor(cells, device=self.device)
             self.grid = None
         else:
             self.grid = coupling.element_grid(mesh.xg, mesh.ien)
@@ -113,7 +120,7 @@ class CoupledSolver:
     def _locate(self, x):
         if self._lattice is not None:
             return coupling.locate_lattice(self._lattice, self._lat_origin, self._lat_spacing,
-                                           self.geom, x)
+                                           self.geom, x, cells=self._lat_cells)
         return coupling.locate(self.grid, self.geom, x)
 
     def drag(self, wg, pstate: ParticleState):

@@ -28,9 +28,10 @@ its RCM order; with `--jpath` or `--rpath` also the WinELL tier's input
 builders alone (`residual_inputs`, `jacobian_inputs`: K10 and whatever the
 checkout does around it), the peak device memory one `residual_win` /
 `jacobian_win` call allocates (`<name>_peak_bytes`); with `--steps` two
-WinELL `NSSolver.step` from the reference initial state on
-delaunay_mesh(56**3) + RCM and on box 55 with a hex over every cube
-(chip_smoke.py's phases 8 and 23): the peak device memory, all
+`NSSolver.step` from the reference initial state on delaunay_mesh(56**3)
++ RCM and on box 55 with a hex over every cube (WinELL, chip_smoke.py's
+phases 8 and 23) and on delaunay_mesh(56**3) in its generated order (the
+gather tier, phase 14): the peak device memory, all
 allocations counted (`<mesh>_steps_peak_bytes`), the wall seconds and a
 digest of the state; with `--probes` K12's segment reduce
 (`tools.gmicro.segment_reduce`) on the tool's (8, 2**23) stream at hb 16,
@@ -49,13 +50,30 @@ set-up on top); with `--heat` the heat / Poisson slice at box 55
 them), `torch.index_add` over the same contributions in the same sorted
 order as the library yardstick (float32 atomics: its digest varies from
 run to run), and one `fem.heat.assemble_poisson`, each also with the
-peak device memory one call allocates (`<name>_peak_bytes`). A kernel whose
+peak device memory one call allocates (`<name>_peak_bytes`); with
+`--spmv` K7 as the solvers call it (`winell_matvec`, `winell_matvec_f64`,
+`winell_matvec_halo`), on seeded values over the plans of chip_smoke.py's
+matrices: delaunay_mesh(56**3) + RCM (float32 and float64), the same mesh
+in its generated order (the gather tier), rank 0's part of it on 2 RCB
+ranks (the halo entry on [own | ghosts], phase 26 (b)), box 55 with a
+hex over every cube (27-wide rows, phase 23) and the Kuhn box 55's
+pattern (15-wide rows: the WinELL tier's matrix of a box without lattice
+metadata); with `--gmres` one GMRES(120) (atol = rtol = 0, so all 120
+iterations) with the solver's preconditioner on the gather tier's system
+of delaunay_mesh(56**3) in its generated order (phase 14) and on the
+WinELL tier's of the mixed box 55 (phase 23), at the perturbed reference
+state: the median wall seconds of `reps` calls as the host issues them
+(`<mesh>_gmres120_s`), the device events torch.profiler records in one
+call and K7's launch count, each per iteration
+(`<mesh>_gmres120_events_per_iter`, `<mesh>_gmres120_k7_per_iter`), and a
+digest of the solution. A kernel whose
 wrapper returns several tensors (K11's three forces, K2's data and scal)
 is timed as the wrapper call, and its digest is of the tensors flattened
 and concatenated.
 
     python dedflow_tpu_torch/app/kernel_ab.py --root CHECKOUT [--reps 5] [--reduces] [--dem]
         [--implicit] [--elements] [--jpath] [--rpath] [--classes] [--heat] [--probes] [--steps]
+        [--spmv] [--gmres]
 
 Two checkouts (say a parent commit unpacked beside the working tree) are
 compared on one card by running this once per checkout, in turns: parent,
@@ -186,29 +204,37 @@ def _residual_paths(wsolver, gsolver):
     }
 
 
-def _winell_steps(wsolver) -> dict:
-    """chip_smoke.py's phases 8 and 23 on the WinELL tier: two
-    NSSolver.step from the reference initial state on the solver of
-    delaunay_mesh(56**3) + RCM and on one of box 55 with a hex over every
-    cube (mesh.gen.mixed_box_mesh); per mesh the device bytes allocated
-    before the steps and at their peak (everything live counted), the
-    steps' wall seconds and a digest of the state after them."""
+def _mixed_solver():
+    """The WinELL solver of box 55 with a hex over every cube
+    (mesh.gen.mixed_box_mesh; chip_smoke.py's phase 23)."""
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+    from dedflow_tpu_torch.mesh.gen import mixed_box_mesh
+    from dedflow_tpu_torch.solver.newton import NSSolver
+
+    return NSSolver(mixed_box_mesh(55, 55, 55), reference_scenario_config(), device="cuda")
+
+
+def _irregular_steps(wsolver, gsolver, mixed) -> dict:
+    """chip_smoke.py's phases 8 and 23 on the WinELL tier and 14 on the
+    gather tier: two NSSolver.step from the reference initial state on the
+    solver of delaunay_mesh(56**3) + RCM, on one of box 55 with a hex over
+    every cube (mesh.gen.mixed_box_mesh) and on the gather tier's of
+    delaunay_mesh(56**3) in its generated order; per mesh the device bytes
+    allocated before the steps and at their peak (everything live
+    counted), the steps' wall seconds and a digest of the state after
+    them."""
     import time
 
     import torch
 
-    from dedflow_tpu_torch.app.scenarios import reference_initial_state, reference_scenario_config
+    from dedflow_tpu_torch.app.scenarios import reference_initial_state
     from dedflow_tpu_torch.interop import state_from_numpy
-    from dedflow_tpu_torch.mesh.gen import mixed_box_mesh
-    from dedflow_tpu_torch.solver.newton import NSSolver
 
     out = {}
-    for tag, make in (("delaunay", lambda: wsolver),
-                      ("mixed", lambda: NSSolver(mixed_box_mesh(55, 55, 55),
-                                                 reference_scenario_config(), device="cuda"))):
-        solver = make()
-        if solver.fastpath != "winell":
-            raise RuntimeError(f"{tag}: tier {solver.fastpath}, not winell")
+    for tag, tier, solver in (("delaunay", "winell", wsolver), ("mixed", "winell", mixed),
+                              ("gather", "gather", gsolver)):
+        if solver.fastpath != tier:
+            raise RuntimeError(f"{tag}: tier {solver.fastpath}, not {tier}")
         state = state_from_numpy(*reference_initial_state(solver.mesh), "cuda", torch.float32)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -221,7 +247,7 @@ def _winell_steps(wsolver) -> dict:
         out[f"{tag}_steps_peak_bytes"] = torch.cuda.max_memory_allocated()
         flat = torch.cat([t.reshape(-1) for t in state]).cpu()
         out[f"{tag}_steps_digest"] = hashlib.sha256(flat.numpy().tobytes()).hexdigest()[:16]
-        del solver, state
+        del state
     return out
 
 
@@ -490,6 +516,104 @@ def _element_kernels(mesh, lctx, wa, wa_t, phys, scheme):
     }
 
 
+def _spmv_kernels():
+    """{name: (call, reps)} of K7 on seeded values over the plans of
+    delaunay_mesh(56**3) + RCM (float32, float64), its generated order, rank
+    0's RCB part of it on 2 ranks (halo entry), the mixed box 55 and the
+    Kuhn box 55's pattern."""
+    import torch
+
+    from dedflow_tpu_torch.mesh.gen import box_mesh, delaunay_mesh, mixed_box_mesh
+    from dedflow_tpu_torch.mesh.reorder import rcm_order, reorder_mesh
+    from dedflow_tpu_torch.parallel.partition import part_layout
+    from dedflow_tpu_torch.sparse import win_kernels as wk
+    from dedflow_tpu_torch.sparse import winell as we
+    from dedflow_tpu_torch.sparse.topology import build_sparsity
+
+    def plan_of(mesh, rows=None):
+        sp = build_sparsity(mesh.ien, mesh.num_node, extra_ien=mesh.extra_cells)
+        n = mesh.num_node if rows is None else rows
+        return we.build_winell_plan(sp.row_ptr[: n + 1], sp.col_ind[: int(sp.row_ptr[n])], n)
+
+    raw = delaunay_mesh(56**3, seed=0)
+    lay = part_layout(raw, 2, 0)
+    plans = {  # name: (plan, n_x, dtype, product)
+        "rcm": (plan_of(reorder_mesh(raw, rcm_order(raw.ien, raw.num_node))), None,
+                torch.float32, wk.winell_matvec),
+        "gather": (plan_of(raw), None, torch.float32, wk.winell_matvec),
+        "halo": (plan_of(lay.mesh, lay.n_own), lay.mesh.num_node, torch.float32,
+                 wk.winell_matvec_halo),
+        "mixed": (plan_of(mixed_box_mesh(55, 55, 55, prism_layers=0)), None, torch.float32,
+                  wk.winell_matvec),
+        "box": (plan_of(box_mesh(55, 55, 55)), None, torch.float32, wk.winell_matvec),
+    }
+    plans["f64"] = (plans["rcm"][0], None, torch.float64, wk.winell_matvec_f64)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, (plan, n_x, dtype, product) in plans.items():
+        n_x = plan.num_node if n_x is None else n_x
+        vals = torch.randn((18, plan.S), generator=gen, device="cuda", dtype=dtype)
+        x = torch.randn((6, n_x), generator=gen, device="cuda", dtype=dtype)
+        mat = we.WinELLMatrixT(vals=vals, plan=plan)
+        out[f"K7_{name}"] = (lambda m=mat, v=x, f=product: f(m, v), 100)
+    return out
+
+
+def _gmres_runs(gsolver, mixed, reps: int) -> dict:
+    """One GMRES(120) with atol = rtol = 0 and the solver's preconditioner
+    on the gather tier's system of delaunay_mesh(56**3) in its generated
+    order and on the mixed box 55's WinELL system, at the reference state
+    perturbed by 0.1 N(0, 1) (seed 0): per mesh the median wall seconds of
+    `reps` calls, the device events of one call (torch.profiler) and K7's
+    launches, each per iteration, and a digest of the solution."""
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dedflow_tpu_torch.app.scenarios import reference_initial_state
+    from dedflow_tpu_torch.interop import state_from_numpy
+    from dedflow_tpu_torch.solver.krylov import gmres
+    from dedflow_tpu_torch.solver.newton import _pc_kwargs, assemble_system, residual
+    from dedflow_tpu_torch.sparse.win_kernels import winell_matvec
+
+    out = {}
+    for tag, solver in (("gather", gsolver), ("mixed", mixed)):
+        wg, dwgold, dwg = reference_initial_state(solver.mesh)
+        dwg = dwg + 0.1 * np.random.default_rng(0).standard_normal(dwg.shape)
+        state = state_from_numpy(wg, dwgold, dwg, "cuda", solver.dtype)
+        cfg = solver.cfg
+        common = (solver.solve_ctx, solver.face_ctxs, solver.mask_t, *state, cfg.physics, cfg.time)
+        jm, pc = assemble_system(*common, **_pc_kwargs(cfg.krylov))
+        f = residual(*common, cfg.freeze_phi_temperature)
+        call = lambda: gmres(jm.matvec_t, f, maxit=120, atol=0.0, rtol=0.0, pc=pc)
+        sol = call()
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        before = winell_matvec.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        events = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+        iters = int(sol.iters)
+        out[f"{tag}_gmres120_s"] = statistics.median(walls)
+        out[f"{tag}_gmres120_iters"] = iters
+        out[f"{tag}_gmres120_events_per_iter"] = events / iters
+        out[f"{tag}_gmres120_k7_per_iter"] = (winell_matvec.launches - before) / iters
+        out[f"{tag}_gmres120_digest"] = hashlib.sha256(
+            sol.x.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+        del jm, pc, f, sol
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", required=True, help="checkout whose dedflow_tpu_torch is timed")
@@ -516,8 +640,14 @@ def main(argv=None) -> int:
                    help="also the heat / Poisson slice at box 55: the one-row K8 / K9 as "
                         "assemble_poisson calls them, index_add, assemble_poisson, peak memory")
     p.add_argument("--steps", action="store_true",
-                   help="also two WinELL steps (chip_smoke.py's phases 8 and 23): peak memory, "
-                        "wall s and a digest of the state")
+                   help="also two steps on the WinELL and gather tiers (chip_smoke.py's phases 8, "
+                        "23 and 14): peak memory, wall s and a digest of the state")
+    p.add_argument("--spmv", action="store_true",
+                   help="also K7 on the RCM, gather, RCB-part (halo entry), mixed box-55 and "
+                        "float64 matrices of chip_smoke.py")
+    p.add_argument("--gmres", action="store_true",
+                   help="also one GMRES(120) on the gather tier's Delaunay system and the mixed "
+                        "box 55's: wall s, device events and K7 launches per iteration")
     p.add_argument("--probes", action="store_true",
                    help="also K12's segment reduce on the tool's (8, 2**23) stream, hb 16-1")
     args = p.parse_args(argv)
@@ -556,8 +686,9 @@ def main(argv=None) -> int:
         "K1": (lambda: lat.residual_volume(lctx, wa_t, dwa_t, phys, scheme), 20),
         "K2": (lambda: lat.jacobian_volume(lctx, wa_t, phys, scheme, keep16, add16, band, lo), 10),
     }
-    if args.reduces or args.jpath or args.rpath or args.steps:
+    if args.reduces or args.jpath or args.rpath or args.steps or args.gmres:
         delaunay = _delaunay_solvers()
+    mixed = _mixed_solver() if args.steps or args.gmres else None
     if args.reduces:
         kernels.update(_reduce_kernels(*delaunay))
     if args.jpath:
@@ -573,6 +704,8 @@ def main(argv=None) -> int:
         kernels.update(_element_kernels(mesh, lctx, wa, wa_t, phys, scheme))
     if args.classes:
         kernels.update(_class_kernels())
+    if args.spmv:
+        kernels.update(_spmv_kernels())
     heat = _heat_kernels() if args.heat else {}
     kernels.update(heat)
     checks = {}
@@ -591,9 +724,11 @@ def main(argv=None) -> int:
             got = torch.cat([g.reshape(-1) for g in got])
         got = got.contiguous().cpu()
         out[f"{name}_digest"] = hashlib.sha256(got.numpy().tobytes()).hexdigest()[:16]
+    del kernels, heat
+    if args.gmres:
+        out.update(_gmres_runs(delaunay[1], mixed, args.reps))
     if args.steps:
-        del kernels, heat
-        out.update(_winell_steps(delaunay[0]))
+        out.update(_irregular_steps(*delaunay, mixed))
     out["card"] = timing.card_line()
     print(json.dumps(out), flush=True)
     return 0

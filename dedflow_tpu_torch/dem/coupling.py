@@ -4,8 +4,10 @@
 - particles are located in tets with the static-shape cell grid of the
   contact search (elements bucketed by centroid; each particle tests the
   27 surrounding cells' candidates with barycentric coordinates), or, on a
-  box mesh, in closed form (`locate_lattice`: the containing cell is
-  floor((p - origin)/h) and only its 6 Kuhn tets are tested),
+  lattice mesh, in closed form (`locate_lattice`: the containing cell is
+  floor((p - origin)/h) and only its tets are tested: box_mesh's 6 Kuhn
+  tets, or the T tets of any lattice mesh through its `lattice_cells`
+  table),
 - fluid velocity interpolates to particles with P1 weights,
 - drag follows Stokes' law F = 6 pi mu r (u_f - v_p),
 - the equal-and-opposite reaction goes back to the mesh nodes with the
@@ -177,12 +179,40 @@ def drag_exchange(grid: CellGrid, geom: CouplingGeometry, state: ParticleState,
     return _exchange(geom, elem, bary, state, w, mu)
 
 
+def lattice_cells(lattice: tuple, origin: np.ndarray, spacing: np.ndarray, xg: np.ndarray,
+                  ien: np.ndarray, tets_per_cell: int) -> np.ndarray:
+    """(ncell, T) element ids of each lattice cell, cells numbered
+    (ix*ny + iy)*nz + iz as `locate_lattice` numbers them, each cell's
+    elements in mesh order. An element's cell is the lattice coordinates
+    of its minimum corner (as mesh.recover.recover_lattice derives them),
+    so any element order and any split of T tets a cell is found; on
+    box_mesh the table is cell * 6 + t. Raises where a corner is off the
+    uniform lattice or a cell does not hold exactly T elements."""
+    nx, ny, nz = lattice
+    corner = (np.asarray(xg, np.float64)[np.asarray(ien, np.int64)].min(axis=1)
+              - np.asarray(origin, np.float64)) / np.asarray(spacing, np.float64)
+    base = np.rint(corner).astype(np.int64)
+    if np.abs(corner - base).max(initial=0.0) > 1e-6 or base.min(initial=0) < 0 or \
+            (base >= np.array([nx, ny, nz])).any():
+        raise ValueError("lattice_cells: an element's minimum corner is off the uniform "
+                         f"{lattice} lattice")
+    cell = (base[:, 0] * ny + base[:, 1]) * nz + base[:, 2]
+    ncell = nx * ny * nz
+    counts = np.bincount(cell, minlength=ncell)
+    if cell.size != ncell * tets_per_cell or (counts != tets_per_cell).any():
+        raise ValueError(f"lattice_cells: cells hold {counts.min()}-{counts.max()} elements, "
+                         f"not {tets_per_cell} each")
+    return np.argsort(cell, kind="stable").reshape(ncell, tets_per_cell)
+
+
 def locate_lattice(lattice: tuple, origin: np.ndarray, spacing: np.ndarray,
-                   geom: CouplingGeometry, x_p: torch.Tensor, tol: float | None = None):
-    """Closed-form point location on a box mesh: the containing cell is
-    floor((p - origin)/h), and only its 6 Kuhn tets are tested (the same
-    (elem, bary) contract as `locate`). Element ids follow
-    mesh.gen.box_mesh's cell-major order e = ((ix*ny + iy)*nz + iz)*6 + t."""
+                   geom: CouplingGeometry, x_p: torch.Tensor, tol: float | None = None,
+                   cells: torch.Tensor | None = None):
+    """Closed-form point location on a lattice mesh: the containing cell is
+    floor((p - origin)/h), and only its tets are tested (the same
+    (elem, bary) contract as `locate`): those of `cells` (ncell, T), the
+    `lattice_cells` table, or without it box_mesh's cell-major order
+    e = ((ix*ny + iy)*nz + iz)*6 + t (the JAX package's)."""
     if tol is None:
         tol = _default_tol(x_p)
     nx, ny, nz = lattice
@@ -193,9 +223,12 @@ def locate_lattice(lattice: tuple, origin: np.ndarray, spacing: np.ndarray,
     coords = torch.minimum(torch.clamp(torch.floor(rel).to(torch.int32), min=0), dims_i - 1)
     dims_f = torch.tensor([nx, ny, nz], dtype=dtype, device=dev)
     inside_box = torch.all((rel >= -tol) & (rel <= dims_f + tol), dim=-1)
-    cell = (coords[:, 0] * ny + coords[:, 1]) * nz + coords[:, 2]
-    e = cell[:, None].long() * 6 + torch.arange(6, device=dev)[None, :]  # (P, 6)
-    bary = _bary(geom, e, x_p)  # (P, 6, 4)
+    cell = ((coords[:, 0] * ny + coords[:, 1]) * nz + coords[:, 2]).long()
+    if cells is None:
+        e = cell[:, None] * 6 + torch.arange(6, device=dev)[None, :]  # (P, 6)
+    else:
+        e = cells[cell]  # (P, T)
+    bary = _bary(geom, e, x_p)  # (P, T, 4)
     inside = inside_box[:, None] & (geom.det_j[e] > 0.0) & torch.all(bary >= -tol, dim=-1)
     return _first_inside(e, bary, inside)
 

@@ -2,9 +2,11 @@
 
 `winell_matvec` is what WinELLMatrixT.matvec_t calls. On a CUDA tensor it
 launches the hand-written kernel csrc/winell_spmv.cu, which replaces the
-TPU kernel dedflow_tpu/sparse/win_kernels.py::_matvec_kernel; on a CPU
-tensor it runs `winell_matvec_plain`, the flat gather + row sum of the JAX
-package's reference lowering (WinELLMatrix._matvec_xla, winell.py:276-300).
+TPU kernel dedflow_tpu/sparse/win_kernels.py::_matvec_kernel: a pass that
+copies x into a node-major (n_x, 8) scratch, then the product with 16
+lanes a row: two device launches from one C entry, one launch count; on
+a CPU tensor it runs `winell_matvec_plain`, the flat gather + row sum of
+the JAX package's reference lowering (WinELLMatrix._matvec_xla, winell.py:276-300).
 Nothing falls back: a CUDA tensor the kernel cannot take raises, and so
 does a CPU vector with a matrix on the card.
 
@@ -48,7 +50,9 @@ _SYMBOLS = {torch.float32: "dedflow_winell_spmv", torch.float64: "dedflow_winell
 
 
 def _kernel(mat, x_t: torch.Tensor) -> torch.Tensor:
-    """The launch on a (6, n_x) vector, n_x >= n (n_x = n: the whole matrix)."""
+    """The launch on a (6, n_x) vector, n_x >= n (n_x = n: the whole
+    matrix): one C entry runs the node-major pass into an (n_x, 8) scratch
+    and the product."""
     plan, vals = mat.plan, mat.vals
     n, s, n_x = plan.num_node, plan.S, x_t.shape[-1]
     dtype = x_t.dtype
@@ -65,11 +69,14 @@ def _kernel(mat, x_t: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"winell_matvec kernel: {name} has shape {tuple(t.shape)}, expected {shape}")
     if plan.row_ptr_t.device != x_t.device or vals.device != x_t.device:
         raise ValueError("winell_matvec kernel: the plan or the values live on another device")
-    fn = nvcc.function("winell_spmv", _SYMBOLS[dtype], [nvcc.P] * 5 + [nvcc.I, nvcc.LL, nvcc.LL, nvcc.P])
+    fn = nvcc.function("winell_spmv", _SYMBOLS[dtype],
+                       [nvcc.P] * 6 + [nvcc.I, nvcc.LL, nvcc.LL, nvcc.P])
+    xn = torch.empty((n_x, 8), dtype=dtype, device=x_t.device)
     y = torch.empty((6, n), dtype=dtype, device=x_t.device)
     nvcc.check(
         fn(vals.data_ptr(), plan.row_ptr_t.data_ptr(), plan.col_t.data_ptr(), x_t.data_ptr(),
-           y.data_ptr(), n, n_x, s, torch.cuda.current_stream(x_t.device).cuda_stream),
+           xn.data_ptr(), y.data_ptr(), n, n_x, s,
+           torch.cuda.current_stream(x_t.device).cuda_stream),
         "winell_spmv",
     )
     return y

@@ -6,6 +6,14 @@
   `drag_exchange_lattice` forces at 1e-12; the lattice locator finds the
   general locator's elements (box_mesh's cell-major element order); the
   reaction conserves momentum (tests/test_dem.py:161-172);
+- the locator on any lattice mesh: box_mesh(4, 4, 4) shuffled (with and
+  without `mirror`) and recovered by recover_lattice, where CoupledSolver
+  finds every interior point and its drag and reaction equal the
+  generated box's at 1e-12 (the reaction under the node map); the same
+  shuffled mesh without a lattice against the JAX CoupledSolver's element
+  grid at 1e-12; on the generated box the table route is bit-equal to
+  box_mesh's cell * 6 + t (the JAX package's locator, which finds only
+  that order);
 - the fluid with a load: `residual(..., nodal_force=)` on the lattice tier
   (the slice's box 4x3x3, Nitsche wall) and on the WinELL tier (converted
   box 5, held to the JAX gather solver) at 1e-12;
@@ -42,6 +50,7 @@ from dedflow_tpu.dem.integrate import DEMConfig
 from dedflow_tpu.dem.particles import particle_state
 from dedflow_tpu.fem.assembly import build_context
 from dedflow_tpu.mesh.gen import box_mesh, delaunay_mesh
+from dedflow_tpu.mesh.mesh import Boundary, Mesh
 from dedflow_tpu.mesh.reorder import rcm_order, reorder_mesh
 from dedflow_tpu.solver import newton as jnt
 from dedflow_tpu_torch import interop
@@ -50,6 +59,7 @@ from dedflow_tpu_torch.app.coupled import CoupledSolver as TCoupledSolver
 from dedflow_tpu_torch.dem import coupling as tcoup
 from dedflow_tpu_torch.mesh import gen as tgen
 from dedflow_tpu_torch.mesh import reorder as treo
+from dedflow_tpu_torch.mesh.recover import recover_lattice as trecover
 from dedflow_tpu_torch.solver import newton as tnt
 
 
@@ -162,6 +172,101 @@ def test_drag_exchange_conserves_momentum():
     f_p, f_n = tcoup.drag_exchange(tcoup.element_grid(tm.xg, tm.ien), geom, st, w, mu=1.0e-3)
     assert (f_p[:, 0] > 0).all()  # drag pushes particles along +x
     np.testing.assert_allclose(f_n.sum(0).numpy(), -f_p.sum(0).numpy(), rtol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# the coupled locator on a recovered lattice (box_mesh(4, 4, 4) shuffled)
+
+
+@pytest.fixture(scope="module")
+def lattice_solvers():
+    """Port CoupledSolvers (CPU, f64) on box_mesh(4, 4, 4) as generated,
+    shuffled (seed 3) and recovered with and without `mirror`, and shuffled
+    without a lattice, each with the map of the box's nodes to its own;
+    the JAX CoupledSolver on the unlatticed mesh."""
+    cfg = reference_scenario_config()
+    jccfg = JCoupledConfig(dem=dem_cfg(), drag_mu=2e-3, substeps=1)
+    tccfg = interop.coupled_config_from_dict(dataclasses.asdict(jccfg))
+    box = tgen.box_mesh(4, 4, 4)
+    rp = np.random.RandomState(3).permutation(box.num_node)  # shuffled_mesh's node map
+    meshes = {"box": (box, np.arange(box.num_node))}
+    for mirror in (False, True):
+        rec, perm = trecover(tgen.shuffled_mesh(box, seed=3, mirror=mirror))
+        meshes[f"recovered{'_mirror' * mirror}"] = (rec, perm[rp])
+    shuf = tgen.shuffled_mesh(box, seed=3)
+    meshes["shuffled"] = (shuf, rp)
+    out = {k: (TCoupledSolver(m, tcfg_of(cfg), tccfg, device="cpu"), node_map)
+           for k, (m, node_map) in meshes.items()}
+    jshuf = Mesh(xg=shuf.xg.copy(), ien=shuf.ien.copy(),
+                 boundaries=[Boundary(b.nodes.copy(), b.ien.copy(), b.f2e.copy(), b.forn.copy())
+                             for b in shuf.boundaries])
+    return out, JCoupledSolver(jshuf, cfg, jccfg)
+
+
+def _particles(n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.02, 0.98, size=(n, 3))
+    return x, rng.normal(scale=0.1, size=x.shape), rng.uniform(0.01, 0.02, size=n)
+
+
+@pytest.mark.parametrize("name", ["recovered", "recovered_mirror"])
+def test_coupled_locator_on_a_recovered_lattice(lattice_solvers, name):
+    """Every one of 200 interior points located on the recovered mesh (file
+    element order, cells numbered x-fastest); the drag at 1e-12 of the
+    generated box's at the same (for `mirror`, the reflected) points, and
+    the reaction equal under the node map."""
+    solvers, _ = lattice_solvers
+    (box, _), (ts, node_map) = solvers["box"], solvers[name]
+    assert ts.fluid.mesh.lattice == (4, 4, 4) and ts.grid is None
+    x, v, r = _particles(200, seed=7)
+    elem, _ = ts._locate(torch.as_tensor(x))
+    assert bool((elem >= 0).all())
+    xb = x.copy()
+    if name.endswith("mirror"):
+        xb[:, 0] = 1.0 - xb[:, 0]
+    w = np.random.default_rng(8).normal(size=(box.fluid.mesh.num_node, 6))
+    wr = np.empty_like(w)
+    wr[node_map] = w
+    f_box, n_box = box.drag(torch.as_tensor(w),
+                            interop.particles_from_numpy(xb, v, 1.0, r, device="cpu"))
+    f_rec, n_rec = ts.drag(torch.as_tensor(wr),
+                           interop.particles_from_numpy(x, v, 1.0, r, device="cpu"))
+    assert rel(f_rec, f_box) < 1e-12
+    assert rel(n_rec[node_map], n_box) < 1e-12
+
+
+def test_coupled_element_grid_matches_jax_without_a_lattice(lattice_solvers):
+    """The shuffled mesh without a lattice: the element grid's locator, the
+    drag and the reaction at 1e-12 of the JAX CoupledSolver's."""
+    solvers, js = lattice_solvers
+    ts, _ = solvers["shuffled"]
+    assert ts.fluid.mesh.lattice is None and js._lattice is None
+    x, v, r = _particles(200, seed=9)
+    w = np.random.default_rng(10).normal(size=(ts.fluid.mesh.num_node, 6))
+    jf, jn = jcoup.drag_exchange(js.grid, js._coupling_ctx, particle_state(x, v, radius=r),
+                                 jnp.asarray(w), js.ccfg.drag_mu)
+    tf, tn = ts.drag(torch.as_tensor(w), interop.particles_from_numpy(x, v, 1.0, r, device="cpu"))
+    assert rel(tf, jf) < 1e-12 and rel(tn, jn) < 1e-12
+
+
+def test_coupled_locator_table_is_cell_major_on_the_generated_box(lattice_solvers):
+    """On box_mesh the cells table is cell * 6 + t and the locator's
+    elements and weights equal the table-free route's bit for bit."""
+    solvers, _ = lattice_solvers
+    ts, _ = solvers["box"]
+    assert torch.equal(ts._lat_cells, torch.arange(64 * 6).reshape(64, 6))
+    x = torch.as_tensor(points(200, seed=11))
+    te, tb = ts._locate(x)
+    oe, ob = tcoup.locate_lattice(ts._lattice, ts._lat_origin, ts._lat_spacing, ts.geom, x)
+    assert torch.equal(te, oe) and torch.equal(tb, ob)
+
+
+def test_lattice_cells_raises_on_a_wrong_count():
+    box = tgen.box_mesh(2, 2, 2)
+    with pytest.raises(ValueError, match="not 5 each"):
+        tcoup.lattice_cells((2, 2, 2), np.zeros(3), np.full(3, 0.5), box.xg, box.ien, 5)
+    with pytest.raises(ValueError, match="off the uniform"):
+        tcoup.lattice_cells((2, 2, 2), np.zeros(3), np.full(3, 0.4), box.xg, box.ien, 6)
 
 
 # ---------------------------------------------------------------------------

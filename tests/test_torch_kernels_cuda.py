@@ -35,7 +35,9 @@ positions bit for bit (whole and chunked), and K8's segment sum alone over
 them equals K8 over the column rows bit for bit. A K1 call on a corrupted
 ticket workspace fails loudly instead of returning wrong sums. K7's halo
 entry (an RCB part's own rows on its local vector [own | ghosts]) matches
-its plain twin and the whole matrix's rows. K11's halo entry (a rank's
+its plain twin and the whole matrix's rows; K7 also matches its plain
+version on the gather tier's matrix in generated node order and on a
+synthetic pattern with rows of 1 to 64 entries, float32 and float64. K11's halo entry (a rank's
 cell slab on its window [left band | own | right band]) equals its plain
 twin and the whole grid's sweep bit for bit on the first, interior and
 last of three ranks' windows, and refuses a window it cannot take. K3 and K7
@@ -144,7 +146,7 @@ from dedflow_tpu_torch.sparse.win_stream import (
     stream_reduce_staged,
     stream_reduce_staged_plain,
 )
-from dedflow_tpu_torch.sparse.winell import COMP2WIN, WinELLMatrixT
+from dedflow_tpu_torch.sparse.winell import COMP2WIN, WinELLMatrixT, build_winell_plan
 from dedflow_tpu_torch.parallel.partition import part_layout
 from dedflow_tpu_torch.tools import gather_probe as tgp
 from dedflow_tpu_torch.tools import gmicro as tgm
@@ -736,6 +738,64 @@ def test_k7_halo_entry_matches_plain_and_the_whole_rows(irregular):
     for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):  # u, p, phi/T equations
         assert rel(got[rows], ref[rows]) < 1e-5
         assert rel(got[rows], whole[rows]) < 1e-5
+
+
+def _gather_matrix(solver):
+    """The gather tier's J at a perturbed reference state."""
+    wg, dwgold, dwg = reference_initial_state(solver.mesh)
+    dwg = dwg + 0.1 * np.random.default_rng(12).standard_normal(dwg.shape)
+    state = state_from_numpy(wg, dwgold, dwg, "cuda", torch.float32)
+    return assemble_system(solver.gctx, solver.face_ctxs, solver.mask_t, *state,
+                           solver.cfg.physics, solver.cfg.time)[0]
+
+
+def test_k7_on_the_gather_matrix_in_generated_order(gather):
+    """K7 on the gather tier's J (unordered Delaunay nodes: the columns
+    of neighbouring rows far apart), per equation, repeated bit for bit."""
+    solver = gather[0]
+    jm = _gather_matrix(solver)
+    x = torch.as_tensor(np.random.default_rng(13).standard_normal((6, solver.mesh.num_node)),
+                        dtype=torch.float32, device="cuda")
+    got = _twice(lambda: winell_matvec(jm, x), winell_matvec)
+    ref = winell_matvec_plain(jm, x)
+    for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):  # u, p, phi/T equations
+        assert rel(got[rows], ref[rows]) < 1e-5
+
+
+def test_k7_repeats_under_alternating_inputs(gather):
+    """Products of four inputs in turn, 50 rounds, each queued right after
+    another input's: every one equals its input's first product bit for
+    bit (no product reads another's node-major copy)."""
+    solver = gather[0]
+    jm = _gather_matrix(solver)
+    rng = np.random.default_rng(15)
+    xs = [torch.as_tensor(rng.standard_normal((6, solver.mesh.num_node)), dtype=torch.float32,
+                          device="cuda") for _ in range(4)]
+    first = [winell_matvec(jm, x) for x in xs]
+    again = [winell_matvec(jm, x) for _ in range(50) for x in xs]
+    assert all(torch.equal(y, first[k % 4]) for k, y in enumerate(again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k7_rows_of_1_to_64_entries(card, dtype):
+    """A synthetic pattern whose rows hold 1 (the diagonal alone) to 64
+    entries, longer than two turns of K7's 16 lanes: K7 against the plain
+    version (1e-5 in float32, 1e-12 in float64), repeated bit for bit."""
+    rng = np.random.default_rng(14)
+    n = 640
+    lengths = np.arange(n) % 64 + 1
+    cols = [np.sort(np.concatenate([[r], rng.choice(np.delete(np.arange(n), r), k - 1,
+                                                    replace=False)])) for r, k in enumerate(lengths)]
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)])
+    plan = build_winell_plan(row_ptr, np.concatenate(cols), n)
+    vals = torch.as_tensor(rng.standard_normal((18, plan.S)), dtype=dtype, device="cuda")
+    x = torch.as_tensor(rng.standard_normal((6, n)), dtype=dtype, device="cuda")
+    counter = winell_matvec if dtype == torch.float32 else winell_matvec_f64
+    mat = WinELLMatrixT(vals=vals, plan=plan)
+    ref = winell_matvec_plain(mat, x)
+    got = _twice(lambda: winell_matvec(mat, x), counter)
+    for rows in (slice(0, 3), slice(3, 4), slice(4, 6)):
+        assert rel(got[rows], ref[rows]) < (1e-5 if dtype == torch.float32 else 1e-12)
 
 
 @pytest.fixture(scope="module")

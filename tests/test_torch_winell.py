@@ -16,6 +16,8 @@ Relative error = max|port - jax| / max|jax|.
   to 1e-5. These XLA lowerings are what the JAX tests hold the Pallas
   kernels to in interpret mode.
 - The tier gate's window statistic equals the JAX stream plan's.
+- The same on a synthetic pattern whose rows hold 1 (the diagonal alone)
+  to 64 entries, the pattern of K7's card test.
 - The K6 wrappers on the CPU against pallas_kernels.*_rows_call(xla), 2-D
   and slab-major, at 1e-12.
 """
@@ -122,6 +124,25 @@ def test_plain_spmv_matches_jax_matvec_xla(mesh, dtype):
     before = winell_matvec.launches
     assert torch.equal(tmat.matvec_t(torch.as_tensor(x)), got)  # CPU: the plain version
     assert winell_matvec.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_plain_spmv_matches_jax_on_rows_of_1_to_64_entries(dtype):
+    """Rows from the diagonal alone to 64 entries (longer than two turns of
+    K7's 16 lanes), as in tests/test_torch_kernels_cuda.py's card test."""
+    rng = np.random.default_rng(14)
+    n = 160
+    lengths = np.arange(n) % 64 + 1
+    cols = [np.sort(np.concatenate([[r], rng.choice(np.delete(np.arange(n), r), k - 1,
+                                                    replace=False)])) for r, k in enumerate(lengths)]
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)])
+    col_ind = np.concatenate(cols)
+    jplan = we.build_winell_plan(row_ptr, col_ind, n)
+    tplan = twe.build_winell_plan(row_ptr, col_ind, n, device="cpu")
+    jmat, tmat = _matrices((None, None, jplan, tplan), dtype, seed=16)
+    x = rng.standard_normal((6, n)).astype(NP[dtype])
+    ref = np.asarray(jmat._matvec_xla(jnp.asarray(x)))
+    assert rel(winell_matvec(tmat, torch.as_tensor(x)).numpy(), ref) < TOL[dtype]
 
 
 def _residual_lists(mesh):
