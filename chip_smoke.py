@@ -4173,7 +4173,7 @@ def sharded_main_rank(device):
         return {"ranks": recs, "state": full, "kernels": rows, "slice": slice_out}
 
 
-def phase_sharded(main_out: dict) -> tuple[list, dict]:
+def phase_sharded(main_out: dict, krylov_out: dict) -> tuple[list, dict]:
     """Phase 25: (a) box 12 on 2 and 4 gloo ranks sharing the card, one
     adaptive step each against the CPU float64 one-process step (TOL_SLICE,
     equal Newton counts, Krylov counts equal or witnessed by plain float32
@@ -4186,7 +4186,8 @@ def phase_sharded(main_out: dict) -> tuple[list, dict]:
     plain twins, timed on rank 0 with bounds and a CSR product; (d)
     dryrun_multichip(2) on the card against the CPU float64 step and
     app.main --devices 2 at SHARDED_CLI_BOX against a one-process card
-    step."""
+    step; (e) the Krylov options on the ranks (phase_sharded_options),
+    beside (b) and phase 19's box-55 steps (`krylov_out`)."""
     import os
     import tempfile
 
@@ -4308,7 +4309,271 @@ def phase_sharded(main_out: dict) -> tuple[list, dict]:
     out.update(dryrun_rel=drel, cli_rel=crel)
     kernels = res["kernels"]
     launches = [sum(r["launches"][i] for r in ranks) for i in range(3)]
-    return [dict(r, launches=n) for r, n in zip(kernels, launches)], out
+    t0 = time.perf_counter()
+    opt_rows, out["options"] = phase_sharded_options(res, krylov_out)
+    say(f"  (e): {time.perf_counter() - t0:.1f} s")
+    return [dict(r, launches=n) for r, n in zip(kernels, launches)] + opt_rows, out
+
+
+# Phase 25 (e): the Krylov options on z-slabs (ROADMAP A16 (d')): SIMPLE with
+# its Schur bands across the seams, the shard-local multigrid, the "ir"
+# refinement (K3's banded entry in float64) and the lagged Jacobian.
+SHARDED_OPTION_BOX = (15, 15, 15)  # 16 node layers, 8 a rank on 2
+SHARDED_OPTIONS = {"mg": ({"pc": "mg"}, False), "simple": ({"pc": "simple"}, False),
+                   "ir": ({"precision": "ir"}, False), "lagged": ({}, True)}
+# levels of the hierarchy at SHARDED_OPTION_BOX: one process 16^3 -> 8^3
+# (512 < 1024 rows); a rank 16 x 16 x 8 -> 8 x 8 x 4 (256 < max(128, 1024 // 2))
+SHARDED_OPTION_LEVELS = 2
+SHARDED_OPTION_KERNELS = (
+    ("K3 dia spmv banded (f64, slab, box-55 half)", "dedflow_tpu_torch/csrc/dia_spmv.cu",
+     "dedflow_tpu/sparse/dia_kernels.py:169"),
+)
+
+
+def option_config(cfg, name: str):
+    """`cfg` with the option `name` of SHARDED_OPTIONS."""
+    import dataclasses
+
+    krylov, lagged = SHARDED_OPTIONS[name]
+    cfg = with_krylov(cfg, **krylov)
+    if lagged:
+        cfg = dataclasses.replace(cfg, newton=dataclasses.replace(cfg.newton, lag_jacobian=True))
+    return cfg
+
+
+def sharded_options_rank(device):
+    """A rank of phase 25 (e). (i) box 15: one adaptive step from
+    perturbed_state with each option of SHARDED_OPTIONS, the launches of
+    K3's banded entry (float32, float64) counted over each step, the
+    refinements of "ir", the hierarchy's levels with "mg"; (ii) box 55, pc
+    "mg", one step from the reference initial state with its counts, the
+    exchanges and all-reduces with their host seconds, peak memory, then the
+    levels and the band exchanges of one MG apply; (iii) K3's float64
+    banded entry on rank 0's slab against its plain twin, timed in turns
+    while the other ranks wait. Rank 0 returns everything."""
+    import torch
+    import torch.distributed as dist
+
+    from dedflow_tpu_torch.app.scenarios import reference_initial_state, reference_scenario_config
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
+    from dedflow_tpu_torch.solver.newton import assemble_system
+    from dedflow_tpu_torch.sparse import dia_kernels as dk
+    from dedflow_tpu_torch.tools.timing import nbytes
+    from dedflow_tpu_torch.utils import nvcc
+
+    rank = dist.get_rank()
+    counters = (dk.dia_matvec_banded, dk.dia_matvec_banded_f64)
+    ref = reference_scenario_config()
+    # (i)
+    mesh = box_mesh(*SHARDED_OPTION_BOX)
+    slices = {}
+    for name in SHARDED_OPTIONS:
+        solver = ShardedNSSolver(mesh, option_config(ref, name), device=device)
+        state = [t[solver.own] for t in perturbed_state(mesh, device, solver.dtype)]
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        with RefineSpy() as spy:
+            *new, stats = solver.step(*state)
+        torch.cuda.synchronize()
+        rec = {"state": [solver.gather_state(t) for t in new], "newton": len(stats.rnorms),
+               "krylov": stats.krylov_iters, "launches": [c.launches for c in counters],
+               "refines": spy.runs}
+        if name == "mg":
+            _, pc = assemble_system(solver.sctx, solver.face_ctxs, solver.mask_t, *state,
+                                    ref.physics, ref.time, pc_type="mg")
+            rec["levels"] = len(pc.levels)
+        slices[name] = rec
+        del solver
+    # (ii)
+    t0 = time.perf_counter()
+    mesh = box_mesh(*FULL_BOX)
+    cfg = option_config(ref, "mg")
+    solver = ShardedNSSolver(mesh, cfg, device=device)
+    state = [solver.shard_state(a) for a in reference_initial_state(mesh)]
+    setup_s = time.perf_counter() - t0
+    comm = solver.comm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comm.stats.reset()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    *new, stats = solver.step(*state)
+    torch.cuda.synchronize()
+    s = comm.stats
+    step = {"wall_s": time.perf_counter() - t1, "newton": len(stats.rnorms),
+            "krylov": stats.krylov_iters, "converged": stats.converged,
+            "exchanges": s.exchanges, "exchange_s": s.exchange_s, "sent_bytes": s.sent_bytes,
+            "allreduces": s.allreduces, "allreduce_s": s.allreduce_s, "stage_s": s.stage_s,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    full = [solver.gather_state(t) for t in new]
+    jm, pc = assemble_system(solver.sctx, solver.face_ctxs, solver.mask_t, *state, cfg.physics,
+                             cfg.time, pc_type="mg")
+    gen = torch.Generator(device=device).manual_seed(SEED + rank)
+    xp = torch.randn((6, solver.sctx.n_own), generator=gen, device=device)
+    torch.cuda.synchronize()
+    comm.stats.reset()
+    t2 = time.perf_counter()
+    pc(xp)
+    torch.cuda.synchronize()
+    apply = {"levels": len(pc.levels), "dims": [lv.dims for lv in pc.levels],
+             "exchanges": comm.stats.exchanges, "allreduces": comm.stats.allreduces,
+             "wall_s": time.perf_counter() - t2, "exchange_s": comm.stats.exchange_s}
+    rec = {"rank": rank, "n_own": solver.sctx.n_own, "setup_s": setup_s, "step": step,
+           "apply": apply}
+    # (iii) K3's float64 banded entry on rank 0's slab
+    row = None
+    dist.barrier()
+    if rank == 0:
+        sctx = solver.sctx
+        left = sctx.width if comm.left is not None else 0
+        m = left + sctx.n_own + (sctx.width if comm.right is not None else 0)
+        d64, s64 = jm.data.double(), jm.scal.double()
+        x64 = torch.randn((6, m), generator=gen, device=device, dtype=torch.float64)
+        offs, n = jm.offsets, sctx.n_own
+        pieces = []
+        for k, o in enumerate(offs):
+            rr = torch.arange(max(0, -o - left), min(n, m - left - o), device=device)
+            by_comp = {c: d64[k, c, rr] for c in range(16)}
+            by_comp.update({16: s64[2 * k, rr], 17: s64[2 * k + 1, rr]})
+            pieces.append((rr, rr + left + o, by_comp))
+        csr, xflat = block_csr(n, pieces, cols=m), x64.reshape(-1)
+        k3 = lambda: dk.dia_matvec_banded(d64, s64, x64, offs, left)
+        p3 = lambda: dk.dia_matvec_banded_plain(d64, s64, x64, offs, left)
+        out6 = torch.empty((6, n), dtype=torch.float64)
+        row = f64_record(SHARDED_OPTION_KERNELS[0][0], k3, p3, nbytes(d64, s64, x64, out6),
+                         op_count(p3), (lambda: csr @ xflat, k3()), dk.dia_matvec_banded_f64)
+        row = (row, registers(nvcc.load(["dia_spmv"])["dia_spmv"], "dia_spmv_kernelIdE"))
+        del csr, pieces
+    dist.barrier()
+    recs = [None] * comm.world if rank == 0 else None
+    dist.gather_object(rec, recs, dst=0)
+    if rank == 0:
+        return {"slices": slices, "ranks": recs, "state": full, "kernel": row}
+
+
+def phase_sharded_options(res_b: dict, krylov_out: dict) -> tuple[list, dict]:
+    """Phase 25 (e) on 2 gloo ranks sharing the card (sharded_options_rank,
+    while this process steps the CPU float64 references): (i) box 15 with
+    each of SHARDED_OPTIONS against the CPU float64 one-process step with
+    the same option (TOL_SLICE, equal Newton counts, Krylov counts equal or
+    witnessed by plain float32 CPU steps; "ir": every refined solve at
+    IR_BAR; "mg": SHARDED_OPTION_LEVELS levels on the ranks and in one
+    process; K3's float64 banded entry launched in the "ir" step); (ii) box
+    55 with pc "mg": Newton's iterations and outcome (converged or not)
+    those of phase 19's one-process MG step, the step's counts beside (b)'s
+    fieldsplit step and phase 19's one-process MG step, levels a rank, band
+    exchanges an MG apply, all-reduces and exchanges a step with their host
+    seconds, peak memory, the state's distance from (b)'s; (iii) K3's
+    float64 banded row. Returns ([the row], summary)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from dedflow_tpu_torch.app.scenarios import reference_scenario_config
+    from dedflow_tpu_torch.mesh.gen import box_mesh
+    from dedflow_tpu_torch.parallel import launch
+    from dedflow_tpu_torch.solver.newton import NSSolver, assemble_system
+
+    out = {}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        run = pool.submit(launch.spawn, sharded_options_rank, SHARDED_MAIN_RANKS, "cuda",
+                          timeout=600)
+        mesh, ref = box_mesh(*SHARDED_OPTION_BOX), reference_scenario_config()
+        cpu = {}
+        for name in SHARDED_OPTIONS:
+            cfg = option_config(ref, name)
+            solver = NSSolver(mesh, cfg, device="cpu")
+            state = perturbed_state(mesh, "cpu", torch.float64)
+            *st, stats = solver.step(*state)
+            levels = None
+            if name == "mg":
+                _, pc = assemble_system(solver.lctx, solver.face_ctxs, solver.mask_t, *state,
+                                        ref.physics, ref.time, pc_type="mg")
+                levels = len(pc.levels)
+            cpu[name] = (st, stats, levels)
+        cpu_s = time.perf_counter() - t0
+        res = run.result()[0]
+    out["call_s"] = time.perf_counter() - t0
+    say(f"  (e) CPU float64 references {cpu_s:.1f} s, the ranks' call {out['call_s']:.1f} s")
+    inputs = lambda mesh, cfg, device, dtype: (perturbed_state(mesh, device, dtype), None)
+    for name, got in res["slices"].items():
+        st, stats, levels = cpu[name]
+        worst = max(rel_err(torch.as_tensor(g), r)[1] for g, r in zip(got["state"], st))
+        line = (f"  (e)(i) box {SHARDED_OPTION_BOX} {name} on {SHARDED_MAIN_RANKS} ranks: state vs "
+                f"CPU f64 rel={worst:.3e}; newton {got['newton']} (CPU {len(stats.rnorms)}), "
+                f"krylov {got['krylov']} (CPU {stats.krylov_iters}); K3 banded f32 / f64 "
+                f"launches {got['launches']}")
+        if name == "ir":
+            rels = [r for _, _, r in got["refines"]]
+            line += f"; refinements (cycles, inner, rel) {got['refines']}"
+            if not rels or max(rels) > IR_BAR:
+                raise PhaseError(f"sharded option ir: a refined solve ended at {rels}")
+            if min(got["launches"]) <= 0:
+                raise PhaseError(f"sharded option ir: K3 banded launches {got['launches']}")
+            out["k3_f64_banded_launches"] = got["launches"][1]
+        if name == "mg":
+            line += f"; levels: ranks {got['levels']}, one process {levels}"
+            if not got["levels"] == levels == SHARDED_OPTION_LEVELS:
+                raise PhaseError(f"sharded option mg: levels {got['levels']} / {levels}, not "
+                                 f"{SHARDED_OPTION_LEVELS}")
+        say(line)
+        check(f"sharded option {name}", worst, TOL_SLICE)
+        if got["newton"] != len(stats.rnorms):
+            raise PhaseError(f"sharded option {name}: Newton counts {got['newton']} vs "
+                             f"{len(stats.rnorms)}")
+        if got["krylov"] != stats.krylov_iters:
+            own, runs = krylov_witness(f"sharded option {name}", mesh, option_config(ref, name),
+                                       got["krylov"], stats.krylov_iters, inputs=inputs)
+            say(f"    krylov counts witnessed by plain float32 CPU steps ({runs} runs, own {own})")
+        out[f"slice_{name}_rel"] = worst
+    # (ii)
+    ranks = res["ranks"]
+    fs = res_b["ranks"][0]["steps"][0]
+    one_mg = krylov_out["box55 mg"]
+    for r in ranks:
+        st, ap = r["step"], r["apply"]
+        say(f"  (e)(ii) rank {r['rank']}: {r['n_own']} own nodes, set-up {r['setup_s']:.2f} s, "
+            f"step {json.dumps({k: v for k, v in st.items()})}; MG apply: {ap['levels']} levels "
+            f"{ap['dims']}, {ap['exchanges']} band exchanges, {ap['allreduces']} all-reduces, "
+            f"{ap['wall_s']:.4f} s ({ap['exchange_s']:.4f} s exchanging)")
+        if st["converged"] != one_mg["converged"] or st["newton"] != one_mg["newton"]:
+            raise PhaseError(f"sharded mg box 55: rank {r['rank']}'s Newton {st['newton']} "
+                             f"iterations, converged {st['converged']}; one process (phase 19) "
+                             f"{one_mg['newton']}, converged {one_mg['converged']}")
+    st0 = ranks[0]["step"]
+    per_newton = [k for k in st0["krylov"]]
+    fields = []
+    for c in range(6):
+        g = np.concatenate([a[:, c] for a in res["state"]])
+        rf = np.concatenate([a[:, c] for a in res_b["state"]])
+        fields.append(float(np.abs(g - rf).max() / max(np.abs(rf).max(), 1e-300)))
+    say(f"  (e)(ii) box {FULL_BOX} pc mg on {SHARDED_MAIN_RANKS} ranks: s/step "
+        f"{max(r['step']['wall_s'] for r in ranks):.3f}, krylov a Newton iteration {per_newton} "
+        f"(fieldsplit in (b): {fs['krylov']} at {fs['wall_s']:.3f} s; one process pc mg, phase "
+        f"19: {one_mg['krylov']} at {one_mg['step_s']:.3f} s, converged {one_mg['converged']}); "
+        f"converged {st0['converged']}; state vs (b)'s per field "
+        f"{fmt_list(fields)}")
+    out.update(
+        mg_step_s=max(r["step"]["wall_s"] for r in ranks), mg_newton=st0["newton"],
+        mg_krylov=per_newton, fieldsplit_krylov=fs["krylov"], fieldsplit_step_s=fs["wall_s"],
+        one_process_mg_krylov=one_mg["krylov"], one_process_mg_step_s=one_mg["step_s"],
+        mg_levels=[r["apply"]["levels"] for r in ranks],
+        mg_apply_exchanges=[r["apply"]["exchanges"] for r in ranks],
+        mg_apply_s=[r["apply"]["wall_s"] for r in ranks],
+        mg_step_exchanges=[r["step"]["exchanges"] for r in ranks],
+        mg_step_exchange_s=[r["step"]["exchange_s"] for r in ranks],
+        mg_step_allreduces=[r["step"]["allreduces"] for r in ranks],
+        mg_step_allreduce_s=[r["step"]["allreduce_s"] for r in ranks],
+        mg_peak_gib=[r["step"]["peak_bytes"] / 2**30 for r in ranks],
+        mg_state_vs_fieldsplit=fields)
+    row, out["k3_f64_banded_registers"] = res["kernel"]
+    say(f"  (e)(iii) K3 f64 banded: registers {out['k3_f64_banded_registers']}")
+    return [dict(row, launches=out["k3_f64_banded_launches"])], out
 
 
 # ---------------------------------------------------------------------------
@@ -4647,6 +4912,115 @@ def rcb_main_rank(device, raw):
                 "melt": melt_out}
 
 
+# Phase 26 (f): the Krylov options on RCB parts (ROADMAP A16 (d')): SIMPLE
+# through K7's halo entry, "ir" (K7's halo entry in float64 for its
+# residuals), and "mg", which warns and runs SIMPLE as on the gather tier.
+RCB_OPTIONS = {"simple": ({"pc": "simple"}, False), "ir": ({"precision": "ir"}, False),
+               "mg": ({"pc": "mg"}, False)}
+RCB_MG_WARNING = "krylov.pc='mg' requires the lattice fast path"
+
+
+def rcb_options_rank(device):
+    """A rank of phase 26 (f): one adaptive step of the Delaunay slice from
+    perturbed_flow_state with each of RCB_OPTIONS, the float32 and float64
+    launches of K7's halo entry counted over each step, the warnings it
+    raised and the refinements of "ir"; rank 0 returns them with the
+    gathered states."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
+    from dedflow_tpu_torch.sparse import win_kernels as wk
+
+    mesh = rcb_slice_mesh()
+    halo, kernel = wk.winell_matvec_halo, wk._kernel
+    f64_calls = [0]
+
+    def counting(mat, x_t):  # the launch of every K7 product; on RCB parts the halo entry's
+        f64_calls[0] += x_t.dtype == torch.float64
+        return kernel(mat, x_t)
+
+    out = {}
+    for name, (krylov, _) in RCB_OPTIONS.items():
+        solver = ShardedNSSolver(mesh, with_krylov(rcb_config(), **krylov), device=device)
+        own = torch_index(solver.own, device)
+        state = [t[own] for t in perturbed_flow_state(mesh, device, solver.dtype)]
+        halo.launches, f64_calls[0] = 0, 0
+        wk._kernel = counting
+        try:
+            with warnings.catch_warnings(record=True) as caught, RefineSpy() as spy:
+                warnings.simplefilter("always")
+                *new, stats = solver.step(*state)
+        finally:
+            wk._kernel = kernel
+        out[name] = {"state": [solver.gather_state(t) for t in new], "newton": len(stats.rnorms),
+                     "krylov": stats.krylov_iters, "launches": halo.launches,
+                     "f64_launches": f64_calls[0], "refines": spy.runs,
+                     "warned": sorted({str(w.message) for w in caught})}
+    if dist.get_rank() == 0:
+        return out
+
+
+def phase_rcb_options() -> dict:
+    """Phase 26 (f): the Delaunay slice of (a) on 2 gloo ranks with each of
+    RCB_OPTIONS (rcb_options_rank) against the CPU float64 one-process
+    gather step with the same option, from perturbed_flow_state: (a)'s bar
+    (TOL_SLICE, or RCB_F32_FACTOR times a plain float32 CPU step's
+    distance), equal Newton counts; "ir": K7's halo entry launched in
+    float64, every refined solve at IR_BAR; "mg": the gather tier's warning
+    on the ranks, and the states bit-equal to "simple"'s."""
+    import torch
+
+    from dedflow_tpu_torch.parallel import launch
+    from dedflow_tpu_torch.solver.newton import NSSolver
+
+    out = {}
+    t0 = time.perf_counter()
+    res = launch.spawn(rcb_options_rank, RCB_MAIN_RANKS, "cuda", timeout=300)[0]
+    out["call_s"] = time.perf_counter() - t0
+    mesh = rcb_slice_mesh()
+    for name, (krylov, _) in RCB_OPTIONS.items():
+        cfg = with_krylov(rcb_config(), **krylov)
+        got = res[name]
+        *ref, rstats = NSSolver(mesh, cfg, device="cpu").step(
+            *perturbed_flow_state(mesh, "cpu", torch.float64))
+        f32 = NSSolver(mesh, cfg, device="cpu", dtype=torch.float32)
+        f32_rel = max(rel_err(g, r)[1] for g, r in zip(
+            f32.step(*perturbed_flow_state(mesh, "cpu", torch.float32))[:3], ref))
+        bar = max(TOL_SLICE, RCB_F32_FACTOR * f32_rel)
+        worst = max(rel_err(torch.as_tensor(g), r)[1] for g, r in zip(got["state"], ref))
+        line = (f"  (f) delaunay flow pc/precision {name} on {RCB_MAIN_RANKS} ranks: state vs CPU "
+                f"f64 rel={worst:.3e} (bar {bar:.3e}: a plain float32 CPU step's {f32_rel:.3e}); "
+                f"newton {got['newton']} (CPU {len(rstats.rnorms)}), krylov {got['krylov']} (CPU "
+                f"{rstats.krylov_iters}); K7 halo launches {got['launches']} (float64 "
+                f"{got['f64_launches']}); warnings {got['warned']}")
+        if name == "ir":
+            rels = [r for _, _, r in got["refines"]]
+            line += f"; refinements (cycles, inner, rel) {got['refines']}"
+            if not rels or max(rels) > IR_BAR or got["f64_launches"] <= 0:
+                raise PhaseError(f"rcb option ir: refinements {got['refines']}, float64 K7 "
+                                 f"halo launches {got['f64_launches']}")
+        if name == "mg":
+            same = all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                       for a, b in zip(got["state"], res["simple"]["state"]))
+            line += f"; states bit-equal to simple's: {same}"
+            if not same or not any(RCB_MG_WARNING in w for w in got["warned"]):
+                raise PhaseError(f"rcb option mg: warned {got['warned']}, equal to simple {same}")
+        say(line)
+        check(f"rcb option {name}", worst, bar)
+        if got["newton"] != len(rstats.rnorms):
+            raise PhaseError(f"rcb option {name}: Newton counts {got['newton']} vs "
+                             f"{len(rstats.rnorms)}")
+        if got["launches"] <= 0:
+            raise PhaseError(f"rcb option {name}: K7's halo entry was not launched")
+        out[name] = {"rel": worst, "bar": bar, "newton": got["newton"], "krylov": got["krylov"],
+                     "cpu_krylov": rstats.krylov_iters, "k7_halo_launches": got["launches"],
+                     "k7_halo_f64_launches": got["f64_launches"]}
+    return out
+
+
 BOUNDARY_FIELDS = ("nodes", "ien", "f2e", "forn")
 
 
@@ -4691,7 +5065,8 @@ def phase_rcb(ga_main: dict, raw) -> tuple[list, dict]:
     plain twins, timed on rank 0 with bounds and library calls; (d) the
     melt pool on a box-12 gather RCB on 2 ranks, as (a); (e) app.main
     --devices 2 --mesh on a shuffled box's file (no lattice metadata: the
-    RCB mode) against a one-process card gather step."""
+    RCB mode) against a one-process card gather step; (f) the Krylov
+    options on the parts (phase_rcb_options)."""
     import os
     import tempfile
 
@@ -4850,6 +5225,9 @@ def phase_rcb(ga_main: dict, raw) -> tuple[list, dict]:
         raise PhaseError(f"app.main --devices 2 --mesh: rc {rc}, metrics {recs}")
     check("app.main --devices 2 --mesh", crel, TOL_SLICE)
     out["cli_rel"] = crel
+    t0 = time.perf_counter()
+    out["options"] = phase_rcb_options()
+    say(f"  (f): {time.perf_counter() - t0:.1f} s")
     launches = [sum(r["launches"][i] for r in ranks) for i in range(len(RCB_KERNELS))]
     return [dict(row, launches=n) for row, n in zip(res["kernels"], launches)], out
 
@@ -5280,16 +5658,18 @@ def run() -> int:
         say(f"phase 25 sharded ({card}): z-slab ranks sharing the card, box {SLICE_BOX} on "
             f"{' and '.join(map(str, SHARDED_SLICE_RANKS))} ranks, box {FULL_BOX} on "
             f"{SHARDED_MAIN_RANKS} (one step), the slab kernels, dryrun_multichip(2), app.main "
-            f"--devices 2")
+            f"--devices 2; (e) pc {', '.join(SHARDED_OPTIONS)} at box {SHARDED_OPTION_BOX}, pc mg "
+            f"at box {FULL_BOX}, K3 float64 banded")
         t0 = time.perf_counter()
-        sharded_results, sharded = phase_sharded(main)
+        sharded_results, sharded = phase_sharded(main, krylov)
         say(f"  sharded ({card}): {json.dumps(sharded)}")
         say(f"  phase 25: {time.perf_counter() - t0:.1f} s")
         phase = "26 rcb"
         say(f"phase 26 rcb ({card}): RCB parts on the gather tier, ranks sharing the card: "
             f"delaunay_mesh({RCB_SLICE_POINTS}) on {' and '.join(map(str, RCB_SLICE_RANKS))} "
             f"ranks, {raw.num_tet} Delaunay tets on {RCB_MAIN_RANKS} (one step), the part "
-            f"kernels, the melt pool at box {RCB_MELT_BOX}, app.main --devices 2 --mesh")
+            f"kernels, the melt pool at box {RCB_MELT_BOX}, app.main --devices 2 --mesh; (f) "
+            f"{', '.join(RCB_OPTIONS)} on delaunay_mesh({RCB_SLICE_POINTS})")
         t0 = time.perf_counter()
         rcb_results, rcb = phase_rcb(ga_main, raw)
         say(f"  rcb ({card}): {json.dumps(rcb)}")
@@ -5319,7 +5699,8 @@ def run() -> int:
         for (name, src, rep), r, n in zip(
             KERNELS + IRREGULAR_KERNELS + DEM_KERNELS + GATHER_KERNELS + MELT_KERNELS
             + STAGED_KERNELS + RESIDUAL_STAGED_KERNELS + KRYLOV_KERNELS + CLASS_KERNELS
-            + HEAT_KERNELS + MIXED_KERNELS + SHARDED_KERNELS + RCB_KERNELS + K10_KERNELS
+            + HEAT_KERNELS + MIXED_KERNELS + SHARDED_KERNELS + SHARDED_OPTION_KERNELS
+            + RCB_KERNELS + K10_KERNELS
             + COUPLED_SHARDED_KERNELS + GATHER_SPMV_KERNELS,
             results + ir_results + [dem_result] + ga_results + melt_results + [k5_implicit]
             + ir_staged + ga_staged + ga_res_staged + krylov_results + class_results

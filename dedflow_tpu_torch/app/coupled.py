@@ -25,7 +25,9 @@ on the owner's local rows, whose halo layer or ghosts go back to their
 owners (`carry_to_right` / `reverse_add`). The DEM runs on cell slabs of
 the flat cell axis (dem_run_grid(shard=), its own SlabComm on the same
 process group: the two decompositions differ), or replicated on every
-rank with `use_grid=False`, as the JAX package runs it.
+rank with `use_grid=False`, as the JAX package runs it. The fluid takes
+every Krylov option ShardedNSSolver takes (the preconditioners, the
+precisions, the lagged Jacobian).
 """
 
 from __future__ import annotations

@@ -87,8 +87,12 @@ the other ranks log warnings only. `--scenario coupled --devices N` runs
 app.coupled.CoupledSolver(sharded=True) on the ranks: the fluid in either
 mode, the DEM on cell slabs with K11's halo entry; rank 0 writes
 `sol.<step>.h5` from the gathered state and `particles.<step>.h5` (the
-particles are the same on every rank). Every option ShardedNSSolver does
-not take raises, naming its ROADMAP item.
+particles are the same on every rank). The Krylov flags run on the ranks
+too: `--pc fieldsplit|simple|mg` (mg: the shard-local multigrid on
+z-slabs; on RCB parts the JAX package's warning and SIMPLE), `--precision
+state|f64|ir`, and the config's lagged Jacobian. What ShardedNSSolver does
+not take (the classes tier or another tet split on z-slabs, a
+lattice_backend) raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -195,7 +199,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="torch.profiler trace directory")
     p.add_argument("--log-level", default="info")
     p.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="ranks of a decomposed run (z-slabs of a box, else RCB parts)")
+                   help="ranks of a decomposed run (z-slabs of a box, else RCB parts); takes "
+                        "every --pc and --precision (mg: shard-local on z-slabs, SIMPLE "
+                        "with a warning on RCB parts)")
     return p
 
 

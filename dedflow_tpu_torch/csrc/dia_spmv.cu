@@ -25,18 +25,19 @@
 // time; a plain loop over offsets read from device memory was 3% slower
 // there on an H100 (tools/spmv_time.py).
 //
-// The banded entry (dedflow_dia_spmv_banded) serves a rank of the z-slab
-// decomposition (parallel.sharded): its rows are its own nodes and x holds
+// The banded product serves a rank of the z-slab decomposition
+// (parallel.sharded): its rows are its own nodes and x holds
 // them with a band of the left neighbour's last node layer in front and one
 // of the right neighbour's first layer behind: x has its own length m and
 // row r reads column x_lo + r + offsets[k], zero outside [0, m). The whole
-// matrix's product is the case m = n, x_lo = 0: one kernel serves both, as
-// the JAX package's dia_matvec_pallas_shmap (dia_kernels.py:232) runs its
-// single-device body on a haloed window.
+// matrix's product is the case m = n, x_lo = 0: one kernel and one C entry
+// per dtype serve both, as the JAX package's dia_matvec_pallas_shmap
+// (dia_kernels.py:232) runs its single-device body on a haloed window.
 //
 // The kernel is a template on the scalar type, built for float (the
 // solver's state type on the card) and double (the f64 operator of
-// krylov.precision "f64" and the residual of "ir"). The double instance is
+// krylov.precision "f64" and the residual of "ir", on the whole matrix or
+// on a rank's slab). The double instance is
 // the same row-per-thread product; it moves twice the bytes and stays
 // bound by them (the card's FP64 rate is half its FP32 rate, 60 flops a
 // row against 2160 bytes).
@@ -113,18 +114,16 @@ int launch(const void* data, const void* scal, const void* x, void* y, int n, in
 
 }  // namespace dedflow
 
+// One C entry per dtype, taking x's length m and the column x_lo of row 0
+// (the whole matrix passes m = n, x_lo = 0; a rank's slab its banded x).
 extern "C" int dedflow_dia_spmv(const void* data, const void* scal, const void* x, void* y,
-                                int n, int num_planes, const int* offsets, void* stream) {
-  return dedflow::launch<float>(data, scal, x, y, n, n, 0, num_planes, offsets, stream);
-}
-
-extern "C" int dedflow_dia_spmv_banded(const void* data, const void* scal, const void* x, void* y,
-                                       int n, int m, int x_lo, int num_planes, const int* offsets,
-                                       void* stream) {
+                                int n, int m, int x_lo, int num_planes, const int* offsets,
+                                void* stream) {
   return dedflow::launch<float>(data, scal, x, y, n, m, x_lo, num_planes, offsets, stream);
 }
 
 extern "C" int dedflow_dia_spmv_f64(const void* data, const void* scal, const void* x, void* y,
-                                    int n, int num_planes, const int* offsets, void* stream) {
-  return dedflow::launch<double>(data, scal, x, y, n, n, 0, num_planes, offsets, stream);
+                                    int n, int m, int x_lo, int num_planes, const int* offsets,
+                                    void* stream) {
+  return dedflow::launch<double>(data, scal, x, y, n, m, x_lo, num_planes, offsets, stream);
 }

@@ -1191,6 +1191,7 @@ class SlabContext:
     node_lo: int  # global id of the first own node
     n_own: int
     width: int  # nodes a layer
+    num_layers: int  # node layers of the whole box (nz + 1)
 
 
 def _slab_mesh(mesh: Mesh, lo: int, top: int, layers_of_cells: tuple) -> Mesh:
@@ -1238,7 +1239,8 @@ def build_slab_context(mesh: Mesh, comm, weak: tuple, device, dtype) -> tuple:
         build_face_context(sub, b, lctx.offsets, device, dtype)
         for b in weak if sub.boundaries[b].num_facet
     )
-    sctx = SlabContext(lctx=lctx, comm=comm, node_lo=lo * sz, n_own=(hi - lo) * sz, width=sz)
+    sctx = SlabContext(lctx=lctx, comm=comm, node_lo=lo * sz, n_own=(hi - lo) * sz, width=sz,
+                       num_layers=nz + 1)
     return sctx, face_ctxs
 
 
@@ -1313,4 +1315,5 @@ def assemble_jacobian_slab(sctx: SlabContext, face_ctxs: tuple, mask_t, w_alpha,
     scal = torch.zeros((2 * nd, n_own), dtype=dtype, device=w_alpha.device)
     scal[2 * d0 : 2 * d0 + 2] = (lctx.mult[:n_own].to(dtype) * keep_pc[16:18, :n_own]
                                  + add18[16:18, :n_own])
-    return SlabDIAMatrixT(data=data, scal=scal, offsets=lctx.offsets, comm=sctx.comm, width=width)
+    return SlabDIAMatrixT(data=data, scal=scal, offsets=lctx.offsets, comm=sctx.comm, width=width,
+                          row_lo=sctx.node_lo)

@@ -32,15 +32,22 @@ mesh the way the JAX constructor does (:121-150, `sharded_mode`):
   the JAX partition drops them: their stencil entries are exact zeros.
 
 In both modes each rank runs the one-process step functions of
-solver.newton on its own rows: the field-split preconditioner from the
-rank's own diagonal rows (node-local), every GMRES inner product and norm
-and the Newton norms all-reduced, so every rank takes the same branch at
-each host sync. States enter and leave in the mesh's own node order
-(`shard_state` / `gather_state`). Options outside the port's slices raise
-NotImplementedError naming their ROADMAP item; nothing falls back to one
-process. A nodal momentum load comes as the rank's own rows in either
-mode: app.coupled.CoupledSolver(sharded=True) runs the coupled FEM-DEM
-step on this solver, its drag reaction the load.
+solver.newton on its own rows, every GMRES inner product and norm and the
+Newton norms all-reduced, so every rank takes the same branch at each host
+sync. The Krylov options run as the JAX ShardedNSSolver runs them
+(newton.py:134-221 there): `krylov.pc` "fieldsplit" (node-local, from the
+rank's own diagonal rows) and "simple" in both modes (z-slabs: SIMPLEPCT,
+its Schur bands and S_hat diagonal across the seams; RCB: SIMPLEPC through
+K7's halo entry), "mg" the shard-local multigrid on z-slabs (solver.mg)
+and, on RCB parts, the gather tier's warning and SIMPLE; `krylov.precision`
+"state", "f64" (K3's banded / K7's halo entry in float64) and "ir" (the
+refinement's float64 norms all-reduced); `newton.lag_jacobian`. AMG stays
+off both paths, as in the JAX package. States enter and leave in the mesh's
+own node order (`shard_state` / `gather_state`). What stays outside the
+port's slices raises NotImplementedError naming its ROADMAP item (A16 (b''),
+A9); nothing falls back to one process. A nodal momentum load comes as the
+rank's own rows in either mode: app.coupled.CoupledSolver(sharded=True)
+runs the coupled FEM-DEM step on this solver, its drag reaction the load.
 """
 
 from __future__ import annotations
@@ -87,18 +94,11 @@ def sharded_mode(mesh: Mesh, cfg: SolverConfig) -> str:
 def _refuse_unported(mesh: Mesh, cfg: SolverConfig) -> str:
     """NotImplementedError, naming its ROADMAP item, for every mesh or
     option outside the ported modes; else the mode (`sharded_mode`)."""
-    k, n = cfg.krylov, cfg.newton
-    checks = [
-        (k.pc != "fieldsplit", f"krylov.pc={k.pc!r}", "A16 (d')"),
-        (k.precision != "state", f"krylov.precision={k.precision!r}", "A16 (d')"),
-        (n.lag_jacobian, "newton.lag_jacobian", "A16 (d')"),
-        (cfg.lattice_backend is not None, f"lattice_backend={cfg.lattice_backend!r}", "A9"),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(
-                f"ShardedNSSolver does not port {what} yet (ROADMAP {item})"
-            )
+    if cfg.lattice_backend is not None:
+        raise NotImplementedError(
+            f"ShardedNSSolver does not port lattice_backend={cfg.lattice_backend!r} yet "
+            "(ROADMAP A9)"
+        )
     mode = sharded_mode(mesh, cfg)
     if mode == "slab" and not (_choose_tier(mesh, cfg) == "lattice"
                                and is_kuhn_split(mesh.lattice_tets)):

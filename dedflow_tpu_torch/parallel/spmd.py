@@ -6,17 +6,19 @@ and `fsbsr_matvec_halo` (:154-210), and of fem/lattice.py's
 
 `GroupComm` is the process group: this rank, the world size, the exchange
 of `dist.batch_isend_irecv` and the sums over every rank (`allreduce_sum`,
-`allreduce_max`: Krylov inner products and norms, the same bits on each
-rank). Two decompositions build on it:
+`allreduce_max`, `allreduce_min`: Krylov inner products and norms, the
+multigrid's agreed level count, the same bits on each rank). Two
+decompositions build on it:
 
 - `SlabComm` (the z-slab mode): rank r of N owns a contiguous range of node
   layers, node axis last (component-major vectors (6, n), DIA data
   (D, 16, n)). `band_from_right` / `band_from_left`: the right neighbour's
   first or the left neighbour's last `width` nodes (None at the ends of
-  the chain), `bands` both in one exchange; `carry_to_right`: each rank's
-  rows past its own (the halo layer, where its cells' contributions to the
-  right neighbour's first layer landed) go to that neighbour, which adds
-  them into its first own layer.
+  the chain), `bands` both in one exchange, `banded` x with both bands
+  around it (zeros where there is no neighbour); `carry_to_right`: each
+  rank's rows past its own (the halo layer, where its cells' contributions
+  to the right neighbour's first layer landed) go to that neighbour, which
+  adds them into its first own layer.
 - `HaloComm` (the RCB mode): a rank's vectors hold its own nodes, and its
   local vectors its ghosts after them ([own | ghosts], parallel.partition
   .part_layout). `build_halo_plan` lists, per neighbour rank, the own
@@ -143,6 +145,10 @@ class GroupComm:
         """The largest value of t over every rank, as a new tensor."""
         return self._allreduce(t, dist.ReduceOp.MAX)
 
+    def allreduce_min(self, t: torch.Tensor) -> torch.Tensor:
+        """The smallest value of t over every rank, as a new tensor."""
+        return self._allreduce(t, dist.ReduceOp.MIN)
+
     def _allreduce(self, t: torch.Tensor, op) -> torch.Tensor:
         t0 = time.perf_counter()
         if self._stage(t):
@@ -192,6 +198,16 @@ class SlabComm(GroupComm):
             recvs[self.left] = shape
         got = self._exchange(sends, recvs, x)
         return (got.get(self.left) if left else None), (got.get(self.right) if right else None)
+
+    def banded(self, x: torch.Tensor, width: int) -> torch.Tensor:
+        """x (..., n) with the left neighbour's last and the right
+        neighbour's first `width` nodes around it, zeros where there is no
+        neighbour: (..., n + 2 width), the own rows from column `width`
+        (one exchange)."""
+        left, right = self.bands(x, width)
+        pad = x.new_zeros(x.shape[:-1] + (width,))
+        return torch.cat([pad if left is None else left, x, pad if right is None else right],
+                         dim=-1)
 
     def carry_to_right(self, y: torch.Tensor, width: int, scale: torch.Tensor | None = None):
         """y (..., n) holds this rank's own rows and, on every rank but the

@@ -1,5 +1,5 @@
 """Pressure-block geometric multigrid on the lattice tier (counterpart of
-dedflow_tpu/solver/mg.py, unsharded).
+dedflow_tpu/solver/mg.py).
 
 The reference's optional PCAMGX (pc.c:160-235) wraps AmgX as an algebraic
 multigrid solve of one field section. On the lattice the pressure block
@@ -29,8 +29,27 @@ the hierarchy is geometric:
 A linear offset wraps at a grid border to an unrelated row, but the
 lattice assembly makes every such entry exactly 0.0 and the Galerkin sums
 keep it 0.0, so the flat linear-offset product is exact on every level.
-The sharded variants (`shard=`, `shard_z`, `axis=`) belong to ROADMAP A16
-(d') and raise.
+On N ranks of a z-slab decomposition (parallel.sharded) the multigrid is
+shard-local, as in the JAX package (mg.py:326-467): each rank builds the
+hierarchy of its own rows' A_pp planes (`build_hierarchy(shard_z=True)`,
+the local grid (gx, gy, own layers)), every level's product exchanges
+bands of m = max|offset| nodes with the neighbours through the rank's
+SlabComm (`ScalarDIALevel.matvec(comm=)`, `vcycle(comm=)`), and restriction
+and prolongation stay local because a slab's cuts align with whole 2x2x2
+aggregates. The rank stops coarsening where the JAX rule does (local rows
+below max(128, min_nodes // world), local gz odd or below 4). Two things
+differ from the JAX package:
+
+- the port's z-cut is uneven (fem.lattice.slab_layers: the first ranks
+  take one more layer), and a rank whose first layer is odd at a level
+  would split an aggregate across its seam: it stops coarsening there too;
+- every rank must keep the same number of levels, or a rank sweeping its
+  coarsest level would wait on a neighbour still recursing (a deadlock):
+  the ranks agree on the smallest count with one all-reduce at set-up.
+
+Where the cut is even and equal, the hierarchy and the cycle are the JAX
+package's, which its tests hold equal to the one-device cycle on a
+hierarchy truncated at the same depth.
 """
 
 from __future__ import annotations
@@ -47,13 +66,7 @@ from dedflow_tpu_torch.solver.pc import (
     schur_apply,
     schur_split_apply,
 )
-from dedflow_tpu_torch.sparse.fsbsr import shifted
-
-
-def _refuse_sharded(what: str) -> None:
-    raise NotImplementedError(
-        f"dedflow_tpu_torch does not port {what} (sharded multigrid) yet (ROADMAP queue A16 (d'))"
-    )
+from dedflow_tpu_torch.sparse.fsbsr import shifted, shifted_slab
 
 
 def decode_offsets(offsets, gx: int, gy: int) -> list[tuple[int, int, int]]:
@@ -111,9 +124,19 @@ class ScalarDIALevel:
     offsets: tuple  # linear
     dims: tuple  # (gx, gy, gz)
 
-    def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """(N,) -> (N,)."""
-        return (self.planes * shifted(x, self.offsets)).sum(0)
+    def matvec(self, x: torch.Tensor, comm=None) -> torch.Tensor:
+        """(N,) -> (N,); with `comm` (parallel.spmd.SlabComm) on a rank's own
+        rows of a z-slab level: one band exchange of m = max|offset| nodes
+        each side, zeros past the domain's ends, where every entry is an
+        exact zero (mg.py:122-148 of the JAX package)."""
+        if comm is None:
+            return (self.planes * shifted(x, self.offsets)).sum(0)
+        n = x.shape[-1]
+        m = max(max(abs(o) for o in self.offsets), 1)
+        if m > n:
+            raise ValueError(f"multigrid level: the stencil's reach {m} exceeds the slab's "
+                             f"{n} rows")
+        return (self.planes * shifted_slab(x, self.offsets, comm, m)).sum(0)
 
 
 def _coarse_dims(dims) -> tuple[int, int, int]:
@@ -172,6 +195,24 @@ def _galerkin_coarsen(level: ScalarDIALevel) -> ScalarDIALevel:
     )
 
 
+def level_count(dims: tuple, min_nodes: int = 1024, max_levels: int = 8,
+                shard_z: bool = False, z_lo: int = 0) -> int:
+    """The number of levels build_hierarchy builds on a (gx, gy, gz) grid:
+    coarsening stops when a level has fewer than `min_nodes` rows or the
+    grid can no longer halve (mg.py:196-232); with `shard_z` (a rank's
+    z-slab whose first node layer is layer `z_lo` of the whole grid) also
+    when the slab's gz is odd or below 4 (the JAX rule) or its first layer
+    is odd (the port's uneven cut: an aggregate would straddle the seam)."""
+    count, dims = 1, tuple(dims)
+    while count < max_levels:
+        if int(np.prod(dims)) < min_nodes or max(dims) < 3:
+            break
+        if shard_z and (dims[2] % 2 != 0 or dims[2] < 4 or z_lo % 2 != 0):
+            break
+        dims, z_lo, count = _coarse_dims(dims), z_lo // 2, count + 1
+    return count
+
+
 def build_hierarchy(
     planes: torch.Tensor,
     offsets: tuple,
@@ -180,24 +221,20 @@ def build_hierarchy(
     min_nodes: int = 1024,
     max_levels: int = 8,
     shard_z: bool = False,
+    z_lo: int = 0,
 ) -> tuple[ScalarDIALevel, ...]:
     """The level tuple from the fine (K, N) stencil (mg.py:196-232):
-    `diag_override` replaces the 0-offset plane; coarsening stops when a
-    level has fewer than `min_nodes` rows or the grid can no longer
-    halve."""
-    if shard_z:
-        _refuse_sharded("build_hierarchy(shard_z=True)")
+    `diag_override` replaces the 0-offset plane; the depth is
+    level_count's (`shard_z`, `z_lo`: a rank's z-slab, its local grid
+    `dims`)."""
     d0 = offsets.index(0)
     if diag_override is not None:
         planes = planes.clone()
         planes[d0] = diag_override
     levels = [ScalarDIALevel(planes=planes, inv_diag=_guarded_inverse(planes[d0]),
                              offsets=tuple(offsets), dims=tuple(dims))]
-    while len(levels) < max_levels:
-        lv = levels[-1]
-        if lv.planes.shape[1] < min_nodes or max(lv.dims) < 3:
-            break
-        levels.append(_galerkin_coarsen(lv))
+    for _ in range(level_count(dims, min_nodes, max_levels, shard_z, z_lo) - 1):
+        levels.append(_galerkin_coarsen(levels[-1]))
     return tuple(levels)
 
 
@@ -218,47 +255,53 @@ def _prolong(xc: torch.Tensor, dims) -> torch.Tensor:
 
 
 def vcycle(levels: tuple, r: torch.Tensor, li: int = 0, omega: float = 0.85,
-           coarse_sweeps: int = 12, axis=None) -> torch.Tensor:
-    """One V(1,1) cycle for A x = r at level li from x = 0 (mg.py:257-290)."""
-    if axis is not None:
-        _refuse_sharded("vcycle(axis=...)")
+           coarse_sweeps: int = 12, comm=None) -> torch.Tensor:
+    """One V(1,1) cycle for A x = r at level li from x = 0 (mg.py:257-290);
+    with `comm` on a rank's z-slab hierarchy (every level's product
+    exchanges its bands)."""
     lv = levels[li]
     w = omega * lv.inv_diag
     if li == len(levels) - 1:
         x = w * r
         for _ in range(coarse_sweeps - 1):
-            x = x + w * (r - lv.matvec(x))
+            x = x + w * (r - lv.matvec(x, comm))
         return x
     x = w * r  # pre-smooth, one damped-Jacobi sweep from zero
-    xc = vcycle(levels, _restrict(r - lv.matvec(x), lv.dims), li + 1, omega, coarse_sweeps)
+    xc = vcycle(levels, _restrict(r - lv.matvec(x, comm), lv.dims), li + 1, omega,
+                coarse_sweeps, comm)
     x = x + _prolong(xc, lv.dims)
-    return x + w * (r - lv.matvec(x))  # post-smooth
+    return x + w * (r - lv.matvec(x, comm))  # post-smooth
 
 
 @dataclass
 class MGSIMPLEPCT:
     """SIMPLE pressure-Schur preconditioner with a multigrid Schur solve on
-    (6, N) vectors (counterpart of dedflow_tpu/solver/mg.py::MGSIMPLEPCT,
-    unsharded; see the module docstring)."""
+    (6, N) vectors (counterpart of dedflow_tpu/solver/mg.py::MGSIMPLEPCT;
+    see the module docstring). `comm` is the rank's SlabComm of a
+    shard-local hierarchy, None in one process."""
 
-    bands: object  # sparse.fsbsr.SchurBandsT
+    bands: object  # sparse.fsbsr.SchurBandsT (SlabSchurBandsT on a rank)
     levels: tuple  # ScalarDIALevel hierarchy
     inv_vel_rows: torch.Tensor  # (9, N)
     inv_phi_diag: torch.Tensor  # (N,)
     inv_t_diag: torch.Tensor  # (N,)
     outer: int = 2
     omega: float = 0.85
+    comm: object = None
 
     @staticmethod
     def from_matrix(mat, dims: tuple | None, outer: int = 2, omega: float = 0.85,
                     min_nodes: int = 1024, shard=None) -> "MGSIMPLEPCT":
-        """dims = (gx, gy, gz), or None to infer it from the DIA offsets
-        (ValueError when that fails); mat = FSDIAMatrixT. The hierarchy is
-        built on the plain A_pp stencil: the JAX package measured the exact
-        S_hat diagonal as the fine diagonal to wreck the cycle (111 against
-        24 GMRES iterations, mg.py:372-376)."""
-        if shard is not None:
-            _refuse_sharded("MGSIMPLEPCT.from_matrix(shard=...)")
+        """dims = (gx, gy, gz) of the whole grid, or None to infer it from
+        the DIA offsets (ValueError when that fails); mat = FSDIAMatrixT.
+        The hierarchy is built on the plain A_pp stencil: the JAX package
+        measured the exact S_hat diagonal as the fine diagonal to wreck the
+        cycle (111 against 24 GMRES iterations, mg.py:372-376).
+
+        shard: the rank's SlabComm, mat its SlabDIAMatrixT: the shard-local
+        hierarchy of its own rows (local grid (gx, gy, rows / (gx gy)), its
+        first layer mat.row_lo / (gx gy)), to the depth the ranks agree on
+        (module docstring). A slab of partial layers raises ValueError."""
         base = NSFieldSplitPCT.from_diag_rows(mat.diag_rows())
         n = mat.num_rows
         if dims is None:
@@ -268,23 +311,42 @@ class MGSIMPLEPCT:
                     "MGSIMPLEPCT: node grid could not be inferred from "
                     f"the DIA offsets {mat.offsets} at {n} rows"
                 )
-        assert n == dims[0] * dims[1] * dims[2], f"grid {dims} does not match {n} pressure rows"
         bands = mat.schur_bands()
+        if shard is None:
+            assert n == dims[0] * dims[1] * dims[2], f"grid {dims} does not match {n} pressure rows"
+            levels = build_hierarchy(bands.app, mat.offsets, dims, min_nodes=min_nodes)
+        else:
+            if not (hasattr(shard, "banded") and hasattr(shard, "allreduce_min")):
+                raise TypeError("MGSIMPLEPCT.from_matrix(shard=) takes this rank's "
+                                "parallel.spmd.SlabComm, not a (device mesh, axis) pair")
+            sz = dims[0] * dims[1]
+            if n % sz != 0 or mat.row_lo % sz != 0:
+                raise ValueError(
+                    f"sharded MG needs z-plane-aligned slabs: local rows {n} from row "
+                    f"{mat.row_lo}, plane size {sz}"
+                )
+            ldims, z_lo = (dims[0], dims[1], n // sz), mat.row_lo // sz
+            lmin = max(128, min_nodes // shard.world)
+            own = level_count(ldims, lmin, shard_z=True, z_lo=z_lo)
+            agreed = int(shard.allreduce_min(torch.tensor([own], device=bands.app.device)))
+            levels = build_hierarchy(bands.app, mat.offsets, ldims, min_nodes=lmin,
+                                     max_levels=agreed, shard_z=True, z_lo=z_lo)
         return MGSIMPLEPCT(
             bands=bands,
-            levels=build_hierarchy(bands.app, mat.offsets, dims, min_nodes=min_nodes),
+            levels=levels,
             inv_vel_rows=base.inv_vel_rows,
             inv_phi_diag=base.inv_phi_diag,
             inv_t_diag=base.inv_t_diag,
             outer=outer,
             omega=omega,
+            comm=shard,
         )
 
     def _schur_solve(self, rp: torch.Tensor) -> torch.Tensor:
-        dp = vcycle(self.levels, rp, omega=self.omega)
+        dp = vcycle(self.levels, rp, omega=self.omega, comm=self.comm)
         for _ in range(self.outer - 1):
             dp = dp + vcycle(self.levels, rp - schur_apply(self.bands, self.inv_vel_rows, dp),
-                             omega=self.omega)
+                             omega=self.omega, comm=self.comm)
         return dp
 
     def __call__(self, x_t: torch.Tensor) -> torch.Tensor:

@@ -152,17 +152,33 @@ def assemble_system(ctx, face_ctxs, mask_t, wgold, dwgold, dwg, phys, scheme,
     plan; fieldsplit without one), SIMPLE on the gather tier."""
     wa, dwa = alpha_states(wgold, dwgold, dwg, scheme)
     if isinstance(ctx, SlabContext):
-        if pc_type != "fieldsplit" or scalar_implicit:
-            raise NotImplementedError("a z-slab decomposition takes the fieldsplit preconditioner "
-                                      "and frozen phi/T only (ROADMAP A16 (b'') and (d'))")
+        # a rank's z-slab (newton.py:134-158 of the JAX package): SIMPLE with
+        # its band products across the seams, the shard-local multigrid
+        if scalar_implicit:
+            raise NotImplementedError("a z-slab decomposition takes frozen phi/T only; "
+                                      "implicit_scalars runs on RCB parts")
         jmat = assemble_jacobian_slab(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme)
+        if pc_type == "mg":
+            dims = (*ctx.lctx.dims[:2], ctx.num_layers)
+            return jmat, MGSIMPLEPCT.from_matrix(jmat, dims=dims, outer=pc_mg_outer,
+                                                 shard=ctx.comm)
+        if pc_type == "simple":
+            return jmat, SIMPLEPCT.from_matrix(jmat, sweeps=pc_sweeps, omega=pc_omega)
         return jmat, NSFieldSplitPCT.from_diag_rows(jmat.diag_rows())
     if isinstance(ctx, ns.PartContext):
-        if pc_type != "fieldsplit":
-            raise NotImplementedError("an RCB partition takes the fieldsplit preconditioner only "
-                                      "(ROADMAP A16 (d'))")
+        # a rank's RCB part on the gather tier (newton.py:193-209 of the JAX
+        # package): SIMPLE through K7's halo entry; "mg" warns and runs it
         jmat = ns.assemble_jacobian_part(ctx, face_ctxs, mask_t, wa, dwa, phys, scheme,
                                          scalar_implicit)
+        if pc_type == "mg":
+            warnings.warn(
+                "krylov.pc='mg' requires the lattice fast path (structured "
+                "node grid); falling back to the SIMPLE preconditioner",
+                stacklevel=2,
+            )
+            pc_type = "simple"
+        if pc_type == "simple":
+            return jmat, SIMPLEPC.from_matrix(jmat, sweeps=pc_sweeps, omega=pc_omega)
         return jmat, NSFieldSplitPCT.from_diag_rows(jmat.diag_rows())
     if isinstance(ctx, WinAssemblyContext):
         jmat = jacobian_win(
@@ -226,14 +242,17 @@ def _solve_linear(jmat, pc, f, kcfg, allreduce=None):
     float32 GMRES with the float32 preconditioner inside float64 iterative
     refinement (solver.refine). Returns (dx, iters, rel_residual): for
     "ir" the inner iterations summed and the true float64 residual. The
-    operator is cast by value (utils.dtypes.cast_floats): K3 and K7 take
-    float32 and float64, so a cast matrix keeps its kernel."""
+    operator is cast by value (utils.dtypes.cast_floats, which keeps a
+    rank's communicators): K3 and K7 take float32 and float64, so a cast
+    matrix keeps its kernel. `allreduce` sums over the ranks of a
+    decomposition (every inner product and norm, each precision)."""
     prec = kcfg.precision
     if prec == "f64" and f.dtype != torch.float64:
         m64 = cast_floats(jmat, torch.float64)
         sol = gmres(
             m64.matvec_t, f.to(torch.float64), maxit=kcfg.max_iter, atol=kcfg.atol,
             rtol=kcfg.rtol, pc=cast_floats(pc, torch.float64), restart=kcfg.restart,
+            allreduce=allreduce,
         )
         rel = sol.resnorm / torch.clamp(sol.resnorm0, min=1e-300)
         return sol.x.to(f.dtype), sol.iters, rel.to(f.dtype)
@@ -247,7 +266,7 @@ def _solve_linear(jmat, pc, f, kcfg, allreduce=None):
         sol = gmres_ir_device(
             m64.matvec_t, mv_lo, f.to(torch.float64), pc=pc_lo, tol=kcfg.ir_tol,
             max_cycles=kcfg.ir_cycles, inner_maxit=kcfg.max_iter,
-            inner_rtol=kcfg.ir_inner_rtol,
+            inner_rtol=kcfg.ir_inner_rtol, allreduce=allreduce,
         )
         return sol.x.to(f.dtype), sol.inner_iters, sol.rel_residual.to(f.dtype)
     sol = gmres(

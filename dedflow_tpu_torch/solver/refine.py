@@ -26,7 +26,7 @@ from typing import Callable
 
 import torch
 
-from dedflow_tpu_torch.solver.krylov import gmres
+from dedflow_tpu_torch.solver.krylov import _norm, gmres
 
 
 @dataclass
@@ -55,12 +55,16 @@ def gmres_ir_device(
     max_cycles: int = 10,
     inner_maxit: int = 120,
     inner_rtol: float = 1e-6,
+    allreduce: Callable | None = None,
 ) -> RefineDeviceInfo:
     """The refinement of krylov.precision "ir" (refine.py:45-89 of the JAX
     package): cycles while the relative residual exceeds `tol`, at most
     `max_cycles`; the inner solves are float32 GMRES(inner_maxit) with the
-    float32 preconditioner `pc`, stopped at `inner_rtol`."""
-    bnorm = torch.linalg.vector_norm(b.reshape(-1))
+    float32 preconditioner `pc`, stopped at `inner_rtol`. `allreduce` (a
+    rank's own rows of a decomposition) sums the float64 norms and every
+    inner product over the ranks, so each rank reads the same residual and
+    takes the same branch."""
+    bnorm = _norm(b.reshape(-1), allreduce)
     eps = torch.finfo(b.dtype).tiny
     x = torch.zeros_like(b)
     rel_t = (bnorm > 0).to(b.dtype)
@@ -68,9 +72,9 @@ def gmres_ir_device(
     while rel > tol and cycles < max_cycles:
         r = b - matvec_hi(x)
         sol = gmres(matvec_lo, r.to(torch.float32), maxit=inner_maxit, atol=0.0,
-                    rtol=inner_rtol, pc=pc)
+                    rtol=inner_rtol, pc=pc, allreduce=allreduce)
         x = x + sol.x.to(b.dtype)
-        rel_t = torch.linalg.vector_norm((b - matvec_hi(x)).reshape(-1)) / torch.clamp(bnorm, min=eps)
+        rel_t = _norm((b - matvec_hi(x)).reshape(-1), allreduce) / torch.clamp(bnorm, min=eps)
         rel = float(rel_t)  # one host sync a cycle
         cycles += 1
         iters += sol.iters

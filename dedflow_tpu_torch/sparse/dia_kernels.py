@@ -12,6 +12,8 @@ operator of krylov.precision "f64" and the residual of "ir", which the JAX
 package computes with its XLA matvec, newton.py:221-238) goes to
 `dia_matvec_f64`, which launches the double instance and keeps its own
 launch count: `dia_matvec.launches` counts the float32 launches only.
+The kernel has one C entry per dtype, which takes x's length and the
+column of row 0: the whole matrix passes (n, 0).
 
 On the card the product is bound by bytes: each row reads its 15 x 18
 matrix entries once (about 190 MB at 175,616 rows) and x is reused from
@@ -23,8 +25,10 @@ slabs up to 97), as the JAX package's DIA SpMV takes any.
 `dia_matvec_banded` is the product on one rank of the z-slab decomposition
 (parallel.sharded; the JAX package's dia_matvec_pallas_shmap,
 dia_kernels.py:232-290): its own rows, with x holding a band of each
-neighbour's node layer around them. It is the same kernel, given x's own
-length and the column of its first own node by argument.
+neighbour's node layer around them. It is the same kernel and C entry,
+given x's own length and the column of its first own node by argument;
+a float64 slab product goes to `dia_matvec_banded_f64`, with its own
+launch count.
 """
 
 from __future__ import annotations
@@ -71,15 +75,15 @@ _SYMBOLS = {torch.float32: "dedflow_dia_spmv", torch.float64: "dedflow_dia_spmv_
 MAX_PLANES = 128  # csrc/dia_spmv.cu kMaxPlanesSpmv
 
 
-def _kernel(data, scal, x_t, offsets, x_lo=None) -> torch.Tensor:
-    """The launch; `x_lo` None: the whole matrix's entry (x (6, n)), else
-    the banded one (float32, x (6, m) read from column x_lo)."""
+def _kernel(data, scal, x_t, offsets, x_lo: int = 0) -> torch.Tensor:
+    """The launch: the C entry of x's dtype, given x's length m and the
+    column x_lo of row 0 (the whole matrix: x (6, n), x_lo 0)."""
     nd, nc, n = data.shape
     dtype = x_t.dtype
-    m = n if x_lo is None else x_t.shape[1]
-    if x_lo is not None and (dtype != torch.float32 or x_lo < 0 or m < x_lo + n):
-        raise ValueError(f"dia_matvec kernel: the banded entry takes float32 and an x of at "
-                         f"least x_lo + {n} columns (got {dtype}, {m} from {x_lo})")
+    m = x_t.shape[1]
+    if x_lo < 0 or m < x_lo + n:
+        raise ValueError(f"dia_matvec kernel: x must have at least x_lo + {n} columns "
+                         f"(got {m} from {x_lo})")
     for name, t, shape in (
         ("data", data, (nd, 16, n)), ("scal", scal, (2 * nd, n)), ("x", x_t, (6, m)),
     ):
@@ -94,22 +98,14 @@ def _kernel(data, scal, x_t, offsets, x_lo=None) -> torch.Tensor:
     if len(offsets) != nd or not 1 <= nd <= MAX_PLANES:
         raise ValueError(f"dia_matvec kernel: {len(offsets)} offsets for {nd} planes "
                          f"(it takes 1 to {MAX_PLANES})")
-    if x_lo is None:
-        fn = nvcc.function(
-            "dia_spmv", _SYMBOLS[dtype],
-            [nvcc.P, nvcc.P, nvcc.P, nvcc.P, nvcc.I, nvcc.I, nvcc.P, nvcc.P],
-        )
-        sizes = (n,)
-    else:
-        fn = nvcc.function(
-            "dia_spmv", "dedflow_dia_spmv_banded",
-            [nvcc.P, nvcc.P, nvcc.P, nvcc.P] + [nvcc.I] * 4 + [nvcc.P, nvcc.P],
-        )
-        sizes = (n, m, x_lo)
+    fn = nvcc.function(
+        "dia_spmv", _SYMBOLS[dtype],
+        [nvcc.P, nvcc.P, nvcc.P, nvcc.P] + [nvcc.I] * 4 + [nvcc.P, nvcc.P],
+    )
     y = torch.empty((6, n), dtype=dtype, device=data.device)
     stream = torch.cuda.current_stream(data.device).cuda_stream
     nvcc.check(
-        fn(data.data_ptr(), scal.data_ptr(), x_t.data_ptr(), y.data_ptr(), *sizes, nd,
+        fn(data.data_ptr(), scal.data_ptr(), x_t.data_ptr(), y.data_ptr(), n, m, x_lo, nd,
            nvcc.int_array(offsets), stream),
         "dia_spmv",
     )
@@ -120,6 +116,13 @@ def _on_card(*ts) -> bool:
     return any(t.is_cuda for t in ts)
 
 
+def _whole(data, x_t) -> None:
+    """The whole matrix's product takes x of its own (6, N) shape only."""
+    if tuple(x_t.shape) != (6, data.shape[2]):
+        raise ValueError(f"dia_matvec kernel: x has shape {tuple(x_t.shape)}, expected "
+                         f"(6, {data.shape[2]})")
+
+
 def dia_matvec(data, scal, x_t, offsets) -> torch.Tensor:
     """(6, N) = A x: the CUDA kernel when any operand is a CUDA tensor (a
     float64 product through dia_matvec_f64), the plain version on CPU
@@ -128,6 +131,7 @@ def dia_matvec(data, scal, x_t, offsets) -> torch.Tensor:
         return dia_matvec_plain(data, scal, x_t, offsets)
     if x_t.dtype == torch.float64:
         return dia_matvec_f64(data, scal, x_t, offsets)
+    _whole(data, x_t)
     y = _kernel(data, scal, x_t.contiguous(), offsets)
     dia_matvec.launches += 1
     return y
@@ -140,6 +144,7 @@ def dia_matvec_f64(data, scal, x_t, offsets) -> torch.Tensor:
         return dia_matvec_plain(data, scal, x_t, offsets)
     if x_t.dtype != torch.float64:
         raise ValueError("dia_matvec_f64 kernel: x must be a float64 CUDA tensor")
+    _whole(data, x_t)
     y = _kernel(data, scal, x_t.contiguous(), offsets)
     dia_matvec_f64.launches += 1
     return y
@@ -147,16 +152,33 @@ def dia_matvec_f64(data, scal, x_t, offsets) -> torch.Tensor:
 
 def dia_matvec_banded(data, scal, x_t, offsets, x_lo: int) -> torch.Tensor:
     """(6, n) = A x on a rank's own rows with x (6, m) banded around them
-    (dia_matvec_banded_plain's contract): the banded entry of the same
-    CUDA kernel (float32) when any operand is a CUDA tensor, with its own
-    launch count, the plain version on CPU tensors."""
+    (dia_matvec_banded_plain's contract): the same CUDA kernel when any
+    operand is a CUDA tensor (a float64 product through
+    dia_matvec_banded_f64), with its own launch count, the plain version on
+    CPU tensors."""
     if not _on_card(data, scal, x_t):
         return dia_matvec_banded_plain(data, scal, x_t, offsets, x_lo)
+    if x_t.dtype == torch.float64:
+        return dia_matvec_banded_f64(data, scal, x_t, offsets, x_lo)
     y = _kernel(data, scal, x_t.contiguous(), offsets, x_lo)
     dia_matvec_banded.launches += 1
     return y
 
 
-dia_matvec.launches = 0  # float32 launches of the whole matrix's entry
-dia_matvec_banded.launches = 0
+def dia_matvec_banded_f64(data, scal, x_t, offsets, x_lo: int) -> torch.Tensor:
+    """The float64 banded product (krylov.precision "f64" and the residual
+    of "ir" on a rank's slab): the kernel's double instance on CUDA
+    tensors, the plain version on CPU tensors."""
+    if not _on_card(data, scal, x_t):
+        return dia_matvec_banded_plain(data, scal, x_t, offsets, x_lo)
+    if x_t.dtype != torch.float64:
+        raise ValueError("dia_matvec_banded_f64 kernel: x must be a float64 CUDA tensor")
+    y = _kernel(data, scal, x_t.contiguous(), offsets, x_lo)
+    dia_matvec_banded_f64.launches += 1
+    return y
+
+
+dia_matvec.launches = 0  # float32 launches on the whole matrix
+dia_matvec_banded.launches = 0  # float32 launches on a rank's slab
 dia_matvec_f64.launches = 0
+dia_matvec_banded_f64.launches = 0

@@ -36,7 +36,11 @@ number of launches, whatever D: the padded vector's (2m + 1, N) window
 view (`Tensor.unfold`, no copy), one `index_select` of the D offset rows,
 one multiply and one sum (`shifted`). Zeros outside [0, N) stand for the
 columns past the grid's ends, whose entries the lattice assembly makes
-exactly 0 (fem.lattice's dead cells).
+exactly 0 (fem.lattice's dead cells). On a rank of a z-slab decomposition
+(SlabDIAMatrixT) the same products read x with a node layer of each
+neighbour around the own rows (`shifted_slab`: one band exchange a
+product, SlabSchurBandsT), and diag(S_hat) takes the neighbours' inverse
+velocity blocks and A_up planes in one exchange at set-up.
 
 Component order:
     0..8   uu[i*3+j]   d y_u[i] / d x_u[j]
@@ -91,23 +95,58 @@ def diag_add_rows(mask_t: torch.Tensor, dtype) -> torch.Tensor:
     return out
 
 
-# The D offset rows of `shifted` by (offsets, reach, device): built once, so
-# a product queues no host-to-device copy (the rows never change).
+# The D offset rows of `shifted_band` by (offsets, first row, device): built
+# once, so a product queues no host-to-device copy (the rows never change).
 _SHIFT_ROWS: dict = {}
+
+
+def shifted_band(x: torch.Tensor, offsets: tuple, lo: int, n: int) -> torch.Tensor:
+    """(..., m) -> (..., D, n): row k, column r is x[..., lo + r +
+    offsets[k]], zero outside [0, m) (x holds n rows from column lo with
+    bands around them, m >= lo + n). Two launches whatever D: the pad and
+    one index_select of the padded vector's window view."""
+    m = max(max(abs(o) for o in offsets), 1)
+    key = (tuple(offsets), m + lo, x.device)
+    rows = _SHIFT_ROWS.get(key)
+    if rows is None:
+        rows = torch.as_tensor([m + lo + o for o in offsets], dtype=torch.long, device=x.device)
+        _SHIFT_ROWS[key] = rows
+    return F.pad(x, (m, m)).unfold(-1, n, 1).index_select(-2, rows)
 
 
 def shifted(x: torch.Tensor, offsets: tuple) -> torch.Tensor:
     """(..., N) -> (..., D, N): row k is x shifted by offsets[k] (x[n + o]),
-    zero outside [0, N). Two launches whatever D: the pad and one
-    index_select of the padded vector's window view."""
-    n = x.shape[-1]
-    m = max(max(abs(o) for o in offsets), 1)
-    key = (tuple(offsets), m, x.device)
-    rows = _SHIFT_ROWS.get(key)
-    if rows is None:
-        rows = torch.as_tensor([m + o for o in offsets], dtype=torch.long, device=x.device)
-        _SHIFT_ROWS[key] = rows
-    return F.pad(x, (m, m)).unfold(-1, n, 1).index_select(-2, rows)
+    zero outside [0, N)."""
+    return shifted_band(x, offsets, 0, x.shape[-1])
+
+
+def shifted_slab(x: torch.Tensor, offsets: tuple, comm, width: int) -> torch.Tensor:
+    """shifted() of a rank's own rows (..., n) of a z-slab decomposed
+    vector: one band exchange of `width` nodes through `comm`
+    (parallel.spmd.SlabComm.banded, zeros where there is no neighbour)."""
+    return shifted_band(comm.banded(x, width), offsets, width, x.shape[-1])
+
+
+def schur_diag_rows(app0, pu, up_ext, duinv_ext, offs: tuple, lo: int) -> torch.Tensor:
+    """(n,) diagonal of S_hat = A_pp - A_pu inv(D_u) A_up (fsbsr.py:515-540
+    of the JAX package): entry r = app0[r] - sum_k sum_ij pu[k, i, r]
+    duinv[ij, r + o_k] up[k, j, r + o_k] over the offsets o_k whose negation
+    is an offset, all at once; pu (K, 3, n) the A_pu planes of o_k, up_ext
+    (K, 3, m) the A_up planes of -o_k and duinv_ext (9, m) the row-major
+    inverse velocity blocks on x-like columns, row r at column lo + r (a
+    rank's own rows with a band of each neighbour's around them)."""
+    n, k = app0.shape[-1], len(offs)
+    dev = app0.device
+    h = shifted_band(duinv_ext, offs, lo, n)  # (9, K, n): duinv at r + o_k
+    h = h.reshape(3, 3, k, n).permute(2, 0, 1, 3)  # (K, i, j, n)
+    # up_j of plane -o_k at r + o_k: each plane row shifted by its own offset
+    m = max(max(abs(o) for o in offs), 1)
+    upn = F.pad(up_ext, (m, m))
+    idx = (torch.as_tensor([m + lo + o for o in offs], device=dev)[:, None]
+           + torch.arange(n, device=dev)[None, :])
+    upn = torch.gather(upn, 2, idx[:, None, :].expand(k, 3, n))  # (K, j, n)
+    term = (pu[:, :, None] * h * upn[:, None]).sum((0, 1, 2))
+    return app0 - term
 
 
 @dataclass
@@ -123,22 +162,41 @@ class SchurBandsT:
     aup: torch.Tensor  # (D, 3, N) velocity-row / pressure-col planes
     offsets: tuple
 
+    def _shift(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., N) -> (..., D, N), x at the columns of each plane."""
+        return shifted(x, self.offsets)
+
     def matvec_pp(self, p: torch.Tensor) -> torch.Tensor:
         """(N,) -> (N,): the A_pp block only."""
-        return (self.app * shifted(p, self.offsets)).sum(0)
+        return (self.app * self._shift(p)).sum(0)
 
     def matvec_pu(self, u: torch.Tensor) -> torch.Tensor:
         """(3, N) velocity -> (N,) pressure row: the A_pu block only."""
-        return (self.apu * shifted(u, self.offsets).transpose(0, 1)).sum((0, 1))
+        return (self.apu * self._shift(u).transpose(0, 1)).sum((0, 1))
 
     def matvec_up(self, p: torch.Tensor) -> torch.Tensor:
         """(N,) pressure -> (3, N) velocity rows: the A_up block only."""
-        return (self.aup * shifted(p, self.offsets)[:, None]).sum(0)
+        return (self.aup * self._shift(p)[:, None]).sum(0)
 
     def matvec_pp_up(self, p: torch.Tensor) -> tuple:
         """(A_pp p, A_up p) from one shifted copy of p."""
-        ps = shifted(p, self.offsets)
+        ps = self._shift(p)
         return (self.app * ps).sum(0), (self.aup * ps[:, None]).sum(0)
+
+
+@dataclass
+class SlabSchurBandsT(SchurBandsT):
+    """SchurBandsT on one rank's own rows of a z-slab decomposed box
+    (SlabDIAMatrixT.schur_bands): each product takes one band exchange of
+    `width` nodes (a node layer) through `comm` (parallel.spmd.SlabComm),
+    zeros where there is no neighbour (beyond the domain every entry is an
+    exact zero: JAX mg.py:127-131), and `matvec_pp_up` one for both."""
+
+    comm: object = None
+    width: int = 0
+
+    def _shift(self, x: torch.Tensor) -> torch.Tensor:
+        return shifted_slab(x, self.offsets, self.comm, self.width)
 
 
 @dataclass
@@ -170,54 +228,53 @@ class FSDIAMatrixT:
         return torch.cat([self.data[d0], self.scal[2 * d0 : 2 * d0 + 2]], dim=0)
 
     # -- component-restricted products (SIMPLE / Schur preconditioners)
+    def _shift(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., N) -> (..., D, N), x at the columns of each plane."""
+        return shifted(x, self.offsets)
+
     def matvec_up(self, p: torch.Tensor) -> torch.Tensor:
         """(N,) pressure -> (3, N) velocity rows: the A_up block only."""
-        return (self.data[:, UP(0) : UP(0) + 3] * shifted(p, self.offsets)[:, None]).sum(0)
+        return (self.data[:, UP(0) : UP(0) + 3] * self._shift(p)[:, None]).sum(0)
 
     def matvec_pu(self, u: torch.Tensor) -> torch.Tensor:
         """(3, N) velocity -> (N,) pressure row: the A_pu block only."""
-        us = shifted(u, self.offsets).transpose(0, 1)
+        us = self._shift(u).transpose(0, 1)
         return (self.data[:, PU(0) : PU(0) + 3] * us).sum((0, 1))
 
     def matvec_pp(self, p: torch.Tensor) -> torch.Tensor:
         """(N,) -> (N,): the A_pp block only."""
-        return (self.data[:, PP] * shifted(p, self.offsets)).sum(0)
+        return (self.data[:, PP] * self._shift(p)).sum(0)
+
+    def _band_fields(self) -> dict:
+        """The SchurBandsT fields: the A_pp / A_pu / A_up planes copied
+        once at preconditioner set-up (fsbsr.py:497-513 of the JAX
+        package)."""
+        d = self.data
+        return dict(app=d[:, PP].contiguous(), apu=d[:, PU(0) : PU(0) + 3].contiguous(),
+                    aup=d[:, UP(0) : UP(0) + 3].contiguous(), offsets=self.offsets)
 
     def schur_bands(self) -> SchurBandsT:
-        """The A_pp / A_pu / A_up planes as compact arrays, copied once at
-        preconditioner set-up (fsbsr.py:497-513 of the JAX package)."""
+        """The compact A_pp / A_pu / A_up planes."""
+        return SchurBandsT(**self._band_fields())
+
+    def _schur_planes(self) -> tuple:
+        """(offsets o_k whose negation is an offset, A_pu planes of o_k
+        (K, 3, N), A_up planes of -o_k (K, 3, N))."""
         d = self.data
-        return SchurBandsT(
-            app=d[:, PP].contiguous(),
-            apu=d[:, PU(0) : PU(0) + 3].contiguous(),
-            aup=d[:, UP(0) : UP(0) + 3].contiguous(),
-            offsets=self.offsets,
-        )
+        pos = {o: k for k, o in enumerate(self.offsets)}
+        ks = [k for k, o in enumerate(self.offsets) if -o in pos]
+        kneg = [pos[-self.offsets[k]] for k in ks]
+        dev = d.device
+        return (tuple(self.offsets[k] for k in ks),
+                d[torch.as_tensor(ks, device=dev), PU(0) : PU(0) + 3],
+                d[torch.as_tensor(kneg, device=dev), UP(0) : UP(0) + 3])
 
     def schur_diag(self, duinv_rows: torch.Tensor) -> torch.Tensor:
         """(N,) diagonal of S_hat = A_pp - A_pu inv(D_u) A_up, with
         duinv_rows (9, N) the row-major inverse velocity diagonal blocks
-        (fsbsr.py:515-540 of the JAX package): entry n = A_pp[d0][n] -
-        sum_o sum_ij pu_i[o][n] duinv[ij][n+o] up_j[-o][n+o], over the
-        offsets whose negation is an offset, all at once."""
-        d = self.data
-        n = d.shape[2]
-        pos = {o: k for k, o in enumerate(self.offsets)}
-        ks = [k for k, o in enumerate(self.offsets) if -o in pos]
-        kneg = [pos[-self.offsets[k]] for k in ks]
-        offs = tuple(self.offsets[k] for k in ks)
-        dev = d.device
-        h = shifted(duinv_rows, offs)  # (9, K, N): duinv at n + o_k
-        h = h.reshape(3, 3, len(ks), n).permute(2, 0, 1, 3)  # (K, i, j, N)
-        # up_j of plane -o_k at n + o_k: each plane row shifted by its own offset
-        m = max(max(abs(o) for o in offs), 1)
-        upn = F.pad(d[torch.as_tensor(kneg, device=dev), UP(0) : UP(0) + 3], (m, m))
-        idx = (torch.as_tensor([m + o for o in offs], device=dev)[:, None]
-               + torch.arange(n, device=dev)[None, :])
-        upn = torch.gather(upn, 2, idx[:, None, :].expand(len(ks), 3, n))  # (K, j, N)
-        pu = d[torch.as_tensor(ks, device=dev), PU(0) : PU(0) + 3]  # (K, i, N)
-        term = (pu[:, :, None] * h * upn[:, None]).sum((0, 1, 2))
-        return d[self._d0, PP] - term
+        (schur_diag_rows)."""
+        offs, pu, up = self._schur_planes()
+        return schur_diag_rows(self.data[self._d0, PP], pu, up, duinv_rows, offs, 0)
 
     def diag_p(self) -> torch.Tensor:
         return self.data[self._d0, PP]
@@ -258,15 +315,18 @@ class FSDIAMatrixT:
 @dataclass
 class SlabDIAMatrixT(FSDIAMatrixT):
     """One rank's own rows of an FSDIAMatrixT on a z-slab decomposed box
-    (fem.lattice.assemble_jacobian_slab): the offsets reach at most one
-    node layer (`width` nodes) into either neighbour's rows, so a product
-    takes one band exchange through `comm` (parallel.spmd.SlabComm) and
-    K3's banded entry (the JAX package's fsbsr.py:355-399 with
-    dia_matvec_pallas_shmap). Entries whose column lies past the band are
-    the exact zeros of the box's dead cells."""
+    (fem.lattice.assemble_jacobian_slab), from the whole matrix's row
+    `row_lo`: the offsets reach at most one node layer (`width` nodes) into
+    either neighbour's rows, so a product takes one band exchange through
+    `comm` (parallel.spmd.SlabComm) and K3's banded entry (the JAX
+    package's fsbsr.py:355-399 with dia_matvec_pallas_shmap). Entries whose
+    column lies past the band are the exact zeros of the box's dead cells.
+    The component products and the Schur bands (SlabSchurBandsT) take one
+    band exchange each; `schur_diag` one at set-up."""
 
     comm: object = None
     width: int = 0
+    row_lo: int = 0
 
     def matvec_t(self, x_t: torch.Tensor) -> torch.Tensor:
         from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec_banded
@@ -275,3 +335,19 @@ class SlabDIAMatrixT(FSDIAMatrixT):
         x_ext = torch.cat([p for p in (left, x_t, right) if p is not None], dim=1)
         return dia_matvec_banded(self.data, self.scal, x_ext, self.offsets,
                                  0 if left is None else self.width)
+
+    def _shift(self, x: torch.Tensor) -> torch.Tensor:
+        return shifted_slab(x, self.offsets, self.comm, self.width)
+
+    def schur_bands(self) -> SlabSchurBandsT:
+        return SlabSchurBandsT(**self._band_fields(), comm=self.comm, width=self.width)
+
+    def schur_diag(self, duinv_rows: torch.Tensor) -> torch.Tensor:
+        """diag(S_hat) on the own rows: a first or last own layer's row
+        reads the neighbour's inverse velocity blocks and A_up planes of the
+        neighbouring layer, which come in one band exchange."""
+        offs, pu, up = self._schur_planes()
+        k, n = len(offs), self.num_rows
+        ext = self.comm.banded(torch.cat([duinv_rows, up.reshape(3 * k, n)]), self.width)
+        return schur_diag_rows(self.data[self._d0, PP], pu, ext[9:].reshape(k, 3, -1), ext[:9],
+                               offs, self.width)

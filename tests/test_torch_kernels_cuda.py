@@ -116,6 +116,7 @@ from dedflow_tpu_torch.solver.newton import NSSolver, assemble_system
 from dedflow_tpu_torch.sparse.dia_kernels import (
     dia_matvec,
     dia_matvec_banded,
+    dia_matvec_banded_f64,
     dia_matvec_banded_plain,
     dia_matvec_f64,
     dia_matvec_plain,
@@ -1692,6 +1693,59 @@ def test_k3_banded_matches_plain_and_the_whole_entry(card):
         got = dia_matvec_banded(*args)
         assert rel(got, dia_matvec_banded_plain(*args)) < 1e-5
         assert rel(got, whole[:, a:b]) < 1e-5
+
+
+def test_k3_banded_f64_matches_plain(card):
+    """K3's float64 banded entry (krylov.precision "f64" / "ir" on a rank's
+    slab) on the slabs of a 3-rank cut: its plain twin at float64 roundoff,
+    its own launch count."""
+    solver, _, wa, dwa = card
+    jm = lat.assemble_jacobian_t(solver.lctx, solver.face_ctxs, solver.mask_t, wa, dwa,
+                                 solver.cfg.physics, solver.cfg.time)
+    n, offs = solver.lctx.num_node, jm.offsets
+    d64, s64 = jm.data.double(), jm.scal.double()
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal((6, n)), device="cuda")
+    sz = (BOX[0] + 1) * (BOX[1] + 1)
+    bounds = lat.slab_layers(BOX[2] + 1, 3)
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        a, b = lo * sz, hi * sz
+        xa, xb = max(a - sz, 0), min(b + sz, n)
+        args = (d64[..., a:b].contiguous(), s64[:, a:b].contiguous(), x[:, xa:xb].contiguous(),
+                offs, a - xa)
+        before = (dia_matvec_banded.launches, dia_matvec_banded_f64.launches)
+        got = dia_matvec_banded(*args)
+        assert (dia_matvec_banded.launches, dia_matvec_banded_f64.launches) == (
+            before[0], before[1] + 1)
+        assert got.dtype == torch.float64 and torch.equal(got, dia_matvec_banded(*args))
+        assert rel(got, dia_matvec_banded_plain(*args)) < 1e-12
+
+
+# K3's products (tools/spmv_time.py::k3_digests at K3_DIGEST_BOX) by the
+# build of the three C entries that the one entry per dtype replaced: its
+# whole-matrix products in float32 and float64 at 15 and 27 planes and its
+# float32 banded ones, on an NVIDIA H100 80GB HBM3 (700 W; torch 2.11,
+# CUDA 12.8).
+K3_DIGEST_BOX = 16
+K3_EARLIER_DIGESTS = {
+    "whole f32 15": "dfdc4adbcc420798e7a9788b530278770c91a7d838a1c71bc10a2ce721a5f848",
+    "banded f32 15 slab 0": "562e3d5adb1ec99d5a57508b146b8435b5036a4c81d61095644def784d13ab0f",
+    "banded f32 15 slab 1": "b62d0bc55fb8bf8449e1018969d3dcbbf5b8fb38601cd33c8cb889cea9c3abd9",
+    "banded f32 15 slab 2": "0ec96d48edbf11b7985fe750283347f5f400ee70f94617cccc6a5e87a47c50c7",
+    "whole f32 27": "8bab6e729909b7421026e2e099d99ae3290644bab63221a4da2e1976056a4f33",
+    "whole f64 15": "9ed257b51ae6c4c57e9153ad4f0a9e85073f28e66f182661d999bdde185188d8",
+    "whole f64 27": "2aa487dd24192c9fd103f2c0d2154afb5fffd6e00b61c37f5bfac1f751cb5a85",
+}
+
+
+def test_k3_folded_entry_bit_equal_to_its_earlier_build(card):
+    """The one C entry per dtype, (n, m, x_lo), gives the products of the
+    former entries bit for bit."""
+    from dedflow_tpu_torch.sparse import dia_kernels
+    from dedflow_tpu_torch.tools.spmv_time import k3_digests
+
+    got = k3_digests(dia_kernels, K3_DIGEST_BOX)
+    assert K3_EARLIER_DIGESTS and set(K3_EARLIER_DIGESTS) <= set(got)
+    assert {k: got[k] for k in K3_EARLIER_DIGESTS} == K3_EARLIER_DIGESTS
 
 
 def test_two_rank_slab_kernels_match_the_whole_box(card):

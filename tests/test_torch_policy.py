@@ -227,9 +227,11 @@ def test_no_port_function_defaults_to_the_cpu():
 
 def test_multi_device_options_raise_a16():
     """The coupled solver on ranks (A16 (c), ported) takes `sharded=True`
-    and the process group, not the JAX package's device mesh; the fluid
-    options A16 (d') leaves out raise, naming it, before any rank
-    communicates. dem_run_grid's `shard` is the ranks' SlabComm."""
+    and the process group, not the JAX package's device mesh; the fluid's
+    Krylov options (A16 (d'), ported) pass to it, and what stays unported
+    on ranks raises, naming its item, before any rank communicates: the
+    classes tier on z-slabs (A16 (b'')), a lattice_backend (A9).
+    dem_run_grid's `shard` is the ranks' SlabComm."""
     import dataclasses
 
     from dedflow_tpu_torch.app.coupled import CoupledSolver
@@ -239,10 +241,15 @@ def test_multi_device_options_raise_a16():
 
     with pytest.raises(TypeError, match="device_mesh"):
         _coupled_solver(device="cpu", device_mesh=object())
-    lagged = dataclasses.replace(reference_scenario_config(),
+    lagged = dataclasses.replace(reference_scenario_config(lattice_backend="xla"),
                                  newton=NewtonConfig(lag_jacobian=True))
-    with pytest.raises(NotImplementedError, match="A16 \\(d'\\)"):
+    with pytest.raises(NotImplementedError, match="A9"):
         CoupledSolver(box_mesh(2, 2, 4), lagged, _coupled_config(), device="cpu", sharded=True)
+    no_lattice = box_mesh(2, 2, 4)
+    no_lattice.lattice = None
+    with pytest.raises(NotImplementedError, match="A16 \\(b''\\)"):
+        CoupledSolver(no_lattice, reference_scenario_config(), _coupled_config(), device="cpu",
+                      sharded=True)
     pst = particle_state([[0.5, 0.5, 0.5]], device="cpu")
     with pytest.raises(TypeError, match="SlabComm"):
         dem_run_grid(_coupled_config().dem, pst, 1, shard=(object(), "dd"))
@@ -453,6 +460,13 @@ def _k3_banded():
     """K3's banded entry (a rank of the z-slab decomposition): 4 own rows,
     x with a band of 2 nodes each side."""
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32)
+    return dia_kernels.dia_matvec_banded(z(3, 16, 4), z(6, 4), z(6, 8), (-2, 0, 2), 2)
+
+
+def _k3_banded_f64():
+    """K3's float64 banded entry (krylov.precision "f64" / "ir" on a rank's
+    slab)."""
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float64)
     return dia_kernels.dia_matvec_banded(z(3, 16, 4), z(6, 4), z(6, 8), (-2, 0, 2), 2)
 
 
@@ -730,12 +744,13 @@ def test_one_row_reduces_take_the_one_pass_entry(monkeypatch, rows, symbol):
      (_k2c_two_pass, (lat, "jacobian_volume_two_pass")),
      (_k8_one_row, (win_stream, "stream_reduce")), (_k9_one_row, (win_ring, "ring_reduce")),
      (_k3_banded, (dia_kernels, "dia_matvec_banded")), (_k10_residual, (win_gather, "win_gather")),
-     (_k12_bins, (tgm, "segment_reduce")), (_k7_halo, (win_kernels, "winell_matvec_halo"))],
+     (_k12_bins, (tgm, "segment_reduce")), (_k7_halo, (win_kernels, "winell_matvec_halo")),
+     (_k3_banded_f64, (dia_kernels, "dia_matvec_banded_f64"))],
     ids=["K4", "K5", "K10", "K12-copy", "K12-lane", "K12-window", "K12-reduce", "K13",
          "K6-staged", "K5-staged", "K9-segment-sum", "K4-staged", "K8-segment-sum",
          "K7-f64", "K3-f64", "K1c", "K2c", "K2c-implicit", "K3-wide", "K3-wide-f64",
          "K1c-two-pass", "K2c-two-pass", "K8-one-row", "K9-one-row", "K3-banded",
-         "K10-residual", "K12-reduce-bins", "K7-halo"],
+         "K10-residual", "K12-reduce-bins", "K7-halo", "K3-banded-f64"],
 )
 def test_cpu_tensors_count_no_launch(call, counter):
     """On CPU tensors the wrappers run their plain twins and count nothing

@@ -157,8 +157,11 @@ def test_decode_offsets_and_infer_dims_equal_jax(box):
 
 
 def test_sharded_multigrid_raises_a16(lattice):
+    """The sharded multigrid (A16 (d'), ported: tests/test_torch_sharded.py
+    runs it on ranks) takes the rank's SlabComm; the JAX package's (device
+    mesh, axis) pair raises."""
     ts, jm, _, _ = lattice
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="SlabComm"):
         tmg.MGSIMPLEPCT.from_matrix(jm, ts.lctx.dims, shard=(object(), "dd"))
 
 

@@ -50,10 +50,22 @@ z-slabs, the Delaunay mesh on RCB parts; CoupledSolver(sharded=True)
   HaloComm.reverse_add sums the ghost rows onto their owners; the CLI's
   `--scenario coupled --devices 2` writes the one-process run's files.
 
+The Krylov options on ranks (ROADMAP A16 (d'); option_scenarios and
+mg_scenarios in the same spawn): step_fixed(2) with simple, mg, the lagged
+Jacobian, f64 and ir on both modes against the port's one process (1e-9,
+ir 1e-8; equal Newton and Krylov counts, ir's true residual below ir_tol
+on every rank); on the box's z-slabs the SIMPLE and multigrid applies, GMRES
+with either and diag(S_hat)'s seam rows against one process and the JAX
+one-device SIMPLEPCT / MGSIMPLEPCT; the shard-local V-cycle on boxes that
+coarsen and on an odd cut (one agreed depth) against JAX's vcycle on the
+whole grid's truncated hierarchy; SIMPLEPC on the RCB parts against JAX's
+and "mg"'s warning there; `--devices N --pc mg`.
+
 Without spawning: the partition functions bit-equal to the JAX package's,
 the RCB halo plan against the JAX build_halo_plan, the mode choice against
-the JAX constructor's conditions, the z-slab cut, K3's banded and K7's
-halo plain twins against the whole matrix's rows, the refused options,
+the JAX constructor's conditions, the z-slab cut, K3's banded (float64 and
+float32) and K7's halo plain twins against the whole matrix's rows, the
+refused options, the casts that keep the ranks' communicators,
 the launcher's failure and timeout paths and the kernel build's file lock
 across two processes.
 """
@@ -77,6 +89,8 @@ from torch_sharded_ranks import BOX, CLI_MODES, CLI_STEPS, CONFIGS, RCB_CASES, c
 from torch_sharded_ranks import COUPLED_CASES, COUPLED_NEWTON, DEM_CASES, DEM_STEPS
 from torch_sharded_ranks import cli_argv, cli_coupled_argv, coupled_setup, dem_case_run
 from torch_sharded_ranks import probe_vector, rcb_state
+from torch_sharded_ranks import MG_BOXES, MG_MIN_NODES, OPTION_MODES
+from torch_sharded_ranks import OPTION_NEWTON, OPTIONS, SolveLog, option_config
 
 from dedflow_tpu.app.scenarios import box_channel_bcs as j_box_channel_bcs
 from dedflow_tpu.app.scenarios import reference_scenario_config as j_reference_config
@@ -84,6 +98,8 @@ from dedflow_tpu.config import BCSpec as JBCSpec
 from dedflow_tpu.mesh.gen import box_mesh as j_box_mesh
 from dedflow_tpu.parallel import partition as jpart
 from dedflow_tpu.solver.newton import NSSolver as JNSSolver
+from dedflow_tpu.solver import mg as jmg
+from dedflow_tpu.solver import pc as jpc
 from dedflow_tpu.solver.pc import NSFieldSplitPCT as JPC
 from dedflow_tpu_torch import interop
 from dedflow_tpu_torch.app import main as tmain
@@ -99,14 +115,17 @@ from dedflow_tpu_torch.parallel import partition as tpart
 from dedflow_tpu_torch.parallel.dryrun import dryrun_multichip
 from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
 from dedflow_tpu_torch.parallel.spmd import build_halo_plan
+from dedflow_tpu_torch.solver import mg as tmg
 from dedflow_tpu_torch.solver.krylov import gmres as tgmres
 from dedflow_tpu_torch.solver.newton import NSSolver as TNSSolver
 from dedflow_tpu_torch.solver.newton import _choose_tier, assemble_system, residual
 from dedflow_tpu_torch.sparse.dia_kernels import dia_matvec_banded_plain, dia_matvec_plain
-from dedflow_tpu_torch.sparse.fsbsr import FSDIAMatrixT
+from dedflow_tpu_torch.solver.pc import NSFieldSplitPCT
+from dedflow_tpu_torch.sparse.fsbsr import FSDIAMatrixT, SlabDIAMatrixT
 from dedflow_tpu_torch.sparse.topology import build_sparsity
 from dedflow_tpu_torch.sparse.win_kernels import winell_matvec_plain
-from dedflow_tpu_torch.sparse.winell import WinELLMatrixT
+from dedflow_tpu_torch.sparse.winell import HaloWinELLMatrixT, WinELLMatrixT, build_winell_plan
+from dedflow_tpu_torch.utils.dtypes import cast_floats
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -144,7 +163,8 @@ def spawned(tmp_path_factory):
 
 
 @pytest.fixture(scope="module", params=(2, 3), ids=("w2", "w3"))
-def ranks(request, spawned, refs, rcb_refs, jax_ref_steps, one_process_cli, coupled_refs):
+def ranks(request, spawned, refs, rcb_refs, jax_ref_steps, one_process_cli, coupled_refs,
+          option_refs, mg_refs):
     """(world, gathered arrays, output directory) of the spawn of `world`
     ranks; the references are built first, while the ranks run."""
     world = request.param
@@ -324,6 +344,176 @@ def test_step_matches_jax(ranks, jax_ref_steps):
     assert len(got["rank0_step_rnorms"]) == len(kits)
 
 
+# ---------------------------------------------------------------------------
+# the Krylov options on ranks (A16 (d'): option_scenarios and mg_scenarios in
+# the same spawn)
+
+OPTION_NAMES = list(OPTIONS)
+
+
+@pytest.fixture(scope="module")
+def option_refs(refs):
+    """The one-process references of the options: per mode and option, the
+    port's step_fixed(OPTION_NEWTON) states and each solve's Krylov count
+    and relative residual (the RCB mode's mesh on the gather tier); on the
+    box the one-process and the JAX one-device SIMPLE and multigrid applies
+    (the JAX pair jitted once), GMRES with either and diag(S_hat)."""
+    out = {}
+    for mode, (make_mesh, make_cfg) in OPTION_MODES.items():
+        mesh = make_mesh()
+        tst = interop.state_from_numpy(*case_state(mesh), device="cpu")
+        for name in OPTIONS:
+            cfg = option_config(make_cfg(), name)
+            if mode == "rcb":
+                cfg = dataclasses.replace(cfg, use_lattice="gather")
+            ts = TNSSolver(mesh, cfg, device="cpu")
+            with SolveLog() as log:
+                new = ts.step_fixed(*tst, num_newton=OPTION_NEWTON)
+            out[mode, name] = dict(states=[t.numpy() for t in new], iters=log.iters,
+                                   rels=log.rels, ir_tol=cfg.krylov.ir_tol)
+    ref = refs[2]["ref"]
+    ts, jm, jj = ref["ts"], ref["jm"], ref["jj"]
+    x = probe_vector(ts.mesh.num_node)
+    f = torch.as_tensor(ref["port_F"])
+    dims = ts.lctx.dims
+    jsimple, jmgpc = jax.jit(lambda v: (jpc.SIMPLEPCT.from_matrix(jj)(v),
+                                        jmg.MGSIMPLEPCT.from_matrix(jj, dims)(v)))(jnp.asarray(x))
+    tstate = refs[1]
+    for pc_type, jax_px in (("simple", jsimple), ("mg", jmgpc)):
+        _, pc = assemble_system(ts.lctx, ts.face_ctxs, ts.mask_t, *tstate, ts.cfg.physics,
+                                ts.cfg.time, pc_type=pc_type)
+        sol = tgmres(jm.matvec_t, f, maxit=120, atol=1e-12, rtol=1e-6, pc=pc)
+        out[pc_type] = dict(port_Px=pc(torch.as_tensor(x)).numpy(), jax_Px=np.asarray(jax_px),
+                            gmres_x=sol.x.numpy(), gmres_iters=sol.iters,
+                            levels=len(pc.levels) if pc_type == "mg" else None)
+    out["schur_diag"] = jm.schur_diag(
+        NSFieldSplitPCT.from_diag_rows(jm.diag_rows()).inv_vel_rows).numpy()
+    return out
+
+
+@pytest.mark.parametrize("pc_type", ["simple", "mg"])
+def test_slab_simple_and_mg_applies_match(ranks, option_refs, pc_type):
+    """SIMPLEPCT (its Schur bands and S_hat diagonal across the seams) and
+    the shard-local MGSIMPLEPCT on the box's z-slabs against the port's
+    one-process applies and the JAX one-device SIMPLEPCT / MGSIMPLEPCT on a
+    seeded vector. At BOX both hierarchies have one level."""
+    world, got, _ = ranks
+    ref = option_refs[pc_type]
+    assert rel(got[f"slab_{pc_type}_Px"], ref["port_Px"]) < 1e-12
+    assert rel(got[f"slab_{pc_type}_Px"], ref["jax_Px"]) < 1e-12
+    if pc_type == "mg":
+        assert ref["levels"] == 1
+        assert all(int(got[f"slab_mg_levels_rank{r}"]) == 1 for r in range(world))
+
+
+def test_slab_schur_diag_seam_rows_match(ranks, option_refs):
+    """diag(S_hat) on the ranks (one band exchange of D_u^-1 and the A_up
+    planes at set-up) equals the one-process diagonal; the rows of each
+    seam's two layers, where a rank reads its neighbour's, on their own."""
+    world, got, _ = ranks
+    ref, d = option_refs["schur_diag"], got["slab_schur_diag"]
+    assert rel(d, ref) < 1e-12
+    sz = (BOX[0] + 1) * (BOX[1] + 1)
+    seams = np.concatenate([np.arange((b - 1) * sz, (b + 1) * sz)
+                            for b in slab_layers(BOX[2] + 1, world)[1:-1]])
+    assert rel(d[seams], ref[seams]) < 1e-12
+
+
+@pytest.mark.parametrize("pc_type", ["simple", "mg"])
+def test_slab_gmres_with_simple_and_mg(ranks, option_refs, pc_type):
+    """GMRES with either preconditioner on ranks: the one-process iterate
+    (1e-9) and iteration count, the same count on every rank."""
+    world, got, _ = ranks
+    ref = option_refs[pc_type]
+    iters = [int(got[f"slab_{pc_type}_gmres_iters_rank{r}"]) for r in range(world)]
+    assert iters == [ref["gmres_iters"]] * world and iters[0] > 0
+    assert rel(got[f"slab_{pc_type}_gmres_x"], ref["gmres_x"]) < 1e-9
+
+
+@pytest.mark.parametrize("name", OPTION_NAMES)
+@pytest.mark.parametrize("mode", list(OPTION_MODES))
+def test_option_step_fixed_matches_one_process(ranks, option_refs, mode, name):
+    """step_fixed(OPTION_NEWTON) with each Krylov option on both modes
+    against the port's one-process step with the same option: the states
+    at 1e-9, OPTION_NEWTON solves on every rank with the one-process
+    Krylov counts. "ir": the state at 1e-8 and the true float64 relative
+    residual below ir_tol on every rank; its inner float32 products sum
+    over the ranks in another order, so its inner counts may differ from
+    one process's (they are the same on every rank)."""
+    world, got, _ = ranks
+    ref = option_refs[mode, name]
+    tol = 1e-8 if name == "ir" else 1e-9
+    for key, r in zip(("wgold", "dwgold", "dwg"), ref["states"]):
+        assert rel(got[f"opt_{mode}_{name}_{key}"], r) < tol, key
+    iters = [got[f"opt_{mode}_{name}_iters_rank{r}"].tolist() for r in range(world)]
+    rels = [got[f"opt_{mode}_{name}_rels_rank{r}"].tolist() for r in range(world)]
+    assert all(it == iters[0] for it in iters) and all(rl == rels[0] for rl in rels)
+    assert len(iters[0]) == OPTION_NEWTON
+    if name == "ir":
+        assert max(rels[0]) < ref["ir_tol"] and max(ref["rels"]) < ref["ir_tol"]
+    else:
+        assert iters[0] == ref["iters"]
+
+
+@pytest.fixture(scope="module")
+def mg_refs():
+    """Per box of MG_BOXES and world size: the ranks' own level counts
+    (solver.mg.level_count on each slab), the JAX rule's count on each
+    rank's local A_pp planes (jmg.build_hierarchy with shard_z, traced for
+    its shapes only) and, per box, the JAX one-device V-cycle on the whole
+    grid's hierarchy truncated at the count the ranks agree on (the
+    smallest of their own; the same on 2 and 3 ranks), jitted once, from
+    the port's one-process J."""
+    out = {}
+    for tag, box in MG_BOXES.items():
+        mesh = box_mesh(*box)
+        ts = TNSSolver(mesh, reference_scenario_config(), device="cpu")
+        tstate = interop.state_from_numpy(*case_state(mesh), device="cpu")
+        jm, _ = assemble_system(ts.lctx, ts.face_ctxs, ts.mask_t, *tstate, ts.cfg.physics,
+                                ts.cfg.time)
+        app, dims, offs = jm.schur_bands().app.numpy(), ts.lctx.dims, tuple(jm.offsets)
+        agreed = set()
+        for world in (2, 3):
+            bounds, lmin = slab_layers(dims[2], world), max(128, MG_MIN_NODES // world)
+            ldims = [(dims[0], dims[1], hi - lo) for lo, hi in zip(bounds[:-1], bounds[1:])]
+            own = [tmg.level_count(ld, lmin, shard_z=True, z_lo=lo)
+                   for ld, lo in zip(ldims, bounds[:-1])]
+            jrule = [len(jax.eval_shape(
+                lambda a, ld=ld: jmg.build_hierarchy(a, offs, ld, min_nodes=lmin, shard_z=True),
+                jax.ShapeDtypeStruct((len(offs), int(np.prod(ld))), jnp.float64)))
+                for ld in ldims]
+            out[tag, world] = dict(ldims=ldims, own=own, jax_rule=jrule)
+            agreed.add(min(own))
+        (depth,) = agreed
+        cycle = jax.jit(lambda a, v: jmg.vcycle(jmg.build_hierarchy(
+            a, offs, dims, min_nodes=MG_MIN_NODES, max_levels=depth), v))
+        r = probe_vector(mesh.num_node)[3]
+        out[tag] = np.asarray(cycle(jnp.asarray(app), jnp.asarray(r)))
+    return out
+
+
+@pytest.mark.parametrize("tag", list(MG_BOXES))
+def test_mg_vcycle_across_seams_matches_jax(ranks, mg_refs, tag):
+    """The shard-local V-cycle on a box whose slabs coarsen ("seam": every
+    rank's own rule, and the JAX rule on its local planes, give 2 levels)
+    and on an odd cut ("odd": the ranks' own rules disagree, a rank's first
+    layer or gz odd): every rank keeps the agreed count, the smallest, and
+    the run ends (no rank waits on a neighbour still recursing); the
+    gathered cycle equals the JAX one-device vcycle on the whole grid's
+    hierarchy truncated at that depth (1e-12)."""
+    world, got, _ = ranks
+    ref = mg_refs[tag, world]
+    levels = [int(got[f"mg_{tag}_levels_rank{r}"]) for r in range(world)]
+    own = [int(got[f"mg_{tag}_own_levels_rank{r}"]) for r in range(world)]
+    assert own == ref["own"] and levels == [min(own)] * world
+    assert [tuple(got[f"mg_{tag}_ldims_rank{r}"].tolist()) for r in range(world)] == ref["ldims"]
+    if tag == "seam":
+        assert levels == ref["jax_rule"] == [2] * world
+    else:
+        assert len(set(own)) > 1 and levels == [1] * world
+    assert rel(got[f"mg_{tag}_vcycle"], mg_refs[tag]) < 1e-12
+
+
 def _h5_datasets(path: Path) -> dict:
     out = {}
 
@@ -357,6 +547,11 @@ def test_cli_devices_writes_the_one_process_snapshots(ranks, one_process_cli):
 def test_cli_devices_rcb_writes_the_one_process_snapshots(ranks, one_process_cli):
     """The same with --chunk 64: every rank takes the RCB mode."""
     _check_cli_run(ranks, one_process_cli["rcb"], "_rcb")
+
+
+def test_cli_devices_mg_writes_the_one_process_snapshots(ranks, one_process_cli):
+    """The same with --pc mg: the shard-local multigrid on z-slabs."""
+    _check_cli_run(ranks, one_process_cli["mg"], "_mg")
 
 
 def _check_cli_run(ranks, ref_dir, tag: str) -> None:
@@ -440,6 +635,7 @@ def rcb_refs(tmp_path_factory):
     field-split apply and its GMRES, each jitted once); their F, J on the
     port's CSR entries, product, field-split apply and GMRES at the case's
     state, and the JAX steps."""
+    from dedflow_tpu.solver import pc as jpcs
     from dedflow_tpu.solver.krylov import gmres as jgmres
     from dedflow_tpu.solver.newton import NSSolver as JSolver
 
@@ -457,6 +653,8 @@ def rcb_refs(tmp_path_factory):
         jm, pc = assemble_system(ts.solve_ctx, ts.face_ctxs, ts.mask_t, *tst, cfg.physics,
                                  cfg.time, cfg.implicit_scalars)
         x = torch.as_tensor(probe_vector(mesh.num_node))
+        pc_simple = assemble_system(ts.solve_ctx, ts.face_ctxs, ts.mask_t, *tst, cfg.physics,
+                                    cfg.time, cfg.implicit_scalars, pc_type="simple")[1]
         sol = tgmres(jm.matvec_t, f, maxit=120, atol=1e-12, rtol=1e-6, pc=pc)
         c, jstate = (js.solve_ctx, js.face_ctxs, js.mask), [jnp.asarray(a) for a in (wg, dwo, dwg)]
         jsrc = None if src is None else jnp.asarray(src)
@@ -465,13 +663,15 @@ def rcb_refs(tmp_path_factory):
         sparsity = build_sparsity(mesh.ien, mesh.num_node, extra_ien=mesh.extra_cells)
         jvals = interop.fsbsr_from_numpy(np.asarray(jj.data), sparsity, jm.plan).vals.numpy()
         xj = jnp.asarray(x.numpy().T)
-        jax_ax, jax_px = jax.jit(lambda v: (jj.matvec(v), jpc(v)))(xj)
+        jax_ax, jax_px, jax_px_simple = jax.jit(lambda v: (
+            jj.matvec(v), jpc(v), jpcs.SIMPLEPC.from_matrix(jj)(v)))(xj)
         jsol = jax.jit(lambda b: jgmres(jj.matvec, b, maxit=120, atol=1e-12, rtol=1e-6,
                                         pc=jpc))(jf)
         out[name] = dict(
             mesh=mesh, port_F=f.numpy().T, jax_F=np.asarray(jf), port_J=jm.vals.numpy(),
             jax_J=jvals, plan=jm.plan, port_Ax=jm.matvec_t(x).numpy().T,
             jax_Ax=np.asarray(jax_ax), port_Px=pc(x).numpy().T, jax_Px=np.asarray(jax_px),
+            port_Px_simple=pc_simple(x).numpy().T, jax_Px_simple=np.asarray(jax_px_simple),
             port_gmres_x=sol.x.numpy().T, port_gmres_iters=sol.iters,
             jax_gmres_x=np.asarray(jsol.x), jax_gmres_iters=int(jsol.iters),
             jax_steps=jax_steps(js, (wg, dwo, dwg), source=jsrc),
@@ -524,6 +724,28 @@ def test_rcb_product_and_preconditioner_match(ranks, rcb_refs, name, what):
     ref = rcb_refs[name]
     assert rel(got[f"rcb_{name}_{what}"], ref[f"port_{what}"]) < 1e-12
     assert rel(got[f"rcb_{name}_{what}"], ref[f"jax_{what}"]) < 1e-12
+
+
+@pytest.mark.parametrize("name", RCB_NAMES)
+def test_rcb_simple_apply_matches_one_process_and_jax(ranks, rcb_refs, name):
+    """SIMPLEPC on a part's HaloWinELLMatrixT (its block products K7's halo
+    entry over the own rows, diag(A_pp) of the own rows) against the
+    one-process gather tier's and the JAX one-device SIMPLEPC."""
+    _, got, _ = ranks
+    ref = rcb_refs[name]
+    assert rel(got[f"rcb_{name}_Px_simple"], ref["port_Px_simple"]) < 1e-12
+    assert rel(got[f"rcb_{name}_Px_simple"], ref["jax_Px_simple"]) < 1e-12
+
+
+def test_rcb_mg_warns_and_runs_simple(ranks):
+    """pc "mg" on an RCB part: the JAX package's gather-tier warning on
+    every rank, then SIMPLE (the same apply bit for bit)."""
+    world, got, _ = ranks
+    for name in RCB_NAMES:
+        for r in range(world):
+            warned = got[f"rcb_{name}_rank{r}_mg_warned"].tolist()
+            assert any("krylov.pc='mg' requires the lattice fast path" in w for w in warned)
+            assert bool(got[f"rcb_{name}_rank{r}_mg_is_simple"])
 
 
 @pytest.mark.parametrize("name", RCB_NAMES)
@@ -853,16 +1075,21 @@ def test_slab_cut():
         slab_layers(7, 4)
 
 
-def test_banded_product_is_the_whole_matrix_rows():
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-14), (torch.float32, 1e-6)],
+                         ids=["f64", "f32"])
+def test_banded_product_is_the_whole_matrix_rows(dtype, tol):
     """K3's banded plain twin on a rank's rows, x holding a node layer of
     each neighbour around them, equals the whole matrix's product on those
     rows to roundoff (the sum order over planes moves with the length): the
-    entries reaching past the band are the dead cells' exact zeros."""
+    entries reaching past the band are the dead cells' exact zeros. In
+    float64 (krylov.precision "f64" and the "ir" residual on ranks) and in
+    float32 (the state dtype on the card)."""
     ts = TNSSolver(box_mesh(*BOX), reference_scenario_config(), device="cpu")
     tstate = interop.state_from_numpy(*case_state(ts.mesh), device="cpu")
     jm, _ = assemble_system(ts.lctx, ts.face_ctxs, ts.mask_t, *tstate, ts.cfg.physics,
                             ts.cfg.time)
-    x = torch.as_tensor(probe_vector(ts.mesh.num_node))
+    jm = cast_floats(jm, dtype)
+    x = torch.as_tensor(probe_vector(ts.mesh.num_node), dtype=dtype)
     whole = dia_matvec_plain(jm.data, jm.scal, x, jm.offsets)
     sz = (BOX[0] + 1) * (BOX[1] + 1)
     for lo, hi in ((0, 3), (3, 5), (5, 7)):
@@ -871,7 +1098,8 @@ def test_banded_product_is_the_whole_matrix_rows():
         got = dia_matvec_banded_plain(jm.data[..., a:b].contiguous(),
                                       jm.scal[:, a:b].contiguous(), x[:, xa:xb].contiguous(),
                                       jm.offsets, a - xa)
-        assert rel(got.numpy(), whole[:, a:b].numpy()) < 1e-14
+        assert got.dtype == dtype
+        assert rel(got.numpy(), whole[:, a:b].numpy()) < tol
 
 
 @pytest.mark.parametrize(
@@ -882,21 +1110,17 @@ def test_banded_product_is_the_whole_matrix_rows():
         (dict(assembly_chunk=64), "rcb"),
         (dict(use_lattice="off"), "A16 \\(b''\\)"),
         (dict(implicit_scalars=True), "rcb"),
-        (dict(krylov_pc="mg"), "A16 \\(d'\\)"),
-        (dict(krylov_pc="simple"), "A16 \\(d'\\)"),
-        (dict(krylov_precision="f64"), "A16 \\(d'\\)"),
-        (dict(krylov_precision="ir"), "A16 \\(d'\\)"),
-        (dict(lag_jacobian=True), "A16 \\(d'\\)"),
         (dict(lattice_backend="xla"), "A9"),
     ],
     ids=["gather-runs-rcb", "winell-runs-rcb", "chunk-runs-rcb", "classes-b2", "implicit-runs-rcb",
-         "pc-mg", "pc-simple", "f64", "ir", "lagged", "lattice-backend"],
+         "lattice-backend"],
 )
 def test_options_outside_the_slice_raise(overrides, item):
     """Nothing silently runs one process: each option ShardedNSSolver does
     not take raises before any rank communicates, naming its ROADMAP item;
     "gather", "winell", an assembly chunk and implicit_scalars take the RCB
-    mode (the spawned cases run them)."""
+    mode (the spawned cases run them). The Krylov options (A16 (d')) run on
+    ranks: test_option_step_fixed_matches_one_process."""
     from dedflow_tpu_torch import config as tcfg
 
     cfg = reference_scenario_config()
@@ -911,6 +1135,49 @@ def test_options_outside_the_slice_raise(overrides, item):
         return
     with pytest.raises(NotImplementedError, match=item):
         ShardedNSSolver(box_mesh(2, 2, 4), cfg, device="cpu")
+
+
+def test_options_of_the_slice_pass_the_refusals():
+    """Every Krylov option of A16 (d') passes the refusals on a box (the
+    z-slab mode) and on a Delaunay mesh (the RCB mode)."""
+    for make_mesh, make_cfg in OPTION_MODES.values():
+        for name in OPTIONS:
+            cfg = option_config(make_cfg(), name)
+            assert sharded._refuse_unported(make_mesh(), cfg) == sharded.sharded_mode(
+                make_mesh(), cfg)
+
+
+class _Comm:
+    """A stand-in communicator for the casts below (no process group)."""
+
+
+def test_cast_keeps_the_ranks_communicators():
+    """krylov.precision "f64" / "ir" cast the operator and the
+    preconditioner by value (utils.dtypes.cast_floats): a slab matrix, its
+    Schur bands and a sharded multigrid keep their communicator, widths
+    and rows, and an RCB part's matrix its HaloComm."""
+    ts = TNSSolver(box_mesh(*BOX), reference_scenario_config(), device="cpu")
+    tstate = interop.state_from_numpy(*case_state(ts.mesh), device="cpu")
+    jm, _ = assemble_system(ts.lctx, ts.face_ctxs, ts.mask_t, *tstate, ts.cfg.physics,
+                            ts.cfg.time)
+    comm = _Comm()
+    slab = SlabDIAMatrixT(data=jm.data, scal=jm.scal, offsets=jm.offsets, comm=comm, width=20,
+                          row_lo=40)
+    dims = ts.lctx.dims
+    mgpc = tmg.MGSIMPLEPCT.from_matrix(jm, dims)
+    mgpc = dataclasses.replace(mgpc, bands=slab.schur_bands(), comm=comm)
+    for dtype in (torch.float32, torch.float64):
+        m = cast_floats(slab, dtype)
+        assert (m.comm, m.width, m.row_lo, m.data.dtype) == (comm, 20, 40, dtype)
+        p = cast_floats(mgpc, dtype)
+        assert p.comm is comm and p.bands.comm is comm and p.bands.width == 20
+        assert p.bands.app.dtype == p.levels[0].planes.dtype == dtype
+    plan = build_winell_plan([0, 1, 2], [0, 1], 2, device="cpu")
+    part = HaloWinELLMatrixT(vals=torch.zeros((18, 2), dtype=torch.float64), plan=plan,
+                             halo=comm)
+    cast = cast_floats(part, torch.float32)
+    assert cast.halo is comm and cast.plan.col_t.dtype == torch.int32
+    assert cast.vals.dtype == torch.float32
 
 
 @pytest.mark.parametrize("make_mesh", [
@@ -1063,13 +1330,14 @@ def test_coupled_devices_raises_a16c(tmp_path):
     """A16 (c) is ported: `--scenario coupled --devices N` runs (the world-2
     spawn's CLI case). What stays refused, before any rank starts, is the
     coupled scenario on a mesh file (its particle locator assumes the
-    generator's Kuhn split), and the fluid options A16 (d') leaves out,
-    before the coupled solver's ranks communicate."""
+    generator's Kuhn split), and the fluid options that remain unported (a
+    lattice_backend, A9), before the coupled solver's ranks communicate; the
+    Krylov options of A16 (d') pass to its ShardedNSSolver."""
     assert tmain.main(["--scenario", "coupled", "--devices", "2", "--mesh", "box.h5",
                        "--device", "cpu", "--out", str(tmp_path)]) == 2
-    mesh, cfg = box_mesh(2, 2, 4), reference_scenario_config()
-    cfg = dataclasses.replace(cfg, krylov=dataclasses.replace(cfg.krylov, pc="mg"))
-    with pytest.raises(NotImplementedError, match="A16 \\(d'\\)"):
+    mesh = box_mesh(2, 2, 4)
+    cfg = reference_scenario_config(lattice_backend="xla")
+    with pytest.raises(NotImplementedError, match="A9"):
         TCoupledSolver(mesh, cfg, coupled_setup(mesh, "cpu")[0], device="cpu", sharded=True)
 
 

@@ -3,9 +3,11 @@ the CPU (no JAX here, so that a rank imports only torch and the port).
 
 `scenarios(device, out_dir)` runs every sharded case once on the ranks of
 one process group, the z-slab cases, the RCB cases (`RCB_CASES`,
-`rcb_scenarios`) and the coupled FEM-DEM cases (`COUPLED_CASES`,
-`DEM_CASES`, `coupled_scenarios`), and rank 0 writes the gathered arrays to
-out_dir/w<world>.npz; the test module's cases are asserts on that file.
+`rcb_scenarios`), the coupled FEM-DEM cases (`COUPLED_CASES`,
+`DEM_CASES`, `coupled_scenarios`) and the Krylov options on both modes
+(`OPTIONS`, `option_scenarios`, `mg_scenarios`), and rank 0 writes the
+gathered arrays to out_dir/w<world>.npz; the test module's cases are
+asserts on that file.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -34,8 +37,11 @@ from dedflow_tpu_torch.mesh.gen import box_mesh, delaunay_mesh, mixed_box_mesh
 from dedflow_tpu_torch.parallel import dryrun
 from dedflow_tpu_torch.parallel.sharded import ShardedNSSolver
 from dedflow_tpu_torch.parallel.spmd import SlabComm
+from dedflow_tpu_torch.solver import mg as tmg
+from dedflow_tpu_torch.solver import newton as tnewton
 from dedflow_tpu_torch.solver.krylov import gmres
 from dedflow_tpu_torch.solver.newton import assemble_system
+from dedflow_tpu_torch.solver.pc import NSFieldSplitPCT
 
 BOX = (4, 3, 6)  # 7 node layers: 4 + 3 on 2 ranks, 3 + 2 + 2 on 3
 SEED = 5
@@ -156,6 +162,14 @@ def rcb_scenarios(device: str, out: dict) -> None:
         x = s.shard_state(probe_vector(mesh.num_node).T).T.contiguous()
         gather(jm.matvec_t(x).T, "Ax")
         gather(pc(x).T, "Px")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pcs = {t: assemble_system(s.pctx, s.face_ctxs, s.mask_t, *state, phys, scheme,
+                                      cfg.implicit_scalars, pc_type=t)[1] for t in ("simple", "mg")}
+        p_simple = pcs["simple"](x)
+        gather(p_simple.T, "Px_simple")
+        mg_warned = [str(w.message) for w in caught]
+        mg_is_simple = bool(torch.equal(pcs["mg"](x), p_simple))
         ghosts = s.shard_nodal(probe_vector(mesh.num_node).T, ghosts=True).T
         halo_ok = bool(torch.equal(s.comm.exchange(x), ghosts))
         sol = gmres(jm.matvec_t, f, maxit=120, atol=1e-12, rtol=1e-6, pc=pc,
@@ -179,7 +193,8 @@ def rcb_scenarios(device: str, out: dict) -> None:
                 "sent_values": sum(i.size for i in plan.send.values()),
                 "peers": sorted(plan.send), "exchanges": st.exchanges,
                 "sent_bytes": st.sent_bytes, "allreduces": st.allreduces,
-                "whole_vector_calls": guard.calls, "elems": s.gctx.num_elem}
+                "whole_vector_calls": guard.calls, "elems": s.gctx.num_elem,
+                "mg_warned": mg_warned, "mg_is_simple": mg_is_simple}
         hists = [None] * world if rank == 0 else None
         dist.gather_object(hist, hists, dst=0)
         if rank == 0:
@@ -313,8 +328,9 @@ def coupled_scenarios(device: str, out: dict) -> None:
             out.update({f"{k}_rank{r}": np.asarray(v) for k, v in h.items()})
 
 
-# the CLI's modes: the box on z-slabs, and with assembly chunks (the RCB mode)
-CLI_MODES = {"slab": (), "rcb": ("--chunk", "64")}
+# the CLI's modes: the box on z-slabs, with assembly chunks (the RCB mode),
+# and on z-slabs with the shard-local multigrid
+CLI_MODES = {"slab": (), "rcb": ("--chunk", "64"), "mg": ("--pc", "mg")}
 
 
 def cli_argv(devices: int, out: str, mode: str = "slab") -> list:
@@ -329,6 +345,140 @@ def cli_coupled_argv(devices: int, out: str) -> list:
     return ["--scenario", "coupled", "--box", *map(str, BOX), "--particles", str(COUPLED_P),
             "--steps", "1", "--save-every", "1", "--devices", str(devices), "--device", "cpu",
             "--dtype", "f64", "--out", out, "--log-level", "warning"]
+
+
+# The Krylov options on ranks (ROADMAP A16 (d')): name -> (krylov fields,
+# lag_jacobian), each run as step_fixed(OPTION_NEWTON) on both modes
+# (OPTION_MODES: the box on z-slabs, the RCB cases' box on the gather tier).
+OPTIONS = {"simple": ({"pc": "simple"}, False), "mg": ({"pc": "mg"}, False),
+           "lagged": ({}, True), "f64": ({"precision": "f64"}, False),
+           "ir": ({"precision": "ir"}, False)}
+OPTION_MODES = {"slab": (lambda: box_mesh(*BOX), reference_scenario_config),
+                "rcb": RCB_CASES["gather"][:2]}
+OPTION_NEWTON = 2
+# the multigrid across the seams: a box whose z-slabs coarsen once on every
+# rank (24 node layers of 25 nodes: 12 a rank on 2, 8 on 3) and a box of an
+# odd cut whose ranks' own rules disagree (23 layers: 12 + 11 on 2, 8 + 8 +
+# 7 on 3)
+MG_BOXES = {"seam": (4, 4, 23), "odd": (4, 4, 22)}
+MG_MIN_NODES = 1  # the JAX test's build_hierarchy(..., min_nodes=1): lmin = 128 on ranks
+
+
+def option_config(cfg, name: str):
+    """`cfg` with the Krylov option `name` of OPTIONS."""
+    krylov, lagged = OPTIONS[name]
+    cfg = dataclasses.replace(cfg, krylov=dataclasses.replace(cfg.krylov, **krylov))
+    if lagged:
+        cfg = dataclasses.replace(cfg, newton=dataclasses.replace(cfg.newton, lag_jacobian=True))
+    return cfg
+
+
+class SolveLog:
+    """A context in which solver.newton's linear solves record their
+    Krylov iterations and relative residuals (`iters`, `rels`): for "ir"
+    the inner iterations summed and the true float64 residual."""
+
+    def __enter__(self):
+        self.iters, self.rels = [], []
+        self.saved = tnewton._solve_linear
+
+        def logged(*a, **k):
+            dx, iters, rel = self.saved(*a, **k)
+            self.iters.append(int(iters))
+            self.rels.append(float(rel))
+            return dx, iters, rel
+
+        tnewton._solve_linear = logged
+        return self
+
+    def __exit__(self, *exc):
+        tnewton._solve_linear = self.saved
+
+
+def option_scenarios(device: str, out: dict) -> None:
+    """Every option of OPTIONS on both modes: step_fixed(OPTION_NEWTON) from
+    the case's state with each solve's Krylov count and relative residual;
+    on the box's z-slabs also the SIMPLE and multigrid applies on a seeded
+    vector, diag(S_hat) and GMRES with either preconditioner. Rank 0 adds
+    the gathered arrays and every rank's counts to `out`."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    hist = {}
+    for mode, (make_mesh, make_cfg) in OPTION_MODES.items():
+        mesh = make_mesh()
+        state_np = case_state(mesh)
+        for name in OPTIONS:
+            s = ShardedNSSolver(mesh, option_config(make_cfg(), name), device=device)
+            state = [s.shard_state(a) for a in state_np]
+            with SolveLog() as log:
+                new = s.step_fixed(*state, num_newton=OPTION_NEWTON)
+            for key, t in zip(("wgold", "dwgold", "dwg"), new):
+                full = s.gather_state(t)
+                if rank == 0:
+                    out[f"opt_{mode}_{name}_{key}"] = full
+            hist[f"opt_{mode}_{name}_iters"] = log.iters
+            hist[f"opt_{mode}_{name}_rels"] = log.rels
+    # the slab preconditioners on the box
+    mesh, cfg = box_mesh(*BOX), reference_scenario_config()
+    s = ShardedNSSolver(mesh, cfg, device=device)
+    state = [s.shard_state(a) for a in case_state(mesh)]
+    f = s.residual(*state)
+    x = s.shard_state(probe_vector(mesh.num_node).T).T.contiguous()
+
+    def gather(t, key):
+        full = s.gather_state(t.movedim(-1, 0))
+        if rank == 0:
+            out[key] = np.moveaxis(full, 0, -1)
+
+    for pc_type in ("simple", "mg"):
+        jm, pc = assemble_system(s.sctx, s.face_ctxs, s.mask_t, *state, cfg.physics, cfg.time,
+                                 pc_type=pc_type)
+        gather(pc(x), f"slab_{pc_type}_Px")
+        sol = gmres(jm.matvec_t, f, maxit=120, atol=1e-12, rtol=1e-6, pc=pc,
+                    allreduce=s.comm.allreduce_sum)
+        gather(sol.x, f"slab_{pc_type}_gmres_x")
+        hist[f"slab_{pc_type}_gmres_iters"] = sol.iters
+        if pc_type == "mg":
+            hist["slab_mg_levels"] = len(pc.levels)
+    gather(jm.schur_diag(NSFieldSplitPCT.from_diag_rows(jm.diag_rows()).inv_vel_rows),
+           "slab_schur_diag")
+    hists = [None] * world if rank == 0 else None
+    dist.gather_object(hist, hists, dst=0)
+    if rank == 0:
+        for r, h in enumerate(hists):
+            out.update({f"{k}_rank{r}": np.asarray(v) for k, v in h.items()})
+
+
+def mg_scenarios(device: str, out: dict) -> None:
+    """The shard-local multigrid on the boxes of MG_BOXES: each rank's level
+    count by its own rule
+    (solver.mg.level_count) and the agreed one, and one V-cycle of the
+    rank's A_pp hierarchy (min_nodes MG_MIN_NODES) on the own rows of a
+    seeded vector, gathered. Rank 0 adds them to `out`."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    hist = {}
+    for tag, box in MG_BOXES.items():
+        mesh, cfg = box_mesh(*box), reference_scenario_config()
+        s = ShardedNSSolver(mesh, cfg, device=device)
+        state = [s.shard_state(a) for a in case_state(mesh)]
+        jm, _ = assemble_system(s.sctx, s.face_ctxs, s.mask_t, *state, cfg.physics, cfg.time)
+        dims = (box[0] + 1, box[1] + 1, box[2] + 1)
+        pc = tmg.MGSIMPLEPCT.from_matrix(jm, dims, min_nodes=MG_MIN_NODES, shard=s.comm)
+        sz = dims[0] * dims[1]
+        own = tmg.level_count((dims[0], dims[1], s.sctx.n_own // sz),
+                              max(128, MG_MIN_NODES // world), shard_z=True,
+                              z_lo=s.sctx.node_lo // sz)
+        r = s.shard_state(probe_vector(mesh.num_node)[3])
+        full = s.gather_state(tmg.vcycle(pc.levels, r, comm=s.comm))
+        if rank == 0:
+            out[f"mg_{tag}_vcycle"] = full
+        hist[f"mg_{tag}_levels"] = len(pc.levels)
+        hist[f"mg_{tag}_own_levels"] = own
+        hist[f"mg_{tag}_ldims"] = pc.levels[0].dims
+    hists = [None] * world if rank == 0 else None
+    dist.gather_object(hist, hists, dst=0)
+    if rank == 0:
+        for r, h in enumerate(hists):
+            out.update({f"{k}_rank{r}": np.asarray(v) for k, v in h.items()})
 
 
 def scenarios(device: str, out_dir: str) -> None:
@@ -379,6 +529,8 @@ def scenarios(device: str, out_dir: str) -> None:
 
     rcb_scenarios(device, out)
     coupled_scenarios(device, out)
+    option_scenarios(device, out)
+    mg_scenarios(device, out)
 
     # the CLI's --devices runs, in this process group (the coupled one on 2 ranks)
     rcs = {}
